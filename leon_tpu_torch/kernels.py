@@ -55,6 +55,16 @@ _SIGS = {
                      _I64, _I64, _P, _P, _P, _I64, _P],
     "lt_walk_decode": [_P, _I, _I, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
                        _U, _P, _P, _P, _P],
+    "lt_unitig_buckets": [_P, _I, _I, _P, _P],
+    "lt_unitig_links": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "lt_unitig_init": [_I, _I, _P, _P, _P, _P],
+    "lt_unitig_double": [_I, _I, _P, _P, _P, _P],
+    "lt_unitig_break": [_I, _P, _P, _P, _P],
+    "lt_unitig_emit_mins": [_I, _P, _I, _P, _P, _P, _P],
+    "lt_unitig_emit_heads": [_I, _P, _P, _P, _P, _P],
+    "lt_unitig_emit_lens": [_I, _P, _P, _P, _P, _I, _P, _P],
+    "lt_unitig_emit_bases": [_P, _I, _I, _P, _P, _P, _P, _I, _I64, _P, _P],
+    "lt_solid_lookup": [_P, _I, _I, _P, _P, _I, _P, _P, _P],
 }
 
 

@@ -3,10 +3,19 @@ leon_tpu/pipeline.py), on one device.
 
   compress:   parse -> k-mer scan into count slabs (K1) -> sort + reduce
               (torch.sort + K2) -> abundance cutoff -> Bloom build (K3) ->
-              solid compaction (K2) for the host unitig builder -> anchor +
-              walk encode (K4) -> host stream assembly -> container
+              solid compaction (K2) -> unitig build -> anchor + walk
+              encode (K4) -> host stream assembly -> container
   decompress: container -> Bloom + dict -> decode re-walk (K4) -> host
               reassembly
+
+The unitig build takes one of the reference's two paths
+(leon_tpu/pipeline.py:636-722): when 0 < n_solid <= min(unitig_max_kmers,
+unitig_device_max_kmers) it runs on the device (K5-K7, span
+count.unitig_dispatch) before the first walk chunk and is drained at the
+tail (tail.unitig_drain), and the DICT looks its anchors up on the device
+(K8); otherwise the native host builder runs on a thread under the encode
+stage (unitig.thread_build). A device failure raises: the BLOOM section is
+written only where the frozen size and capacity rules say so.
 
 Kept from the reference: the chunking (_bucket_len, _lane_bucket,
 chunk_block), the host unitig thread, the ordered frame pool, the tail
@@ -14,9 +23,8 @@ and the decode driver. Archives are byte-identical to leon_tpu's for the
 same input and config.
 
 Not here: the compile-service retry, the multi-chip placer, checkpoints,
-stream mode (inputs over cfg.stream_threshold_bytes), k > 31, the device
-unitig builder (the reference's default already builds on the host) and
-the host-count fallback. Reaching one raises NotImplementedError
+stream mode (inputs over cfg.stream_threshold_bytes), k > 31 and the
+host-count fallback. Reaching one raises NotImplementedError
 (ROADMAP.md queue 1, item 9). The walk sizes its event buffers from the
 per-read counts the kernel produced, so no chunk overflows and the
 reference's cap retry and dense fallback have no counterpart; chunks are
@@ -344,10 +352,16 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
     bitset, n_words, cutoff, n_solid, _hist, H, run = _count_pass(
         iter_preps(), cfg, k, cfg.bloom_hashes, seed, device, dev_cache, lossy)
     unitig_thread = None
+    unitig_inflight = None
     unitig_out: list = []
     if (cfg.unitig_sections and run is not None
             and 0 < n_solid <= cfg.unitig_max_kmers):
-        unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
+        if n_solid <= cfg.unitig_device_max_kmers:
+            with span("count.unitig_dispatch"):
+                keys, counts, nu = run
+                unitig_inflight = unitig.dispatch_build(keys, counts, cutoff, k, nu)
+        else:
+            unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
     run = None
     n_reads = tally["reads"]
     t_count = time.time() - t1
@@ -427,6 +441,11 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
         p, hs = unitig_out[0] if unitig_out else (None, None)
         if p is not None and len(p) < 4 * n_words:  # frozen size rule
             unitig_payload, solid_rows = p, hs
+    if unitig_inflight is not None:
+        with span("tail.unitig_drain"):
+            p = unitig.drain_build(unitig_inflight)
+        if p is not None and len(p) < 4 * n_words:  # frozen size rule
+            unitig_payload = p
     if unitig_payload is not None:
         with span("tail.unitig_frame"):
             writer.section(container.TAG_UNITIGS, frames.frame(unitig_payload))
@@ -434,10 +453,15 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
         with span("tail.bloom_frame"):
             writer.section(container.TAG_BLOOM, frame_bloom(state.bitset_from_torch(bitset)))
     with span("tail.dict"):
-        if unitig_payload is not None and len(adict):
-            dict_payload = adict.payload(solid_rows)
-        else:
+        if unitig_payload is None or not len(adict):
             dict_payload = adict.payload(None)
+        elif unitig_inflight is not None:
+            # the build's solid run IS the enumeration: look the anchors up
+            # on the device instead of shipping the run down
+            dict_payload = adict.payload_indexed(
+                *unitig.solid_indices(unitig_inflight, adict.words_array()))
+        else:
+            dict_payload = adict.payload(solid_rows)
         writer.section(container.TAG_DICT, dict_payload)
     total = writer.close()
     in_bytes = bank.total_size(input_path)

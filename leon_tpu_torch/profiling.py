@@ -2,14 +2,18 @@
 
     python -m leon_tpu_torch.profiling [--reps N] [--out DIR]
 
-Generates the bench corpus (bench.gen_fastq: 500k reads of 100 bp),
-compresses and decompresses it on the card with -noheader -noqual N times
-(host clock, each run ends in a synchronize), then once more of each under
-torch.profiler. Prints the card's name and power limit, every run's wall
-time, the host span totals of the profiled runs, the device time per
-kernel/copy name and the device busy share of each profiled run (device
-time / wall time; the idle share is the rest). Writes the profiler tables
-and Chrome traces to DIR (default build/torch_profile/). Needs a CUDA card.
+Generates the bench corpus (bench.gen_fastq: 500k reads of 100 bp) and
+runs it on the card with -noheader -noqual in two configurations, the
+default (native host unitig builder on a thread) and the device unitig
+build (unitig_device_max_kmers = 2**30): N rounds, each compressing and
+decompressing once per configuration in turn (host clock, each run ends
+in a synchronize), then one profiled compress per configuration and one
+profiled decompress under torch.profiler. Prints the card's name and power
+limit, every run's wall time, the host span totals of the profiled runs,
+the device time per kernel/copy name and the device busy share of each
+profiled run (device time / wall time; the idle share is the rest).
+Writes the profiler tables and Chrome traces to DIR (default
+build/torch_profile/). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -53,28 +57,36 @@ def main() -> int:
     dec = os.path.join(work, "ecoli_500k.out.fastq")
     bench.gen_fastq(src, bench.MAIN["n_reads"], bench.MAIN["contig_len"])
     kernels.lib()
-    cfg = LeonConfig(noheader=True, noqual=True)
+    configs = {"default": LeonConfig(noheader=True, noqual=True),
+               "device_unitig": LeonConfig(noheader=True, noqual=True,
+                                           unitig_device_max_kmers=1 << 30)}
     n = bench.MAIN["n_reads"]
 
-    def run(fn, *a):
+    def run(fn, cfg, *a):
         torch.cuda.synchronize()
         t = time.time()
         st = fn(*a, cfg=cfg, device="cuda")
         torch.cuda.synchronize()
         return time.time() - t, st
 
-    res = {"card": card, "compress_s": [], "decompress_s": []}
+    res = {"card": card}
+    for name in configs:
+        res[name] = {"compress_s": [], "decompress_s": []}
     for _ in range(args.reps):
-        res["compress_s"].append(run(pipeline.compress, src, arc)[0])
-        res["decompress_s"].append(run(pipeline.decompress, arc, dec)[0])
-    res["compress_reads_per_s"] = [n / t for t in res["compress_s"]]
-    res["decompress_reads_per_s"] = [n / t for t in res["decompress_s"]]
+        for name, cfg in configs.items():
+            res[name]["compress_s"].append(run(pipeline.compress, cfg, src, arc)[0])
+            res[name]["decompress_s"].append(run(pipeline.decompress, cfg, arc, dec)[0])
+    for name in configs:
+        for key in ("compress", "decompress"):
+            res[name][f"{key}_reads_per_s"] = [n / t for t in res[name][f"{key}_s"]]
     print(json.dumps(res), flush=True)
 
-    for name, fn, a in (("compress", pipeline.compress, (src, arc)),
-                        ("decompress", pipeline.decompress, (arc, dec))):
+    for name, fn, cfg, a in (
+            ("compress", pipeline.compress, configs["default"], (src, arc)),
+            ("compress_device_unitig", pipeline.compress, configs["device_unitig"], (src, arc)),
+            ("decompress", pipeline.decompress, configs["default"], (arc, dec))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall, st = run(fn, *a)
+            wall, st = run(fn, cfg, *a)
         events = [e for e in prof.key_averages() if e.device_time_total > 0]
         rows = sorted(((e.key, e.count, e.device_time_total / 1e3) for e in events
                        if e.device_type.name == "CUDA"), key=lambda r: -r[2])

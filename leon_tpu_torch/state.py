@@ -5,6 +5,8 @@ keeps them) and the port's tensors.
 - Distinct-run words: (M, W) u32 LSW-first (W <= 2) <-> (M,) int64 keys
   ``w1 << 32 | w0``.
 - Packed read codes (kmer.pack_codes_np): (B, L16) u32 <-> int32 tensor.
+- The reference's padded device run -> the port's key run
+  (run_from_reference).
 """
 
 from __future__ import annotations
@@ -52,3 +54,19 @@ def keys_to_words(keys: np.ndarray, W: int) -> np.ndarray:
 
 def keys_from_torch(keys: torch.Tensor, W: int) -> np.ndarray:
     return keys_to_words(keys.cpu().numpy(), W)
+
+
+def run_from_reference(words_pad: np.ndarray, counts_pad: np.ndarray):
+    """The reference's padded sorted distinct run ((Mcap, W) u32 words,
+    (Mcap,) i32 counts; pad rows all 0xFFFFFFFF with count 0, sorted last)
+    -> the port's CPU tensors (keys (M,) int64, counts (M,) int32) with
+    the pads dropped. A pad would convert to key -1, which sorts FIRST in the
+    port's signed order; no canonical k-mer has all-ones words (the top
+    word is masked below 32 bits, and for k = 16 all-T is not canonical)."""
+    words = np.asarray(words_pad, dtype=np.uint32)
+    counts = np.asarray(counts_pad, dtype=np.int32)
+    real = ~(words == 0xFFFFFFFF).all(axis=1)
+    if (counts[~real] != 0).any():
+        raise ValueError("pad rows (all-ones words) must have count 0")
+    keys = words_to_keys(words[real])
+    return torch.from_numpy(keys), torch.from_numpy(np.ascontiguousarray(counts[real]))
