@@ -5,7 +5,8 @@ the port still starts, builds its kernels and round-trips on the GPU.
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the run exits non-zero without the
-final line; phase 7 runs right after phase 3, whose solid set it reuses):
+final line; phases 7 and 8 run right after phase 3, whose reads and solid
+set they reuse):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from leon_tpu_torch/csrc with nvcc, and check
      the native host library;
@@ -36,7 +37,15 @@ final line; phase 7 runs right after phase 3, whose solid set it reuses):
      65,536 nodes (16 steps, D = 32), and the Pallas probe script's
      gather (2**24 indices into 1, 2 and 8 MB tables); each of K9-K12
      launched at least once, then held against its plain version on the
-     card, exactly, and timed (K9 also against torch.take).
+     card, exactly, and timed (K9 also against torch.take);
+  8. the tensor-level k-mer path on phase 3's 458,752 reads: at k = 31,
+     K13 scan + torch.sort + K14 count equal phase 3's distinct run and
+     solid keys, K16 over the solid rows equals K3's bitset, K15 on one
+     chunk agrees with K4; at k = 63 (W = 4) scan, count, K16, K15 and
+     the graph API (K10/K11 at W = 4); the 4-shard mesh on the one card
+     equals one shard; entry() on the card equals its CPU run; each of
+     K13-K16 launched at least once, then held against its plain version
+     on the card, exactly, and timed (K14 also against torch.unique).
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s), then, last, the device line. Kernels under ~50 us
@@ -82,10 +91,15 @@ KERNELS = {
     "dbg_probe": ("leon_tpu_torch/csrc/graph.cu", "leon_tpu/ops/bloom.py:257"),
     "dbg_walk": ("leon_tpu_torch/csrc/graph.cu", "leon_tpu/graph.py:87"),
     "dbg_traverse": ("leon_tpu_torch/csrc/graph.cu", "leon_tpu/graph.py:125"),
+    "kmer_scan_words": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:129"),
+    "runs_words": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:88"),
+    "bloom_build_words": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/parallel/mesh.py:33"),
+    "walk_dense": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:621"),
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
-COMPRESS = tuple(k for k in KERNELS if k not in GRAPH)
+TENSOR = ("kmer_scan_words", "runs_words", "bloom_build_words", "walk_dense")
+COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
@@ -161,14 +175,15 @@ def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None) ->
 
 
 def max_abs_err(a, b) -> int:
-    """Max |a - b| over the int64 values of two same-shape integer tensors
-    (a on the card, b on the CPU); raises unless they are equal."""
+    """Max |a - b| over the int64 values of two same-shape integer or bool
+    tensors, compared on a's device (b, on the card or the CPU, is moved
+    there); raises unless they are equal."""
     import torch
 
-    a = a.cpu().to(torch.int64)
-    b = b.to(torch.int64)
-    if a.shape != b.shape:
+    if tuple(a.shape) != tuple(b.shape):
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    a = a.to(torch.int64)
+    b = b.to(device=a.device, dtype=torch.int64)
     err = int((a - b).abs().max()) if a.numel() else 0
     if err:
         raise AssertionError(f"kernel differs from its plain version (max |diff| {err})")
@@ -335,7 +350,8 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
 
     # K5-K8 on the solid run the pipeline hands the device build
     unitig_checks(records, sk, sc, cutoff, rk.numel(), "bench")
-    return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig)
+    return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig, codes=codes,
+                lengths=lengths, n_distinct=rk.numel(), cutoff=cutoff, k4_enc=e_d)
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +683,215 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the tensor-level k-mer path (K13-K16) at k = 31 and 63
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+
+
+def dense_events(enc: dict, side_keys, counts) -> "torch.Tensor":
+    """A dense dict's per-side event slots (right, then left) flattened in
+    read-major walk order, the order of K4's event rows."""
+    import torch
+
+    ME = enc[side_keys[0]].shape[1]
+    slot = torch.arange(ME, device=enc[side_keys[0]].device)[None, :]
+    keep = torch.cat([slot < enc[c][:, None] for c in counts], dim=1)
+    return torch.cat([enc[n].to(torch.int64) for n in side_keys], dim=1)[keep]
+
+
+def k4_agrees(enc: dict, k4: dict, L: int) -> None:
+    """K15's dense dict against K4's walk_encode rows of the same chunk:
+    anchored, apos, the per-side counts, the error gaps and ranks, the bif
+    ranks and the confirmed positions."""
+    import torch
+
+    meta = k4["meta"].to(torch.int64)
+    for col, n in enumerate(("anchored", "apos", "nbif_r", "nerr_r", "nbif_l", "nerr_l")):
+        max_abs_err(enc[n].to(torch.int64), meta[:, col])
+    ME = k4["ev_gap"].shape[1]
+    slot = torch.arange(ME, device=meta.device)[None, :]
+    tot = k4["tot"].to(torch.int64)
+    for keys, counts, k4_name, row, mask in (
+            (("gap_r", "gap_l"), ("nerr_r", "nerr_l"), "ev_gap", 0, 0xFFFF),
+            (("errnt_r", "errnt_l"), ("nerr_r", "nerr_l"), "ev_nt", 0, 0xFF),
+            (("bif_r", "bif_l"), ("nbif_r", "nbif_l"), "ev_bif", 1, 0xFF)):
+        want = (k4[k4_name].to(torch.int64) & mask)[slot < tot[row][:, None]]
+        max_abs_err(dense_events(enc, keys, counts), want)
+    sh = torch.arange(16, device=meta.device)
+    bits = (k4["conf"].to(torch.int64)[:, :, None] >> sh) & 1
+    max_abs_err(enc["confirmed"], bits.reshape(bits.shape[0], -1)[:, :L] == 1)
+
+
+def tensor_phase(records: dict, bench_state: dict) -> dict:
+    """The tensor-level k-mer path on phase 3's 458,752 bench reads (L =
+    104): at k = 31 the scan (K13) and count (torch.sort + K14) must give
+    phase 3's distinct run and solid keys, K16 over the solid rows K3's
+    bitset, and K15 on one chunk K4's walk; at k = 63 (W = 4) scan, count,
+    K16 (H = 4, the reference's default bits per k-mer), K15 on one chunk,
+    and the graph API on the solid set (successors of every node, walk of
+    100 steps from 65,536 nodes; K10 and K11 at W = 4, held against their
+    plain versions). The 4-shard mesh on one card must equal
+    one shard, entry() on the card its CPU run. Launch counts come from
+    this run; then each kernel is held against its plain version on the
+    card, exactly, and timed."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import entry, kernels, state
+    from leon_tpu_torch.graph import Graph, dbg_walk_plain
+    from leon_tpu_torch.ops import bloom, count, kmer, walk
+    from leon_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda")
+    codes = torch.from_numpy(bench_state["codes"]).to(dev)
+    lengths = torch.from_numpy(bench_state["lengths"]).to(dev)
+    L = codes.shape[1]
+    c1, l1 = codes[:B], lengths[:B]
+    n_words, cutoff = bench_state["n_words"], bench_state["cutoff"]
+    torch.cuda.synchronize()
+
+    kernels.launches.clear()
+    t = time.time()
+    # k = 31: a second, independent counting path
+    canon, _, valid = kmer.kmer_scan_words(codes, lengths, K)
+    uniq31, cnt31 = count.count_batch(canon, valid)
+    solid31 = uniq31[cnt31 >= cutoff]
+    ones31 = torch.ones(solid31.shape[0], dtype=torch.bool, device=dev)
+    bits31 = bloom.bloom_build_words(solid31, ones31, n_words, n_words, H, SEED, K)
+    enc31 = walk.encode_batch(c1, l1, bits31, K, H, n_words, SEED)
+    # k = 63: W = 4
+    k63 = 63
+    canon, _, valid = kmer.kmer_scan_words(codes, lengths, k63)
+    uniq63, cnt63 = count.count_batch(canon, valid)
+    hist = torch.bincount(torch.clamp(cnt63, max=255), minlength=256).cpu().numpy()
+    hist[0] = 0
+    cut63 = count.auto_cutoff(hist)
+    bpk63, _ = bloom.auto_params(hist, cut63)
+    solid63 = uniq63[cnt63 >= cut63]
+    nw63 = bloom.choose_n_words(solid63.shape[0], bpk63)
+    ones63 = torch.ones(solid63.shape[0], dtype=torch.bool, device=dev)
+    bits63 = bloom.bloom_build_words(solid63, ones63, nw63, nw63, H, SEED, k63)
+    enc63 = walk.encode_batch(c1, l1, bits63, k63, H, nw63, SEED)
+    G = Graph.from_solid(solid63.cpu().numpy().view(np.uint32), k63)
+    nodes = state.words_to_torch(G.index.sorted_words, dev)
+    succ63 = G.dbg.successors(nodes)
+    wb63, wn63 = G.dbg.walk(nodes[:GRAPH_TRAVERSE_LANES], GRAPH_WALK_STEPS)
+    # the mesh: 4 shards on the one card
+    m4 = mesh.make_mesh(devices=[dev] * MESH_SHARDS)
+    reps = mesh.sharded_bloom_build(m4, solid31, n_words, H, SEED, K)
+    enc_m = mesh.make_sharded_encoder(m4, K, H, n_words, SEED)(c1, l1, reps)
+    fn, args = entry.entry()
+    ent = fn(*args)
+    torch.cuda.synchronize()
+    t_path = time.time() - t
+    launches = dict(kernels.launches)
+    missing = [n for n in TENSOR if launches.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"tensor path: kernels never launched: {missing}")
+
+    # what comes out is right
+    if uniq31.shape[0] != bench_state["n_distinct"]:
+        raise AssertionError(f"k=31: {uniq31.shape[0]} distinct != phase 3's "
+                             f"{bench_state['n_distinct']}")
+    u = solid31.to(torch.int64) & 0xFFFFFFFF
+    max_abs_err(u[:, 0] | (u[:, 1] << 32), bench_state["solid_keys"])
+    max_abs_err(bits31, bench_state["bits"])
+    k4_agrees(enc31, bench_state["k4_enc"], L)
+    aw = bloom.alloc_words(n_words)
+    for rep in reps:
+        max_abs_err(rep[:n_words], bits31)
+        if rep.shape[0] != aw or bool(rep[n_words:].any()):
+            raise AssertionError("mesh: a replica's pad words are not zero")
+    for n in enc31:
+        max_abs_err(enc_m[n], enc31[n])
+    fn_c, args_c = entry.entry("cpu")
+    ent_c = fn_c(*args_c)
+    for n in ent:
+        max_abs_err(ent[n], ent_c[n].to(dev))
+    if not bool(G.dbg.contains(nodes).all()):
+        raise AssertionError("k=63: a solid k-mer is missing from the graph's filter")
+    # K10 and K11 at W = 4 against their plain versions
+    d = G.dbg
+    max_abs_err(succ63, bloom.dbg_probe_plain(d.bitset, nodes, "out", True, d.n_hashes,
+                                              d.n_words, d.seed, k63))
+    for a, b in zip((wb63, wn63), dbg_walk_plain(d.bitset, nodes[:GRAPH_TRAVERSE_LANES],
+                                                 d.n_hashes, d.n_words, d.seed, k63,
+                                                 GRAPH_WALK_STEPS)):
+        max_abs_err(a, b)
+    anch63 = enc63["anchored"].float().mean().item()
+    fig = dict(n_reads=codes.shape[0], distinct31=uniq31.shape[0], solid31=solid31.shape[0],
+               distinct63=uniq63.shape[0], cutoff63=cut63, bits_per_kmer63=bpk63,
+               solid63=solid63.shape[0], n_words63=nw63,
+               anchored31=enc31["anchored"].float().mean().item(), anchored63=anch63,
+               graph63_mean_out_degree=float(succ63.sum(dim=1).float().mean()),
+               walk63_mean_steps=float(wn63.float().mean()), path_s=t_path)
+    log(f"tensor path ok: {json.dumps(fig)}; launches {launches}")
+    del G, succ63, wb63, wn63, reps, enc_m, ent, ent_c
+
+    # each kernel against its plain version on the card, exact, and timed
+    # (the k = 63 shapes; K13 and K15 also at k = 31)
+    err = 0
+    for k, enc in ((K, enc31), (k63, enc63)):
+        got = kmer.kmer_scan_words(codes, lengths, k)
+        want = kmer.kmer_scan_words_plain(codes, lengths, k)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)))
+        del want
+        bits, nw = (bits31, n_words) if k == K else (bits63, nw63)
+        want = walk.encode_batch_plain(c1, l1, bits, k, H, nw, SEED)
+        err = max(err, *(max_abs_err(enc[n], want[n]) for n in enc))
+        del want
+    records["kmer_scan_words"] = record(
+        err, cuda_ms(lambda: kmer.kmer_scan_words(codes, lengths, k63), 5),
+        cuda_ms(lambda: kmer.kmer_scan_words_plain(codes, lengths, k63), 1),
+        nbytes(codes, lengths, got))
+    log("kmer_scan_words ok")
+    records["walk_dense"] = record(
+        err, cuda_ms(lambda: walk.encode_batch(c1, l1, bits63, k63, H, nw63, SEED), 10),
+        cuda_ms(lambda: walk.encode_batch_plain(c1, l1, bits63, k63, H, nw63, SEED), 1),
+        nbytes(c1, l1, bits63, enc63))
+    log(f"walk_dense ok: k=31 {enc31['anchored'].float().mean().item():.4f}, "
+        f"k=63 {anch63:.4f} anchored")
+
+    rows = got[0].reshape(-1, 4)[got[2].reshape(-1)]
+    del got
+    hi, lo = count.sort_words(rows)
+    uq, cn = count.runs_words(hi, lo, 4)
+    pu, pc = count.runs_words_plain(hi, lo, 4)
+    err = max(max_abs_err(uq, pu), max_abs_err(cn, pc), max_abs_err(uq, uniq63),
+              max_abs_err(cn, cnt63))
+    del pu, pc
+    _, lo2 = count.sort_words(solid31)
+    err = max(err, *(max_abs_err(a, b) for a, b in zip(count.runs_words(None, lo2, 2),
+                                                 count.runs_words_plain(None, lo2, 2))))
+    u0, c0 = count.count_batch(torch.zeros(2, 3, 4, dtype=torch.int32, device=dev),
+                               torch.zeros(2, 3, dtype=torch.bool, device=dev))  # all invalid
+    if tuple(u0.shape) != (0, 4) or tuple(c0.shape) != (0,):
+        raise AssertionError(f"count_batch on no rows: {tuple(u0.shape)}, {tuple(c0.shape)}")
+    records["runs_words"] = record(
+        err, cuda_ms(lambda: count.runs_words(hi, lo, 4), 5),
+        cuda_ms(lambda: count.runs_words_plain(hi, lo, 4), 2), nbytes(hi, lo, uq, cn),
+        cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 2))
+    log(f"runs_words ok: {rows.shape[0]} rows -> {uq.shape[0]} distinct (k=63)")
+    del rows, hi, lo, uq, cn
+
+    err = 0
+    for words, ones, nw, k in ((solid31, ones31, n_words, K), (solid63, ones63, nw63, k63)):
+        aw = bloom.alloc_words(nw)
+        err = max(err, max_abs_err(bloom.bloom_build_words(words, ones, aw, nw, H, SEED, k),
+                                   bloom.bloom_build_words_plain(words, ones, aw, nw, H, SEED, k)))
+    args63 = (solid63, ones63, nw63, nw63, H, SEED, k63)
+    records["bloom_build_words"] = record(
+        err, cuda_ms(lambda: bloom.bloom_build_words(*args63), 10),
+        cuda_ms(lambda: bloom.bloom_build_words_plain(*args63), 1),
+        nbytes(solid63, ones63, bits63))
+    log("bloom_build_words ok")
+    for n in TENSOR:
+        records[n]["launches"] = launches[n]
+    return fig
+
+
+# ---------------------------------------------------------------------------
 # phase 5: other widths and modes, the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -856,12 +1081,14 @@ def main() -> int:
     records = {n: {} for n in KERNELS}
     bench_state = kernel_checks(records)
     graph_fig = graph_phase(records, bench_state)
+    tensor_fig = tensor_phase(records, bench_state)
     del bench_state
     fig = yeast_phase()
     log(f"[yeast] {json.dumps(fig)}")
     variants()
     main_path(records, card)
     log(f"[graph] {json.dumps(graph_fig)}")
+    log(f"[tensor] {json.dumps(tensor_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]

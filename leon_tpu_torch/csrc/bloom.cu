@@ -1,5 +1,6 @@
 // K3 bloom_build — the blocked Bloom bitset over the solid rows of a
-// distinct (key, count) run.
+// distinct (key, count) run; K16 bloom_build_words (below) — one shard's
+// partial over (S, W) k-mer words, k <= 64.
 //
 // Replaces: leon_tpu/ops/bloom.py build_device -> _build_device_jit._build
 // (hash every row from scratch with hash_words, wordbit per row, then a
@@ -13,6 +14,7 @@
 // is deterministic and equals the reference's [:n_words] prefix (the
 // reference pads the array to alloc_words).
 #include "common.cuh"
+#include "kmer_words.cuh"
 
 __global__ void bloom_build_kernel(const int64_t* __restrict__ keys,
                                    const int32_t* __restrict__ counts, long long M,
@@ -41,5 +43,62 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
   bloom_build_kernel<<<(unsigned)((M + threads - 1) / threads), threads, 0, st>>>(
       (const int64_t*)keys, (const int32_t*)counts, M, cutoff, n_words, H, k, tb,
       (uint32_t*)bitset);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K16 bloom_build_words — one shard's blocked Bloom partial over (S, W)
+// k-mer words (k <= 64), the valid rows only, into n_alloc words.
+//
+// Replaces: leon_tpu/parallel/mesh.py _bloom_words_local (33-49), the
+// per-shard body of sharded_bloom_build: wordbit of every row (hash_words
+// from scratch), then a sort-dedup of the (word, bit) pairs and a
+// scatter-add of single bits, which equals OR.
+//
+// Bound on the H100: the k-step from-scratch hash per row (ALU) and one
+// random 4-byte atomic per valid row into a bitset that stays in the 50 MB
+// L2; the words are read once (4W bytes a row). Design: one thread per
+// row, the row's words in registers, one atomicOr of its H-bit mask (all H
+// bits of a key share one word): OR is order-free, so the partial is
+// exact and deterministic, with no sort. Words past n_words stay zero.
+// ---------------------------------------------------------------------------
+
+template <int W>
+__global__ void bloom_build_words_kernel(const uint32_t* __restrict__ words,
+                                         const uint8_t* __restrict__ valid, long long S,
+                                         uint32_t n_words, int H, int k,
+                                         const __grid_constant__ HashTabs tabs,
+                                         uint32_t* __restrict__ bits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S || !valid[i]) return;
+  uint32_t f, r, wi, mask;
+  hash_kmer<W>(load_kmer<W>(words, i), k, tabs, &f, &r);
+  wordmask(f, r, H, n_words, &wi, &mask);
+  atomicOr(bits + wi, mask);
+}
+
+extern "C" int lt_bloom_build_words(const void* words, const void* valid, long long S, int W,
+                                    unsigned n_alloc, unsigned n_words, int H, int k,
+                                    const void* tabs16, void* bitset, void* stream) {
+  if (H < 1 || H > 8 || k < 1 || k > 64 || W != (k + 15) / 16 || n_words == 0 ||
+      n_words > n_alloc)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(bitset, 0, (size_t)n_alloc * sizeof(uint32_t), st);
+  if (e != cudaSuccess) return (int)e;
+  if (S <= 0) return (int)cudaSuccess;
+  HashTabs tb;
+  memcpy(&tb, tabs16, sizeof(tb));
+  const int threads = 256;
+  const unsigned grid = (unsigned)((S + threads - 1) / threads);
+  const uint32_t* w = (const uint32_t*)words;
+  const uint8_t* v = (const uint8_t*)valid;
+  uint32_t* b = (uint32_t*)bitset;
+  switch (W) {
+    case 1: bloom_build_words_kernel<1><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
+    case 2: bloom_build_words_kernel<2><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
+    case 3: bloom_build_words_kernel<3><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
+    default: bloom_build_words_kernel<4><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
+  }
   return (int)cudaGetLastError();
 }

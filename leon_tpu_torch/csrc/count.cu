@@ -1,4 +1,5 @@
-// K2 runs — reduce-by-key over a sorted int64 key array.
+// K2 runs — reduce-by-key over a sorted int64 key array; K14 runs_words
+// (below) — the same over rows of one or two int64 halves (k <= 64).
 //
 // Replaces the count programs of leon_tpu/ops/count.py that follow the
 // sort: _sort_count_device's boundaries and run lengths (45-85),
@@ -145,5 +146,110 @@ extern "C" int lt_runs_write(const void* keys, const void* counts, long long n, 
   runs_write_kernel<<<(unsigned)n_blocks(n), RUNS_THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)keys, (const int32_t*)counts, n, cutoff,
       (const long long*)block_off, (int64_t*)out_keys, (int32_t*)out_counts);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K14 runs_words — reduce-by-key over sorted multiword k-mer rows.
+//
+// Replaces the post-sort half of leon_tpu/ops/count.py count_batch (88-104)
+// -> _sort_count_device (45-85): boundaries over the W sorted u32 key
+// columns, run lengths by a reverse min-scan, the host compaction of the
+// boundary rows. The sort stays torch.sort passes over int64 half-keys.
+//
+// Input: the sorted keys as one (W <= 2) or two int64 halves, lo =
+// w1 << 32 | w0 and hi = w3 << 32 | w2, each with its sign bit flipped so
+// that signed order is the reference's MSW-first u32 order; the rows are
+// already the valid ones (no sentinel: at k = 32, 48, 64 a canonical
+// palindrome can have an all-ones top word and must count). Output: each
+// distinct row's W words (unflipped) and its run length, in order.
+//
+// Bound on the H100: device-memory traffic, 8 or 16 bytes read per row and
+// 4W + 8 written per distinct row, twice (count pass and write pass).
+// Design: K2's pattern with a two-half key: one thread per row, the thread
+// at a run's head walks the run; per-block totals (__syncthreads_count),
+// one scan_kernel for offsets, warp-ballot ranks in the write pass.
+// ---------------------------------------------------------------------------
+
+static __device__ __forceinline__ bool same_row(const int64_t* __restrict__ hi,
+                                                const int64_t* __restrict__ lo, long long a,
+                                                long long b) {
+  return lo[a] == lo[b] && (!hi || hi[a] == hi[b]);
+}
+
+// Is row i the head of a run? Sets the run's length.
+static __device__ __forceinline__ bool word_run_at(const int64_t* __restrict__ hi,
+                                                   const int64_t* __restrict__ lo, long long n,
+                                                   long long i, long long* len) {
+  if (i > 0 && same_row(hi, lo, i - 1, i)) return false;
+  long long j = i + 1;
+  while (j < n && same_row(hi, lo, i, j)) ++j;
+  *len = j - i;
+  return true;
+}
+
+__global__ void runs_words_count_kernel(const int64_t* __restrict__ hi,
+                                        const int64_t* __restrict__ lo, long long n,
+                                        long long* __restrict__ block_cnt) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long len = 0;
+  const bool e = i < n && word_run_at(hi, lo, n, i, &len);
+  const int cnt = __syncthreads_count(e);
+  if (threadIdx.x == 0) block_cnt[blockIdx.x] = cnt;
+}
+
+__global__ void runs_words_write_kernel(const int64_t* __restrict__ hi,
+                                        const int64_t* __restrict__ lo, long long n, int W,
+                                        const long long* __restrict__ block_off,
+                                        uint32_t* __restrict__ out_w,
+                                        long long* __restrict__ out_c) {
+  __shared__ int warp_tot[RUNS_THREADS / 32];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long len = 0;
+  const bool e = i < n && word_run_at(hi, lo, n, i, &len);
+  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, e);
+  if (lane == 0) warp_tot[warp] = __popc(m);
+  __syncthreads();
+  if (!e) return;
+  long long dst = block_off[blockIdx.x] + __popc(m & ((1u << lane) - 1u));
+  for (unsigned w = 0; w < warp; ++w) dst += warp_tot[w];
+  const unsigned long long sign = 1ull << 63;
+  const unsigned long long l = (unsigned long long)lo[i] ^ sign;
+  const unsigned long long h = hi ? (unsigned long long)hi[i] ^ sign : 0ull;
+  const uint32_t words[4] = {(uint32_t)l, (uint32_t)(l >> 32), (uint32_t)h, (uint32_t)(h >> 32)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < W) out_w[dst * W + j] = words[j];
+  out_c[dst] = len;
+}
+
+// Pass 1 + scan. hi: null when W <= 2; block_off: n_blocks(n) int64
+// scratch; total: 1 int64.
+extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, void* block_off,
+                                   void* total, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long nb = n_blocks(n);
+  if (n > 0) {
+    runs_words_count_kernel<<<(unsigned)nb, RUNS_THREADS, 0, st>>>(
+        (const int64_t*)hi, (const int64_t*)lo, n, (long long*)block_off);
+  } else {
+    LT_TRY(cudaMemsetAsync(block_off, 0, sizeof(long long), st));
+  }
+  LT_TRY(cudaGetLastError());
+  scan_kernel<<<1, SCAN_THREADS, 0, st>>>((long long*)block_off, nb, (long long*)total);
+  return (int)cudaGetLastError();
+}
+
+// Pass 2: each run's W words and length at its offset.
+extern "C" int lt_runs_words_write(const void* hi, const void* lo, long long n, int W,
+                                   const void* block_off, void* out_words, void* out_counts,
+                                   void* stream) {
+  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;  // an empty tensor's data_ptr() may be null
+  if (W > 2 && !hi) return (int)cudaErrorInvalidValue;
+  runs_words_write_kernel<<<(unsigned)n_blocks(n), RUNS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)hi, (const int64_t*)lo, n, W, (const long long*)block_off,
+      (uint32_t*)out_words, (long long*)out_counts);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // K1 kmer_scan — canonical k-mer keys of a packed read batch, written
-// straight into the count slab.
+// straight into the count slab; K13 kmer_scan_words (below) — the same
+// scan to W u32 words per k-mer, k <= 64.
 //
 // Replaces: leon_tpu/ops/kmer.py kmer_scan_packed -> unpack_codes_dev,
 // _kmer_scan_impl (a lax.scan over base columns producing (B, P, W) u32
@@ -12,6 +13,7 @@
 // uint64 (k <= 31) and stores min(fwd, rc) — or INT64_MAX for positions
 // past len-k and pad lanes — at out[read * P + p].
 #include "common.cuh"
+#include "kmer_words.cuh"
 
 __global__ void kmer_scan_kernel(const uint32_t* __restrict__ packed,
                                  const int32_t* __restrict__ lengths, int B, int L16,
@@ -41,5 +43,105 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
   const int threads = 128;
   kmer_scan_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)packed, (const int32_t*)lengths, B, L16, L, k, P, (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K13 kmer_scan_words — every canonical k-mer of an unpacked read batch as
+// W = ceil(k/16) u32 words (k <= 64), with its strand and validity.
+//
+// Replaces: leon_tpu/ops/kmer.py kmer_scan (129-138) -> _kmer_scan_impl
+// (104-126): a lax.scan over base columns carrying (B, W) fwd/rc words
+// (shl2 / shr2_ins), then canonical() = lex_less(rc, fwd) per position.
+//
+// Bound on the H100: device-memory bytes, (4W + 2) written per position
+// against 1 read (the codes). Design: one thread per read rolls fwd and rc
+// as W registers each, with the reference's u32 word arithmetic (the
+// same bits for any code byte, not only 0..3), and produces min(fwd, rc),
+// is_rc and valid at every one of the P = L - k + 1 positions: the
+// reference scans all L columns, so positions past a read's end hold the
+// words of the bytes there. Palindromes keep the forward strand. A read's
+// outputs are one contiguous row, but the rows of neighbouring threads lie
+// P * W words apart, so a thread storing its own row sends each warp store
+// to 32 sectors. The block therefore stages SCAN_TILE positions of its
+// SCAN_ROWS reads in shared memory (rows padded to an odd word stride, so
+// the per-thread stores hit 32 banks), then each warp copies whole row
+// segments out, lane by lane: every store instruction writes 32 neighbouring
+// words (or bytes) of one row. The codes come in the same way, a tile of
+// SCAN_TILE columns per row per warp load, instead of one scattered byte
+// per thread and column.
+// ---------------------------------------------------------------------------
+
+#define SCAN_ROWS 64  // reads per block, one thread each
+#define SCAN_TILE 32  // positions staged per pass
+
+template <int W>
+__global__ void __launch_bounds__(SCAN_ROWS)
+    kmer_scan_words_kernel(const uint8_t* __restrict__ codes,
+                           const int32_t* __restrict__ lengths, int B, int L, int k, int P,
+                           uint32_t top, uint32_t* __restrict__ canon,
+                           uint8_t* __restrict__ is_rc, uint8_t* __restrict__ valid) {
+  __shared__ uint8_t sc[SCAN_ROWS][SCAN_TILE + 4];     // the tile's code columns
+  __shared__ uint32_t sw[SCAN_ROWS][SCAN_TILE * W + 1];  // canonical words
+  __shared__ uint8_t sf[2][SCAN_ROWS][SCAN_TILE + 4];  // is_rc, valid
+  const long long row0 = (long long)blockIdx.x * SCAN_ROWS;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nrows = (int)min((long long)SCAN_ROWS, (long long)B - row0);
+  const int last = t < nrows ? lengths[row0 + t] - k : -1;  // valid positions: p <= last
+  Kmer<W> fwd = {}, rc = {};
+  for (int c0 = 0; c0 < L; c0 += SCAN_TILE) {
+    const int nc = min(SCAN_TILE, L - c0);
+    for (int r = warp; r < nrows; r += SCAN_ROWS / 32)
+      if (lane < nc) sc[r][lane] = __ldg(codes + (size_t)(row0 + r) * L + c0 + lane);
+    __syncthreads();
+    // positions [pa, pa + np) end in columns [c0, c0 + nc)
+    const int pa = max(0, c0 - k + 1);
+    const int np = c0 + nc - k + 1 - pa;
+    for (int q = 0; q < nc; ++q) {
+      const uint32_t b = sc[t][q];
+      fwd = shl2<W>(fwd, b, top);
+      rc = shr2_ins<W>(rc, 3u - b, k);
+      const int p = c0 + q - k + 1;
+      if (p < 0) continue;
+      const int i = p - pa;
+      const bool take_rc = lex_less<W>(rc, fwd);
+#pragma unroll
+      for (int w = 0; w < W; ++w) sw[t][i * W + w] = take_rc ? rc.w[w] : fwd.w[w];
+      sf[0][t][i] = take_rc;
+      sf[1][t][i] = p <= last;
+    }
+    __syncthreads();
+    if (np <= 0) continue;
+    for (int r = warp; r < nrows; r += SCAN_ROWS / 32) {
+      uint32_t* oc = canon + ((size_t)(row0 + r) * P + pa) * W;
+      for (int q = lane; q < np * W; q += 32) oc[q] = sw[r][q];
+      if (lane < np) {
+        const size_t o = (size_t)(row0 + r) * P + pa + lane;
+        is_rc[o] = sf[0][r][lane];
+        valid[o] = sf[1][r][lane];
+      }
+    }
+  }
+}
+
+extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B, int L, int k,
+                                  int P, unsigned top, void* canon, void* is_rc, void* valid,
+                                  void* stream) {
+  if (k < 1 || k > 64 || P < 1 || P != L - k + 1) return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  const int threads = SCAN_ROWS;
+  const unsigned grid = (unsigned)((B + threads - 1) / threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* c = (const uint8_t*)codes;
+  const int32_t* ln = (const int32_t*)lengths;
+  uint32_t* oc = (uint32_t*)canon;
+  uint8_t* orc = (uint8_t*)is_rc;
+  uint8_t* ov = (uint8_t*)valid;
+  switch ((k + 15) / 16) {
+    case 1: kmer_scan_words_kernel<1><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
+    case 2: kmer_scan_words_kernel<2><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
+    case 3: kmer_scan_words_kernel<3><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
+    default: kmer_scan_words_kernel<4><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
+  }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // K4 walk — anchor search, fused right-then-left de Bruijn walk, flat event
-// buffer, and the decode re-walk.
+// buffer, and the decode re-walk; K15 walk_dense (below) — the dense event
+// tensors of encode_batch, k <= 64.
 //
 // Replaces: leon_tpu/ops/walk.py encode_batch_compact_packed ->
 // _encode_compact_impl with _anchor_state/_anchor_scan/_pack_window and
@@ -24,17 +25,18 @@
 // read's own offsets and never builds the (B, L) error plane. Many reads
 // in flight per SM (occupancy), not work inside a read, hide the latency.
 #include "common.cuh"
+#include "kmer_words.cuh"
 
 #define WALK_THREADS 128
 
 // the 4 candidate (f, r) chains of one step and their solidity (bit c set
-// = base c solid), walk.py:299-313
-static __device__ __forceinline__ unsigned step_probe(bool in_r, uint64_t fwd, uint32_t f,
-                                                      uint32_t r, int k, const HashTabs& tb,
+// = base c solid), walk.py:299-313; o is the base leaving the window (the
+// k-mer's first base on a right step, its last on a left step)
+static __device__ __forceinline__ unsigned step_probe(bool in_r, int o, uint32_t f, uint32_t r,
+                                                      const HashTabs& tb,
                                                       const uint32_t* __restrict__ bits, int H,
                                                       uint32_t n_words, uint32_t cf[4],
                                                       uint32_t cr[4]) {
-  const int o = in_r ? (int)((fwd >> (2 * (k - 1))) & 3u) : (int)(fwd & 3u);
   uint32_t fb, rb;
   if (in_r) {
     fb = rol1(f ^ sel4(tb.t[2], o));
@@ -51,6 +53,11 @@ static __device__ __forceinline__ unsigned step_probe(bool in_r, uint64_t fwd, u
     if (probe(bits, cf[c], cr[c], H, n_words)) sm |= 1u << c;
   }
   return sm;
+}
+
+// the base leaving a one-word window on a right (first base) or left step
+static __device__ __forceinline__ int leaving(bool in_r, uint64_t fwd, int k) {
+  return in_r ? (int)((fwd >> (2 * (k - 1))) & 3u) : (int)(fwd & 3u);
 }
 
 static __device__ __forceinline__ uint64_t advance(bool in_r, uint64_t fwd, int b, int k,
@@ -157,7 +164,8 @@ __global__ void walk_encode_kernel(const uint32_t* __restrict__ packed,
     const int j = in_r ? apos + k + s : apos - 1 - lidx;
     const int b = base_at(pr, j);
     uint32_t cf[4], cr[4];
-    const unsigned sm = step_probe(in_r, fwd, f, r, k, tb, bits, H, n_words, cf, cr);
+    const unsigned sm =
+        step_probe(in_r, leaving(in_r, fwd, k), f, r, tb, bits, H, n_words, cf, cr);
     const int scount = __popc(sm);
     const unsigned below = (1u << b) - 1u;
     const bool solid_b = (sm >> b) & 1u;
@@ -331,7 +339,8 @@ __global__ void walk_decode_kernel(const int32_t* __restrict__ scal, int B, int 
       next_err = (ei < side_n && ebase + ei < n_err) ? next_err + 1 + errgaps[ebase + ei] : -1;
     }
     uint32_t cf[4], cr[4];
-    const unsigned sm = step_probe(in_r, fwd, f, r, k, tb, bits, H, n_words, cf, cr);
+    const unsigned sm =
+        step_probe(in_r, leaving(in_r, fwd, k), f, r, tb, bits, H, n_words, cf, cr);
     const int scount = __popc(sm);
     const int b_uniq = nth_set(sm, 0);
     int b;
@@ -357,6 +366,150 @@ __global__ void walk_decode_kernel(const int32_t* __restrict__ scal, int B, int 
     r = sel4v(cr, b_adv);
     fwd = advance(in_r, fwd, b_adv, k, kmask);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K15 walk_dense — the dense, slot-ordered event tensors of encode_batch,
+// for k <= 64.
+//
+// Replaces: leon_tpu/ops/walk.py encode_batch (621-665) -> walk_planes
+// (384-402: _anchor_state 357, _anchor_scan 113, _pack_window 147, then
+// _walk_side 171-244 once right and once left from the anchor state),
+// slotify, _gap_plane (405-416) and _conf_mask (419-429).
+//
+// Bound on the H100: latency of the dependent Bloom probes, as K4 (4
+// one-word probes per step, each step needing the last one's base); the
+// outputs are 20 bytes per event slot and one per base, zeroed by memsets.
+// Design: one thread per read; the anchor scan rolls (f, r) from the codes
+// (the leaving base read back from the row, so no window rides along), the
+// anchor's window is re-packed from its k bases as W u32 words, and each
+// side walks from it with the window in registers (shl2 masked to 2k bits
+// on the right, the reference's unmasked shr2_ins on the left). Each event
+// lands at once in its side's next slot: bif rank among solid bases,
+// absolute errpos (apos+k+s right, apos-1-s left), errnt rank among
+// non-solid bases and the side-local gap (s minus the side's last error
+// step minus 1); confirmed bases (one solid candidate, the read's own)
+// set their column, so the anchor span is never confirmed. The right side
+// runs min(len - k - apos, ME) steps (a base past column L-1 reads column
+// L-1, as the reference's clipped gather), the left side apos steps.
+// Codes are taken & 3 (the reference's input is 0..3).
+// ---------------------------------------------------------------------------
+
+// output pointers, in the reference's dict order: anchored, apos, nbif_r,
+// nerr_r, nbif_l, nerr_l, then per side (r, l) bif, errpos, errnt, gap,
+// then confirmed
+struct DenseOut {
+  void* p[15];
+};
+
+template <int W, bool RIGHT>
+static __device__ __forceinline__ void dense_side(const uint8_t* __restrict__ cr, int L, int k,
+                                                  int H, uint32_t n_words, const HashTabs& tb,
+                                                  const uint32_t* __restrict__ bits,
+                                                  uint32_t top, Kmer<W> fwd, uint32_t f,
+                                                  uint32_t r, int apos, int steps,
+                                                  uint8_t* __restrict__ bif,
+                                                  int32_t* __restrict__ errpos,
+                                                  uint8_t* __restrict__ errnt,
+                                                  int32_t* __restrict__ gap,
+                                                  uint8_t* __restrict__ conf, int32_t* n_bif,
+                                                  int32_t* n_err) {
+  const int ho = 2 * (k - 1);
+  int nb = 0, ne = 0, last = -1;
+  for (int s = 0; s < steps; ++s) {
+    const int j = RIGHT ? apos + k + s : apos - 1 - s;
+    const int b = __ldg(cr + (RIGHT ? min(j, L - 1) : j)) & 3;
+    const int o = RIGHT ? (int)((word_at<W>(fwd, ho >> 5) >> (ho & 31)) & 3u)
+                        : (int)(fwd.w[0] & 3u);
+    uint32_t cf[4], cr4[4];
+    const unsigned sm = step_probe(RIGHT, o, f, r, tb, bits, H, n_words, cf, cr4);
+    const int scount = __popc(sm);
+    const unsigned below = (1u << b) - 1u;
+    const bool solid_b = (sm >> b) & 1u;
+    if (solid_b) {
+      if (scount == 1) {
+        if (j < L) conf[j] = 1;
+      } else {
+        bif[nb++] = (uint8_t)__popc(sm & below);  // rank among solid
+      }
+    } else {
+      errpos[ne] = j;
+      errnt[ne] = (uint8_t)__popc(~sm & below);  // rank among non-solid
+      gap[ne] = s - last - 1;
+      last = s;
+      ++ne;
+    }
+    // on an error with a solid candidate, advance on the smallest solid base
+    const int b_adv = (!solid_b && scount >= 1) ? __ffs(sm) - 1 : b;
+    f = sel4v(cf, b_adv);
+    r = sel4v(cr4, b_adv);
+    fwd = RIGHT ? shl2<W>(fwd, (uint32_t)b_adv, top) : shr2_ins<W>(fwd, (uint32_t)b_adv, k);
+  }
+  *n_bif = nb;
+  *n_err = ne;
+}
+
+template <int W>
+__global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
+                                  const int32_t* __restrict__ lengths, int B, int L, int k,
+                                  int H, uint32_t n_words, const __grid_constant__ HashTabs tb,
+                                  const uint32_t* __restrict__ bits, int ME, uint32_t top,
+                                  const __grid_constant__ DenseOut o) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  const uint8_t* cr = codes + (size_t)row * L;
+  const int len = lengths[row];
+  const int lenc = min(len, L);
+
+  // anchor: the member position with the smallest min(f, r); the first
+  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381)
+  uint32_t f = 0, r = 0, af = 0, ar = 0, best = 0xFFFFFFFFu;
+  bool anchored = false;
+  int apos = 0;
+  for (int j = 0; j < lenc; ++j) {
+    const int x = __ldg(cr + j) & 3;
+    if (j >= k) {
+      const int ob = __ldg(cr + j - k) & 3;  // base leaving the window
+      f = rol1(f ^ sel4(tb.t[2], ob)) ^ sel4(tb.t[0], x);
+      r = ror1(r ^ sel4(tb.t[1], ob)) ^ sel4(tb.t[3], x);
+    } else {
+      f = rol1(f) ^ sel4(tb.t[0], x);
+      r = r ^ rolr(sel4(tb.t[1], x), j);
+    }
+    const int p = j - k + 1;
+    if (p >= 0) {
+      const bool mem = probe(bits, f, r, H, n_words);
+      const uint32_t v = mem ? min(f, r) : 0xFFFFFFFFu;
+      anchored |= mem;
+      if (p == 0 || v < best) {
+        best = v;
+        apos = p;
+        af = f;
+        ar = r;
+      }
+    }
+  }
+  ((uint8_t*)o.p[0])[row] = anchored;
+  ((int32_t*)o.p[1])[row] = apos;
+  int32_t* nbif_r = (int32_t*)o.p[2] + row;
+  int32_t* nerr_r = (int32_t*)o.p[3] + row;
+  int32_t* nbif_l = (int32_t*)o.p[4] + row;
+  int32_t* nerr_l = (int32_t*)o.p[5] + row;
+  if (!anchored) {
+    *nbif_r = *nerr_r = *nbif_l = *nerr_l = 0;
+    return;
+  }
+  Kmer<W> afwd = {};
+  for (int i = 0; i < k; ++i) afwd = shl2<W>(afwd, (uint32_t)(__ldg(cr + apos + i) & 3), top);
+  const size_t ev = (size_t)row * ME;
+  uint8_t* conf = (uint8_t*)o.p[14] + (size_t)row * L;
+  dense_side<W, true>(cr, L, k, H, n_words, tb, bits, top, afwd, af, ar, apos,
+                      min(max(len - k - apos, 0), ME), (uint8_t*)o.p[6] + ev,
+                      (int32_t*)o.p[7] + ev, (uint8_t*)o.p[8] + ev, (int32_t*)o.p[9] + ev, conf,
+                      nbif_r, nerr_r);
+  dense_side<W, false>(cr, L, k, H, n_words, tb, bits, top, afwd, af, ar, apos, apos,
+                       (uint8_t*)o.p[10] + ev, (int32_t*)o.p[11] + ev, (uint8_t*)o.p[12] + ev,
+                       (int32_t*)o.p[13] + ev, conf, nbif_l, nerr_l);
 }
 
 // ---------------------------------------------------------------------------
@@ -430,5 +583,39 @@ extern "C" int lt_walk_decode(const void* scal, int B, int W, const void* errgap
       (const int32_t*)scal, B, W, (const int32_t*)errgaps, (const uint8_t*)errnts,
       (const uint8_t*)bifs, n_err, n_bif, L, L16, k, H, n_words, tb,
       (const uint32_t*)bitset, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// outs15: the host array of the 15 output pointers (DenseOut order)
+extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int L, int k, int H,
+                             unsigned n_words, unsigned top, const void* tabs16,
+                             const void* bitset, int ME, const void* outs15, void* stream) {
+  if (k < 1 || k > 64 || H < 1 || H > 8 || L < k || ME != max(L - k, 1) || n_words == 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  DenseOut od;
+  memcpy(&od, outs15, sizeof(od));
+  // bytes per read of each output: the (B, ME) event slots and the
+  // (B, L) confirmed row must read zero past what the walk writes
+  const size_t me = (size_t)ME;
+  const size_t per_row[15] = {1, 4, 4, 4, 4, 4, me, 4 * me, me, 4 * me,
+                              me, 4 * me, me, 4 * me, (size_t)L};
+  for (int i = 0; i < 15; ++i) {
+    cudaError_t e = cudaMemsetAsync(od.p[i], 0, per_row[i] * (size_t)B, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  HashTabs tb;
+  memcpy(&tb, tabs16, sizeof(tb));
+  const unsigned grid = grid_for(B, WALK_THREADS);
+  const uint8_t* c = (const uint8_t*)codes;
+  const int32_t* ln = (const int32_t*)lengths;
+  const uint32_t* bs = (const uint32_t*)bitset;
+  switch ((k + 15) / 16) {
+    case 1: walk_dense_kernel<1><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+    case 2: walk_dense_kernel<2><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+    case 3: walk_dense_kernel<3><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+    default: walk_dense_kernel<4><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+  }
   return (int)cudaGetLastError();
 }

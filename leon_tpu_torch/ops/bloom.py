@@ -11,7 +11,10 @@ Device half (new): ``bloom_build``, the wrapper of kernel K3
 (csrc/bloom.cu), and ``bloom_build_plain``; ``dbg_probe``, the wrapper of
 kernel K10 (csrc/graph.cu: blocked or classic membership of (N, W) k-mer
 words or of their four neighbours), with ``probe`` and ``probe_classic``
-on top of it, and ``dbg_probe_plain``; plus the plain PyTorch hash and
+on top of it, and ``dbg_probe_plain``; ``bloom_build_words``, the wrapper
+of kernel K16 (csrc/bloom.cu: one shard's blocked partial over (S, W)
+k-mer words, k <= 64, for parallel/mesh.py), and its plain version, with
+``alloc_words`` (a copy of bloom.py:123-134); plus the plain PyTorch hash and
 probe helpers the walk's plain versions share. PyTorch's uint32 lacks
 shifts and comparisons on the CPU, so plain u32 values ride in int64
 masked to 32 bits.
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from leon_tpu_torch import kernels
-from leon_tpu_torch.ops.kmer import shl2, shr2_ins, top_mask
+from leon_tpu_torch.ops.kmer import i32_bits, shl2, shr2_ins, top_mask
 
 # FORMAT.md §4 frozen constants
 _C1 = 0x5BF03635
@@ -416,11 +419,75 @@ def bloom_build_plain(keys: torch.Tensor, counts: torch.Tensor, cutoff: int,
     solid = keys[counts >= cutoff]
     f, r = hash_keys_plain(solid, k, tables(seed, k))
     wi, mask = wordmask_plain(f, r, H, n_words)
-    bit = torch.zeros(n_words * 32, dtype=torch.bool, device=keys.device)
+    return _or_masks(wi, mask, n_words)
+
+
+def _or_masks(wi: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int32 words holding the OR of every mask at its word index."""
+    bit = torch.zeros(n * 32, dtype=torch.bool, device=wi.device)
     for b in range(32):
         sel = ((mask >> b) & 1) == 1
         bit[wi[sel] * 32 + b] = True
-    weights = torch.ones(32, dtype=torch.int64, device=keys.device) << torch.arange(
-        32, device=keys.device)
-    words = (bit.reshape(n_words, 32).to(torch.int64) * weights).sum(dim=1)
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    weights = torch.ones(32, dtype=torch.int64, device=wi.device) << torch.arange(
+        32, device=wi.device)
+    words = (bit.reshape(n, 32).to(torch.int64) * weights).sum(dim=1)
+    return i32_bits(words)
+
+
+# ---------------------------------------------------------------------------
+# Sharded build partial: kernel K16 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def alloc_words(n_words: int) -> int:
+    """Device-allocation size of an exact-size filter (a copy of
+    leon_tpu/ops/bloom.py:123-134): the next point on a 1/8-octave grid,
+    a multiple of 64 words."""
+    n = max(64, int(n_words))
+    step = max(64, 1 << ((n - 1).bit_length() - 3))
+    a = -(-n // step) * step
+    return min(-(-a // 64) * 64, MAX_WORDS)
+
+
+def _check_build_words_args(words, valid, n_alloc: int, n_words: int, H: int, k: int) -> None:
+    kernels.need(1 <= k <= 64, f"bloom_build_words: k={k} not in [1, 64]")
+    kernels.need(words.dtype == torch.int32 and words.dim() == 2
+                 and words.shape[1] == (k + 15) // 16,
+                 f"bloom_build_words: words must be (S, {(k + 15) // 16}) int32 for k={k}")
+    kernels.need(valid.dtype == torch.bool and valid.shape == (words.shape[0],),
+                 "bloom_build_words: valid must be (S,) bool")
+    kernels.need(valid.device == words.device, "bloom_build_words: tensors on two devices")
+    kernels.need(1 <= H <= 8, f"bloom_build_words: H={H} not in [1, 8]")
+    kernels.need(0 < n_words <= n_alloc <= MAX_WORDS,
+                 f"bloom_build_words: n_words={n_words}, n_alloc={n_alloc}")
+
+
+def bloom_build_words(words: torch.Tensor, valid: torch.Tensor, n_alloc: int, n_words: int,
+                      H: int, seed: int, k: int) -> torch.Tensor:
+    """Blocked Bloom partial (n_alloc,) int32 over the valid rows of (S, W)
+    int32 k-mer words, addressed into the first n_words words (the rest
+    stay zero): one shard's part of sharded_bloom_build (kernel K16)."""
+    _check_build_words_args(words, valid, n_alloc, n_words, H, k)
+    if not kernels.on_cuda(words, "bloom_build_words"):
+        return bloom_build_words_plain(words, valid, n_alloc, n_words, H, seed, k)
+    words, valid = words.contiguous(), valid.contiguous()
+    bits = torch.empty(n_alloc, dtype=torch.int32, device=words.device)
+    tab = kernels.host_tables(tables(seed, k))
+    rc = kernels.lib().lt_bloom_build_words(
+        words.data_ptr(), valid.data_ptr(), words.shape[0], words.shape[1], int(n_alloc),
+        int(n_words), H, k, tab.ctypes.data, bits.data_ptr(), kernels.stream(words))
+    kernels.check(rc, "bloom_build_words")
+    kernels.launches["bloom_build_words"] += 1
+    return bits
+
+
+def bloom_build_words_plain(words: torch.Tensor, valid: torch.Tensor, n_alloc: int,
+                            n_words: int, H: int, seed: int, k: int) -> torch.Tensor:
+    """Plain version of bloom_build_words: hash_words from scratch, blocked
+    word and mask per valid row, OR (leon_tpu/parallel/mesh.py:33-49 sets
+    the same (word, bit) pairs by sort-dedup-scatter)."""
+    _check_build_words_args(words, valid, n_alloc, n_words, H, k)
+    w = words[valid].to(torch.int64) & _M32
+    f, r = hash_words_plain(w, k, tables(seed, k))
+    wi, mask = wordmask_plain(f, r, H, n_words)
+    return _or_masks(wi, mask, n_alloc)

@@ -16,7 +16,12 @@ once they outgrow ``merge_factor`` slabs. Slab and run sizes are set for
 an 80 GB card; a run past ``SPILL_ROWS`` would need the reference's host
 spill (count.py:592-600, 643-704), which the port does not have yet.
 
-``auto_cutoff`` is a copy of count.py:761-784.
+``count_batch`` is the one-shot count of (B, P, W) canonical words
+(k <= 64, counterpart of count.py:88-104): the valid rows, sorted by
+torch.sort passes over sign-flipped int64 half-keys (``sort_words``), then
+``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
+over rows of one or two int64 halves. ``merge_counts`` (host) is a copy of
+count.py:107-170, ``auto_cutoff`` of count.py:761-784.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import SENTINEL, kmer_scan
+from leon_tpu_torch.ops.kmer import SENTINEL, i32_bits, kmer_scan
 
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
@@ -125,6 +130,166 @@ def compact_solid(keys: torch.Tensor, counts: torch.Tensor, cutoff: int):
     count >= cutoff (leon_tpu count.compact_solid) — K2 in solid mode."""
     out_k, out_c, _ = runs(keys, counts, cutoff)
     return out_k, out_c
+
+
+# ---------------------------------------------------------------------------
+# Kernel K14 (multiword runs) and its plain version; count_batch
+# ---------------------------------------------------------------------------
+
+_SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN maps u64 order onto signed order
+
+
+def _check_runs_words_args(hi, lo, W: int) -> None:
+    kernels.need(1 <= W <= 4, f"runs_words: W={W} not in [1, 4]")
+    kernels.need(lo.dtype == torch.int64 and lo.dim() == 1, "runs_words: lo must be (n,) int64")
+    kernels.need((hi is None) == (W <= 2), "runs_words: hi is given exactly when W > 2")
+    if hi is not None:
+        kernels.need(hi.dtype == torch.int64 and hi.shape == lo.shape,
+                     "runs_words: hi must be (n,) int64")
+        kernels.need(hi.device == lo.device, "runs_words: tensors on two devices")
+
+
+def runs_words(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
+    """Reduce-by-key over rows sorted by (hi, lo): the sign-flipped int64
+    halves w1 << 32 | w0 (lo) and w3 << 32 | w2 (hi, None when W <= 2).
+    Every row counts (the caller drops invalid rows first). Returns (uniq
+    (M, W) int32 holding the u32 words, counts (M,) int64) in key order."""
+    _check_runs_words_args(hi, lo, W)
+    if not kernels.on_cuda(lo, "runs_words"):
+        return runs_words_plain(hi, lo, W)
+    lo = lo.contiguous()
+    hi = hi.contiguous() if hi is not None else None
+    dev = lo.device
+    n = lo.shape[0]
+    lib = kernels.lib()
+    hi_p = hi.data_ptr() if hi is not None else None
+    block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    st = kernels.stream(lo)
+    kernels.check(lib.lt_runs_words_count(hi_p, lo.data_ptr(), n, block_off.data_ptr(),
+                                          total.data_ptr(), st), "runs_words")
+    M = int(total.item())
+    uniq = torch.empty(M, W, dtype=torch.int32, device=dev)
+    counts = torch.empty(M, dtype=torch.int64, device=dev)
+    kernels.check(lib.lt_runs_words_write(hi_p, lo.data_ptr(), n, W, block_off.data_ptr(),
+                                          uniq.data_ptr(), counts.data_ptr(), st), "runs_words")
+    kernels.launches["runs_words"] += 1
+    return uniq, counts
+
+
+def runs_words_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
+    """Plain version of runs_words: heads where either half changes, run
+    lengths from the head positions, words unflipped from the halves."""
+    _check_runs_words_args(hi, lo, W)
+    n = lo.shape[0]
+    if not n:
+        return (torch.zeros(0, W, dtype=torch.int32, device=lo.device),
+                torch.zeros(0, dtype=torch.int64, device=lo.device))
+    head = torch.ones(n, dtype=torch.bool, device=lo.device)
+    if n > 1:
+        ne = lo[1:] != lo[:-1]
+        if hi is not None:
+            ne = ne | (hi[1:] != hi[:-1])
+        head[1:] = ne
+    starts = torch.nonzero(head).reshape(-1)
+    ends = torch.cat([starts[1:], torch.tensor([n], dtype=torch.int64, device=lo.device)])
+    halves = [lo[starts] ^ _SIGN] + ([hi[starts] ^ _SIGN] if hi is not None else [])
+    words = []
+    for h in halves:
+        words += [h & _M32, (h >> 32) & _M32]
+    return i32_bits(torch.stack(words[:W], dim=1)), ends - starts
+
+
+def sort_words(words: torch.Tensor):
+    """(N, W) int32 u32 words -> the sign-flipped int64 halves (hi or None,
+    lo) sorted lexicographically, most significant word first: one
+    torch.sort at W <= 2, two stable ones (lo, then hi) past it."""
+    W = words.shape[1]
+    u = words.to(torch.int64) & _M32
+    lo = u[:, 0] | (u[:, 1] << 32 if W > 1 else 0)
+    lo = lo ^ _SIGN
+    if W <= 2:
+        return None, torch.sort(lo).values
+    hi = (u[:, 2] | (u[:, 3] << 32 if W > 3 else 0)) ^ _SIGN
+    lo, perm = torch.sort(lo, stable=True)
+    hi, perm2 = torch.sort(hi[perm], stable=True)
+    return hi, lo[perm2]
+
+
+def count_batch(canon: torch.Tensor, valid: torch.Tensor):
+    """Count one batch of canonical k-mers (counterpart of leon_tpu
+    count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
+    valid (B, P) bool. Returns (uniq (M, W) int32 words sorted MSW first,
+    counts (M,) int64) on canon's device: the valid rows, sorted by
+    torch.sort, reduced by K14."""
+    kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and 1 <= canon.shape[2] <= 4,
+                 "count_batch: canon must be (B, P, W) int32 with W <= 4")
+    kernels.need(valid.dtype == torch.bool and valid.shape == canon.shape[:2],
+                 "count_batch: valid must be (B, P) bool")
+    kernels.need(valid.device == canon.device, "count_batch: tensors on two devices")
+    W = canon.shape[2]
+    rows = canon.reshape(-1, W)[valid.reshape(-1)]
+    hi, lo = sort_words(rows)
+    return runs_words(hi, lo, W)
+
+
+def merge_counts(partials: list) -> tuple[np.ndarray, np.ndarray]:
+    """Merge per-batch (unique (m, W) u32, counts (m,)) numpy partials on
+    the host — a copy of leon_tpu/ops/count.py:107-170: the native k-way
+    merge when every partial is sorted, else a lexsort."""
+    if not partials:
+        return np.zeros((0, 1), dtype=np.uint32), np.zeros(0, dtype=np.int64)
+    nat = _merge_counts_native(partials)
+    if nat is not None:
+        return nat
+    allk = np.concatenate([p[0] for p in partials], axis=0)
+    allc = np.concatenate([p[1] for p in partials], axis=0)
+    if allk.shape[0] == 0:
+        return allk, allc
+    W = allk.shape[1]
+    order = np.lexsort(tuple(allk[:, j] for j in range(W)))
+    sk, sc = allk[order], allc[order]
+    newgrp = np.ones(sk.shape[0], dtype=bool)
+    newgrp[1:] = (sk[1:] != sk[:-1]).any(axis=1)
+    gid = np.cumsum(newgrp) - 1
+    out_counts = np.zeros(int(gid[-1]) + 1, dtype=np.int64)
+    np.add.at(out_counts, gid, sc)
+    return sk[newgrp], out_counts
+
+
+def _merge_counts_native(partials):
+    """Native k-way merge of sorted (uniq, counts) runs; None when any run
+    is not sorted or the widths differ."""
+    import ctypes
+
+    from leon_tpu_torch import native
+
+    lib = native.get_lib()
+    runs_ = [(k, c) for k, c in partials if k.shape[0] > 0]
+    if not runs_:
+        k0 = partials[0][0]
+        return (np.zeros((0, k0.shape[1]), np.uint32), np.zeros(0, np.int64))
+    W = runs_[0][0].shape[1]
+    keys_c, cnts_c, ns = [], [], []
+    for k, c in runs_:
+        if k.shape[1] != W:
+            return None
+        kk = np.ascontiguousarray(k, dtype=np.uint32)
+        if not lib.leon_rows_sorted(kk.shape[0], W, kk.ctypes.data):
+            return None
+        keys_c.append(kk)
+        cnts_c.append(np.ascontiguousarray(c, dtype=np.int64))
+        ns.append(kk.shape[0])
+    R = len(runs_)
+    total = int(sum(ns))
+    out_k = np.empty((total, W), dtype=np.uint32)
+    out_c = np.empty(total, dtype=np.int64)
+    kp = (ctypes.c_void_p * R)(*[k.ctypes.data for k in keys_c])
+    cp = (ctypes.c_void_p * R)(*[c.ctypes.data for c in cnts_c])
+    ns_a = np.asarray(ns, dtype=np.int64)
+    m = lib.leon_merge_runs(R, W, kp, cp, ns_a.ctypes.data,
+                            out_k.ctypes.data, out_c.ctypes.data)
+    return np.ascontiguousarray(out_k[:m]), out_c[:m]
 
 
 # ---------------------------------------------------------------------------

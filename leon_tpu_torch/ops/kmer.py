@@ -1,8 +1,11 @@
 """2-bit k-mer machinery of the port (counterpart of leon_tpu/ops/kmer.py).
 
 Device half (new): ``kmer_scan``, the wrapper of kernel K1
-(csrc/kmer.cu), and ``kmer_scan_plain``, its plain PyTorch version; the
-graph API's ``shl2`` and ``shr2_ins`` on (..., W) words. For
+(csrc/kmer.cu), and ``kmer_scan_plain``, its plain PyTorch version;
+``kmer_scan_words``, the wrapper of kernel K13 (the unpacked scan to
+(B, P, W) u32 words, k <= 64, counterpart of kmer.kmer_scan), and
+``kmer_scan_words_plain``; ``shl2``, ``shr2_ins``, ``lex_less`` and
+``canonical`` on (..., W) words. For
 k <= 31 a canonical k-mer is ONE int64 key ``w1 << 32 | w0`` of the
 reference's little-endian u32 words (FORMAT.md §3); keys stay below 2**62,
 so their signed order equals the reference's MSW-first u32 lexicographic
@@ -23,6 +26,7 @@ from leon_tpu_torch import kernels
 
 SENTINEL = torch.iinfo(torch.int64).max
 MAX_K = 31  # one int64 key per k-mer
+_M32 = 0xFFFFFFFF
 
 
 def words_for_k(k: int) -> int:
@@ -156,6 +160,99 @@ def kmer_scan_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     pos = torch.arange(P, device=packed.device)[None, :]
     valid = pos <= (lengths.to(torch.int64)[:, None] - k)
     return torch.where(valid, canon, torch.full_like(canon, SENTINEL)).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Device half: kernel K13 (multiword scan, k <= 64) and its plain version
+# ---------------------------------------------------------------------------
+
+MAX_K_WORDS = 64  # W = ceil(k/16) <= 4 u32 words
+
+
+def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b comparing (..., W) words as big integers, word 0 least
+    significant (leon_tpu/ops/kmer.py:61-69)."""
+    W = a.shape[-1]
+    less = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    eq = torch.ones_like(less)
+    for j in range(W - 1, -1, -1):
+        less = less | (eq & (a[..., j] < b[..., j]))
+        eq = eq & (a[..., j] == b[..., j])
+    return less
+
+
+def canonical(fwd: torch.Tensor, rc: torch.Tensor):
+    """(canon, is_rc); palindromes keep the forward strand
+    (leon_tpu/ops/kmer.py:72-76)."""
+    take_rc = lex_less(rc, fwd)
+    return torch.where(take_rc[..., None], rc, fwd), take_rc
+
+
+def i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding u32 values -> int32 with the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _check_scan_words_args(codes, lengths, k: int) -> int:
+    kernels.need(1 <= k <= MAX_K_WORDS, f"kmer_scan_words: k={k} not in [1, {MAX_K_WORDS}]")
+    kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2,
+                 "kmer_scan_words: codes must be (B, L) uint8")
+    kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),
+                 "kmer_scan_words: lengths must be (B,) int32")
+    kernels.need(lengths.device == codes.device, "kmer_scan_words: tensors on two devices")
+    P = codes.shape[1] - k + 1
+    kernels.need(P >= 1, f"kmer_scan_words: batch width {codes.shape[1]} < k {k}")
+    return P
+
+
+def kmer_scan_words(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """Every k-mer of a read batch as canonical u32 words (k <= 64).
+
+    codes: (B, L) uint8 base codes, lengths: (B,) int32. Returns (canon
+    (B, P, W) int32 holding the u32 words LSW first, is_rc (B, P) bool,
+    valid (B, P) bool), P = L - k + 1, position p covering bases [p, p+k):
+    every position, valid or not, as the reference's scan of all L
+    columns. Counterpart of leon_tpu kmer.kmer_scan (kernel K13)."""
+    P = _check_scan_words_args(codes, lengths, k)
+    if not kernels.on_cuda(codes, "kmer_scan_words"):
+        return kmer_scan_words_plain(codes, lengths, k)
+    codes, lengths = codes.contiguous(), lengths.contiguous()
+    B, L = codes.shape
+    dev = codes.device
+    canon = torch.empty(B, P, words_for_k(k), dtype=torch.int32, device=dev)
+    is_rc = torch.empty(B, P, dtype=torch.bool, device=dev)
+    valid = torch.empty(B, P, dtype=torch.bool, device=dev)
+    if B:
+        rc = kernels.lib().lt_kmer_scan_words(
+            codes.data_ptr(), lengths.data_ptr(), B, L, k, P, top_mask(k), canon.data_ptr(),
+            is_rc.data_ptr(), valid.data_ptr(), kernels.stream(codes))
+        kernels.check(rc, "kmer_scan_words")
+        kernels.launches["kmer_scan_words"] += 1
+    return canon, is_rc, valid
+
+
+def kmer_scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """Plain version of kmer_scan_words: the reference's column scan
+    (leon_tpu/ops/kmer.py:104-126) over (B, W) words held in int64, with
+    its u32 arithmetic (the same words for any code byte)."""
+    P = _check_scan_words_args(codes, lengths, k)
+    B, L = codes.shape
+    W = words_for_k(k)
+    c = codes.to(torch.int64)
+    fwd = torch.zeros(B, W, dtype=torch.int64, device=codes.device)
+    rc = torch.zeros_like(fwd)
+    fwds, rcs = [], []
+    for j in range(L):
+        b = c[:, j]
+        fwd = shl2(fwd, b, k)
+        rc = shr2_ins(rc, (3 - b) & _M32, k) & _M32
+        if j >= k - 1:
+            fwds.append(fwd)
+            rcs.append(rc)
+    canon, is_rc = canonical(torch.stack(fwds, dim=1), torch.stack(rcs, dim=1))
+    pos = torch.arange(P, device=codes.device)[None, :]
+    valid = pos <= (lengths.to(torch.int64)[:, None] - k)
+    return i32_bits(canon), is_rc, valid
 
 
 # ---------------------------------------------------------------------------

@@ -675,8 +675,9 @@ def unitig_emit_plain(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch
         bases |= plane
     packed = (bases.reshape(-1, 16) << (2 * torch.arange(16, **i64))).sum(dim=1)
     hdr = torch.tensor([total, int(total > cap), int(cyc), 0], **i64)
-    buf = torch.cat([hdr, len_nodes, packed])
-    return torch.where(buf >= 1 << 31, buf - (1 << 32), buf).to(torch.int32)
+    from leon_tpu_torch.ops.kmer import i32_bits
+
+    return i32_bits(torch.cat([hdr, len_nodes, packed]))
 
 
 def _check_lookup(keys, k: int, q) -> None:

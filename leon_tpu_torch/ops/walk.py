@@ -13,12 +13,21 @@ Device half (new), kernel K4 (csrc/walk.cu), one CUDA thread per read:
 - ``walk_decode``: the decode re-walk from the flat event streams, bases
   packed 16 per u32 (walk.py:700-936).
 
+Kernel K15 (csrc/walk.cu), also one thread per read, for k <= 64:
+
+- ``encode_batch``: the reference's dense, slot-ordered event tensors
+  (walk.py:621-665, the tensor-level interface), from unpacked codes; its
+  plain version ``encode_batch_plain`` runs ``walk_planes_plain`` (the
+  anchor state and the two one-sided scans, walk.py:357-402) and the
+  reference's slotify, gap and confirmed-mask steps.
+
 Each has a plain PyTorch version, a step-by-step translation of the JAX
 scan over (B,) tensors, which the wrappers take for CPU tensors. u32
 values ride in int64 masked to 32 bits.
 
-Host half: copies of walk.py:567-618 (unpack_compact), 680-683
-(unpack_conf16_bits) and 810-816 (unpack_codes_u32_np).
+Host half: copies of walk.py:567-618 (unpack_compact), 668-671
+(unpack_dense), 680-683 (unpack_conf16_bits) and 810-816
+(unpack_codes_u32_np).
 """
 
 from __future__ import annotations
@@ -28,7 +37,8 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import MAX_K, unpack_codes
+from leon_tpu_torch.ops.kmer import (MAX_K, i32_bits, shl2, shr2_ins, top_mask,
+                                      unpack_codes, words_for_k)
 
 _M32 = 0xFFFFFFFF
 
@@ -36,11 +46,6 @@ _M32 = 0xFFFFFFFF
 def _i16(x: torch.Tensor) -> torch.Tensor:
     """int64 holding u16 values -> int16 with the same bits."""
     return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
-
-
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding u32 values -> int32 with the same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def _sel4(vals, idx: torch.Tensor) -> torch.Tensor:
@@ -69,9 +74,16 @@ def _ror1(x):
 
 def _candidates(in_r, fwd, f, r, k: int, tab, bitset, H: int, n_words: int):
     """One walk step's 4 candidate (f, r) chains and their solidity
-    (walk.py:299-313). Returns (cfs, crs, sis int64 0/1)."""
-    T, Tc, Trot, Tcrot = ([int(v) for v in tab[i]] for i in range(4))
+    (walk.py:299-313), the window one int64. Returns (cfs, crs, sis int64
+    0/1)."""
     o = torch.where(in_r, (fwd >> (2 * (k - 1))) & 3, fwd & 3)
+    return _candidates_o(in_r, o, f, r, tab, bitset, H, n_words)
+
+
+def _candidates_o(in_r, o, f, r, tab, bitset, H: int, n_words: int):
+    """_candidates given o, the base leaving the window (the k-mer's first
+    base on a right step, its last on a left step)."""
+    T, Tc, Trot, Tcrot = ([int(v) for v in tab[i]] for i in range(4))
     fb_r = _rol1(f ^ bloom.take4(tab[2], o))
     rb_r = _ror1(r ^ bloom.take4(tab[1], o))
     fb_l = _ror1(f ^ bloom.take4(tab[0], o))
@@ -165,22 +177,14 @@ def walk_encode(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tenso
     return out
 
 
-def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor,
-                      n_words: int, k: int, H: int, seed: int, L: int,
-                      with_conf: bool) -> dict:
-    """Plain version of walk_encode: the reference's anchor scan
-    (walk.py:113-144, 357-381) and fused walk (247-354), step by step."""
-    _check_walk_args(packed, lengths, bitset, n_words, k, H, L)
-    dev = packed.device
-    codes = unpack_codes(packed, L)
-    B = codes.shape[0]
-    ME = max(1, L - k)
+def _anchor_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor, k: int,
+                  H: int, n_words: int, tab):
+    """The reference's anchor scan and choice (walk.py:113-144, 357-381) on
+    (B, L) int64 codes and lengths: (anchored, apos, f and r at the
+    anchor). Scans all L columns; positions past len - k never anchor."""
+    dev = codes.device
+    B, L = codes.shape
     P = L - k + 1
-    tab = bloom.tables(seed, k)
-    lengths = lengths.to(torch.int64)
-    ar = torch.arange(B, device=dev)
-
-    # anchor scan: rolling (f, r) at every k-mer position
     f = torch.zeros(B, dtype=torch.int64, device=dev)
     r = torch.zeros_like(f)
     hf = torch.empty(B, P, dtype=torch.int64, device=dev)
@@ -202,11 +206,28 @@ def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch
     anchored = member.any(dim=1)
     v = torch.where(member, torch.minimum(hf, hr), torch.full_like(hf, _M32))
     apos = torch.argmin(v, dim=1)  # first index on ties
+    ar = torch.arange(B, device=dev)
+    return anchored, apos, hf[ar, apos], hr[ar, apos]
+
+
+def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor,
+                      n_words: int, k: int, H: int, seed: int, L: int,
+                      with_conf: bool) -> dict:
+    """Plain version of walk_encode: the reference's anchor scan
+    (walk.py:113-144, 357-381) and fused walk (247-354), step by step."""
+    _check_walk_args(packed, lengths, bitset, n_words, k, H, L)
+    dev = packed.device
+    codes = unpack_codes(packed, L)
+    B = codes.shape[0]
+    ME = max(1, L - k)
+    tab = bloom.tables(seed, k)
+    lengths = lengths.to(torch.int64)
+    ar = torch.arange(B, device=dev)
+    anchored, apos, a1, a2 = _anchor_plain(codes, lengths, bitset, k, H, n_words, tab)
     win = codes[ar[:, None], torch.clamp(apos[:, None] + torch.arange(k, device=dev), max=L - 1)]
     afwd = torch.zeros(B, dtype=torch.int64, device=dev)
     for i in range(k):
         afwd = (afwd << 2) | win[:, i]
-    a1, a2 = hf[ar, apos], hr[ar, apos]
 
     # fused walk
     fwd, f, r = afwd, a1, a2
@@ -379,6 +400,180 @@ def encode_batch_compact_packed(packed, lengths, bitset, k: int, H: int, n_words
 
 
 # ---------------------------------------------------------------------------
+# Dense encode (k <= 64): kernel K15 and its plain version
+# ---------------------------------------------------------------------------
+
+# encode_batch's outputs in the reference's order; "s" = (B,), "e" = (B, ME),
+# "l" = (B, L)
+DENSE = (("anchored", "s", torch.bool), ("apos", "s", torch.int32),
+         ("nbif_r", "s", torch.int32), ("nerr_r", "s", torch.int32),
+         ("nbif_l", "s", torch.int32), ("nerr_l", "s", torch.int32),
+         ("bif_r", "e", torch.uint8), ("errpos_r", "e", torch.int32),
+         ("errnt_r", "e", torch.uint8), ("gap_r", "e", torch.int32),
+         ("bif_l", "e", torch.uint8), ("errpos_l", "e", torch.int32),
+         ("errnt_l", "e", torch.uint8), ("gap_l", "e", torch.int32),
+         ("confirmed", "l", torch.bool))
+
+
+def _check_dense_args(codes, lengths, bitset, n_words: int, k: int, H: int) -> None:
+    kernels.need(1 <= k <= 64, f"encode_batch: k={k} not in [1, 64]")
+    kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2 and codes.shape[1] >= k,
+                 "encode_batch: codes must be (B, L >= k) uint8")
+    kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),
+                 "encode_batch: lengths must be (B,) int32")
+    kernels.need(bitset.dtype == torch.int32 and bitset.dim() == 1
+                 and 0 < n_words <= min(bitset.shape[0], bloom.MAX_WORDS),
+                 "encode_batch: bitset must be (>= n_words,) int32")
+    kernels.need(codes.device == lengths.device == bitset.device,
+                 "encode_batch: tensors on two devices")
+    kernels.need(1 <= H <= 8, f"encode_batch: H={H} not in [1, 8]")
+
+
+def encode_batch(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor, k: int,
+                 H: int, n_words: int, seed: int) -> dict:
+    """Dense, slot-ordered event tensors of a read batch (counterpart of
+    leon_tpu walk.encode_batch, walk.py:621-665; kernel K15 walk_dense).
+
+    codes (B, L) uint8 base codes 0..3, lengths (B,) int32, bitset int32
+    (>= n_words,). Returns the reference's 15 arrays with its dtypes:
+    anchored (B,) bool; apos, nbif_r, nerr_r, nbif_l, nerr_l (B,) int32;
+    per side (r, l) bif and errnt (B, ME) uint8, errpos (absolute) and gap
+    (side-local) (B, ME) int32, zero past each side's event count;
+    confirmed (B, L) bool. ME = max(1, L - k)."""
+    _check_dense_args(codes, lengths, bitset, n_words, k, H)
+    if not kernels.on_cuda(codes, "encode_batch"):
+        return encode_batch_plain(codes, lengths, bitset, k, H, n_words, seed)
+    codes, lengths, bitset = codes.contiguous(), lengths.contiguous(), bitset.contiguous()
+    B, L = codes.shape
+    ME = max(1, L - k)
+    dims = {"s": (B,), "e": (B, ME), "l": (B, L)}
+    out = {n: torch.empty(dims[d], dtype=t, device=codes.device) for n, d, t in DENSE}
+    if B:
+        ptrs = np.array([out[n].data_ptr() for n, _, _ in DENSE], dtype=np.uint64)
+        tab = kernels.host_tables(bloom.tables(seed, k))
+        rc = kernels.lib().lt_walk_dense(
+            codes.data_ptr(), lengths.data_ptr(), B, L, k, H, int(n_words), top_mask(k),
+            tab.ctypes.data, bitset.data_ptr(), ME, ptrs.ctypes.data, kernels.stream(codes))
+        kernels.check(rc, "walk_dense")
+        kernels.launches["walk_dense"] += 1
+    return out
+
+
+def _walk_side_plain(codes, lengths, apos, anchored, state0, bitset, k: int, H: int,
+                     n_words: int, tab, right: bool, ME: int):
+    """One walk direction, step by step (walk.py:171-244): the window as
+    (B, W) int64 words, shl2 on the right, the unmasked shr2_ins on the
+    left. Returns step planes (B, ME): is_bif, rank, is_err, ent, is_conf."""
+    B, L = codes.shape
+    dev = codes.device
+    s_all = torch.arange(ME, device=dev)[None, :]
+    j_all = apos[:, None] + k + s_all if right else apos[:, None] - 1 - s_all
+    active_all = anchored[:, None] & (j_all >= 0) & (j_all < lengths[:, None])
+    b_all = torch.gather(codes, 1, torch.clamp(j_all, 0, L - 1))
+    in_r = torch.full((B,), right, dtype=torch.bool, device=dev)
+    t_out = 2 * (k - 1) if right else 0
+    fwd, f, r = state0
+    ys = []
+    for s in range(ME):
+        b, active = b_all[:, s], active_all[:, s]
+        o = (fwd[:, t_out // 32] >> (t_out % 32)) & 3
+        cfs, crs, sis = _candidates_o(in_r, o, f, r, tab, bitset, H, n_words)
+        scount = sis[0] + sis[1] + sis[2] + sis[3]
+        cums = [sis[0], sis[0] + sis[1], sis[0] + sis[1] + sis[2], scount]
+        solid_b = _sel4(sis, b) == 1
+        rank = _sel4(cums, b) - 1
+        ns = [1 - x for x in sis]
+        cns = [ns[0], ns[0] + ns[1], ns[0] + ns[1] + ns[2], ns[0] + ns[1] + ns[2] + ns[3]]
+        ent = _sel4(cns, b) - 1
+        is_err = active & ~solid_b
+        b_adv = torch.where(is_err & (scount >= 1), _first([x > 0 for x in sis]), b)
+        f = _sel4(cfs, b_adv)
+        r = _sel4(crs, b_adv)
+        fwd = shl2(fwd, b_adv, k) if right else shr2_ins(fwd, b_adv, k)
+        ys.append((active & solid_b & (scount >= 2), rank, is_err, ent,
+                   active & solid_b & (scount == 1)))
+    return tuple(torch.stack(y, dim=1) for y in zip(*ys))
+
+
+def walk_planes_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor, k: int,
+                      H: int, n_words: int, seed: int) -> dict:
+    """The reference's walk_planes (walk.py:384-402): anchor search, then
+    each direction's step planes (B, ME) from the anchor state. Codes are
+    taken & 3."""
+    _check_dense_args(codes, lengths, bitset, n_words, k, H)
+    dev = codes.device
+    B, L = codes.shape
+    ME = max(1, L - k)
+    c = codes.to(torch.int64) & 3
+    lens = lengths.to(torch.int64)
+    tab = bloom.tables(seed, k)
+    anchored, apos, a1, a2 = _anchor_plain(c, lens, bitset, k, H, n_words, tab)
+    # _pack_window (walk.py:147-161): base i of the anchor at bit 2(k-1-i)
+    win = torch.gather(c, 1, torch.clamp(apos[:, None] + torch.arange(k, device=dev), max=L - 1))
+    afwd = torch.zeros(B, words_for_k(k), dtype=torch.int64, device=dev)
+    for i in range(k):
+        t = 2 * (k - 1 - i)
+        afwd[:, t // 32] |= win[:, i] << (t % 32)
+    state0 = (afwd, a1, a2)
+    out = dict(anchored=anchored, apos=apos)
+    for side, right in (("r", True), ("l", False)):
+        planes = _walk_side_plain(c, lens, apos, anchored, state0, bitset, k, H, n_words, tab,
+                                  right, ME)
+        for name, p in zip(("bif", "rank", "err", "bnt", "conf"), planes):
+            out[f"{name}_{side}"] = p
+    return out
+
+
+def encode_batch_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor, k: int,
+                       H: int, n_words: int, seed: int) -> dict:
+    """Plain version of encode_batch: walk_planes_plain, then the
+    reference's slotify, _gap_plane and _conf_mask (walk.py:633-665)."""
+    e = walk_planes_plain(codes, lengths, bitset, k, H, n_words, seed)
+    dev = codes.device
+    B, L = codes.shape
+    ME = max(1, L - k)
+    s = torch.arange(ME, device=dev)[None, :]
+
+    def slotify(plane, vals, dtype):
+        slot = torch.cumsum(plane.to(torch.int64), dim=1) - 1
+        idx = torch.where(plane, slot, ME)
+        out = torch.zeros(B, ME + 1, dtype=torch.int64, device=dev)
+        out.scatter_(1, idx, torch.where(plane, vals.to(torch.int64), 0))
+        return out[:, :ME].to(dtype)
+
+    def gap_plane(is_err):
+        prev = torch.cummax(torch.where(is_err, s, -1), dim=1).values
+        prev = torch.cat([torch.full((B, 1), -1, dtype=torch.int64, device=dev),
+                          prev[:, :-1]], dim=1)
+        return s - prev - 1
+
+    apos = e["apos"]
+    j = {"r": apos[:, None] + k + s, "l": apos[:, None] - 1 - s}
+    conf = torch.zeros(B, L + 1, dtype=torch.bool, device=dev)
+    out = dict(anchored=e["anchored"], apos=apos.to(torch.int32))
+    for side in ("r", "l"):
+        out[f"nbif_{side}"] = e[f"bif_{side}"].sum(dim=1).to(torch.int32)
+        out[f"nerr_{side}"] = e[f"err_{side}"].sum(dim=1).to(torch.int32)
+    for side in ("r", "l"):
+        err = e[f"err_{side}"]
+        out[f"bif_{side}"] = slotify(e[f"bif_{side}"], e[f"rank_{side}"], torch.uint8)
+        out[f"errpos_{side}"] = slotify(err, j[side], torch.int32)
+        out[f"errnt_{side}"] = slotify(err, e[f"bnt_{side}"], torch.uint8)
+        out[f"gap_{side}"] = slotify(err, gap_plane(err), torch.int32)
+        hi = L if side == "r" else L - 1
+        col = torch.where(e[f"conf_{side}"], torch.clamp(j[side], 0, hi), L)
+        conf.scatter_(1, col, torch.ones_like(col, dtype=torch.bool))
+    out["confirmed"] = conf[:, :L]
+    return {n: out[n] for n, _, _ in DENSE}
+
+
+def unpack_dense(enc_np: dict, n: int) -> dict:
+    """Adapt a host-transferred encode_batch dict to BlockEncoder's dense
+    form: the first n (true) reads (a copy of leon_tpu walk.py:668-671)."""
+    return {kk: v[:n] for kk, v in enc_np.items()}
+
+
+# ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
@@ -523,7 +718,7 @@ def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
     pad = torch.zeros(B, 16 * L16, dtype=torch.int64, device=dev)
     pad[:, :L] = codes
     sh = 2 * torch.arange(16, device=dev)
-    return _i32((pad.reshape(B, L16, 16) << sh).sum(dim=2))
+    return i32_bits((pad.reshape(B, L16, 16) << sh).sum(dim=2))
 
 
 # ---------------------------------------------------------------------------

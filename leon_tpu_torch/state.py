@@ -7,7 +7,9 @@ keeps them) and the port's tensors.
   tensor holding the same bits (words_to_torch).
 - Distinct-run words: (M, W) u32 LSW-first (W <= 2) <-> (M,) int64 keys
   ``w1 << 32 | w0``.
-- Packed read codes (kmer.pack_codes_np): (B, L16) u32 <-> int32 tensor.
+- Packed read codes (kmer.pack_codes_np): (B, L16) u32 <-> int32 tensor;
+  unpacked codes (B, L) u8 -> uint8 tensor (codes_to_torch).
+- A dense encode_batch dict of tensors -> numpy arrays (dense_from_torch).
 - The reference's padded device run -> the port's key run
   (run_from_reference).
 """
@@ -45,11 +47,26 @@ def words_to_torch(words, device) -> torch.Tensor:
         if words.dtype == torch.uint32:
             words = words.view(torch.int32)
         elif words.dtype != torch.int32:
-            w = words.to(torch.int64) & 0xFFFFFFFF
-            words = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+            from leon_tpu_torch.ops.kmer import i32_bits
+
+            words = i32_bits(words.to(torch.int64) & 0xFFFFFFFF)
         return words.to(device)
     a = np.ascontiguousarray(np.asarray(words).astype(np.uint32, copy=False)).view(np.int32)
     return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+def codes_to_torch(codes, device) -> torch.Tensor:
+    """(B, L) base codes (numpy or a tensor) -> (B, L) uint8 tensor on
+    device, the input of kmer_scan_words and encode_batch."""
+    if isinstance(codes, torch.Tensor):
+        return codes.to(device=device, dtype=torch.uint8)
+    return torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8)).to(device)
+
+
+def dense_from_torch(enc: dict) -> dict:
+    """A dense encode_batch dict of tensors -> numpy arrays with the
+    reference's dtypes (bool, int32, uint8), key by key."""
+    return {n: v.cpu().numpy() for n, v in enc.items()}
 
 
 def packed_to_torch(packed: np.ndarray, device) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The port runs with no jax at all (the machine with the card has none)
 and without the reference package: in a subprocess whose ``import jax``
-fails, leon_tpu_torch imports, compresses and decompresses on the CPU, and
-the round trip is exact; with ``leon_tpu`` and ``bench`` blocked too, the
-CLI and the graph API run as well. A static check walks the port's
-sources and chip_smoke.py for imports of jax, leon_tpu or bench."""
+fails, leon_tpu_torch imports, compresses and decompresses on the CPU (the
+round trip is exact) and runs entry() and the multiword count; with
+``leon_tpu`` and ``bench`` blocked too, the CLI and the graph API run as
+well. A static check walks the port's sources and chip_smoke.py for
+imports of jax, leon_tpu or bench."""
 
 import ast
 import glob
@@ -28,6 +29,13 @@ SCRIPT = textwrap.dedent("""
     pipeline.decompress(src + ".leon", src + ".out", cfg=cfg, device="cpu")
     assert open(src, "rb").read() == open(src + ".out", "rb").read()
     assert st["n_anchored"] > 0
+    from leon_tpu_torch import entry
+    from leon_tpu_torch.ops import count, kmer
+    fn, args = entry.entry("cpu")
+    assert bool(fn(*args)["anchored"].all())
+    canon, _, valid = kmer.kmer_scan_words(args[0][:64], args[1][:64], 33)
+    uniq, counts = count.count_batch(canon, valid)
+    assert int(counts.sum()) == int(valid.sum()) and uniq.shape[1] == 3
     assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 if sys.modules[m] is not None]
     print("NOJAX_OK", st["n_reads"])
