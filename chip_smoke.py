@@ -5,8 +5,8 @@ the port still starts, builds its kernels and round-trips on the GPU.
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the run exits non-zero without the
-final line; phases 7 and 8 run right after phase 3, whose reads and solid
-set they reuse):
+final line; phases 7, 8 and 9 run right after phase 3, whose reads and
+solid set they reuse):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from leon_tpu_torch/csrc with nvcc, and check
      the native host library;
@@ -20,15 +20,17 @@ set they reuse):
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
      cycle variant taken, the payload equal to the native host builder's;
-  5. compress and decompress four small corpora (lossy and lossless FASTQ,
-     long-read FASTA, k = 15, 16 and 31, both Bloom-set sections) on the
-     card and on the CPU: the archives and outputs must be identical;
+  5. compress and decompress seven small corpora (lossy and lossless FASTQ,
+     long-read FASTA, k = 15, 16, 31, 32, 48 and 64, both Bloom-set
+     sections) on the card and on the CPU: the archives and outputs must
+     be identical;
   6. generate the bench corpus (gen_fastq, a copy of bench.py's: 500k
      reads of 100 bp from a 2 Mbp contig), compress and decompress it on
      the card with -noheader -noqual, then again with the device unitig
-     build (unitig_device_max_kmers = 2**30); each run must give the exact
-     sequence round trip and the pinned archive (the reference's bytes),
-     and launch each kernel of its path (K1-K4; K5-K8) at least once;
+     build (unitig_device_max_kmers = 2**30), then at k = 63; each run
+     must give the exact sequence round trip and its pinned archive (the
+     reference's bytes, PIN and PIN63), and launch each kernel of its path
+     (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack, K19) at least once;
   7. the graph API at full width on phase 3's solid set (2,014,298 k-mers,
      k = 31): Graph.from_solid, contains / successors / predecessors /
      is_branching / iter_branching over every node, contains of 2**21
@@ -45,7 +47,13 @@ set they reuse):
      the graph API (K10/K11 at W = 4); the 4-shard mesh on the one card
      equals one shard; entry() on the card equals its CPU run; each of
      K13-K16 launched at least once, then held against its plain version
-     on the card, exactly, and timed (K14 also against torch.unique).
+     on the card, exactly, and timed (K14 also against torch.unique);
+  9. the multiword route of compress and decompress at the k = 63
+     main-path shapes (phase 3's reads as 65,536-lane packed chunks): K17
+     scan, K14 slab runs, merge (counts, histogram) and solid mode, K16
+     over the run, K18 encode and K19 decode of one chunk, each held
+     against its plain version on the card, exactly, and timed; the
+     distinct run and cutoff must equal phase 8's.
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s), then, last, the device line. Kernels under ~50 us
@@ -74,6 +82,14 @@ PIN = {
     "sha256": "aa1dfc2904bd6a5a1aa69e7dfc6681b1f6d3243c9bb5df623f0377c5ff4e4ae6",
     "n_anchored": 499_145,
 }
+# The same corpus at k = 63 (W = 4, the multiword route): leon_tpu.pipeline.
+# compress (CPU backend) with LeonConfig(noheader=True, noqual=True,
+# kmer_size=63).
+PIN63 = {
+    "bytes": 6_343_954,
+    "sha256": "a183c79f487a77c25aa4d8a995daa4f917315595d4d20218984f2fa03884d18f",
+    "n_anchored": 402_662, "n_solid": 1_978_436,
+}
 
 # kernel -> (CUDA source, the TPU program it replaces)
 KERNELS = {
@@ -95,15 +111,32 @@ KERNELS = {
     "runs_words": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:88"),
     "bloom_build_words": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/parallel/mesh.py:33"),
     "walk_dense": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:621"),
+    "kmer_scan_halves": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:141"),
+    "word_runs": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
+    "bloom_build_words:main": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/ops/bloom.py:422"),
+    "walk_encode_words": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:556"),
+    "walk_decode_words": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:820"),
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
 TENSOR = ("kmer_scan_words", "runs_words", "bloom_build_words", "walk_dense")
-COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR)
+# the main path's multiword route (32 <= k <= 64): K17, K14 (word_runs),
+# K16, K18 (+ walk_pack), K19. A record's name up to ":" is its launch
+# counter: K16 has one record on the tensor path (phase 8, as mesh.py
+# calls it) and one on the main path (phase 9, over the solid rows).
+WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
+        "walk_decode_words")
+COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR + WIDE)
+K63 = 63
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
 K, H, SEED, B, READ_LEN = 31, 4, 0x1234ABCD, 65536, 100
+
+
+def counter(name: str) -> str:
+    """The launch counter of a kernel record's name."""
+    return name.split(":")[0]
 
 
 def log(msg: str) -> None:
@@ -892,17 +925,185 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the main path's multiword route (K17, K14's modes, K16, K18, K19)
+# ---------------------------------------------------------------------------
+
+
+def widek_phase(records: dict, bench_state: dict, tensor_fig: dict) -> dict:
+    """The kernels compress and decompress run at 32 <= k <= 64, at the
+    k = 63 main-path shapes: phase 3's 458,752 reads (L = 104, 2-bit
+    packed) as 7 chunks of 65,536 lanes. K17 scans each chunk's valid
+    k-mers as sign-flipped halves; each chunk's slab run (sort + K14 in
+    length mode) and their merge (K14 with the counts payload and the
+    histogram) must give phase 8's distinct run (count and auto cutoff);
+    K14's solid mode, K16 over the run's solid rows at the pipeline's
+    sizing, K18 on one chunk (with and without the confirmed bits) and
+    K19 on what K18 encoded (restoring the reads). Each kernel is held
+    against its plain version on the card, exactly, and timed; the launch
+    counts of these kernels come from phase 6's k = 63 run."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom, count, kmer, walk
+
+    dev = torch.device("cuda")
+    codes, lengths = bench_state["codes"], bench_state["lengths"]
+    L = codes.shape[1]
+    W = kmer.words_for_k(K63)
+    packed_d = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+    lengths_d = torch.from_numpy(lengths).to(dev)
+    chunks = [(packed_d[s : s + B], lengths_d[s : s + B]) for s in range(0, codes.shape[0], B)]
+
+    # K17
+    halves = [kmer.kmer_scan_halves(p, ln, K63, L) for p, ln in chunks]
+    err = 0
+    for (p, ln), got in zip(chunks[:2], halves):
+        want = kmer.kmer_scan_halves_plain(p, ln, K63, L)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)))
+    p0, l0 = chunks[0]
+    records["kmer_scan_halves"] = record(
+        err, cuda_ms(lambda: kmer.kmer_scan_halves(p0, l0, K63, L), 10),
+        cuda_ms(lambda: kmer.kmer_scan_halves_plain(p0, l0, K63, L), 2), nbytes(p0, l0, halves[0]))
+    n_rows = sum(h[1].numel() for h in halves)
+    log(f"kmer_scan_halves ok: {n_rows} valid k-mers (k={K63}) in {len(chunks)} chunks")
+
+    # K14: slab runs (length mode), their merge (counts + histogram), solid mode
+    slab_runs = []
+    for i, h in enumerate(halves):
+        shi, slo = count.sort_halves(*h)
+        got = count.word_runs(shi, slo, W)
+        if i == 0:
+            want = count.word_runs_plain(shi, slo, W)
+            err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        slab_runs.append(got[:2])
+    del halves
+    words = torch.cat([r[0] for r in slab_runs])
+    counts = torch.cat([r[1] for r in slab_runs])
+    del slab_runs
+    mhi, mlo, perm = count.sort_halves(*state.words_to_halves(words), with_perm=True)
+    mc = counts[perm]
+    del words, counts, perm
+    gw, gc, gh = count.word_runs(mhi, mlo, W, mc, 1, True)
+    err = max(err, *(max_abs_err(a, b) for a, b in
+                     zip((gw, gc, gh), count.word_runs_plain(mhi, mlo, W, mc, 1, True))))
+    hist = gh.cpu().numpy().astype(np.int64)
+    cutoff = count.auto_cutoff(hist)
+    if (gw.shape[0], cutoff) != (tensor_fig["distinct63"], tensor_fig["cutoff63"]):
+        raise AssertionError(f"k={K63}: {gw.shape[0]} distinct, cutoff {cutoff} != phase 8's "
+                             f"{tensor_fig['distinct63']}, {tensor_fig['cutoff63']}")
+    sw, sc = count.compact_solid_words(gw, gc, cutoff)
+    ghi, glo = state.words_to_halves(gw)
+    pw, pc, _ = count.word_runs_plain(ghi, glo, W, gc, cutoff)
+    err = max(err, max_abs_err(sw, pw), max_abs_err(sc, pc))
+    if sw.shape[0] != tensor_fig["solid63"]:
+        raise AssertionError(f"k={K63}: {sw.shape[0]} solid != phase 8's {tensor_fig['solid63']}")
+    records["word_runs"] = record(
+        err, cuda_ms(lambda: count.word_runs(mhi, mlo, W, mc, 1, True), 5),
+        cuda_ms(lambda: count.word_runs_plain(mhi, mlo, W, mc, 1, True), 2),
+        nbytes(mhi, mlo, mc, gw, gc, gh))
+    log(f"word_runs ok: {mlo.numel()} run rows -> {gw.shape[0]} distinct, cutoff {cutoff}, "
+        f"{sw.shape[0]} solid (k={K63})")
+    del mhi, mlo, mc, ghi, glo, pw, pc
+
+    # K16 as the WordCounter calls it: over the solid rows K14 compacted (the
+    # same bits as the whole run with its solid rows marked)
+    n_solid = int(hist[min(cutoff, 255):].sum())
+    bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
+    nw = bloom.choose_n_words(n_solid, bpk)
+    ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
+    bits = bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, K63)
+    err = max(max_abs_err(bits, bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, K63)),
+              max_abs_err(bits, bloom.bloom_build_words(gw, gc >= cutoff, nw, nw, H, SEED, K63)))
+    records["bloom_build_words:main"] = record(
+        err, cuda_ms(lambda: bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, K63), 10),
+        cuda_ms(lambda: bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, K63), 1),
+        nbytes(sw, ones, bits))
+    log(f"bloom_build_words ok: {n_solid} solid rows of {gw.shape[0]}, {nw} words (k={K63})")
+    del gw, gc, gh, ones, sw, sc
+
+    # K18 on one chunk, with and without the confirmed bits
+    def enc_d(conf: bool):
+        return walk.walk_encode_words(p0, l0, bits, nw, K63, H, SEED, L, conf)
+
+    ME = L - K63
+    err = 0
+    for conf in (True, False):
+        e_d = enc_d(conf)
+        e_p = walk.walk_encode_plain(p0, l0, bits, nw, K63, H, SEED, L, conf)
+        err = max(err, *(max_abs_err(e_d[n], e_p[n]) for n in ("meta", "tot", "conf")))
+        tot = e_p["tot"].to(torch.int64)
+        for n, row in (("ev_gap", 0), ("ev_nt", 0), ("ev_bif", 1)):
+            valid = torch.arange(ME, device=dev)[None, :] < tot[row][:, None]
+            err = max(err, max_abs_err(e_d[n].to(torch.int64)[valid],
+                                       e_p[n].to(torch.int64)[valid]))
+    # bytes: the inputs, meta and tot, and the tot-many event slots the
+    # kernel writes of each read's (ME,) rows (e_d is the run without conf)
+    n_ev = e_d["tot"].to(torch.int64).sum(dim=1).tolist()
+    ev_bytes = (n_ev[0] * (e_d["ev_gap"].element_size() + e_d["ev_nt"].element_size())
+                + n_ev[1] * e_d["ev_bif"].element_size())
+    records["walk_encode_words"] = record(
+        err, cuda_ms(lambda: enc_d(False), 10),
+        cuda_ms(lambda: walk.walk_encode_plain(p0, l0, bits, nw, K63, H, SEED, L, False), 1),
+        nbytes(p0, l0, bits, e_d["meta"], e_d["tot"]) + ev_bytes)
+    anchored = int(e_d["meta"][:, 0].sum())
+    log(f"walk_encode_words ok: {anchored}/{B} anchored, {int(e_d['tot'][0].sum())} err, "
+        f"{int(e_d['tot'][1].sum())} bif events (k={K63})")
+
+    # K19 on what K18 encoded
+    incl = torch.cumsum(e_d["tot"], dim=1)
+    cap_err = -(-int(incl[0, -1]) // 8) * 8
+    cap_bif = -(-int(incl[1, -1]) // 8) * 8
+    buf = walk.walk_pack(e_d, incl, L, K63, cap_err, cap_bif, False).cpu().numpy()
+    enc = walk.unpack_compact(buf.view(np.uint16), B, B, L, cap_err, cap_bif, False, K63)
+    canon, orient = kmer.kmer_words_batch_np(codes[:B], enc["apos"].astype(np.int64), K63)
+    afwd = np.where(orient[:, None], kmer.revcomp_words_batch_np(canon, K63), canon)
+    anch = enc["anchored"]
+    et = enc["nerr_r"] + enc["nerr_l"]
+    bt = enc["nbif_r"] + enc["nbif_l"]
+    scal = np.zeros((B, 9 + W), np.int32)
+    scal[:, 0] = enc["apos"]
+    scal[:, 1] = anch
+    scal[:, 2] = np.where(anch, lengths[:B], 0)
+    scal[:, 3], scal[:, 4] = enc["nerr_r"], enc["nerr_l"]
+    scal[:, 5], scal[:, 6] = enc["nbif_r"], enc["nbif_l"]
+    scal[:, 7] = np.cumsum(et) - et
+    scal[:, 8] = np.cumsum(bt) - bt
+    scal[:, 9:] = afwd.view(np.int32)
+    dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        scal, enc["errgap_flat"].astype(np.int32), enc["errnt_flat"].astype(np.uint8),
+        enc["bif_flat"].astype(np.uint8)))
+    d_d = walk.walk_decode_words(*dec_in, bits, nw, K63, H, SEED, L)
+    err = max_abs_err(d_d, walk.walk_decode_plain(*dec_in, bits, nw, K63, H, SEED, L))
+    back = walk.unpack_codes_u32_np(d_d.cpu().numpy().view(np.uint32), L)
+    rows = np.flatnonzero(anch)
+    same = (back[rows] == codes[:B][rows]) | (np.arange(L)[None, :] >= lengths[:B][rows, None])
+    if not same.all():
+        raise AssertionError(f"k={K63}: decode did not restore the encoded reads")
+    records["walk_decode_words"] = record(
+        err, cuda_ms(lambda: walk.walk_decode_words(*dec_in, bits, nw, K63, H, SEED, L), 10),
+        cuda_ms(lambda: walk.walk_decode_plain(*dec_in, bits, nw, K63, H, SEED, L), 1),
+        nbytes(dec_in, bits, d_d))
+    log(f"walk_decode_words ok: {rows.size} reads restored (k={K63})")
+    return dict(valid_rows=n_rows, n_solid=n_solid, n_words=nw, anchored=anchored)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: other widths and modes, the card against the CPU
 # ---------------------------------------------------------------------------
 
 # (label, corpus kind, LeonConfig fields): lossy qualities (the confirmed-
 # position bits), one-word keys (k <= 16), reads past 255 walk steps (the
-# 6-u16 per-read layout), the BLOOM section
+# 6-u16 per-read layout), the BLOOM section; then the multiword route at
+# k = 32, 48 and 64
 VARIANTS = [
     ("fastq lossy k=31", "fastq", {}),
     ("fastq lossless k=15", "fastq", dict(lossless=True, kmer_size=15)),
     ("fasta wrapped, reads to 300 bp, k=31", "fasta", {}),
     ("fasta k=16, BLOOM section", "fasta", dict(kmer_size=16, unitig_sections=False)),
+    ("fastq lossy k=32", "fastq", dict(kmer_size=32)),
+    ("fastq lossless k=48", "fastq", dict(lossless=True, kmer_size=48)),
+    ("fasta k=64, BLOOM section", "fasta", dict(kmer_size=64, unitig_sections=False)),
 ]
 
 
@@ -1020,13 +1221,16 @@ def main_path(records: dict, card: str) -> None:
     n = PIN["n_reads"]
     walls = {}
     # the default (native host unitig builder on a thread) drives K1-K4; the
-    # device-build configuration drives K1-K8. The kernels line takes K1-K4's
-    # counts from the default run and K5-K8's from the device-build run.
+    # device-build configuration drives K1-K8; k = 63 drives the multiword
+    # route (K17, K14, K16, K18 + walk_pack, K19). The kernels line takes
+    # K1-K4's counts from the default run, K5-K8's from the device-build run
+    # and the multiword kernels' from the k = 63 run.
     default_path = [k for k in COMPRESS if k not in DEVICE_BUILD]
-    for label, extra, path, read in (
-            ("default", {}, default_path, default_path),
+    for label, extra, path, read, pin in (
+            ("default", {}, default_path, default_path, PIN),
             ("device unitig build", {"unitig_device_max_kmers": 1 << 30}, list(COMPRESS),
-             list(DEVICE_BUILD))):
+             list(DEVICE_BUILD), PIN),
+            (f"k={K63}", {"kmer_size": K63}, list(WIDE) + ["walk_pack"], list(WIDE), PIN63)):
         cfg = LeonConfig(noheader=True, noqual=True, **extra)
         kernels.launches.clear()
         torch.cuda.synchronize()
@@ -1045,22 +1249,24 @@ def main_path(records: dict, card: str) -> None:
         with open(arc, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()
         size = os.path.getsize(arc)
-        if ((size, digest) != (PIN["bytes"], PIN["sha256"])
-                or st["n_anchored"] != PIN["n_anchored"]):
+        if ((size, digest) != (pin["bytes"], pin["sha256"])
+                or st["n_anchored"] != pin["n_anchored"]
+                or st["n_solid_kmers"] != pin.get("n_solid", st["n_solid_kmers"])):
             raise AssertionError(f"{label}: archive {size} B sha256 {digest} n_anchored "
-                                 f"{st['n_anchored']} != the reference's {PIN}")
-        missing = [k for k in path if launches.get(k, 0) < 1]
+                                 f"{st['n_anchored']} n_solid {st['n_solid_kmers']} != the "
+                                 f"reference's {pin}")
+        missing = [k for k in path if launches.get(counter(k), 0) < 1]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
         for k in read:
-            records[k]["launches"] = launches[k]
-        walls[label] = t_c
+            records[k]["launches"] = launches[counter(k)]
+        walls[label] = (t_c, t_d)
         log(f"main path ({label}) ok: archive {size} B = the reference's (sha256 "
             f"{digest[:16]}), ratio {st['ratio']:.3f}, round trip exact, launches {launches}")
         log(f"compress {n / t_c:.1f} reads/s ({t_c:.2f} s), decompress {n / t_d:.1f} reads/s "
             f"({t_d:.2f} s) on {card} (host clock, end to end)")
         log(f"compress spans: {json.dumps(st.get('span_s', {}))}")
-    log(f"compress wall, one call: {json.dumps(walls)}")
+    log(f"compress, decompress walls (s), one call: {json.dumps(walls)}")
 
 
 def main() -> int:
@@ -1082,6 +1288,7 @@ def main() -> int:
     bench_state = kernel_checks(records)
     graph_fig = graph_phase(records, bench_state)
     tensor_fig = tensor_phase(records, bench_state)
+    wide_fig = widek_phase(records, bench_state, tensor_fig)
     del bench_state
     fig = yeast_phase()
     log(f"[yeast] {json.dumps(fig)}")
@@ -1089,6 +1296,7 @@ def main() -> int:
     main_path(records, card)
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
+    log(f"[k={K63} kernels] {json.dumps(wide_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]

@@ -150,25 +150,35 @@ extern "C" int lt_runs_write(const void* keys, const void* counts, long long n, 
 }
 
 // ---------------------------------------------------------------------------
-// K14 runs_words — reduce-by-key over sorted multiword k-mer rows.
+// K14 runs_words — reduce-by-key over sorted multiword k-mer rows, with K2's
+// modes: a run's value is its length, or the u32-wrapping sum of an int32
+// counts payload clamped to 2^31-1; runs with value >= cutoff (>= 1) are
+// written in order; the 256-bin histogram of min(value, 255) over them.
 //
 // Replaces the post-sort half of leon_tpu/ops/count.py count_batch (88-104)
 // -> _sort_count_device (45-85): boundaries over the W sorted u32 key
 // columns, run lengths by a reverse min-scan, the host compaction of the
-// boundary rows. The sort stays torch.sort passes over int64 half-keys.
+// boundary rows; and, at W = 2..4 on the main path, _compact_run (208-223),
+// _merge_sorted_runs' segment sums (226-254), _hist_of_sorted (257-264) and
+// compact_solid (707-719). The sort stays torch.sort passes over int64
+// half-keys.
 //
 // Input: the sorted keys as one (W <= 2) or two int64 halves, lo =
 // w1 << 32 | w0 and hi = w3 << 32 | w2, each with its sign bit flipped so
 // that signed order is the reference's MSW-first u32 order; the rows are
 // already the valid ones (no sentinel: at k = 32, 48, 64 a canonical
 // palindrome can have an all-ones top word and must count). Output: each
-// distinct row's W words (unflipped) and its run length, in order.
+// emitted run's W words (unflipped) and its value, as int64 (count_batch's
+// run lengths, lt_runs_words_*) or int32 (the counter's runs,
+// lt_word_runs_*). The two entry pairs are two instances of one template:
+// the length-only one carries no counts, cutoff or histogram code.
 //
-// Bound on the H100: device-memory traffic, 8 or 16 bytes read per row and
-// 4W + 8 written per distinct row, twice (count pass and write pass).
-// Design: K2's pattern with a two-half key: one thread per row, the thread
-// at a run's head walks the run; per-block totals (__syncthreads_count),
-// one scan_kernel for offsets, warp-ballot ranks in the write pass.
+// Bound on the H100: device-memory traffic, 8 or 16 bytes (+4 with counts)
+// read per row and 4W + 4 or 8 written per emitted run, twice (count pass
+// and write pass). Design: K2's pattern with a two-half key: one thread per
+// row, the thread at a run's head walks the run; per-block totals
+// (__syncthreads_count), the histogram in shared memory, one scan_kernel
+// for offsets, warp-ballot ranks in the write pass.
 // ---------------------------------------------------------------------------
 
 static __device__ __forceinline__ bool same_row(const int64_t* __restrict__ hi,
@@ -177,36 +187,66 @@ static __device__ __forceinline__ bool same_row(const int64_t* __restrict__ hi,
   return lo[a] == lo[b] && (!hi || hi[a] == hi[b]);
 }
 
-// Is row i the head of a run? Sets the run's length.
+// Is row i the head of a run (MODES: of an emitted run)? Sets its value.
+// Without MODES (count_batch's runs_words) the value is the run's length
+// and every head is emitted: the counts, cutoff and histogram branches
+// compile out, so that path runs only the length walk.
+template <bool MODES>
 static __device__ __forceinline__ bool word_run_at(const int64_t* __restrict__ hi,
-                                                   const int64_t* __restrict__ lo, long long n,
-                                                   long long i, long long* len) {
+                                                   const int64_t* __restrict__ lo,
+                                                   const int32_t* __restrict__ counts,
+                                                   long long n, long long i, int32_t cutoff,
+                                                   long long* value) {
   if (i > 0 && same_row(hi, lo, i - 1, i)) return false;
-  long long j = i + 1;
-  while (j < n && same_row(hi, lo, i, j)) ++j;
-  *len = j - i;
-  return true;
+  long long j = i;
+  uint32_t s = 0;
+  do {
+    if (MODES && counts) s += (uint32_t)counts[j];
+    ++j;
+  } while (j < n && same_row(hi, lo, i, j));
+  if (!MODES) {
+    *value = j - i;
+    return true;
+  }
+  *value = counts ? (long long)min(s, 0x7FFFFFFFu) : j - i;
+  return *value >= cutoff;
 }
 
+template <bool MODES>
 __global__ void runs_words_count_kernel(const int64_t* __restrict__ hi,
-                                        const int64_t* __restrict__ lo, long long n,
+                                        const int64_t* __restrict__ lo,
+                                        const int32_t* __restrict__ counts, long long n,
+                                        int32_t cutoff, int32_t* __restrict__ hist,
                                         long long* __restrict__ block_cnt) {
+  __shared__ int sh[MODES ? 256 : 1];
+  if (MODES && hist) {  // uniform across the block: the barrier is safe
+    for (int t = threadIdx.x; t < 256; t += blockDim.x) sh[t] = 0;
+    __syncthreads();
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long len = 0;
-  const bool e = i < n && word_run_at(hi, lo, n, i, &len);
+  long long v = 0;
+  const bool e = i < n && word_run_at<MODES>(hi, lo, counts, n, i, cutoff, &v);
+  if (MODES && e && hist) atomicAdd(&sh[(int)min(v, 255ll)], 1);
   const int cnt = __syncthreads_count(e);
   if (threadIdx.x == 0) block_cnt[blockIdx.x] = cnt;
+  if (MODES && hist)
+    for (int t = threadIdx.x; t < 256; t += blockDim.x)
+      if (sh[t]) atomicAdd(&hist[t], sh[t]);
 }
 
+// out_c64 (run lengths) without MODES, out_c32 (clamped values) with.
+template <bool MODES>
 __global__ void runs_words_write_kernel(const int64_t* __restrict__ hi,
-                                        const int64_t* __restrict__ lo, long long n, int W,
-                                        const long long* __restrict__ block_off,
+                                        const int64_t* __restrict__ lo,
+                                        const int32_t* __restrict__ counts, long long n, int W,
+                                        int32_t cutoff, const long long* __restrict__ block_off,
                                         uint32_t* __restrict__ out_w,
-                                        long long* __restrict__ out_c) {
+                                        long long* __restrict__ out_c64,
+                                        int32_t* __restrict__ out_c32) {
   __shared__ int warp_tot[RUNS_THREADS / 32];
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long len = 0;
-  const bool e = i < n && word_run_at(hi, lo, n, i, &len);
+  long long v = 0;
+  const bool e = i < n && word_run_at<MODES>(hi, lo, counts, n, i, cutoff, &v);
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned m = __ballot_sync(0xffffffffu, e);
   if (lane == 0) warp_tot[warp] = __popc(m);
@@ -221,18 +261,20 @@ __global__ void runs_words_write_kernel(const int64_t* __restrict__ hi,
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (j < W) out_w[dst * W + j] = words[j];
-  out_c[dst] = len;
+  if (MODES) out_c32[dst] = (int32_t)min(v, 0x7FFFFFFFll);
+  else out_c64[dst] = v;
 }
 
-// Pass 1 + scan. hi: null when W <= 2; block_off: n_blocks(n) int64
-// scratch; total: 1 int64.
-extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, void* block_off,
-                                   void* total, void* stream) {
+template <bool MODES>
+static int words_count(const void* hi, const void* lo, const void* counts, long long n,
+                       int cutoff, void* hist, void* block_off, void* total, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long nb = n_blocks(n);
+  if (hist) LT_TRY(cudaMemsetAsync(hist, 0, 256 * sizeof(int32_t), st));
   if (n > 0) {
-    runs_words_count_kernel<<<(unsigned)nb, RUNS_THREADS, 0, st>>>(
-        (const int64_t*)hi, (const int64_t*)lo, n, (long long*)block_off);
+    runs_words_count_kernel<MODES><<<(unsigned)nb, RUNS_THREADS, 0, st>>>(
+        (const int64_t*)hi, (const int64_t*)lo, (const int32_t*)counts, n, cutoff,
+        (int32_t*)hist, (long long*)block_off);
   } else {
     LT_TRY(cudaMemsetAsync(block_off, 0, sizeof(long long), st));
   }
@@ -241,15 +283,48 @@ extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, 
   return (int)cudaGetLastError();
 }
 
-// Pass 2: each run's W words and length at its offset.
+template <bool MODES>
+static int words_write(const void* hi, const void* lo, const void* counts, long long n, int W,
+                       int cutoff, const void* block_off, void* out_words, void* out_counts,
+                       void* stream) {
+  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;  // an empty tensor's data_ptr() may be null
+  if ((W > 2 && !hi) || !out_counts) return (int)cudaErrorInvalidValue;
+  runs_words_write_kernel<MODES><<<(unsigned)n_blocks(n), RUNS_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int64_t*)hi, (const int64_t*)lo, (const int32_t*)counts, n, W, cutoff,
+      (const long long*)block_off, (uint32_t*)out_words, (long long*)out_counts,
+      (int32_t*)out_counts);
+  return (int)cudaGetLastError();
+}
+
+// count_batch's K14 (run lengths, every run). Pass 1 + scan: hi null when
+// W <= 2; block_off: n_blocks(n) int64 scratch; total: 1 int64.
+extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, void* block_off,
+                                   void* total, void* stream) {
+  return words_count<false>(hi, lo, nullptr, n, 1, nullptr, block_off, total, stream);
+}
+
+// Pass 2: each run's W words and int64 length at its offset.
 extern "C" int lt_runs_words_write(const void* hi, const void* lo, long long n, int W,
                                    const void* block_off, void* out_words, void* out_counts,
                                    void* stream) {
-  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;  // an empty tensor's data_ptr() may be null
-  if (W > 2 && !hi) return (int)cudaErrorInvalidValue;
-  runs_words_write_kernel<<<(unsigned)n_blocks(n), RUNS_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)hi, (const int64_t*)lo, n, W, (const long long*)block_off,
-      (uint32_t*)out_words, (long long*)out_counts);
-  return (int)cudaGetLastError();
+  return words_write<false>(hi, lo, nullptr, n, W, 1, block_off, out_words, out_counts, stream);
+}
+
+// K14 in K2's modes (the WordCounter's). Pass 1 + scan: counts null (run
+// lengths) or int32; hist: 256 int32 or null.
+extern "C" int lt_word_runs_count(const void* hi, const void* lo, const void* counts, long long n,
+                                  int cutoff, void* hist, void* block_off, void* total,
+                                  void* stream) {
+  return words_count<true>(hi, lo, counts, n, cutoff < 1 ? 1 : cutoff, hist, block_off, total,
+                           stream);
+}
+
+// Pass 2: each emitted run's W words and int32 value (clamped) at its offset.
+extern "C" int lt_word_runs_write(const void* hi, const void* lo, const void* counts, long long n,
+                                  int W, int cutoff, const void* block_off, void* out_words,
+                                  void* out_counts, void* stream) {
+  return words_write<true>(hi, lo, counts, n, W, cutoff < 1 ? 1 : cutoff, block_off, out_words,
+                           out_counts, stream);
 }

@@ -124,6 +124,117 @@ __global__ void __launch_bounds__(SCAN_ROWS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K17 kmer_scan_halves — the canonical k-mers of a packed read batch's VALID
+// positions only, compacted read-major, as the counter's sign-flipped int64
+// halves (17 <= k <= 64, W = 2..4; the main path takes it for 32 <= k <= 64).
+//
+// Replaces: leon_tpu/ops/kmer.py kmer_scan_packed (141) -> unpack_codes_dev,
+// _kmer_scan_impl (104-126) at W = ceil(k/16) words, together with the
+// valid-row selection the reference's slab sort does by masking.
+//
+// Bound on the H100: device-memory bytes written, 8 (W <= 2) or 16 per valid
+// position, against 1/4 byte per base read. Invalid rows are dropped, not
+// marked: at k = 32, 48 and 64 a canonical palindrome can carry an all-ones
+// top word, so no key value is free to mark them. Read r's valid positions
+// p = 0 .. len-k land at offs[r] + p (offs: the exclusive prefix of the
+// per-read valid counts). Design: K13's staged tiles over the packed input
+// (one thread per read rolls fwd and rc as W words; each thread loads its
+// own packed word every 16 bases); each SCAN_TILE positions of the block's
+// SCAN_ROWS reads are staged as halves in shared memory (rows padded to an
+// odd u64 stride), then each warp copies whole row segments out, so every
+// store instruction writes 32 neighbouring int64s. The block stops at its
+// longest read's last valid position.
+// ---------------------------------------------------------------------------
+
+template <int W>
+__global__ void __launch_bounds__(SCAN_ROWS)
+    kmer_scan_halves_kernel(const uint32_t* __restrict__ packed,
+                            const int32_t* __restrict__ lengths,
+                            const long long* __restrict__ offs, int B, int L16, int L, int k,
+                            int P, uint32_t top, int64_t* __restrict__ hi,
+                            int64_t* __restrict__ lo) {
+  constexpr int NH = W > 2 ? 2 : 1;  // halves per k-mer
+  __shared__ unsigned long long sh[NH][SCAN_ROWS][SCAN_TILE + 1];
+  __shared__ int s_last[SCAN_ROWS];
+  __shared__ long long s_off[SCAN_ROWS];
+  __shared__ int s_end;  // columns the block has to scan
+  const long long row0 = (long long)blockIdx.x * SCAN_ROWS;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nrows = (int)min((long long)SCAN_ROWS, (long long)B - row0);
+  if (t == 0) s_end = 0;
+  __syncthreads();
+  // valid positions: p <= last
+  const int last = t < nrows ? min(lengths[row0 + t] - k, P - 1) : -1;
+  s_last[t] = last;
+  if (t < nrows) s_off[t] = offs[row0 + t];
+  if (last >= 0) atomicMax(&s_end, last + k);
+  __syncthreads();
+  const int end = s_end;
+  const uint32_t* pr = packed + (size_t)(row0 + min(t, nrows - 1)) * L16;
+  const unsigned long long sign = 1ull << 63;
+  Kmer<W> fwd = {}, rc = {};
+  uint32_t w = 0;
+  for (int c0 = 0; c0 < end; c0 += SCAN_TILE) {
+    const int nc = min(SCAN_TILE, end - c0);
+    // positions [pa, pa + np) end in columns [c0, c0 + nc)
+    const int pa = max(0, c0 - k + 1);
+    const int np = c0 + nc - k + 1 - pa;
+    if (last >= 0) {
+      for (int q = 0; q < nc; ++q) {
+        const int j = c0 + q;
+        if ((j & 15) == 0) w = __ldg(pr + (j >> 4));
+        const uint32_t b = (w >> (2 * (j & 15))) & 3u;
+        fwd = shl2<W>(fwd, b, top);
+        rc = shr2_ins<W>(rc, 3u - b, k);
+        const int p = j - k + 1;
+        if (p < 0) continue;
+        const Kmer<W> c = lex_less<W>(rc, fwd) ? rc : fwd;
+        uint32_t x[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int i = 0; i < W; ++i) x[i] = c.w[i];
+        sh[0][t][p - pa] = (((unsigned long long)x[1] << 32) | x[0]) ^ sign;
+        if (NH == 2) sh[NH - 1][t][p - pa] = (((unsigned long long)x[3] << 32) | x[2]) ^ sign;
+      }
+    }
+    __syncthreads();
+    if (np > 0) {
+      for (int r = warp; r < nrows; r += SCAN_ROWS / 32) {
+        const int cnt = min(np, s_last[r] - pa + 1);
+        const long long o = s_off[r] + pa;
+        for (int q = lane; q < cnt; q += 32) {
+          lo[o + q] = (int64_t)sh[0][r][q];
+          if (NH == 2) hi[o + q] = (int64_t)sh[NH - 1][r][q];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+extern "C" int lt_kmer_scan_halves(const void* packed, const void* lengths, const void* offs,
+                                   int B, int L16, int L, int k, int P, unsigned top, void* hi,
+                                   void* lo, void* stream) {
+  if (k < 17 || k > 64 || P < 1 || P != L - k + 1 || L16 != (L + 15) / 16)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  const int W = (k + 15) / 16;
+  if (!lo || (W > 2 && !hi)) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((B + SCAN_ROWS - 1) / SCAN_ROWS);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* p = (const uint32_t*)packed;
+  const int32_t* ln = (const int32_t*)lengths;
+  const long long* of = (const long long*)offs;
+  int64_t* h = (int64_t*)hi;
+  int64_t* l = (int64_t*)lo;
+  switch (W) {
+    case 2: kmer_scan_halves_kernel<2><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
+    case 3: kmer_scan_halves_kernel<3><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
+    default: kmer_scan_halves_kernel<4><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B, int L, int k,
                                   int P, unsigned top, void* canon, void* is_rc, void* valid,
                                   void* stream) {

@@ -513,6 +513,244 @@ __global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
 }
 
 // ---------------------------------------------------------------------------
+// K18 walk_encode_words and K19 walk_decode_words — K4's encode and decode
+// re-walk with the window as W = ceil(k/16) = 2..4 u32 words (17 <= k <=
+// 64; the main path takes them for 32 <= k <= 64, K4 serves k <= 31).
+//
+// Replaces: leon_tpu/ops/walk.py encode_batch_compact_packed (554-565) ->
+// _encode_compact_impl (432-545) with _anchor_state (357), _anchor_scan
+// (113), _pack_window (147) and _walk_fused (247); and
+// decode_batch_flat_packed (819-841) -> decode_batch_flat, decode_batch and
+// _walk_decode_fused (700-796), at any W.
+//
+// Bound on the H100: as K4, the latency of the dependent Bloom probes (4
+// one-word probes per step, each step needing the last one's base); the
+// W-word window adds a few register shifts a step. Design: K4's, one thread
+// per read with the walk state in registers. K18's anchor scan rolls (f, r)
+// and reads the leaving base back from the packed row (no window rides
+// along the scan), then re-packs the anchor's k bases as Kmer<W>; the walk
+// advances with shl2 masked to 2k bits (right) and the reference's
+// unmasked shr2_ins (left). The r chain's rotate while the first k bases
+// enter is j & 31 (the reference's min(j, k-1) & 31 wraps at k >= 33).
+// Outputs are K4's: meta, tot, the event rows in walk order and the conf
+// bits, so walk_pack serves both; errpos is implied by the gaps (side-
+// local), as in the flat layout. K19 takes scal (B, 9+W), hashes the anchor
+// from scratch (hash_kmer<W>) and walks the flat streams as K4 does.
+// ---------------------------------------------------------------------------
+
+template <int W>
+static __device__ __forceinline__ int leaving_w(bool in_r, const Kmer<W>& fwd, int hs) {
+  return in_r ? (int)((word_at<W>(fwd, hs >> 5) >> (hs & 31)) & 3u) : (int)(fwd.w[0] & 3u);
+}
+
+template <int W>
+static __device__ __forceinline__ Kmer<W> advance_w(bool in_r, const Kmer<W>& fwd, int b, int k,
+                                                    uint32_t top) {
+  return in_r ? shl2<W>(fwd, (uint32_t)b, top) : shr2_ins<W>(fwd, (uint32_t)b, k);
+}
+
+template <int W>
+__global__ void walk_encode_words_kernel(const uint32_t* __restrict__ packed,
+                                         const int32_t* __restrict__ lengths, int B, int L16,
+                                         int L, int k, int H, uint32_t n_words, uint32_t top,
+                                         const __grid_constant__ HashTabs tb,
+                                         const uint32_t* __restrict__ bits, int L16c, int ME,
+                                         int32_t* __restrict__ meta, int32_t* __restrict__ tot,
+                                         uint16_t* __restrict__ ev_gap,
+                                         uint8_t* __restrict__ ev_nt,
+                                         uint8_t* __restrict__ ev_bif,
+                                         uint16_t* __restrict__ conf) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  const uint32_t* pr = packed + (size_t)row * L16;
+  uint16_t* cw = conf + (size_t)row * L16c;
+  for (int w = 0; w < L16c; ++w) cw[w] = 0;
+  const int len = min(lengths[row], L);
+  const int hs = 2 * (k - 1);
+
+  // anchor: the member position with the smallest min(f, r); the first
+  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381)
+  uint32_t f = 0, r = 0, af = 0, ar = 0, best = 0xFFFFFFFFu;
+  bool anchored = false;
+  int apos = 0;
+  for (int j = 0; j < len; ++j) {
+    const int x = base_at(pr, j);
+    if (j >= k) {
+      const int o = base_at(pr, j - k);  // base leaving the window
+      f = rol1(f ^ sel4(tb.t[2], o)) ^ sel4(tb.t[0], x);
+      r = ror1(r ^ sel4(tb.t[1], o)) ^ sel4(tb.t[3], x);
+    } else {
+      f = rol1(f) ^ sel4(tb.t[0], x);
+      r = r ^ rolr(sel4(tb.t[1], x), j);
+    }
+    const int p = j - k + 1;
+    if (p >= 0) {
+      const bool mem = probe(bits, f, r, H, n_words);
+      const uint32_t v = mem ? min(f, r) : 0xFFFFFFFFu;
+      anchored |= mem;
+      if (p == 0 || v < best) {
+        best = v;
+        apos = p;
+        af = f;
+        ar = r;
+      }
+    }
+  }
+  Kmer<W> afwd = {};
+  for (int i = 0; i < k; ++i) afwd = shl2<W>(afwd, (uint32_t)base_at(pr, min(apos + i, L - 1)), top);
+
+  // fused walk: nr right steps from the anchor, then reset and apos left
+  // steps (walk.py:247-354)
+  int nerr_r = 0, nerr_l = 0, nbif_r = 0, nbif_l = 0;
+  const int total = anchored ? max(len - k, 0) : 0;
+  const int nr = max(len - k - apos, 0);
+  uint16_t* eg = ev_gap + (size_t)row * ME;
+  uint8_t* en = ev_nt + (size_t)row * ME;
+  uint8_t* eb = ev_bif + (size_t)row * ME;
+  Kmer<W> fwd = afwd;
+  f = af;
+  r = ar;
+  int last = -1;
+  for (int s = 0; s < total; ++s) {
+    const bool in_r = s < nr;
+    if (s == nr) {
+      fwd = afwd;
+      f = af;
+      r = ar;
+      last = -1;
+    }
+    const int lidx = in_r ? s : s - nr;
+    const int j = in_r ? apos + k + s : apos - 1 - lidx;
+    const int b = base_at(pr, j);
+    uint32_t cf[4], cr[4];
+    const unsigned sm =
+        step_probe(in_r, leaving_w<W>(in_r, fwd, hs), f, r, tb, bits, H, n_words, cf, cr);
+    const int scount = __popc(sm);
+    const unsigned below = (1u << b) - 1u;
+    const bool solid_b = (sm >> b) & 1u;
+    if (solid_b) {
+      if (scount == 1) {
+        if (L16c) cw[j >> 4] |= (uint16_t)(1u << (j & 15));
+      } else {
+        eb[nbif_r + nbif_l] = (uint8_t)__popc(sm & below);  // rank among solid
+        if (in_r) ++nbif_r; else ++nbif_l;
+      }
+    } else {
+      const int e = nerr_r + nerr_l;
+      eg[e] = (uint16_t)max(lidx - last - 1, 0);
+      en[e] = (uint8_t)__popc(~sm & below);  // rank among non-solid
+      last = lidx;
+      if (in_r) ++nerr_r; else ++nerr_l;
+    }
+    // on an error with a solid candidate, advance on the smallest solid base
+    const int b_adv = (!solid_b && scount >= 1) ? __ffs(sm) - 1 : b;
+    f = sel4v(cf, b_adv);
+    r = sel4v(cr, b_adv);
+    fwd = advance_w<W>(in_r, fwd, b_adv, k, top);
+  }
+  int32_t* m = meta + (size_t)row * 6;
+  m[0] = anchored;
+  m[1] = apos;
+  m[2] = nbif_r;
+  m[3] = nerr_r;
+  m[4] = nbif_l;
+  m[5] = nerr_l;
+  tot[row] = nerr_r + nerr_l;
+  tot[B + row] = nbif_r + nbif_l;
+}
+
+template <int W>
+__global__ void walk_decode_words_kernel(const int32_t* __restrict__ scal, int B,
+                                         const int32_t* __restrict__ errgaps,
+                                         const uint8_t* __restrict__ errnts,
+                                         const uint8_t* __restrict__ bifs, long long n_err,
+                                         long long n_bif, int L, int L16, int k, int H,
+                                         uint32_t n_words, uint32_t top,
+                                         const __grid_constant__ HashTabs tb,
+                                         const uint32_t* __restrict__ bits,
+                                         uint32_t* __restrict__ out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  const int32_t* sc = scal + (size_t)row * (9 + W);
+  uint32_t* o = out + (size_t)row * L16;
+  for (int w = 0; w < L16; ++w) o[w] = 0;
+  if (sc[1] == 0) return;  // unanchored: the host restores raw segments
+  const int apos = sc[0], len = sc[2];
+  const int nerr_r = sc[3], nerr_l = sc[4], nbif_r = sc[5], nbif_l = sc[6];
+  const long long err_base = sc[7], bif_base = sc[8];
+  Kmer<W> afwd;
+#pragma unroll
+  for (int j = 0; j < W; ++j) afwd.w[j] = (uint32_t)sc[9 + j];
+  const int ME = max(1, L - k);
+  const int hs = 2 * (k - 1);
+
+  for (int i = 0; i < k; ++i) {  // the anchor's own bases
+    const int p = apos + i;
+    if (p >= 0 && p < L) o[p >> 4] |= (uint32_t)base_of<W>(afwd, i, k) << (2 * (p & 15));
+  }
+  uint32_t af, ar;
+  hash_kmer<W>(afwd, k, tb, &af, &ar);
+  uint32_t f = af, r = ar;
+  Kmer<W> fwd = afwd;
+
+  const int total = max(len - k, 0);
+  const int nr = max(len - k - apos, 0);
+  // this side's error run: count, base offset, next error's side-local step
+  int side_n = nerr_r, ei = 0;
+  long long ebase = err_base;
+  long long next_err = (side_n > 0 && ebase < n_err) ? errgaps[ebase] : -1;
+  int pbif = 0;
+  for (int s = 0; s < total; ++s) {
+    const bool in_r = s < nr;
+    if (s == nr) {  // side switch: back to the anchor, left error run
+      fwd = afwd;
+      f = af;
+      r = ar;
+      side_n = nerr_l;
+      ei = 0;
+      ebase = err_base + nerr_r;
+      next_err = (side_n > 0 && ebase < n_err) ? errgaps[ebase] : -1;
+    }
+    const int lidx = in_r ? s : s - nr;
+    const int j = in_r ? apos + k + s : apos - 1 - lidx;
+    const bool is_err = ei < side_n && lidx == next_err;
+    int rank_ns = 0;
+    if (is_err) {
+      rank_ns = errnts[ebase + ei] & 3;
+      ++ei;
+      next_err = (ei < side_n && ebase + ei < n_err) ? next_err + 1 + errgaps[ebase + ei] : -1;
+    }
+    uint32_t cf[4], cr[4];
+    const unsigned sm =
+        step_probe(in_r, leaving_w<W>(in_r, fwd, hs), f, r, tb, bits, H, n_words, cf, cr);
+    const int scount = __popc(sm);
+    const int b_uniq = nth_set(sm, 0);
+    int b;
+    if (is_err) {
+      b = nth_set(~sm & 0xFu, rank_ns);
+    } else if (scount >= 2) {  // bifurcation: next rank of the read's queue
+      const int q = min(pbif, 2 * ME - 1);
+      int rank = 0;
+      if (q < nbif_r) {
+        if (bif_base + q < n_bif) rank = bifs[bif_base + q];
+      } else {
+        const int t = min(q - nbif_r, ME - 1);
+        if (t < nbif_l && bif_base + nbif_r + t < n_bif) rank = bifs[bif_base + nbif_r + t];
+      }
+      b = nth_set(sm, rank & 3);
+      ++pbif;
+    } else {
+      b = b_uniq;
+    }
+    if (j >= 0 && j < L) o[j >> 4] |= (uint32_t)b << (2 * (j & 15));
+    const int b_adv = (is_err && scount >= 1) ? b_uniq : b;
+    f = sel4v(cf, b_adv);
+    r = sel4v(cr, b_adv);
+    fwd = advance_w<W>(in_r, fwd, b_adv, k, top);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
 
@@ -616,6 +854,64 @@ extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int 
     case 2: walk_dense_kernel<2><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
     case 3: walk_dense_kernel<3><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
     default: walk_dense_kernel<4><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int B, int L16,
+                                    int L, int k, int H, unsigned n_words, unsigned top,
+                                    const void* tabs16, const void* bitset, int with_conf, int ME,
+                                    void* meta, void* tot, void* ev_gap, void* ev_nt,
+                                    void* ev_bif, void* conf, void* stream) {
+  if (k < 17 || k > 64 || H < 1 || H > 8 || L < k + 1 || ME != L - k || L16 != (L + 15) / 16 ||
+      n_words == 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  HashTabs tb;
+  memcpy(&tb, tabs16, sizeof(tb));
+  const unsigned grid = grid_for(B, WALK_THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* p = (const uint32_t*)packed;
+  const int32_t* ln = (const int32_t*)lengths;
+  const uint32_t* bs = (const uint32_t*)bitset;
+  const int L16c = with_conf ? L16 : 0;
+  int32_t* m = (int32_t*)meta;
+  int32_t* tt = (int32_t*)tot;
+  uint16_t* eg = (uint16_t*)ev_gap;
+  uint8_t* en = (uint8_t*)ev_nt;
+  uint8_t* eb = (uint8_t*)ev_bif;
+  uint16_t* cf = (uint16_t*)conf;
+  switch ((k + 15) / 16) {
+    case 2: walk_encode_words_kernel<2><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
+    case 3: walk_encode_words_kernel<3><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
+    default: walk_encode_words_kernel<4><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lt_walk_decode_words(const void* scal, int B, int W, const void* errgaps,
+                                    const void* errnts, const void* bifs, long long n_err,
+                                    long long n_bif, int L, int L16, int k, int H,
+                                    unsigned n_words, unsigned top, const void* tabs16,
+                                    const void* bitset, void* out, void* stream) {
+  if (k < 17 || k > 64 || H < 1 || H > 8 || W != (k + 15) / 16 || L < k + 1 ||
+      L16 != (L + 15) / 16 || n_words == 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  HashTabs tb;
+  memcpy(&tb, tabs16, sizeof(tb));
+  const unsigned grid = grid_for(B, WALK_THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* sc = (const int32_t*)scal;
+  const int32_t* eg = (const int32_t*)errgaps;
+  const uint8_t* en = (const uint8_t*)errnts;
+  const uint8_t* bf = (const uint8_t*)bifs;
+  const uint32_t* bs = (const uint32_t*)bitset;
+  uint32_t* o = (uint32_t*)out;
+  switch (W) {
+    case 2: walk_decode_words_kernel<2><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
+    case 3: walk_decode_words_kernel<3><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
+    default: walk_decode_words_kernel<4><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
   }
   return (int)cudaGetLastError();
 }

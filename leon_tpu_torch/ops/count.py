@@ -20,8 +20,17 @@ spill (count.py:592-600, 643-704), which the port does not have yet.
 (k <= 64, counterpart of count.py:88-104): the valid rows, sorted by
 torch.sort passes over sign-flipped int64 half-keys (``sort_words``), then
 ``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
-over rows of one or two int64 halves. ``merge_counts`` (host) is a copy of
-count.py:107-170, ``auto_cutoff`` of count.py:761-784.
+over rows of one or two int64 halves. ``word_runs`` is K14 in K2's modes
+(a counts payload, cutoff, histogram).
+
+``WordCounter`` is DeviceCounter for 32 <= k <= 64 (the main path's
+multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
+halves into the slab, ``sort_halves`` + K14 reduce slabs and merge runs,
+``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
+over those solid rows.
+Both counters share ``_SlabCounter``'s slab, flush, merge, spill check and
+finalize. ``merge_counts`` (host) is a copy of count.py:107-170,
+``auto_cutoff`` of count.py:761-784.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import SENTINEL, i32_bits, kmer_scan
+from leon_tpu_torch.ops.kmer import SENTINEL, kmer_scan, kmer_scan_halves, words_for_k
+from leon_tpu_torch.state import halves_to_words, words_to_halves
 
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
@@ -136,10 +146,8 @@ def compact_solid(keys: torch.Tensor, counts: torch.Tensor, cutoff: int):
 # Kernel K14 (multiword runs) and its plain version; count_batch
 # ---------------------------------------------------------------------------
 
-_SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN maps u64 order onto signed order
 
-
-def _check_runs_words_args(hi, lo, W: int) -> None:
+def _check_runs_words_args(hi, lo, W: int, counts=None) -> None:
     kernels.need(1 <= W <= 4, f"runs_words: W={W} not in [1, 4]")
     kernels.need(lo.dtype == torch.int64 and lo.dim() == 1, "runs_words: lo must be (n,) int64")
     kernels.need((hi is None) == (W <= 2), "runs_words: hi is given exactly when W > 2")
@@ -147,6 +155,50 @@ def _check_runs_words_args(hi, lo, W: int) -> None:
         kernels.need(hi.dtype == torch.int64 and hi.shape == lo.shape,
                      "runs_words: hi must be (n,) int64")
         kernels.need(hi.device == lo.device, "runs_words: tensors on two devices")
+    if counts is not None:
+        kernels.need(counts.dtype == torch.int32 and counts.shape == lo.shape,
+                     "runs_words: counts must be (n,) int32")
+        kernels.need(counts.device == lo.device, "runs_words: tensors on two devices")
+
+
+def _runs_words_launch(hi, lo, W: int, counts, cutoff: int, want_hist: bool, modes: bool):
+    """K14 on the card: (words (R, W) int32, values (R,) int32 with modes
+    (word_runs) or int64 run lengths without (runs_words, whose instance
+    has no counts, cutoff or histogram code), hist (256,) int32 or None);
+    counted under the wrapper's name."""
+    name = "word_runs" if modes else "runs_words"
+    lo = lo.contiguous()
+    hi = hi.contiguous() if hi is not None else None
+    counts = counts.contiguous() if counts is not None else None
+    dev = lo.device
+    n = lo.shape[0]
+    lib = kernels.lib()
+    hi_p = hi.data_ptr() if hi is not None else None
+    cnt_p = counts.data_ptr() if counts is not None else None
+    block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
+    st = kernels.stream(lo)
+    if modes:
+        rc = lib.lt_word_runs_count(hi_p, lo.data_ptr(), cnt_p, n, int(cutoff),
+                                    hist.data_ptr() if hist is not None else None,
+                                    block_off.data_ptr(), total.data_ptr(), st)
+    else:
+        rc = lib.lt_runs_words_count(hi_p, lo.data_ptr(), n, block_off.data_ptr(),
+                                     total.data_ptr(), st)
+    kernels.check(rc, name)
+    R = int(total.item())
+    uniq = torch.empty(R, W, dtype=torch.int32, device=dev)
+    vals = torch.empty(R, dtype=torch.int32 if modes else torch.int64, device=dev)
+    if modes:
+        rc = lib.lt_word_runs_write(hi_p, lo.data_ptr(), cnt_p, n, W, int(cutoff),
+                                    block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
+    else:
+        rc = lib.lt_runs_words_write(hi_p, lo.data_ptr(), n, W, block_off.data_ptr(),
+                                     uniq.data_ptr(), vals.data_ptr(), st)
+    kernels.check(rc, name)
+    kernels.launches[name] += 1
+    return uniq, vals, hist
 
 
 def runs_words(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
@@ -157,63 +209,102 @@ def runs_words(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
     _check_runs_words_args(hi, lo, W)
     if not kernels.on_cuda(lo, "runs_words"):
         return runs_words_plain(hi, lo, W)
-    lo = lo.contiguous()
-    hi = hi.contiguous() if hi is not None else None
-    dev = lo.device
-    n = lo.shape[0]
-    lib = kernels.lib()
-    hi_p = hi.data_ptr() if hi is not None else None
-    block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    st = kernels.stream(lo)
-    kernels.check(lib.lt_runs_words_count(hi_p, lo.data_ptr(), n, block_off.data_ptr(),
-                                          total.data_ptr(), st), "runs_words")
-    M = int(total.item())
-    uniq = torch.empty(M, W, dtype=torch.int32, device=dev)
-    counts = torch.empty(M, dtype=torch.int64, device=dev)
-    kernels.check(lib.lt_runs_words_write(hi_p, lo.data_ptr(), n, W, block_off.data_ptr(),
-                                          uniq.data_ptr(), counts.data_ptr(), st), "runs_words")
-    kernels.launches["runs_words"] += 1
+    uniq, counts, _ = _runs_words_launch(hi, lo, W, None, 1, False, False)
     return uniq, counts
 
 
-def runs_words_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
-    """Plain version of runs_words: heads where either half changes, run
-    lengths from the head positions, words unflipped from the halves."""
-    _check_runs_words_args(hi, lo, W)
+def word_runs(hi: torch.Tensor | None, lo: torch.Tensor, W: int,
+              counts: torch.Tensor | None = None, cutoff: int = 1, want_hist: bool = False):
+    """K14 in K2's modes (the multiword counterpart of ``runs``; the
+    WordCounter's wrapper, with its own launch count): over rows
+    sorted by (hi, lo), a run's value is its length (counts None) or the
+    u32-wrapping sum of its int32 counts clamped to 2**31-1 (count.py:
+    239-253); runs whose value is >= max(cutoff, 1) are emitted in key
+    order. Returns (words (R, W) int32, values (R,) int32, hist): hist is
+    the (256,) histogram of min(value, 255) over the emitted runs (bin 0 is
+    0) when want_hist, else None."""
+    _check_runs_words_args(hi, lo, W, counts)
+    if not kernels.on_cuda(lo, "word_runs"):
+        return word_runs_plain(hi, lo, W, counts, cutoff, want_hist)
+    return _runs_words_launch(hi, lo, W, counts, cutoff, want_hist, True)
+
+
+def _word_runs_plain(hi, lo, W: int, counts, cutoff: int, want_hist: bool):
+    """Heads where either half changes; values from prefix sums read at the
+    next head (lengths, or the u32-wrapping count sums clamped); filter."""
+    dev = lo.device
     n = lo.shape[0]
-    if not n:
-        return (torch.zeros(0, W, dtype=torch.int32, device=lo.device),
-                torch.zeros(0, dtype=torch.int64, device=lo.device))
-    head = torch.ones(n, dtype=torch.bool, device=lo.device)
+    head = torch.ones(n, dtype=torch.bool, device=dev)
     if n > 1:
         ne = lo[1:] != lo[:-1]
         if hi is not None:
             ne = ne | (hi[1:] != hi[:-1])
         head[1:] = ne
     starts = torch.nonzero(head).reshape(-1)
-    ends = torch.cat([starts[1:], torch.tensor([n], dtype=torch.int64, device=lo.device)])
-    halves = [lo[starts] ^ _SIGN] + ([hi[starts] ^ _SIGN] if hi is not None else [])
-    words = []
-    for h in halves:
-        words += [h & _M32, (h >> 32) & _M32]
-    return i32_bits(torch.stack(words[:W], dim=1)), ends - starts
+    ends = torch.cat([starts[1:], torch.full((min(n, 1),), n, dtype=torch.int64, device=dev)])
+    if counts is None:
+        vals = ends - starts
+    else:
+        incl = torch.cumsum(counts.to(torch.int64) & _M32, 0)
+        sums = (incl[ends - 1] - incl[starts] + (counts[starts].to(torch.int64) & _M32)) & _M32
+        vals = torch.clamp(sums, max=_I32_MAX)
+    emit = vals >= max(int(cutoff), 1)
+    words = halves_to_words(hi[starts[emit]] if hi is not None else None, lo[starts[emit]], W)
+    vals = vals[emit]
+    hist = None
+    if want_hist:
+        hist = torch.bincount(torch.clamp(vals, max=255), minlength=256)
+        hist[0] = 0
+    return words, vals, hist
+
+
+def runs_words_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
+    """Plain version of runs_words: heads where either half changes, run
+    lengths from the head positions, words unflipped from the halves."""
+    _check_runs_words_args(hi, lo, W)
+    words, lengths, _ = _word_runs_plain(hi, lo, W, None, 1, False)
+    return words, lengths
+
+
+def word_runs_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int,
+                    counts: torch.Tensor | None = None, cutoff: int = 1,
+                    want_hist: bool = False):
+    """Plain version of word_runs (the reference's _merge_sorted_runs,
+    _hist_of_sorted and compact_solid arithmetic on two-half keys)."""
+    _check_runs_words_args(hi, lo, W, counts)
+    words, vals, hist = _word_runs_plain(hi, lo, W, counts, cutoff, want_hist)
+    return words, vals.to(torch.int32), hist
+
+
+def sort_halves(hi: torch.Tensor | None, lo: torch.Tensor, with_perm: bool = False):
+    """Sort rows by (hi, lo), signed: one torch.sort when hi is None, two
+    stable ones (lo, then hi) past it. Returns (hi, lo) sorted, plus the
+    permutation when with_perm (to carry a payload along)."""
+    if hi is None:
+        if not with_perm:
+            return None, torch.sort(lo).values
+        lo, perm = torch.sort(lo, stable=True)
+        return None, lo, perm
+    lo, perm = torch.sort(lo, stable=True)
+    hi, perm2 = torch.sort(hi[perm], stable=True)
+    lo = lo[perm2]
+    return (hi, lo, perm[perm2]) if with_perm else (hi, lo)
 
 
 def sort_words(words: torch.Tensor):
     """(N, W) int32 u32 words -> the sign-flipped int64 halves (hi or None,
     lo) sorted lexicographically, most significant word first: one
     torch.sort at W <= 2, two stable ones (lo, then hi) past it."""
-    W = words.shape[1]
-    u = words.to(torch.int64) & _M32
-    lo = u[:, 0] | (u[:, 1] << 32 if W > 1 else 0)
-    lo = lo ^ _SIGN
-    if W <= 2:
-        return None, torch.sort(lo).values
-    hi = (u[:, 2] | (u[:, 3] << 32 if W > 3 else 0)) ^ _SIGN
-    lo, perm = torch.sort(lo, stable=True)
-    hi, perm2 = torch.sort(hi[perm], stable=True)
-    return hi, lo[perm2]
+    return sort_halves(*words_to_halves(words))
+
+
+def compact_solid_words(words: torch.Tensor, counts: torch.Tensor, cutoff: int):
+    """Order-preserving compaction of a multiword distinct run to its rows
+    with count >= cutoff (leon_tpu count.compact_solid) — K14 in solid
+    mode. Returns (words (S, W) int32, counts (S,) int32)."""
+    hi, lo = words_to_halves(words)
+    out_w, out_c, _ = word_runs(hi, lo, words.shape[1], counts, cutoff)
+    return out_w, out_c
 
 
 def count_batch(canon: torch.Tensor, valid: torch.Tensor):
@@ -326,68 +417,66 @@ SLAB_KMERS = 1 << 27   # 1 GiB of int64 keys; the sort transient is ~3x that
 SPILL_ROWS = 1 << 30   # largest distinct run kept on the card (12 GiB)
 
 
-class DeviceCounter:
-    """Counts canonical k-mer keys on one device (see module docstring)."""
+class _SlabCounter:
+    """What both counters share (see the module docstring): the slab (one or
+    two (n,) int64 buffers the scan kernel writes into), its flush to a
+    sorted distinct run, the merge of runs past merge_factor slabs, the
+    spill check and finalize's selection rules. A subclass says how rows
+    are scanned, sorted, reduced and hashed."""
 
-    def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
+    def __init__(self, k: int, device, slab_kmers: int, merge_factor: int, n_bufs: int):
         self.k = k
         self.device = torch.device(device)
         self.slab = int(slab_kmers)
         self.merge_factor = int(merge_factor)
-        self._buf: torch.Tensor | None = None  # slab storage (grows to slab)
+        self._n_bufs = n_bufs
+        self._buf: list | None = None  # slab storage (grows to slab)
         self._fill = 0
-        self._runs: list = []  # (keys int64, counts int32) distinct runs
+        self._runs: list = []  # (rows, counts int32) distinct runs
         self._runs_n = 0
         self._next_merge = self.merge_factor * self.slab
 
-    def _reserve(self, n: int) -> torch.Tensor:
-        """A (n,) view of the slab for the scan kernel to write into."""
+    def _reserve(self, n: int) -> list:
+        """(n,) views of the slab buffers for the scan kernel to write into."""
         if self._fill and self._fill + n > self.slab:
             self._flush_slab()
         need = self._fill + n
-        if self._buf is None or need > self._buf.numel():
-            have = self._buf.numel() if self._buf is not None else 0
+        if self._buf is None or need > self._buf[0].numel():
+            have = self._buf[0].numel() if self._buf is not None else 0
             cap = max(need, min(self.slab, 2 * have), 1 << 16)
-            buf = torch.empty(cap, dtype=torch.int64, device=self.device)
+            bufs = [torch.empty(cap, dtype=torch.int64, device=self.device)
+                    for _ in range(self._n_bufs)]
             if self._fill:
-                buf[: self._fill] = self._buf[: self._fill]
-            self._buf = buf
-        view = self._buf[self._fill : need]
+                for new, old in zip(bufs, self._buf):
+                    new[: self._fill] = old[: self._fill]
+            self._buf = bufs
+        views = [b[self._fill : need] for b in self._buf]
         self._fill = need
-        return view
-
-    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
-        """Scan one packed chunk (B, ceil(L/16)) int32 straight into the slab."""
-        B = packed.shape[0]
-        n = B * (L - self.k + 1)
-        kmer_scan(packed, lengths, self.k, L, out=self._reserve(n))
-        if self._fill >= self.slab:
-            self._flush_slab()
+        return views
 
     def _flush_slab(self) -> None:
         if not self._fill:
             return
-        skeys = torch.sort(self._buf[: self._fill]).values
+        filled = [b[: self._fill] for b in self._buf]
         self._fill = 0
-        uk, uc, _ = runs(skeys)
-        self._runs.append((uk, uc))
-        self._runs_n += uk.numel()
+        rows, counts = self._slab_run(filled)
+        self._runs.append((rows, counts))
+        self._runs_n += counts.numel()
         if self._runs_n >= self._next_merge and len(self._runs) > 1:
             self._merge_runs()
 
     def _merged(self, want_hist: bool):
-        """Merge every run into one: sort with the counts as payload, K2."""
-        keys = torch.cat([r[0] for r in self._runs])
+        """Merge every run into one: sort with the counts as payload, reduce."""
+        rows = torch.cat([r[0] for r in self._runs])
         counts = torch.cat([r[1] for r in self._runs])
         self._runs, self._runs_n = [], 0
-        skeys, perm = torch.sort(keys)
-        return runs(skeys, counts[perm], 1, want_hist)
+        return self._merge_sorted(rows, counts, True, want_hist)
 
     def _merge_runs(self) -> None:
-        uk, uc, _ = self._merged(False)
-        self._check_spill(uk.numel())
-        self._runs = [(uk, uc)]
-        self._runs_n = uk.numel()
+        rows, counts, _ = self._merged(False)
+        self._check_spill(counts.numel())
+        self._runs = [(rows, counts)]
+        self._runs_n = counts.numel()
         self._next_merge = self._runs_n + self.merge_factor * self.slab
 
     @staticmethod
@@ -400,9 +489,11 @@ class DeviceCounter:
     def finalize(self, abundance, bits_per_kmer, H, seed: int,
                  lossy_quals: bool = False, unitig_max: int = 0):
         """Returns (bitset (n_words,) int32, n_words, cutoff, n_solid,
-        hist (256,) int64 numpy, H, run) where run = (keys, counts, nu) is
-        the final distinct run on the device (None when empty). The
-        selection rules are leon_tpu's DeviceCounter.finalize
+        hist (256,) int64 numpy, H, run) where run = (rows, counts, nu,
+        solid) is the final distinct run on the device (None when empty):
+        rows are (M,) int64 keys or (M, W) int32 words; solid is the run's
+        solid rows when the Bloom build compacted them (WordCounter), else
+        None. The selection rules are leon_tpu's DeviceCounter.finalize
         (count.py:557-641)."""
         self._flush_slab()
         self._buf = None
@@ -417,12 +508,12 @@ class DeviceCounter:
             bitset = torch.zeros(n_words, dtype=torch.int32, device=self.device)
             return bitset, n_words, cutoff, 0, hist, H, None
         if len(self._runs) == 1:
-            uk, uc = self._runs[0]
+            rows, counts = self._runs[0]
             self._runs, self._runs_n = [], 0
-            keys, counts, hist_t = runs(uk, uc, 1, True)
+            rows, counts, hist_t = self._merge_sorted(rows, counts, False, True)
         else:
-            keys, counts, hist_t = self._merged(True)
-        self._check_spill(keys.numel())
+            rows, counts, hist_t = self._merged(True)
+        self._check_spill(counts.numel())
         hist = hist_t.cpu().numpy().astype(np.int64)
         cutoff = abundance if abundance is not None else auto_cutoff(hist)
         n_solid = int(hist[min(cutoff, 255):].sum())
@@ -434,9 +525,83 @@ class DeviceCounter:
         if H is None:
             H = auto_h
         n_words = bloom.choose_n_words(max(1, n_solid), bits_per_kmer)
-        bitset = bloom.bloom_build(keys, counts, cutoff, n_words, H, seed, self.k)
+        bitset, solid = self._bloom(rows, counts, cutoff, n_words, H, seed)
         warn = bloom.saturation_warning(n_solid, n_words, bits_per_kmer)
         if warn:
             print(f"[leon-tpu-torch] {warn}", file=sys.stderr)
         return (bitset, n_words, cutoff, n_solid, hist, H,
-                (keys, counts, int(hist.sum())))
+                (rows, counts, int(hist.sum()), solid))
+
+
+class DeviceCounter(_SlabCounter):
+    """Counts canonical k-mers of k <= 31 as one int64 key each (K1 into the
+    slab, torch.sort, K2; the Bloom build K3)."""
+
+    def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
+        super().__init__(k, device, slab_kmers, merge_factor, 1)
+
+    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
+        """Scan one packed chunk (B, ceil(L/16)) int32 straight into the slab."""
+        B = packed.shape[0]
+        n = B * (L - self.k + 1)
+        kmer_scan(packed, lengths, self.k, L, out=self._reserve(n)[0])
+        if self._fill >= self.slab:
+            self._flush_slab()
+
+    def _slab_run(self, filled: list):
+        uk, uc, _ = runs(torch.sort(filled[0]).values)
+        return uk, uc
+
+    def _merge_sorted(self, keys, counts, unsorted: bool, want_hist: bool):
+        if unsorted:
+            keys, perm = torch.sort(keys)
+            counts = counts[perm]
+        return runs(keys, counts, 1, want_hist)
+
+    def _bloom(self, keys, counts, cutoff: int, n_words: int, H: int, seed: int):
+        return bloom.bloom_build(keys, counts, cutoff, n_words, H, seed, self.k), None
+
+
+class WordCounter(_SlabCounter):
+    """Counts canonical k-mers of 32 <= k <= 64 (W = 2..4 u32 words) with
+    DeviceCounter's slab, flush, merge, spill and finalize rules: K17 writes
+    the valid positions' sign-flipped halves into the slab (invalid rows are
+    dropped, so no key marks them), torch.sort passes order them, K14
+    reduces; runs are (M, W) int32 words with int32 counts, merged by
+    sort_halves with the counts permuted along and K14 in count mode; the
+    Bloom build is K14's solid mode, then K16 over those rows (which
+    finalize hands on for the unitig builder)."""
+
+    def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
+        self.W = words_for_k(k)
+        super().__init__(k, device, slab_kmers, merge_factor, 2 if self.W > 2 else 1)
+
+    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
+        """Scan one packed chunk's valid k-mers straight into the slab."""
+        B = packed.shape[0]
+        n = B * (L - self.k + 1)  # at most; K17 writes the valid rows only
+        views = self._reserve(n)
+        hi, lo = (views[0], views[1]) if self.W > 2 else (None, views[0])
+        m = kmer_scan_halves(packed, lengths, self.k, L, out=(hi, lo))[1].shape[0]
+        self._fill -= n - m
+        if self._fill >= self.slab:
+            self._flush_slab()
+
+    def _halves(self, filled: list):
+        return (filled[0], filled[1]) if self.W > 2 else (None, filled[0])
+
+    def _slab_run(self, filled: list):
+        words, counts, _ = word_runs(*sort_halves(*self._halves(filled)), self.W)
+        return words, counts
+
+    def _merge_sorted(self, words, counts, unsorted: bool, want_hist: bool):
+        hi, lo = words_to_halves(words)
+        if unsorted:
+            hi, lo, perm = sort_halves(hi, lo, with_perm=True)
+            counts = counts[perm]
+        return word_runs(hi, lo, self.W, counts, 1, want_hist)
+
+    def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):
+        solid = compact_solid_words(words, counts, cutoff)[0]
+        ones = torch.ones(solid.shape[0], dtype=torch.bool, device=solid.device)
+        return bloom.bloom_build_words(solid, ones, n_words, n_words, H, seed, self.k), solid

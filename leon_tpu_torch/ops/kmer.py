@@ -4,7 +4,10 @@ Device half (new): ``kmer_scan``, the wrapper of kernel K1
 (csrc/kmer.cu), and ``kmer_scan_plain``, its plain PyTorch version;
 ``kmer_scan_words``, the wrapper of kernel K13 (the unpacked scan to
 (B, P, W) u32 words, k <= 64, counterpart of kmer.kmer_scan), and
-``kmer_scan_words_plain``; ``shl2``, ``shr2_ins``, ``lex_less`` and
+``kmer_scan_words_plain``; ``kmer_scan_halves``, the wrapper of kernel
+K17 (the main path's scan for 32 <= k <= 64: the valid positions only,
+compacted, as the sign-flipped int64 halves the counter sorts), and
+``kmer_scan_halves_plain``; ``shl2``, ``shr2_ins``, ``lex_less`` and
 ``canonical`` on (..., W) words. For
 k <= 31 a canonical k-mer is ONE int64 key ``w1 << 32 | w0`` of the
 reference's little-endian u32 words (FORMAT.md §3); keys stay below 2**62,
@@ -167,6 +170,7 @@ def kmer_scan_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 # ---------------------------------------------------------------------------
 
 MAX_K_WORDS = 64  # W = ceil(k/16) <= 4 u32 words
+MIN_K_WIDE = 17  # W >= 2: the multiword route's kernels K17-K19 have no W = 1 instance
 
 
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -253,6 +257,90 @@ def kmer_scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     pos = torch.arange(P, device=codes.device)[None, :]
     valid = pos <= (lengths.to(torch.int64)[:, None] - k)
     return i32_bits(canon), is_rc, valid
+
+
+# ---------------------------------------------------------------------------
+# Device half: kernel K17 (the compacted multiword scan) and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _check_scan_halves_args(packed, lengths, k: int, L: int, out) -> int:
+    kernels.need(MIN_K_WIDE <= k <= MAX_K_WORDS,
+                 f"kmer_scan_halves: k={k} not in [{MIN_K_WIDE}, {MAX_K_WORDS}]")
+    kernels.need(packed.dtype == torch.int32 and packed.dim() == 2
+                 and packed.shape[1] == (L + 15) // 16,
+                 "kmer_scan_halves: packed must be (B, ceil(L/16)) int32")
+    kernels.need(lengths.dtype == torch.int32 and lengths.shape == (packed.shape[0],),
+                 "kmer_scan_halves: lengths must be (B,) int32")
+    kernels.need(lengths.device == packed.device, "kmer_scan_halves: tensors on two devices")
+    P = L - k + 1
+    kernels.need(P >= 1, f"kmer_scan_halves: batch width {L} < k {k}")
+    if out is not None:
+        hi, lo = out
+        kernels.need((hi is None) == (words_for_k(k) <= 2),
+                     "kmer_scan_halves: out = (hi, lo), hi None exactly when W <= 2")
+        for h in (hi, lo):
+            kernels.need(h is None or (h.dtype == torch.int64 and h.dim() == 1
+                                       and h.is_contiguous() and h.device == packed.device),
+                         "kmer_scan_halves: out halves must be contiguous (n,) int64 on the "
+                         "input device")
+    return P
+
+
+def kmer_scan_halves(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int,
+                     out: tuple | None = None):
+    """Canonical k-mers of the valid positions of a packed read batch
+    (17 <= k <= 64), read-major (read r's position p at offs[r] + p), as the
+    sign-flipped int64 halves count.sort_words sorts: (hi or None when
+    W <= 2, lo), n rows each. Invalid positions are dropped, not marked.
+
+    packed: (B, ceil(L/16)) int32 (kmer.pack_codes_np bits), lengths: (B,)
+    int32. `out`, when given, is a (hi or None, lo) pair of buffers with at
+    least n rows (views into the counter's slab); the result is their first
+    n rows. Counterpart of leon_tpu kmer.kmer_scan_packed with its valid
+    mask applied (kernel K17)."""
+    P = _check_scan_halves_args(packed, lengths, k, L, out)
+    nv = torch.clamp(lengths.to(torch.int64) - (k - 1), 0, P)
+    n = int(nv.sum())
+    if out is not None:
+        kernels.need(out[1].shape[0] >= n, f"kmer_scan_halves: out holds < {n} rows")
+        out = tuple(h[:n] if h is not None else None for h in out)
+    if not kernels.on_cuda(packed, "kmer_scan_halves"):
+        res = kmer_scan_halves_plain(packed, lengths, k, L)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            if o is not None:
+                o.copy_(r)
+        return out
+    packed, lengths = packed.contiguous(), lengths.contiguous()
+    dev = packed.device
+    if out is None:
+        out = (torch.empty(n, dtype=torch.int64, device=dev) if words_for_k(k) > 2 else None,
+               torch.empty(n, dtype=torch.int64, device=dev))
+    B = packed.shape[0]
+    if n:
+        offs = torch.cumsum(nv, 0) - nv
+        hi, lo = out
+        rc = kernels.lib().lt_kmer_scan_halves(
+            packed.data_ptr(), lengths.data_ptr(), offs.data_ptr(), B, packed.shape[1], L, k,
+            P, top_mask(k), hi.data_ptr() if hi is not None else None, lo.data_ptr(),
+            kernels.stream(packed))
+        kernels.check(rc, "kmer_scan_halves")
+        kernels.launches["kmer_scan_halves"] += 1
+    return out
+
+
+def kmer_scan_halves_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int):
+    """Plain version of kmer_scan_halves: the reference's scan
+    (kmer_scan_words_plain on the unpacked codes), its valid rows in
+    read-major order, split into sign-flipped halves."""
+    from leon_tpu_torch.state import words_to_halves
+
+    _check_scan_halves_args(packed, lengths, k, L, None)
+    codes = unpack_codes(packed, L).to(torch.uint8)
+    canon, _, valid = kmer_scan_words_plain(codes, lengths, k)
+    return words_to_halves(canon.reshape(-1, canon.shape[-1])[valid.reshape(-1)])
 
 
 # ---------------------------------------------------------------------------

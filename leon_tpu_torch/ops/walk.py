@@ -13,6 +13,14 @@ Device half (new), kernel K4 (csrc/walk.cu), one CUDA thread per read:
 - ``walk_decode``: the decode re-walk from the flat event streams, bases
   packed 16 per u32 (walk.py:700-936).
 
+Kernels K18 and K19 (csrc/walk.cu): K4's encode and decode re-walk with
+the window as W = ceil(k/16) u32 words (k <= 64), the main path's route for
+32 <= k <= 64: ``walk_encode_words`` (K4's outputs, so ``walk_pack`` serves
+both) and ``walk_decode_words`` (scal of width 9+W, up to 13).
+``encode_batch_compact_packed`` and ``decode_batch_flat_packed`` pick the
+kernel by k. walk_encode_plain and walk_decode_plain, over (B, W) words,
+are the plain versions of both generations.
+
 Kernel K15 (csrc/walk.cu), also one thread per read, for k <= 64:
 
 - ``encode_batch``: the reference's dense, slot-ordered event tensors
@@ -37,7 +45,7 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import (MAX_K, i32_bits, shl2, shr2_ins, top_mask,
+from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, shl2, shr2_ins, top_mask,
                                       unpack_codes, words_for_k)
 
 _M32 = 0xFFFFFFFF
@@ -74,9 +82,10 @@ def _ror1(x):
 
 def _candidates(in_r, fwd, f, r, k: int, tab, bitset, H: int, n_words: int):
     """One walk step's 4 candidate (f, r) chains and their solidity
-    (walk.py:299-313), the window one int64. Returns (cfs, crs, sis int64
-    0/1)."""
-    o = torch.where(in_r, (fwd >> (2 * (k - 1))) & 3, fwd & 3)
+    (walk.py:299-313), the window (B, W) words. Returns (cfs, crs, sis
+    int64 0/1)."""
+    t = 2 * (k - 1)
+    o = torch.where(in_r, (fwd[:, t // 32] >> (t % 32)) & 3, fwd[:, 0] & 3)
     return _candidates_o(in_r, o, f, r, tab, bitset, H, n_words)
 
 
@@ -99,8 +108,22 @@ def _candidates_o(in_r, o, f, r, tab, bitset, H: int, n_words: int):
 
 
 def _advance(in_r, fwd, b, k: int):
-    kmask = (1 << (2 * k)) - 1
-    return torch.where(in_r, ((fwd << 2) | b) & kmask, (fwd >> 2) | (b << (2 * (k - 1))))
+    """The next window: shl2 masked to 2k bits on a right step, the
+    reference's unmasked shr2_ins on a left step."""
+    return torch.where(in_r[:, None], shl2(fwd, b, k), shr2_ins(fwd, b, k))
+
+
+def _pack_window(codes, pos, k: int):
+    """(B, W) int64-held u32 forward words of codes[i, pos[i] : pos[i]+k]
+    (walk.py:147-161: base i at bit 2(k-1-i), columns clipped to L-1)."""
+    B, L = codes.shape
+    win = torch.gather(codes, 1,
+                       torch.clamp(pos[:, None] + torch.arange(k, device=codes.device), max=L - 1))
+    words = torch.zeros(B, words_for_k(k), dtype=torch.int64, device=codes.device)
+    for i in range(k):
+        t = 2 * (k - 1 - i)
+        words[:, t // 32] |= win[:, i] << (t % 32)
+    return words
 
 
 def _schedule(lengths, apos, anchored, s: int, k: int):
@@ -119,8 +142,9 @@ def _schedule(lengths, apos, anchored, s: int, k: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_walk_args(packed, lengths, bitset, n_words: int, k: int, H: int, L: int) -> None:
-    kernels.need(1 <= k <= MAX_K, f"walk: k={k} > {MAX_K} needs multiword keys")
+def _check_walk_args(packed, lengths, bitset, n_words: int, k: int, H: int, L: int,
+                     max_k: int, min_k: int = 1) -> None:
+    kernels.need(min_k <= k <= max_k, f"walk: k={k} not in [{min_k}, {max_k}]")
     kernels.need(L >= k + 1, f"walk: batch width {L} < k+1")
     kernels.need(packed.dtype == torch.int32 and packed.dim() == 2
                  and packed.shape[1] == (L + 15) // 16,
@@ -148,12 +172,18 @@ def walk_encode(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tenso
         order (right side, then left), valid in the first tot slots;
       conf (B, ceil(L/16)) int16: confirmed-position bits (u16), or (B, 0)
         without with_conf."""
-    _check_walk_args(packed, lengths, bitset, n_words, k, H, L)
+    _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K)
     if not kernels.on_cuda(packed, "walk_encode"):
         return walk_encode_plain(packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
+    return _encode_launch(packed, lengths, bitset, n_words, k, H, seed, L, with_conf, False)
+
+
+def _encode_launch(packed, lengths, bitset, n_words: int, k: int, H: int, seed: int, L: int,
+                   with_conf: bool, words: bool) -> dict:
+    """K4 (words False) or K18 on the card into freshly allocated outputs."""
     packed, lengths, bitset = packed.contiguous(), lengths.contiguous(), bitset.contiguous()
     B = packed.shape[0]
-    ME = max(1, L - k)
+    ME = L - k
     L16c = (L + 15) // 16 if with_conf else 0
     dev = packed.device
     out = dict(
@@ -166,14 +196,17 @@ def walk_encode(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tenso
     )
     if B:
         tab = kernels.host_tables(bloom.tables(seed, k))
-        rc = kernels.lib().lt_walk_encode(
-            packed.data_ptr(), lengths.data_ptr(), B, packed.shape[1], L, k, H,
-            int(n_words), tab.ctypes.data, bitset.data_ptr(), int(with_conf), ME,
-            out["meta"].data_ptr(), out["tot"].data_ptr(), out["ev_gap"].data_ptr(),
-            out["ev_nt"].data_ptr(), out["ev_bif"].data_ptr(), out["conf"].data_ptr(),
-            kernels.stream(packed))
-        kernels.check(rc, "walk_encode")
-        kernels.launches["walk_encode"] += 1
+        name = "walk_encode_words" if words else "walk_encode"
+        head = (packed.data_ptr(), lengths.data_ptr(), B, packed.shape[1], L, k, H, int(n_words))
+        tail = (tab.ctypes.data, bitset.data_ptr(), int(with_conf), ME,
+                out["meta"].data_ptr(), out["tot"].data_ptr(), out["ev_gap"].data_ptr(),
+                out["ev_nt"].data_ptr(), out["ev_bif"].data_ptr(), out["conf"].data_ptr(),
+                kernels.stream(packed))
+        lib = kernels.lib()
+        rc = (lib.lt_walk_encode_words(*head, top_mask(k), *tail) if words
+              else lib.lt_walk_encode(*head, *tail))
+        kernels.check(rc, name)
+        kernels.launches[name] += 1
     return out
 
 
@@ -210,12 +243,25 @@ def _anchor_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tens
     return anchored, apos, hf[ar, apos], hr[ar, apos]
 
 
+def walk_encode_words(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor,
+                      n_words: int, k: int, H: int, seed: int, L: int,
+                      with_conf: bool) -> dict:
+    """walk_encode for 17 <= k <= 64 (kernel K18; the main path takes it for
+    32 <= k <= 64): the same arguments and outputs, the window as W =
+    ceil(k/16) = 2..4 u32 words."""
+    _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K_WORDS, MIN_K_WIDE)
+    if not kernels.on_cuda(packed, "walk_encode_words"):
+        return walk_encode_plain(packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
+    return _encode_launch(packed, lengths, bitset, n_words, k, H, seed, L, with_conf, True)
+
+
 def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor,
                       n_words: int, k: int, H: int, seed: int, L: int,
                       with_conf: bool) -> dict:
-    """Plain version of walk_encode: the reference's anchor scan
-    (walk.py:113-144, 357-381) and fused walk (247-354), step by step."""
-    _check_walk_args(packed, lengths, bitset, n_words, k, H, L)
+    """Plain version of walk_encode (K4) and walk_encode_words (K18), k <=
+    64: the reference's anchor scan (walk.py:113-144, 357-381) and fused
+    walk (247-354), step by step, the window as (B, W) words."""
+    _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K_WORDS)
     dev = packed.device
     codes = unpack_codes(packed, L)
     B = codes.shape[0]
@@ -224,10 +270,7 @@ def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch
     lengths = lengths.to(torch.int64)
     ar = torch.arange(B, device=dev)
     anchored, apos, a1, a2 = _anchor_plain(codes, lengths, bitset, k, H, n_words, tab)
-    win = codes[ar[:, None], torch.clamp(apos[:, None] + torch.arange(k, device=dev), max=L - 1)]
-    afwd = torch.zeros(B, dtype=torch.int64, device=dev)
-    for i in range(k):
-        afwd = (afwd << 2) | win[:, i]
+    afwd = _pack_window(codes, apos, k)
 
     # fused walk
     fwd, f, r = afwd, a1, a2
@@ -239,7 +282,7 @@ def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch
     conf = torch.zeros(B, L + 1, dtype=torch.bool, device=dev)
     for s in range(ME):
         in_r, sw, lidx, j, active = _schedule(lengths, apos, anchored, s, k)
-        fwd = torch.where(sw, afwd, fwd)
+        fwd = torch.where(sw[:, None], afwd, fwd)
         f = torch.where(sw, a1, f)
         r = torch.where(sw, a2, r)
         last = torch.where(sw, -1, last)
@@ -389,8 +432,10 @@ def encode_batch_compact_packed(packed, lengths, bitset, k: int, H: int, n_words
     """The reference's encode_batch_compact_packed (walk.py:554-564): the
     flat u16 buffer as an int16 tensor. With cap_err/cap_bif None the caps
     are the chunk's event totals rounded up to 8, so nothing overflows.
-    Returns (buffer, cap_err, cap_bif)."""
-    enc = walk_encode(packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
+    Returns (buffer, cap_err, cap_bif). k <= 31 walks with K4, 32 <= k <=
+    64 with K18; walk_pack serves both."""
+    enc = (walk_encode if k <= MAX_K else walk_encode_words)(
+        packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
     incl = torch.cumsum(enc["tot"], dim=1)
     if cap_err is None or cap_bif is None:
         totals = incl[:, -1].cpu().tolist() if packed.shape[0] else [0, 0]
@@ -501,20 +546,12 @@ def walk_planes_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.
     each direction's step planes (B, ME) from the anchor state. Codes are
     taken & 3."""
     _check_dense_args(codes, lengths, bitset, n_words, k, H)
-    dev = codes.device
-    B, L = codes.shape
-    ME = max(1, L - k)
+    ME = max(1, codes.shape[1] - k)
     c = codes.to(torch.int64) & 3
     lens = lengths.to(torch.int64)
     tab = bloom.tables(seed, k)
     anchored, apos, a1, a2 = _anchor_plain(c, lens, bitset, k, H, n_words, tab)
-    # _pack_window (walk.py:147-161): base i of the anchor at bit 2(k-1-i)
-    win = torch.gather(c, 1, torch.clamp(apos[:, None] + torch.arange(k, device=dev), max=L - 1))
-    afwd = torch.zeros(B, words_for_k(k), dtype=torch.int64, device=dev)
-    for i in range(k):
-        t = 2 * (k - 1 - i)
-        afwd[:, t // 32] |= win[:, i] << (t % 32)
-    state0 = (afwd, a1, a2)
+    state0 = (_pack_window(c, apos, k), a1, a2)
     out = dict(anchored=anchored, apos=apos)
     for side, right in (("r", True), ("l", False)):
         planes = _walk_side_plain(c, lens, apos, anchored, state0, bitset, k, H, n_words, tab,
@@ -578,11 +615,12 @@ def unpack_dense(enc_np: dict, n: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L) -> None:
-    kernels.need(1 <= k <= MAX_K, f"walk_decode: k={k} > {MAX_K} needs multiword keys")
-    kernels.need(scal.dtype == torch.int32 and scal.dim() == 2 and scal.shape[1] in (10, 11),
-                 "walk_decode: scal must be (B, 9+W) int32 with W <= 2")
-    kernels.need(scal.shape[1] - 9 == (k + 15) // 16, "walk_decode: scal width != 9+W")
+def _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L,
+                       max_k: int, min_k: int = 1) -> None:
+    kernels.need(min_k <= k <= max_k, f"walk_decode: k={k} not in [{min_k}, {max_k}]")
+    kernels.need(scal.dtype == torch.int32 and scal.dim() == 2
+                 and scal.shape[1] == 9 + words_for_k(k),
+                 f"walk_decode: scal must be (B, 9+W) int32, W = {words_for_k(k)}")
     kernels.need(errgaps.dtype == torch.int32 and errgaps.dim() == 1,
                  "walk_decode: errgaps must be (n_err,) int32")
     kernels.need(errnts.dtype == torch.uint8 and errnts.shape == errgaps.shape,
@@ -600,15 +638,40 @@ def walk_decode(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
                 bifs: torch.Tensor, bitset: torch.Tensor, n_words: int, k: int, H: int,
                 seed: int, L: int) -> torch.Tensor:
     """Decode re-walk (the reference's decode_batch_flat_packed,
-    walk.py:819-839). scal: (B, 9+W) int32 columns [apos, anchored, length,
-    nerr_r, nerr_l, nbif_r, nbif_l, err_base, bif_base, anchor words];
-    errgaps (n_err,) int32, errnts (n_err,) uint8, bifs (n_bif,) uint8: the
-    chunk's flat event streams, read-major, right then left. Returns
-    (B, ceil(L/16)) int32 holding bases packed 16 per u32
+    walk.py:819-839), k <= 31 (kernel K4). scal: (B, 9+W) int32 columns
+    [apos, anchored, length, nerr_r, nerr_l, nbif_r, nbif_l, err_base,
+    bif_base, anchor words]; errgaps (n_err,) int32, errnts (n_err,) uint8,
+    bifs (n_bif,) uint8: the chunk's flat event streams, read-major, right
+    then left. Returns (B, ceil(L/16)) int32 holding bases packed 16 per u32
     (pack_codes_u32 layout); positions outside each read's walk are 0."""
-    _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L)
+    _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L, MAX_K)
     if not kernels.on_cuda(scal, "walk_decode"):
         return walk_decode_plain(scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L)
+    return _decode_launch(scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L, False)
+
+
+def walk_decode_words(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
+                      bifs: torch.Tensor, bitset: torch.Tensor, n_words: int, k: int, H: int,
+                      seed: int, L: int) -> torch.Tensor:
+    """walk_decode for 17 <= k <= 64 (kernel K19; the main path takes it for
+    32 <= k <= 64): scal (B, 9+W), W = ceil(k/16) = 2..4, up to 13 columns."""
+    _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L, MAX_K_WORDS,
+                       MIN_K_WIDE)
+    if not kernels.on_cuda(scal, "walk_decode_words"):
+        return walk_decode_plain(scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L)
+    return _decode_launch(scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L, True)
+
+
+def decode_batch_flat_packed(scal, errgaps, errnts, bifs, bitset, n_words: int, k: int, H: int,
+                             seed: int, L: int) -> torch.Tensor:
+    """The reference's decode_batch_flat_packed: K4 for k <= 31, K19 for
+    32 <= k <= 64."""
+    return (walk_decode if k <= MAX_K else walk_decode_words)(
+        scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L)
+
+
+def _decode_launch(scal, errgaps, errnts, bifs, bitset, n_words: int, k: int, H: int, seed: int,
+                   L: int, words: bool) -> torch.Tensor:
     B, cols = scal.shape
     L16 = (L + 15) // 16
     out = torch.empty(B, L16, dtype=torch.int32, device=scal.device)
@@ -616,22 +679,25 @@ def walk_decode(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
         scal, errgaps, errnts = scal.contiguous(), errgaps.contiguous(), errnts.contiguous()
         bifs, bitset = bifs.contiguous(), bitset.contiguous()
         tab = kernels.host_tables(bloom.tables(seed, k))
-        rc = kernels.lib().lt_walk_decode(
-            scal.data_ptr(), B, cols - 9, errgaps.data_ptr(), errnts.data_ptr(),
-            bifs.data_ptr(), errgaps.shape[0], bifs.shape[0], L, L16, k, H,
-            int(n_words), tab.ctypes.data, bitset.data_ptr(), out.data_ptr(),
-            kernels.stream(scal))
-        kernels.check(rc, "walk_decode")
-        kernels.launches["walk_decode"] += 1
+        name = "walk_decode_words" if words else "walk_decode"
+        args = (scal.data_ptr(), B, cols - 9, errgaps.data_ptr(), errnts.data_ptr(),
+                bifs.data_ptr(), errgaps.shape[0], bifs.shape[0], L, L16, k, H, int(n_words))
+        tail = (tab.ctypes.data, bitset.data_ptr(), out.data_ptr(), kernels.stream(scal))
+        lib = kernels.lib()
+        rc = (lib.lt_walk_decode_words(*args, top_mask(k), *tail) if words
+              else lib.lt_walk_decode(*args, *tail))
+        kernels.check(rc, name)
+        kernels.launches[name] += 1
     return out
 
 
 def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
                       bifs: torch.Tensor, bitset: torch.Tensor, n_words: int, k: int,
                       H: int, seed: int, L: int) -> torch.Tensor:
-    """Plain version of walk_decode: decode_batch_flat, decode_batch and
-    _walk_decode_fused (walk.py:700-936), step by step."""
-    _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L)
+    """Plain version of walk_decode (K4) and walk_decode_words (K19), k <=
+    64: decode_batch_flat, decode_batch and _walk_decode_fused
+    (walk.py:700-936), step by step, the window as (B, W) words."""
+    _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L, MAX_K_WORDS)
     dev = scal.device
     B = scal.shape[0]
     W = scal.shape[1] - 9
@@ -642,9 +708,7 @@ def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
     anchored = s64[:, 1] != 0
     nerr_r, nerr_l, nbif_r, nbif_l = s64[:, 3], s64[:, 4], s64[:, 5], s64[:, 6]
     err_base, bif_base = s64[:, 7], s64[:, 8]
-    afwd = s64[:, 9] & _M32
-    if W == 2:
-        afwd = afwd | ((s64[:, 10] & _M32) << 32)
+    afwd = s64[:, 9 : 9 + W] & _M32
     ar = torch.arange(B, device=dev)
     slot = torch.arange(ME, device=dev)[None, :]
 
@@ -675,11 +739,12 @@ def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
     posm = torch.arange(L, device=dev)[None, :]
     rel = posm - apos[:, None]
     in_anchor = (rel >= 0) & (rel < k) & anchored[:, None]
-    anchor_code = (afwd[:, None] >> (2 * (k - 1 - torch.clamp(rel, 0, k - 1)))) & 3
+    t = 2 * (k - 1 - torch.clamp(rel, 0, k - 1))
+    anchor_code = (torch.gather(afwd, 1, t // 32) >> (t % 32)) & 3
     out = torch.where(in_anchor, anchor_code, 0)
     out = torch.cat([out, torch.zeros(B, 1, dtype=torch.int64, device=dev)], dim=1)
 
-    f, r = bloom.hash_keys_plain(afwd, k, tab)
+    f, r = bloom.hash_words_plain(afwd, k, tab)
     a1, a2 = f, r
     qs = torch.arange(2 * ME, device=dev)[None, :]
     qr = bf_r[ar[:, None], torch.clamp(qs, 0, ME - 1)]
@@ -690,7 +755,7 @@ def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
     pbif = torch.zeros(B, dtype=torch.int64, device=dev)
     for s in range(ME):
         in_r, sw, lidx, j, active = _schedule(lengths, apos, anchored, s, k)
-        fwd = torch.where(sw, afwd, fwd)
+        fwd = torch.where(sw[:, None], afwd, fwd)
         f = torch.where(sw, a1, f)
         r = torch.where(sw, a2, r)
         ev = err_plane[ar, torch.clamp(j, 0, L - 1)]

@@ -8,6 +8,14 @@ leon_tpu/pipeline.py), on one device.
   decompress: container -> Bloom + dict -> decode re-walk (K4) -> host
               reassembly
 
+That is the route for k <= 31, one int64 key per k-mer. For 32 <= k <= 64
+(W = 2..4 u32 words) the same stages run on the multiword route: K17 scans
+each chunk's valid k-mers into the slab as sign-flipped int64 halves,
+torch.sort passes + K14 count and merge (count.WordCounter), K16 builds the
+Bloom filter, K14 compacts the solid rows, K18 walk-encodes (walk_pack as
+before) and K19 re-walks at decode. The host halves (unitig builder, DICT,
+stream assembly) are W-generic copies.
+
 The unitig build takes one of the reference's two paths
 (leon_tpu/pipeline.py:636-722): when 0 < n_solid <= min(unitig_max_kmers,
 unitig_device_max_kmers) it runs on the device (K5-K7, span
@@ -23,13 +31,15 @@ and the decode driver. Archives are byte-identical to leon_tpu's for the
 same input and config.
 
 Not here: the compile-service retry, the multi-chip placer, checkpoints,
-stream mode (inputs over cfg.stream_threshold_bytes), k > 31 and the
-host-count fallback. Reaching one raises NotImplementedError
-(ROADMAP.md queue 1, item 9). The walk sizes its event buffers from the
-per-read counts the kernel produced, so no chunk overflows and the
-reference's cap retry and dense fallback have no counterpart; chunks are
-encoded one at a time (the card is idle >99% of the run, PERF.md §5, so
-the reference's dispatch-ahead queue would buy nothing).
+stream mode (inputs over cfg.stream_threshold_bytes) and the host-count
+fallback (ROADMAP.md queue 1, item 9); k > 64 (item 9a); the device unitig
+build at k > 31, whose kernels K5-K8 take int64 keys (item 9b). Reaching
+one raises NotImplementedError naming its item. The walk sizes its event
+buffers from the per-read counts the kernel produced, so no chunk
+overflows and the reference's cap retry and dense fallback have no
+counterpart; chunks are encoded one at a time (the card is idle >99% of
+the run, PERF.md §5, so the reference's dispatch-ahead queue would buy
+nothing).
 """
 
 from __future__ import annotations
@@ -67,9 +77,14 @@ BATCH_CUDA = 65536  # lanes per walk chunk on the card
 BATCH_CPU = 8192
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str = "9"):
     return NotImplementedError(
-        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item 9)")
+        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item {item})")
+
+
+def _check_k(k: int) -> None:
+    if k > K.MAX_K_WORDS:
+        raise _not_ported(f"k = {k} > {K.MAX_K_WORDS} (W = {K.words_for_k(k)} words)", "9a")
 
 
 def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
@@ -186,7 +201,8 @@ def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
                 dev_cache: dict, lossy_quals: bool):
     """K-mer counting + Bloom build on the device. dev_cache keeps each
     chunk's uploaded (packed, lengths) for the encode pass."""
-    counter = count.DeviceCounter(k, device, merge_factor=cfg.count_merge_factor)
+    counter = (count.DeviceCounter if k <= K.MAX_K else count.WordCounter)(
+        k, device, merge_factor=cfg.count_merge_factor)
     ci = 0
     for prep in preps:
         for ch in chunk_block(prep, cfg, k):
@@ -206,13 +222,16 @@ def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
 
 
 def _start_unitig_thread(run, cutoff: int, n_solid: int, k: int, W: int, out: list):
-    """Compact the distinct run to its solid rows on the device (K2), ship
-    them down, and build the unitig payload on a host thread under the
-    encode stage (leon_tpu/pipeline.py:643-700)."""
-    keys, counts, nu = run
+    """Ship the run's solid rows down (compacted on the device by K2 here,
+    or already by K14 for the multiword Bloom build) and build the unitig
+    payload on a host thread under the encode stage
+    (leon_tpu/pipeline.py:643-700)."""
+    rows, counts, nu, solid = run
     with span("unitig.solid_d2h"):
-        sk, _ = count.compact_solid(keys, counts, cutoff)
-        words = state.keys_from_torch(sk, W)
+        if solid is None:
+            words = state.keys_from_torch(count.compact_solid(rows, counts, cutoff)[0], W)
+        else:
+            words = solid.cpu().numpy().view(np.uint32)
     if words.shape[0] < n_solid:
         # the histogram overcounts solid rows when cutoff > 255; the
         # reference's zero-padded compaction hands the builder n_solid rows
@@ -255,8 +274,7 @@ def compress(input_path: str, output_path: Optional[str] = None,
     """Compress a FASTA/FASTQ file into a .leon archive on `device`
     ('cuda' or 'cpu'); returns the reference's stats dict."""
     cfg, device = _setup(cfg, device)
-    if cfg.kmer_size > K.MAX_K:
-        raise _not_ported(f"k = {cfg.kmer_size} > {K.MAX_K} (multiword keys)")
+    _check_k(cfg.kmer_size)
     try:
         return _compress_impl(input_path, output_path, cfg, device, None)
     except bank.IrregularInput:
@@ -356,8 +374,11 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
     if (cfg.unitig_sections and run is not None
             and 0 < n_solid <= cfg.unitig_max_kmers):
         if n_solid <= cfg.unitig_device_max_kmers:
+            if k > K.MAX_K:
+                raise _not_ported(f"the device unitig build at k = {k} > {K.MAX_K} (K5-K8 "
+                                  "take int64 keys)", "9b")
             with span("count.unitig_dispatch"):
-                keys, counts, nu = run
+                keys, counts, nu, _ = run
                 unitig_inflight = unitig.dispatch_build(keys, counts, cutoff, k, nu)
         else:
             unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
@@ -558,7 +579,7 @@ def _dispatch_block_decode(db: blockcodec.DecodedBlock, meta, dict_words: np.nda
         scal[:, 7] -= e0
         scal[:, 8] -= b0
         Lb = _bucket_len(int(sl[anch].max()), k)
-        dec = walk.walk_decode(
+        dec = walk.decode_batch_flat_packed(
             _to_device(scal, device),
             _to_device(db.errgaps[e0:e1].astype(np.int32), device),
             _to_device(db.errnts[e0:e1].astype(np.uint8), device),
@@ -608,9 +629,9 @@ def decompress(input_path: str, output_path: Optional[str] = None,
     t0 = time.time()
     r = container.Reader(input_path)
     meta = r.meta
-    if meta.k > K.MAX_K:
+    if meta.k > K.MAX_K_WORDS:
         r.close()
-        raise _not_ported(f"k = {meta.k} > {K.MAX_K} (multiword keys)")
+        _check_k(meta.k)
     if output_path is None:
         stem = input_path[:-5] if input_path.endswith(".leon") else input_path
         root, _dot, _ext = stem.rpartition(".")

@@ -3,12 +3,13 @@
     python -m leon_tpu_torch.profiling [--reps N] [--out DIR]
 
 Generates the bench corpus (chip_smoke.gen_fastq: 500k reads of 100 bp) and
-runs it on the card with -noheader -noqual in two configurations, the
-default (native host unitig builder on a thread) and the device unitig
-build (unitig_device_max_kmers = 2**30): N rounds, each compressing and
-decompressing once per configuration in turn (host clock, each run ends
-in a synchronize), then one profiled compress per configuration and one
-profiled decompress under torch.profiler. Prints the card's name and power
+runs it on the card with -noheader -noqual in three configurations, the
+default (native host unitig builder on a thread), the device unitig
+build (unitig_device_max_kmers = 2**30) and k = 63 (the multiword route,
+K17-K19): N rounds, each compressing and decompressing once per
+configuration in turn (host clock, each run ends in a synchronize), then
+one profiled compress per configuration and one profiled decompress at
+k = 31 and at k = 63 under torch.profiler. Prints the card's name and power
 limit, every run's wall time, the host span totals of the profiled runs,
 the device time per kernel/copy name and the device busy share of each
 profiled run (device time / wall time; the idle share is the rest).
@@ -53,13 +54,14 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(work, "ecoli_500k.fastq")
-    arc = os.path.join(work, "ecoli_500k.leon")
     dec = os.path.join(work, "ecoli_500k.out.fastq")
     gen_fastq(src, PIN["n_reads"], PIN["contig_len"])
     kernels.lib()
     configs = {"default": LeonConfig(noheader=True, noqual=True),
                "device_unitig": LeonConfig(noheader=True, noqual=True,
-                                           unitig_device_max_kmers=1 << 30)}
+                                           unitig_device_max_kmers=1 << 30),
+               "k63": LeonConfig(noheader=True, noqual=True, kmer_size=63)}
+    arcs = {name: os.path.join(work, f"ecoli_500k.{name}.leon") for name in configs}
     n = PIN["n_reads"]
 
     def run(fn, cfg, *a):
@@ -74,17 +76,20 @@ def main() -> int:
         res[name] = {"compress_s": [], "decompress_s": []}
     for _ in range(args.reps):
         for name, cfg in configs.items():
-            res[name]["compress_s"].append(run(pipeline.compress, cfg, src, arc)[0])
-            res[name]["decompress_s"].append(run(pipeline.decompress, cfg, arc, dec)[0])
+            res[name]["compress_s"].append(run(pipeline.compress, cfg, src, arcs[name])[0])
+            res[name]["decompress_s"].append(run(pipeline.decompress, cfg, arcs[name], dec)[0])
     for name in configs:
         for key in ("compress", "decompress"):
             res[name][f"{key}_reads_per_s"] = [n / t for t in res[name][f"{key}_s"]]
     print(json.dumps(res), flush=True)
 
     for name, fn, cfg, a in (
-            ("compress", pipeline.compress, configs["default"], (src, arc)),
-            ("compress_device_unitig", pipeline.compress, configs["device_unitig"], (src, arc)),
-            ("decompress", pipeline.decompress, configs["default"], (arc, dec))):
+            ("compress", pipeline.compress, configs["default"], (src, arcs["default"])),
+            ("compress_device_unitig", pipeline.compress, configs["device_unitig"],
+             (src, arcs["device_unitig"])),
+            ("compress_k63", pipeline.compress, configs["k63"], (src, arcs["k63"])),
+            ("decompress", pipeline.decompress, configs["default"], (arcs["default"], dec)),
+            ("decompress_k63", pipeline.decompress, configs["k63"], (arcs["k63"], dec))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall, st = run(fn, cfg, *a)
         events = [e for e in prof.key_averages() if e.device_time_total > 0]

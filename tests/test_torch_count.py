@@ -50,11 +50,12 @@ def test_counter_finalize_matches_reference(lossy):
     seed = 0x1234ABCD
     rb, rnw, rcut, rns, rhist, rH, (rwords, rcnt, rnu, _) = ref.finalize(
         None, None, None, seed, lossy, want_solid=True, unitig_max=128 << 20)
-    pb, pnw, pcut, pns, phist, pH, (pkeys, pcnt, pnu) = port.finalize(
+    pb, pnw, pcut, pns, phist, pH, (pkeys, pcnt, pnu, psolid) = port.finalize(
         None, None, None, seed, lossy, unitig_max=128 << 20)
     np.testing.assert_array_equal(phist, np.asarray(rhist))
     assert (pcut, pns, pnw, pH, pnu) == (rcut, rns, rnw, rH, rnu)
     assert rcut > 2 and rns > 0  # the corpus has a real valley
+    assert psolid is None  # K3 reads the whole run; the unitig thread compacts
     np.testing.assert_array_equal(state.bitset_from_torch(pb), np.asarray(rb)[:rnw])
     # the distinct run and its solid compaction
     rc = np.asarray(rcnt)
