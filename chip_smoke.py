@@ -5,8 +5,8 @@ the port still starts, builds its kernels and round-trips on the GPU.
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the run exits non-zero without the
-final line; phases 7, 8 and 9 run right after phase 3, whose reads and
-solid set they reuse):
+final line; phase 6's corpora are made first, and phases 7, 8 and 9 run
+right after phase 3, whose reads and solid set they reuse):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from leon_tpu_torch/csrc with nvcc, and check
      the native host library;
@@ -20,17 +20,20 @@ solid set they reuse):
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
      cycle variant taken, the payload equal to the native host builder's;
-  5. compress and decompress seven small corpora (lossy and lossless FASTQ,
-     long-read FASTA, k = 15, 16, 31, 32, 48 and 64, both Bloom-set
-     sections) on the card and on the CPU: the archives and outputs must
-     be identical;
+  5. compress and decompress ten small corpora (lossy and lossless FASTQ,
+     long-read FASTA, k = 15, 16, 31, 32, 48, 64, 65, 96 and 255, both
+     Bloom-set sections) on the card and on the CPU: the archives and
+     outputs must be identical; the k = 255 run launches the multiword
+     kernels at W = 16 and gives their launch counts;
   6. generate the bench corpus (gen_fastq, a copy of bench.py's: 500k
      reads of 100 bp from a 2 Mbp contig), compress and decompress it on
      the card with -noheader -noqual, then again with the device unitig
-     build (unitig_device_max_kmers = 2**30), then at k = 63; each run
-     must give the exact sequence round trip and its pinned archive (the
-     reference's bytes, PIN and PIN63), and launch each kernel of its path
-     (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack, K19) at least once;
+     build (unitig_device_max_kmers = 2**30), then at k = 63; then 200k
+     reads of 250 bp from the same contig and seed at k = 127 (W = 8);
+     each run must give the exact sequence round trip and its pinned
+     archive (the reference's bytes, PIN, PIN63 and PIN127), and launch
+     each kernel of its path (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack,
+     K19) at least once;
   7. the graph API at full width on phase 3's solid set (2,014,298 k-mers,
      k = 31): Graph.from_solid, contains / successors / predecessors /
      is_branching / iter_branching over every node, contains of 2**21
@@ -48,12 +51,14 @@ solid set they reuse):
      equals one shard; entry() on the card equals its CPU run; each of
      K13-K16 launched at least once, then held against its plain version
      on the card, exactly, and timed (K14 also against torch.unique);
-  9. the multiword route of compress and decompress at the k = 63
-     main-path shapes (phase 3's reads as 65,536-lane packed chunks): K17
-     scan, K14 slab runs, merge (counts, histogram) and solid mode, K16
-     over the run, K18 encode and K19 decode of one chunk, each held
-     against its plain version on the card, exactly, and timed; the
-     distinct run and cutoff must equal phase 8's.
+  9. the multiword route of compress and decompress at three widths, as
+     65,536-lane packed chunks: k = 63 on phase 3's reads (the distinct
+     run and cutoff must equal phase 8's), k = 127 on phase 6's 250-bp
+     corpus (the solid count must equal PIN127's) and k = 255 on 131,072
+     reads of 300-600 bp: K17 scan, K14 slab runs, merge (counts,
+     histogram) and solid mode, K16 over the run's solid rows, K18 encode
+     and K19 decode of one chunk, each held against its plain version on
+     the card, exactly, and timed.
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s), then, last, the device line. Kernels under ~50 us
@@ -90,6 +95,16 @@ PIN63 = {
     "sha256": "a183c79f487a77c25aa4d8a995daa4f917315595d4d20218984f2fa03884d18f",
     "n_anchored": 402_662, "n_solid": 1_978_436,
 }
+# 2x250-style reads at k = 127 (W = 8): gen_fastq(src, 200_000, 2_000_000,
+# 250) (sha256 b27b4950...), then leon_tpu.pipeline.compress(src, out,
+# cfg=LeonConfig(noheader=True, noqual=True, kmer_size=127)) with jax on
+# the CPU (JAX_PLATFORMS=cpu, PYTHONPATH=/path/to/repo).
+PIN127 = {
+    "n_reads": 200_000, "read_len": 250,
+    "bytes": 7_895_648,
+    "sha256": "494a7f7a29bda246da0b8aed43aeee7700410315422a0567d57e0ea8629c8fe3",
+    "n_anchored": 172_124, "n_solid": 1_777_017,
+}
 
 # kernel -> (CUDA source, the TPU program it replaces)
 KERNELS = {
@@ -120,14 +135,18 @@ KERNELS = {
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
 TENSOR = ("kmer_scan_words", "runs_words", "bloom_build_words", "walk_dense")
-# the main path's multiword route (32 <= k <= 64): K17, K14 (word_runs),
+# the main path's multiword route (32 <= k <= 255): K17, K14 (word_runs),
 # K16, K18 (+ walk_pack), K19. A record's name up to ":" is its launch
 # counter: K16 has one record on the tensor path (phase 8, as mesh.py
-# calls it) and one on the main path (phase 9, over the solid rows).
+# calls it) and one on the main path (phase 9, over the solid rows); the
+# multiword kernels have one record at k = 63 (W = 4) and one each at
+# W = 8 and W = 16 (":w8", ":w16").
 WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
         "walk_decode_words")
-COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR + WIDE)
-K63 = 63
+WIDE8, WIDE16 = (tuple(f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
+KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
+COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR + WIDE + WIDE8 + WIDE16)
+K63, K127, K255 = 63, 127, 255
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
@@ -888,25 +907,25 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
 
     rows = got[0].reshape(-1, 4)[got[2].reshape(-1)]
     del got
-    hi, lo = count.sort_words(rows)
-    uq, cn = count.runs_words(hi, lo, 4)
-    pu, pc = count.runs_words_plain(hi, lo, 4)
+    planes = count.sort_words(rows)
+    uq, cn = count.runs_words(planes, 4)
+    pu, pc = count.runs_words_plain(planes, 4)
     err = max(max_abs_err(uq, pu), max_abs_err(cn, pc), max_abs_err(uq, uniq63),
               max_abs_err(cn, cnt63))
     del pu, pc
-    _, lo2 = count.sort_words(solid31)
-    err = max(err, *(max_abs_err(a, b) for a, b in zip(count.runs_words(None, lo2, 2),
-                                                 count.runs_words_plain(None, lo2, 2))))
+    planes2 = count.sort_words(solid31)
+    err = max(err, *(max_abs_err(a, b) for a, b in zip(count.runs_words(planes2, 2),
+                                                 count.runs_words_plain(planes2, 2))))
     u0, c0 = count.count_batch(torch.zeros(2, 3, 4, dtype=torch.int32, device=dev),
                                torch.zeros(2, 3, dtype=torch.bool, device=dev))  # all invalid
     if tuple(u0.shape) != (0, 4) or tuple(c0.shape) != (0,):
         raise AssertionError(f"count_batch on no rows: {tuple(u0.shape)}, {tuple(c0.shape)}")
     records["runs_words"] = record(
-        err, cuda_ms(lambda: count.runs_words(hi, lo, 4), 5),
-        cuda_ms(lambda: count.runs_words_plain(hi, lo, 4), 2), nbytes(hi, lo, uq, cn),
+        err, cuda_ms(lambda: count.runs_words(planes, 4), 5),
+        cuda_ms(lambda: count.runs_words_plain(planes, 4), 2), nbytes(planes, uq, cn),
         cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 2))
     log(f"runs_words ok: {rows.shape[0]} rows -> {uq.shape[0]} distinct (k=63)")
-    del rows, hi, lo, uq, cn
+    del rows, planes, planes2, uq, cn
 
     err = 0
     for words, ones, nw, k in ((solid31, ones31, n_words, K), (solid63, ones63, nw63, k63)):
@@ -929,82 +948,79 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def widek_phase(records: dict, bench_state: dict, tensor_fig: dict) -> dict:
-    """The kernels compress and decompress run at 32 <= k <= 64, at the
-    k = 63 main-path shapes: phase 3's 458,752 reads (L = 104, 2-bit
-    packed) as 7 chunks of 65,536 lanes. K17 scans each chunk's valid
-    k-mers as sign-flipped halves; each chunk's slab run (sort + K14 in
-    length mode) and their merge (K14 with the counts payload and the
-    histogram) must give phase 8's distinct run (count and auto cutoff);
-    K14's solid mode, K16 over the run's solid rows at the pipeline's
-    sizing, K18 on one chunk (with and without the confirmed bits) and
-    K19 on what K18 encoded (restoring the reads). Each kernel is held
-    against its plain version on the card, exactly, and timed; the launch
-    counts of these kernels come from phase 6's k = 63 run."""
+def multiword_checks(records: dict, names: tuple, codes, lengths, k: int) -> dict:
+    """The kernels compress and decompress run at 32 <= k <= 255, at one
+    k's main-path shapes: the (n, L) read codes as 65,536-lane packed
+    chunks. K17 scans each chunk's valid k-mers as sign-flipped int64
+    planes; each chunk's slab run (sort + K14 in length mode) and their
+    merge (K14 with the counts payload and the histogram); K14's solid
+    mode, K16 over the run's solid rows at the pipeline's sizing, K18 on
+    one chunk (with and without the confirmed bits) and K19 on what K18
+    encoded (restoring the reads). Each kernel is held against its plain
+    version on the card, exactly, and timed, into records under `names`
+    (K17, K14, K16, K18, K19); their launch counts come from a main-path
+    run at the same width. Returns the counts the caller checks."""
     import numpy as np
     import torch
 
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import bloom, count, kmer, walk
 
+    n_scan, n_runs, n_bloom, n_enc, n_dec = names
     dev = torch.device("cuda")
-    codes, lengths = bench_state["codes"], bench_state["lengths"]
     L = codes.shape[1]
-    W = kmer.words_for_k(K63)
+    W = kmer.words_for_k(k)
+    tag = f"k={k}, W={W}"
     packed_d = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
     lengths_d = torch.from_numpy(lengths).to(dev)
     chunks = [(packed_d[s : s + B], lengths_d[s : s + B]) for s in range(0, codes.shape[0], B)]
 
     # K17
-    halves = [kmer.kmer_scan_halves(p, ln, K63, L) for p, ln in chunks]
+    planes = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
     err = 0
-    for (p, ln), got in zip(chunks[:2], halves):
-        want = kmer.kmer_scan_halves_plain(p, ln, K63, L)
+    for (p, ln), got in zip(chunks[:2], planes):
+        want = kmer.kmer_scan_halves_plain(p, ln, k, L)
         err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)))
+        del want
     p0, l0 = chunks[0]
-    records["kmer_scan_halves"] = record(
-        err, cuda_ms(lambda: kmer.kmer_scan_halves(p0, l0, K63, L), 10),
-        cuda_ms(lambda: kmer.kmer_scan_halves_plain(p0, l0, K63, L), 2), nbytes(p0, l0, halves[0]))
-    n_rows = sum(h[1].numel() for h in halves)
-    log(f"kmer_scan_halves ok: {n_rows} valid k-mers (k={K63}) in {len(chunks)} chunks")
+    records[n_scan] = record(
+        err, cuda_ms(lambda: kmer.kmer_scan_halves(p0, l0, k, L), 10),
+        cuda_ms(lambda: kmer.kmer_scan_halves_plain(p0, l0, k, L), 2), nbytes(p0, l0, planes[0]))
+    n_rows = sum(h[0].numel() for h in planes)
+    log(f"{n_scan} ok: {n_rows} valid k-mers ({tag}) in {len(chunks)} chunks")
 
     # K14: slab runs (length mode), their merge (counts + histogram), solid mode
     slab_runs = []
-    for i, h in enumerate(halves):
-        shi, slo = count.sort_halves(*h)
-        got = count.word_runs(shi, slo, W)
+    for i, h in enumerate(planes):
+        srt = count.sort_planes(h)
+        got = count.word_runs(srt, W)
         if i == 0:
-            want = count.word_runs_plain(shi, slo, W)
+            want = count.word_runs_plain(srt, W)
             err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
         slab_runs.append(got[:2])
-    del halves
+    del planes, srt
     words = torch.cat([r[0] for r in slab_runs])
     counts = torch.cat([r[1] for r in slab_runs])
     del slab_runs
-    mhi, mlo, perm = count.sort_halves(*state.words_to_halves(words), with_perm=True)
+    mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
     mc = counts[perm]
     del words, counts, perm
-    gw, gc, gh = count.word_runs(mhi, mlo, W, mc, 1, True)
+    gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
     err = max(err, *(max_abs_err(a, b) for a, b in
-                     zip((gw, gc, gh), count.word_runs_plain(mhi, mlo, W, mc, 1, True))))
+                     zip((gw, gc, gh), count.word_runs_plain(mpl, W, mc, 1, True))))
     hist = gh.cpu().numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
-    if (gw.shape[0], cutoff) != (tensor_fig["distinct63"], tensor_fig["cutoff63"]):
-        raise AssertionError(f"k={K63}: {gw.shape[0]} distinct, cutoff {cutoff} != phase 8's "
-                             f"{tensor_fig['distinct63']}, {tensor_fig['cutoff63']}")
     sw, sc = count.compact_solid_words(gw, gc, cutoff)
-    ghi, glo = state.words_to_halves(gw)
-    pw, pc, _ = count.word_runs_plain(ghi, glo, W, gc, cutoff)
+    pw, pc, _ = count.word_runs_plain(state.words_to_planes(gw), W, gc, cutoff)
     err = max(err, max_abs_err(sw, pw), max_abs_err(sc, pc))
-    if sw.shape[0] != tensor_fig["solid63"]:
-        raise AssertionError(f"k={K63}: {sw.shape[0]} solid != phase 8's {tensor_fig['solid63']}")
-    records["word_runs"] = record(
-        err, cuda_ms(lambda: count.word_runs(mhi, mlo, W, mc, 1, True), 5),
-        cuda_ms(lambda: count.word_runs_plain(mhi, mlo, W, mc, 1, True), 2),
-        nbytes(mhi, mlo, mc, gw, gc, gh))
-    log(f"word_runs ok: {mlo.numel()} run rows -> {gw.shape[0]} distinct, cutoff {cutoff}, "
-        f"{sw.shape[0]} solid (k={K63})")
-    del mhi, mlo, mc, ghi, glo, pw, pc
+    records[n_runs] = record(
+        err, cuda_ms(lambda: count.word_runs(mpl, W, mc, 1, True), 5),
+        cuda_ms(lambda: count.word_runs_plain(mpl, W, mc, 1, True), 2),
+        nbytes(mpl, mc, gw, gc, gh))
+    n_distinct = gw.shape[0]
+    log(f"{n_runs} ok: {mc.numel()} run rows -> {n_distinct} distinct, cutoff {cutoff}, "
+        f"{sw.shape[0]} solid ({tag})")
+    del mpl, mc, pw, pc
 
     # K16 as the WordCounter calls it: over the solid rows K14 compacted (the
     # same bits as the whole run with its solid rows marked)
@@ -1012,59 +1028,60 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict) -> dict:
     bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
     nw = bloom.choose_n_words(n_solid, bpk)
     ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
-    bits = bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, K63)
-    err = max(max_abs_err(bits, bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, K63)),
-              max_abs_err(bits, bloom.bloom_build_words(gw, gc >= cutoff, nw, nw, H, SEED, K63)))
-    records["bloom_build_words:main"] = record(
-        err, cuda_ms(lambda: bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, K63), 10),
-        cuda_ms(lambda: bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, K63), 1),
+    bits = bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, k)
+    err = max(max_abs_err(bits, bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, k)),
+              max_abs_err(bits, bloom.bloom_build_words(gw, gc >= cutoff, nw, nw, H, SEED, k)))
+    records[n_bloom] = record(
+        err, cuda_ms(lambda: bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, k), 10),
+        cuda_ms(lambda: bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, k), 1),
         nbytes(sw, ones, bits))
-    log(f"bloom_build_words ok: {n_solid} solid rows of {gw.shape[0]}, {nw} words (k={K63})")
+    log(f"{n_bloom} ok: {n_solid} solid rows of {n_distinct}, {nw} words ({tag})")
     del gw, gc, gh, ones, sw, sc
 
     # K18 on one chunk, with and without the confirmed bits
     def enc_d(conf: bool):
-        return walk.walk_encode_words(p0, l0, bits, nw, K63, H, SEED, L, conf)
+        return walk.walk_encode_words(p0, l0, bits, nw, k, H, SEED, L, conf)
 
-    ME = L - K63
+    ME = L - k
     err = 0
     for conf in (True, False):
         e_d = enc_d(conf)
-        e_p = walk.walk_encode_plain(p0, l0, bits, nw, K63, H, SEED, L, conf)
+        e_p = walk.walk_encode_plain(p0, l0, bits, nw, k, H, SEED, L, conf)
         err = max(err, *(max_abs_err(e_d[n], e_p[n]) for n in ("meta", "tot", "conf")))
         tot = e_p["tot"].to(torch.int64)
         for n, row in (("ev_gap", 0), ("ev_nt", 0), ("ev_bif", 1)):
             valid = torch.arange(ME, device=dev)[None, :] < tot[row][:, None]
             err = max(err, max_abs_err(e_d[n].to(torch.int64)[valid],
                                        e_p[n].to(torch.int64)[valid]))
+        del e_p
     # bytes: the inputs, meta and tot, and the tot-many event slots the
     # kernel writes of each read's (ME,) rows (e_d is the run without conf)
     n_ev = e_d["tot"].to(torch.int64).sum(dim=1).tolist()
     ev_bytes = (n_ev[0] * (e_d["ev_gap"].element_size() + e_d["ev_nt"].element_size())
                 + n_ev[1] * e_d["ev_bif"].element_size())
-    records["walk_encode_words"] = record(
+    records[n_enc] = record(
         err, cuda_ms(lambda: enc_d(False), 10),
-        cuda_ms(lambda: walk.walk_encode_plain(p0, l0, bits, nw, K63, H, SEED, L, False), 1),
+        cuda_ms(lambda: walk.walk_encode_plain(p0, l0, bits, nw, k, H, SEED, L, False), 1),
         nbytes(p0, l0, bits, e_d["meta"], e_d["tot"]) + ev_bytes)
+    nb = p0.shape[0]
     anchored = int(e_d["meta"][:, 0].sum())
-    log(f"walk_encode_words ok: {anchored}/{B} anchored, {int(e_d['tot'][0].sum())} err, "
-        f"{int(e_d['tot'][1].sum())} bif events (k={K63})")
+    log(f"{n_enc} ok: {anchored}/{nb} anchored, {n_ev[0]} err, {n_ev[1]} bif events ({tag})")
 
     # K19 on what K18 encoded
     incl = torch.cumsum(e_d["tot"], dim=1)
     cap_err = -(-int(incl[0, -1]) // 8) * 8
     cap_bif = -(-int(incl[1, -1]) // 8) * 8
-    buf = walk.walk_pack(e_d, incl, L, K63, cap_err, cap_bif, False).cpu().numpy()
-    enc = walk.unpack_compact(buf.view(np.uint16), B, B, L, cap_err, cap_bif, False, K63)
-    canon, orient = kmer.kmer_words_batch_np(codes[:B], enc["apos"].astype(np.int64), K63)
-    afwd = np.where(orient[:, None], kmer.revcomp_words_batch_np(canon, K63), canon)
+    buf = walk.walk_pack(e_d, incl, L, k, cap_err, cap_bif, False).cpu().numpy()
+    enc = walk.unpack_compact(buf.view(np.uint16), nb, nb, L, cap_err, cap_bif, False, k)
+    canon, orient = kmer.kmer_words_batch_np(codes[:nb], enc["apos"].astype(np.int64), k)
+    afwd = np.where(orient[:, None], kmer.revcomp_words_batch_np(canon, k), canon)
     anch = enc["anchored"]
     et = enc["nerr_r"] + enc["nerr_l"]
     bt = enc["nbif_r"] + enc["nbif_l"]
-    scal = np.zeros((B, 9 + W), np.int32)
+    scal = np.zeros((nb, 9 + W), np.int32)
     scal[:, 0] = enc["apos"]
     scal[:, 1] = anch
-    scal[:, 2] = np.where(anch, lengths[:B], 0)
+    scal[:, 2] = np.where(anch, lengths[:nb], 0)
     scal[:, 3], scal[:, 4] = enc["nerr_r"], enc["nerr_l"]
     scal[:, 5], scal[:, 6] = enc["nbif_r"], enc["nbif_l"]
     scal[:, 7] = np.cumsum(et) - et
@@ -1073,19 +1090,75 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict) -> dict:
     dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
         scal, enc["errgap_flat"].astype(np.int32), enc["errnt_flat"].astype(np.uint8),
         enc["bif_flat"].astype(np.uint8)))
-    d_d = walk.walk_decode_words(*dec_in, bits, nw, K63, H, SEED, L)
-    err = max_abs_err(d_d, walk.walk_decode_plain(*dec_in, bits, nw, K63, H, SEED, L))
+    d_d = walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L)
+    err = max_abs_err(d_d, walk.walk_decode_plain(*dec_in, bits, nw, k, H, SEED, L))
     back = walk.unpack_codes_u32_np(d_d.cpu().numpy().view(np.uint32), L)
     rows = np.flatnonzero(anch)
-    same = (back[rows] == codes[:B][rows]) | (np.arange(L)[None, :] >= lengths[:B][rows, None])
-    if not same.all():
-        raise AssertionError(f"k={K63}: decode did not restore the encoded reads")
-    records["walk_decode_words"] = record(
-        err, cuda_ms(lambda: walk.walk_decode_words(*dec_in, bits, nw, K63, H, SEED, L), 10),
-        cuda_ms(lambda: walk.walk_decode_plain(*dec_in, bits, nw, K63, H, SEED, L), 1),
+    same = (back[rows] == codes[:nb][rows]) | (np.arange(L)[None, :] >= lengths[:nb][rows, None])
+    if not same.all() or rows.size == 0:
+        raise AssertionError(f"{tag}: decode did not restore the encoded reads")
+    records[n_dec] = record(
+        err, cuda_ms(lambda: walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L), 10),
+        cuda_ms(lambda: walk.walk_decode_plain(*dec_in, bits, nw, k, H, SEED, L), 1),
         nbytes(dec_in, bits, d_d))
-    log(f"walk_decode_words ok: {rows.size} reads restored (k={K63})")
-    return dict(valid_rows=n_rows, n_solid=n_solid, n_words=nw, anchored=anchored)
+    log(f"{n_dec} ok: {rows.size} reads restored ({tag})")
+    return dict(k=k, n_reads=codes.shape[0], L=L, valid_rows=n_rows, distinct=n_distinct,
+                cutoff=cutoff, n_solid=n_solid, n_words=nw, anchored=anchored)
+
+
+def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -> dict:
+    """Phase 9: the multiword kernels at k = 63 on phase 3's 458,752 reads (L
+    = 104; the distinct run, cutoff and solid count must equal phase 8's),
+    at k = 127 (W = 8) on the whole 250-bp corpus of phase 6 (the solid
+    count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
+    300-600 bp (long_reads)."""
+    fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63)
+    want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])
+    if (fig63["distinct"], fig63["cutoff"], fig63["n_solid"]) != want:
+        raise AssertionError(f"k={K63}: distinct, cutoff, solid {fig63} != phase 8's {want}")
+    codes, lengths = fastq_codes(r250)
+    fig127 = multiword_checks(records, WIDE8, codes, lengths, K127)
+    if fig127["n_solid"] != PIN127["n_solid"]:
+        raise AssertionError(f"k={K127}: {fig127['n_solid']} solid != the reference's "
+                             f"{PIN127['n_solid']}")
+    codes, lengths = long_reads(2 * B, 300, 600)
+    fig255 = multiword_checks(records, WIDE16, codes, lengths, K255)
+    return {"k63": fig63, "k127": fig127, "k255": fig255}
+
+
+def fastq_codes(path: str) -> tuple:
+    """The sequence lines of a FASTQ of one read length (gen_fastq's) as
+    (n, L) uint8 codes (A, C, G, T = 0..3) and (n,) int32 lengths."""
+    import numpy as np
+
+    seqs = [s for s in seq_lines(path) if s]
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"CGT", np.uint8)] = (1, 2, 3)
+    codes = lut[np.frombuffer(b"".join(seqs), np.uint8)].reshape(len(seqs), -1)
+    return codes, np.full(len(seqs), codes.shape[1], np.int32)
+
+
+def long_reads(n: int, lmin: int, lmax: int) -> tuple:
+    """n reads of lmin..lmax bp made as gen_fastq makes its reads (the bench
+    contig's seed and size, 1% substitutions, every other read reverse-
+    complemented), as (n, lmax) uint8 codes, zero past each read, and (n,)
+    int32 lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(0xBE7C4)
+    contig = rng.integers(0, 4, PIN["contig_len"], dtype=np.uint8)
+    lengths = rng.integers(lmin, lmax + 1, n).astype(np.int32)
+    starts = rng.integers(0, contig.size - lmax, n)
+    j = np.arange(lmax)
+    codes = contig[starts[:, None] + j]
+    mut = rng.random((n, lmax)) < 0.01
+    codes[mut] = (codes[mut] + rng.integers(1, 4, int(mut.sum()))) & 3
+    inside = j[None, :] < lengths[:, None]
+    rc = np.where(inside, lengths[:, None] - 1 - j, j)  # reverse within the read
+    odd = np.arange(n) % 2 == 1
+    codes[odd] = 3 - np.take_along_axis(codes[odd], rc[odd], axis=1)
+    codes[~inside] = 0
+    return codes, lengths
 
 
 # ---------------------------------------------------------------------------
@@ -1095,7 +1168,8 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict) -> dict:
 # (label, corpus kind, LeonConfig fields): lossy qualities (the confirmed-
 # position bits), one-word keys (k <= 16), reads past 255 walk steps (the
 # 6-u16 per-read layout), the BLOOM section; then the multiword route at
-# k = 32, 48 and 64
+# k = 32, 48 and 64, and past four words at k = 65 (W = 5), 96 (an even k,
+# W = 6) and 255 (W = 16, on reads of 300-600 bp)
 VARIANTS = [
     ("fastq lossy k=31", "fastq", {}),
     ("fastq lossless k=15", "fastq", dict(lossless=True, kmer_size=15)),
@@ -1104,21 +1178,30 @@ VARIANTS = [
     ("fastq lossy k=32", "fastq", dict(kmer_size=32)),
     ("fastq lossless k=48", "fastq", dict(lossless=True, kmer_size=48)),
     ("fasta k=64, BLOOM section", "fasta", dict(kmer_size=64, unitig_sections=False)),
+    ("fastq lossy k=65, reads of 100-250 bp", "fastq250", dict(kmer_size=65)),
+    ("fasta k=96, BLOOM section", "fasta", dict(kmer_size=96, unitig_sections=False)),
+    ("fasta k=255, reads of 300-600 bp", "fasta600", dict(kmer_size=255)),
 ]
+K255_VARIANT = len(VARIANTS) - 1  # its card run gives the W = 16 records' launches
+
+# corpus kind -> (format, read lengths, reads)
+CORPORA = {"fastq": ("fastq", 60, 100, 1500), "fasta": ("fasta", 150, 300, 1500),
+           "fastq250": ("fastq", 100, 250, 1500), "fasta600": ("fasta", 300, 600, 400)}
 
 
 def write_corpus(path: str, kind: str, seed: int) -> None:
-    """1,500 reads with 1% substitutions, half reverse-complemented, a few
-    with N runs, from a 3 kbp contig: FASTQ of 60-100 bp, or FASTA of
-    150-300 bp wrapped at 70 columns."""
+    """Reads with 1% substitutions, half reverse-complemented, a few with N
+    runs, from a 3 kbp contig (CORPORA): FASTQ, or FASTA wrapped at 70
+    columns."""
     import numpy as np
 
+    fmt, lmin, lmax, n = CORPORA[kind]
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     contig = rng.integers(0, 4, 3000, dtype=np.uint8)
     with open(path, "wb") as f:
-        for i in range(1500):
-            ln = int(rng.integers(60, 101) if kind == "fastq" else rng.integers(150, 301))
+        for i in range(n):
+            ln = int(rng.integers(lmin, lmax + 1))
             st = int(rng.integers(0, contig.size - ln))
             r = contig[st : st + ln].copy()
             mut = rng.random(ln) < 0.01
@@ -1128,7 +1211,7 @@ def write_corpus(path: str, kind: str, seed: int) -> None:
             s = bases[r].tobytes()
             if i % 97 == 0:
                 s = s[:10] + b"NNNNN" + s[15:]
-            if kind == "fastq":
+            if fmt == "fastq":
                 q = rng.integers(33, 74, ln).astype(np.uint8).tobytes()
                 f.write(b"@v%d %d\n%s\n+\n%s\n" % (i, ln, s, q))
             else:
@@ -1136,23 +1219,32 @@ def write_corpus(path: str, kind: str, seed: int) -> None:
                                                  for j in range(0, ln, 70)))
 
 
-def variants() -> None:
+def variants() -> list:
     """Each variant's archive compressed on the card equals the one the
     plain (CPU) path writes — which the CPU tests hold equal to leon_tpu's —
     and the card decodes it: byte-exact for lossless modes, sequence-exact
-    and equal to the CPU decode for lossy qualities."""
-    from leon_tpu_torch import LeonConfig, pipeline
+    and equal to the CPU decode for lossy qualities. Returns each variant's
+    launch counts on the card (compress and decompress)."""
+    import torch
+
+    from leon_tpu_torch import LeonConfig, kernels, pipeline
 
     os.makedirs(WORK, exist_ok=True)
+    card_launches = []
     for i, (label, kind, kw) in enumerate(VARIANTS):
-        src = os.path.join(WORK, f"variant{i}.{kind}")
+        src = os.path.join(WORK, f"variant{i}.{CORPORA[kind][0]}")
         write_corpus(src, kind, 100 + i)
         cfg = LeonConfig(**kw)
         data = {}
         for side, d in (("card", "cuda"), ("cpu", "cpu")):
             arc = f"{src}.{side}.leon"
+            kernels.launches.clear()
+            torch.cuda.synchronize()
             pipeline.compress(src, arc, cfg=cfg, device=d)
             pipeline.decompress(arc, f"{arc}.out", cfg=cfg, device=d)
+            if side == "card":
+                torch.cuda.synchronize()
+                card_launches.append(dict(kernels.launches))
             with open(arc, "rb") as f, open(f"{arc}.out", "rb") as g:
                 data[side] = (f.read(), g.read())
         if data["card"] != data["cpu"]:
@@ -1160,11 +1252,16 @@ def variants() -> None:
                                  "from the plain path's")
         with open(src, "rb") as f:
             original = f.read()
-        lossy = kind == "fastq" and not kw.get("lossless")
+        lossy = CORPORA[kind][0] == "fastq" and not kw.get("lossless")
         out = data["card"][1]
         if (out.split(b"\n")[1::4] != original.split(b"\n")[1::4]) if lossy else out != original:
             raise AssertionError(f"variant {label}: round trip is not exact")
-        log(f"variant ok: {label}, archive {len(data['card'][0])} B")
+        log(f"variant ok: {label}, archive {len(data['card'][0])} B, card launches "
+            f"{card_launches[-1]}")
+    missing = [n for n in WIDE16 if card_launches[K255_VARIANT].get(counter(n), 0) < 1]
+    if missing:
+        raise AssertionError(f"variant k=255: kernels never launched: {missing}")
+    return card_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1172,25 +1269,26 @@ def variants() -> None:
 # ---------------------------------------------------------------------------
 
 
-def gen_fastq(path: str, n_reads: int, contig_len: int) -> None:
+def gen_fastq(path: str, n_reads: int, contig_len: int, read_len: int = READ_LEN) -> None:
     """The bench corpus (a copy of bench.py:36-59, the same RNG calls, so
-    the pinned archive stays the same bytes): reads of 100 bp from a random
-    contig, 1% substitutions, every other read reverse-complemented."""
+    the pinned archives stay the same bytes): reads of read_len bp (100 in
+    the bench) from a random contig, 1% substitutions, every other read
+    reverse-complemented."""
     import numpy as np
 
     rng = np.random.default_rng(0xBE7C4)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     contig = rng.integers(0, 4, contig_len, dtype=np.uint8)
-    starts = rng.integers(0, contig_len - READ_LEN, n_reads)
+    starts = rng.integers(0, contig_len - read_len, n_reads)
     with open(path, "wb") as f:
         chunks = []
         for i in range(n_reads):
-            r = contig[starts[i] : starts[i] + READ_LEN].copy()
-            mut = rng.random(READ_LEN) < 0.01
+            r = contig[starts[i] : starts[i] + read_len].copy()
+            mut = rng.random(read_len) < 0.01
             r[mut] = (r[mut] + rng.integers(1, 4, int(mut.sum()))) & 3
             if i % 2:
                 r = (3 - r)[::-1]
-            q = rng.integers(35, 70, READ_LEN).astype(np.uint8)
+            q = rng.integers(35, 70, read_len).astype(np.uint8)
             chunks.append(
                 b"@SRRX.%d %d/1\n%s\n+\n%s\n"
                 % (i, i, bases[r].tobytes(), q.tobytes())
@@ -1206,31 +1304,46 @@ def seq_lines(path: str) -> list:
         return f.read().split(b"\n")[1::4]
 
 
-def main_path(records: dict, card: str) -> None:
+def corpora() -> dict:
+    """Phase 6's two corpora, generated once into WORK: the bench corpus
+    (500k x 100 bp) and 200k reads x 250 bp from the same contig and seed
+    (PIN127's)."""
+    os.makedirs(WORK, exist_ok=True)
+    paths = {}
+    for name, n_reads, read_len in (("ecoli_500k", PIN["n_reads"], READ_LEN),
+                                    ("ecoli_200k_250bp", PIN127["n_reads"], PIN127["read_len"])):
+        src = paths[name] = os.path.join(WORK, f"{name}.fastq")
+        t = time.time()
+        gen_fastq(src, n_reads, PIN["contig_len"], read_len)
+        log(f"corpus {name}: {os.path.getsize(src)} bytes in {time.time() - t:.1f} s (host)")
+    return paths
+
+
+def main_path(records: dict, card: str, paths: dict) -> None:
     import torch
 
     from leon_tpu_torch import LeonConfig, kernels, pipeline
 
-    os.makedirs(WORK, exist_ok=True)
-    src = os.path.join(WORK, "ecoli_500k.fastq")
-    arc = os.path.join(WORK, "ecoli_500k.leon")
-    out = os.path.join(WORK, "ecoli_500k.out.fastq")
-    t = time.time()
-    gen_fastq(src, PIN["n_reads"], PIN["contig_len"])
-    log(f"corpus: {os.path.getsize(src)} bytes in {time.time() - t:.1f} s (host)")
-    n = PIN["n_reads"]
     walls = {}
     # the default (native host unitig builder on a thread) drives K1-K4; the
-    # device-build configuration drives K1-K8; k = 63 drives the multiword
-    # route (K17, K14, K16, K18 + walk_pack, K19). The kernels line takes
-    # K1-K4's counts from the default run, K5-K8's from the device-build run
-    # and the multiword kernels' from the k = 63 run.
+    # device-build configuration drives K1-K8; k = 63 and k = 127 drive the
+    # multiword route (K17, K14, K16, K18 + walk_pack, K19) at W = 4 and 8.
+    # The kernels line takes K1-K4's counts from the default run, K5-K8's
+    # from the device-build run and the multiword kernels' from the k = 63
+    # and k = 127 runs.
     default_path = [k for k in COMPRESS if k not in DEVICE_BUILD]
-    for label, extra, path, read, pin in (
-            ("default", {}, default_path, default_path, PIN),
-            ("device unitig build", {"unitig_device_max_kmers": 1 << 30}, list(COMPRESS),
-             list(DEVICE_BUILD), PIN),
-            (f"k={K63}", {"kmer_size": K63}, list(WIDE) + ["walk_pack"], list(WIDE), PIN63)):
+    for label, corpus, extra, path, read, pin in (
+            ("default", "ecoli_500k", {}, default_path, default_path, PIN),
+            ("device unitig build", "ecoli_500k", {"unitig_device_max_kmers": 1 << 30},
+             list(COMPRESS), list(DEVICE_BUILD), PIN),
+            (f"k={K63}", "ecoli_500k", {"kmer_size": K63}, list(WIDE) + ["walk_pack"],
+             list(WIDE), PIN63),
+            (f"k={K127}, 250 bp", "ecoli_200k_250bp", {"kmer_size": K127},
+             list(WIDE8) + ["walk_pack"], list(WIDE8), PIN127)):
+        src = paths[corpus]
+        arc = os.path.join(WORK, f"{corpus}.leon")
+        out = os.path.join(WORK, f"{corpus}.out.fastq")
+        n = len(seq_lines(src))
         cfg = LeonConfig(noheader=True, noqual=True, **extra)
         kernels.launches.clear()
         torch.cuda.synchronize()
@@ -1285,18 +1398,21 @@ def main() -> int:
     log(f"kernels built in {time.time() - t:.1f} s")
     pipeline.require_native()
     records = {n: {} for n in KERNELS}
+    paths = corpora()
     bench_state = kernel_checks(records)
     graph_fig = graph_phase(records, bench_state)
     tensor_fig = tensor_phase(records, bench_state)
-    wide_fig = widek_phase(records, bench_state, tensor_fig)
+    wide_fig = widek_phase(records, bench_state, tensor_fig, paths["ecoli_200k_250bp"])
     del bench_state
     fig = yeast_phase()
     log(f"[yeast] {json.dumps(fig)}")
-    variants()
-    main_path(records, card)
+    card_launches = variants()
+    for n in WIDE16:
+        records[n]["launches"] = card_launches[K255_VARIANT][counter(n)]
+    main_path(records, card, paths)
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
-    log(f"[k={K63} kernels] {json.dumps(wide_fig)}")
+    log(f"[multiword kernels] {json.dumps(wide_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]

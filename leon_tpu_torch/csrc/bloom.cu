@@ -1,6 +1,6 @@
 // K3 bloom_build — the blocked Bloom bitset over the solid rows of a
-// distinct (key, count) run; K16 bloom_build_words (below) — one shard's
-// partial over (S, W) k-mer words, k <= 64.
+// distinct (key, count) run; K16 bloom_build_words (below) — a blocked
+// partial over (S, W) k-mer words, k <= 255.
 //
 // Replaces: leon_tpu/ops/bloom.py build_device -> _build_device_jit._build
 // (hash every row from scratch with hash_words, wordbit per row, then a
@@ -47,20 +47,25 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
 }
 
 // ---------------------------------------------------------------------------
-// K16 bloom_build_words — one shard's blocked Bloom partial over (S, W)
-// k-mer words (k <= 64), the valid rows only, into n_alloc words.
+// K16 bloom_build_words — a blocked Bloom partial over (S, W) k-mer words
+// (k <= 255, W <= 16), the valid rows only, into n_alloc words: one
+// shard's part on the tensor path (k <= 64), the whole filter over the
+// solid rows on the main path's multiword route (32 <= k <= 255).
 //
 // Replaces: leon_tpu/parallel/mesh.py _bloom_words_local (33-49), the
-// per-shard body of sharded_bloom_build: wordbit of every row (hash_words
-// from scratch), then a sort-dedup of the (word, bit) pairs and a
-// scatter-add of single bits, which equals OR.
+// per-shard body of sharded_bloom_build, and leon_tpu/ops/bloom.py
+// build_device (422) at W >= 2: wordbit of every row (hash_words from
+// scratch), then a sort-dedup of the (word, bit) pairs and a scatter-add of
+// single bits, which equals OR.
 //
-// Bound on the H100: the k-step from-scratch hash per row (ALU) and one
-// random 4-byte atomic per valid row into a bitset that stays in the 50 MB
-// L2; the words are read once (4W bytes a row). Design: one thread per
-// row, the row's words in registers, one atomicOr of its H-bit mask (all H
-// bits of a key share one word): OR is order-free, so the partial is
-// exact and deterministic, with no sort. Words past n_words stay zero.
+// Bound on the H100: the k-step from-scratch hash per row (ALU: each step
+// picks its word out of W with a select chain, so k = 255 costs 255 x 16
+// selects a row) and one random 4-byte atomic per valid row into a bitset
+// that stays in the 50 MB L2; the words are read once (4W bytes a row).
+// Design: one thread per row, the row's words in registers, one atomicOr
+// of its H-bit mask (all H bits of a key share one word): OR is
+// order-free, so the partial is exact and deterministic, with no sort.
+// Words past n_words stay zero.
 // ---------------------------------------------------------------------------
 
 template <int W>
@@ -80,7 +85,7 @@ __global__ void bloom_build_words_kernel(const uint32_t* __restrict__ words,
 extern "C" int lt_bloom_build_words(const void* words, const void* valid, long long S, int W,
                                     unsigned n_alloc, unsigned n_words, int H, int k,
                                     const void* tabs16, void* bitset, void* stream) {
-  if (H < 1 || H > 8 || k < 1 || k > 64 || W != (k + 15) / 16 || n_words == 0 ||
+  if (H < 1 || H > 8 || k < 1 || k > 255 || W != (k + 15) / 16 || n_words == 0 ||
       n_words > n_alloc)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -94,11 +99,14 @@ extern "C" int lt_bloom_build_words(const void* words, const void* valid, long l
   const uint32_t* w = (const uint32_t*)words;
   const uint8_t* v = (const uint8_t*)valid;
   uint32_t* b = (uint32_t*)bitset;
+#define LAUNCH(W_) \
+  bloom_build_words_kernel<W_><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b)
   switch (W) {
-    case 1: bloom_build_words_kernel<1><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
-    case 2: bloom_build_words_kernel<2><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
-    case 3: bloom_build_words_kernel<3><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
-    default: bloom_build_words_kernel<4><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b); break;
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

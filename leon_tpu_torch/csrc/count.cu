@@ -1,5 +1,5 @@
 // K2 runs — reduce-by-key over a sorted int64 key array; K14 runs_words
-// (below) — the same over rows of one or two int64 halves (k <= 64).
+// (below) — the same over rows of one to eight int64 key planes (k <= 255).
 //
 // Replaces the count programs of leon_tpu/ops/count.py that follow the
 // sort: _sort_count_device's boundaries and run lengths (45-85),
@@ -21,6 +21,7 @@
 // into offsets, and the write pass ranks rows inside a block with warp
 // ballots. The histogram accumulates in shared memory, then globally.
 #include "common.cuh"
+#include "kmer_words.cuh"
 
 #define RUNS_THREADS 256
 #define SCAN_THREADS 1024
@@ -158,52 +159,80 @@ extern "C" int lt_runs_write(const void* keys, const void* counts, long long n, 
 // Replaces the post-sort half of leon_tpu/ops/count.py count_batch (88-104)
 // -> _sort_count_device (45-85): boundaries over the W sorted u32 key
 // columns, run lengths by a reverse min-scan, the host compaction of the
-// boundary rows; and, at W = 2..4 on the main path, _compact_run (208-223),
+// boundary rows; and, at W = 2..16 on the main path, _compact_run (208-223),
 // _merge_sorted_runs' segment sums (226-254), _hist_of_sorted (257-264) and
 // compact_solid (707-719). The sort stays torch.sort passes over int64
-// half-keys.
+// plane keys.
 //
-// Input: the sorted keys as one (W <= 2) or two int64 halves, lo =
-// w1 << 32 | w0 and hi = w3 << 32 | w2, each with its sign bit flipped so
-// that signed order is the reference's MSW-first u32 order; the rows are
-// already the valid ones (no sentinel: at k = 32, 48, 64 a canonical
+// Input: the sorted keys as P = ceil(W/2) int64 planes (kmer_words.cuh), the
+// rows already the valid ones (no sentinel: at k = 16W a canonical
 // palindrome can have an all-ones top word and must count). Output: each
 // emitted run's W words (unflipped) and its value, as int64 (count_batch's
-// run lengths, lt_runs_words_*) or int32 (the counter's runs,
-// lt_word_runs_*). The two entry pairs are two instances of one template:
-// the length-only one carries no counts, cutoff or histogram code.
+// run lengths, lt_runs_words_*, W <= 4) or int32 (the counter's runs,
+// lt_word_runs_*, W <= 16). The entry pairs are instances of one template
+// over the run test and a row accessor: the length-only one carries no
+// counts, cutoff or histogram code; rows of one or two planes (W <= 4) are
+// read as (hi, lo), rows of three to eight planes through the pointer array.
 //
-// Bound on the H100: device-memory traffic, 8 or 16 bytes (+4 with counts)
-// read per row and 4W + 4 or 8 written per emitted run, twice (count pass
-// and write pass). Design: K2's pattern with a two-half key: one thread per
+// Bound on the H100: device-memory traffic, 8P bytes (+4 with counts) read
+// per row and 4W + 4 or 8 written per emitted run, twice (count pass and
+// write pass). Design: K2's pattern with a multi-plane key: one thread per
 // row, the thread at a run's head walks the run; per-block totals
 // (__syncthreads_count), the histogram in shared memory, one scan_kernel
 // for offsets, warp-ballot ranks in the write pass.
 // ---------------------------------------------------------------------------
 
-static __device__ __forceinline__ bool same_row(const int64_t* __restrict__ hi,
-                                                const int64_t* __restrict__ lo, long long a,
-                                                long long b) {
-  return lo[a] == lo[b] && (!hi || hi[a] == hi[b]);
-}
+// rows of one or two int64 planes: lo = w1 << 32 | w0, hi = w3 << 32 | w2
+// (null when W <= 2), each sign-flipped
+struct HalfRows {
+  const int64_t* hi;
+  const int64_t* lo;
+  __device__ __forceinline__ bool same(long long a, long long b) const {
+    return lo[a] == lo[b] && (!hi || hi[a] == hi[b]);
+  }
+  __device__ __forceinline__ void words(long long i, int W, uint32_t* out) const {
+    const unsigned long long sign = 1ull << 63;
+    const unsigned long long l = (unsigned long long)lo[i] ^ sign;
+    const unsigned long long h = hi ? (unsigned long long)hi[i] ^ sign : 0ull;
+    const uint32_t w[4] = {(uint32_t)l, (uint32_t)(l >> 32), (uint32_t)h, (uint32_t)(h >> 32)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < W) out[j] = w[j];
+  }
+};
+
+// rows of P = 3..8 int64 planes, plane 0 least significant
+struct PlaneRows {
+  PlanePtrs pl;
+  int P;
+  __device__ __forceinline__ bool same(long long a, long long b) const {
+    for (int q = 0; q < P; ++q)
+      if (pl.p[q][a] != pl.p[q][b]) return false;
+    return true;
+  }
+  __device__ __forceinline__ void words(long long i, int W, uint32_t* out) const {
+    const unsigned long long sign = 1ull << 63;
+    for (int j = 0; j < W; ++j)
+      out[j] = (uint32_t)((((unsigned long long)pl.p[j >> 1][i]) ^ sign) >> (32 * (j & 1)));
+  }
+};
 
 // Is row i the head of a run (MODES: of an emitted run)? Sets its value.
 // Without MODES (count_batch's runs_words) the value is the run's length
 // and every head is emitted: the counts, cutoff and histogram branches
 // compile out, so that path runs only the length walk.
-template <bool MODES>
-static __device__ __forceinline__ bool word_run_at(const int64_t* __restrict__ hi,
-                                                   const int64_t* __restrict__ lo,
+template <bool MODES, class Rows>
+static __device__ __forceinline__ bool word_run_at(const Rows& rows,
                                                    const int32_t* __restrict__ counts,
                                                    long long n, long long i, int32_t cutoff,
                                                    long long* value) {
-  if (i > 0 && same_row(hi, lo, i - 1, i)) return false;
+  if (i > 0 && rows.same(i - 1, i)) return false;
   long long j = i;
   uint32_t s = 0;
   do {
     if (MODES && counts) s += (uint32_t)counts[j];
     ++j;
-  } while (j < n && same_row(hi, lo, i, j));
+  } while (j < n && rows.same(i, j));
   if (!MODES) {
     *value = j - i;
     return true;
@@ -212,11 +241,11 @@ static __device__ __forceinline__ bool word_run_at(const int64_t* __restrict__ h
   return *value >= cutoff;
 }
 
-template <bool MODES>
-__global__ void runs_words_count_kernel(const int64_t* __restrict__ hi,
-                                        const int64_t* __restrict__ lo,
-                                        const int32_t* __restrict__ counts, long long n,
-                                        int32_t cutoff, int32_t* __restrict__ hist,
+template <bool MODES, class Rows>
+__global__ void runs_words_count_kernel(const __grid_constant__ Rows rows,
+                                        const int32_t* __restrict__ counts,
+                                        long long n, int32_t cutoff,
+                                        int32_t* __restrict__ hist,
                                         long long* __restrict__ block_cnt) {
   __shared__ int sh[MODES ? 256 : 1];
   if (MODES && hist) {  // uniform across the block: the barrier is safe
@@ -225,7 +254,7 @@ __global__ void runs_words_count_kernel(const int64_t* __restrict__ hi,
   }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long v = 0;
-  const bool e = i < n && word_run_at<MODES>(hi, lo, counts, n, i, cutoff, &v);
+  const bool e = i < n && word_run_at<MODES>(rows, counts, n, i, cutoff, &v);
   if (MODES && e && hist) atomicAdd(&sh[(int)min(v, 255ll)], 1);
   const int cnt = __syncthreads_count(e);
   if (threadIdx.x == 0) block_cnt[blockIdx.x] = cnt;
@@ -235,18 +264,18 @@ __global__ void runs_words_count_kernel(const int64_t* __restrict__ hi,
 }
 
 // out_c64 (run lengths) without MODES, out_c32 (clamped values) with.
-template <bool MODES>
-__global__ void runs_words_write_kernel(const int64_t* __restrict__ hi,
-                                        const int64_t* __restrict__ lo,
-                                        const int32_t* __restrict__ counts, long long n, int W,
-                                        int32_t cutoff, const long long* __restrict__ block_off,
+template <bool MODES, class Rows>
+__global__ void runs_words_write_kernel(const __grid_constant__ Rows rows,
+                                        const int32_t* __restrict__ counts,
+                                        long long n, int W, int32_t cutoff,
+                                        const long long* __restrict__ block_off,
                                         uint32_t* __restrict__ out_w,
                                         long long* __restrict__ out_c64,
                                         int32_t* __restrict__ out_c32) {
   __shared__ int warp_tot[RUNS_THREADS / 32];
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long v = 0;
-  const bool e = i < n && word_run_at<MODES>(hi, lo, counts, n, i, cutoff, &v);
+  const bool e = i < n && word_run_at<MODES>(rows, counts, n, i, cutoff, &v);
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned m = __ballot_sync(0xffffffffu, e);
   if (lane == 0) warp_tot[warp] = __popc(m);
@@ -254,27 +283,20 @@ __global__ void runs_words_write_kernel(const int64_t* __restrict__ hi,
   if (!e) return;
   long long dst = block_off[blockIdx.x] + __popc(m & ((1u << lane) - 1u));
   for (unsigned w = 0; w < warp; ++w) dst += warp_tot[w];
-  const unsigned long long sign = 1ull << 63;
-  const unsigned long long l = (unsigned long long)lo[i] ^ sign;
-  const unsigned long long h = hi ? (unsigned long long)hi[i] ^ sign : 0ull;
-  const uint32_t words[4] = {(uint32_t)l, (uint32_t)(l >> 32), (uint32_t)h, (uint32_t)(h >> 32)};
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < W) out_w[dst * W + j] = words[j];
+  rows.words(i, W, out_w + dst * W);
   if (MODES) out_c32[dst] = (int32_t)min(v, 0x7FFFFFFFll);
   else out_c64[dst] = v;
 }
 
-template <bool MODES>
-static int words_count(const void* hi, const void* lo, const void* counts, long long n,
-                       int cutoff, void* hist, void* block_off, void* total, void* stream) {
+template <bool MODES, class Rows>
+static int words_count(const Rows& rows, const void* counts, long long n, int cutoff, void* hist,
+                       void* block_off, void* total, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long nb = n_blocks(n);
   if (hist) LT_TRY(cudaMemsetAsync(hist, 0, 256 * sizeof(int32_t), st));
   if (n > 0) {
     runs_words_count_kernel<MODES><<<(unsigned)nb, RUNS_THREADS, 0, st>>>(
-        (const int64_t*)hi, (const int64_t*)lo, (const int32_t*)counts, n, cutoff,
-        (int32_t*)hist, (long long*)block_off);
+        rows, (const int32_t*)counts, n, cutoff, (int32_t*)hist, (long long*)block_off);
   } else {
     LT_TRY(cudaMemsetAsync(block_off, 0, sizeof(long long), st));
   }
@@ -283,48 +305,69 @@ static int words_count(const void* hi, const void* lo, const void* counts, long 
   return (int)cudaGetLastError();
 }
 
-template <bool MODES>
-static int words_write(const void* hi, const void* lo, const void* counts, long long n, int W,
-                       int cutoff, const void* block_off, void* out_words, void* out_counts,
-                       void* stream) {
-  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
+template <bool MODES, class Rows>
+static int words_write(const Rows& rows, const void* counts, long long n, int W, int cutoff,
+                       const void* block_off, void* out_words, void* out_counts, void* stream) {
   if (n <= 0) return (int)cudaSuccess;  // an empty tensor's data_ptr() may be null
-  if ((W > 2 && !hi) || !out_counts) return (int)cudaErrorInvalidValue;
+  if (!out_counts) return (int)cudaErrorInvalidValue;
   runs_words_write_kernel<MODES><<<(unsigned)n_blocks(n), RUNS_THREADS, 0,
                                    (cudaStream_t)stream>>>(
-      (const int64_t*)hi, (const int64_t*)lo, (const int32_t*)counts, n, W, cutoff,
-      (const long long*)block_off, (uint32_t*)out_words, (long long*)out_counts,
-      (int32_t*)out_counts);
+      rows, (const int32_t*)counts, n, W, cutoff, (const long long*)block_off,
+      (uint32_t*)out_words, (long long*)out_counts, (int32_t*)out_counts);
   return (int)cudaGetLastError();
 }
 
-// count_batch's K14 (run lengths, every run). Pass 1 + scan: hi null when
-// W <= 2; block_off: n_blocks(n) int64 scratch; total: 1 int64.
+static HalfRows half_rows(const void* hi, const void* lo) {
+  return HalfRows{(const int64_t*)hi, (const int64_t*)lo};
+}
+
+// count_batch's K14 (run lengths, every run; W <= 4). Pass 1 + scan: hi
+// null when W <= 2; block_off: n_blocks(n) int64 scratch; total: 1 int64.
 extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, void* block_off,
                                    void* total, void* stream) {
-  return words_count<false>(hi, lo, nullptr, n, 1, nullptr, block_off, total, stream);
+  return words_count<false>(half_rows(hi, lo), nullptr, n, 1, nullptr, block_off, total,
+                            stream);
 }
 
 // Pass 2: each run's W words and int64 length at its offset.
 extern "C" int lt_runs_words_write(const void* hi, const void* lo, long long n, int W,
                                    const void* block_off, void* out_words, void* out_counts,
                                    void* stream) {
-  return words_write<false>(hi, lo, nullptr, n, W, 1, block_off, out_words, out_counts, stream);
+  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
+  if (n > 0 && W > 2 && !hi) return (int)cudaErrorInvalidValue;
+  return words_write<false>(half_rows(hi, lo), nullptr, n, W, 1, block_off, out_words,
+                            out_counts, stream);
 }
 
-// K14 in K2's modes (the WordCounter's). Pass 1 + scan: counts null (run
+// K14 in K2's modes (the WordCounter's, W <= 16): planes is the host array
+// of n_planes = ceil(W/2) plane pointers. Pass 1 + scan: counts null (run
 // lengths) or int32; hist: 256 int32 or null.
-extern "C" int lt_word_runs_count(const void* hi, const void* lo, const void* counts, long long n,
-                                  int cutoff, void* hist, void* block_off, void* total,
-                                  void* stream) {
-  return words_count<true>(hi, lo, counts, n, cutoff < 1 ? 1 : cutoff, hist, block_off, total,
+extern "C" int lt_word_runs_count(const void* planes, int n_planes, const void* counts,
+                                  long long n, int cutoff, void* hist, void* block_off,
+                                  void* total, void* stream) {
+  cutoff = cutoff < 1 ? 1 : cutoff;
+  PlanePtrs pl = {};
+  if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
+  if (n_planes <= 2)
+    return words_count<true>(half_rows(n > 0 && n_planes == 2 ? pl.p[1] : nullptr,
+                                       n > 0 ? pl.p[0] : nullptr),
+                             counts, n, cutoff, hist, block_off, total, stream);
+  return words_count<true>(PlaneRows{pl, n_planes}, counts, n, cutoff, hist, block_off, total,
                            stream);
 }
 
 // Pass 2: each emitted run's W words and int32 value (clamped) at its offset.
-extern "C" int lt_word_runs_write(const void* hi, const void* lo, const void* counts, long long n,
-                                  int W, int cutoff, const void* block_off, void* out_words,
-                                  void* out_counts, void* stream) {
-  return words_write<true>(hi, lo, counts, n, W, cutoff < 1 ? 1 : cutoff, block_off, out_words,
+extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* counts,
+                                  long long n, int W, int cutoff, const void* block_off,
+                                  void* out_words, void* out_counts, void* stream) {
+  if (W < 1 || W > 16 || n_planes != (W + 1) / 2) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  cutoff = cutoff < 1 ? 1 : cutoff;
+  PlanePtrs pl;
+  if (!load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
+  if (n_planes <= 2)
+    return words_write<true>(half_rows(n_planes == 2 ? pl.p[1] : nullptr, pl.p[0]), counts, n,
+                             W, cutoff, block_off, out_words, out_counts, stream);
+  return words_write<true>(PlaneRows{pl, n_planes}, counts, n, W, cutoff, block_off, out_words,
                            out_counts, stream);
 }

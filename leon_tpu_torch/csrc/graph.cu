@@ -330,12 +330,14 @@ extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
   cudaStream_t st = (cudaStream_t)stream;
+#define LAUNCH(W_) \
+  launch_probe<W_>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st)
   switch (W) {
-    case 1: launch_probe<1>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st); break;
-    case 2: launch_probe<2>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st); break;
-    case 3: launch_probe<3>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st); break;
-    default: launch_probe<4>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st);
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -357,12 +359,13 @@ extern "C" int lt_dbg_walk(const void* words, long long N, int W, int S, int k, 
   if (S == 0) return (int)cudaMemsetAsync(n, 0, (size_t)N * sizeof(int32_t), st);
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
+#define LAUNCH(W_) launch_walk<W_>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st)
   switch (W) {
-    case 1: launch_walk<1>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st); break;
-    case 2: launch_walk<2>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st); break;
-    case 3: launch_walk<3>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st); break;
-    default: launch_walk<4>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st);
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -385,11 +388,13 @@ extern "C" int lt_dbg_traverse(const void* words, long long N, int W, int S, int
   if (S == 0) return (int)cudaMemsetAsync(n, 0, (size_t)N * sizeof(int32_t), st);
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
+#define LAUNCH(W_) \
+  launch_traverse<W_>(words, N, S, D, k, top, tb, bitset, H, n_words, out, n, st)
   switch (W) {
-    case 1: launch_traverse<1>(words, N, S, D, k, top, tb, bitset, H, n_words, out, n, st); break;
-    case 2: launch_traverse<2>(words, N, S, D, k, top, tb, bitset, H, n_words, out, n, st); break;
-    case 3: launch_traverse<3>(words, N, S, D, k, top, tb, bitset, H, n_words, out, n, st); break;
-    default: launch_traverse<4>(words, N, S, D, k, top, tb, bitset, H, n_words, out, n, st);
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -126,36 +126,43 @@ __global__ void __launch_bounds__(SCAN_ROWS)
 
 // ---------------------------------------------------------------------------
 // K17 kmer_scan_halves — the canonical k-mers of a packed read batch's VALID
-// positions only, compacted read-major, as the counter's sign-flipped int64
-// halves (17 <= k <= 64, W = 2..4; the main path takes it for 32 <= k <= 64).
+// positions only, compacted read-major, as the counter's P = ceil(W/2)
+// sign-flipped int64 planes (17 <= k <= 255, W = 2..16; the main path takes
+// it for 32 <= k <= 255).
 //
 // Replaces: leon_tpu/ops/kmer.py kmer_scan_packed (141) -> unpack_codes_dev,
 // _kmer_scan_impl (104-126) at W = ceil(k/16) words, together with the
 // valid-row selection the reference's slab sort does by masking.
 //
-// Bound on the H100: device-memory bytes written, 8 (W <= 2) or 16 per valid
-// position, against 1/4 byte per base read. Invalid rows are dropped, not
-// marked: at k = 32, 48 and 64 a canonical palindrome can carry an all-ones
-// top word, so no key value is free to mark them. Read r's valid positions
-// p = 0 .. len-k land at offs[r] + p (offs: the exclusive prefix of the
-// per-read valid counts). Design: K13's staged tiles over the packed input
-// (one thread per read rolls fwd and rc as W words; each thread loads its
-// own packed word every 16 bases); each SCAN_TILE positions of the block's
-// SCAN_ROWS reads are staged as halves in shared memory (rows padded to an
-// odd u64 stride), then each warp copies whole row segments out, so every
-// store instruction writes 32 neighbouring int64s. The block stops at its
-// longest read's last valid position.
+// Bound on the H100: device-memory bytes written, 8P per valid position,
+// against 1/4 byte per base read. Invalid rows are dropped, not marked: at
+// k = 16W a canonical palindrome can carry an all-ones top word, so no key
+// value is free to mark them. Read r's valid positions p = 0 .. len-k land
+// at offs[r] + p (offs: the exclusive prefix of the per-read valid counts).
+// Design: K13's staged tiles over the packed input (one thread per read
+// rolls fwd and rc as W words; each thread loads its own packed word every
+// 16 bases); each tile of positions of the block's SCAN_ROWS reads is
+// staged as planes in shared memory (rows padded to an odd u64 stride),
+// then each warp copies whole row segments out, so every store instruction
+// writes neighbouring int64s. The tile is SCAN_TILE positions while the P
+// staged planes fit the 48 KB of static shared memory (P <= 2), 16 for
+// P <= 5 and 8 past it (36 KB at P = 8), so that several blocks share an
+// SM. The block stops at its longest read's last valid position.
 // ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int planes_tile(int nh) {
+  return nh <= 2 ? SCAN_TILE : nh <= 5 ? 16 : 8;
+}
 
 template <int W>
 __global__ void __launch_bounds__(SCAN_ROWS)
     kmer_scan_halves_kernel(const uint32_t* __restrict__ packed,
                             const int32_t* __restrict__ lengths,
                             const long long* __restrict__ offs, int B, int L16, int L, int k,
-                            int P, uint32_t top, int64_t* __restrict__ hi,
-                            int64_t* __restrict__ lo) {
-  constexpr int NH = W > 2 ? 2 : 1;  // halves per k-mer
-  __shared__ unsigned long long sh[NH][SCAN_ROWS][SCAN_TILE + 1];
+                            int P, uint32_t top, const PlanePtrs out) {
+  constexpr int NH = (W + 1) / 2;  // int64 planes per k-mer
+  constexpr int TILE = planes_tile(NH);
+  __shared__ unsigned long long sh[NH][SCAN_ROWS][TILE + 1];
   __shared__ int s_last[SCAN_ROWS];
   __shared__ long long s_off[SCAN_ROWS];
   __shared__ int s_end;  // columns the block has to scan
@@ -175,8 +182,8 @@ __global__ void __launch_bounds__(SCAN_ROWS)
   const unsigned long long sign = 1ull << 63;
   Kmer<W> fwd = {}, rc = {};
   uint32_t w = 0;
-  for (int c0 = 0; c0 < end; c0 += SCAN_TILE) {
-    const int nc = min(SCAN_TILE, end - c0);
+  for (int c0 = 0; c0 < end; c0 += TILE) {
+    const int nc = min(TILE, end - c0);
     // positions [pa, pa + np) end in columns [c0, c0 + nc)
     const int pa = max(0, c0 - k + 1);
     const int np = c0 + nc - k + 1 - pa;
@@ -190,11 +197,10 @@ __global__ void __launch_bounds__(SCAN_ROWS)
         const int p = j - k + 1;
         if (p < 0) continue;
         const Kmer<W> c = lex_less<W>(rc, fwd) ? rc : fwd;
-        uint32_t x[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-        for (int i = 0; i < W; ++i) x[i] = c.w[i];
-        sh[0][t][p - pa] = (((unsigned long long)x[1] << 32) | x[0]) ^ sign;
-        if (NH == 2) sh[NH - 1][t][p - pa] = (((unsigned long long)x[3] << 32) | x[2]) ^ sign;
+        for (int h = 0; h < NH; ++h)
+          sh[h][t][p - pa] =
+              (((unsigned long long)word_or_zero<W>(c, 2 * h + 1) << 32) | c.w[2 * h]) ^ sign;
       }
     }
     __syncthreads();
@@ -203,8 +209,8 @@ __global__ void __launch_bounds__(SCAN_ROWS)
         const int cnt = min(np, s_last[r] - pa + 1);
         const long long o = s_off[r] + pa;
         for (int q = lane; q < cnt; q += 32) {
-          lo[o + q] = (int64_t)sh[0][r][q];
-          if (NH == 2) hi[o + q] = (int64_t)sh[NH - 1][r][q];
+#pragma unroll
+          for (int h = 0; h < NH; ++h) out.p[h][o + q] = (int64_t)sh[h][r][q];
         }
       }
     }
@@ -212,26 +218,30 @@ __global__ void __launch_bounds__(SCAN_ROWS)
   }
 }
 
+// planes: the host array of n_planes = ceil(W/2) output pointers
 extern "C" int lt_kmer_scan_halves(const void* packed, const void* lengths, const void* offs,
-                                   int B, int L16, int L, int k, int P, unsigned top, void* hi,
-                                   void* lo, void* stream) {
-  if (k < 17 || k > 64 || P < 1 || P != L - k + 1 || L16 != (L + 15) / 16)
+                                   int B, int L16, int L, int k, int P, unsigned top,
+                                   int n_planes, const void* planes, void* stream) {
+  if (k < 17 || k > 255 || P < 1 || P != L - k + 1 || L16 != (L + 15) / 16)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   const int W = (k + 15) / 16;
-  if (!lo || (W > 2 && !hi)) return (int)cudaErrorInvalidValue;
+  PlanePtrs out;
+  if (n_planes != (W + 1) / 2 || !load_planes(planes, n_planes, &out))
+    return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((B + SCAN_ROWS - 1) / SCAN_ROWS);
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* p = (const uint32_t*)packed;
   const int32_t* ln = (const int32_t*)lengths;
   const long long* of = (const long long*)offs;
-  int64_t* h = (int64_t*)hi;
-  int64_t* l = (int64_t*)lo;
+#define LAUNCH(W_) \
+  kmer_scan_halves_kernel<W_><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, out)
   switch (W) {
-    case 2: kmer_scan_halves_kernel<2><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
-    case 3: kmer_scan_halves_kernel<3><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
-    default: kmer_scan_halves_kernel<4><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, h, l); break;
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -248,11 +258,13 @@ extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B,
   uint32_t* oc = (uint32_t*)canon;
   uint8_t* orc = (uint8_t*)is_rc;
   uint8_t* ov = (uint8_t*)valid;
+#define LAUNCH(W_) \
+  kmer_scan_words_kernel<W_><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov)
   switch ((k + 15) / 16) {
-    case 1: kmer_scan_words_kernel<1><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
-    case 2: kmer_scan_words_kernel<2><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
-    case 3: kmer_scan_words_kernel<3><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
-    default: kmer_scan_words_kernel<4><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov); break;
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

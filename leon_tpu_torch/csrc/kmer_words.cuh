@@ -1,9 +1,53 @@
 // k-mers as W = ceil(k/16) little-endian u32 words held in registers
 // (FORMAT.md §3: base i of the k-mer at bits 2(k-1-i)), shared by the
-// kernels that take k <= 64 (W in {1, 2, 3, 4}).
+// kernels that take W-word k-mers: the tensor path and the graph API at
+// W <= 4 (k <= 64), the main path's multiword route at W <= 16 (k <= 255).
 #pragma once
 
 #include "common.cuh"
+
+// ---------------------------------------------------------------------------
+// Width dispatch: a switch over W names every instance it launches; any
+// other width returns cudaErrorInvalidValue (the wrapper raises). LAUNCH is
+// a macro of one argument that launches the instance of that width.
+// ---------------------------------------------------------------------------
+
+#define LT_W_CASE(W_, LAUNCH) \
+  case W_:                    \
+    LAUNCH(W_);               \
+    break;
+#define LT_W_CASES_2_4(LAUNCH) LT_W_CASE(2, LAUNCH) LT_W_CASE(3, LAUNCH) LT_W_CASE(4, LAUNCH)
+#define LT_W_CASES_5_16(LAUNCH)                                                        \
+  LT_W_CASE(5, LAUNCH) LT_W_CASE(6, LAUNCH) LT_W_CASE(7, LAUNCH) LT_W_CASE(8, LAUNCH)  \
+  LT_W_CASE(9, LAUNCH) LT_W_CASE(10, LAUNCH) LT_W_CASE(11, LAUNCH)                     \
+  LT_W_CASE(12, LAUNCH) LT_W_CASE(13, LAUNCH) LT_W_CASE(14, LAUNCH)                    \
+  LT_W_CASE(15, LAUNCH) LT_W_CASE(16, LAUNCH)
+#define LT_W_NO_INSTANCE \
+  default:               \
+    return (int)cudaErrorInvalidValue;
+
+// ---------------------------------------------------------------------------
+// The multiword route's sort keys: P = ceil(W/2) int64 planes, plane q =
+// (w[2q+1] << 32 | w[2q]) with its sign bit flipped (state.words_to_planes),
+// so that signed order over (plane P-1, ..., plane 0) is the reference's
+// MSW-first u32 order. The host passes an array of P device pointers.
+// ---------------------------------------------------------------------------
+
+#define LT_MAX_PLANES 8  // W <= 16
+
+struct PlanePtrs {
+  int64_t* p[LT_MAX_PLANES];
+};
+
+// copy P pointers from the host array; false for a P out of range or a null
+static inline bool load_planes(const void* host_ptrs, int P, PlanePtrs* out) {
+  if (!host_ptrs || P < 1 || P > LT_MAX_PLANES) return false;
+  memset(out, 0, sizeof(*out));
+  memcpy(out->p, host_ptrs, (size_t)P * sizeof(int64_t*));
+  for (int q = 0; q < P; ++q)
+    if (!out->p[q]) return false;
+  return true;
+}
 
 // ---------------------------------------------------------------------------
 // k-mer words (leon_tpu/ops/kmer.py top_mask 30-33, shl2 36-45,
@@ -97,4 +141,10 @@ static __device__ __forceinline__ bool lex_less(const Kmer<W>& a, const Kmer<W>&
     eq &= a.w[j] == b.w[j];
   }
   return less;
+}
+
+// word j of a k-mer, 0 for j >= W (the missing top half of plane ceil(W/2)-1)
+template <int W>
+static __device__ __forceinline__ uint32_t word_or_zero(const Kmer<W>& a, int j) {
+  return j < W ? a.w[j < W ? j : 0] : 0u;
 }

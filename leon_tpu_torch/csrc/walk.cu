@@ -514,8 +514,8 @@ __global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
 
 // ---------------------------------------------------------------------------
 // K18 walk_encode_words and K19 walk_decode_words — K4's encode and decode
-// re-walk with the window as W = ceil(k/16) = 2..4 u32 words (17 <= k <=
-// 64; the main path takes them for 32 <= k <= 64, K4 serves k <= 31).
+// re-walk with the window as W = ceil(k/16) = 2..16 u32 words (17 <= k <=
+// 255; the main path takes them for 32 <= k <= 255, K4 serves k <= 31).
 //
 // Replaces: leon_tpu/ops/walk.py encode_batch_compact_packed (554-565) ->
 // _encode_compact_impl (432-545) with _anchor_state (357), _anchor_scan
@@ -849,12 +849,15 @@ extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int 
   const uint8_t* c = (const uint8_t*)codes;
   const int32_t* ln = (const int32_t*)lengths;
   const uint32_t* bs = (const uint32_t*)bitset;
+#define LAUNCH(W_) \
+  walk_dense_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, \
+                                                       top, od)
   switch ((k + 15) / 16) {
-    case 1: walk_dense_kernel<1><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
-    case 2: walk_dense_kernel<2><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
-    case 3: walk_dense_kernel<3><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
-    default: walk_dense_kernel<4><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, top, od); break;
+    LT_W_CASE(1, LAUNCH)
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -863,8 +866,8 @@ extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int
                                     const void* tabs16, const void* bitset, int with_conf, int ME,
                                     void* meta, void* tot, void* ev_gap, void* ev_nt,
                                     void* ev_bif, void* conf, void* stream) {
-  if (k < 17 || k > 64 || H < 1 || H > 8 || L < k + 1 || ME != L - k || L16 != (L + 15) / 16 ||
-      n_words == 0)
+  if (k < 17 || k > 255 || H < 1 || H > 8 || L < k + 1 || ME != L - k ||
+      L16 != (L + 15) / 16 || n_words == 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   HashTabs tb;
@@ -881,11 +884,16 @@ extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int
   uint8_t* en = (uint8_t*)ev_nt;
   uint8_t* eb = (uint8_t*)ev_bif;
   uint16_t* cf = (uint16_t*)conf;
+#define LAUNCH(W_)                                                                          \
+  walk_encode_words_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, \
+                                                              top, tb, bs, L16c, ME, m, tt, eg, \
+                                                              en, eb, cf)
   switch ((k + 15) / 16) {
-    case 2: walk_encode_words_kernel<2><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
-    case 3: walk_encode_words_kernel<3><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
-    default: walk_encode_words_kernel<4><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, top, tb, bs, L16c, ME, m, tt, eg, en, eb, cf); break;
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -894,7 +902,7 @@ extern "C" int lt_walk_decode_words(const void* scal, int B, int W, const void* 
                                     long long n_bif, int L, int L16, int k, int H,
                                     unsigned n_words, unsigned top, const void* tabs16,
                                     const void* bitset, void* out, void* stream) {
-  if (k < 17 || k > 64 || H < 1 || H > 8 || W != (k + 15) / 16 || L < k + 1 ||
+  if (k < 17 || k > 255 || H < 1 || H > 8 || W != (k + 15) / 16 || L < k + 1 ||
       L16 != (L + 15) / 16 || n_words == 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
@@ -908,10 +916,15 @@ extern "C" int lt_walk_decode_words(const void* scal, int B, int W, const void* 
   const uint8_t* bf = (const uint8_t*)bifs;
   const uint32_t* bs = (const uint32_t*)bitset;
   uint32_t* o = (uint32_t*)out;
+#define LAUNCH(W_)                                                                         \
+  walk_decode_words_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, \
+                                                              L, L16, k, H, n_words, top, tb,  \
+                                                              bs, o)
   switch (W) {
-    case 2: walk_decode_words_kernel<2><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
-    case 3: walk_decode_words_kernel<3><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
-    default: walk_decode_words_kernel<4><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, L, L16, k, H, n_words, top, tb, bs, o); break;
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
   }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,7 @@ import torch
 
 from leon_tpu_torch import kernels, state
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import shl2, top_mask
+from leon_tpu_torch.ops.kmer import need_tensor_k, shl2, top_mask
 
 _M32 = 0xFFFFFFFF
 
@@ -128,6 +128,7 @@ class Graph:
         """The graph of a solid set, (n, W) u32 canonical k-mer words (e.g.
         the solid rows of a count run), on `device` (the card unless the
         caller asks for "cpu")."""
+        need_tensor_k(k, "the graph API")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")

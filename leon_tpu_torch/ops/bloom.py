@@ -13,7 +13,8 @@ kernel K10 (csrc/graph.cu: blocked or classic membership of (N, W) k-mer
 words or of their four neighbours), with ``probe`` and ``probe_classic``
 on top of it, and ``dbg_probe_plain``; ``bloom_build_words``, the wrapper
 of kernel K16 (csrc/bloom.cu: one shard's blocked partial over (S, W)
-k-mer words, k <= 64, for parallel/mesh.py), and its plain version, with
+k-mer words: parallel/mesh.py's at k <= 64, the main path's Bloom build
+over the solid rows at 32 <= k <= 255), and its plain version, with
 ``alloc_words`` (a copy of bloom.py:123-134); plus the plain PyTorch hash and
 probe helpers the walk's plain versions share. PyTorch's uint32 lacks
 shifts and comparisons on the CPU, so plain u32 values ride in int64
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from leon_tpu_torch import kernels
-from leon_tpu_torch.ops.kmer import i32_bits, shl2, shr2_ins, top_mask
+from leon_tpu_torch.ops.kmer import i32_bits, need_tensor_k, shl2, shr2_ins, top_mask
 
 # FORMAT.md §4 frozen constants
 _C1 = 0x5BF03635
@@ -303,7 +304,8 @@ def check_probe_args(bitset, words, mode: int, classic: bool, H: int, n_words: i
     kernels.need(mode in (SELF, OUT, IN), f"dbg_probe: mode {mode}")
     kernels.need(words.dtype == torch.int32 and words.dim() == 2,
                  "dbg_probe: words must be (N, W) int32 (u32 bits)")
-    kernels.need(1 <= k <= 64 and words.shape[1] == (k + 15) // 16,
+    need_tensor_k(k, "dbg_probe")
+    kernels.need(1 <= k and words.shape[1] == (k + 15) // 16,
                  f"dbg_probe: {words.shape[1]} words for k={k} (need ceil(k/16) <= 4)")
     kernels.need(bitset.dtype == torch.int32 and bitset.dim() == 1,
                  "dbg_probe: bitset must be (n,) int32")
@@ -450,7 +452,7 @@ def alloc_words(n_words: int) -> int:
 
 
 def _check_build_words_args(words, valid, n_alloc: int, n_words: int, H: int, k: int) -> None:
-    kernels.need(1 <= k <= 64, f"bloom_build_words: k={k} not in [1, 64]")
+    kernels.need(1 <= k <= 255, f"bloom_build_words: k={k} not in [1, 255]")
     kernels.need(words.dtype == torch.int32 and words.dim() == 2
                  and words.shape[1] == (k + 15) // 16,
                  f"bloom_build_words: words must be (S, {(k + 15) // 16}) int32 for k={k}")

@@ -18,14 +18,14 @@ spill (count.py:592-600, 643-704), which the port does not have yet.
 
 ``count_batch`` is the one-shot count of (B, P, W) canonical words
 (k <= 64, counterpart of count.py:88-104): the valid rows, sorted by
-torch.sort passes over sign-flipped int64 half-keys (``sort_words``), then
+torch.sort passes over sign-flipped int64 planes (``sort_words``), then
 ``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
-over rows of one or two int64 halves. ``word_runs`` is K14 in K2's modes
-(a counts payload, cutoff, histogram).
+over rows of one or two int64 planes. ``word_runs`` is K14 in K2's modes
+(a counts payload, cutoff, histogram) over rows of up to 8 planes (W <= 16).
 
-``WordCounter`` is DeviceCounter for 32 <= k <= 64 (the main path's
+``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
-halves into the slab, ``sort_halves`` + K14 reduce slabs and merge runs,
+planes into the slab, ``sort_planes`` + K14 reduce slabs and merge runs,
 ``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
 over those solid rows.
 Both counters share ``_SlabCounter``'s slab, flush, merge, spill check and
@@ -42,8 +42,9 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import SENTINEL, kmer_scan, kmer_scan_halves, words_for_k
-from leon_tpu_torch.state import halves_to_words, words_to_halves
+from leon_tpu_torch.ops.kmer import (SENTINEL, kmer_scan, kmer_scan_halves, need_tensor_k,
+                                      words_for_k)
+from leon_tpu_torch.state import n_planes, planes_to_words, words_to_planes
 
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
@@ -147,40 +148,42 @@ def compact_solid(keys: torch.Tensor, counts: torch.Tensor, cutoff: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_runs_words_args(hi, lo, W: int, counts=None) -> None:
-    kernels.need(1 <= W <= 4, f"runs_words: W={W} not in [1, 4]")
-    kernels.need(lo.dtype == torch.int64 and lo.dim() == 1, "runs_words: lo must be (n,) int64")
-    kernels.need((hi is None) == (W <= 2), "runs_words: hi is given exactly when W > 2")
-    if hi is not None:
-        kernels.need(hi.dtype == torch.int64 and hi.shape == lo.shape,
-                     "runs_words: hi must be (n,) int64")
-        kernels.need(hi.device == lo.device, "runs_words: tensors on two devices")
+def _check_runs_words_args(planes, W: int, counts=None, max_w: int = 16) -> None:
+    kernels.need(1 <= W <= max_w, f"runs_words: W={W} not in [1, {max_w}]")
+    kernels.need(isinstance(planes, (tuple, list)) and len(planes) == n_planes(W),
+                 f"runs_words: {n_planes(W)} planes for W={W}")
+    lo = planes[0]
+    for h in planes:
+        kernels.need(h.dtype == torch.int64 and h.dim() == 1 and h.shape == lo.shape,
+                     "runs_words: planes must be (n,) int64")
+        kernels.need(h.device == lo.device, "runs_words: tensors on two devices")
     if counts is not None:
         kernels.need(counts.dtype == torch.int32 and counts.shape == lo.shape,
                      "runs_words: counts must be (n,) int32")
         kernels.need(counts.device == lo.device, "runs_words: tensors on two devices")
 
 
-def _runs_words_launch(hi, lo, W: int, counts, cutoff: int, want_hist: bool, modes: bool):
+def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, modes: bool):
     """K14 on the card: (words (R, W) int32, values (R,) int32 with modes
-    (word_runs) or int64 run lengths without (runs_words, whose instance
-    has no counts, cutoff or histogram code), hist (256,) int32 or None);
-    counted under the wrapper's name."""
+    (word_runs, any P) or int64 run lengths without (runs_words, P <= 2,
+    whose instance has no counts, cutoff or histogram code), hist (256,)
+    int32 or None); counted under the wrapper's name."""
     name = "word_runs" if modes else "runs_words"
-    lo = lo.contiguous()
-    hi = hi.contiguous() if hi is not None else None
+    planes = [h.contiguous() for h in planes]
     counts = counts.contiguous() if counts is not None else None
+    lo = planes[0]
     dev = lo.device
     n = lo.shape[0]
     lib = kernels.lib()
-    hi_p = hi.data_ptr() if hi is not None else None
+    ptrs = np.array([h.data_ptr() for h in planes], dtype=np.uint64)
+    hi_p = planes[1].data_ptr() if len(planes) > 1 else None
     cnt_p = counts.data_ptr() if counts is not None else None
     block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
     hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
     st = kernels.stream(lo)
     if modes:
-        rc = lib.lt_word_runs_count(hi_p, lo.data_ptr(), cnt_p, n, int(cutoff),
+        rc = lib.lt_word_runs_count(ptrs.ctypes.data, len(planes), cnt_p, n, int(cutoff),
                                     hist.data_ptr() if hist is not None else None,
                                     block_off.data_ptr(), total.data_ptr(), st)
     else:
@@ -191,7 +194,7 @@ def _runs_words_launch(hi, lo, W: int, counts, cutoff: int, want_hist: bool, mod
     uniq = torch.empty(R, W, dtype=torch.int32, device=dev)
     vals = torch.empty(R, dtype=torch.int32 if modes else torch.int64, device=dev)
     if modes:
-        rc = lib.lt_word_runs_write(hi_p, lo.data_ptr(), cnt_p, n, W, int(cutoff),
+        rc = lib.lt_word_runs_write(ptrs.ctypes.data, len(planes), cnt_p, n, W, int(cutoff),
                                     block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
     else:
         rc = lib.lt_runs_words_write(hi_p, lo.data_ptr(), n, W, block_off.data_ptr(),
@@ -201,44 +204,46 @@ def _runs_words_launch(hi, lo, W: int, counts, cutoff: int, want_hist: bool, mod
     return uniq, vals, hist
 
 
-def runs_words(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
-    """Reduce-by-key over rows sorted by (hi, lo): the sign-flipped int64
-    halves w1 << 32 | w0 (lo) and w3 << 32 | w2 (hi, None when W <= 2).
-    Every row counts (the caller drops invalid rows first). Returns (uniq
-    (M, W) int32 holding the u32 words, counts (M,) int64) in key order."""
-    _check_runs_words_args(hi, lo, W)
-    if not kernels.on_cuda(lo, "runs_words"):
-        return runs_words_plain(hi, lo, W)
-    uniq, counts, _ = _runs_words_launch(hi, lo, W, None, 1, False, False)
+def runs_words(planes: tuple, W: int):
+    """Reduce-by-key over rows sorted by their sign-flipped int64 planes
+    (state.words_to_planes: (lo,) at W <= 2, (lo, hi) at W = 3, 4; the
+    tensor path's W <= 4). Every row counts (the caller drops invalid rows
+    first). Returns (uniq (M, W) int32 holding the u32 words, counts (M,)
+    int64) in key order."""
+    _check_runs_words_args(planes, W, max_w=4)
+    if not kernels.on_cuda(planes[0], "runs_words"):
+        return runs_words_plain(planes, W)
+    uniq, counts, _ = _runs_words_launch(planes, W, None, 1, False, False)
     return uniq, counts
 
 
-def word_runs(hi: torch.Tensor | None, lo: torch.Tensor, W: int,
-              counts: torch.Tensor | None = None, cutoff: int = 1, want_hist: bool = False):
+def word_runs(planes: tuple, W: int, counts: torch.Tensor | None = None, cutoff: int = 1,
+              want_hist: bool = False):
     """K14 in K2's modes (the multiword counterpart of ``runs``; the
-    WordCounter's wrapper, with its own launch count): over rows
-    sorted by (hi, lo), a run's value is its length (counts None) or the
-    u32-wrapping sum of its int32 counts clamped to 2**31-1 (count.py:
-    239-253); runs whose value is >= max(cutoff, 1) are emitted in key
-    order. Returns (words (R, W) int32, values (R,) int32, hist): hist is
-    the (256,) histogram of min(value, 255) over the emitted runs (bin 0 is
-    0) when want_hist, else None."""
-    _check_runs_words_args(hi, lo, W, counts)
-    if not kernels.on_cuda(lo, "word_runs"):
-        return word_runs_plain(hi, lo, W, counts, cutoff, want_hist)
-    return _runs_words_launch(hi, lo, W, counts, cutoff, want_hist, True)
+    WordCounter's wrapper, with its own launch count, W <= 16): over rows
+    sorted by their P = ceil(W/2) planes, a run's value is its length
+    (counts None) or the u32-wrapping sum of its int32 counts clamped to
+    2**31-1 (count.py:239-253); runs whose value is >= max(cutoff, 1) are
+    emitted in key order. Returns (words (R, W) int32, values (R,) int32,
+    hist): hist is the (256,) histogram of min(value, 255) over the emitted
+    runs (bin 0 is 0) when want_hist, else None."""
+    _check_runs_words_args(planes, W, counts)
+    if not kernels.on_cuda(planes[0], "word_runs"):
+        return word_runs_plain(planes, W, counts, cutoff, want_hist)
+    return _runs_words_launch(planes, W, counts, cutoff, want_hist, True)
 
 
-def _word_runs_plain(hi, lo, W: int, counts, cutoff: int, want_hist: bool):
-    """Heads where either half changes; values from prefix sums read at the
+def _word_runs_plain(planes, W: int, counts, cutoff: int, want_hist: bool):
+    """Heads where any plane changes; values from prefix sums read at the
     next head (lengths, or the u32-wrapping count sums clamped); filter."""
+    lo = planes[0]
     dev = lo.device
     n = lo.shape[0]
     head = torch.ones(n, dtype=torch.bool, device=dev)
     if n > 1:
         ne = lo[1:] != lo[:-1]
-        if hi is not None:
-            ne = ne | (hi[1:] != hi[:-1])
+        for h in planes[1:]:
+            ne = ne | (h[1:] != h[:-1])
         head[1:] = ne
     starts = torch.nonzero(head).reshape(-1)
     ends = torch.cat([starts[1:], torch.full((min(n, 1),), n, dtype=torch.int64, device=dev)])
@@ -249,7 +254,7 @@ def _word_runs_plain(hi, lo, W: int, counts, cutoff: int, want_hist: bool):
         sums = (incl[ends - 1] - incl[starts] + (counts[starts].to(torch.int64) & _M32)) & _M32
         vals = torch.clamp(sums, max=_I32_MAX)
     emit = vals >= max(int(cutoff), 1)
-    words = halves_to_words(hi[starts[emit]] if hi is not None else None, lo[starts[emit]], W)
+    words = planes_to_words([h[starts[emit]] for h in planes], W)
     vals = vals[emit]
     hist = None
     if want_hist:
@@ -258,70 +263,73 @@ def _word_runs_plain(hi, lo, W: int, counts, cutoff: int, want_hist: bool):
     return words, vals, hist
 
 
-def runs_words_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int):
-    """Plain version of runs_words: heads where either half changes, run
-    lengths from the head positions, words unflipped from the halves."""
-    _check_runs_words_args(hi, lo, W)
-    words, lengths, _ = _word_runs_plain(hi, lo, W, None, 1, False)
+def runs_words_plain(planes: tuple, W: int):
+    """Plain version of runs_words: heads where any plane changes, run
+    lengths from the head positions, words unflipped from the planes."""
+    _check_runs_words_args(planes, W, max_w=4)
+    words, lengths, _ = _word_runs_plain(planes, W, None, 1, False)
     return words, lengths
 
 
-def word_runs_plain(hi: torch.Tensor | None, lo: torch.Tensor, W: int,
-                    counts: torch.Tensor | None = None, cutoff: int = 1,
-                    want_hist: bool = False):
+def word_runs_plain(planes: tuple, W: int, counts: torch.Tensor | None = None,
+                    cutoff: int = 1, want_hist: bool = False):
     """Plain version of word_runs (the reference's _merge_sorted_runs,
-    _hist_of_sorted and compact_solid arithmetic on two-half keys)."""
-    _check_runs_words_args(hi, lo, W, counts)
-    words, vals, hist = _word_runs_plain(hi, lo, W, counts, cutoff, want_hist)
+    _hist_of_sorted and compact_solid arithmetic on multi-plane keys)."""
+    _check_runs_words_args(planes, W, counts)
+    words, vals, hist = _word_runs_plain(planes, W, counts, cutoff, want_hist)
     return words, vals.to(torch.int32), hist
 
 
-def sort_halves(hi: torch.Tensor | None, lo: torch.Tensor, with_perm: bool = False):
-    """Sort rows by (hi, lo), signed: one torch.sort when hi is None, two
-    stable ones (lo, then hi) past it. Returns (hi, lo) sorted, plus the
-    permutation when with_perm (to carry a payload along)."""
-    if hi is None:
+def sort_planes(planes, with_perm: bool = False):
+    """Sort rows by their planes, most significant (the last) first, signed:
+    one torch.sort for one plane, else an LSD sort (one stable torch.sort
+    per plane from plane 0 up, each carrying the sorted planes below it
+    along). Returns the sorted planes as a tuple, plus the permutation when
+    with_perm (to carry a payload along)."""
+    if len(planes) == 1:
         if not with_perm:
-            return None, torch.sort(lo).values
-        lo, perm = torch.sort(lo, stable=True)
-        return None, lo, perm
-    lo, perm = torch.sort(lo, stable=True)
-    hi, perm2 = torch.sort(hi[perm], stable=True)
-    lo = lo[perm2]
-    return (hi, lo, perm[perm2]) if with_perm else (hi, lo)
+            return (torch.sort(planes[0]).values,)
+        lo, perm = torch.sort(planes[0], stable=True)
+        return (lo,), perm
+    low, perm = torch.sort(planes[0], stable=True)
+    done = [low]
+    for q in range(1, len(planes)):
+        vals, p2 = torch.sort(planes[q][perm], stable=True)
+        done = [x[p2] for x in done] + [vals]
+        if with_perm or q < len(planes) - 1:
+            perm = perm[p2]
+    return (tuple(done), perm) if with_perm else tuple(done)
 
 
-def sort_words(words: torch.Tensor):
-    """(N, W) int32 u32 words -> the sign-flipped int64 halves (hi or None,
-    lo) sorted lexicographically, most significant word first: one
-    torch.sort at W <= 2, two stable ones (lo, then hi) past it."""
-    return sort_halves(*words_to_halves(words))
+def sort_words(words: torch.Tensor) -> tuple:
+    """(N, W) int32 u32 words -> their sign-flipped int64 planes sorted
+    lexicographically, most significant word first (sort_planes)."""
+    return sort_planes(words_to_planes(words))
 
 
 def compact_solid_words(words: torch.Tensor, counts: torch.Tensor, cutoff: int):
     """Order-preserving compaction of a multiword distinct run to its rows
     with count >= cutoff (leon_tpu count.compact_solid) — K14 in solid
     mode. Returns (words (S, W) int32, counts (S,) int32)."""
-    hi, lo = words_to_halves(words)
-    out_w, out_c, _ = word_runs(hi, lo, words.shape[1], counts, cutoff)
+    out_w, out_c, _ = word_runs(words_to_planes(words), words.shape[1], counts, cutoff)
     return out_w, out_c
 
 
 def count_batch(canon: torch.Tensor, valid: torch.Tensor):
     """Count one batch of canonical k-mers (counterpart of leon_tpu
     count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
-    valid (B, P) bool. Returns (uniq (M, W) int32 words sorted MSW first,
-    counts (M,) int64) on canon's device: the valid rows, sorted by
-    torch.sort, reduced by K14."""
-    kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and 1 <= canon.shape[2] <= 4,
-                 "count_batch: canon must be (B, P, W) int32 with W <= 4")
+    valid (B, P) bool, W <= 4 (k <= 64). Returns (uniq (M, W) int32 words
+    sorted MSW first, counts (M,) int64) on canon's device: the valid rows,
+    sorted by torch.sort, reduced by K14."""
+    kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and canon.shape[2] >= 1,
+                 "count_batch: canon must be (B, P, W) int32")
+    need_tensor_k(16 * canon.shape[2] - 15, "count_batch")  # the least k of W words
     kernels.need(valid.dtype == torch.bool and valid.shape == canon.shape[:2],
                  "count_batch: valid must be (B, P) bool")
     kernels.need(valid.device == canon.device, "count_batch: tensors on two devices")
     W = canon.shape[2]
     rows = canon.reshape(-1, W)[valid.reshape(-1)]
-    hi, lo = sort_words(rows)
-    return runs_words(hi, lo, W)
+    return runs_words(sort_words(rows), W)
 
 
 def merge_counts(partials: list) -> tuple[np.ndarray, np.ndarray]:
@@ -418,8 +426,8 @@ SPILL_ROWS = 1 << 30   # largest distinct run kept on the card (12 GiB)
 
 
 class _SlabCounter:
-    """What both counters share (see the module docstring): the slab (one or
-    two (n,) int64 buffers the scan kernel writes into), its flush to a
+    """What both counters share (see the module docstring): the slab (one to
+    eight (n,) int64 buffers the scan kernel writes into), its flush to a
     sorted distinct run, the merge of runs past merge_factor slabs, the
     spill check and finalize's selection rules. A subclass says how rows
     are scanned, sorted, reduced and hashed."""
@@ -563,43 +571,38 @@ class DeviceCounter(_SlabCounter):
 
 
 class WordCounter(_SlabCounter):
-    """Counts canonical k-mers of 32 <= k <= 64 (W = 2..4 u32 words) with
+    """Counts canonical k-mers of 32 <= k <= 255 (W = 2..16 u32 words) with
     DeviceCounter's slab, flush, merge, spill and finalize rules: K17 writes
-    the valid positions' sign-flipped halves into the slab (invalid rows are
-    dropped, so no key marks them), torch.sort passes order them, K14
-    reduces; runs are (M, W) int32 words with int32 counts, merged by
-    sort_halves with the counts permuted along and K14 in count mode; the
-    Bloom build is K14's solid mode, then K16 over those rows (which
-    finalize hands on for the unitig builder)."""
+    the valid positions' P = ceil(W/2) sign-flipped int64 planes into the
+    slab's P buffers (invalid rows are dropped, so no key marks them),
+    sort_planes orders them, K14 reduces; runs are (M, W) int32 words with
+    int32 counts, merged by sort_planes with the counts permuted along and
+    K14 in count mode; the Bloom build is K14's solid mode, then K16 over
+    those rows (which finalize hands on for the unitig builder)."""
 
     def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
         self.W = words_for_k(k)
-        super().__init__(k, device, slab_kmers, merge_factor, 2 if self.W > 2 else 1)
+        super().__init__(k, device, slab_kmers, merge_factor, n_planes(self.W))
 
     def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
         """Scan one packed chunk's valid k-mers straight into the slab."""
         B = packed.shape[0]
         n = B * (L - self.k + 1)  # at most; K17 writes the valid rows only
-        views = self._reserve(n)
-        hi, lo = (views[0], views[1]) if self.W > 2 else (None, views[0])
-        m = kmer_scan_halves(packed, lengths, self.k, L, out=(hi, lo))[1].shape[0]
+        m = kmer_scan_halves(packed, lengths, self.k, L, out=tuple(self._reserve(n)))[0].shape[0]
         self._fill -= n - m
         if self._fill >= self.slab:
             self._flush_slab()
 
-    def _halves(self, filled: list):
-        return (filled[0], filled[1]) if self.W > 2 else (None, filled[0])
-
     def _slab_run(self, filled: list):
-        words, counts, _ = word_runs(*sort_halves(*self._halves(filled)), self.W)
+        words, counts, _ = word_runs(sort_planes(filled), self.W)
         return words, counts
 
     def _merge_sorted(self, words, counts, unsorted: bool, want_hist: bool):
-        hi, lo = words_to_halves(words)
+        planes = words_to_planes(words)
         if unsorted:
-            hi, lo, perm = sort_halves(hi, lo, with_perm=True)
+            planes, perm = sort_planes(planes, with_perm=True)
             counts = counts[perm]
-        return word_runs(hi, lo, self.W, counts, 1, want_hist)
+        return word_runs(planes, self.W, counts, 1, want_hist)
 
     def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):
         solid = compact_solid_words(words, counts, cutoff)[0]

@@ -5,8 +5,8 @@ Device half (new): ``kmer_scan``, the wrapper of kernel K1
 ``kmer_scan_words``, the wrapper of kernel K13 (the unpacked scan to
 (B, P, W) u32 words, k <= 64, counterpart of kmer.kmer_scan), and
 ``kmer_scan_words_plain``; ``kmer_scan_halves``, the wrapper of kernel
-K17 (the main path's scan for 32 <= k <= 64: the valid positions only,
-compacted, as the sign-flipped int64 halves the counter sorts), and
+K17 (the main path's scan for 32 <= k <= 255: the valid positions only,
+compacted, as the ceil(W/2) sign-flipped int64 planes the counter sorts), and
 ``kmer_scan_halves_plain``; ``shl2``, ``shr2_ins``, ``lex_less`` and
 ``canonical`` on (..., W) words. For
 k <= 31 a canonical k-mer is ONE int64 key ``w1 << 32 | w0`` of the
@@ -169,8 +169,17 @@ def kmer_scan_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 # Device half: kernel K13 (multiword scan, k <= 64) and its plain version
 # ---------------------------------------------------------------------------
 
-MAX_K_WORDS = 64  # W = ceil(k/16) <= 4 u32 words
+MAX_K_TENSOR = 64  # the tensor path (K13, count_batch, K15, the mesh): W <= 4
+MAX_K_WORDS = 255  # the main path's multiword route (K17, K14, K16, K18, K19): W <= 16
 MIN_K_WIDE = 17  # W >= 2: the multiword route's kernels K17-K19 have no W = 1 instance
+
+
+def need_tensor_k(k: int, what: str) -> None:
+    """The tensor path takes k <= 64 (W <= 4); past it, it is not ported."""
+    if k > MAX_K_TENSOR:
+        raise NotImplementedError(
+            f"{what} at k = {k} > {MAX_K_TENSOR} (W = {words_for_k(k)} words) is not ported to "
+            "leon_tpu_torch yet (ROADMAP.md queue 1, item 9a)")
 
 
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -198,7 +207,8 @@ def i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_scan_words_args(codes, lengths, k: int) -> int:
-    kernels.need(1 <= k <= MAX_K_WORDS, f"kmer_scan_words: k={k} not in [1, {MAX_K_WORDS}]")
+    need_tensor_k(k, "kmer_scan_words")
+    kernels.need(k >= 1, f"kmer_scan_words: k={k} < 1")
     kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2,
                  "kmer_scan_words: codes must be (B, L) uint8")
     kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),
@@ -219,7 +229,7 @@ def kmer_scan_words(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     columns. Counterpart of leon_tpu kmer.kmer_scan (kernel K13)."""
     P = _check_scan_words_args(codes, lengths, k)
     if not kernels.on_cuda(codes, "kmer_scan_words"):
-        return kmer_scan_words_plain(codes, lengths, k)
+        return _scan_words_plain(codes, lengths, k)
     codes, lengths = codes.contiguous(), lengths.contiguous()
     B, L = codes.shape
     dev = codes.device
@@ -239,8 +249,15 @@ def kmer_scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
     """Plain version of kmer_scan_words: the reference's column scan
     (leon_tpu/ops/kmer.py:104-126) over (B, W) words held in int64, with
     its u32 arithmetic (the same words for any code byte)."""
-    P = _check_scan_words_args(codes, lengths, k)
+    _check_scan_words_args(codes, lengths, k)
+    return _scan_words_plain(codes, lengths, k)
+
+
+def _scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
+    """kmer_scan_words_plain at any W (K17's plain version runs it at k <=
+    255)."""
     B, L = codes.shape
+    P = L - k + 1
     W = words_for_k(k)
     c = codes.to(torch.int64)
     fwd = torch.zeros(B, W, dtype=torch.int64, device=codes.device)
@@ -276,71 +293,69 @@ def _check_scan_halves_args(packed, lengths, k: int, L: int, out) -> int:
     P = L - k + 1
     kernels.need(P >= 1, f"kmer_scan_halves: batch width {L} < k {k}")
     if out is not None:
-        hi, lo = out
-        kernels.need((hi is None) == (words_for_k(k) <= 2),
-                     "kmer_scan_halves: out = (hi, lo), hi None exactly when W <= 2")
-        for h in (hi, lo):
-            kernels.need(h is None or (h.dtype == torch.int64 and h.dim() == 1
-                                       and h.is_contiguous() and h.device == packed.device),
-                         "kmer_scan_halves: out halves must be contiguous (n,) int64 on the "
+        kernels.need(len(out) == (words_for_k(k) + 1) // 2,
+                     "kmer_scan_halves: out must hold ceil(W/2) planes")
+        for h in out:
+            kernels.need(h.dtype == torch.int64 and h.dim() == 1 and h.is_contiguous()
+                         and h.device == packed.device and h.shape[0] == out[0].shape[0],
+                         "kmer_scan_halves: out planes must be contiguous (n,) int64 on the "
                          "input device")
     return P
 
 
 def kmer_scan_halves(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int,
-                     out: tuple | None = None):
+                     out: tuple | None = None) -> tuple:
     """Canonical k-mers of the valid positions of a packed read batch
-    (17 <= k <= 64), read-major (read r's position p at offs[r] + p), as the
-    sign-flipped int64 halves count.sort_words sorts: (hi or None when
-    W <= 2, lo), n rows each. Invalid positions are dropped, not marked.
+    (17 <= k <= 255), read-major (read r's position p at offs[r] + p), as the
+    P = ceil(W/2) sign-flipped int64 planes count.sort_planes sorts (state.
+    words_to_planes; plane 0 least significant), n rows each. Invalid
+    positions are dropped, not marked.
 
     packed: (B, ceil(L/16)) int32 (kmer.pack_codes_np bits), lengths: (B,)
-    int32. `out`, when given, is a (hi or None, lo) pair of buffers with at
-    least n rows (views into the counter's slab); the result is their first
-    n rows. Counterpart of leon_tpu kmer.kmer_scan_packed with its valid
-    mask applied (kernel K17)."""
+    int32. `out`, when given, is a tuple of P buffers with at least n rows
+    (views into the counter's slab); the result is their first n rows.
+    Counterpart of leon_tpu kmer.kmer_scan_packed with its valid mask
+    applied (kernel K17)."""
     P = _check_scan_halves_args(packed, lengths, k, L, out)
     nv = torch.clamp(lengths.to(torch.int64) - (k - 1), 0, P)
     n = int(nv.sum())
     if out is not None:
-        kernels.need(out[1].shape[0] >= n, f"kmer_scan_halves: out holds < {n} rows")
-        out = tuple(h[:n] if h is not None else None for h in out)
+        kernels.need(out[0].shape[0] >= n, f"kmer_scan_halves: out holds < {n} rows")
+        out = tuple(h[:n] for h in out)
     if not kernels.on_cuda(packed, "kmer_scan_halves"):
         res = kmer_scan_halves_plain(packed, lengths, k, L)
         if out is None:
             return res
         for o, r in zip(out, res):
-            if o is not None:
-                o.copy_(r)
+            o.copy_(r)
         return out
     packed, lengths = packed.contiguous(), lengths.contiguous()
     dev = packed.device
+    n_pl = (words_for_k(k) + 1) // 2
     if out is None:
-        out = (torch.empty(n, dtype=torch.int64, device=dev) if words_for_k(k) > 2 else None,
-               torch.empty(n, dtype=torch.int64, device=dev))
+        out = tuple(torch.empty(n, dtype=torch.int64, device=dev) for _ in range(n_pl))
     B = packed.shape[0]
     if n:
         offs = torch.cumsum(nv, 0) - nv
-        hi, lo = out
+        ptrs = np.array([h.data_ptr() for h in out], dtype=np.uint64)
         rc = kernels.lib().lt_kmer_scan_halves(
             packed.data_ptr(), lengths.data_ptr(), offs.data_ptr(), B, packed.shape[1], L, k,
-            P, top_mask(k), hi.data_ptr() if hi is not None else None, lo.data_ptr(),
-            kernels.stream(packed))
+            P, top_mask(k), n_pl, ptrs.ctypes.data, kernels.stream(packed))
         kernels.check(rc, "kmer_scan_halves")
         kernels.launches["kmer_scan_halves"] += 1
     return out
 
 
-def kmer_scan_halves_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int):
+def kmer_scan_halves_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int) -> tuple:
     """Plain version of kmer_scan_halves: the reference's scan
-    (kmer_scan_words_plain on the unpacked codes), its valid rows in
-    read-major order, split into sign-flipped halves."""
-    from leon_tpu_torch.state import words_to_halves
+    (kmer_scan_words_plain's column scan on the unpacked codes), its valid
+    rows in read-major order, split into sign-flipped planes."""
+    from leon_tpu_torch.state import words_to_planes
 
     _check_scan_halves_args(packed, lengths, k, L, None)
     codes = unpack_codes(packed, L).to(torch.uint8)
-    canon, _, valid = kmer_scan_words_plain(codes, lengths, k)
-    return words_to_halves(canon.reshape(-1, canon.shape[-1])[valid.reshape(-1)])
+    canon, _, valid = _scan_words_plain(codes, lengths, k)
+    return words_to_planes(canon.reshape(-1, canon.shape[-1])[valid.reshape(-1)])
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,9 @@ Device half (new), kernel K4 (csrc/walk.cu), one CUDA thread per read:
   packed 16 per u32 (walk.py:700-936).
 
 Kernels K18 and K19 (csrc/walk.cu): K4's encode and decode re-walk with
-the window as W = ceil(k/16) u32 words (k <= 64), the main path's route for
-32 <= k <= 64: ``walk_encode_words`` (K4's outputs, so ``walk_pack`` serves
-both) and ``walk_decode_words`` (scal of width 9+W, up to 13).
+the window as W = ceil(k/16) u32 words (k <= 255), the main path's route for
+32 <= k <= 255: ``walk_encode_words`` (K4's outputs, so ``walk_pack`` serves
+both) and ``walk_decode_words`` (scal of width 9+W, up to 25).
 ``encode_batch_compact_packed`` and ``decode_batch_flat_packed`` pick the
 kernel by k. walk_encode_plain and walk_decode_plain, over (B, W) words,
 are the plain versions of both generations.
@@ -45,8 +45,8 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, shl2, shr2_ins, top_mask,
-                                      unpack_codes, words_for_k)
+from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, need_tensor_k,
+                                      shl2, shr2_ins, top_mask, unpack_codes, words_for_k)
 
 _M32 = 0xFFFFFFFF
 
@@ -246,9 +246,9 @@ def _anchor_plain(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tens
 def walk_encode_words(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tensor,
                       n_words: int, k: int, H: int, seed: int, L: int,
                       with_conf: bool) -> dict:
-    """walk_encode for 17 <= k <= 64 (kernel K18; the main path takes it for
-    32 <= k <= 64): the same arguments and outputs, the window as W =
-    ceil(k/16) = 2..4 u32 words."""
+    """walk_encode for 17 <= k <= 255 (kernel K18; the main path takes it
+    for 32 <= k <= 255): the same arguments and outputs, the window as W =
+    ceil(k/16) = 2..16 u32 words."""
     _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K_WORDS, MIN_K_WIDE)
     if not kernels.on_cuda(packed, "walk_encode_words"):
         return walk_encode_plain(packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
@@ -259,7 +259,7 @@ def walk_encode_plain(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch
                       n_words: int, k: int, H: int, seed: int, L: int,
                       with_conf: bool) -> dict:
     """Plain version of walk_encode (K4) and walk_encode_words (K18), k <=
-    64: the reference's anchor scan (walk.py:113-144, 357-381) and fused
+    255: the reference's anchor scan (walk.py:113-144, 357-381) and fused
     walk (247-354), step by step, the window as (B, W) words."""
     _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K_WORDS)
     dev = packed.device
@@ -433,7 +433,7 @@ def encode_batch_compact_packed(packed, lengths, bitset, k: int, H: int, n_words
     flat u16 buffer as an int16 tensor. With cap_err/cap_bif None the caps
     are the chunk's event totals rounded up to 8, so nothing overflows.
     Returns (buffer, cap_err, cap_bif). k <= 31 walks with K4, 32 <= k <=
-    64 with K18; walk_pack serves both."""
+    255 with K18; walk_pack serves both."""
     enc = (walk_encode if k <= MAX_K else walk_encode_words)(
         packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
     incl = torch.cumsum(enc["tot"], dim=1)
@@ -461,7 +461,8 @@ DENSE = (("anchored", "s", torch.bool), ("apos", "s", torch.int32),
 
 
 def _check_dense_args(codes, lengths, bitset, n_words: int, k: int, H: int) -> None:
-    kernels.need(1 <= k <= 64, f"encode_batch: k={k} not in [1, 64]")
+    need_tensor_k(k, "encode_batch")
+    kernels.need(k >= 1, f"encode_batch: k={k} < 1")
     kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2 and codes.shape[1] >= k,
                  "encode_batch: codes must be (B, L >= k) uint8")
     kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),
@@ -653,8 +654,9 @@ def walk_decode(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
 def walk_decode_words(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.Tensor,
                       bifs: torch.Tensor, bitset: torch.Tensor, n_words: int, k: int, H: int,
                       seed: int, L: int) -> torch.Tensor:
-    """walk_decode for 17 <= k <= 64 (kernel K19; the main path takes it for
-    32 <= k <= 64): scal (B, 9+W), W = ceil(k/16) = 2..4, up to 13 columns."""
+    """walk_decode for 17 <= k <= 255 (kernel K19; the main path takes it
+    for 32 <= k <= 255): scal (B, 9+W), W = ceil(k/16) = 2..16, up to 25
+    columns."""
     _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L, MAX_K_WORDS,
                        MIN_K_WIDE)
     if not kernels.on_cuda(scal, "walk_decode_words"):
@@ -665,7 +667,7 @@ def walk_decode_words(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
 def decode_batch_flat_packed(scal, errgaps, errnts, bifs, bitset, n_words: int, k: int, H: int,
                              seed: int, L: int) -> torch.Tensor:
     """The reference's decode_batch_flat_packed: K4 for k <= 31, K19 for
-    32 <= k <= 64."""
+    32 <= k <= 255."""
     return (walk_decode if k <= MAX_K else walk_decode_words)(
         scal, errgaps, errnts, bifs, bitset, n_words, k, H, seed, L)
 
@@ -695,7 +697,7 @@ def walk_decode_plain(scal: torch.Tensor, errgaps: torch.Tensor, errnts: torch.T
                       bifs: torch.Tensor, bitset: torch.Tensor, n_words: int, k: int,
                       H: int, seed: int, L: int) -> torch.Tensor:
     """Plain version of walk_decode (K4) and walk_decode_words (K19), k <=
-    64: decode_batch_flat, decode_batch and _walk_decode_fused
+    255: decode_batch_flat, decode_batch and _walk_decode_fused
     (walk.py:700-936), step by step, the window as (B, W) words."""
     _check_decode_args(scal, errgaps, errnts, bifs, bitset, n_words, k, H, L, MAX_K_WORDS)
     dev = scal.device

@@ -8,9 +8,9 @@ leon_tpu/pipeline.py), on one device.
   decompress: container -> Bloom + dict -> decode re-walk (K4) -> host
               reassembly
 
-That is the route for k <= 31, one int64 key per k-mer. For 32 <= k <= 64
-(W = 2..4 u32 words) the same stages run on the multiword route: K17 scans
-each chunk's valid k-mers into the slab as sign-flipped int64 halves,
+That is the route for k <= 31, one int64 key per k-mer. For 32 <= k <= 255
+(W = 2..16 u32 words) the same stages run on the multiword route: K17 scans
+each chunk's valid k-mers into the slab as ceil(W/2) sign-flipped int64 planes,
 torch.sort passes + K14 count and merge (count.WordCounter), K16 builds the
 Bloom filter, K14 compacts the solid rows, K18 walk-encodes (walk_pack as
 before) and K19 re-walks at decode. The host halves (unitig builder, DICT,
@@ -32,8 +32,8 @@ same input and config.
 
 Not here: the compile-service retry, the multi-chip placer, checkpoints,
 stream mode (inputs over cfg.stream_threshold_bytes) and the host-count
-fallback (ROADMAP.md queue 1, item 9); k > 64 (item 9a); the device unitig
-build at k > 31, whose kernels K5-K8 take int64 keys (item 9b). Reaching
+fallback (ROADMAP.md queue 1, item 9); the device unitig build at k > 31,
+whose kernels K5-K8 take int64 keys (item 9b). Reaching
 one raises NotImplementedError naming its item. The walk sizes its event
 buffers from the per-read counts the kernel produced, so no chunk
 overflows and the reference's cap retry and dense fallback have no
@@ -80,11 +80,6 @@ BATCH_CPU = 8192
 def _not_ported(what: str, item: str = "9"):
     return NotImplementedError(
         f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item {item})")
-
-
-def _check_k(k: int) -> None:
-    if k > K.MAX_K_WORDS:
-        raise _not_ported(f"k = {k} > {K.MAX_K_WORDS} (W = {K.words_for_k(k)} words)", "9a")
 
 
 def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
@@ -274,7 +269,6 @@ def compress(input_path: str, output_path: Optional[str] = None,
     """Compress a FASTA/FASTQ file into a .leon archive on `device`
     ('cuda' or 'cpu'); returns the reference's stats dict."""
     cfg, device = _setup(cfg, device)
-    _check_k(cfg.kmer_size)
     try:
         return _compress_impl(input_path, output_path, cfg, device, None)
     except bank.IrregularInput:
@@ -629,9 +623,6 @@ def decompress(input_path: str, output_path: Optional[str] = None,
     t0 = time.time()
     r = container.Reader(input_path)
     meta = r.meta
-    if meta.k > K.MAX_K_WORDS:
-        r.close()
-        _check_k(meta.k)
     if output_path is None:
         stem = input_path[:-5] if input_path.endswith(".leon") else input_path
         root, _dot, _ext = stem.rpartition(".")

@@ -6,10 +6,11 @@ Generates the bench corpus (chip_smoke.gen_fastq: 500k reads of 100 bp) and
 runs it on the card with -noheader -noqual in three configurations, the
 default (native host unitig builder on a thread), the device unitig
 build (unitig_device_max_kmers = 2**30) and k = 63 (the multiword route,
-K17-K19): N rounds, each compressing and decompressing once per
+K17-K19, W = 4), and 200k reads of 250 bp from the same contig at k = 127
+(W = 8): N rounds, each compressing and decompressing once per
 configuration in turn (host clock, each run ends in a synchronize), then
 one profiled compress per configuration and one profiled decompress at
-k = 31 and at k = 63 under torch.profiler. Prints the card's name and power
+k = 31, 63 and 127 under torch.profiler. Prints the card's name and power
 limit, every run's wall time, the host span totals of the profiled runs,
 the device time per kernel/copy name and the device busy share of each
 profiled run (device time / wall time; the idle share is the rest).
@@ -42,7 +43,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import PIN, gen_fastq
+    from chip_smoke import PIN, PIN127, gen_fastq
     from leon_tpu_torch import LeonConfig, kernels, pipeline
 
     card = subprocess.run(
@@ -54,15 +55,19 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     os.makedirs(out_dir, exist_ok=True)
     src = os.path.join(work, "ecoli_500k.fastq")
-    dec = os.path.join(work, "ecoli_500k.out.fastq")
+    src250 = os.path.join(work, "ecoli_200k_250bp.fastq")
+    dec = os.path.join(work, "out.fastq")
     gen_fastq(src, PIN["n_reads"], PIN["contig_len"])
+    gen_fastq(src250, PIN127["n_reads"], PIN["contig_len"], PIN127["read_len"])
     kernels.lib()
     configs = {"default": LeonConfig(noheader=True, noqual=True),
                "device_unitig": LeonConfig(noheader=True, noqual=True,
                                            unitig_device_max_kmers=1 << 30),
-               "k63": LeonConfig(noheader=True, noqual=True, kmer_size=63)}
-    arcs = {name: os.path.join(work, f"ecoli_500k.{name}.leon") for name in configs}
-    n = PIN["n_reads"]
+               "k63": LeonConfig(noheader=True, noqual=True, kmer_size=63),
+               "k127": LeonConfig(noheader=True, noqual=True, kmer_size=127)}
+    srcs = {name: src250 if name == "k127" else src for name in configs}
+    arcs = {name: os.path.join(work, f"{name}.leon") for name in configs}
+    n = {name: PIN127["n_reads"] if name == "k127" else PIN["n_reads"] for name in configs}
 
     def run(fn, cfg, *a):
         torch.cuda.synchronize()
@@ -76,11 +81,11 @@ def main() -> int:
         res[name] = {"compress_s": [], "decompress_s": []}
     for _ in range(args.reps):
         for name, cfg in configs.items():
-            res[name]["compress_s"].append(run(pipeline.compress, cfg, src, arcs[name])[0])
+            res[name]["compress_s"].append(run(pipeline.compress, cfg, srcs[name], arcs[name])[0])
             res[name]["decompress_s"].append(run(pipeline.decompress, cfg, arcs[name], dec)[0])
     for name in configs:
         for key in ("compress", "decompress"):
-            res[name][f"{key}_reads_per_s"] = [n / t for t in res[name][f"{key}_s"]]
+            res[name][f"{key}_reads_per_s"] = [n[name] / t for t in res[name][f"{key}_s"]]
     print(json.dumps(res), flush=True)
 
     for name, fn, cfg, a in (
@@ -88,8 +93,10 @@ def main() -> int:
             ("compress_device_unitig", pipeline.compress, configs["device_unitig"],
              (src, arcs["device_unitig"])),
             ("compress_k63", pipeline.compress, configs["k63"], (src, arcs["k63"])),
+            ("compress_k127", pipeline.compress, configs["k127"], (src250, arcs["k127"])),
             ("decompress", pipeline.decompress, configs["default"], (arcs["default"], dec)),
-            ("decompress_k63", pipeline.decompress, configs["k63"], (arcs["k63"], dec))):
+            ("decompress_k63", pipeline.decompress, configs["k63"], (arcs["k63"], dec)),
+            ("decompress_k127", pipeline.decompress, configs["k127"], (arcs["k127"], dec))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall, st = run(fn, cfg, *a)
         events = [e for e in prof.key_averages() if e.device_time_total > 0]

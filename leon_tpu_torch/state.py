@@ -6,8 +6,8 @@ keeps them) and the port's tensors.
 - k-mer words: (N, W) u32 numpy or a tensor of u32 values -> (N, W) int32
   tensor holding the same bits (words_to_torch).
 - Distinct-run words: (M, W) u32 LSW-first (W <= 2) <-> (M,) int64 keys
-  ``w1 << 32 | w0`` (k <= 31); (M, W) words <-> the sign-flipped int64
-  halves the multiword route sorts (words_to_halves, halves_to_words).
+  ``w1 << 32 | w0`` (k <= 31); (M, W) words <-> the ceil(W/2) sign-flipped
+  int64 planes the multiword route sorts (words_to_planes, planes_to_words).
 - Packed read codes (kmer.pack_codes_np): (B, L16) u32 <-> int32 tensor;
   unpacked codes (B, L) u8 -> uint8 tensor (codes_to_torch).
 - A dense encode_batch dict of tensors -> numpy arrays (dense_from_torch).
@@ -106,25 +106,29 @@ _SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN maps u64 order onto signed order
 _M32 = 0xFFFFFFFF
 
 
-def words_to_halves(words: torch.Tensor):
-    """(M, W) u32 k-mer words (int32 bits, or u32 values in int64), W <= 4
-    -> the sign-flipped int64 halves (hi, lo): lo = (w1 << 32 | w0) ^ sign,
-    hi = (w3 << 32 | w2) ^ sign, None when W <= 2. Signed order of (hi, lo)
-    is the reference's MSW-first u32 order (count.sort_words' keys)."""
+def n_planes(W: int) -> int:
+    """int64 planes of a W-word k-mer: P = ceil(W/2)."""
+    return (W + 1) // 2
+
+
+def words_to_planes(words: torch.Tensor) -> tuple:
+    """(M, W) u32 k-mer words (int32 bits, or u32 values in int64) -> the
+    P = ceil(W/2) sign-flipped int64 planes, least significant first:
+    plane q = (w[2q+1] << 32 | w[2q]) ^ sign (w[W] = 0). Signed order of
+    (plane P-1, ..., plane 0) is the reference's MSW-first u32 order
+    (count.sort_words' keys); at W <= 4 the planes are (lo,) or (lo, hi)."""
     W = words.shape[1]
     u = words.to(torch.int64) & _M32
-    lo = (u[:, 0] | (u[:, 1] << 32 if W > 1 else 0)) ^ _SIGN
-    if W <= 2:
-        return None, lo
-    return (u[:, 2] | (u[:, 3] << 32 if W > 3 else 0)) ^ _SIGN, lo
+    return tuple((u[:, 2 * q] | (u[:, 2 * q + 1] << 32 if 2 * q + 1 < W else 0)) ^ _SIGN
+                 for q in range(n_planes(W)))
 
 
-def halves_to_words(hi: torch.Tensor | None, lo: torch.Tensor, W: int) -> torch.Tensor:
-    """Inverse of words_to_halves: (M, W) int32 holding the u32 words."""
+def planes_to_words(planes, W: int) -> torch.Tensor:
+    """Inverse of words_to_planes: (M, W) int32 holding the u32 words."""
     from leon_tpu_torch.ops.kmer import i32_bits
 
     words = []
-    for h in (lo, hi)[: 1 + (W > 2)]:
+    for h in planes:
         h = h ^ _SIGN
         words += [h & _M32, (h >> 32) & _M32]
     return i32_bits(torch.stack(words[:W], dim=1))
@@ -134,7 +138,7 @@ def run_from_reference(words_pad: np.ndarray, counts_pad: np.ndarray, k: int | N
     """The reference's padded sorted distinct run ((Mcap, W) u32 words,
     (Mcap,) i32 counts; pad rows all 0xFFFFFFFF with count 0, sorted last)
     -> the port's CPU tensors with the pads dropped: (keys (M,) int64,
-    counts (M,) int32), or for k > 31 (the multiword route, W = 2..4)
+    counts (M,) int32), or for k > 31 (the multiword route, W = 2..16)
     (words (M, W) int32 holding the u32 words, counts). A pad would convert
     to key -1, which sorts FIRST in the port's signed order; no canonical
     k-mer has all-ones words (the top word is masked below 32 bits, and at
