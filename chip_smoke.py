@@ -5,8 +5,8 @@ the port still starts, builds its kernels and round-trips on the GPU.
     python3 chip_smoke.py
 
 Phases (each raises on failure, so the run exits non-zero without the
-final line; phase 6's corpora are made first, and phases 7, 8 and 9 run
-right after phase 3, whose reads and solid set they reuse):
+final line; phase 6's corpora are made first, and phases 7, 8, 9 and 10
+run right after phase 3, whose reads and solid set they reuse):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from leon_tpu_torch/csrc with nvcc, and check
      the native host library;
@@ -50,7 +50,8 @@ right after phase 3, whose reads and solid set they reuse):
      the graph API (K10/K11 at W = 4); the 4-shard mesh on the one card
      equals one shard; entry() on the card equals its CPU run; each of
      K13-K16 launched at least once, then held against its plain version
-     on the card, exactly, and timed (K14 also against torch.unique);
+     on the card, exactly, and timed (K14 also against
+     torch.unique_consecutive, count_batch against torch.unique);
   9. the multiword route of compress and decompress at three widths, as
      65,536-lane packed chunks: k = 63 on phase 3's reads (the distinct
      run and cutoff must equal phase 8's), k = 127 on phase 6's 250-bp
@@ -58,7 +59,21 @@ right after phase 3, whose reads and solid set they reuse):
      reads of 300-600 bp: K17 scan, K14 slab runs, merge (counts,
      histogram) and solid mode, K16 over the run's solid rows, K18 encode
      and K19 decode of one chunk, each held against its plain version on
-     the card, exactly, and timed.
+     the card, exactly, and timed;
+ 10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
+     k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
+     (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
+     the 4-shard Bloom build (= one shard = phase 9's K16), K15 on one
+     chunk, and the graph API on the solid set (every query over every
+     node, 2**21 random k-mers, the blocked probe of phase 9's filter,
+     walk from every node, traverse from 65,536 nodes at D = 32 and
+     D = k + 1); then the same at k = 255 (W = 16) on phase 9's 131,072
+     reads of 300-600 bp; each of K10-K15 launched at least once at each
+     width, its output on the path held against its plain version on
+     the card, exactly, at the path's shapes (every read, node, lane and
+     step; K12 at D = k + 1 on the first quarter of its lanes), and timed
+     there (records `name:w8`, `name:w16`; K14 also
+     against torch.unique_consecutive, count_batch against torch.unique).
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s), then, last, the device line. Kernels under ~50 us
@@ -145,7 +160,13 @@ WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_
         "walk_decode_words")
 WIDE8, WIDE16 = (tuple(f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
 KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
-COMPRESS = tuple(k for k in KERNELS if k not in GRAPH + TENSOR + WIDE + WIDE8 + WIDE16)
+# the tensor path and the graph API past four words (phase 10): K13, K14's
+# run lengths, K15 and K10-K12 at W = 8 (k = 127) and W = 16 (k = 255)
+LONGK = ("kmer_scan_words", "runs_words", "walk_dense", "dbg_probe", "dbg_walk", "dbg_traverse")
+LONGK8, LONGK16 = (tuple(f"{n}:w{w}" for n in LONGK) for w in (8, 16))
+KERNELS.update({n: KERNELS[c] for n, c in zip(LONGK8 + LONGK16, LONGK + LONGK)})
+COMPRESS = tuple(k for k in KERNELS
+                 if k not in GRAPH + TENSOR + WIDE + WIDE8 + WIDE16 + LONGK8 + LONGK16)
 K63, K127, K255 = 63, 127, 255
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
@@ -197,6 +218,21 @@ def cuda_ms(fn, reps: int) -> float:
     dev_ms = sum(e.device_time_total for e in prof.key_averages()
                  if e.device_type.name == "CUDA") / 1e3 / reps
     return dev_ms if 0 < dev_ms < SMALL_MS else ms
+
+
+def timed(fn) -> tuple:
+    """fn()'s result and its time in ms over that one call (CUDA events):
+    for plain versions that take seconds, whose checking call is their
+    timing."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def nbytes(*objs) -> int:
@@ -920,12 +956,16 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
                                torch.zeros(2, 3, dtype=torch.bool, device=dev))  # all invalid
     if tuple(u0.shape) != (0, 4) or tuple(c0.shape) != (0,):
         raise AssertionError(f"count_batch on no rows: {tuple(u0.shape)}, {tuple(c0.shape)}")
+    # K14 beside torch.unique_consecutive over the same sorted rows (its own
+    # function); torch.unique(dim=0), which also sorts, beside count_batch
+    srows = state.planes_to_words(planes, 4)
+    fig["unique63_ms"] = cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 2)
     records["runs_words"] = record(
         err, cuda_ms(lambda: count.runs_words(planes, 4), 5),
         cuda_ms(lambda: count.runs_words_plain(planes, 4), 2), nbytes(planes, uq, cn),
-        cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 2))
+        cuda_ms(lambda: torch.unique_consecutive(srows, dim=0, return_counts=True), 3))
     log(f"runs_words ok: {rows.shape[0]} rows -> {uq.shape[0]} distinct (k=63)")
-    del rows, planes, planes2, uq, cn
+    del rows, srows, planes, planes2, uq, cn
 
     err = 0
     for words, ones, nw, k in ((solid31, ones31, n_words, K), (solid63, ones63, nw63, k63)):
@@ -948,7 +988,8 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def multiword_checks(records: dict, names: tuple, codes, lengths, k: int) -> dict:
+def multiword_checks(records: dict, names: tuple, codes, lengths, k: int,
+                     keep: dict | None = None) -> dict:
     """The kernels compress and decompress run at 32 <= k <= 255, at one
     k's main-path shapes: the (n, L) read codes as 65,536-lane packed
     chunks. K17 scans each chunk's valid k-mers as sign-flipped int64
@@ -959,7 +1000,9 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int) -> dic
     encoded (restoring the reads). Each kernel is held against its plain
     version on the card, exactly, and timed, into records under `names`
     (K17, K14, K16, K18, K19); their launch counts come from a main-path
-    run at the same width. Returns the counts the caller checks."""
+    run at the same width. Returns the counts the caller checks; `keep`,
+    when given, receives the run's solid rows, cutoff and Bloom bitset
+    (phase 10's inputs)."""
     import numpy as np
     import torch
 
@@ -1036,6 +1079,9 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int) -> dic
         cuda_ms(lambda: bloom.bloom_build_words_plain(sw, ones, nw, nw, H, SEED, k), 1),
         nbytes(sw, ones, bits))
     log(f"{n_bloom} ok: {n_solid} solid rows of {n_distinct}, {nw} words ({tag})")
+    if keep is not None:
+        keep.update(codes=codes, lengths=lengths, solid=sw, bits=bits, n_words=nw,
+                    cutoff=cutoff, distinct=n_distinct, n_solid=n_solid)
     del gw, gc, gh, ones, sw, sc
 
     # K18 on one chunk, with and without the confirmed bits
@@ -1106,24 +1152,227 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int) -> dic
                 cutoff=cutoff, n_solid=n_solid, n_words=nw, anchored=anchored)
 
 
-def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -> dict:
+def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -> tuple:
     """Phase 9: the multiword kernels at k = 63 on phase 3's 458,752 reads (L
     = 104; the distinct run, cutoff and solid count must equal phase 8's),
     at k = 127 (W = 8) on the whole 250-bp corpus of phase 6 (the solid
     count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
-    300-600 bp (long_reads)."""
+    300-600 bp (long_reads). Returns the figures and, per k of W >= 8, the
+    reads, solid rows and Bloom bitset phase 10 takes over."""
     fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])
     if (fig63["distinct"], fig63["cutoff"], fig63["n_solid"]) != want:
         raise AssertionError(f"k={K63}: distinct, cutoff, solid {fig63} != phase 8's {want}")
+    hand = {K127: {}, K255: {}}
     codes, lengths = fastq_codes(r250)
-    fig127 = multiword_checks(records, WIDE8, codes, lengths, K127)
+    fig127 = multiword_checks(records, WIDE8, codes, lengths, K127, hand[K127])
     if fig127["n_solid"] != PIN127["n_solid"]:
         raise AssertionError(f"k={K127}: {fig127['n_solid']} solid != the reference's "
                              f"{PIN127['n_solid']}")
     codes, lengths = long_reads(2 * B, 300, 600)
-    fig255 = multiword_checks(records, WIDE16, codes, lengths, K255)
-    return {"k63": fig63, "k127": fig127, "k255": fig255}
+    fig255 = multiword_checks(records, WIDE16, codes, lengths, K255, hand[K255])
+    return {"k63": fig63, "k127": fig127, "k255": fig255}, hand
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the tensor path and the graph API past four words (W = 8, 16)
+# ---------------------------------------------------------------------------
+
+# the plain traversal pays 4 x D probe steps an outer step, each a few
+# hundred PyTorch ops (61 s for 16,384 lanes x 16 steps at D = 256 on an
+# H100): at the default D = k + 1 it is held on the first quarter of the
+# lanes
+LONGK_DEEP_LANES = GRAPH_TRAVERSE_LANES // 4
+
+
+def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
+    """Phases 8 and 7 at one k past four words, on phase 9's reads and solid
+    set at that k (`hand`), as their users drive them. The tensor path: K13
+    over every read, count_batch (sort_planes + K14's run lengths) over its
+    valid rows, which must give phase 9's distinct and solid counts and
+    solid rows; the solid rows' blocked Bloom filter built through
+    sharded_bloom_build on 4 shards of the one card, which must equal one
+    shard and phase 9's K16 bitset; K15 on the first 65,536 reads. The
+    graph API on the solid set: Graph.from_solid, contains / successors /
+    predecessors / is_branching over every node, contains of 2**21 random
+    k-mers, the blocked bloom.probe of phase 9's compress filter over its
+    solid rows (all members), walk from every node (100 steps), traverse
+    from 65,536 nodes (16 steps at D = 32 and at the default D = k + 1).
+    Launch counts come from this run; then each kernel's output on the
+    path is held against its plain version on the same inputs on the card
+    (exact) and timed at those shapes, every lane and step (K12 at the
+    default depth on the first LONGK_DEEP_LANES lanes): the plain versions
+    of K11, K12, K13 and K15, which take seconds, on their one checking
+    call."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import kernels, state
+    from leon_tpu_torch.graph import Graph, dbg_traverse_plain, dbg_walk_plain
+    from leon_tpu_torch.ops import bloom, count, kmer, walk
+    from leon_tpu_torch.parallel import mesh
+
+    n_scan, n_runs, n_dense, n_probe, n_walk, n_trav = names
+    dev = torch.device("cuda")
+    W = kmer.words_for_k(k)
+    tag = f"k={k}, W={W}"
+    codes = torch.from_numpy(hand["codes"]).to(dev)
+    lengths = torch.from_numpy(hand["lengths"]).to(dev)
+    c1, l1 = codes[:B], lengths[:B]
+    nw, cutoff = hand["n_words"], hand["cutoff"]
+    rnd = np.random.default_rng(k).integers(0, 1 << 32, (1 << 21, W), dtype=np.uint64)
+    rnd[:, -1] &= kmer.top_mask(k)
+    rnd = state.words_to_torch(rnd.astype(np.uint32), dev)
+    S = GRAPH_TRAVERSE_STEPS
+    torch.cuda.synchronize()
+
+    kernels.launches.clear()
+    t = time.time()
+    canon, is_rc, valid = kmer.kmer_scan_words(codes, lengths, k)
+    uniq, cnt = count.count_batch(canon, valid)
+    solid = uniq[cnt >= cutoff]
+    reps = mesh.sharded_bloom_build(mesh.make_mesh(devices=[dev] * MESH_SHARDS), solid, nw, H,
+                                    SEED, k)
+    one = mesh.sharded_bloom_build(mesh.make_mesh(devices=[dev]), solid, nw, H, SEED, k)[0]
+    enc = walk.encode_batch(c1, l1, reps[0], k, H, nw, SEED)
+    torch.cuda.synchronize()
+    t_g = time.time()
+    G = Graph.from_solid(solid.cpu().numpy().view(np.uint32), k)
+    t_build = time.time() - t_g
+    dbg = G.dbg
+    nodes = state.words_to_torch(G.index.sorted_words, dev)
+    member = dbg.contains(nodes)
+    succ = dbg.successors(nodes)
+    pred = dbg.predecessors(nodes)
+    branch = dbg.is_branching(nodes)
+    fp = dbg.contains(rnd)
+    blocked = bloom.probe(hand["bits"], hand["solid"], H, nw, SEED, k)
+    wb, wn = dbg.walk(nodes, GRAPH_WALK_STEPS)
+    starts = torch.cat([nodes[branch], nodes[~branch]])[:GRAPH_TRAVERSE_LANES]
+    trav = {32: dbg.traverse(starts, S, 32), k + 1: dbg.traverse(starts, S)}  # default D
+    torch.cuda.synchronize()
+    t_path = time.time() - t
+    launches = dict(kernels.launches)
+    missing = [n for n in names + ("bloom_build_words",) if launches.get(counter(n), 0) < 1]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched on the path: {missing}")
+
+    # what comes out is right
+    if (uniq.shape[0], solid.shape[0]) != (hand["distinct"], hand["n_solid"]):
+        raise AssertionError(f"{tag}: {uniq.shape[0]} distinct, {solid.shape[0]} solid != "
+                             f"phase 9's {hand['distinct']}, {hand['n_solid']}")
+    max_abs_err(solid, hand["solid"])
+    for rep in reps:
+        max_abs_err(rep, one)
+    max_abs_err(one[:nw], hand["bits"])
+    if G.dbg.n_words != bloom.choose_n_words(solid.shape[0], 16.0):
+        raise AssertionError(f"{tag}: graph n_words {G.dbg.n_words}")
+    if not bool(member.all()) or not bool(blocked.all()):
+        raise AssertionError(f"{tag}: a solid k-mer is missing from a Bloom filter")
+    tn, tnd = trav[32][1], trav[k + 1][1]
+    if not bool(enc["anchored"].any()) or int(tnd.sum()) < int(tn.sum()):
+        raise AssertionError(f"{tag}: no read anchored, or the default depth crossed less")
+    fig = dict(k=k, n_reads=codes.shape[0], valid_rows=int(valid.sum()), distinct=uniq.shape[0],
+               solid=solid.shape[0], graph_n_words=G.dbg.n_words, from_solid_s=t_build,
+               path_s=t_path, fp_rate=float(fp.float().mean()),
+               n_branching=int(branch.sum()),
+               mean_out_degree=float(succ.sum(dim=1).float().mean()),
+               walk_mean_steps=float(wn.float().mean()),
+               walk_full=float((wn == GRAPH_WALK_STEPS).float().mean()),
+               traverse_mean_bases=float(tn.float().mean()),
+               traverse_default_mean_bases=float(tnd.float().mean()),
+               anchored=float(enc["anchored"].float().mean()))
+    log(f"long-k tensor path and graph ok ({tag}): {json.dumps(fig)}; launches {launches}")
+    del reps, one, member, pred, branch, fp, blocked
+
+    # each kernel's output on the path against its plain version on the
+    # card, exact, and timed at the path's shapes
+    got = (canon, is_rc, valid)
+    want, plain_ms = timed(lambda: kmer.kmer_scan_words_plain(codes, lengths, k))
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    del want
+    records[n_scan] = record(err, cuda_ms(lambda: kmer.kmer_scan_words(codes, lengths, k), 5),
+                             plain_ms, nbytes(codes, lengths, got))
+    log(f"{n_scan} ok: {codes.shape[0]} reads ({tag}; plain {plain_ms / 1e3:.1f} s)")
+
+    # count_batch beside torch.unique(dim=0), which also sorts; K14 beside
+    # torch.unique_consecutive over the same sorted rows (its own function)
+    rows = canon.reshape(-1, W)[valid.reshape(-1)]
+    fig["count_batch_ms"] = cuda_ms(lambda: count.count_batch(canon, valid), 3)
+    fig["unique_ms"] = cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 1)
+    del canon, is_rc, valid, got
+    planes = count.sort_words(rows)
+    srows = state.planes_to_words(planes, W)
+    uq, cn = count.runs_words(planes, W)
+    pu, pc = count.runs_words_plain(planes, W)
+    err = max(max_abs_err(uq, pu), max_abs_err(cn, pc), max_abs_err(uq, uniq),
+              max_abs_err(cn, cnt))
+    del pu, pc, rows
+    records[n_runs] = record(
+        err, cuda_ms(lambda: count.runs_words(planes, W), 5),
+        cuda_ms(lambda: count.runs_words_plain(planes, W), 1), nbytes(planes, uq, cn),
+        cuda_ms(lambda: torch.unique_consecutive(srows, dim=0, return_counts=True), 3))
+    log(f"{n_runs} ok: {srows.shape[0]} rows -> {uq.shape[0]} distinct ({tag})")
+    del srows, planes, uq, cn, uniq, cnt
+
+    bits = hand["bits"]
+    want, plain_ms = timed(lambda: walk.encode_batch_plain(c1, l1, bits, k, H, nw, SEED))
+    err = max(max_abs_err(enc[n], want[n]) for n in enc)
+    del want
+    records[n_dense] = record(
+        err, cuda_ms(lambda: walk.encode_batch(c1, l1, bits, k, H, nw, SEED), 5), plain_ms,
+        nbytes(c1, l1, bits, enc))
+    log(f"{n_dense} ok: {c1.shape[0]} reads, {fig['anchored']:.4f} anchored ({tag})")
+
+    args = (dbg.bitset, nodes, "out", True, dbg.n_hashes, dbg.n_words, dbg.seed, k)
+    err = max_abs_err(succ, bloom.dbg_probe_plain(*args))
+    for mode, q in (("self", nodes), ("in", nodes), ("self", rnd)):
+        a = (dbg.bitset, q, mode, True, dbg.n_hashes, dbg.n_words, dbg.seed, k)
+        err = max(err, max_abs_err(bloom.dbg_probe(*a), bloom.dbg_probe_plain(*a)))
+    a = (hand["bits"], hand["solid"], "self", False, H, nw, SEED, k)
+    err = max(err, max_abs_err(bloom.dbg_probe(*a), bloom.dbg_probe_plain(*a)))
+    records[n_probe] = record(
+        err, cuda_ms(lambda: bloom.dbg_probe(*args), 10),
+        cuda_ms(lambda: bloom.dbg_probe_plain(*args), 1), nbytes(nodes, dbg.bitset, succ))
+    log(f"{n_probe} ok: contains, successors, predecessors, random contains, blocked probe "
+        f"({tag})")
+
+    wargs = (dbg.bitset, nodes, dbg.n_hashes, dbg.n_words, dbg.seed, k, GRAPH_WALK_STEPS)
+    (pb, pn), plain_ms = timed(lambda: dbg_walk_plain(*wargs))
+    records[n_walk] = record(
+        max(max_abs_err(wb, pb), max_abs_err(wn, pn)),
+        cuda_ms(lambda: dbg.walk(nodes, GRAPH_WALK_STEPS), 3), plain_ms,
+        nbytes(nodes, dbg.bitset, wb, wn))
+    del pb, pn
+    log(f"{n_walk} ok: {nodes.shape[0]} lanes ({tag}; plain {plain_ms / 1e3:.1f} s)")
+
+    # K12: the path's traversals against the plain version, every outer
+    # step: at D = 32 every lane (the record, as phase 7's), at the default
+    # D = k + 1 the first LONGK_DEEP_LANES (lanes are independent)
+    err, plain_ms = 0, {}
+    for D, nl in ((32, starts.shape[0]), (k + 1, LONGK_DEEP_LANES)):
+        tb, tn = trav[D]
+        (pb, pn), plain_ms[D] = timed(lambda: dbg_traverse_plain(
+            dbg.bitset, starts[:nl], dbg.n_hashes, dbg.n_words, dbg.seed, k, S, D))
+        err = max(err, max_abs_err(tb[:nl], pb), max_abs_err(tn[:nl], pn))
+        del pb, pn
+        log(f"{n_trav} ok at D = {D}: {nl} lanes, {S} steps ({tag}; plain "
+            f"{plain_ms[D] / 1e3:.1f} s)")
+    records[n_trav] = record(err, cuda_ms(lambda: dbg.traverse(starts, S, 32), 5), plain_ms[32],
+                             nbytes(starts, dbg.bitset, *trav[32]))
+    fig["traverse_deep_ms"] = cuda_ms(lambda: dbg.traverse(starts, S), 3)
+    fig["traverse_deep_plain_ms"] = plain_ms[k + 1]
+    for n in names:
+        records[n]["launches"] = launches[counter(n)]
+    return fig
+
+
+def longk_phase(records: dict, hand: dict) -> dict:
+    """Phase 10: longk_checks at k = 127 (W = 8) on the 200,000 reads of 250
+    bp and their 1,777,017 solid k-mers (PIN127's), then at k = 255 (W = 16)
+    on phase 9's 131,072 reads of 300-600 bp and their solid set."""
+    return {f"k{k}": longk_checks(records, names, hand.pop(k), k)
+            for k, names in ((K127, LONGK8), (K255, LONGK16))}
 
 
 def fastq_codes(path: str) -> tuple:
@@ -1402,8 +1651,10 @@ def main() -> int:
     bench_state = kernel_checks(records)
     graph_fig = graph_phase(records, bench_state)
     tensor_fig = tensor_phase(records, bench_state)
-    wide_fig = widek_phase(records, bench_state, tensor_fig, paths["ecoli_200k_250bp"])
+    wide_fig, hand = widek_phase(records, bench_state, tensor_fig, paths["ecoli_200k_250bp"])
     del bench_state
+    longk_fig = longk_phase(records, hand)
+    del hand
     fig = yeast_phase()
     log(f"[yeast] {json.dumps(fig)}")
     card_launches = variants()
@@ -1413,6 +1664,7 @@ def main() -> int:
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
     log(f"[multiword kernels] {json.dumps(wide_fig)}")
+    log(f"[long-k tensor path and graph] {json.dumps(longk_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]

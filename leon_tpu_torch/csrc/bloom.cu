@@ -49,7 +49,7 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
 // ---------------------------------------------------------------------------
 // K16 bloom_build_words — a blocked Bloom partial over (S, W) k-mer words
 // (k <= 255, W <= 16), the valid rows only, into n_alloc words: one
-// shard's part on the tensor path (k <= 64), the whole filter over the
+// shard's part on the tensor path (k <= 255), the whole filter over the
 // solid rows on the main path's multiword route (32 <= k <= 255).
 //
 // Replaces: leon_tpu/parallel/mesh.py _bloom_words_local (33-49), the

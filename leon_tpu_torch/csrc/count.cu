@@ -168,11 +168,12 @@ extern "C" int lt_runs_write(const void* keys, const void* counts, long long n, 
 // rows already the valid ones (no sentinel: at k = 16W a canonical
 // palindrome can have an all-ones top word and must count). Output: each
 // emitted run's W words (unflipped) and its value, as int64 (count_batch's
-// run lengths, lt_runs_words_*, W <= 4) or int32 (the counter's runs,
-// lt_word_runs_*, W <= 16). The entry pairs are instances of one template
-// over the run test and a row accessor: the length-only one carries no
-// counts, cutoff or histogram code; rows of one or two planes (W <= 4) are
-// read as (hi, lo), rows of three to eight planes through the pointer array.
+// run lengths, lt_runs_words_*) or int32 (the counter's runs,
+// lt_word_runs_*), W <= 16 for both. The entry pairs are instances of one
+// template over the run test and a row accessor: the length-only one
+// carries no counts, cutoff or histogram code; rows of one or two planes
+// (W <= 4) are read as (hi, lo), rows of three to eight planes through the
+// pointer array.
 //
 // Bound on the H100: device-memory traffic, 8P bytes (+4 with counts) read
 // per row and 4W + 4 or 8 written per emitted run, twice (count pass and
@@ -317,43 +318,50 @@ static int words_write(const Rows& rows, const void* counts, long long n, int W,
   return (int)cudaGetLastError();
 }
 
-static HalfRows half_rows(const void* hi, const void* lo) {
-  return HalfRows{(const int64_t*)hi, (const int64_t*)lo};
+// f(rows) over the row accessor of n_planes planes: (hi, lo) for one or two
+// (hi null for one), the pointer array for three to eight
+template <class F>
+static int with_rows(const PlanePtrs& pl, int n_planes, F f) {
+  if (n_planes <= 2) return f(HalfRows{n_planes == 2 ? pl.p[1] : nullptr, pl.p[0]});
+  return f(PlaneRows{pl, n_planes});
 }
 
-// count_batch's K14 (run lengths, every run; W <= 4). Pass 1 + scan: hi
-// null when W <= 2; block_off: n_blocks(n) int64 scratch; total: 1 int64.
-extern "C" int lt_runs_words_count(const void* hi, const void* lo, long long n, void* block_off,
-                                   void* total, void* stream) {
-  return words_count<false>(half_rows(hi, lo), nullptr, n, 1, nullptr, block_off, total,
-                            stream);
+// The entry points take planes, the host array of n_planes = ceil(W/2)
+// plane pointers. count_batch's K14 (run lengths, every run; W <= 16).
+// Pass 1 + scan: block_off: n_blocks(n) int64 scratch; total: 1 int64.
+extern "C" int lt_runs_words_count(const void* planes, int n_planes, long long n,
+                                   void* block_off, void* total, void* stream) {
+  PlanePtrs pl = {};
+  if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
+  return with_rows(pl, n_planes, [&](const auto& rows) {
+    return words_count<false>(rows, nullptr, n, 1, nullptr, block_off, total, stream);
+  });
 }
 
 // Pass 2: each run's W words and int64 length at its offset.
-extern "C" int lt_runs_words_write(const void* hi, const void* lo, long long n, int W,
+extern "C" int lt_runs_words_write(const void* planes, int n_planes, long long n, int W,
                                    const void* block_off, void* out_words, void* out_counts,
                                    void* stream) {
-  if (W < 1 || W > 4) return (int)cudaErrorInvalidValue;
-  if (n > 0 && W > 2 && !hi) return (int)cudaErrorInvalidValue;
-  return words_write<false>(half_rows(hi, lo), nullptr, n, W, 1, block_off, out_words,
-                            out_counts, stream);
+  if (W < 1 || W > 16 || n_planes != (W + 1) / 2) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaSuccess;
+  PlanePtrs pl;
+  if (!load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
+  return with_rows(pl, n_planes, [&](const auto& rows) {
+    return words_write<false>(rows, nullptr, n, W, 1, block_off, out_words, out_counts, stream);
+  });
 }
 
-// K14 in K2's modes (the WordCounter's, W <= 16): planes is the host array
-// of n_planes = ceil(W/2) plane pointers. Pass 1 + scan: counts null (run
-// lengths) or int32; hist: 256 int32 or null.
+// K14 in K2's modes (the WordCounter's, W <= 16). Pass 1 + scan: counts
+// null (run lengths) or int32; hist: 256 int32 or null.
 extern "C" int lt_word_runs_count(const void* planes, int n_planes, const void* counts,
                                   long long n, int cutoff, void* hist, void* block_off,
                                   void* total, void* stream) {
   cutoff = cutoff < 1 ? 1 : cutoff;
   PlanePtrs pl = {};
   if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  if (n_planes <= 2)
-    return words_count<true>(half_rows(n > 0 && n_planes == 2 ? pl.p[1] : nullptr,
-                                       n > 0 ? pl.p[0] : nullptr),
-                             counts, n, cutoff, hist, block_off, total, stream);
-  return words_count<true>(PlaneRows{pl, n_planes}, counts, n, cutoff, hist, block_off, total,
-                           stream);
+  return with_rows(pl, n_planes, [&](const auto& rows) {
+    return words_count<true>(rows, counts, n, cutoff, hist, block_off, total, stream);
+  });
 }
 
 // Pass 2: each emitted run's W words and int32 value (clamped) at its offset.
@@ -365,9 +373,8 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
   cutoff = cutoff < 1 ? 1 : cutoff;
   PlanePtrs pl;
   if (!load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  if (n_planes <= 2)
-    return words_write<true>(half_rows(n_planes == 2 ? pl.p[1] : nullptr, pl.p[0]), counts, n,
-                             W, cutoff, block_off, out_words, out_counts, stream);
-  return words_write<true>(PlaneRows{pl, n_planes}, counts, n, W, cutoff, block_off, out_words,
-                           out_counts, stream);
+  return with_rows(pl, n_planes, [&](const auto& rows) {
+    return words_write<true>(rows, counts, n, W, cutoff, block_off, out_words, out_counts,
+                             stream);
+  });
 }

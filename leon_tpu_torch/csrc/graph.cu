@@ -20,7 +20,7 @@
 //
 // k-mers are W = ceil(k/16) little-endian u32 words (FORMAT.md §3), base
 // i of the k-mer at bits 2(k-1-i); every kernel is templated on W in
-// {1, 2, 3, 4} (k <= 64).
+// 1..16 (k <= 255).
 //
 // Bound on the H100: K9 and K10 move their inputs and outputs once (bytes
 // over 3.35 TB/s), their gathers hit a bitset of a few MB that stays in
@@ -299,7 +299,7 @@ __global__ void dbg_traverse_kernel(const uint32_t* __restrict__ words, long lon
 // ---------------------------------------------------------------------------
 
 static bool graph_args_ok(int W, int k, int H, unsigned n_words) {
-  return W >= 1 && W <= 4 && k > 16 * (W - 1) && k <= 16 * W && H >= 1 && n_words > 0;
+  return W >= 1 && W <= 16 && k > 16 * (W - 1) && k <= 16 * W && H >= 1 && n_words > 0;
 }
 
 static unsigned graph_blocks(long long N) {
@@ -335,6 +335,7 @@ extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int
   switch (W) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
@@ -363,6 +364,7 @@ extern "C" int lt_dbg_walk(const void* words, long long N, int W, int S, int k, 
   switch (W) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
@@ -393,6 +395,7 @@ extern "C" int lt_dbg_traverse(const void* words, long long N, int W, int S, int
   switch (W) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH

@@ -1,6 +1,6 @@
 // K1 kmer_scan — canonical k-mer keys of a packed read batch, written
 // straight into the count slab; K13 kmer_scan_words (below) — the same
-// scan to W u32 words per k-mer, k <= 64.
+// scan to W u32 words per k-mer, k <= 255.
 //
 // Replaces: leon_tpu/ops/kmer.py kmer_scan_packed -> unpack_codes_dev,
 // _kmer_scan_impl (a lax.scan over base columns producing (B, P, W) u32
@@ -48,7 +48,8 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
 
 // ---------------------------------------------------------------------------
 // K13 kmer_scan_words — every canonical k-mer of an unpacked read batch as
-// W = ceil(k/16) u32 words (k <= 64), with its strand and validity.
+// W = ceil(k/16) u32 words (k <= 255, W <= 16), with its strand and
+// validity.
 //
 // Replaces: leon_tpu/ops/kmer.py kmer_scan (129-138) -> _kmer_scan_impl
 // (104-126): a lax.scan over base columns carrying (B, W) fwd/rc words
@@ -63,17 +64,26 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
 // words of the bytes there. Palindromes keep the forward strand. A read's
 // outputs are one contiguous row, but the rows of neighbouring threads lie
 // P * W words apart, so a thread storing its own row sends each warp store
-// to 32 sectors. The block therefore stages SCAN_TILE positions of its
+// to 32 sectors. The block therefore stages a tile of positions of its
 // SCAN_ROWS reads in shared memory (rows padded to an odd word stride, so
 // the per-thread stores hit 32 banks), then each warp copies whole row
-// segments out, lane by lane: every store instruction writes 32 neighbouring
-// words (or bytes) of one row. The codes come in the same way, a tile of
-// SCAN_TILE columns per row per warp load, instead of one scattered byte
-// per thread and column.
+// segments out, lane by lane: every store instruction writes up to 32
+// neighbouring words (or bytes) of one row. The codes come in the same way,
+// a tile of columns per row per warp load, instead of one scattered byte
+// per thread and column. The tile is K17's planes_tile of the W-word
+// k-mer's (W + 1) / 2 planes: 32 positions for W <= 4, 16 for W <= 10 and
+// 8 past it, so the staged words (64 x (TILE*W + 1) u32, which a tile of 32
+// would make 41 KB at W = 5 and 132 KB at W = 16) and code columns stay at
+// 45 KB or less, inside the 48 KB of static shared memory.
 // ---------------------------------------------------------------------------
 
 #define SCAN_ROWS 64  // reads per block, one thread each
-#define SCAN_TILE 32  // positions staged per pass
+#define SCAN_TILE 32  // positions staged per pass, W <= 4
+
+// positions staged per pass by a scan over k-mers of nh int64 planes
+__host__ __device__ constexpr int planes_tile(int nh) {
+  return nh <= 2 ? SCAN_TILE : nh <= 5 ? 16 : 8;
+}
 
 template <int W>
 __global__ void __launch_bounds__(SCAN_ROWS)
@@ -81,16 +91,17 @@ __global__ void __launch_bounds__(SCAN_ROWS)
                            const int32_t* __restrict__ lengths, int B, int L, int k, int P,
                            uint32_t top, uint32_t* __restrict__ canon,
                            uint8_t* __restrict__ is_rc, uint8_t* __restrict__ valid) {
-  __shared__ uint8_t sc[SCAN_ROWS][SCAN_TILE + 4];     // the tile's code columns
-  __shared__ uint32_t sw[SCAN_ROWS][SCAN_TILE * W + 1];  // canonical words
-  __shared__ uint8_t sf[2][SCAN_ROWS][SCAN_TILE + 4];  // is_rc, valid
+  constexpr int TILE = planes_tile((W + 1) / 2);
+  __shared__ uint8_t sc[SCAN_ROWS][TILE + 4];     // the tile's code columns
+  __shared__ uint32_t sw[SCAN_ROWS][TILE * W + 1];  // canonical words
+  __shared__ uint8_t sf[2][SCAN_ROWS][TILE + 4];  // is_rc, valid
   const long long row0 = (long long)blockIdx.x * SCAN_ROWS;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int nrows = (int)min((long long)SCAN_ROWS, (long long)B - row0);
   const int last = t < nrows ? lengths[row0 + t] - k : -1;  // valid positions: p <= last
   Kmer<W> fwd = {}, rc = {};
-  for (int c0 = 0; c0 < L; c0 += SCAN_TILE) {
-    const int nc = min(SCAN_TILE, L - c0);
+  for (int c0 = 0; c0 < L; c0 += TILE) {
+    const int nc = min(TILE, L - c0);
     for (int r = warp; r < nrows; r += SCAN_ROWS / 32)
       if (lane < nc) sc[r][lane] = __ldg(codes + (size_t)(row0 + r) * L + c0 + lane);
     __syncthreads();
@@ -149,10 +160,6 @@ __global__ void __launch_bounds__(SCAN_ROWS)
 // P <= 5 and 8 past it (36 KB at P = 8), so that several blocks share an
 // SM. The block stops at its longest read's last valid position.
 // ---------------------------------------------------------------------------
-
-__host__ __device__ constexpr int planes_tile(int nh) {
-  return nh <= 2 ? SCAN_TILE : nh <= 5 ? 16 : 8;
-}
 
 template <int W>
 __global__ void __launch_bounds__(SCAN_ROWS)
@@ -248,7 +255,7 @@ extern "C" int lt_kmer_scan_halves(const void* packed, const void* lengths, cons
 extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B, int L, int k,
                                   int P, unsigned top, void* canon, void* is_rc, void* valid,
                                   void* stream) {
-  if (k < 1 || k > 64 || P < 1 || P != L - k + 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 255 || P < 1 || P != L - k + 1) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   const int threads = SCAN_ROWS;
   const unsigned grid = (unsigned)((B + threads - 1) / threads);
@@ -263,6 +270,7 @@ extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B,
   switch ((k + 15) / 16) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH

@@ -1,7 +1,7 @@
 // k-mers as W = ceil(k/16) little-endian u32 words held in registers
 // (FORMAT.md §3: base i of the k-mer at bits 2(k-1-i)), shared by the
-// kernels that take W-word k-mers: the tensor path and the graph API at
-// W <= 4 (k <= 64), the main path's multiword route at W <= 16 (k <= 255).
+// kernels that take W-word k-mers: the tensor path, the graph API and the
+// main path's multiword route, all at W <= 16 (k <= 255).
 #pragma once
 
 #include "common.cuh"

@@ -1,6 +1,6 @@
 // K4 walk — anchor search, fused right-then-left de Bruijn walk, flat event
 // buffer, and the decode re-walk; K15 walk_dense (below) — the dense event
-// tensors of encode_batch, k <= 64.
+// tensors of encode_batch, k <= 255.
 //
 // Replaces: leon_tpu/ops/walk.py encode_batch_compact_packed ->
 // _encode_compact_impl with _anchor_state/_anchor_scan/_pack_window and
@@ -370,7 +370,7 @@ __global__ void walk_decode_kernel(const int32_t* __restrict__ scal, int B, int 
 
 // ---------------------------------------------------------------------------
 // K15 walk_dense — the dense, slot-ordered event tensors of encode_batch,
-// for k <= 64.
+// for k <= 255 (W = ceil(k/16) <= 16 words of window).
 //
 // Replaces: leon_tpu/ops/walk.py encode_batch (621-665) -> walk_planes
 // (384-402: _anchor_state 357, _anchor_scan 113, _pack_window 147, then
@@ -828,7 +828,7 @@ extern "C" int lt_walk_decode(const void* scal, int B, int W, const void* errgap
 extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int L, int k, int H,
                              unsigned n_words, unsigned top, const void* tabs16,
                              const void* bitset, int ME, const void* outs15, void* stream) {
-  if (k < 1 || k > 64 || H < 1 || H > 8 || L < k || ME != max(L - k, 1) || n_words == 0)
+  if (k < 1 || k > 255 || H < 1 || H > 8 || L < k || ME != max(L - k, 1) || n_words == 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
@@ -855,6 +855,7 @@ extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int 
   switch ((k + 15) / 16) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH

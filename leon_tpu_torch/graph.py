@@ -3,7 +3,7 @@
 The graph is the classic-addressed Bloom bitset over the canonical solid
 k-mers (``DBG``) plus the exact node set (``NodeIndex``, host numpy, as in
 the reference): every query is batched over (N, W) u32 k-mer words
-(W = ceil(k/16), k <= 64) and runs on the graph's device. The device work
+(W = ceil(k/16), k <= 255) and runs on the graph's device. The device work
 is four hand-written CUDA kernels (csrc/graph.cu):
 
 - K10 ``bloom.dbg_probe``: ``contains``, ``successors``, ``predecessors``
@@ -31,7 +31,7 @@ import torch
 
 from leon_tpu_torch import kernels, state
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import need_tensor_k, shl2, top_mask
+from leon_tpu_torch.ops.kmer import need_words_k, shl2, top_mask
 
 _M32 = 0xFFFFFFFF
 
@@ -128,7 +128,7 @@ class Graph:
         """The graph of a solid set, (n, W) u32 canonical k-mer words (e.g.
         the solid rows of a count run), on `device` (the card unless the
         caller asks for "cpu")."""
-        need_tensor_k(k, "the graph API")
+        need_words_k(k, "Graph.from_solid")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")

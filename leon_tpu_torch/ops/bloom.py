@@ -13,7 +13,7 @@ kernel K10 (csrc/graph.cu: blocked or classic membership of (N, W) k-mer
 words or of their four neighbours), with ``probe`` and ``probe_classic``
 on top of it, and ``dbg_probe_plain``; ``bloom_build_words``, the wrapper
 of kernel K16 (csrc/bloom.cu: one shard's blocked partial over (S, W)
-k-mer words: parallel/mesh.py's at k <= 64, the main path's Bloom build
+k-mer words: parallel/mesh.py's at k <= 255, the main path's Bloom build
 over the solid rows at 32 <= k <= 255), and its plain version, with
 ``alloc_words`` (a copy of bloom.py:123-134); plus the plain PyTorch hash and
 probe helpers the walk's plain versions share. PyTorch's uint32 lacks
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from leon_tpu_torch import kernels
-from leon_tpu_torch.ops.kmer import i32_bits, need_tensor_k, shl2, shr2_ins, top_mask
+from leon_tpu_torch.ops.kmer import i32_bits, need_words_k, shl2, shr2_ins, top_mask
 
 # FORMAT.md §4 frozen constants
 _C1 = 0x5BF03635
@@ -238,9 +238,12 @@ def ror(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def take4(tab_row: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
-    """tab_row[idx] for a (4,) u32 table and int64 indices, as int64."""
-    t = torch.tensor([int(v) for v in tab_row], dtype=torch.int64, device=idx.device)
-    return t[idx]
+    """tab_row[idx] for a (4,) u32 table and int64 indices 0..3, as int64;
+    the values are picked as Python ints (a table copied to the card would
+    make each call wait for it)."""
+    v = [int(x) for x in tab_row]
+    return torch.where(idx < 2, torch.where(idx == 0, v[0], v[1]),
+                       torch.where(idx == 2, v[2], v[3]))
 
 
 def hash_keys_plain(keys: torch.Tensor, k: int, tab: np.ndarray):
@@ -271,15 +274,33 @@ def probe_plain(bitset: torch.Tensor, f: torch.Tensor, r: torch.Tensor,
 
 def hash_words_plain(words: torch.Tensor, k: int, tab: np.ndarray):
     """From-scratch (f, r) of packed k-mer words (..., W), u32 values in
-    int64, with the tables(seed, k) rows (leon_tpu/ops/bloom.py:97-117)."""
-    f = torch.zeros(words.shape[:-1], dtype=torch.int64, device=words.device)
+    int64, with the tables(seed, k) rows (leon_tpu/ops/bloom.py:97-117).
+    Bases go 32 at a time: their codes, table values and rotations as
+    (..., 32) tensors, XOR-folded; k one-base steps would cost k launches
+    of every op at k = 255."""
+    dev = words.device
+    f = torch.zeros(words.shape[:-1], dtype=torch.int64, device=dev)
     r = torch.zeros_like(f)
-    for i in range(k):
+    for i0 in range(0, k, 32):
+        i = torch.arange(i0, min(i0 + 32, k), device=dev)
         t = 2 * (k - 1 - i)
         b = (words[..., t // 32] >> (t % 32)) & 3
-        f = f ^ rol(take4(tab[0], b), (k - 1 - i) % 32)
-        r = r ^ rol(take4(tab[1], b), i % 32)
+        f = f ^ _xor_fold(_rol_each(take4(tab[0], b), (k - 1 - i) % 32))
+        r = r ^ _xor_fold(_rol_each(take4(tab[1], b), i % 32))
     return f, r
+
+
+def _rol_each(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """u32 values in int64 (..., n) rotated left by s (n,) in [0, 32)."""
+    return ((x << s) | (x >> (32 - s))) & _M32
+
+
+def _xor_fold(x: torch.Tensor) -> torch.Tensor:
+    """XOR over the last dimension."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = torch.cat([x[..., :h] ^ x[..., h : 2 * h], x[..., 2 * h :]], dim=-1)
+    return x[..., 0]
 
 
 def wordbit_classic_plain(f: torch.Tensor, r: torch.Tensor, H: int, n_words: int):
@@ -304,9 +325,9 @@ def check_probe_args(bitset, words, mode: int, classic: bool, H: int, n_words: i
     kernels.need(mode in (SELF, OUT, IN), f"dbg_probe: mode {mode}")
     kernels.need(words.dtype == torch.int32 and words.dim() == 2,
                  "dbg_probe: words must be (N, W) int32 (u32 bits)")
-    need_tensor_k(k, "dbg_probe")
-    kernels.need(1 <= k and words.shape[1] == (k + 15) // 16,
-                 f"dbg_probe: {words.shape[1]} words for k={k} (need ceil(k/16) <= 4)")
+    need_words_k(k, "dbg_probe")
+    kernels.need(words.shape[1] == (k + 15) // 16,
+                 f"dbg_probe: {words.shape[1]} words for k={k} (need ceil(k/16))")
     kernels.need(bitset.dtype == torch.int32 and bitset.dim() == 1,
                  "dbg_probe: bitset must be (n,) int32")
     kernels.need(bitset.device == words.device, "dbg_probe: tensors on two devices")

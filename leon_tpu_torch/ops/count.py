@@ -17,11 +17,11 @@ an 80 GB card; a run past ``SPILL_ROWS`` would need the reference's host
 spill (count.py:592-600, 643-704), which the port does not have yet.
 
 ``count_batch`` is the one-shot count of (B, P, W) canonical words
-(k <= 64, counterpart of count.py:88-104): the valid rows, sorted by
+(k <= 255, counterpart of count.py:88-104): the valid rows, sorted by
 torch.sort passes over sign-flipped int64 planes (``sort_words``), then
 ``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
-over rows of one or two int64 planes. ``word_runs`` is K14 in K2's modes
-(a counts payload, cutoff, histogram) over rows of up to 8 planes (W <= 16).
+of run lengths over rows of up to 8 planes (W <= 16). ``word_runs`` is K14
+in K2's modes (a counts payload, cutoff, histogram) over the same rows.
 
 ``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
@@ -42,8 +42,7 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import (SENTINEL, kmer_scan, kmer_scan_halves, need_tensor_k,
-                                      words_for_k)
+from leon_tpu_torch.ops.kmer import SENTINEL, kmer_scan, kmer_scan_halves, words_for_k
 from leon_tpu_torch.state import n_planes, planes_to_words, words_to_planes
 
 _I32_MAX = 0x7FFFFFFF
@@ -148,8 +147,8 @@ def compact_solid(keys: torch.Tensor, counts: torch.Tensor, cutoff: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_runs_words_args(planes, W: int, counts=None, max_w: int = 16) -> None:
-    kernels.need(1 <= W <= max_w, f"runs_words: W={W} not in [1, {max_w}]")
+def _check_runs_words_args(planes, W: int, counts=None) -> None:
+    kernels.need(1 <= W <= 16, f"runs_words: W={W} not in [1, 16]")
     kernels.need(isinstance(planes, (tuple, list)) and len(planes) == n_planes(W),
                  f"runs_words: {n_planes(W)} planes for W={W}")
     lo = planes[0]
@@ -165,9 +164,9 @@ def _check_runs_words_args(planes, W: int, counts=None, max_w: int = 16) -> None
 
 def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, modes: bool):
     """K14 on the card: (words (R, W) int32, values (R,) int32 with modes
-    (word_runs, any P) or int64 run lengths without (runs_words, P <= 2,
-    whose instance has no counts, cutoff or histogram code), hist (256,)
-    int32 or None); counted under the wrapper's name."""
+    (word_runs) or int64 run lengths without (runs_words, whose instance
+    has no counts, cutoff or histogram code), hist (256,) int32 or None);
+    counted under the wrapper's name."""
     name = "word_runs" if modes else "runs_words"
     planes = [h.contiguous() for h in planes]
     counts = counts.contiguous() if counts is not None else None
@@ -176,7 +175,6 @@ def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, mod
     n = lo.shape[0]
     lib = kernels.lib()
     ptrs = np.array([h.data_ptr() for h in planes], dtype=np.uint64)
-    hi_p = planes[1].data_ptr() if len(planes) > 1 else None
     cnt_p = counts.data_ptr() if counts is not None else None
     block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
@@ -187,7 +185,7 @@ def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, mod
                                     hist.data_ptr() if hist is not None else None,
                                     block_off.data_ptr(), total.data_ptr(), st)
     else:
-        rc = lib.lt_runs_words_count(hi_p, lo.data_ptr(), n, block_off.data_ptr(),
+        rc = lib.lt_runs_words_count(ptrs.ctypes.data, len(planes), n, block_off.data_ptr(),
                                      total.data_ptr(), st)
     kernels.check(rc, name)
     R = int(total.item())
@@ -197,20 +195,19 @@ def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, mod
         rc = lib.lt_word_runs_write(ptrs.ctypes.data, len(planes), cnt_p, n, W, int(cutoff),
                                     block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
     else:
-        rc = lib.lt_runs_words_write(hi_p, lo.data_ptr(), n, W, block_off.data_ptr(),
-                                     uniq.data_ptr(), vals.data_ptr(), st)
+        rc = lib.lt_runs_words_write(ptrs.ctypes.data, len(planes), n, W,
+                                     block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
     kernels.check(rc, name)
     kernels.launches[name] += 1
     return uniq, vals, hist
 
 
 def runs_words(planes: tuple, W: int):
-    """Reduce-by-key over rows sorted by their sign-flipped int64 planes
-    (state.words_to_planes: (lo,) at W <= 2, (lo, hi) at W = 3, 4; the
-    tensor path's W <= 4). Every row counts (the caller drops invalid rows
-    first). Returns (uniq (M, W) int32 holding the u32 words, counts (M,)
-    int64) in key order."""
-    _check_runs_words_args(planes, W, max_w=4)
+    """Reduce-by-key over rows sorted by their P = ceil(W/2) sign-flipped
+    int64 planes (state.words_to_planes; W <= 16). Every row counts (the
+    caller drops invalid rows first). Returns (uniq (M, W) int32 holding the
+    u32 words, counts (M,) int64) in key order."""
+    _check_runs_words_args(planes, W)
     if not kernels.on_cuda(planes[0], "runs_words"):
         return runs_words_plain(planes, W)
     uniq, counts, _ = _runs_words_launch(planes, W, None, 1, False, False)
@@ -266,7 +263,7 @@ def _word_runs_plain(planes, W: int, counts, cutoff: int, want_hist: bool):
 def runs_words_plain(planes: tuple, W: int):
     """Plain version of runs_words: heads where any plane changes, run
     lengths from the head positions, words unflipped from the planes."""
-    _check_runs_words_args(planes, W, max_w=4)
+    _check_runs_words_args(planes, W)
     words, lengths, _ = _word_runs_plain(planes, W, None, 1, False)
     return words, lengths
 
@@ -318,12 +315,11 @@ def compact_solid_words(words: torch.Tensor, counts: torch.Tensor, cutoff: int):
 def count_batch(canon: torch.Tensor, valid: torch.Tensor):
     """Count one batch of canonical k-mers (counterpart of leon_tpu
     count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
-    valid (B, P) bool, W <= 4 (k <= 64). Returns (uniq (M, W) int32 words
+    valid (B, P) bool, W <= 16 (k <= 255). Returns (uniq (M, W) int32 words
     sorted MSW first, counts (M,) int64) on canon's device: the valid rows,
     sorted by torch.sort, reduced by K14."""
-    kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and canon.shape[2] >= 1,
-                 "count_batch: canon must be (B, P, W) int32")
-    need_tensor_k(16 * canon.shape[2] - 15, "count_batch")  # the least k of W words
+    kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and 1 <= canon.shape[2] <= 16,
+                 "count_batch: canon must be (B, P, W <= 16) int32")
     kernels.need(valid.dtype == torch.bool and valid.shape == canon.shape[:2],
                  "count_batch: valid must be (B, P) bool")
     kernels.need(valid.device == canon.device, "count_batch: tensors on two devices")

@@ -3,7 +3,7 @@
 Device half (new): ``kmer_scan``, the wrapper of kernel K1
 (csrc/kmer.cu), and ``kmer_scan_plain``, its plain PyTorch version;
 ``kmer_scan_words``, the wrapper of kernel K13 (the unpacked scan to
-(B, P, W) u32 words, k <= 64, counterpart of kmer.kmer_scan), and
+(B, P, W) u32 words, k <= 255, counterpart of kmer.kmer_scan), and
 ``kmer_scan_words_plain``; ``kmer_scan_halves``, the wrapper of kernel
 K17 (the main path's scan for 32 <= k <= 255: the valid positions only,
 compacted, as the ceil(W/2) sign-flipped int64 planes the counter sorts), and
@@ -166,20 +166,16 @@ def kmer_scan_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Device half: kernel K13 (multiword scan, k <= 64) and its plain version
+# Device half: kernel K13 (multiword scan, k <= 255) and its plain version
 # ---------------------------------------------------------------------------
 
-MAX_K_TENSOR = 64  # the tensor path (K13, count_batch, K15, the mesh): W <= 4
-MAX_K_WORDS = 255  # the main path's multiword route (K17, K14, K16, K18, K19): W <= 16
+MAX_K_WORDS = 255  # every W-word kernel (K10-K19): W = ceil(k/16) <= 16
 MIN_K_WIDE = 17  # W >= 2: the multiword route's kernels K17-K19 have no W = 1 instance
 
 
-def need_tensor_k(k: int, what: str) -> None:
-    """The tensor path takes k <= 64 (W <= 4); past it, it is not ported."""
-    if k > MAX_K_TENSOR:
-        raise NotImplementedError(
-            f"{what} at k = {k} > {MAX_K_TENSOR} (W = {words_for_k(k)} words) is not ported to "
-            "leon_tpu_torch yet (ROADMAP.md queue 1, item 9a)")
+def need_words_k(k: int, what: str) -> None:
+    """A W-word kernel takes 1 <= k <= 255 (W <= 16)."""
+    kernels.need(1 <= k <= MAX_K_WORDS, f"{what}: k={k} not in [1, {MAX_K_WORDS}]")
 
 
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -207,8 +203,7 @@ def i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_scan_words_args(codes, lengths, k: int) -> int:
-    need_tensor_k(k, "kmer_scan_words")
-    kernels.need(k >= 1, f"kmer_scan_words: k={k} < 1")
+    need_words_k(k, "kmer_scan_words")
     kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2,
                  "kmer_scan_words: codes must be (B, L) uint8")
     kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),
@@ -220,7 +215,7 @@ def _check_scan_words_args(codes, lengths, k: int) -> int:
 
 
 def kmer_scan_words(codes: torch.Tensor, lengths: torch.Tensor, k: int):
-    """Every k-mer of a read batch as canonical u32 words (k <= 64).
+    """Every k-mer of a read batch as canonical u32 words (k <= 255).
 
     codes: (B, L) uint8 base codes, lengths: (B,) int32. Returns (canon
     (B, P, W) int32 holding the u32 words LSW first, is_rc (B, P) bool,
@@ -254,8 +249,8 @@ def kmer_scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
 
 
 def _scan_words_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int):
-    """kmer_scan_words_plain at any W (K17's plain version runs it at k <=
-    255)."""
+    """kmer_scan_words_plain without the argument checks (K17's plain
+    version runs it too)."""
     B, L = codes.shape
     P = L - k + 1
     W = words_for_k(k)

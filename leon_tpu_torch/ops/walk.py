@@ -21,7 +21,7 @@ both) and ``walk_decode_words`` (scal of width 9+W, up to 25).
 kernel by k. walk_encode_plain and walk_decode_plain, over (B, W) words,
 are the plain versions of both generations.
 
-Kernel K15 (csrc/walk.cu), also one thread per read, for k <= 64:
+Kernel K15 (csrc/walk.cu), also one thread per read, for k <= 255:
 
 - ``encode_batch``: the reference's dense, slot-ordered event tensors
   (walk.py:621-665, the tensor-level interface), from unpacked codes; its
@@ -45,7 +45,7 @@ import torch
 
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
-from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, need_tensor_k,
+from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, need_words_k,
                                       shl2, shr2_ins, top_mask, unpack_codes, words_for_k)
 
 _M32 = 0xFFFFFFFF
@@ -445,7 +445,7 @@ def encode_batch_compact_packed(packed, lengths, bitset, k: int, H: int, n_words
 
 
 # ---------------------------------------------------------------------------
-# Dense encode (k <= 64): kernel K15 and its plain version
+# Dense encode (k <= 255): kernel K15 and its plain version
 # ---------------------------------------------------------------------------
 
 # encode_batch's outputs in the reference's order; "s" = (B,), "e" = (B, ME),
@@ -461,8 +461,7 @@ DENSE = (("anchored", "s", torch.bool), ("apos", "s", torch.int32),
 
 
 def _check_dense_args(codes, lengths, bitset, n_words: int, k: int, H: int) -> None:
-    need_tensor_k(k, "encode_batch")
-    kernels.need(k >= 1, f"encode_batch: k={k} < 1")
+    need_words_k(k, "encode_batch")
     kernels.need(codes.dtype == torch.uint8 and codes.dim() == 2 and codes.shape[1] >= k,
                  "encode_batch: codes must be (B, L >= k) uint8")
     kernels.need(lengths.dtype == torch.int32 and lengths.shape == (codes.shape[0],),

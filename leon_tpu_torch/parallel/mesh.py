@@ -75,7 +75,7 @@ def sharded_bloom_build(mesh: Mesh, solid_words, n_words: int, H: int, seed: int
     (numpy u32 or an int32 tensor), built shard by shard (module
     docstring). Returns one (alloc_words(n_words),) int32 replica per
     shard, on that shard's device."""
-    kmer.need_tensor_k(k, "sharded_bloom_build")
+    kmer.need_words_k(k, "sharded_bloom_build")
     if n_words > bloom.MAX_WORDS:
         raise ValueError(f"n_words {n_words} > {bloom.MAX_WORDS}")
     n = mesh.size

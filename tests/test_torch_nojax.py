@@ -2,8 +2,9 @@
 and without the reference package: in a subprocess whose ``import jax``
 fails, leon_tpu_torch imports, compresses and decompresses on the CPU (the
 round trip is exact) and runs entry() and the multiword count; with
-``leon_tpu`` and ``bench`` blocked too, the CLI and the graph API run as
-well. A static check walks the port's sources and chip_smoke.py for
+``leon_tpu`` and ``bench`` blocked too, the CLI runs, and the graph API
+at k = 15 and, with the tensor path (scan, count, dense encode), at
+k = 100 (W = 7). A static check walks the port's sources and chip_smoke.py for
 imports of jax, leon_tpu or bench."""
 
 import ast
@@ -84,6 +85,24 @@ STANDALONE = textwrap.dedent("""
     bases, n = g.dbg.walk(kmer.pack_codes_batch_np(wins[:1], 15), 110)
     assert int(n[0]) > 50 and (bases[0, : int(n[0])].numpy() == contig[15 : 15 + int(n[0])]).all()
     assert bool(g.dbg.contains(g.index.sorted_words).all())
+    # past four words (k = 100, W = 7): the tensor path and the graph API
+    import torch
+    from leon_tpu_torch.ops import count, walk
+    big = np.random.default_rng(2).integers(0, 4, 260, dtype=np.uint8)
+    reads = np.stack([big[i : i + 130] for i in range(0, 130, 10)] * 2)
+    lens = torch.full((reads.shape[0],), 130, dtype=torch.int32)
+    canon, _, valid = kmer.kmer_scan_words(torch.from_numpy(reads), lens, 100)
+    uniq, counts = count.count_batch(canon, valid)
+    assert uniq.shape[1] == 7 and int(counts.sum()) == int(valid.sum())
+    solid = uniq.numpy().view(np.uint32)[counts.numpy() >= 2]
+    g = Graph.from_solid(solid, 100, bits_per_kmer=24.0, device="cpu")
+    bases, n = g.dbg.walk(kmer.pack_codes_batch_np(big[None, :100], 100), 60)
+    assert int(n[0]) == 60 and (bases[0].numpy() == big[100:160]).all()
+    out, n = g.dbg.traverse(g.index.sorted_words[:4], 3, 4)
+    assert out.shape == (4, 18)
+    enc = walk.encode_batch(torch.from_numpy(reads), lens, g.dbg.bitset, 100, 4,
+                            g.dbg.n_words, 0)
+    assert enc["anchored"].shape == (reads.shape[0],)
     loaded = [m for m in sys.modules if sys.modules[m] is not None
               and m.split(".")[0] in ("jax", "leon_tpu", "bench")]
     assert not loaded, loaded
