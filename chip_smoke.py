@@ -20,20 +20,23 @@ run right after phase 3, whose reads and solid set they reuse):
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
      cycle variant taken, the payload equal to the native host builder's;
-  5. compress and decompress ten small corpora (lossy and lossless FASTQ,
-     long-read FASTA, k = 15, 16, 31, 32, 48, 64, 65, 96 and 255, both
-     Bloom-set sections) on the card and on the CPU: the archives and
-     outputs must be identical; the k = 255 run launches the multiword
-     kernels at W = 16 and gives their launch counts;
+  5. compress and decompress twelve small corpora (lossy and lossless
+     FASTQ, long-read FASTA, k = 15, 16, 31, 32, 48, 64, 65, 96 and 255,
+     both Bloom-set sections, then two more at k = 65 and 255 with the
+     device unitig build) on the card and on the CPU: the archives and
+     outputs must be identical; the k = 255 runs launch the multiword
+     kernels and the device unitig build at W = 16 and give their launch
+     counts;
   6. generate the bench corpus (gen_fastq, a copy of bench.py's: 500k
      reads of 100 bp from a 2 Mbp contig), compress and decompress it on
      the card with -noheader -noqual, then again with the device unitig
      build (unitig_device_max_kmers = 2**30), then at k = 63; then 200k
      reads of 250 bp from the same contig and seed at k = 127 (W = 8);
-     each run must give the exact sequence round trip and its pinned
-     archive (the reference's bytes, PIN, PIN63 and PIN127), and launch
-     each kernel of its path (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack,
-     K19) at least once;
+     then k = 63 and k = 127 again with the device unitig build; each run
+     must give the exact sequence round trip and its pinned archive (the
+     reference's bytes, PIN, PIN63 and PIN127), and launch each kernel of
+     its path (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack, K19; those and
+     K5-K8 over W-word rows) at least once;
   7. the graph API at full width on phase 3's solid set (2,014,298 k-mers,
      k = 31): Graph.from_solid, contains / successors / predecessors /
      is_branching / iter_branching over every node, contains of 2**21
@@ -58,8 +61,11 @@ run right after phase 3, whose reads and solid set they reuse):
      corpus (the solid count must equal PIN127's) and k = 255 on 131,072
      reads of 300-600 bp: K17 scan, K14 slab runs, merge (counts,
      histogram) and solid mode, K16 over the run's solid rows, K18 encode
-     and K19 decode of one chunk, each held against its plain version on
-     the card, exactly, and timed;
+     and K19 decode of one chunk, then the device unitig build over the
+     solid rows (K5, K6, K7, K8 at W = 4, 8 and 16; the payload must equal
+     the native host builder's), each held against its plain version on
+     the card, exactly, and timed (records `name:w4`, `name:w8`,
+     `name:w16` for K5-K8);
  10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
      (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
@@ -165,8 +171,14 @@ KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
 LONGK = ("kmer_scan_words", "runs_words", "walk_dense", "dbg_probe", "dbg_walk", "dbg_traverse")
 LONGK8, LONGK16 = (tuple(f"{n}:w{w}" for n in LONGK) for w in (8, 16))
 KERNELS.update({n: KERNELS[c] for n, c in zip(LONGK8 + LONGK16, LONGK + LONGK)})
+# the device unitig build over W-word rows (k > 31): K5, K6, K7 and K8 at
+# W = 4 (k = 63), 8 (k = 127) and 16 (k = 255), records "name:w4" etc.
+UNITIG4, UNITIG8, UNITIG16 = (tuple(f"{n}:w{w}" for n in DEVICE_BUILD) for w in (4, 8, 16))
+KERNELS.update({n: KERNELS[counter] for n, counter in
+                zip(UNITIG4 + UNITIG8 + UNITIG16, DEVICE_BUILD * 3)})
 COMPRESS = tuple(k for k in KERNELS
-                 if k not in GRAPH + TENSOR + WIDE + WIDE8 + WIDE16 + LONGK8 + LONGK16)
+                 if k not in GRAPH + TENSOR + WIDE + WIDE8 + WIDE16 + LONGK8 + LONGK16
+                 + UNITIG4 + UNITIG8 + UNITIG16)
 K63, K127, K255 = 63, 127, 255
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
@@ -447,27 +459,33 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def unitig_checks(records: dict, keys, counts, cutoff: int, nu: int, label: str) -> dict:
-    """K5-K8 on a sorted solid run (keys, counts) on the card against their
+def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
+                  k: int = K, names: tuple = DEVICE_BUILD) -> dict:
+    """K5-K8 on a sorted solid run (rows, counts) on the card against their
     plain versions on the same tensors, exact; the device payload against
-    the native host builder's. Fills records[name] (ms, plain_ms,
-    max_abs_err) and returns the build's figures."""
+    the native host builder's. rows are (M,) int64 keys at k <= 31, else
+    (M, W) int32 words (the multiword route's solid rows). Fills
+    records[name] for `names` (K5, K6, K7, K8: ms, plain_ms, max_abs_err)
+    and returns the build's figures."""
     import numpy as np
     import torch
 
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import unitig
 
-    M = keys.numel()
+    n_links, n_double, n_emit, n_lookup = names
+    M = rows.shape[0]
+    words_form = rows.dim() == 2
+    tag = f"{label}, k={k}" + (f", W={rows.shape[1]}" if words_form else "")
 
     # K5
-    nxt, prev = unitig.unitig_links(keys, K)
-    want = unitig.unitig_links_plain(keys, K)
-    records["unitig_links"] = record(
+    nxt, prev = unitig.unitig_links(rows, k)
+    want = unitig.unitig_links_plain(rows, k)
+    records[n_links] = record(
         max(max_abs_err(nxt, want[0].cpu()), max_abs_err(prev, want[1].cpu())),
-        cuda_ms(lambda: unitig.unitig_links(keys, K), 5),
-        cuda_ms(lambda: unitig.unitig_links_plain(keys, K), 1), nbytes(keys, nxt, prev))
-    log(f"[{label}] unitig_links ok: {M} solid rows, {int((nxt >= 0).sum())} internal edges")
+        cuda_ms(lambda: unitig.unitig_links(rows, k), 5),
+        cuda_ms(lambda: unitig.unitig_links_plain(rows, k), 1), nbytes(rows, nxt, prev))
+    log(f"[{tag}] unitig_links ok: {M} solid rows, {int((nxt >= 0).sum())} internal edges")
 
     # K6: the start states and one round of every mode, then whole rankings
     err = 0
@@ -484,67 +502,73 @@ def unitig_checks(records: dict, keys, counts, cutoff: int, nu: int, label: str)
         err = max(err, *(max_abs_err(a, b.cpu()) for a, b in zip(got, exp)))
         ranked[acyclic] = got
     S0 = unitig.double_init(nxt, prev, unitig.ACYCLIC)
-    records["unitig_double"] = record(
+    records[n_double] = record(
         err, cuda_ms(lambda: unitig.unitig_double(S0, unitig.ACYCLIC), 10),
         cuda_ms(lambda: unitig.unitig_double_plain(S0, unitig.ACYCLIC), 3),
         nbytes(S0, unitig.unitig_double(S0, unitig.ACYCLIC)))
-    log(f"[{label}] unitig_double ok")
+    log(f"[{tag}] unitig_double ok")
 
     # K7 on both rankings; then the whole build (dispatch + drain) and the
     # plain build on the card
     cap = unitig.chains_cap(nu)
-    cb = unitig._caps(M, K, cap)
+    cb = unitig._caps(M, k, cap)
     err = 0
     for acyclic, (n2, p2, S) in ranked.items():
-        got = unitig.unitig_emit(keys, K, n2, p2, S, cap, cb, acyclic)
-        exp = unitig.unitig_emit_plain(keys, K, n2, p2, S, cap, cb, acyclic)
+        got = unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, acyclic)
+        exp = unitig.unitig_emit_plain(rows, k, n2, p2, S, cap, cb, acyclic)
         err = max(err, max_abs_err(got, exp.cpu()))
     n2, p2, S = ranked[True]
-    records["unitig_emit"] = record(
-        err, cuda_ms(lambda: unitig.unitig_emit(keys, K, n2, p2, S, cap, cb, True), 5),
-        cuda_ms(lambda: unitig.unitig_emit_plain(keys, K, n2, p2, S, cap, cb, True), 1),
-        nbytes(keys, n2, p2, S, unitig.unitig_emit(keys, K, n2, p2, S, cap, cb, True)))
+    records[n_emit] = record(
+        err, cuda_ms(lambda: unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, True), 5),
+        cuda_ms(lambda: unitig.unitig_emit_plain(rows, k, n2, p2, S, cap, cb, True), 1),
+        nbytes(rows, n2, p2, S, unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, True)))
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t = time.time()
-    infl = unitig.dispatch_build(keys, counts, cutoff, K, nu)
+    infl = unitig.dispatch_build(rows, k, nu)
     cyc = int(infl.buf[2])
     payload = unitig.drain_build(infl)
     torch.cuda.synchronize()
     t_kernel = time.time() - t
     peak = torch.cuda.max_memory_allocated()
     t = time.time()
-    plain_bufs = [unitig.build_plain(keys, K, cap, cb, a) for a in (True, False)]
+    plain_bufs = [unitig.build_plain(rows, k, cap, cb, a) for a in (True, False)]
     torch.cuda.synchronize()
     t_plain = time.time() - t
-    kernel_bufs = [unitig.build(keys, K, cap, cb, a) for a in (True, False)]
+    kernel_bufs = [unitig.build(rows, k, cap, cb, a) for a in (True, False)]
     for a, b in zip(kernel_bufs, plain_bufs):
         max_abs_err(a, b.cpu())
     if payload is None:
-        raise AssertionError(f"[{label}] the device build gave no payload")
-    words = state.keys_from_torch(keys, 2)
+        raise AssertionError(f"[{tag}] the device build gave no payload")
+    words = (rows.cpu().numpy().view(np.uint32) if words_form
+             else state.keys_from_torch(rows, 2))
     t = time.time()
-    host = unitig.build_np_payload(words, counts.cpu().numpy(), cutoff, K, nu)
+    host = unitig.build_np_payload(words, counts.cpu().numpy(), cutoff, k, nu)
     t_host = time.time() - t
     if payload != host:
-        raise AssertionError(f"[{label}] device payload differs from the native host builder's")
-    n_chains = unitig.parse_payload(payload, K)[0].size
-    log(f"[{label}] unitig_emit ok; build: {n_chains} chains, cycles flagged {cyc}, "
+        raise AssertionError(f"[{tag}] device payload differs from the native host builder's")
+    n_chains = unitig.parse_payload(payload, k)[0].size
+    log(f"[{tag}] unitig_emit ok; build: {n_chains} chains, cycles flagged {cyc}, "
         f"payload {len(payload)} B = the native host builder's")
 
-    # K8: solid keys, and keys that are not in the run
+    # K8: solid rows, and rows that are not in the run (low bits flipped)
     rng = np.random.default_rng(8)
-    q = keys[torch.from_numpy(rng.integers(0, M, 100_000)).to(keys.device)]
-    q = torch.cat([q, (q ^ 0x155) & ((1 << (2 * K)) - 1)])
-    hit, rank = unitig.solid_lookup(keys, K, q)
-    hit_p, rank_p = unitig.solid_lookup_plain(keys, K, q)
-    records["solid_lookup"] = record(
+    q = rows[torch.from_numpy(rng.integers(0, M, 100_000)).to(rows.device)]
+    if words_form:
+        miss = q.clone()
+        miss[:, 0] ^= 0x155
+    else:
+        miss = (q ^ 0x155) & ((1 << (2 * k)) - 1)
+    q = torch.cat([q, miss])
+    hit, rank = unitig.solid_lookup(rows, k, q)
+    hit_p, rank_p = unitig.solid_lookup_plain(rows, k, q)
+    records[n_lookup] = record(
         max(max_abs_err(hit, hit_p.cpu()), max_abs_err(rank, rank_p.cpu())),
-        cuda_ms(lambda: unitig.solid_lookup(keys, K, q), 10),
-        cuda_ms(lambda: unitig.solid_lookup_plain(keys, K, q), 3), nbytes(keys, q, hit, rank),
-        cuda_ms(lambda: torch.searchsorted(keys, q), 10))
-    log(f"[{label}] solid_lookup ok: {int(hit.sum())}/{q.numel()} hits")
+        cuda_ms(lambda: unitig.solid_lookup(rows, k, q), 10),
+        cuda_ms(lambda: unitig.solid_lookup_plain(rows, k, q), 3), nbytes(rows, q, hit, rank),
+        None if words_form else cuda_ms(lambda: torch.searchsorted(rows, q), 10))
+    log(f"[{tag}] solid_lookup ok: {int(hit.sum())}/{q.shape[0]} hits")
     return dict(n_solid=M, n_distinct=nu, n_chains=n_chains, cycles_flagged=cyc,
                 payload_bytes=len(payload), build_s=t_kernel, plain_build_s=t_plain,
                 host_build_s=t_host, peak_device_bytes=peak)
@@ -988,7 +1012,7 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def multiword_checks(records: dict, names: tuple, codes, lengths, k: int,
+def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig_names: tuple,
                      keep: dict | None = None) -> dict:
     """The kernels compress and decompress run at 32 <= k <= 255, at one
     k's main-path shapes: the (n, L) read codes as 65,536-lane packed
@@ -1000,7 +1024,8 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int,
     encoded (restoring the reads). Each kernel is held against its plain
     version on the card, exactly, and timed, into records under `names`
     (K17, K14, K16, K18, K19); their launch counts come from a main-path
-    run at the same width. Returns the counts the caller checks; `keep`,
+    run at the same width. Then K5-K8 over the solid rows (unitig_checks,
+    records `unitig_names`). Returns the counts the caller checks; `keep`,
     when given, receives the run's solid rows, cutoff and Bloom bitset
     (phase 10's inputs)."""
     import numpy as np
@@ -1082,7 +1107,11 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int,
     if keep is not None:
         keep.update(codes=codes, lengths=lengths, solid=sw, bits=bits, n_words=nw,
                     cutoff=cutoff, distinct=n_distinct, n_solid=n_solid)
-    del gw, gc, gh, ones, sw, sc
+    del gw, gc, gh, ones
+
+    # K5-K8 over the solid rows, as the device unitig build reads them
+    unitig_fig = unitig_checks(records, sw, sc, cutoff, n_distinct, "multiword", k, unitig_names)
+    del sw, sc
 
     # K18 on one chunk, with and without the confirmed bits
     def enc_d(conf: bool):
@@ -1149,7 +1178,8 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int,
         nbytes(dec_in, bits, d_d))
     log(f"{n_dec} ok: {rows.size} reads restored ({tag})")
     return dict(k=k, n_reads=codes.shape[0], L=L, valid_rows=n_rows, distinct=n_distinct,
-                cutoff=cutoff, n_solid=n_solid, n_words=nw, anchored=anchored)
+                cutoff=cutoff, n_solid=n_solid, n_words=nw, anchored=anchored,
+                unitig=unitig_fig)
 
 
 def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -> tuple:
@@ -1159,18 +1189,19 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
     count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
     300-600 bp (long_reads). Returns the figures and, per k of W >= 8, the
     reads, solid rows and Bloom bitset phase 10 takes over."""
-    fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63)
+    fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63,
+                             UNITIG4)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])
     if (fig63["distinct"], fig63["cutoff"], fig63["n_solid"]) != want:
         raise AssertionError(f"k={K63}: distinct, cutoff, solid {fig63} != phase 8's {want}")
     hand = {K127: {}, K255: {}}
     codes, lengths = fastq_codes(r250)
-    fig127 = multiword_checks(records, WIDE8, codes, lengths, K127, hand[K127])
+    fig127 = multiword_checks(records, WIDE8, codes, lengths, K127, UNITIG8, hand[K127])
     if fig127["n_solid"] != PIN127["n_solid"]:
         raise AssertionError(f"k={K127}: {fig127['n_solid']} solid != the reference's "
                              f"{PIN127['n_solid']}")
     codes, lengths = long_reads(2 * B, 300, 600)
-    fig255 = multiword_checks(records, WIDE16, codes, lengths, K255, hand[K255])
+    fig255 = multiword_checks(records, WIDE16, codes, lengths, K255, UNITIG16, hand[K255])
     return {"k63": fig63, "k127": fig127, "k255": fig255}, hand
 
 
@@ -1418,7 +1449,11 @@ def long_reads(n: int, lmin: int, lmax: int) -> tuple:
 # position bits), one-word keys (k <= 16), reads past 255 walk steps (the
 # 6-u16 per-read layout), the BLOOM section; then the multiword route at
 # k = 32, 48 and 64, and past four words at k = 65 (W = 5), 96 (an even k,
-# W = 6) and 255 (W = 16, on reads of 300-600 bp)
+# W = 6) and 255 (W = 16, on reads of 300-600 bp); then the k = 65 and
+# k = 255 corpus kinds with the device unitig build over W-word rows
+V255 = "fasta k=255, reads of 300-600 bp"
+V65_DEVICE = "fastq lossy k=65, reads of 100-250 bp, device unitig build"
+V255_DEVICE = f"{V255}, device unitig build"
 VARIANTS = [
     ("fastq lossy k=31", "fastq", {}),
     ("fastq lossless k=15", "fastq", dict(lossless=True, kmer_size=15)),
@@ -1429,9 +1464,12 @@ VARIANTS = [
     ("fasta k=64, BLOOM section", "fasta", dict(kmer_size=64, unitig_sections=False)),
     ("fastq lossy k=65, reads of 100-250 bp", "fastq250", dict(kmer_size=65)),
     ("fasta k=96, BLOOM section", "fasta", dict(kmer_size=96, unitig_sections=False)),
-    ("fasta k=255, reads of 300-600 bp", "fasta600", dict(kmer_size=255)),
+    (V255, "fasta600", dict(kmer_size=255)),
+    (V65_DEVICE, "fastq250", dict(kmer_size=65, unitig_device_max_kmers=1 << 30)),
+    (V255_DEVICE, "fasta600", dict(kmer_size=255, unitig_device_max_kmers=1 << 30)),
 ]
-K255_VARIANT = len(VARIANTS) - 1  # its card run gives the W = 16 records' launches
+# the card runs that give the W = 16 records' launches: the multiword
+# kernels' from V255, K5-K8's from V255_DEVICE
 
 # corpus kind -> (format, read lengths, reads)
 CORPORA = {"fastq": ("fastq", 60, 100, 1500), "fasta": ("fasta", 150, 300, 1500),
@@ -1473,13 +1511,13 @@ def variants() -> list:
     plain (CPU) path writes — which the CPU tests hold equal to leon_tpu's —
     and the card decodes it: byte-exact for lossless modes, sequence-exact
     and equal to the CPU decode for lossy qualities. Returns each variant's
-    launch counts on the card (compress and decompress)."""
+    launch counts on the card (compress and decompress), by label."""
     import torch
 
     from leon_tpu_torch import LeonConfig, kernels, pipeline
 
     os.makedirs(WORK, exist_ok=True)
-    card_launches = []
+    card_launches = {}
     for i, (label, kind, kw) in enumerate(VARIANTS):
         src = os.path.join(WORK, f"variant{i}.{CORPORA[kind][0]}")
         write_corpus(src, kind, 100 + i)
@@ -1493,7 +1531,7 @@ def variants() -> list:
             pipeline.decompress(arc, f"{arc}.out", cfg=cfg, device=d)
             if side == "card":
                 torch.cuda.synchronize()
-                card_launches.append(dict(kernels.launches))
+                card_launches[label] = dict(kernels.launches)
             with open(arc, "rb") as f, open(f"{arc}.out", "rb") as g:
                 data[side] = (f.read(), g.read())
         if data["card"] != data["cpu"]:
@@ -1506,10 +1544,12 @@ def variants() -> list:
         if (out.split(b"\n")[1::4] != original.split(b"\n")[1::4]) if lossy else out != original:
             raise AssertionError(f"variant {label}: round trip is not exact")
         log(f"variant ok: {label}, archive {len(data['card'][0])} B, card launches "
-            f"{card_launches[-1]}")
-    missing = [n for n in WIDE16 if card_launches[K255_VARIANT].get(counter(n), 0) < 1]
-    if missing:
-        raise AssertionError(f"variant k=255: kernels never launched: {missing}")
+            f"{card_launches[label]}")
+    for label, names in ((V255, WIDE16), (V65_DEVICE, WIDE + DEVICE_BUILD),
+                         (V255_DEVICE, WIDE16 + DEVICE_BUILD)):
+        missing = [n for n in names if card_launches[label].get(counter(n), 0) < 1]
+        if missing:
+            raise AssertionError(f"variant {label}: kernels never launched: {missing}")
     return card_launches
 
 
@@ -1576,10 +1616,11 @@ def main_path(records: dict, card: str, paths: dict) -> None:
     walls = {}
     # the default (native host unitig builder on a thread) drives K1-K4; the
     # device-build configuration drives K1-K8; k = 63 and k = 127 drive the
-    # multiword route (K17, K14, K16, K18 + walk_pack, K19) at W = 4 and 8.
-    # The kernels line takes K1-K4's counts from the default run, K5-K8's
-    # from the device-build run and the multiword kernels' from the k = 63
-    # and k = 127 runs.
+    # multiword route (K17, K14, K16, K18 + walk_pack, K19) at W = 4 and 8,
+    # and again with the device build (K5-K8 over W-word rows). The kernels
+    # line takes K1-K4's counts from the default run, K5-K8's from the
+    # device-build runs and the multiword kernels' from the k = 63 and
+    # k = 127 runs.
     default_path = [k for k in COMPRESS if k not in DEVICE_BUILD]
     for label, corpus, extra, path, read, pin in (
             ("default", "ecoli_500k", {}, default_path, default_path, PIN),
@@ -1588,7 +1629,13 @@ def main_path(records: dict, card: str, paths: dict) -> None:
             (f"k={K63}", "ecoli_500k", {"kmer_size": K63}, list(WIDE) + ["walk_pack"],
              list(WIDE), PIN63),
             (f"k={K127}, 250 bp", "ecoli_200k_250bp", {"kmer_size": K127},
-             list(WIDE8) + ["walk_pack"], list(WIDE8), PIN127)):
+             list(WIDE8) + ["walk_pack"], list(WIDE8), PIN127),
+            (f"k={K63}, device unitig build", "ecoli_500k",
+             {"kmer_size": K63, "unitig_device_max_kmers": 1 << 30},
+             list(WIDE + UNITIG4) + ["walk_pack"], list(UNITIG4), PIN63),
+            (f"k={K127}, 250 bp, device unitig build", "ecoli_200k_250bp",
+             {"kmer_size": K127, "unitig_device_max_kmers": 1 << 30},
+             list(WIDE8 + UNITIG8) + ["walk_pack"], list(UNITIG8), PIN127)):
         src = paths[corpus]
         arc = os.path.join(WORK, f"{corpus}.leon")
         out = os.path.join(WORK, f"{corpus}.out.fastq")
@@ -1642,25 +1689,39 @@ def main() -> int:
     print(card, flush=True)
     from leon_tpu_torch import kernels, pipeline
 
-    t = time.time()
+    t0 = time.time()
+
+    def done(phase: str) -> None:
+        log(f"{phase} done at {time.time() - t0:.1f} s")
+
     kernels.lib()
-    log(f"kernels built in {time.time() - t:.1f} s")
+    done("kernel build")
     pipeline.require_native()
     records = {n: {} for n in KERNELS}
     paths = corpora()
+    done("corpora")
     bench_state = kernel_checks(records)
+    done("phase 3")
     graph_fig = graph_phase(records, bench_state)
+    done("phase 7")
     tensor_fig = tensor_phase(records, bench_state)
+    done("phase 8")
     wide_fig, hand = widek_phase(records, bench_state, tensor_fig, paths["ecoli_200k_250bp"])
     del bench_state
+    done("phase 9")
     longk_fig = longk_phase(records, hand)
     del hand
+    done("phase 10")
     fig = yeast_phase()
     log(f"[yeast] {json.dumps(fig)}")
+    done("phase 4")
     card_launches = variants()
-    for n in WIDE16:
-        records[n]["launches"] = card_launches[K255_VARIANT][counter(n)]
+    for names, label in ((WIDE16, V255), (UNITIG16, V255_DEVICE)):
+        for n in names:
+            records[n]["launches"] = card_launches[label][counter(n)]
+    done("phase 5")
     main_path(records, card, paths)
+    done("phase 6")
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
     log(f"[multiword kernels] {json.dumps(wide_fig)}")

@@ -2,30 +2,37 @@
 // DICT lookup into it.
 //
 // Replaces leon_tpu/ops/unitig.py _build_dev -> _build_dev_impl (421-645,
-// with _bucket_starts 367 and _searchsorted_words_dev 377) and
-// solid_indices_dev (938-963); _compact_dev is K2's solid mode. Node ids,
-// tie-breaks and emission order are the reference's, so the packed output
-// is bit-identical:
+// with _topbits 351, _bucket_starts 367 and _searchsorted_words_dev 377)
+// and solid_indices_dev (938-963); _compact_dev is K2's solid mode (K14's
+// at k > 31). Node ids, tie-breaks and emission order are the reference's,
+// so the packed output is bit-identical:
 //
-//   K5 links   lt_unitig_buckets, lt_unitig_succ, lt_unitig_link
+//   K5 links   lt_unitig_buckets, lt_unitig_links (+ _words)
 //   K6 double  lt_unitig_init, lt_unitig_double (one round), lt_unitig_break
-//   K7 emit    lt_unitig_emit_mins, _heads, _lens, _bases
-//   K8 lookup  lt_solid_lookup
+//   K7 emit    lt_unitig_emit_mins, _heads, _lens, _bases (+ _bases_words)
+//   K8 lookup  lt_solid_lookup (+ _words)
 //
-// Input is the solid run: sorted, distinct int64 k-mers (k <= 31), every
-// row solid (the wrapper compacts a counted run with K2 first; ids stay
-// order-isomorphic, so the payload is the uncompacted build's). Directed
-// node d = 2*i + o is row i's key (o = 0) or its reverse complement
-// (o = 1), never materialised. Node ids are int32 (2M < 2^31).
+// Input is the solid run: sorted, distinct k-mers, every row solid (the
+// wrapper compacts a counted run first; ids stay order-isomorphic, so the
+// payload is the uncompacted build's). For k <= 31 a row is one int64 key;
+// for 32 <= k <= 255 it is W = ceil(k/16) u32 words (held as int32, LSW
+// first, sorted MSW-first as unsigned: the multiword route's rows), and
+// K5, K7's bases and K8 have _words instances for W = 2..16 (K6 and the
+// other K7 kernels see node ids only). Directed node d = 2*i + o is row
+// i's k-mer (o = 0) or its reverse complement (o = 1), never
+// materialised. Node ids are int32 (2M < 2^31).
 //
 // Bound on the H100: dependent random loads. K5 runs 8 bucketed binary
 // searches per row (a 2^16-entry prefix table narrows each to ~log2(M/2^16)
-// probes of the sorted keys); a K6 round is one 16-byte gather per node
+// probes of the sorted rows); a K6 round is one 16-byte gather per node
 // (pointer and both carries ride in one int4, as the reference rides them
 // as columns of one matrix for a single row-gather); K7 is scatters
 // (atomicMin, atomicOr) into zeroed buffers. One thread per row or node;
-// OR and MIN are order-free, so results do not depend on scheduling.
+// OR and MIN are order-free, so results do not depend on scheduling. A
+// W-word row lives in registers (Kmer<W>): K5 holds the row, its reverse
+// complement, a neighbour and the probed row, 4W words.
 #include "common.cuh"
+#include "kmer_words.cuh"
 
 #define UT_THREADS 256
 #define UT_TBITS 16
@@ -389,5 +396,246 @@ extern "C" int lt_solid_lookup(const void* keys, int M, int k, const void* start
   lookup_kernel<<<ut_blocks(Q), UT_THREADS, 0, (cudaStream_t)stream>>>(
       (const int64_t*)keys, M, k, (const int32_t*)starts, (const int64_t*)q, Q, (uint8_t*)hit,
       (int64_t*)rank);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K5, K7's bases and K8 over W-word rows, 32 <= k <= 255 (unitig.py:351-377,
+// 440-465, 469-508, 612-636, 938-963)
+// ---------------------------------------------------------------------------
+
+// the 2-bit groups of a word in reverse order (unitig.py rev2_u32, 443-447)
+static __device__ __forceinline__ uint32_t rev2_u32(uint32_t x) {
+  x = ((x & 0x33333333u) << 2) | ((x >> 2) & 0x33333333u);
+  x = ((x & 0x0F0F0F0Fu) << 4) | ((x >> 4) & 0x0F0F0F0Fu);
+  x = ((x & 0x00FF00FFu) << 8) | ((x >> 8) & 0x00FF00FFu);
+  return (x << 16) | (x >> 16);
+}
+
+// reverse complement of a W-word k-mer (unitig.py:440-459): complement,
+// reverse each word's groups and the word order, then shift right by the
+// 32W - 2k pad bits (even, 0..30; no shift at k = 16W)
+template <int W>
+static __device__ __forceinline__ Kmer<W> revcomp_w(const Kmer<W>& a, int k) {
+  Kmer<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = rev2_u32(~a.w[W - 1 - j]);
+  const int pad = 32 * W - 2 * k;
+  if (pad) {
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      r.w[j] = (r.w[j] >> pad) | (j + 1 < W ? r.w[j + 1 < W ? j + 1 : j] << (32 - pad) : 0u);
+  }
+  return r;
+}
+
+// spelled form of directed node d
+template <int W>
+static __device__ __forceinline__ Kmer<W> node_kmer(const uint32_t* __restrict__ rows, int d,
+                                                    int k) {
+  const Kmer<W> x = load_kmer<W>(rows, d >> 1);
+  return (d & 1) ? revcomp_w<W>(x, k) : x;
+}
+
+// the top min(16, 2k) bits of a 2k-bit k-mer, which straddle two words
+// when the shift's offset passes 16 (unitig.py _topbits, 351-364)
+template <int W>
+static __device__ __forceinline__ int top_bits_w(const Kmer<W>& a, int k) {
+  const int T = min(UT_TBITS, 2 * k);
+  const int shift = 2 * k - T, wi = shift >> 5, off = shift & 31;
+  uint32_t tb = word_at(a, wi) >> off;
+  if (off && wi + 1 < W) tb |= word_at(a, wi + 1) << (32 - off);
+  return (int)(tb & ((1u << T) - 1u));
+}
+
+// row index of q in the sorted rows, or -1; the search stays inside q's
+// bucket and compares rows as unsigned big integers, most significant word
+// first (unitig.py _searchsorted_words_dev, 377-418)
+template <int W>
+static __device__ __forceinline__ int find_row(const uint32_t* __restrict__ rows, int M,
+                                               const int32_t* __restrict__ starts,
+                                               const Kmer<W>& q, int k) {
+  const int p = top_bits_w<W>(q, k);
+  int lo = starts[p], hi = starts[p + 1];
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (lex_less(load_kmer<W>(rows, mid), q)) lo = mid + 1;
+    else hi = mid;
+  }
+  return (lo < M && same_kmer(load_kmer<W>(rows, lo), q)) ? lo : -1;
+}
+
+template <int W>
+__global__ void buckets_words_kernel(const uint32_t* __restrict__ rows, int M, int k,
+                                     int32_t* __restrict__ starts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > M) return;
+  const int T = min(UT_TBITS, 2 * k);
+  const int cur = i < M ? top_bits_w<W>(load_kmer<W>(rows, i), k) : (1 << T);
+  const int prv = i > 0 ? top_bits_w<W>(load_kmer<W>(rows, i - 1), k) : -1;
+  for (int b = prv + 1; b <= cur; ++b) starts[b] = i;
+}
+
+// succ_kernel over W-word rows: the neighbour y = x << 2 | b (top word
+// masked), its twin yr = xr >> 2 | (3 - b) << 2(k-1); the rc form only
+// when strictly smaller
+template <int W>
+__global__ void succ_words_kernel(const uint32_t* __restrict__ rows, int M, int k, uint32_t top,
+                                  const int32_t* __restrict__ starts, int32_t* __restrict__ succ,
+                                  int32_t* __restrict__ outc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  const Kmer<W> x0 = load_kmer<W>(rows, i);
+  const Kmer<W> r0 = revcomp_w<W>(x0, k);
+  for (int o = 0; o < 2; ++o) {
+    Kmer<W> x, xr;  // word by word: a select of whole structs goes to the stack
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      x.w[j] = o ? r0.w[j] : x0.w[j];
+      xr.w[j] = o ? x0.w[j] : r0.w[j];
+    }
+    int oc = 0, s = -1;
+    for (int b = 0; b < 4; ++b) {
+      const Kmer<W> y = shl2<W>(x, (uint32_t)b, top);
+      const Kmer<W> yr = shr2_ins<W>(xr, (uint32_t)(3 - b), k);
+      const bool take_rc = lex_less(yr, y);
+      Kmer<W> cy;
+#pragma unroll
+      for (int t = 0; t < W; ++t) cy.w[t] = take_rc ? yr.w[t] : y.w[t];
+      const int j = find_row<W>(rows, M, starts, cy, k);
+      if (j >= 0 && ++oc == 1) s = 2 * j + (int)take_rc;
+    }
+    succ[2 * i + o] = s;
+    outc[2 * i + o] = oc;
+  }
+}
+
+// emit_bases_kernel over W-word rows
+template <int W>
+__global__ void emit_bases_words_kernel(const uint32_t* __restrict__ rows, int N, int k,
+                                        const int4* __restrict__ S,
+                                        const int32_t* __restrict__ kh,
+                                        const int32_t* __restrict__ cid,
+                                        const long long* __restrict__ start, int cap,
+                                        long long cap_bases, uint32_t* __restrict__ packed) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= N) return;
+  const int4 s = S[d];
+  if (!kh[s.x]) return;
+  const int c = cid[s.x] - 1;
+  if (c >= cap) return;
+  const Kmer<W> f = node_kmer<W>(rows, d, k);
+  const long long st = start[c];
+  put_base(packed, st + (k - 1) + s.y, cap_bases, f.w[0] & 3u);
+  if (s.x == d)
+    for (int j = 0; j < k - 1; ++j) put_base(packed, st + j, cap_bases, (uint32_t)base_of(f, j, k));
+}
+
+template <int W>
+__global__ void lookup_words_kernel(const uint32_t* __restrict__ rows, int M, int k,
+                                    const int32_t* __restrict__ starts,
+                                    const uint32_t* __restrict__ q, int Q,
+                                    uint8_t* __restrict__ hit, int64_t* __restrict__ rank) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  const int j = find_row<W>(rows, M, starts, load_kmer<W>(q, i), k);
+  hit[i] = j >= 0;
+  rank[i] = j >= 0 ? j : 0;
+}
+
+// a W-word entry point takes 32 <= k <= 255 and W = ceil(k/16)
+static bool words_k_ok(int W, int k) { return k >= 32 && k <= 255 && W == (k + 15) / 16; }
+
+// the mask of a k-mer's top word (leon_tpu/ops/kmer.py top_mask)
+static uint32_t top_mask_of(int k) {
+  const int bits = 2 * k - 32 * ((2 * k - 1) / 32);
+  return bits < 32 ? (1u << bits) - 1u : 0xFFFFFFFFu;
+}
+
+// rows: (M, W) int32 u32 words; starts: (2^16 + 1) int32
+extern "C" int lt_unitig_buckets_words(const void* rows, int M, int W, int k, void* starts,
+                                       void* stream) {
+  if (!words_k_ok(W, k) || M < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* r = (const uint32_t*)rows;
+  int32_t* sp = (int32_t*)starts;
+#define LAUNCH(W_) \
+  buckets_words_kernel<W_><<<ut_blocks((long long)M + 1), UT_THREADS, 0, st>>>(r, M, k, sp)
+  switch (W) {
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// succ, outc: (2M,) int32 scratch; nxt, prev: (2M,) int32 outputs
+extern "C" int lt_unitig_links_words(const void* rows, int M, int W, int k, const void* starts,
+                                     void* succ, void* outc, void* nxt, void* prev,
+                                     void* stream) {
+  if (!words_k_ok(W, k) || M <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int N = 2 * M;
+  LT_TRY(cudaMemsetAsync(prev, 0xFF, (size_t)N * sizeof(int32_t), st));  // -1
+  const uint32_t* r = (const uint32_t*)rows;
+  const int32_t* sp = (const int32_t*)starts;
+  const uint32_t top = top_mask_of(k);
+#define LAUNCH(W_)                                                               \
+  succ_words_kernel<W_><<<ut_blocks(M), UT_THREADS, 0, st>>>(r, M, k, top, sp, \
+                                                               (int32_t*)succ, (int32_t*)outc)
+  switch (W) {
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
+  }
+#undef LAUNCH
+  LT_TRY(cudaGetLastError());
+  link_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(
+      N, (const int32_t*)succ, (const int32_t*)outc, (int32_t*)nxt, (int32_t*)prev);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lt_unitig_emit_bases_words(const void* rows, int N, int W, int k, const void* S,
+                                          const void* kh, const void* cid, const void* start,
+                                          int cap, long long cap_bases, void* buf,
+                                          void* stream) {
+  if (N <= 0 || cap <= 0 || !words_k_ok(W, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* r = (const uint32_t*)rows;
+  const int4* sp = (const int4*)S;
+  const int32_t* khp = (const int32_t*)kh;
+  const int32_t* cp = (const int32_t*)cid;
+  const long long* stp = (const long long*)start;
+  uint32_t* packed = (uint32_t*)buf + 4 + cap;
+#define LAUNCH(W_)                                                                 \
+  emit_bases_words_kernel<W_><<<ut_blocks(N), UT_THREADS, 0, st>>>(r, N, k, sp, khp, cp, \
+                                                                    stp, cap, cap_bases, packed)
+  switch (W) {
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// q: (Q, W) int32 u32 words
+extern "C" int lt_solid_lookup_words(const void* rows, int M, int W, int k, const void* starts,
+                                     const void* q, int Q, void* hit, void* rank, void* stream) {
+  if (!words_k_ok(W, k) || M <= 0 || Q <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* r = (const uint32_t*)rows;
+  const int32_t* sp = (const int32_t*)starts;
+  const uint32_t* qp = (const uint32_t*)q;
+#define LAUNCH(W_)                                                                  \
+  lookup_words_kernel<W_><<<ut_blocks(Q), UT_THREADS, 0, st>>>(r, M, k, sp, qp, Q, \
+                                                                 (uint8_t*)hit, (int64_t*)rank)
+  switch (W) {
+    LT_W_CASES_2_4(LAUNCH)
+    LT_W_CASES_5_16(LAUNCH)
+    LT_W_NO_INSTANCE
+  }
+#undef LAUNCH
   return (int)cudaGetLastError();
 }

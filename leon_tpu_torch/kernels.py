@@ -66,6 +66,10 @@ _SIGS = {
     "lt_unitig_emit_lens": [_I, _P, _P, _P, _P, _I, _P, _P],
     "lt_unitig_emit_bases": [_P, _I, _I, _P, _P, _P, _P, _I, _I64, _P, _P],
     "lt_solid_lookup": [_P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "lt_unitig_buckets_words": [_P, _I, _I, _I, _P, _P],
+    "lt_unitig_links_words": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "lt_unitig_emit_bases_words": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I64, _P, _P],
+    "lt_solid_lookup_words": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "lt_gather_words": [_P, _I64, _P, _I64, _P, _P],
     "lt_dbg_probe": [_P, _I64, _I, _I, _I, _I, _U, _P, _P, _I, _U, _P, _P],
     "lt_dbg_walk": [_P, _I64, _I, _I, _I, _U, _P, _P, _I, _U, _P, _P, _P],

@@ -1,7 +1,8 @@
 """Native (C++) host kernels, built on demand with g++ and loaded via ctypes
-(a copy of leon_tpu/native/__init__.py; leon_native.cpp is a verbatim copy
-of leon_tpu/native/leon_native.cpp, because the frame coders' bytes
-depend on it).
+(a copy of leon_tpu/native/__init__.py; leon_native.cpp is a copy of
+leon_tpu/native/leon_native.cpp, because the frame coders' bytes depend on
+it, with one change: leon_unitig_build returns -2 where a chain walk would
+never end, which the reference's build never returns from).
 
 The compiled .so is keyed by a hash of the source and built into
 build/leon_tpu_torch/ beside the package, never beside the source. A

@@ -1268,7 +1268,11 @@ int32_t leon_unitig_chains(int64_t M, int32_t W, const uint32_t* words,
 //   len_nodes i64[M]       node count per chain   [first n_chains valid]
 //   head_ids  i64[M]       directed head id per chain, ascending
 //   interior  u8[M]        kept-node bases, chains concatenated in order
-// Returns n_chains >= 0, or -1 on error.
+// Returns n_chains >= 0, -1 on error, or -2 when the links are not chains
+// and cycles, so a walk from a root would never end: rows that are not
+// distinct (the all-zero pad rows a caller appends where the clamped
+// histogram overcounts the solid rows) can all link to one row that links
+// to itself. A walk stops after N nodes, more than any chain holds.
 template <typename I>
 static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
                                  const int32_t* counts, int32_t cutoff,
@@ -1292,6 +1296,7 @@ static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
   std::vector<int64_t> rlen(R, 0);   // chain length when kept, else 0
   std::vector<uint8_t> rkeep(R, 0);
   std::vector<uint8_t> visited(N, 0);
+  std::atomic<int> endless(0);
 
   // phase B: parallel walk per root — min-id/min-twin-id keep rule,
   // length count, visited marking (components are disjoint).
@@ -1303,7 +1308,10 @@ static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
     int64_t m = N, tm = N, n_nodes = 0;
     for (int64_t x = h;; x = nxt[x]) {
       visited[x] = 1;
-      ++n_nodes;
+      if (++n_nodes > N) {
+        endless.store(1, std::memory_order_relaxed);
+        break;
+      }
       if (solid2[x]) {
         if (x < m) m = x;
         if ((x ^ 1) < tm) tm = x ^ 1;
@@ -1315,6 +1323,7 @@ static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
       rlen[ri] = n_nodes;
     }
   }
+  if (endless.load()) return -2;
 
   // cycles: ascending scan finds each cycle at its min member (all
   // smaller ids are visited), cut the incoming edge, keep-rule as usual
@@ -1325,8 +1334,9 @@ static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
   }
   for (int64_t s0 = 0; s0 < N; ++s0) {
     if (visited[s0] || nxt[s0] < 0) continue;
-    int64_t hv = s0;
+    int64_t hv = s0, steps = 0;
     for (int64_t x = nxt[s0]; x != s0; x = nxt[x]) {
+      if (++steps > N) return -2;  // s0 leads into a cycle it is not on
       if (x < hv) hv = x;
     }
     const int64_t pv = prev[hv];
@@ -1335,7 +1345,7 @@ static int64_t unitig_build_impl(int64_t M, int32_t W, const uint32_t* words,
     int64_t m = N, tm = N, n_nodes = 0;
     for (int64_t x = hv;; x = nxt[x]) {
       visited[x] = 1;
-      ++n_nodes;
+      if (++n_nodes > N) return -2;
       if (solid2[x]) {
         if (x < m) m = x;
         if ((x ^ 1) < tm) tm = x ^ 1;

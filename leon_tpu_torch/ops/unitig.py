@@ -15,19 +15,25 @@ payload byte for byte:
   successor search and the internal edges), ``unitig_double`` (K6: one
   pointer-doubling round, with ``double_init`` and ``break_cycles``),
   ``unitig_emit`` (K7: chain ids, lengths and the packed bases) and
-  ``solid_lookup`` (K8: the DICT's anchor keys into the solid run). They
-  replace _build_dev_impl, _bucket_starts, _searchsorted_words_dev and
-  solid_indices_dev (unitig.py:351-645, 938-963). The kernels read the
-  solid run only: ``dispatch_build`` first compacts the counted run with
-  K2's solid mode (ops/count.py ``compact_solid``; the reference's
-  _compact_dev). ``dispatch_build``, ``drain_build`` and
+  ``solid_lookup`` (K8: the DICT's anchor k-mers into the solid run). They
+  replace _build_dev_impl, _topbits, _bucket_starts, _searchsorted_words_dev
+  and solid_indices_dev (unitig.py:351-645, 938-963). The kernels read the
+  solid run only, in the form the counter gives it: (M,) int64 keys for
+  k <= 31, (M, W) int32 rows of u32 words for 32 <= k <= 255 (W =
+  ceil(k/16) = 2..16; K5, K7's bases and K8 have an instance per W).
+  ``dispatch_build`` takes the solid run the caller compacted (K2's solid
+  mode, ops/count.py ``compact_solid``, the reference's _compact_dev; or
+  K14's, which the multiword counter already ran for its Bloom build).
+  ``dispatch_build``, ``drain_build`` and
   ``solid_indices`` keep the reference's contracts (unitig.py:699-782,
-  938-963) over the port's sorted int64 keys. Each wrapper has a plain
-  PyTorch version (``build_plain`` and ``chain_rank_plain`` for the
-  composites), which the wrapper takes for CPU tensors.
+  938-963). Each wrapper has a plain PyTorch version (``build_plain`` and
+  ``chain_rank_plain`` for the composites), which the wrapper takes for
+  CPU tensors.
 
-tests/test_torch_unitig.py holds both builders to the reference's and
-tests/test_torch_pipeline.py compares whole archives.
+tests/test_torch_unitig.py (k <= 31) and tests/test_torch_unitig_words.py
+(32 <= k <= 255) hold both builders to the reference's;
+tests/test_torch_pipeline.py and test_torch_unitig_words.py compare whole
+archives.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ __all__ = [
     "rebuild_bitset_np", "spell_canon", "sort_rows_bigint", "solid_kmers_sorted",
     "unitig_links", "unitig_double", "unitig_emit", "solid_lookup", "chain_rank",
     "chain_rank_plain", "build", "build_plain", "dispatch_build", "drain_build",
-    "solid_indices",
+    "solid_indices", "LinksNotChains",
 ]
 
 def _bucket(n: int, floor: int = 1 << 12) -> int:
@@ -236,6 +242,13 @@ def _native_chains(words: np.ndarray, counts: np.ndarray, cutoff: int,
     return F, nxt, head, rank, kept.astype(bool), keep_head.astype(bool)
 
 
+class LinksNotChains(ValueError):
+    """leon_unitig_build's -2: the rows' successor links are not chains and
+    cycles, so a walk never ends (rows that are not distinct, such as the
+    all-zero pad rows appended where the clamped histogram overcounts the
+    solid rows). The reference's builder loops there."""
+
+
 def _native_build_payload(words: np.ndarray, counts: np.ndarray, cutoff: int,
                           k: int, nu: int, nthreads: int = 0):
     """One-call native build (leon_unitig_build): parallel chain
@@ -267,6 +280,8 @@ def _native_build_payload(words: np.ndarray, counts: np.ndarray, cutoff: int,
         rc.ctypes.data, len_nodes.ctypes.data, head_ids.ctypes.data,
         interior.ctypes.data, int(nthreads),
     )
+    if n_chains == -2:
+        raise LinksNotChains(f"a chain walk over {M} rows never ends")
     if n_chains < 0:
         return None
     if n_chains == 0 or n_chains > chains_cap(nu) * RETRY_FACTOR:
@@ -346,21 +361,34 @@ def build_np_payload(words: np.ndarray, counts: np.ndarray, cutoff: int,
 # Device half: kernels K5-K8 and their plain versions
 # ---------------------------------------------------------------------------
 #
-# Input: the solid run, sorted distinct (M,) int64 keys with every row
-# solid. dispatch_build compacts a counted run to it (K2's solid mode);
-# ids stay order-isomorphic, so the payload is the uncompacted build's
-# (unitig.py:663-669). Directed node d = 2*i + o spells row i's key (o = 0)
-# or its reverse complement (o = 1). Node arrays are int32. K6 state S is
-# (2M, 4) int32: [P, c0, c1, 0] (the modes are in csrc/unitig.cu).
+# Input: the solid run, sorted distinct rows with every row solid: (M,)
+# int64 keys (k <= 31) or (M, W) int32 rows holding u32 words, LSW first,
+# sorted MSW-first as unsigned (32 <= k <= 255): a counted run compacted by
+# K2's or K14's solid mode; ids stay order-isomorphic, so the payload is the
+# uncompacted build's (unitig.py:663-669). Directed
+# node d = 2*i + o spells row i's k-mer (o = 0) or its reverse complement
+# (o = 1). Node arrays are int32. K6 state S is (2M, 4) int32: [P, c0, c1,
+# 0] (the modes are in csrc/unitig.cu). The plain versions carry W-word
+# rows as u32 values in int64.
 
 ACYCLIC, FULL, RANK = 0, 1, 2  # K6 modes
+_M32 = 0xFFFFFFFF
 
 
-def _check_run(keys, k: int, name: str) -> None:
-    kernels.need(1 <= k <= 31, f"{name}: k={k} > 31 needs multiword keys")
-    kernels.need(keys.dtype == torch.int64 and keys.dim() == 1,
-                 f"{name}: keys must be (M,) int64")
-    kernels.need(2 * keys.shape[0] < 1 << 31, f"{name}: 2M node ids overflow int32")
+def _check_run(rows, k: int, name: str) -> None:
+    """The run's form follows k: W-word rows past 31, one int64 key up to it."""
+    if k > 31:
+        from leon_tpu_torch.ops.kmer import MAX_K_WORDS, words_for_k
+
+        kernels.need(k <= MAX_K_WORDS, f"{name}: k={k} > {MAX_K_WORDS}")
+        kernels.need(rows.dtype == torch.int32 and rows.dim() == 2
+                     and rows.shape[1] == words_for_k(k),
+                     f"{name}: at k={k} the run must be (M, {words_for_k(k)}) int32 words")
+    else:
+        kernels.need(k >= 1, f"{name}: k={k} < 1")
+        kernels.need(rows.dtype == torch.int64 and rows.dim() == 1,
+                     f"{name}: at k={k} the run must be (M,) int64 keys")
+    kernels.need(2 * rows.shape[0] < 1 << 31, f"{name}: 2M node ids overflow int32")
 
 
 def _check_nodes(M: int, *arrs, name: str) -> None:
@@ -374,74 +402,140 @@ def _check_state(S, name: str) -> None:
                  f"{name}: state must be (N, 4) int32")
 
 
+def _rev2_u32(x: torch.Tensor) -> torch.Tensor:
+    """The 2-bit groups of each u32 value (in int64) in reverse order
+    (unitig.py rev2_u32, 443-447)."""
+    x = ((x & 0x33333333) << 2) | ((x >> 2) & 0x33333333)
+    x = ((x & 0x0F0F0F0F) << 4) | ((x >> 4) & 0x0F0F0F0F)
+    x = ((x & 0x00FF00FF) << 8) | ((x >> 8) & 0x00FF00FF)
+    return ((x << 16) | (x >> 16)) & _M32
+
+
 def _revcomp_plain(x: torch.Tensor, k: int) -> torch.Tensor:
-    rc = torch.zeros_like(x)
-    for i in range(k):
-        rc |= (3 - ((x >> (2 * i)) & 3)) << (2 * (k - 1 - i))
-    return rc
+    """Reverse complement of (M,) int64 keys, or of (M, W) u32 words in
+    int64 by the reference's identity (unitig.py:440-459): complement,
+    reverse each word's groups and the word order, shift right by the
+    32W - 2k pad bits."""
+    if x.dim() == 1:
+        rc = torch.zeros_like(x)
+        for i in range(k):
+            rc |= (3 - ((x >> (2 * i)) & 3)) << (2 * (k - 1 - i))
+        return rc
+    W = x.shape[1]
+    rev = [_rev2_u32(~x[:, W - 1 - j] & _M32) for j in range(W)]
+    pad = 32 * W - 2 * k
+    if pad:
+        rev = [(rev[j] >> pad) | ((rev[j + 1] << (32 - pad)) & _M32 if j + 1 < W else 0)
+               for j in range(W)]
+    return torch.stack(rev, dim=1)
 
 
-def _node_keys_plain(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """(2M,) spelled form of every directed node."""
-    return torch.stack([keys, _revcomp_plain(keys, k)], dim=1).reshape(-1)
+def _u32_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The run as the plain versions carry it: int64 keys as they are,
+    int32 words as u32 values in int64."""
+    return rows if rows.dim() == 1 else rows.to(torch.int64) & _M32
 
 
-def _find_plain(keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Index of each q in the sorted distinct keys (M > 0), or -1."""
-    M = keys.shape[0]
-    j = torch.searchsorted(keys, q)
-    jc = torch.clamp(j, max=M - 1)
-    return torch.where((j < M) & (keys[jc] == q), jc, -1)
+def _node_keys_plain(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """Spelled form of every directed node: (2M,) keys or (2M, W) words,
+    from _u32_rows' form."""
+    rc = _revcomp_plain(rows, k)
+    return torch.stack([rows, rc], dim=1).reshape(-1, *rows.shape[1:])
 
 
-def _buckets(keys: torch.Tensor, k: int) -> torch.Tensor:
+def _find_plain(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Index of each q in the sorted distinct rows (M > 0), or -1: rows and
+    q as _u32_rows gives them. Keys take torch.searchsorted; W-word rows a
+    lexicographic binary search (torch.searchsorted takes 1-D keys only)."""
+    M = rows.shape[0]
+    if rows.dim() == 1:
+        j = torch.searchsorted(rows, q)
+        jc = torch.clamp(j, max=M - 1)
+        return torch.where((j < M) & (rows[jc] == q), jc, -1)
+    from leon_tpu_torch.ops.kmer import lex_less
+
+    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    hi = torch.full_like(lo, M)
+    for _ in range(M.bit_length()):
+        mid = (lo + hi) >> 1
+        act = lo < hi
+        less = lex_less(rows[torch.clamp(mid, max=M - 1)], q)
+        lo = torch.where(act & less, mid + 1, lo)
+        hi = torch.where(act & ~less, mid, hi)
+    jc = torch.clamp(lo, max=M - 1)
+    return torch.where((lo < M) & (rows[jc] == q).all(dim=1), jc, -1)
+
+
+def _buckets(rows: torch.Tensor, k: int) -> torch.Tensor:
     """(2^T + 1,) int32 prefix table over the top min(16, 2k) bits (card)."""
     T = min(16, 2 * k)
-    starts = torch.empty((1 << T) + 1, dtype=torch.int32, device=keys.device)
-    rc = kernels.lib().lt_unitig_buckets(keys.data_ptr(), keys.shape[0], k,
-                                         starts.data_ptr(), kernels.stream(keys))
+    starts = torch.empty((1 << T) + 1, dtype=torch.int32, device=rows.device)
+    lib, st = kernels.lib(), kernels.stream(rows)
+    if rows.dim() == 1:
+        rc = lib.lt_unitig_buckets(rows.data_ptr(), rows.shape[0], k, starts.data_ptr(), st)
+    else:
+        rc = lib.lt_unitig_buckets_words(rows.data_ptr(), rows.shape[0], rows.shape[1], k,
+                                         starts.data_ptr(), st)
     kernels.check(rc, "unitig_buckets")
     return starts
 
 
-def unitig_links(keys: torch.Tensor, k: int):
+def unitig_links(rows: torch.Tensor, k: int):
     """K5: (nxt, prev) (2M,) int32 — each directed node's successor along
     an internal edge and its predecessor, -1 where none (unitig.py:469-508).
-    keys: a non-empty solid run."""
-    _check_run(keys, k, "unitig_links")
-    kernels.need(keys.shape[0] > 0, "unitig_links: empty run")
-    if not kernels.on_cuda(keys, "unitig_links"):
-        return unitig_links_plain(keys, k)
-    keys = keys.contiguous()
-    M = keys.shape[0]
-    starts = _buckets(keys, k)
-    succ, outc, nxt, prev = (torch.empty(2 * M, dtype=torch.int32, device=keys.device)
+    rows: a non-empty solid run."""
+    _check_run(rows, k, "unitig_links")
+    kernels.need(rows.shape[0] > 0, "unitig_links: empty run")
+    if not kernels.on_cuda(rows, "unitig_links"):
+        return unitig_links_plain(rows, k)
+    rows = rows.contiguous()
+    M = rows.shape[0]
+    starts = _buckets(rows, k)
+    succ, outc, nxt, prev = (torch.empty(2 * M, dtype=torch.int32, device=rows.device)
                              for _ in range(4))
-    rc = kernels.lib().lt_unitig_links(
-        keys.data_ptr(), M, k, starts.data_ptr(), succ.data_ptr(), outc.data_ptr(),
-        nxt.data_ptr(), prev.data_ptr(), kernels.stream(keys))
+    ptrs = (starts.data_ptr(), succ.data_ptr(), outc.data_ptr(), nxt.data_ptr(),
+            prev.data_ptr(), kernels.stream(rows))
+    if rows.dim() == 1:
+        rc = kernels.lib().lt_unitig_links(rows.data_ptr(), M, k, *ptrs)
+    else:
+        rc = kernels.lib().lt_unitig_links_words(rows.data_ptr(), M, rows.shape[1], k, *ptrs)
     kernels.check(rc, "unitig_links")
     kernels.launches["unitig_links"] += 1
     return nxt, prev
 
 
-def unitig_links_plain(keys: torch.Tensor, k: int):
-    """Plain version of unitig_links: the reference's successor loop with
-    torch.searchsorted for the bucketed search."""
-    _check_run(keys, k, "unitig_links")
-    M = keys.shape[0]
-    dev = keys.device
-    rc = _revcomp_plain(keys, k)
-    low = (1 << (2 * k - 2)) - 1  # ((x << 2) | b) & mask, without overflow
+def _successor_plain(x: torch.Tensor, xr: torch.Tensor, b: int, k: int):
+    """A node's successor by base b in canonical form, and whether that is
+    its twin: y = x << 2 | b (top masked), yr = xr >> 2 | (3 - b) << 2(k-1),
+    yr only when strictly smaller; over keys or words."""
+    if x.dim() == 1:
+        low = (1 << (2 * k - 2)) - 1  # ((x << 2) | b) & mask, without overflow
+        y, yr = ((x & low) << 2) | b, (xr >> 2) | ((3 - b) << (2 * (k - 1)))
+        take_rc = yr < y
+        return torch.where(take_rc, yr, y), take_rc
+    from leon_tpu_torch.ops.kmer import lex_less, shl2, shr2_ins
+
+    y, yr = shl2(x, b, k), shr2_ins(xr, 3 - b, k)
+    take_rc = lex_less(yr, y)
+    return torch.where(take_rc[:, None], yr, y), take_rc
+
+
+def unitig_links_plain(rows: torch.Tensor, k: int):
+    """Plain version of unitig_links: the reference's successor loop with an
+    unbucketed search (torch.searchsorted over keys, a lexicographic binary
+    search over W-word rows)."""
+    _check_run(rows, k, "unitig_links")
+    M = rows.shape[0]
+    dev = rows.device
+    x0 = _u32_rows(rows)
+    rc = _revcomp_plain(x0, k)
     succ = torch.full((M, 2), -1, dtype=torch.int64, device=dev)
     outc = torch.zeros((M, 2), dtype=torch.int64, device=dev)
     for o in (0, 1):
-        x, xr = (keys, rc) if o == 0 else (rc, keys)
+        x, xr = (x0, rc) if o == 0 else (rc, x0)
         for b in range(4):
-            y = ((x & low) << 2) | b
-            yr = (xr >> 2) | ((3 - b) << (2 * (k - 1)))
-            take_rc = yr < y
-            j = _find_plain(keys, torch.where(take_rc, yr, y))
+            cy, take_rc = _successor_plain(x, xr, b, k)
+            j = _find_plain(x0, cy)
             hit = j >= 0
             oc = outc[:, o] + hit
             succ[:, o] = torch.where(hit & (oc == 1), 2 * j + take_rc, succ[:, o])
@@ -577,32 +671,32 @@ def chain_rank_plain(nxt: torch.Tensor, prev: torch.Tensor, assume_acyclic: bool
                        break_cycles_plain)
 
 
-def _check_emit(keys, k, nxt, prev, S, cap: int, cap_bases: int) -> None:
-    _check_run(keys, k, "unitig_emit")
-    M = keys.shape[0]
+def _check_emit(rows, k, nxt, prev, S, cap: int, cap_bases: int) -> None:
+    _check_run(rows, k, "unitig_emit")
+    M = rows.shape[0]
     kernels.need(M > 0, "unitig_emit: empty run")
     _check_nodes(M, nxt, prev, name="unitig_emit")
     _check_state(S, "unitig_emit")
     kernels.need(S.shape[0] == 2 * M, "unitig_emit: state must have 2M rows")
     kernels.need(cap > 0 and cap_bases > 0 and cap_bases % 16 == 0,
                  "unitig_emit: caps must be > 0, cap_bases a multiple of 16")
-    kernels.need(keys.device == nxt.device == prev.device == S.device,
+    kernels.need(rows.device == nxt.device == prev.device == S.device,
                  "unitig_emit: tensors on two devices")
 
 
-def unitig_emit(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
+def unitig_emit(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
                 S: torch.Tensor, cap: int, cap_bases: int, acyclic: bool) -> torch.Tensor:
     """K7: the reference's output buffer, u32 bits in int32: [n_chains,
     overflow, has_cycles, 0 | len_nodes (cap) | packed bases (cap_bases/16)]
     (unitig.py:586-645)."""
-    _check_emit(keys, k, nxt, prev, S, cap, cap_bases)
-    if not kernels.on_cuda(keys, "unitig_emit"):
-        return unitig_emit_plain(keys, k, nxt, prev, S, cap, cap_bases, acyclic)
-    keys, S = keys.contiguous(), S.contiguous()
+    _check_emit(rows, k, nxt, prev, S, cap, cap_bases)
+    if not kernels.on_cuda(rows, "unitig_emit"):
+        return unitig_emit_plain(rows, k, nxt, prev, S, cap, cap_bases, acyclic)
+    rows, S = rows.contiguous(), S.contiguous()
     nxt, prev = nxt.contiguous(), prev.contiguous()
-    dev = keys.device
+    dev = rows.device
     N = S.shape[0]
-    lib, st = kernels.lib(), kernels.stream(keys)
+    lib, st = kernels.lib(), kernels.stream(rows)
     buf = torch.zeros(4 + cap + cap_bases // 16, dtype=torch.int32, device=dev)
     cm = torch.full((N,), N, dtype=torch.int32, device=dev)
     tmn = torch.full((N,), N, dtype=torch.int32, device=dev)
@@ -616,9 +710,13 @@ def unitig_emit(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tenso
                                           cid.data_ptr(), cap, buf.data_ptr(), st),
                   "unitig_emit")
     start = _chain_starts(buf[4 : 4 + cap], k)
-    kernels.check(lib.lt_unitig_emit_bases(keys.data_ptr(), N, k, S.data_ptr(), kh.data_ptr(),
-                                           cid.data_ptr(), start.data_ptr(), cap, cap_bases,
-                                           buf.data_ptr(), st), "unitig_emit")
+    ptrs = (S.data_ptr(), kh.data_ptr(), cid.data_ptr(), start.data_ptr(), cap, cap_bases,
+            buf.data_ptr(), st)
+    if rows.dim() == 1:
+        rc = lib.lt_unitig_emit_bases(rows.data_ptr(), N, k, *ptrs)
+    else:
+        rc = lib.lt_unitig_emit_bases_words(rows.data_ptr(), N, rows.shape[1], k, *ptrs)
+    kernels.check(rc, "unitig_emit")
     kernels.launches["unitig_emit"] += 1
     return buf
 
@@ -630,15 +728,22 @@ def _chain_starts(len_nodes: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cumsum(bp, 0) - bp
 
 
-def unitig_emit_plain(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
+def _base_at(F: torch.Tensor, t: int) -> torch.Tensor:
+    """The 2-bit group at bit t of spelled keys (N,) or words (N, W)."""
+    if F.dim() == 1:
+        return (F >> t) & 3
+    return (F[:, t // 32] >> (t % 32)) & 3
+
+
+def unitig_emit_plain(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
                       S: torch.Tensor, cap: int, cap_bases: int, acyclic: bool) -> torch.Tensor:
     """Plain version of unitig_emit: the reference's scatters over a u8
     base plane, then the 2-bit pack. Bases are ORed in (bit planes by
     scatter-max), as the kernel's atomicOr does; the reference overwrites,
     which differs only where two bases share a position (ROADMAP queue 3,
     even-k palindromes)."""
-    _check_emit(keys, k, nxt, prev, S, cap, cap_bases)
-    dev = keys.device
+    _check_emit(rows, k, nxt, prev, S, cap, cap_bases)
+    dev = rows.device
     N = S.shape[0]
     i64 = dict(dtype=torch.int64, device=dev)
     ids = torch.arange(N, **i64)
@@ -658,14 +763,14 @@ def unitig_emit_plain(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch
     len_nodes[cid[tails]] = rank[tails] + 1
     start = _chain_starts(len_nodes, k)
 
-    F = _node_keys_plain(keys, k)
+    F = _node_keys_plain(_u32_rows(rows), k)
     pos = [start[cid[ok]] + (k - 1) + rank[ok]]
-    code = [F[ok] & 3]
+    code = [_base_at(F[ok], 0)]
     hd = ok & keep_head
     hstart, hF = start[cid[hd]], F[hd]
     for j in range(k - 1):
         pos.append(hstart + j)
-        code.append((hF >> (2 * (k - 1) - 2 * j)) & 3)
+        code.append(_base_at(hF, 2 * (k - 1) - 2 * j))
     pos, code = torch.cat(pos), torch.cat(code)
     inb = (pos >= 0) & (pos < cap_bases)
     pos, code = pos[inb], code[inb]
@@ -680,65 +785,71 @@ def unitig_emit_plain(keys: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch
     return i32_bits(torch.cat([hdr, len_nodes, packed]))
 
 
-def _check_lookup(keys, k: int, q) -> None:
-    _check_run(keys, k, "solid_lookup")
-    kernels.need(q.dtype == torch.int64 and q.dim() == 1 and q.device == keys.device,
-                 "solid_lookup: queries must be (Q,) int64 on the run's device")
+def _check_lookup(rows, k: int, q) -> None:
+    _check_run(rows, k, "solid_lookup")
+    kernels.need(q.dtype == rows.dtype and q.dim() == rows.dim()
+                 and q.shape[1:] == rows.shape[1:] and q.device == rows.device,
+                 "solid_lookup: queries must take the run's form, on the run's device")
 
 
-def solid_lookup(keys: torch.Tensor, k: int, q: torch.Tensor):
-    """K8: for (Q,) int64 query keys, (hit (Q,) bool, rank (Q,) int64):
-    hit when q is in the solid run, rank its row there (0 on a miss) —
-    indices into solid_kmers_sorted(payload) (unitig.py:938-963)."""
-    _check_lookup(keys, k, q)
-    if not kernels.on_cuda(keys, "solid_lookup"):
-        return solid_lookup_plain(keys, k, q)
-    M, Q = keys.shape[0], q.shape[0]
-    hit = torch.zeros(Q, dtype=torch.uint8, device=keys.device)
-    rank = torch.zeros(Q, dtype=torch.int64, device=keys.device)
+def solid_lookup(rows: torch.Tensor, k: int, q: torch.Tensor):
+    """K8: for queries in the run's form ((Q,) int64 keys or (Q, W) int32
+    words), (hit (Q,) bool, rank (Q,) int64): hit when q is in the solid
+    run, rank its row there (0 on a miss) — indices into
+    solid_kmers_sorted(payload) (unitig.py:938-963)."""
+    _check_lookup(rows, k, q)
+    if not kernels.on_cuda(rows, "solid_lookup"):
+        return solid_lookup_plain(rows, k, q)
+    M, Q = rows.shape[0], q.shape[0]
+    hit = torch.zeros(Q, dtype=torch.uint8, device=rows.device)
+    rank = torch.zeros(Q, dtype=torch.int64, device=rows.device)
     if M == 0 or Q == 0:
         return hit.view(torch.bool), rank
-    keys, q = keys.contiguous(), q.contiguous()
-    starts = _buckets(keys, k)
-    rc = kernels.lib().lt_solid_lookup(keys.data_ptr(), M, k, starts.data_ptr(), q.data_ptr(),
-                                       Q, hit.data_ptr(), rank.data_ptr(), kernels.stream(keys))
+    rows, q = rows.contiguous(), q.contiguous()
+    starts = _buckets(rows, k)
+    ptrs = (starts.data_ptr(), q.data_ptr(), Q, hit.data_ptr(), rank.data_ptr(),
+            kernels.stream(rows))
+    if rows.dim() == 1:
+        rc = kernels.lib().lt_solid_lookup(rows.data_ptr(), M, k, *ptrs)
+    else:
+        rc = kernels.lib().lt_solid_lookup_words(rows.data_ptr(), M, rows.shape[1], k, *ptrs)
     kernels.check(rc, "solid_lookup")
     kernels.launches["solid_lookup"] += 1
     return hit.view(torch.bool), rank
 
 
-def solid_lookup_plain(keys: torch.Tensor, k: int, q: torch.Tensor):
-    _check_lookup(keys, k, q)
-    if keys.shape[0] == 0:
+def solid_lookup_plain(rows: torch.Tensor, k: int, q: torch.Tensor):
+    _check_lookup(rows, k, q)
+    if rows.shape[0] == 0:
         return (torch.zeros(q.shape[0], dtype=torch.bool, device=q.device),
                 torch.zeros(q.shape[0], dtype=torch.int64, device=q.device))
-    j = _find_plain(keys, q)
+    j = _find_plain(_u32_rows(rows), _u32_rows(q))
     hit = j >= 0
     return hit, torch.where(hit, j, 0)
 
 
-def build(keys: torch.Tensor, k: int, cap_chains: int, cap_bases: int,
+def build(rows: torch.Tensor, k: int, cap_chains: int, cap_bases: int,
           assume_acyclic: bool = True) -> torch.Tensor:
     """The device build (K5 -> K6 -> K7) over a non-empty solid run;
     returns unitig_emit's buffer. assume_acyclic runs the optimistic
     variant, which only flags cycles (buffer word 2)."""
-    nxt, prev = unitig_links(keys, k)
+    nxt, prev = unitig_links(rows, k)
     nxt, prev, S = chain_rank(nxt, prev, assume_acyclic)
-    return unitig_emit(keys, k, nxt, prev, S, cap_chains, cap_bases, assume_acyclic)
+    return unitig_emit(rows, k, nxt, prev, S, cap_chains, cap_bases, assume_acyclic)
 
 
-def build_plain(keys: torch.Tensor, k: int, cap_chains: int, cap_bases: int,
+def build_plain(rows: torch.Tensor, k: int, cap_chains: int, cap_bases: int,
                 assume_acyclic: bool = True) -> torch.Tensor:
     """Plain version of build, on the tensors' own device."""
-    nxt, prev = unitig_links_plain(keys, k)
+    nxt, prev = unitig_links_plain(rows, k)
     nxt, prev, S = chain_rank_plain(nxt, prev, assume_acyclic)
-    return unitig_emit_plain(keys, k, nxt, prev, S, cap_chains, cap_bases, assume_acyclic)
+    return unitig_emit_plain(rows, k, nxt, prev, S, cap_chains, cap_bases, assume_acyclic)
 
 
 @dataclass
 class _Inflight:
     buf: torch.Tensor       # build output (see unitig_emit)
-    keys: torch.Tensor      # the solid run the build read
+    rows: torch.Tensor      # the solid run the build read
     k: int
     cap_chains: int
     cap_bases: int
@@ -751,32 +862,29 @@ def _caps(M: int, k: int, cap_chains: int) -> int:
     return -(-cap_bases // 16) * 16
 
 
-def dispatch_build(keys: torch.Tensor, counts: torch.Tensor, cutoff: int, k: int,
-                   nu: int) -> _Inflight:
-    """Run the optimistic device build over a sorted distinct counted run
-    (keys, counts): compact it to its solid rows (K2's solid mode), then
-    K5-K7 (unitig.py:718-745). `nu` is the exact distinct count, which
-    sets the frozen chain capacity."""
-    from leon_tpu_torch.ops import count
-
-    keys, _ = count.compact_solid(keys, counts, cutoff)
-    M = keys.shape[0]
+def dispatch_build(solid: torch.Tensor, k: int, nu: int) -> _Inflight:
+    """Run the optimistic device build, K5-K7 (unitig.py:718-745), over the
+    solid run in the counter's form (K2's or K14's solid mode). `nu` is the
+    exact distinct count, which sets the frozen chain capacity."""
+    _check_run(solid, k, "dispatch_build")
+    M = solid.shape[0]
     cap = chains_cap(nu)
     cb = _caps(M, k, cap)
     if M:
-        buf = build(keys, k, cap, cb)
+        buf = build(solid, k, cap, cb)
     else:
-        buf = torch.zeros(4, dtype=torch.int32, device=keys.device)
-    return _Inflight(buf, keys, k, cap, cb)
+        buf = torch.zeros(4, dtype=torch.int32, device=solid.device)
+    return _Inflight(buf, solid, k, cap, cb)
 
 
 def drain_build(infl: _Inflight) -> bytes | None:
     """The payload of a dispatched build, or None (the caller writes
     BLOOM): a flagged cycle re-runs the full variant; a chain overflow
-    retries once at cap * RETRY_FACTOR (unitig.py:748-782)."""
+    retries once at cap * RETRY_FACTOR (unitig.py:748-782). Every rebuild
+    reads the dispatched solid run."""
 
     def rebuild(cap, cb, acyclic):
-        return build(infl.keys, infl.k, cap, cb, acyclic)
+        return build(infl.rows, infl.k, cap, cb, acyclic)
 
     def host(b):
         return b.cpu().numpy().view(np.uint32)
@@ -788,7 +896,7 @@ def drain_build(infl: _Inflight) -> bytes | None:
         buf = host(rebuild(infl.cap_chains, infl.cap_bases, False))
     if buf[1]:  # overflow: one retry with a larger cap
         cap = infl.cap_chains * RETRY_FACTOR
-        cb = _caps(infl.keys.shape[0], infl.k, cap)
+        cb = _caps(infl.rows.shape[0], infl.k, cap)
         buf = host(rebuild(cap, cb, acyclic))
         if buf[2]:
             buf = host(rebuild(cap, cb, False))
@@ -807,10 +915,15 @@ def drain_build(infl: _Inflight) -> bytes | None:
 def solid_indices(infl: _Inflight, words: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
     """DICT-v2 lookup on the build's device (K8): for (Q, W) u32 anchor
     words, (hit bool (Q,), solid rank i64 (Q,), n_solid), as
-    leon_tpu.ops.unitig.solid_indices_dev."""
-    q = torch.from_numpy(state.words_to_keys(words)).to(infl.keys.device)
-    hit, rank = solid_lookup(infl.keys, infl.k, q)
-    return hit.cpu().numpy(), rank.cpu().numpy(), infl.keys.shape[0]
+    leon_tpu.ops.unitig.solid_indices_dev. The anchors go down in the run's
+    form: int64 keys for k <= 31, the words themselves past it."""
+    dev = infl.rows.device
+    if infl.rows.dim() == 1:
+        q = torch.from_numpy(state.words_to_keys(words)).to(dev)
+    else:
+        q = state.words_to_torch(words, dev)
+    hit, rank = solid_lookup(infl.rows, infl.k, q)
+    return hit.cpu().numpy(), rank.cpu().numpy(), infl.rows.shape[0]
 
 
 def payload_from(n_chains: int, len_nodes: np.ndarray, packed: bytes,

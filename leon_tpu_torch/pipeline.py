@@ -17,13 +17,15 @@ before) and K19 re-walks at decode. The host halves (unitig builder, DICT,
 stream assembly) are W-generic copies.
 
 The unitig build takes one of the reference's two paths
-(leon_tpu/pipeline.py:636-722): when 0 < n_solid <= min(unitig_max_kmers,
-unitig_device_max_kmers) it runs on the device (K5-K7, span
-count.unitig_dispatch) before the first walk chunk and is drained at the
-tail (tail.unitig_drain), and the DICT looks its anchors up on the device
-(K8); otherwise the native host builder runs on a thread under the encode
-stage (unitig.thread_build). A device failure raises: the BLOOM section is
-written only where the frozen size and capacity rules say so.
+(leon_tpu/pipeline.py:636-722), at every k: when 0 < n_solid <=
+min(unitig_max_kmers, unitig_device_max_kmers) it runs on the device (K5-K7
+over the solid run: K2's compaction for k <= 31, the rows K14 compacted for
+the Bloom build past it; span count.unitig_dispatch) before the first walk
+chunk and is drained at the tail (tail.unitig_drain), and the DICT looks its
+anchors up on the device (K8); otherwise the native host builder runs on a
+thread under the encode stage (unitig.thread_build). A device failure
+raises: the BLOOM section is written only where the frozen size and
+capacity rules say so.
 
 Kept from the reference: the chunking (_bucket_len, _lane_bucket,
 chunk_block), the host unitig thread, the ordered frame pool, the tail
@@ -32,9 +34,8 @@ same input and config.
 
 Not here: the compile-service retry, the multi-chip placer, checkpoints,
 stream mode (inputs over cfg.stream_threshold_bytes) and the host-count
-fallback (ROADMAP.md queue 1, item 9); the device unitig build at k > 31,
-whose kernels K5-K8 take int64 keys (item 9b). Reaching
-one raises NotImplementedError naming its item. The walk sizes its event
+fallback (ROADMAP.md queue 1, item 9). Reaching one raises
+NotImplementedError naming its item. The walk sizes its event
 buffers from the per-read counts the kernel produced, so no chunk
 overflows and the reference's cap retry and dense fallback have no
 counterpart; chunks are encoded one at a time (the card is idle >99% of
@@ -77,9 +78,9 @@ BATCH_CUDA = 65536  # lanes per walk chunk on the card
 BATCH_CPU = 8192
 
 
-def _not_ported(what: str, item: str = "9"):
+def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item {item})")
+        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item 9)")
 
 
 def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
@@ -216,28 +217,45 @@ def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
             unitig_max=cfg.unitig_max_kmers if cfg.unitig_sections else 0)
 
 
+def _solid_rows(run, cutoff: int) -> torch.Tensor:
+    """The run's solid rows on the device: the (M, W) words K14 compacted
+    for the multiword Bloom build, else K2's solid mode over the keys."""
+    rows, counts, _, solid = run
+    return count.compact_solid(rows, counts, cutoff)[0] if solid is None else solid
+
+
 def _start_unitig_thread(run, cutoff: int, n_solid: int, k: int, W: int, out: list):
-    """Ship the run's solid rows down (compacted on the device by K2 here,
-    or already by K14 for the multiword Bloom build) and build the unitig
-    payload on a host thread under the encode stage
-    (leon_tpu/pipeline.py:643-700)."""
-    rows, counts, nu, solid = run
+    """Ship the run's solid rows down and build the unitig payload on a
+    host thread under the encode stage (leon_tpu/pipeline.py:643-700)."""
     with span("unitig.solid_d2h"):
-        if solid is None:
-            words = state.keys_from_torch(count.compact_solid(rows, counts, cutoff)[0], W)
+        solid = _solid_rows(run, cutoff)
+        if solid.dim() == 1:
+            words = state.keys_from_torch(solid, W)
         else:
             words = solid.cpu().numpy().view(np.uint32)
+    words = np.ascontiguousarray(words)
+    hp = words
     if words.shape[0] < n_solid:
-        # the histogram overcounts solid rows when cutoff > 255; the
-        # reference's zero-padded compaction hands the builder n_solid rows
-        words = np.concatenate([words, np.zeros((n_solid - words.shape[0], W), np.uint32)])
-    hp = (np.ascontiguousarray(words), np.full(n_solid, cutoff, np.int32))
+        # the histogram overcounts solid rows when cutoff > 255, and the
+        # reference's zero-padded compaction hands the builder n_solid
+        # rows: the port hands it the same rows, for the same bytes
+        hp = np.concatenate([words, np.zeros((n_solid - words.shape[0], W), np.uint32)])
+    nu = run[2]
+
+    def build(rows):
+        return (unitig.build_np_payload(rows, np.full(rows.shape[0], cutoff, np.int32),
+                                        cutoff, k, nu, nthreads=3), rows)
 
     def _host_build():
         try:
             with span("unitig.thread_build"):
-                out.append((unitig.build_np_payload(hp[0], hp[1], cutoff, k, nu, nthreads=3),
-                            hp[0]))
+                try:
+                    out.append(build(hp))
+                except unitig.LinksNotChains:
+                    # the pads' walk never ends (the reference's builder
+                    # loops there): build over the exact rows, which gives
+                    # the reference's device-build archive
+                    out.append(build(words))
         except Exception:  # the BLOOM section is always a correct fallback
             print("[leon-tpu-torch] host unitig build failed; writing the BLOOM section\n"
                   + traceback.format_exc(), file=sys.stderr)
@@ -368,12 +386,8 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
     if (cfg.unitig_sections and run is not None
             and 0 < n_solid <= cfg.unitig_max_kmers):
         if n_solid <= cfg.unitig_device_max_kmers:
-            if k > K.MAX_K:
-                raise _not_ported(f"the device unitig build at k = {k} > {K.MAX_K} (K5-K8 "
-                                  "take int64 keys)", "9b")
             with span("count.unitig_dispatch"):
-                keys, counts, nu, _ = run
-                unitig_inflight = unitig.dispatch_build(keys, counts, cutoff, k, nu)
+                unitig_inflight = unitig.dispatch_build(_solid_rows(run, cutoff), k, run[2])
         else:
             unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
     run = None

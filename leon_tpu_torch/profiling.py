@@ -3,14 +3,15 @@
     python -m leon_tpu_torch.profiling [--reps N] [--out DIR]
 
 Generates the bench corpus (chip_smoke.gen_fastq: 500k reads of 100 bp) and
-runs it on the card with -noheader -noqual in three configurations, the
+runs it on the card with -noheader -noqual in four configurations, the
 default (native host unitig builder on a thread), the device unitig
-build (unitig_device_max_kmers = 2**30) and k = 63 (the multiword route,
-K17-K19, W = 4), and 200k reads of 250 bp from the same contig at k = 127
-(W = 8): N rounds, each compressing and decompressing once per
-configuration in turn (host clock, each run ends in a synchronize), then
-one profiled compress per configuration and one profiled decompress at
-k = 31, 63 and 127 under torch.profiler. Prints the card's name and power
+build (unitig_device_max_kmers = 2**30), k = 63 (the multiword route,
+K17-K19, W = 4) and k = 63 with the device unitig build (K5-K8 over W-word
+rows), and 200k reads of 250 bp from the same contig at k = 127 (W = 8),
+with either unitig builder: N rounds, each compressing and decompressing
+once per configuration in turn (host clock, each run ends in a
+synchronize), then one profiled compress per configuration and one
+profiled decompress at k = 31, 63 and 127 under torch.profiler. Prints the card's name and power
 limit, every run's wall time, the host span totals of the profiled runs,
 the device time per kernel/copy name and the device busy share of each
 profiled run (device time / wall time; the idle share is the rest).
@@ -64,10 +65,15 @@ def main() -> int:
                "device_unitig": LeonConfig(noheader=True, noqual=True,
                                            unitig_device_max_kmers=1 << 30),
                "k63": LeonConfig(noheader=True, noqual=True, kmer_size=63),
-               "k127": LeonConfig(noheader=True, noqual=True, kmer_size=127)}
-    srcs = {name: src250 if name == "k127" else src for name in configs}
+               "k63_device_unitig": LeonConfig(noheader=True, noqual=True, kmer_size=63,
+                                               unitig_device_max_kmers=1 << 30),
+               "k127": LeonConfig(noheader=True, noqual=True, kmer_size=127),
+               "k127_device_unitig": LeonConfig(noheader=True, noqual=True, kmer_size=127,
+                                                unitig_device_max_kmers=1 << 30)}
+    srcs = {name: src250 if name.startswith("k127") else src for name in configs}
     arcs = {name: os.path.join(work, f"{name}.leon") for name in configs}
-    n = {name: PIN127["n_reads"] if name == "k127" else PIN["n_reads"] for name in configs}
+    n = {name: PIN127["n_reads"] if name.startswith("k127") else PIN["n_reads"]
+         for name in configs}
 
     def run(fn, cfg, *a):
         torch.cuda.synchronize()
@@ -93,7 +99,11 @@ def main() -> int:
             ("compress_device_unitig", pipeline.compress, configs["device_unitig"],
              (src, arcs["device_unitig"])),
             ("compress_k63", pipeline.compress, configs["k63"], (src, arcs["k63"])),
+            ("compress_k63_device_unitig", pipeline.compress, configs["k63_device_unitig"],
+             (src, arcs["k63_device_unitig"])),
             ("compress_k127", pipeline.compress, configs["k127"], (src250, arcs["k127"])),
+            ("compress_k127_device_unitig", pipeline.compress, configs["k127_device_unitig"],
+             (src250, arcs["k127_device_unitig"])),
             ("decompress", pipeline.decompress, configs["default"], (arcs["default"], dec)),
             ("decompress_k63", pipeline.decompress, configs["k63"], (arcs["k63"], dec)),
             ("decompress_k127", pipeline.decompress, configs["k127"], (arcs["k127"], dec))):

@@ -9,12 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from leon_tpu import native
 from leon_tpu.ops import count as ref_count
 from leon_tpu.ops import kmer as ref_kmer
 from leon_tpu.ops import unitig as ref_unitig
-from leon_tpu_torch import state
-from leon_tpu_torch.ops import unitig
+from leon_tpu_torch import native, state
+from leon_tpu_torch.ops import count, unitig
 from test_unitig import _pad_run, unitig_kmer_set
 
 CUTOFF = 2
@@ -43,9 +42,16 @@ def _isolated_run(rng, k, n):
     return state.keys_to_words(keys, canon.shape[1]), np.full(keys.size, 2, np.int32)
 
 
+def _solid(words, counts, k, cutoff=CUTOFF):
+    """The port's solid run of a reference run, in the counter's form:
+    K2's solid mode over int64 keys (k <= 31), K14's over words."""
+    rows, cnt = state.run_from_reference(words, counts, k)
+    compact = count.compact_solid if rows.dim() == 1 else count.compact_solid_words
+    return compact(rows, cnt, cutoff)[0]
+
+
 def _port(words, counts, k, nu, cutoff=CUTOFF):
-    keys, cnt = state.run_from_reference(words, counts)
-    return unitig.drain_build(unitig.dispatch_build(keys, cnt, cutoff, k, nu))
+    return unitig.drain_build(unitig.dispatch_build(_solid(words, counts, k, cutoff), k, nu))
 
 
 def _reference(words, counts, k, nu, cutoff=CUTOFF):
@@ -95,18 +101,18 @@ def test_device_build_matches_reference_and_host(rng, monkeypatch, k, sub_cutoff
     np.testing.assert_array_equal(_sorted_rows(spelled), _sorted_rows(solid))
 
 
-@pytest.mark.parametrize("extra", [0, 1])
-def test_cycles_take_the_full_variant(rng, monkeypatch, extra):
+@pytest.mark.parametrize("k, extra", [(15, 0), (15, 1), (63, 0), (63, 1), (127, 0), (127, 1)],
+                         ids=["0", "1", "63-0", "63-1", "127-0", "127-1"])
+def test_cycles_take_the_full_variant(rng, monkeypatch, k, extra):
     """Circular contigs of 200 and 201 k-mers: the optimistic build flags
     the cycle and drain_build re-runs the full variant, which cuts each
-    cycle at its min-id node."""
-    k = 15
+    cycle at its min-id node; at k = 15 over int64 keys, at k = 63 and 127
+    over W-word rows."""
     contig = rng.integers(0, 4, 200 + extra, dtype=np.uint8)
     circ = np.concatenate([contig, contig[: k - 1]])
     lin = rng.integers(0, 4, 300, dtype=np.uint8)
     words, counts = _run(rng, k, [circ, lin])
-    keys, cnt = state.run_from_reference(words, counts)
-    infl = unitig.dispatch_build(keys, cnt, CUTOFF, k, words.shape[0])
+    infl = unitig.dispatch_build(_solid(words, counts, k), k, words.shape[0])
     assert int(infl.buf[2]) == 1  # the optimistic pass saw the cycle
     payload = _all_equal(words, counts, k, monkeypatch)
     assert unitig_kmer_set(payload, k).shape[0] == int((counts >= CUTOFF).sum())
@@ -191,8 +197,7 @@ def test_solid_lookup_matches_solid_indices_dev(rng):
                                              np.zeros(50, np.int64), k)
     q = np.concatenate([words[rng.integers(0, nu, 400)], absent, words[:3], words[-3:]])
     want = ref_unitig.solid_indices_dev(ref_infl, q)
-    keys, cnt = state.run_from_reference(wpad, cpad)
-    hit, rank, ns = unitig.solid_indices(unitig.dispatch_build(keys, cnt, CUTOFF, k, nu), q)
+    hit, rank, ns = unitig.solid_indices(unitig.dispatch_build(_solid(wpad, cpad, k), k, nu), q)
     np.testing.assert_array_equal(hit, want[0])
     np.testing.assert_array_equal(rank, want[1])
     assert ns == want[2]

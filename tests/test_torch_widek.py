@@ -418,16 +418,23 @@ def test_archive_and_cross_decode_match_reference(tmp_path, case):
         assert data[("port", "ref")].split(b"\n")[1::4] == original.split(b"\n")[1::4]
 
 
-def test_unported_k_raise(tmp_path):
-    """What is still unported raises, naming its ROADMAP item: the device
-    unitig build at k > 31 (item 9b)."""
+def test_device_unitig_build_at_k33(tmp_path):
+    """The device unitig build at k > 31, which raised NotImplementedError
+    (item 9b) until K5, K7 and K8 took W-word rows: the same input at
+    k = 33 with unitig_device_max_kmers = 2**30 gives leon_tpu's archive
+    (its device build too), with a UNITIGS section, and decodes exactly."""
     rng = np.random.default_rng(65)
     src = tmp_path / "in.fasta"
     _fasta(src, rng, n=20)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pipeline.compress(str(src), str(tmp_path / "b.leon"),
-                          cfg=LeonConfig(kmer_size=33, unitig_device_max_kmers=1 << 30,
-                                         **PORT_KW), device="cpu")
+    kw = dict(kmer_size=33, unitig_device_max_kmers=1 << 30)
+    ref_arc, port_arc = str(tmp_path / "a.leon"), str(tmp_path / "b.leon")
+    rst = ref_pipeline.compress(str(src), ref_arc, cfg=LeonConfig(**kw, **REF_KW))
+    pst = pipeline.compress(str(src), port_arc, cfg=LeonConfig(**kw, **PORT_KW), device="cpu")
+    assert open(port_arc, "rb").read() == open(ref_arc, "rb").read()
+    assert pst["unitig_bytes"] == rst["unitig_bytes"] > 0
+    out = pipeline.decompress(port_arc, str(tmp_path / "b.out"), cfg=LeonConfig(**kw, **PORT_KW),
+                              device="cpu")["output"]
+    assert open(out, "rb").read() == open(src, "rb").read()
 
 
 def test_cli_kmer_size_on_the_cpu(tmp_path, capsys):
