@@ -14,8 +14,15 @@ run right after phase 3, whose reads and solid set they reuse):
      from a fixed seed, require it to equal its plain PyTorch version
      (integer-exact: tolerance 0; K1-K4 against CPU copies, the unitig
      kernels K5-K8 against the plain version on the card), and time both
-     on the card; the device unitig payload must equal the native host
-     builder's;
+     on the card (K2 in its three modes: records `runs`, `runs:merge`,
+     `runs:solid`); the device unitig payload must equal the native host
+     builder's; K2 on adversarial inputs (k2_case: a key repeated 2^22
+     times, run sums that wrap u32 or pass 2^31 - 1, runs of 1-3 rows at
+     every offset of a step edge, a SENTINEL tail, n = 0, 1, 2) at
+     cutoffs 1, 2 and 300 with the histogram, and K8 on adversarial runs
+     (k8_case: queries below the first row and above the last, equal to
+     them, one row, five rows, top 16 bits of two values) at k = 15, 16,
+     31 and W = 2, 4, 8, 16, each equal to its plain version;
   4. build a yeast-sized genome on the card (linear contigs plus two
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
@@ -82,7 +89,9 @@ run right after phase 3, whose reads and solid set they reuse):
      against torch.unique_consecutive, count_batch against torch.unique).
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
-the card's 3.35 TB/s), then, last, the device line. Kernels under ~50 us
+the card's 3.35 TB/s; for K8, which searches the run, the queries, its
+outputs and one row of the run a query, as `bound_note` says), then,
+last, the device line. Kernels under ~50 us
 are timed from the profiler's device time, the rest with CUDA events.
 Work files go to build/chip_smoke/ beside this script.
 """
@@ -131,6 +140,8 @@ PIN127 = {
 KERNELS = {
     "kmer_scan": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:141"),
     "runs": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:45"),
+    "runs:merge": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:226"),
+    "runs:solid": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:707"),
     "bloom_build": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/ops/bloom.py:394"),
     "walk_encode": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:432"),
     "walk_pack": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:460"),
@@ -263,15 +274,17 @@ def nbytes(*objs) -> int:
     return n
 
 
-def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None) -> dict:
+def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None,
+           bound_note=None) -> dict:
     """A kernel's record: its max |diff| against the plain version, its
     time, the plain version's, its bound (moved bytes over the card's
-    memory rate: each input read once, each output written once) and the
-    time of the one PyTorch call that computes the same function (None
+    memory rate: each input read once, each output written once, or, per
+    bound_note, what the function must read of an input it searches) and
+    the time of the one PyTorch call that computes the same function (None
     where there is none)."""
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", moved_bytes=moved,
-                library_ms=library_ms)
+                library_ms=library_ms, bound_note=bound_note)
 
 
 def max_abs_err(a, b) -> int:
@@ -349,18 +362,25 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     mc = mc[perm]
     gk, gc, gh = count.runs(ms, mc, 1, True)
     wk, wc, wh = count.runs_plain(ms.cpu(), mc.cpu(), 1, True)
-    err = max(err, max_abs_err(gk, wk), max_abs_err(gc, wc), max_abs_err(gh, wh))
+    err_m = max(max_abs_err(gk, wk), max_abs_err(gc, wc), max_abs_err(gh, wh))
     hist = wh.numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
     sk, sc = count.compact_solid(rk, rc, cutoff)
     tk, tc, _ = count.runs_plain(rk.cpu(), rc.cpu(), cutoff)
-    err = max(err, max_abs_err(sk, tk), max_abs_err(sc, tc))
+    err_s = max(max_abs_err(sk, tk), max_abs_err(sc, tc))
     records["runs"] = record(
         err, cuda_ms(lambda: count.runs(skeys), 5), cuda_ms(lambda: count.runs_plain(skeys), 2),
         nbytes(skeys, rk, rc),
         cuda_ms(lambda: torch.unique_consecutive(skeys, return_counts=True), 5))
-    log(f"runs ok: {skeys.numel()} keys -> {rk.numel()} distinct, cutoff {cutoff}, "
-        f"{sk.numel()} solid")
+    records["runs:merge"] = record(
+        err_m, cuda_ms(lambda: count.runs(ms, mc, 1, True), 5),
+        cuda_ms(lambda: count.runs_plain(ms, mc, 1, True), 2), nbytes(ms, mc, gk, gc, gh))
+    records["runs:solid"] = record(
+        err_s, cuda_ms(lambda: count.compact_solid(rk, rc, cutoff), 5),
+        cuda_ms(lambda: count.runs_plain(rk, rc, cutoff), 2), nbytes(rk, rc, sk, sc))
+    log(f"runs ok: {skeys.numel()} keys -> {rk.numel()} distinct; merge of {ms.numel()} "
+        f"rows; cutoff {cutoff}, {sk.numel()} solid")
+    runs_adversarial()
 
     # K3 on the distinct run, sized as the pipeline sizes it
     n_solid = int(hist[min(cutoff, 255):].sum())
@@ -448,10 +468,208 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
         nbytes(dec_in_d, bits_d, d_d))
     log(f"walk_decode ok: {rows.size} reads restored")
 
-    # K5-K8 on the solid run the pipeline hands the device build
+    # K5-K8 on the solid run the pipeline hands the device build; K8 on
+    # adversarial runs at every width
     unitig_checks(records, sk, sc, cutoff, rk.numel(), "bench")
+    lookup_adversarial()
     return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig, codes=codes,
                 lengths=lengths, n_distinct=rk.numel(), cutoff=cutoff, k4_enc=e_d)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K2 and K8 on adversarial inputs (tests/test_torch_runs_lookup.py
+# holds the plain versions to leon_tpu's on the same generators)
+# ---------------------------------------------------------------------------
+
+RUNS_STEP = 256  # rows a warp of K2 takes at a step (leon_tpu_torch/ops/count.py)
+K2_CASES = ("n0", "n1", "n2", "n2_distinct", "hot", "hot_counts", "wrap", "sentinel",
+            "sentinel_counts", "distinct", "boundary0", "boundary1", "boundary2", "boundary3")
+K2_CUTOFFS = (1, 2, 300)
+SENTINEL_KEY = (1 << 63) - 1
+
+
+def _runs_from_lengths(lengths, rng):
+    """Sorted int64 keys: run i has lengths[i] rows of a key that grows by 1-3."""
+    import numpy as np
+
+    ks = np.cumsum(rng.integers(1, 4, len(lengths))) + 1000
+    return np.repeat(ks, lengths).astype(np.int64)
+
+
+def _edge_lengths(tile: int, n_edges: int, rng) -> list:
+    """Run lengths of 1-3 such that at edge m (row m * tile) a run of
+    length L starts d rows before the edge, (L, d) cycling over every
+    0 <= d < L."""
+    combos = [(L, d) for L in (1, 2, 3) for d in range(L)]
+    out, pos = [], 0
+    for m in range(1, n_edges + 1):
+        L, d = combos[m % len(combos)]
+        while pos < m * tile - d:
+            ln = min(int(rng.integers(1, 4)), m * tile - d - pos)
+            out.append(ln)
+            pos += ln
+        out.append(L)
+        pos += L
+    return out
+
+
+def k2_case(name: str, tile: int = RUNS_STEP, hot: int = 1 << 22):
+    """(keys (n,) int64 sorted, counts (n,) int32 or None) of one
+    adversarial K2 input, whose runs sit on edges `tile` rows apart (K2's
+    steps; on the card also edges between warps and blocks): n = 0, 1, 2;
+    one key `hot` times between other runs; run sums that wrap u32, pass
+    2^31 - 1 or wrap to exactly 0; runs of 1-3 rows at every offset of an
+    edge (boundary0-3, 96 edges); a SENTINEL tail across an edge; a
+    distinct run with counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)) * 7919 + tile)
+    if name == "n0":
+        return np.zeros(0, np.int64), None
+    if name == "n1":
+        return np.array([77], np.int64), None
+    if name == "n2":
+        return np.array([5, 5], np.int64), None
+    if name == "n2_distinct":
+        return np.array([5, 9], np.int64), np.array([3, 0], np.int32)
+    if name in ("hot", "hot_counts"):
+        lengths = np.concatenate([rng.integers(1, 4, 3 * tile // 2), [hot],
+                                  rng.integers(1, 4, tile)])
+        keys = _runs_from_lengths(lengths, rng)
+        return keys, (rng.integers(0, 4, keys.size).astype(np.int32)
+                      if name == "hot_counts" else None)
+    if name == "wrap":
+        lengths = rng.integers(1, 6, 3 * tile)
+        keys = _runs_from_lengths(lengths, rng)
+        counts = rng.integers(0, 3, keys.size).astype(np.int32)
+        heads = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        for h, ln in zip(heads[::7], lengths[::7]):
+            counts[h : h + ln] = 0x7FFFFFF0  # past 2^31 - 1 from 2 rows, past 2^32 from 3
+        for h, ln in zip(heads[3::11], lengths[3::11]):
+            if ln >= 2:  # two rows of 2^31 (as u32): the sum wraps to 0 and drops
+                counts[h : h + ln] = 0
+                counts[h : h + 2] = -(1 << 31)
+        return keys, counts
+    if name.startswith("boundary"):
+        lengths = ([1] * int(name[len("boundary"):])) + _edge_lengths(tile, 96, rng)
+        keys = _runs_from_lengths(np.array(lengths), rng)
+        return keys, rng.integers(1, 5, keys.size).astype(np.int32)
+    if name in ("sentinel", "sentinel_counts"):
+        keys = _runs_from_lengths(rng.integers(1, 4, tile // 2 + 8), rng)
+        keys = np.concatenate([keys[: tile + 7], np.full(tile + 9, SENTINEL_KEY, np.int64)])
+        if name == "sentinel":
+            return keys, None
+        counts = rng.integers(0, 5, keys.size).astype(np.int32)
+        counts[keys == SENTINEL_KEY] = 0  # the reference's pads carry count 0
+        return keys, counts
+    if name == "distinct":
+        keys = _runs_from_lengths(np.ones(3 * tile + 11, np.int64), rng)
+        return keys, rng.integers(1, 400, keys.size).astype(np.int32)
+    raise KeyError(name)
+
+
+K8_KS = (15, 16, 31, 32, 63, 127, 255)  # int64 keys, then W = 2, 4, 8, 16 words
+K8_CASES = ("random", "one", "few", "clustered")
+
+
+def k8_case(name: str, k: int, M: int):
+    """(rows (M', W) u32 sorted distinct, LSW first; queries (Q, W) u32) of
+    one adversarial K8 input: random rows, M' = 1, M' = 5 (fewer than the
+    splitter sample), or rows whose top 16 bits take two values (most of
+    a prefix table's buckets empty). Queries: rows of the run, rows with
+    a low or a high bit flipped, the first and last rows, the zero row and
+    the all-ones row (below the first and above the last), random rows."""
+    import numpy as np
+
+    W = -(-k // 16)
+    rng = np.random.default_rng(k * 1000 + sum(map(ord, name)))
+    top_bits = 2 * k - 32 * (W - 1)
+    top_mask = np.uint32((1 << top_bits) - 1) if top_bits < 32 else np.uint32(0xFFFFFFFF)
+
+    def rand_rows(n):
+        w = rng.integers(0, 1 << 32, (n, W), dtype=np.uint64).astype(np.uint32)
+        w[:, W - 1] &= top_mask
+        return w
+
+    def set_bit(w, b, on):
+        j, o = divmod(b, 32)
+        w[:, j] = (w[:, j] | np.uint32(1 << o)) if on else (w[:, j] & ~np.uint32(1 << o))
+
+    n = {"one": 1, "few": 5}.get(name, M)
+    rows = rand_rows(n)
+    if name == "clustered":
+        pref = np.where(rng.random(n) < 0.5, 3, 40000)
+        for b in range(16):
+            j, o = divmod(2 * k - 16 + b, 32)
+            bit = ((pref >> b) & 1).astype(np.uint32) << np.uint32(o)
+            rows[:, j] = (rows[:, j] & ~np.uint32(1 << o)) | bit
+        rows[:, 0] |= np.uint32(1)  # not the zero row
+    else:  # the top two bits 01: between the zero row and the all-ones row
+        set_bit(rows, 2 * k - 1, False)
+        set_bit(rows, 2 * k - 2, True)
+    rows = rows[np.lexsort(rows.T)]
+    if rows.shape[0] > 1:
+        rows = rows[np.concatenate([[True], (rows[1:] != rows[:-1]).any(axis=1)])]
+    q = rows[rng.integers(0, rows.shape[0], 2000)]
+    lo, hi = q[:600].copy(), q[600:900].copy()
+    lo[:, 0] ^= np.uint32(1)
+    set_bit(hi, 2 * k - 3, True)
+    ones = np.full((1, W), 0xFFFFFFFF, np.uint32)
+    ones[:, W - 1] &= top_mask
+    q = np.concatenate([q, lo, hi, rows[:1], rows[-1:], np.zeros((1, W), np.uint32), ones,
+                        rand_rows(200)])
+    return rows, q
+
+
+def runs_adversarial() -> None:
+    """K2 against its plain version on the card, exactly, on every
+    k2_case at cutoffs 1, 2 and 300, with the histogram."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    n_checked = 0
+    for name in K2_CASES:
+        keys, counts = k2_case(name)
+        kd = torch.from_numpy(keys).to(dev)
+        cd = None if counts is None else torch.from_numpy(counts).to(dev)
+        for cutoff in K2_CUTOFFS:
+            got = count.runs(kd, cd, cutoff, True)
+            want = count.runs_plain(kd, cd, cutoff, True)
+            for a, b in zip(got, want):
+                max_abs_err(a, b)
+            n_checked += got[0].numel()
+    log(f"runs ok on {len(K2_CASES)} adversarial inputs x cutoffs {K2_CUTOFFS} "
+        f"({n_checked} runs emitted in all)")
+
+
+def lookup_adversarial() -> None:
+    """K8 against its plain version on the card, exactly, on every k8_case
+    at k = 15, 16 and 31 (int64 keys) and W = 2, 4, 8 and 16 (k = 32, 63,
+    127, 255), 100,000 rows where the case is not smaller."""
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import unitig
+
+    dev = torch.device("cuda")
+    n_hits = 0
+    for k in K8_KS:
+        for name in K8_CASES:
+            rows, q = k8_case(name, k, 100_000)
+            if k <= 31:
+                rd = torch.from_numpy(state.words_to_keys(rows)).to(dev)
+                qd = torch.from_numpy(state.words_to_keys(q)).to(dev)
+            else:
+                rd, qd = state.words_to_torch(rows, dev), state.words_to_torch(q, dev)
+            hit, rank = unitig.solid_lookup(rd, k, qd)
+            hit_p, rank_p = unitig.solid_lookup_plain(rd, k, qd)
+            max_abs_err(hit, hit_p)
+            max_abs_err(rank, rank_p)
+            n_hits += int(hit.sum())
+    log(f"solid_lookup ok on {len(K8_CASES)} adversarial runs at k = {K8_KS} "
+        f"({n_hits} hits)")
 
 
 # ---------------------------------------------------------------------------
@@ -566,8 +784,10 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     records[n_lookup] = record(
         max(max_abs_err(hit, hit_p.cpu()), max_abs_err(rank, rank_p.cpu())),
         cuda_ms(lambda: unitig.solid_lookup(rows, k, q), 10),
-        cuda_ms(lambda: unitig.solid_lookup_plain(rows, k, q), 3), nbytes(rows, q, hit, rank),
-        None if words_form else cuda_ms(lambda: torch.searchsorted(rows, q), 10))
+        cuda_ms(lambda: unitig.solid_lookup_plain(rows, k, q), 3),
+        nbytes(q, hit, rank) + q.shape[0] * rows[0].numel() * rows.element_size(),
+        None if words_form else cuda_ms(lambda: torch.searchsorted(rows, q), 10),
+        "the queries, hit, rank and one row of the run per query (a search reads no more)")
     log(f"[{tag}] solid_lookup ok: {int(hit.sum())}/{q.shape[0]} hits")
     return dict(n_solid=M, n_distinct=nu, n_chains=n_chains, cycles_flagged=cyc,
                 payload_bytes=len(payload), build_s=t_kernel, plain_build_s=t_plain,
@@ -1733,7 +1953,7 @@ def main() -> int:
                     "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "moved_bytes": r["moved_bytes"]})
+                    "moved_bytes": r["moved_bytes"], "bound_note": r["bound_note"]})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -376,26 +376,75 @@ extern "C" int lt_unitig_emit_bases(const void* keys, int N, int k, const void* 
 
 // ---------------------------------------------------------------------------
 // K8 DICT lookup (unitig.py:938-963)
+//
+// hit = q is in the solid run; rank = its row (its index among the solid
+// rows), 0 on a miss. Bound: one row per query (the search's last probe)
+// plus the queries and outputs; the call reads no table over the run.
+// Each block stages a splitter sample of the run in shared memory (rows
+// 0, step, 2 step, ...: S rows, chosen by the wrapper, ops/unitig.py
+// _lookup_split); a query's search takes its first log2(S) levels there,
+// then finishes with a binary search in device memory over one step-row
+// segment. One query a thread, 256 threads a block. The sample is small
+// (S = 64): the next levels, which all queries of a segment share, stay
+// in L1 and L2, and in a call on the H100 a sample of 2048 or 6144 rows
+// cost more to stage in every block than its levels saved (PERF.md §6,
+// PR 9); the time is that of the last, unshared probes.
 // ---------------------------------------------------------------------------
 
-// hit = q is in the solid run; rank = its row (its index among the solid
-// rows), 0 on a miss
-__global__ void lookup_kernel(const int64_t* __restrict__ keys, int M, int k,
-                              const int32_t* __restrict__ starts, const int64_t* __restrict__ q,
-                              int Q, uint8_t* __restrict__ hit, int64_t* __restrict__ rank) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int j = find_key(keys, M, starts, q[i], k);
-  hit[i] = j >= 0;
-  rank[i] = j >= 0 ? j : 0;
+#define K8_THREADS 256
+#define K8_SMEM 49152
+
+// the split is the wrapper's: S samples every step rows cover the run
+static bool k8_split_ok(int M, int step, int S, int row_bytes) {
+  return M > 0 && step >= 1 && S >= 1 && (long long)S * row_bytes <= K8_SMEM &&
+         (long long)(S - 1) * step < M && (long long)S * step >= M;
 }
 
-extern "C" int lt_solid_lookup(const void* keys, int M, int k, const void* starts, const void* q,
+static unsigned k8_blocks(int Q) { return (unsigned)((Q + K8_THREADS - 1) / K8_THREADS); }
+
+__global__ void __launch_bounds__(K8_THREADS)
+lookup_kernel(const int64_t* __restrict__ keys, int M, int step, int S,
+              const int64_t* __restrict__ q, int Q, uint8_t* __restrict__ hit,
+              int64_t* __restrict__ rank) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  int64_t* smp = reinterpret_cast<int64_t*>(k8_smem);
+  for (int s = threadIdx.x; s < S; s += K8_THREADS) smp[s] = __ldg(keys + (long long)s * step);
+  __syncthreads();
+  const int i = blockIdx.x * K8_THREADS + threadIdx.x;
+  if (i < Q) {
+    const int64_t x = q[i];
+    int lo = 0, hi = S;  // lo <- the samples <= x
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (smp[mid] <= x) lo = mid + 1;
+      else hi = mid;
+    }
+    int j = -1;
+    if (lo > 0) {
+      int a = (lo - 1) * step;  // rows[a] <= x < rows[a + step] (or the end)
+      if (smp[lo - 1] == x) {
+        j = a;
+      } else {
+        int b = min(a + step, M);
+        ++a;
+        while (a < b) {
+          const int mid = (a + b) >> 1;
+          if (__ldg(keys + mid) < x) a = mid + 1;
+          else b = mid;
+        }
+        if (a < M && __ldg(keys + a) == x) j = a;
+      }
+    }
+    hit[i] = j >= 0;
+    rank[i] = j >= 0 ? j : 0;
+  }
+}
+
+extern "C" int lt_solid_lookup(const void* keys, int M, int k, int step, int S, const void* q,
                                int Q, void* hit, void* rank, void* stream) {
-  if (k < 1 || k > 31 || M <= 0 || Q <= 0) return (int)cudaErrorInvalidValue;
-  lookup_kernel<<<ut_blocks(Q), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)keys, M, k, (const int32_t*)starts, (const int64_t*)q, Q, (uint8_t*)hit,
-      (int64_t*)rank);
+  if (k < 1 || k > 31 || Q <= 0 || !k8_split_ok(M, step, S, 8)) return (int)cudaErrorInvalidValue;
+  lookup_kernel<<<k8_blocks(Q), K8_THREADS, (size_t)S * 8, (cudaStream_t)stream>>>(
+      (const int64_t*)keys, M, step, S, (const int64_t*)q, Q, (uint8_t*)hit, (int64_t*)rank);
   return (int)cudaGetLastError();
 }
 
@@ -531,16 +580,58 @@ __global__ void emit_bases_words_kernel(const uint32_t* __restrict__ rows, int N
     for (int j = 0; j < k - 1; ++j) put_base(packed, st + j, cap_bases, (uint32_t)base_of(f, j, k));
 }
 
+// sign of (row r - x), words compared most significant first and read
+// only until two differ (the top word decides almost every probe)
 template <int W>
-__global__ void lookup_words_kernel(const uint32_t* __restrict__ rows, int M, int k,
-                                    const int32_t* __restrict__ starts,
-                                    const uint32_t* __restrict__ q, int Q,
-                                    uint8_t* __restrict__ hit, int64_t* __restrict__ rank) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  const int j = find_row<W>(rows, M, starts, load_kmer<W>(q, i), k);
-  hit[i] = j >= 0;
-  rank[i] = j >= 0 ? j : 0;
+static __device__ __forceinline__ int cmp_row(const uint32_t* r, const Kmer<W>& x) {
+#pragma unroll
+  for (int j = W - 1; j >= 0; --j) {
+    const uint32_t a = r[j];
+    if (a != x.w[j]) return a < x.w[j] ? -1 : 1;
+  }
+  return 0;
+}
+
+// K8 over W-word rows: the sample holds whole rows (S * 4W bytes), and
+// rows compare as unsigned big integers, most significant word first
+template <int W>
+__global__ void __launch_bounds__(K8_THREADS)
+lookup_words_kernel(const uint32_t* __restrict__ rows, int M, int step, int S,
+                    const uint32_t* __restrict__ q, int Q, uint8_t* __restrict__ hit,
+                    int64_t* __restrict__ rank) {
+  extern __shared__ __align__(16) unsigned char k8_smem[];
+  uint32_t* smp = reinterpret_cast<uint32_t*>(k8_smem);
+  for (int t = threadIdx.x; t < S * W; t += K8_THREADS)
+    smp[t] = __ldg(rows + (long long)(t / W) * step * W + t % W);
+  __syncthreads();
+  const int i = blockIdx.x * K8_THREADS + threadIdx.x;
+  if (i < Q) {
+    const Kmer<W> x = load_kmer<W>(q, i);
+    int lo = 0, hi = S;  // lo <- the samples <= x
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cmp_row<W>(smp + mid * W, x) <= 0) lo = mid + 1;
+      else hi = mid;
+    }
+    int j = -1;
+    if (lo > 0) {
+      int a = (lo - 1) * step;
+      if (cmp_row<W>(smp + (lo - 1) * W, x) == 0) {
+        j = a;
+      } else {
+        int b = min(a + step, M);
+        ++a;
+        while (a < b) {
+          const int mid = (a + b) >> 1;
+          if (cmp_row<W>(rows + (long long)mid * W, x) < 0) a = mid + 1;
+          else b = mid;
+        }
+        if (a < M && cmp_row<W>(rows + (long long)a * W, x) == 0) j = a;
+      }
+    }
+    hit[i] = j >= 0;
+    rank[i] = j >= 0 ? j : 0;
+  }
 }
 
 // a W-word entry point takes 32 <= k <= 255 and W = ceil(k/16)
@@ -621,16 +712,18 @@ extern "C" int lt_unitig_emit_bases_words(const void* rows, int N, int W, int k,
 }
 
 // q: (Q, W) int32 u32 words
-extern "C" int lt_solid_lookup_words(const void* rows, int M, int W, int k, const void* starts,
+extern "C" int lt_solid_lookup_words(const void* rows, int M, int W, int k, int step, int S,
                                      const void* q, int Q, void* hit, void* rank, void* stream) {
-  if (!words_k_ok(W, k) || M <= 0 || Q <= 0) return (int)cudaErrorInvalidValue;
+  if (!words_k_ok(W, k) || Q <= 0 || !k8_split_ok(M, step, S, 4 * W))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* r = (const uint32_t*)rows;
-  const int32_t* sp = (const int32_t*)starts;
   const uint32_t* qp = (const uint32_t*)q;
-#define LAUNCH(W_)                                                                  \
-  lookup_words_kernel<W_><<<ut_blocks(Q), UT_THREADS, 0, st>>>(r, M, k, sp, qp, Q, \
-                                                                 (uint8_t*)hit, (int64_t*)rank)
+  const unsigned nb = k8_blocks(Q);
+  const size_t smem = (size_t)S * 4 * W;
+#define LAUNCH(W_)                                                                   \
+  lookup_words_kernel<W_><<<nb, K8_THREADS, smem, st>>>(r, M, step, S, qp, Q,      \
+                                                        (uint8_t*)hit, (int64_t*)rank)
   switch (W) {
     LT_W_CASES_2_4(LAUNCH)
     LT_W_CASES_5_16(LAUNCH)

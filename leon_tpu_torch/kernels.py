@@ -47,8 +47,8 @@ _U = ctypes.c_uint
 # C signatures; every function returns int (cudaError_t)
 _SIGS = {
     "lt_kmer_scan": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "lt_runs_count": [_P, _P, _I64, _I, _P, _P, _P, _P],
-    "lt_runs_write": [_P, _P, _I64, _I, _P, _P, _P, _P],
+    "lt_runs_count": [_P, _P, _I64, _I, _P, _I64, _P, _P],
+    "lt_runs_write": [_P, _P, _I64, _I, _P, _P, _P, _P, _I64, _P],
     "lt_bloom_build": [_P, _P, _I64, _I, _U, _I, _I, _P, _P, _P],
     "lt_walk_encode": [_P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P],
@@ -65,11 +65,11 @@ _SIGS = {
     "lt_unitig_emit_heads": [_I, _P, _P, _P, _P, _P],
     "lt_unitig_emit_lens": [_I, _P, _P, _P, _P, _I, _P, _P],
     "lt_unitig_emit_bases": [_P, _I, _I, _P, _P, _P, _P, _I, _I64, _P, _P],
-    "lt_solid_lookup": [_P, _I, _I, _P, _P, _I, _P, _P, _P],
+    "lt_solid_lookup": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "lt_unitig_buckets_words": [_P, _I, _I, _I, _P, _P],
     "lt_unitig_links_words": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lt_unitig_emit_bases_words": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I64, _P, _P],
-    "lt_solid_lookup_words": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+    "lt_solid_lookup_words": [_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P],
     "lt_gather_words": [_P, _I64, _P, _I64, _P, _P],
     "lt_dbg_probe": [_P, _I64, _I, _I, _I, _I, _U, _P, _P, _I, _U, _P, _P],
     "lt_dbg_walk": [_P, _I64, _I, _I, _I, _U, _P, _P, _I, _U, _P, _P, _P],

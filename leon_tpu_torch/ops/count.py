@@ -4,9 +4,10 @@ leon_tpu/ops/count.py).
 Device half (new): ``runs``, the wrapper of kernel K2 (csrc/count.cu): a
 reduce-by-key over a sorted int64 key array that emits each distinct key
 with its summed count, in order, and optionally the 256-bin count
-histogram. It replaces the reference's boundary/run-length, compaction,
-merge-sum, histogram and solid-compaction programs
-(count.py:34-85, 208-264, 707-719). The sort before it is ``torch.sort``,
+histogram: a count pass and a write pass, each warp reducing a stretch of
+rows, runs that cross stretches carried as associative Spans. It replaces
+the reference's boundary/run-length, compaction, merge-sum, histogram and
+solid-compaction programs (count.py:34-85, 208-264, 707-719). The sort before it is ``torch.sort``,
 as the reference leaves its sort to ``lax.sort``.
 
 ``DeviceCounter`` streams k-mer keys through one slab on the device: the
@@ -62,6 +63,16 @@ def _check_runs_args(keys, counts) -> None:
         kernels.need(counts.device == keys.device, "runs: tensors on two devices")
 
 
+RUNS_STEP = 256  # rows a warp of K2 takes at a time (csrc/count.cu K2_STEP)
+
+
+def _runs_scratch_bytes(n: int) -> int:
+    """K2's scratch for n rows: a 16-byte Span for each warp of the grid
+    (at most one a step of the n + 1 rows it reads, the last a SENTINEL,
+    rounded up to a block of 8 warps) and the count pass's done counter."""
+    return 16 * ((n + RUNS_STEP) // RUNS_STEP + 8) + 4
+
+
 def runs(keys: torch.Tensor, counts: torch.Tensor | None = None, cutoff: int = 1,
          want_hist: bool = False):
     """Reduce-by-key over SORTED int64 keys; SENTINEL rows are ignored.
@@ -71,7 +82,10 @@ def runs(keys: torch.Tensor, counts: torch.Tensor | None = None, cutoff: int = 1
     >= max(cutoff, 1) are emitted in key order: zero-sum runs always drop,
     and cutoff > 1 is compact_solid. Returns (keys (R,) int64, counts (R,)
     int32, hist): hist is the (256,) integer histogram of min(value, 255)
-    over the emitted runs (bin 0 is 0) when want_hist, else None."""
+    over the emitted runs (bin 0 is 0) when want_hist, else None.
+
+    On the card K2 is a count pass (R, reading the keys and counts once),
+    the one host sync, and a write pass into outputs of exactly R rows."""
     _check_runs_args(keys, counts)
     if not kernels.on_cuda(keys, "runs"):
         return runs_plain(keys, counts, cutoff, want_hist)
@@ -79,23 +93,20 @@ def runs(keys: torch.Tensor, counts: torch.Tensor | None = None, cutoff: int = 1
     counts = counts.contiguous() if counts is not None else None
     dev = keys.device
     n = keys.shape[0]
-    lib = kernels.lib()
+    lib, st = kernels.lib(), kernels.stream(keys)
     cnt_p = counts.data_ptr() if counts is not None else None
-    nb = max(1, -(-n // 256))
-    block_off = torch.empty(nb, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
-    st = kernels.stream(keys)
-    rc = lib.lt_runs_count(keys.data_ptr(), cnt_p, n, int(cutoff),
-                           hist.data_ptr() if hist is not None else None,
-                           block_off.data_ptr(), total.data_ptr(), st)
+    nbytes = _runs_scratch_bytes(n)
+    scratch = torch.empty(-(-nbytes // 8) + 1, dtype=torch.int64, device=dev)  # + the total
+    rc = lib.lt_runs_count(keys.data_ptr(), cnt_p, n, int(cutoff), scratch.data_ptr(), nbytes,
+                           scratch[-1:].data_ptr(), st)
     kernels.check(rc, "runs")
-    R = int(total.item())
+    R = int(scratch[-1])
     out_k = torch.empty(R, dtype=torch.int64, device=dev)
     out_c = torch.empty(R, dtype=torch.int32, device=dev)
+    hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
     rc = lib.lt_runs_write(keys.data_ptr(), cnt_p, n, int(cutoff),
-                           block_off.data_ptr(), out_k.data_ptr(),
-                           out_c.data_ptr(), st)
+                           hist.data_ptr() if hist is not None else None, out_k.data_ptr(),
+                           out_c.data_ptr(), scratch.data_ptr(), nbytes, st)
     kernels.check(rc, "runs")
     kernels.launches["runs"] += 1
     return out_k, out_c, hist

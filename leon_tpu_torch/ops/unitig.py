@@ -792,23 +792,40 @@ def _check_lookup(rows, k: int, q) -> None:
                  "solid_lookup: queries must take the run's form, on the run's device")
 
 
+LOOKUP_SAMPLE_ROWS = 64     # K8's splitter rows a block stages (csrc/unitig.cu)
+LOOKUP_SAMPLE_BYTES = 49152  # their most bytes (K8_SMEM)
+
+
+def _lookup_split(M: int, row_bytes: int) -> tuple[int, int]:
+    """K8's splitter sample over a run of M > 0 rows of row_bytes each:
+    (S, step) with S rows (rows 0, step, 2 step, ...) in at most
+    LOOKUP_SAMPLE_BYTES of shared memory, covering the run: (S - 1) * step
+    < M <= S * step, so a query's segment holds at most step rows."""
+    s_max = max(1, min(LOOKUP_SAMPLE_ROWS, LOOKUP_SAMPLE_BYTES // row_bytes))
+    step = -(-M // s_max)
+    return -(-M // step), step
+
+
 def solid_lookup(rows: torch.Tensor, k: int, q: torch.Tensor):
     """K8: for queries in the run's form ((Q,) int64 keys or (Q, W) int32
     words), (hit (Q,) bool, rank (Q,) int64): hit when q is in the solid
     run, rank its row there (0 on a miss) — indices into
-    solid_kmers_sorted(payload) (unitig.py:938-963)."""
+    solid_kmers_sorted(payload) (unitig.py:938-963). The kernel reads no
+    table over the run: a splitter sample in every block's shared memory,
+    then one segment of the run per query (_lookup_split)."""
     _check_lookup(rows, k, q)
     if not kernels.on_cuda(rows, "solid_lookup"):
         return solid_lookup_plain(rows, k, q)
     M, Q = rows.shape[0], q.shape[0]
-    hit = torch.zeros(Q, dtype=torch.uint8, device=rows.device)
-    rank = torch.zeros(Q, dtype=torch.int64, device=rows.device)
     if M == 0 or Q == 0:
-        return hit.view(torch.bool), rank
+        return (torch.zeros(Q, dtype=torch.bool, device=rows.device),
+                torch.zeros(Q, dtype=torch.int64, device=rows.device))
     rows, q = rows.contiguous(), q.contiguous()
-    starts = _buckets(rows, k)
-    ptrs = (starts.data_ptr(), q.data_ptr(), Q, hit.data_ptr(), rank.data_ptr(),
-            kernels.stream(rows))
+    hit = torch.empty(Q, dtype=torch.uint8, device=rows.device)
+    rank = torch.empty(Q, dtype=torch.int64, device=rows.device)
+    row_bytes = rows[0].numel() * rows.element_size()
+    S, step = _lookup_split(M, row_bytes)
+    ptrs = (step, S, q.data_ptr(), Q, hit.data_ptr(), rank.data_ptr(), kernels.stream(rows))
     if rows.dim() == 1:
         rc = kernels.lib().lt_solid_lookup(rows.data_ptr(), M, k, *ptrs)
     else:
