@@ -72,7 +72,16 @@ run right after phase 3, whose reads and solid set they reuse):
      solid rows (K5, K6, K7, K8 at W = 4, 8 and 16; the payload must equal
      the native host builder's), each held against its plain version on
      the card, exactly, and timed (records `name:w4`, `name:w8`,
-     `name:w16` for K5-K8);
+     `name:w16` for K5-K8); before them K14 on adversarial rows (k14_case:
+     n = 0, 1, 2, one run over every row, every row distinct, a run of
+     2^20 rows across steps, stretches and blocks, run sums that wrap u32
+     or pass 2^31 - 1, runs of 1-3 rows at every offset of a step edge,
+     all-ones top words and the all-ones row; neighbouring runs differ in
+     one word) at W = 4, 8 and 16 in its three modes, cutoffs 1, 2, 255
+     and 256 with the histogram, and K17 on adversarial reads (scan_case:
+     k = 17 to 255, L mod 16 = 0, 1, 15, reads of length 0, k - 1, k, L,
+     palindromes and all-ones top words at k = 16W), each equal to its
+     plain version;
  10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
      (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
@@ -673,6 +682,184 @@ def lookup_adversarial() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: K14 and K17 on adversarial inputs (tests/test_torch_runs_lookup.py
+# and tests/test_torch_scan_bits.py hold models of both kernels and the plain
+# versions to leon_tpu's on the same generators)
+# ---------------------------------------------------------------------------
+
+K14_CASES = ("n0", "n1", "n2", "n2_distinct", "one_run", "distinct", "hot", "wrap",
+             "boundary0", "boundary1", "boundary2", "boundary3", "short", "ones")
+K14_CUTOFFS = (1, 2, 255, 256)
+K14_WIDTHS = (4, 8, 16)
+
+
+def _word_rows(lengths, W: int, rng):
+    """(n, W) u32 rows sorted MSW first: run i has lengths[i] copies of a
+    row that differs from the row before it in one word only (a random
+    word, raised by 1-3), so neighbouring runs differ in one int64 plane."""
+    import numpy as np
+
+    lengths = np.asarray(lengths, np.int64)
+    m = lengths.size
+    word = rng.integers(0, W, m)
+    inc = rng.integers(1, 4, m).astype(np.int64)
+    base = rng.integers(0, 1 << 31, W).astype(np.int64)
+    rows = np.stack([base[c] + np.cumsum(np.where(word == c, inc, 0)) for c in range(W)], axis=1)
+    return np.repeat(rows.astype(np.uint32), lengths, axis=0)
+
+
+def k14_case(name: str, W: int, tile: int, hot: int = 1 << 20):
+    """(rows (n, W) u32 sorted MSW first, counts (n,) int32 or None) of one
+    adversarial K14 input, whose runs sit on edges `tile` rows apart (K14's
+    steps; on the card also edges between warps and blocks): n = 0, 1, 2;
+    one run over every row (`hot` rows, crossing steps, stretches and
+    blocks); every row distinct; one run of `hot` rows between short runs;
+    run sums that wrap u32, pass 2^31 - 1 or wrap to exactly 0; runs of 1-3
+    rows at every offset of an edge (boundary0-3, 96 edges); short runs
+    with zero counts; all-ones top words (k = 16W) and the all-ones row
+    last. Neighbouring runs differ in one word."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)) * 7919 + tile * 31 + W)
+
+    def counts_of(rows, lo, hi):
+        return rng.integers(lo, hi, rows.shape[0]).astype(np.int32)
+
+    if name == "n0":
+        return np.zeros((0, W), np.uint32), None
+    if name == "n1":
+        return _word_rows([1], W, rng), None
+    if name == "n2":
+        return _word_rows([2], W, rng), None
+    if name == "n2_distinct":
+        return _word_rows([1, 1], W, rng), np.array([3, 0], np.int32)
+    if name == "one_run":
+        rows = _word_rows([hot], W, rng)
+        return rows, counts_of(rows, 1, 3)
+    if name == "distinct":
+        rows = _word_rows(np.ones(3 * tile + 11, np.int64), W, rng)
+        return rows, counts_of(rows, 1, 400)
+    if name == "hot":
+        lengths = np.concatenate([rng.integers(1, 4, 3 * tile // 2), [hot],
+                                  rng.integers(1, 4, tile)])
+        rows = _word_rows(lengths, W, rng)
+        return rows, counts_of(rows, 0, 4)
+    if name == "wrap":
+        lengths = rng.integers(1, 6, 3 * tile)
+        rows = _word_rows(lengths, W, rng)
+        counts = counts_of(rows, 0, 3)
+        heads = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        for h, ln in zip(heads[::7], lengths[::7]):
+            counts[h : h + ln] = 0x7FFFFFF0  # past 2^31 - 1 from 2 rows, past 2^32 from 3
+        for h, ln in zip(heads[3::11], lengths[3::11]):
+            if ln >= 2:  # two rows of 2^31 (as u32): the sum wraps to 0 and drops
+                counts[h : h + ln] = 0
+                counts[h : h + 2] = -(1 << 31)
+        return rows, counts
+    if name.startswith("boundary"):
+        lengths = ([1] * int(name[len("boundary"):])) + _edge_lengths(tile, 96, rng)
+        rows = _word_rows(lengths, W, rng)
+        return rows, counts_of(rows, 1, 5)
+    if name == "short":
+        rows = _word_rows(rng.integers(1, 4, 4 * tile), W, rng)
+        return rows, counts_of(rows, 0, 5)
+    if name == "ones":
+        lengths = rng.integers(1, 4, 2 * tile)
+        rows = _word_rows(lengths, W, rng)
+        heads = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        rows[heads[2 * lengths.size // 3] :, W - 1] = 0xFFFFFFFF
+        rows[heads[-1] :] = 0xFFFFFFFF  # the all-ones row, last
+        return rows, counts_of(rows, 1, 5)
+    raise KeyError(name)
+
+
+def words_adversarial() -> None:
+    """K14 against its plain version on the card, exactly, on every
+    k14_case at W = 4, 8 and 16: word_runs with the counts at cutoffs 1, 2,
+    255 and 256 with the histogram, word_runs' and runs_words' run
+    lengths."""
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    n_checked = 0
+    for W in K14_WIDTHS:
+        for name in K14_CASES:
+            rows, counts = k14_case(name, W, count._word_runs_step(W))
+            planes = state.words_to_planes(state.words_to_torch(rows, dev))
+            cd = None if counts is None else torch.from_numpy(counts).to(dev)
+            pairs = [(count.word_runs(planes, W), count.word_runs_plain(planes, W)),
+                     (count.runs_words(planes, W), count.runs_words_plain(planes, W))]
+            if cd is not None:
+                pairs += [(count.word_runs(planes, W, cd, c, True),
+                           count.word_runs_plain(planes, W, cd, c, True)) for c in K14_CUTOFFS]
+            for got, want in pairs:
+                for a, b in zip(got, want):
+                    if a is not None or b is not None:
+                        max_abs_err(a, b)
+                n_checked += got[0].shape[0]
+    log(f"word_runs, runs_words ok on {len(K14_CASES)} adversarial inputs at W = {K14_WIDTHS} x "
+        f"cutoffs {K14_CUTOFFS} ({n_checked} runs emitted in all)")
+
+
+SCAN_KS = (17, 31, 32, 33, 63, 64, 65, 127, 128, 255)
+SCAN_L_MOD16 = (0, 1, 15)
+
+
+def scan_case(k: int, mod: int, n_random: int):
+    """(codes (B, L) uint8, lengths (B,) int32) of one adversarial scan
+    input: L = 16 m + mod with room for a few k-mers; reads of length 0,
+    k - 1, k, L and L - 1 (zeros past each read), at k = 16W a read that is
+    its own reverse complement and one whose canonical k-mers have an
+    all-ones top word (T^16 ... A^16), then n_random random reads of
+    random lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(k * 100 + mod)
+    L = 16 * -(-(k + 21) // 16) + mod
+    B = 8 + n_random
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lengths = np.concatenate([[0, k - 1, k, L, L - 1, L, L, L],
+                              rng.integers(0, L + 1, n_random)]).astype(np.int32)
+    if k % 16 == 0:
+        half = codes[5, : k // 2]
+        codes[5, :k] = np.concatenate([half, (3 - half)[::-1]])  # a palindrome
+        codes[6, :16] = 3
+        codes[6, k - 16 : k] = 0  # T^16 ... A^16: the top word all-ones both ways
+        codes[7, :k] = 3
+        codes[7, k // 2 : k] = 0  # T^(k/2) A^(k/2): a palindrome, top word all-ones
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return codes, lengths
+
+
+def scan_adversarial() -> None:
+    """K17 against its plain version on the card, exactly, on every
+    scan_case (k = 17 .. 255, L mod 16 = 0, 1, 15), 4,096 random reads
+    beside the edge reads."""
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import kmer
+
+    dev = torch.device("cuda")
+    n_rows = 0
+    for k in SCAN_KS:
+        for mod in SCAN_L_MOD16:
+            codes, lengths = scan_case(k, mod, 4096)
+            L = codes.shape[1]
+            pd = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+            ld = torch.from_numpy(lengths).to(dev)
+            got = kmer.kmer_scan_halves(pd, ld, k, L)
+            for a, b in zip(got, kmer.kmer_scan_halves_plain(pd, ld, k, L)):
+                max_abs_err(a, b)
+            n_rows += got[0].numel()
+    log(f"kmer_scan_halves ok on adversarial reads at k = {SCAN_KS}, L mod 16 = "
+        f"{SCAN_L_MOD16} ({n_rows} valid k-mers)")
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: the unitig kernels K5-K8 against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1270,12 +1457,21 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
         want = kmer.kmer_scan_halves_plain(p, ln, k, L)
         err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)))
         del want
+    # timed apart from the wrapper's host sync on the valid count
     p0, l0 = chunks[0]
+    nv = torch.clamp(l0.to(torch.int64) - (k - 1), 0, L - k + 1)
+    offs0 = torch.cumsum(nv, 0) - nv
+    dst = tuple(torch.empty_like(h) for h in planes[0])
     records[n_scan] = record(
-        err, cuda_ms(lambda: kmer.kmer_scan_halves(p0, l0, k, L), 10),
+        err, cuda_ms(lambda: kmer.scan_halves_launch(p0, l0, offs0, k, L, dst), 10),
         cuda_ms(lambda: kmer.kmer_scan_halves_plain(p0, l0, k, L), 2), nbytes(p0, l0, planes[0]))
+    for a, b in zip(dst, planes[0]):
+        max_abs_err(a, b)
+    wrapper_ms = cuda_ms(lambda: kmer.kmer_scan_halves(p0, l0, k, L), 10)
     n_rows = sum(h[0].numel() for h in planes)
-    log(f"{n_scan} ok: {n_rows} valid k-mers ({tag}) in {len(chunks)} chunks")
+    log(f"{n_scan} ok: {n_rows} valid k-mers ({tag}) in {len(chunks)} chunks; one chunk "
+        f"{records[n_scan]['ms']:.4f} ms, the wrapper with its host sync {wrapper_ms:.4f} ms")
+    del dst
 
     # K14: slab runs (length mode), their merge (counts + histogram), solid mode
     slab_runs = []
@@ -1407,8 +1603,11 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
     = 104; the distinct run, cutoff and solid count must equal phase 8's),
     at k = 127 (W = 8) on the whole 250-bp corpus of phase 6 (the solid
     count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
-    300-600 bp (long_reads). Returns the figures and, per k of W >= 8, the
-    reads, solid rows and Bloom bitset phase 10 takes over."""
+    300-600 bp (long_reads); first K14 and K17 on adversarial inputs
+    (words_adversarial, scan_adversarial). Returns the figures and, per k of
+    W >= 8, the reads, solid rows and Bloom bitset phase 10 takes over."""
+    words_adversarial()
+    scan_adversarial()
     fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63,
                              UNITIG4)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])

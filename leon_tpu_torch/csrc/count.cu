@@ -1,5 +1,7 @@
-// K2 runs — reduce-by-key over a sorted int64 key array; K14 runs_words
-// (below) — the same over rows of one to eight int64 key planes (k <= 255).
+// K2 runs — reduce-by-key over a sorted int64 key array; K14 runs_words /
+// word_runs (below) — the same over rows of one to eight int64 key planes
+// (k <= 255). Both are instances of one pair of passes (runs_pass_kernel)
+// over a row policy: KeyRows for K2's keys, WordRows for K14's planes.
 //
 // Replaces the count programs of leon_tpu/ops/count.py that follow the
 // sort: _sort_count_device's boundaries and run lengths (45-85),
@@ -36,13 +38,11 @@
 // rows held across block barriers, every row in a warp scan, or one pass
 // into n-row buffers and a compaction all took longer on the H100:
 // PERF.md §6, PR 9.)
+
 #include "common.cuh"
 #include "kmer_words.cuh"
 
 #include <algorithm>
-
-#define RUNS_THREADS 256
-#define SCAN_THREADS 1024
 
 #define LT_TRY(x)                              \
   do {                                         \
@@ -295,28 +295,34 @@ static __device__ Span block_fold(const ulonglong2* a, long long n, uint32_t cut
   return r;
 }
 
-// Both passes: global warp g reduces the contiguous steps [g per, (g + 1)
-// per), one at a time, with the next step's loads in flight; no warp
-// waits on another and no block barrier sits in the loop. The count pass
-// ends with the warp's Span (the fold of its steps) in aggs[g], and the
-// last block to finish folds them all into *total (the runs emitted). The
-// write pass starts each warp from the fold of the warps before it.
-template <bool WRITE, bool COUNTS>
+// Both passes, over a row policy Rows (KeyRows, WordRows): global warp g
+// reduces the contiguous steps [g per, (g + 1) per) of Rows::STEP rows, one
+// at a time, with the next step's loads in flight; no warp waits on
+// another and no block barrier sits in the loop. The count pass ends with
+// the warp's Span (the fold of its steps) in aggs[g], and the last block to
+// finish folds them all into *total (the runs emitted). The write pass
+// starts each warp from the fold of the warps before it.
+//
+// A policy holds its inputs and outputs and gives: STEP; Buf, a step's rows
+// in registers, and load(n, base, buf); Prev, the row before a step, with
+// before(n, base) (for the first step of a stretch) and last(buf); Stage, a
+// warp's staging rows in shared memory; and run<WRITE>(buf, n, base, prev,
+// cut, P, hist, stage), the step's Span (and, in the write pass, its runs
+// written from the prefix P).
+template <class Rows, bool WRITE>
 __global__ void __launch_bounds__(K2_THREADS, 2)
-runs_pass_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ counts,
-                 long long n, uint32_t cut, long long per, int32_t* __restrict__ hist,
-                 int64_t* __restrict__ out_k, int32_t* __restrict__ out_c, ulonglong2* aggs,
-                 int* done, long long* __restrict__ total) {
+runs_pass_kernel(const __grid_constant__ Rows rows, long long n, uint32_t cut, long long per,
+                 ulonglong2* aggs, int* done, long long* __restrict__ total) {
   __shared__ int sh_hist[256];
   __shared__ Span sh_span[K2_WARPS];
   __shared__ int sh_last;
-  __shared__ int64_t stage_k[WRITE ? K2_WARPS : 1][WRITE ? K2_STEP : 1];
-  __shared__ int32_t stage_c[WRITE ? K2_WARPS : 1][WRITE ? K2_STEP : 1];
+  __shared__ typename Rows::template Stage<WRITE> stage[K2_WARPS];
+  constexpr int STEP = Rows::STEP;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long g = (long long)blockIdx.x * K2_WARPS + warp;
-  const long long n_steps = (n + K2_STEP) / K2_STEP;  // rows 0..n, row n a SENTINEL
+  const long long n_steps = (n + STEP) / STEP;  // rows 0..n, row n past the last
   const long long s0 = min(n_steps, g * per), s1 = min(n_steps, s0 + per);
-  int* hp = WRITE && hist ? sh_hist : nullptr;
+  int* hp = WRITE && rows.hist ? sh_hist : nullptr;
   if (hp)
     for (int t = threadIdx.x; t < 256; t += K2_THREADS) sh_hist[t] = 0;
   Span P = span_ident();  // the count pass: the fold so far
@@ -328,19 +334,16 @@ runs_pass_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ c
   }
   __syncthreads();
   if (s0 < s1) {
-    const bool vec = !((uintptr_t)keys & 15) && !(COUNTS && ((uintptr_t)counts & 15));
     // two buffers in turn, never copied (a copy would wait for its loads):
     // step st in x[st % 2], step st + 1 in flight in the other
-    Step<COUNTS> x0, x1;
-    step_load(keys, counts, n, s0 * K2_STEP, vec, x0);
-    if (s0 + 1 < s1) step_load(keys, counts, n, (s0 + 1) * K2_STEP, vec, x1);
-    int64_t prev = s0 > 0 ? key_at(keys, n, s0 * K2_STEP - 1) : (int64_t)LT_SENTINEL;
-    auto step = [&](Step<COUNTS>& cur, long long st) {
-      P = cat(P, step_run<WRITE, COUNTS>(cur, prev, cut, P, out_k, out_c, hp,
-                                         stage_k[WRITE ? warp : 0], stage_c[WRITE ? warp : 0]),
-              cut);
-      prev = __shfl_sync(K2_FULL, cur.k[K2_ITEMS - 1], 31);
-      if (st + 2 < s1) step_load(keys, counts, n, (st + 2) * K2_STEP, vec, cur);
+    typename Rows::Buf x0, x1;
+    rows.load(n, s0 * STEP, x0);
+    if (s0 + 1 < s1) rows.load(n, (s0 + 1) * STEP, x1);
+    typename Rows::Prev prev = rows.before(n, s0 * STEP);
+    auto step = [&](typename Rows::Buf& cur, long long st) {
+      P = cat(P, rows.template run<WRITE>(cur, n, st * STEP, prev, cut, P, hp, stage[warp]), cut);
+      prev = rows.last(cur);
+      if (st + 2 < s1) rows.load(n, (st + 2) * STEP, cur);
     };
     for (long long st = s0; st < s1; st += 2) {
       step(x0, st);
@@ -352,7 +355,7 @@ runs_pass_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ c
     if (hp) {
       __syncthreads();
       for (int t = threadIdx.x; t < 256; t += K2_THREADS)
-        if (sh_hist[t]) atomicAdd(&hist[t], sh_hist[t]);
+        if (sh_hist[t]) atomicAdd(&rows.hist[t], sh_hist[t]);
     }
     return;
   }
@@ -370,16 +373,263 @@ runs_pass_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ c
   }
 }
 
-// The grid both passes use for n rows: (blocks, steps a warp), at most
-// the blocks the card holds at once (found once).
-static int runs_grid(long long n, long long* blocks, long long* per) {
-  static int per_sm = 0, sms = 0;
-  if (!per_sm) {
-    int dev = 0, least = 1 << 30;
+// K2's rows: one int64 key each, SENTINEL past n and before row 0
+template <bool COUNTS>
+struct KeyRows {
+  static constexpr int STEP = K2_STEP;
+  using Buf = Step<COUNTS>;
+  using Prev = int64_t;
+  template <bool WRITE>
+  struct Stage {
+    int64_t k[WRITE ? STEP : 1];
+    int32_t c[WRITE ? STEP : 1];
+  };
+  const int64_t* keys;
+  const int32_t* counts;
+  int32_t* hist;
+  int64_t* out_k;
+  int32_t* out_c;
+  bool vec;  // keys (and counts) 16-byte aligned
+  __device__ __forceinline__ void load(long long n, long long base, Buf& s) const {
+    step_load(keys, counts, n, base, vec, s);
+  }
+  __device__ __forceinline__ Prev before(long long n, long long base) const {
+    return base > 0 ? key_at(keys, n, base - 1) : (int64_t)LT_SENTINEL;
+  }
+  __device__ __forceinline__ Prev last(const Buf& s) const {
+    return __shfl_sync(K2_FULL, s.k[K2_ITEMS - 1], 31);
+  }
+  template <bool WRITE, class St>
+  __device__ __forceinline__ Span run(const Buf& s, long long, long long, Prev prev,
+                                      uint32_t cut, const Span& P, int* hp, St& stage) const {
+    return step_run<WRITE, COUNTS>(s, prev, cut, P, out_k, out_c, hp, stage.k, stage.c);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// K14 runs_words / word_runs — reduce-by-key over sorted multiword k-mer
+// rows, with K2's modes: a run's value is its length, or the u32-wrapping
+// sum of an int32 counts payload clamped to 2^31-1; runs with value >=
+// cutoff (>= 1) are written in order; the 256-bin histogram of min(value,
+// 255) over them.
+//
+// Replaces the post-sort half of leon_tpu/ops/count.py count_batch (88-104)
+// -> _sort_count_device (45-85): boundaries over the W sorted u32 key
+// columns, run lengths by a reverse min-scan, the host compaction of the
+// boundary rows; and, at W = 2..16 on the main path, _compact_run (208-223),
+// _merge_sorted_runs' segment sums (226-254), _hist_of_sorted (257-264) and
+// compact_solid (707-719). The sort stays torch.sort passes over int64
+// plane keys.
+//
+// Input: the sorted keys as NP = ceil(W/2) int64 planes (kmer_words.cuh),
+// the rows already the valid ones (no sentinel: at k = 16W a canonical
+// palindrome can have an all-ones top word and must count), n < 2^32 (a
+// run's length is a u32). Output: each emitted run's W words (unflipped)
+// and its value: int64 run lengths, unclamped (count_batch's runs_words,
+// every run) or int32 clamped values (the counter's word_runs).
+//
+// Bound on the H100: device-memory traffic, 8 NP bytes (+4 with counts)
+// read per row and 4W + 4 or 8 written per emitted run. Design: K2's two
+// passes and Spans over WordRows. A lane holds ITEMS rows of a step,
+// interleaved (row base + 32 j + lane: every load of a plane is 256
+// contiguous bytes a warp); a row's head bit is its planes compared, plane
+// by plane, with the row before it (one shuffle a plane and item; lane 0
+// takes lane 31's row of the item before, or the previous step's last row,
+// carried in NP registers); each item's segmented sums are one warp scan,
+// carried from item to item. The write pass gives each emitted run a slot
+// in order (a ballot an item), stages its W words in shared memory in the
+// output's own layout (a pad word every 32, so that the lanes' rows and the
+// copy-out both hit distinct banks), then the warp copies the step's runs
+// out as one contiguous stretch of u32 words: consecutive lanes write
+// consecutive words. ITEMS shrinks with NP so that the staging rows stay
+// within the 48 KB of static shared memory (8 rows a lane at NP = 1, 4 at
+// NP <= 4, 2 past it).
+// ---------------------------------------------------------------------------
+
+template <int NP, bool COUNTS>
+struct WordRows {
+  static constexpr int ITEMS = NP == 1 ? 8 : NP <= 4 ? 4 : 2;  // ops/count.py _word_runs_step
+  static constexpr int STEP = 32 * ITEMS;
+  static constexpr int STAGE_WORDS = STEP * 2 * NP + STEP * 2 * NP / 32;
+  struct Buf {
+    int64_t k[ITEMS][NP];
+    uint32_t v[COUNTS ? ITEMS : 1];
+  };
+  struct Prev {
+    int64_t k[NP];
+  };
+  template <bool WRITE>
+  struct Stage {
+    uint32_t w[WRITE ? STAGE_WORDS : 1];  // word i of the step's runs at i + i / 32
+    uint32_t v[WRITE ? STEP : 1];         // their values (a length < 2^32, or clamped)
+  };
+  PlanePtrs pl;
+  const int32_t* counts;
+  int32_t* hist;
+  uint32_t* out_w;
+  int32_t* out_v32;    // word_runs: clamped values
+  long long* out_v64;  // runs_words: lengths (used when not null)
+  int W;
+
+  __device__ __forceinline__ void load(long long n, long long base, Buf& b) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long r = base + 32 * j + lane;
+      const bool ok = r < n;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) b.k[j][q] = ok ? __ldg(pl.p[q] + r) : 0;
+      if (COUNTS) b.v[COUNTS ? j : 0] = ok ? (uint32_t)__ldg(counts + r) : 0u;
+    }
+  }
+  __device__ __forceinline__ Prev before(long long, long long base) const {
+    Prev p;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) p.k[q] = base > 0 ? __ldg(pl.p[q] + base - 1) : 0;
+    return p;
+  }
+  __device__ __forceinline__ Prev last(const Buf& b) const {
+    Prev p;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) p.k[q] = __shfl_sync(K2_FULL, b.k[ITEMS - 1][q], 31);
+    return p;
+  }
+  // stage a run in slot: its W words (from its planes) and its value
+  template <class St>
+  __device__ __forceinline__ void put(St& stage, unsigned slot, const int64_t (&key)[NP],
+                                      uint32_t s, int* hp) const {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const unsigned long long x = (unsigned long long)key[q] ^ (1ull << 63);
+      const unsigned i = slot * W + 2 * q;
+      stage.w[i + (i >> 5)] = (uint32_t)x;
+      if (2 * q + 1 < W) stage.w[i + 1 + ((i + 1) >> 5)] = (uint32_t)(x >> 32);
+    }
+    stage.v[slot] = out_v64 ? s : clampv(s);
+    if (hp) atomicAdd(&hp[min(clampv(s), 255u)], 1);
+  }
+  // A warp's step over rows base + 32 j + lane (past n: not valid, each its
+  // own run, never emitted); K2's step_run over interleaved rows.
+  template <bool WRITE, class St>
+  __device__ __forceinline__ Span run(const Buf& b, long long n, long long base, const Prev& prev,
+                                      uint32_t cut, const Span& P, int* hp, St& stage) const {
+    const int lane = threadIdx.x & 31;
+    bool same[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) same[j] = true;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {  // plane by plane: the row before is lane - 1's row
+      int64_t up = prev.k[q];       // lane 0: lane 31's row of the item before
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        const int64_t rot = __shfl_sync(K2_FULL, b.k[j][q], (lane + 31) & 31);
+        same[j] = same[j] && b.k[j][q] == (lane ? rot : up);
+        up = rot;
+      }
+    }
+    bool h[ITEMS], vd[ITEMS], nh[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const long long r = base + 32 * j + lane;
+      vd[j] = r < n;
+      h[j] = !vd[j] || r == 0 || !same[j];
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) nh[j] = __shfl_sync(K2_FULL, h[j], (lane + 1) & 31);
+    bool tl[ITEMS];  // a tail: the next row in the step is a head
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      tl[j] = lane < 31 ? nh[j] : j + 1 < ITEMS && nh[j + 1 < ITEMS ? j + 1 : 0];
+    // each row's segmented sum from the step's first row: a warp scan an
+    // item, the carry (cf, cs) from the item before
+    bool F[ITEMS], cf = false;
+    uint32_t S[ITEMS], cs = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      bool af = h[j];
+      uint32_t as = COUNTS ? b.v[COUNTS ? j : 0] : 1u;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        bool pf = __shfl_up_sync(K2_FULL, af, off);
+        uint32_t ps = __shfl_up_sync(K2_FULL, as, off);
+        if (lane >= off) {
+          seg_cat(pf, ps, af, as);
+          af = pf, as = ps;
+        }
+      }
+      F[j] = cf || af;
+      S[j] = af ? as : cs + as;
+      cf = __shfl_sync(K2_FULL, F[j], 31);
+      cs = __shfl_sync(K2_FULL, S[j], 31);
+    }
+    // the step's Span, as K2's (step_run)
+    const bool edge = lane == 0 && h[0] && base > 0;
+    unsigned ne = 0;
+    bool pend = edge;
+    uint32_t pre = 0;
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if (!tl[j] || !vd[j]) continue;
+      if (F[j]) ne += clampv(S[j]) >= cut;
+      else pend = true, pre = S[j];
+    }
+    const unsigned pm = __ballot_sync(K2_FULL, pend);
+    const int src = pm ? __ffs(pm) - 1 : 0;
+    pre = __shfl_sync(K2_FULL, pre, src);
+    const Span A{(cf ? 0u : 1u) | (pm ? 2u : 0u), pre, cs,
+                 (unsigned long long)__reduce_add_sync(K2_FULL, ne)};
+    if (!WRITE) return A;
+    // slots in row order: the run before the step first, then item by item
+    const bool pend_out = pm && clampv(P.suf + pre) >= cut;
+    if (edge && pend_out) put(stage, 0u, prev.k, P.suf, hp);
+    unsigned o = __shfl_sync(K2_FULL, (unsigned)(edge && pend_out), 0);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const bool em = tl[j] && vd[j] && (F[j] ? clampv(S[j]) >= cut : pend_out);
+      const unsigned m = __ballot_sync(K2_FULL, em);
+      if (em) put(stage, o + __popc(m & ((1u << lane) - 1u)), b.k[j], F[j] ? S[j] : P.suf + S[j],
+                  hp);
+      o += __popc(m);
+    }
+    __syncwarp();
+    const unsigned long long e0 = P.e;
+    uint32_t* ow = out_w + e0 * (unsigned long long)W;
+    const unsigned nw = o * (unsigned)W;
+    for (unsigned i = lane; i < nw; i += 32) ow[i] = stage.w[i + (i >> 5)];
+    for (unsigned r = lane; r < o; r += 32) {
+      if (out_v64) out_v64[e0 + r] = stage.v[r];
+      else out_v32[e0 + r] = (int32_t)stage.v[r];
+    }
+    __syncwarp();  // the staging rows are free for the next step
+    return A;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Host side: the grid, the scratch and the two passes of any row policy
+// ---------------------------------------------------------------------------
+
+static int card_sms(int* sms) {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
     LT_TRY(cudaGetDevice(&dev));
-    LT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-    for (auto k : {runs_pass_kernel<false, false>, runs_pass_kernel<false, true>,
-                   runs_pass_kernel<true, false>, runs_pass_kernel<true, true>}) {
+    LT_TRY(cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev));
+  }
+  *sms = n;
+  return 0;
+}
+
+// The grid both passes of Rows use for n rows: (blocks, steps a warp), at
+// most the blocks the card holds at once of either pass (found once).
+template <class Rows>
+static int runs_grid(long long n, long long* blocks, long long* per) {
+  static int per_sm = 0;
+  int sms = 0;
+  LT_TRY((cudaError_t)card_sms(&sms));
+  if (!per_sm) {
+    int least = 1 << 30;
+    for (auto k : {runs_pass_kernel<Rows, false>, runs_pass_kernel<Rows, true>}) {
       int b = 0;
       LT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, K2_THREADS, 0));
       least = std::min(least, b);
@@ -387,7 +637,7 @@ static int runs_grid(long long n, long long* blocks, long long* per) {
     if (least < 1) return (int)cudaErrorInvalidConfiguration;
     per_sm = least;
   }
-  const long long steps = (n + K2_STEP) / K2_STEP;
+  const long long steps = (n + Rows::STEP) / Rows::STEP;
   *blocks = std::min((long long)per_sm * sms, (steps + K2_WARPS - 1) / K2_WARPS);
   *per = (steps + *blocks * K2_WARPS - 1) / (*blocks * K2_WARPS);
   return 0;
@@ -399,306 +649,135 @@ static bool runs_scratch_ok(long long blocks, long long scratch_bytes) {
   return scratch_bytes >= 16 * blocks * K2_WARPS + 4;
 }
 
-// The count pass: *total = the runs K2 emits for these arguments.
-extern "C" int lt_runs_count(const void* keys, const void* counts, long long n, int cutoff,
-                             void* scratch, long long scratch_bytes, void* total,
-                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+static uint32_t runs_cut(int cutoff) { return (uint32_t)(cutoff < 1 ? 1 : cutoff); }
+
+// The count pass: *total = the runs emitted for these arguments.
+template <class Rows>
+static int pass_count(const Rows& rows, long long n, int cutoff, void* scratch,
+                      long long scratch_bytes, void* total, cudaStream_t st) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaMemsetAsync(total, 0, sizeof(long long), st);
   long long blocks, per;
-  LT_TRY((cudaError_t)runs_grid(n, &blocks, &per));
+  LT_TRY((cudaError_t)runs_grid<Rows>(n, &blocks, &per));
   if (!runs_scratch_ok(blocks, scratch_bytes)) return (int)cudaErrorInvalidValue;
   ulonglong2* aggs = (ulonglong2*)scratch;
   int* done = (int*)(aggs + blocks * K2_WARPS);
   LT_TRY(cudaMemsetAsync(done, 0, sizeof(int), st));
-  auto k = counts ? runs_pass_kernel<false, true> : runs_pass_kernel<false, false>;
-  k<<<(unsigned)blocks, K2_THREADS, 0, st>>>((const int64_t*)keys, (const int32_t*)counts, n,
-                                             (uint32_t)(cutoff < 1 ? 1 : cutoff), per, nullptr,
-                                             nullptr, nullptr, aggs, done, (long long*)total);
+  runs_pass_kernel<Rows, false><<<(unsigned)blocks, K2_THREADS, 0, st>>>(
+      rows, n, runs_cut(cutoff), per, aggs, done, (long long*)total);
   return (int)cudaGetLastError();
 }
 
-// The write pass, after the count pass on the same arguments and scratch:
+// The write pass, after the count pass on the same arguments and scratch,
+// into outputs of the count's R rows (and the histogram, when rows.hist).
+template <class Rows>
+static int pass_write(const Rows& rows, long long n, int cutoff, void* scratch,
+                      long long scratch_bytes, cudaStream_t st) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (rows.hist) LT_TRY(cudaMemsetAsync(rows.hist, 0, 256 * sizeof(int32_t), st));
+  if (n == 0) return (int)cudaSuccess;
+  long long blocks, per;
+  LT_TRY((cudaError_t)runs_grid<Rows>(n, &blocks, &per));
+  if (!runs_scratch_ok(blocks, scratch_bytes)) return (int)cudaErrorInvalidValue;
+  runs_pass_kernel<Rows, true><<<(unsigned)blocks, K2_THREADS, 0, st>>>(
+      rows, n, runs_cut(cutoff), per, (ulonglong2*)scratch, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+static bool keys_vec(const void* keys, const void* counts) {
+  return !((uintptr_t)keys & 15) && !((uintptr_t)counts & 15);
+}
+
+// K2's count pass: *total = the runs K2 emits for these arguments.
+extern "C" int lt_runs_count(const void* keys, const void* counts, long long n, int cutoff,
+                             void* scratch, long long scratch_bytes, void* total,
+                             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* k = (const int64_t*)keys;
+  const int32_t* c = (const int32_t*)counts;
+  const bool vec = keys_vec(keys, counts);
+  if (counts)
+    return pass_count(KeyRows<true>{k, c, nullptr, nullptr, nullptr, vec}, n, cutoff, scratch,
+                      scratch_bytes, total, st);
+  return pass_count(KeyRows<false>{k, c, nullptr, nullptr, nullptr, vec}, n, cutoff, scratch,
+                    scratch_bytes, total, st);
+}
+
+// K2's write pass, after the count pass on the same arguments and scratch:
 // out_keys (R,) int64, out_counts (R,) int32 for the count's R; hist: 256
 // int32 or null.
 extern "C" int lt_runs_write(const void* keys, const void* counts, long long n, int cutoff,
                              void* hist, void* out_keys, void* out_counts, void* scratch,
                              long long scratch_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (hist) LT_TRY(cudaMemsetAsync(hist, 0, 256 * sizeof(int32_t), st));
-  if (n == 0) return (int)cudaSuccess;
-  long long blocks, per;
-  LT_TRY((cudaError_t)runs_grid(n, &blocks, &per));
-  if (!runs_scratch_ok(blocks, scratch_bytes)) return (int)cudaErrorInvalidValue;
-  auto k = counts ? runs_pass_kernel<true, true> : runs_pass_kernel<true, false>;
-  k<<<(unsigned)blocks, K2_THREADS, 0, st>>>(
-      (const int64_t*)keys, (const int32_t*)counts, n, (uint32_t)(cutoff < 1 ? 1 : cutoff), per,
-      (int32_t*)hist, (int64_t*)out_keys, (int32_t*)out_counts, (ulonglong2*)scratch, nullptr,
-      nullptr);
-  return (int)cudaGetLastError();
+  const int64_t* k = (const int64_t*)keys;
+  const int32_t* c = (const int32_t*)counts;
+  int32_t* hs = (int32_t*)hist;
+  int64_t* ok = (int64_t*)out_keys;
+  int32_t* oc = (int32_t*)out_counts;
+  const bool vec = keys_vec(keys, counts);
+  if (counts)
+    return pass_write(KeyRows<true>{k, c, hs, ok, oc, vec}, n, cutoff, scratch, scratch_bytes,
+                      st);
+  return pass_write(KeyRows<false>{k, c, hs, ok, oc, vec}, n, cutoff, scratch, scratch_bytes, st);
 }
 
-// ---------------------------------------------------------------------------
-// The scan K14 uses: per-block counts -> exclusive offsets (one block)
-// ---------------------------------------------------------------------------
-
-// In place: per-block counts -> exclusive offsets; *total = their sum.
-__global__ void scan_kernel(long long* __restrict__ block, long long nb,
-                            long long* __restrict__ total) {
-  __shared__ long long part[SCAN_THREADS];
-  const int t = threadIdx.x;
-  const long long per = (nb + SCAN_THREADS - 1) / SCAN_THREADS;
-  const long long lo = min(nb, t * per), hi = min(nb, lo + per);
-  long long s = 0;
-  for (long long i = lo; i < hi; ++i) s += block[i];
-  part[t] = s;
-  __syncthreads();
-  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
-    const long long v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  long long run = part[t] - s;
-  for (long long i = lo; i < hi; ++i) {
-    const long long c = block[i];
-    block[i] = run;
-    run += c;
-  }
-  if (t == SCAN_THREADS - 1) *total = part[t];
-}
-
-static long long n_blocks(long long n) {
-  return n > 0 ? (n + RUNS_THREADS - 1) / RUNS_THREADS : 1;
-}
-
-// ---------------------------------------------------------------------------
-// K14 runs_words — reduce-by-key over sorted multiword k-mer rows, with K2's
-// modes: a run's value is its length, or the u32-wrapping sum of an int32
-// counts payload clamped to 2^31-1; runs with value >= cutoff (>= 1) are
-// written in order; the 256-bin histogram of min(value, 255) over them.
-//
-// Replaces the post-sort half of leon_tpu/ops/count.py count_batch (88-104)
-// -> _sort_count_device (45-85): boundaries over the W sorted u32 key
-// columns, run lengths by a reverse min-scan, the host compaction of the
-// boundary rows; and, at W = 2..16 on the main path, _compact_run (208-223),
-// _merge_sorted_runs' segment sums (226-254), _hist_of_sorted (257-264) and
-// compact_solid (707-719). The sort stays torch.sort passes over int64
-// plane keys.
-//
-// Input: the sorted keys as P = ceil(W/2) int64 planes (kmer_words.cuh), the
-// rows already the valid ones (no sentinel: at k = 16W a canonical
-// palindrome can have an all-ones top word and must count). Output: each
-// emitted run's W words (unflipped) and its value, as int64 (count_batch's
-// run lengths, lt_runs_words_*) or int32 (the counter's runs,
-// lt_word_runs_*), W <= 16 for both. The entry pairs are instances of one
-// template over the run test and a row accessor: the length-only one
-// carries no counts, cutoff or histogram code; rows of one or two planes
-// (W <= 4) are read as (hi, lo), rows of three to eight planes through the
-// pointer array.
-//
-// Bound on the H100: device-memory traffic, 8P bytes (+4 with counts) read
-// per row and 4W + 4 or 8 written per emitted run, twice (count pass and
-// write pass). Design: K2's pattern with a multi-plane key: one thread per
-// row, the thread at a run's head walks the run; per-block totals
-// (__syncthreads_count), the histogram in shared memory, one scan_kernel
-// for offsets, warp-ballot ranks in the write pass.
-// ---------------------------------------------------------------------------
-
-// rows of one or two int64 planes: lo = w1 << 32 | w0, hi = w3 << 32 | w2
-// (null when W <= 2), each sign-flipped
-struct HalfRows {
-  const int64_t* hi;
-  const int64_t* lo;
-  __device__ __forceinline__ bool same(long long a, long long b) const {
-    return lo[a] == lo[b] && (!hi || hi[a] == hi[b]);
-  }
-  __device__ __forceinline__ void words(long long i, int W, uint32_t* out) const {
-    const unsigned long long sign = 1ull << 63;
-    const unsigned long long l = (unsigned long long)lo[i] ^ sign;
-    const unsigned long long h = hi ? (unsigned long long)hi[i] ^ sign : 0ull;
-    const uint32_t w[4] = {(uint32_t)l, (uint32_t)(l >> 32), (uint32_t)h, (uint32_t)(h >> 32)};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j < W) out[j] = w[j];
-  }
-};
-
-// rows of P = 3..8 int64 planes, plane 0 least significant
-struct PlaneRows {
-  PlanePtrs pl;
-  int P;
-  __device__ __forceinline__ bool same(long long a, long long b) const {
-    for (int q = 0; q < P; ++q)
-      if (pl.p[q][a] != pl.p[q][b]) return false;
-    return true;
-  }
-  __device__ __forceinline__ void words(long long i, int W, uint32_t* out) const {
-    const unsigned long long sign = 1ull << 63;
-    for (int j = 0; j < W; ++j)
-      out[j] = (uint32_t)((((unsigned long long)pl.p[j >> 1][i]) ^ sign) >> (32 * (j & 1)));
-  }
-};
-
-// Is row i the head of a run (MODES: of an emitted run)? Sets its value.
-// Without MODES (count_batch's runs_words) the value is the run's length
-// and every head is emitted: the counts, cutoff and histogram branches
-// compile out, so that path runs only the length walk.
-template <bool MODES, class Rows>
-static __device__ __forceinline__ bool word_run_at(const Rows& rows,
-                                                   const int32_t* __restrict__ counts,
-                                                   long long n, long long i, int32_t cutoff,
-                                                   long long* value) {
-  if (i > 0 && rows.same(i - 1, i)) return false;
-  long long j = i;
-  uint32_t s = 0;
-  do {
-    if (MODES && counts) s += (uint32_t)counts[j];
-    ++j;
-  } while (j < n && rows.same(i, j));
-  if (!MODES) {
-    *value = j - i;
-    return true;
-  }
-  *value = counts ? (long long)min(s, 0x7FFFFFFFu) : j - i;
-  return *value >= cutoff;
-}
-
-template <bool MODES, class Rows>
-__global__ void runs_words_count_kernel(const __grid_constant__ Rows rows,
-                                        const int32_t* __restrict__ counts,
-                                        long long n, int32_t cutoff,
-                                        int32_t* __restrict__ hist,
-                                        long long* __restrict__ block_cnt) {
-  __shared__ int sh[MODES ? 256 : 1];
-  if (MODES && hist) {  // uniform across the block: the barrier is safe
-    for (int t = threadIdx.x; t < 256; t += blockDim.x) sh[t] = 0;
-    __syncthreads();
-  }
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long v = 0;
-  const bool e = i < n && word_run_at<MODES>(rows, counts, n, i, cutoff, &v);
-  if (MODES && e && hist) atomicAdd(&sh[(int)min(v, 255ll)], 1);
-  const int cnt = __syncthreads_count(e);
-  if (threadIdx.x == 0) block_cnt[blockIdx.x] = cnt;
-  if (MODES && hist)
-    for (int t = threadIdx.x; t < 256; t += blockDim.x)
-      if (sh[t]) atomicAdd(&hist[t], sh[t]);
-}
-
-// out_c64 (run lengths) without MODES, out_c32 (clamped values) with.
-template <bool MODES, class Rows>
-__global__ void runs_words_write_kernel(const __grid_constant__ Rows rows,
-                                        const int32_t* __restrict__ counts,
-                                        long long n, int W, int32_t cutoff,
-                                        const long long* __restrict__ block_off,
-                                        uint32_t* __restrict__ out_w,
-                                        long long* __restrict__ out_c64,
-                                        int32_t* __restrict__ out_c32) {
-  __shared__ int warp_tot[RUNS_THREADS / 32];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long v = 0;
-  const bool e = i < n && word_run_at<MODES>(rows, counts, n, i, cutoff, &v);
-  const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned m = __ballot_sync(0xffffffffu, e);
-  if (lane == 0) warp_tot[warp] = __popc(m);
-  __syncthreads();
-  if (!e) return;
-  long long dst = block_off[blockIdx.x] + __popc(m & ((1u << lane) - 1u));
-  for (unsigned w = 0; w < warp; ++w) dst += warp_tot[w];
-  rows.words(i, W, out_w + dst * W);
-  if (MODES) out_c32[dst] = (int32_t)min(v, 0x7FFFFFFFll);
-  else out_c64[dst] = v;
-}
-
-template <bool MODES, class Rows>
-static int words_count(const Rows& rows, const void* counts, long long n, int cutoff, void* hist,
-                       void* block_off, void* total, void* stream) {
+// K14's two passes over n_planes = ceil(W/2) planes (the host array of
+// their pointers), counts null (run lengths) or int32; out_v64 (runs_words'
+// int64 lengths) or out_v32 (word_runs' int32 values) in the write pass.
+static int words_pass(bool write, const void* planes, int n_planes, const void* counts,
+                      long long n, int W, int cutoff, void* hist, void* out_w, void* out_v32,
+                      void* out_v64, void* scratch, long long scratch_bytes, void* total,
+                      void* stream) {
+  if (n < 0 || n > 0xFFFFFFFFll || n_planes < 1 || n_planes > LT_MAX_PLANES)
+    return (int)cudaErrorInvalidValue;
+  if (write && (W < 1 || W > 16 || n_planes != (W + 1) / 2)) return (int)cudaErrorInvalidValue;
+  PlanePtrs pl = {};
+  if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const long long nb = n_blocks(n);
-  if (hist) LT_TRY(cudaMemsetAsync(hist, 0, 256 * sizeof(int32_t), st));
-  if (n > 0) {
-    runs_words_count_kernel<MODES><<<(unsigned)nb, RUNS_THREADS, 0, st>>>(
-        rows, (const int32_t*)counts, n, cutoff, (int32_t*)hist, (long long*)block_off);
-  } else {
-    LT_TRY(cudaMemsetAsync(block_off, 0, sizeof(long long), st));
+  const int32_t* c = (const int32_t*)counts;
+  int32_t* hs = (int32_t*)hist;
+  uint32_t* ow = (uint32_t*)out_w;
+  int32_t* o32 = (int32_t*)out_v32;
+  long long* o64 = (long long*)out_v64;
+#define LAUNCH(NP_, C_)                                                                   \
+  {                                                                                       \
+    const WordRows<NP_, C_> rows{pl, c, hs, ow, o32, o64, W};                             \
+    return write ? pass_write(rows, n, cutoff, scratch, scratch_bytes, st)                \
+                 : pass_count(rows, n, cutoff, scratch, scratch_bytes, total, st);        \
   }
-  LT_TRY(cudaGetLastError());
-  scan_kernel<<<1, SCAN_THREADS, 0, st>>>((long long*)block_off, nb, (long long*)total);
-  return (int)cudaGetLastError();
+#define CASE(NP_)                   \
+  case NP_:                         \
+    if (counts) LAUNCH(NP_, true)   \
+    LAUNCH(NP_, false)
+  switch (n_planes) {
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+#undef LAUNCH
 }
 
-template <bool MODES, class Rows>
-static int words_write(const Rows& rows, const void* counts, long long n, int W, int cutoff,
-                       const void* block_off, void* out_words, void* out_counts, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;  // an empty tensor's data_ptr() may be null
-  if (!out_counts) return (int)cudaErrorInvalidValue;
-  runs_words_write_kernel<MODES><<<(unsigned)n_blocks(n), RUNS_THREADS, 0,
-                                   (cudaStream_t)stream>>>(
-      rows, (const int32_t*)counts, n, W, cutoff, (const long long*)block_off,
-      (uint32_t*)out_words, (long long*)out_counts, (int32_t*)out_counts);
-  return (int)cudaGetLastError();
-}
-
-// f(rows) over the row accessor of n_planes planes: (hi, lo) for one or two
-// (hi null for one), the pointer array for three to eight
-template <class F>
-static int with_rows(const PlanePtrs& pl, int n_planes, F f) {
-  if (n_planes <= 2) return f(HalfRows{n_planes == 2 ? pl.p[1] : nullptr, pl.p[0]});
-  return f(PlaneRows{pl, n_planes});
-}
-
-// The entry points take planes, the host array of n_planes = ceil(W/2)
-// plane pointers. count_batch's K14 (run lengths, every run; W <= 16).
-// Pass 1 + scan: block_off: n_blocks(n) int64 scratch; total: 1 int64.
-extern "C" int lt_runs_words_count(const void* planes, int n_planes, long long n,
-                                   void* block_off, void* total, void* stream) {
-  PlanePtrs pl = {};
-  if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  return with_rows(pl, n_planes, [&](const auto& rows) {
-    return words_count<false>(rows, nullptr, n, 1, nullptr, block_off, total, stream);
-  });
-}
-
-// Pass 2: each run's W words and int64 length at its offset.
-extern "C" int lt_runs_words_write(const void* planes, int n_planes, long long n, int W,
-                                   const void* block_off, void* out_words, void* out_counts,
-                                   void* stream) {
-  if (W < 1 || W > 16 || n_planes != (W + 1) / 2) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
-  PlanePtrs pl;
-  if (!load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  return with_rows(pl, n_planes, [&](const auto& rows) {
-    return words_write<false>(rows, nullptr, n, W, 1, block_off, out_words, out_counts, stream);
-  });
-}
-
-// K14 in K2's modes (the WordCounter's, W <= 16). Pass 1 + scan: counts
-// null (run lengths) or int32; hist: 256 int32 or null.
+// K14's count pass (count_batch's runs_words: counts null, cutoff 1; the
+// WordCounter's word_runs: counts null for run lengths, or int32):
+// *total = R.
 extern "C" int lt_word_runs_count(const void* planes, int n_planes, const void* counts,
-                                  long long n, int cutoff, void* hist, void* block_off,
-                                  void* total, void* stream) {
-  cutoff = cutoff < 1 ? 1 : cutoff;
-  PlanePtrs pl = {};
-  if (n > 0 && !load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  return with_rows(pl, n_planes, [&](const auto& rows) {
-    return words_count<true>(rows, counts, n, cutoff, hist, block_off, total, stream);
-  });
+                                  long long n, int cutoff, void* scratch,
+                                  long long scratch_bytes, void* total, void* stream) {
+  return words_pass(false, planes, n_planes, counts, n, 0, cutoff, nullptr, nullptr, nullptr,
+                    nullptr, scratch, scratch_bytes, total, stream);
 }
 
-// Pass 2: each emitted run's W words and int32 value (clamped) at its offset.
+// The write pass: each emitted run's W words and value, int64 run lengths
+// (values_i64: runs_words) or int32 clamped values (word_runs); the
+// outputs may be null when R = 0 (an empty CUDA tensor has no storage);
+// hist: 256 int32 or null.
 extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* counts,
-                                  long long n, int W, int cutoff, const void* block_off,
-                                  void* out_words, void* out_counts, void* stream) {
-  if (W < 1 || W > 16 || n_planes != (W + 1) / 2) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
-  cutoff = cutoff < 1 ? 1 : cutoff;
-  PlanePtrs pl;
-  if (!load_planes(planes, n_planes, &pl)) return (int)cudaErrorInvalidValue;
-  return with_rows(pl, n_planes, [&](const auto& rows) {
-    return words_write<true>(rows, counts, n, W, cutoff, block_off, out_words, out_counts,
-                             stream);
-  });
+                                  long long n, int W, int cutoff, void* hist, void* out_words,
+                                  void* out_values, int values_i64, void* scratch,
+                                  long long scratch_bytes, void* stream) {
+  return words_pass(true, planes, n_planes, counts, n, W, cutoff, hist, out_words,
+                    values_i64 ? nullptr : out_values, values_i64 ? out_values : nullptr,
+                    scratch, scratch_bytes, nullptr, stream);
 }

@@ -70,8 +70,8 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
 // segments out, lane by lane: every store instruction writes up to 32
 // neighbouring words (or bytes) of one row. The codes come in the same way,
 // a tile of columns per row per warp load, instead of one scattered byte
-// per thread and column. The tile is K17's planes_tile of the W-word
-// k-mer's (W + 1) / 2 planes: 32 positions for W <= 4, 16 for W <= 10 and
+// per thread and column. The tile is planes_tile of the W-word k-mer's
+// (W + 1) / 2 planes: 32 positions for W <= 4, 16 for W <= 10 and
 // 8 past it, so the staged words (64 x (TILE*W + 1) u32, which a tile of 32
 // would make 41 KB at W = 5 and 132 KB at W = 16) and code columns stay at
 // 45 KB or less, inside the 48 KB of static shared memory.
@@ -80,7 +80,7 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
 #define SCAN_ROWS 64  // reads per block, one thread each
 #define SCAN_TILE 32  // positions staged per pass, W <= 4
 
-// positions staged per pass by a scan over k-mers of nh int64 planes
+// positions K13 stages per pass over k-mers of nh int64 planes
 __host__ __device__ constexpr int planes_tile(int nh) {
   return nh <= 2 ? SCAN_TILE : nh <= 5 ? 16 : 8;
 }
@@ -149,79 +149,80 @@ __global__ void __launch_bounds__(SCAN_ROWS)
 // against 1/4 byte per base read. Invalid rows are dropped, not marked: at
 // k = 16W a canonical palindrome can carry an all-ones top word, so no key
 // value is free to mark them. Read r's valid positions p = 0 .. len-k land
-// at offs[r] + p (offs: the exclusive prefix of the per-read valid counts).
-// Design: K13's staged tiles over the packed input (one thread per read
-// rolls fwd and rc as W words; each thread loads its own packed word every
-// 16 bases); each tile of positions of the block's SCAN_ROWS reads is
-// staged as planes in shared memory (rows padded to an odd u64 stride),
-// then each warp copies whole row segments out, so every store instruction
-// writes neighbouring int64s. The tile is SCAN_TILE positions while the P
-// staged planes fit the 48 KB of static shared memory (P <= 2), 16 for
-// P <= 5 and 8 past it (36 KB at P = 8), so that several blocks share an
-// SM. The block stops at its longest read's last valid position.
+// at offs[r] + p (offs: the exclusive prefix of the per-read valid counts),
+// so the outputs of consecutive reads are one contiguous range.
+// Design: one thread per output k-mer, built from the packed bits with no
+// roll. Base j of a read sits at bits 2(j mod 16) of word j/16
+// (kmer.pack_codes_np), so the k-mer at p is the 2k-bit field x from bit 2p
+// (base p lowest: W funnel shifts of neighbouring words, which the lanes of
+// a warp share through L1); its reverse complement is ~x (base p + j
+// complemented at bits 2j, FORMAT.md §3's order) and the forward k-mer is x
+// with its 2-bit groups reversed (rev2 word by word, words in reverse
+// order, then a right shift by 2(16W - k)); the canonical one is the lesser,
+// MSW first. A block takes K17_READS consecutive reads and walks their
+// output range [offs[r0], offs[r0 + K17_READS]) with its threads, each
+// finding its read by stepping forward through the block's offsets, so
+// every store instruction of a warp writes 32 consecutive int64s of a plane
+// and a chunk offers one thread per valid position (a roll along the read ran
+// one thread per read through a chain of L steps).
 // ---------------------------------------------------------------------------
 
+#define K17_THREADS 256
+#define K17_READS 16  // reads a block takes
+
+// the 16 2-bit groups of x in reverse order
+static __device__ __forceinline__ uint32_t rev2(uint32_t x) {
+  const uint32_t r = __brev(x);
+  return ((r >> 1) & 0x55555555u) | ((r & 0x55555555u) << 1);
+}
+
 template <int W>
-__global__ void __launch_bounds__(SCAN_ROWS)
+__global__ void __launch_bounds__(K17_THREADS)
     kmer_scan_halves_kernel(const uint32_t* __restrict__ packed,
                             const int32_t* __restrict__ lengths,
-                            const long long* __restrict__ offs, int B, int L16, int L, int k,
-                            int P, uint32_t top, const PlanePtrs out) {
+                            const long long* __restrict__ offs, int B, int L16, int k, int P,
+                            uint32_t top, const __grid_constant__ PlanePtrs out) {
   constexpr int NH = (W + 1) / 2;  // int64 planes per k-mer
-  constexpr int TILE = planes_tile(NH);
-  __shared__ unsigned long long sh[NH][SCAN_ROWS][TILE + 1];
-  __shared__ int s_last[SCAN_ROWS];
-  __shared__ long long s_off[SCAN_ROWS];
-  __shared__ int s_end;  // columns the block has to scan
-  const long long row0 = (long long)blockIdx.x * SCAN_ROWS;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int nrows = (int)min((long long)SCAN_ROWS, (long long)B - row0);
-  if (t == 0) s_end = 0;
+  __shared__ long long s_off[K17_READS + 1];
+  const int r0 = blockIdx.x * K17_READS;
+  const int nr = min(K17_READS, B - r0);
+  const int t = threadIdx.x;
+  if (t < nr) {
+    s_off[t] = offs[r0 + t];
+    if (t == nr - 1) s_off[nr] = s_off[t] + min(max(lengths[r0 + t] - k + 1, 0), P);
+  }
   __syncthreads();
-  // valid positions: p <= last
-  const int last = t < nrows ? min(lengths[row0 + t] - k, P - 1) : -1;
-  s_last[t] = last;
-  if (t < nrows) s_off[t] = offs[row0 + t];
-  if (last >= 0) atomicMax(&s_end, last + k);
-  __syncthreads();
-  const int end = s_end;
-  const uint32_t* pr = packed + (size_t)(row0 + min(t, nrows - 1)) * L16;
+  const long long end = s_off[nr];
+  const int s = 2 * (16 * W - k);  // the reversed field's shift, 0..30
   const unsigned long long sign = 1ull << 63;
-  Kmer<W> fwd = {}, rc = {};
-  uint32_t w = 0;
-  for (int c0 = 0; c0 < end; c0 += TILE) {
-    const int nc = min(TILE, end - c0);
-    // positions [pa, pa + np) end in columns [c0, c0 + nc)
-    const int pa = max(0, c0 - k + 1);
-    const int np = c0 + nc - k + 1 - pa;
-    if (last >= 0) {
-      for (int q = 0; q < nc; ++q) {
-        const int j = c0 + q;
-        if ((j & 15) == 0) w = __ldg(pr + (j >> 4));
-        const uint32_t b = (w >> (2 * (j & 15))) & 3u;
-        fwd = shl2<W>(fwd, b, top);
-        rc = shr2_ins<W>(rc, 3u - b, k);
-        const int p = j - k + 1;
-        if (p < 0) continue;
-        const Kmer<W> c = lex_less<W>(rc, fwd) ? rc : fwd;
+  int ri = 0;
+  for (long long o = s_off[0] + t; o < end; o += K17_THREADS) {
+    while (o >= s_off[ri + 1]) ++ri;
+    const int p = (int)(o - s_off[ri]);
+    const uint32_t* row = packed + (size_t)(r0 + ri) * L16;
+    const int a = p >> 4, sh = 2 * (p & 15);
+    uint32_t x[W];  // the 2k bits from bit 2p; word a + W may lie past the row
+    uint32_t lo = __ldg(row + a);
 #pragma unroll
-        for (int h = 0; h < NH; ++h)
-          sh[h][t][p - pa] =
-              (((unsigned long long)word_or_zero<W>(c, 2 * h + 1) << 32) | c.w[2 * h]) ^ sign;
-      }
+    for (int i = 0; i < W; ++i) {
+      const uint32_t hi = i + 1 < W || a + W < L16 ? __ldg(row + a + i + 1) : 0u;
+      x[i] = __funnelshift_r(lo, hi, sh);
+      lo = hi;
     }
-    __syncthreads();
-    if (np > 0) {
-      for (int r = warp; r < nrows; r += SCAN_ROWS / 32) {
-        const int cnt = min(np, s_last[r] - pa + 1);
-        const long long o = s_off[r] + pa;
-        for (int q = lane; q < cnt; q += 32) {
+    x[W - 1] &= top;
+    Kmer<W> fwd, rc;
 #pragma unroll
-          for (int h = 0; h < NH; ++h) out.p[h][o + q] = (int64_t)sh[h][r][q];
-        }
-      }
+    for (int j = 0; j < W; ++j) {
+      rc.w[j] = ~x[j];
+      fwd.w[j] = __funnelshift_r(rev2(x[W - 1 - j]), j + 1 < W ? rev2(x[W - 2 - j]) : 0u, s);
     }
-    __syncthreads();
+    rc.w[W - 1] &= top;
+    const Kmer<W> c = lex_less<W>(rc, fwd) ? rc : fwd;
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      out.p[h][o] =
+          (int64_t)((((unsigned long long)word_or_zero<W>(c, 2 * h + 1) << 32) | c.w[2 * h]) ^
+                    sign);
   }
 }
 
@@ -236,13 +237,13 @@ extern "C" int lt_kmer_scan_halves(const void* packed, const void* lengths, cons
   PlanePtrs out;
   if (n_planes != (W + 1) / 2 || !load_planes(planes, n_planes, &out))
     return (int)cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)((B + SCAN_ROWS - 1) / SCAN_ROWS);
+  const unsigned grid = (unsigned)((B + K17_READS - 1) / K17_READS);
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* p = (const uint32_t*)packed;
   const int32_t* ln = (const int32_t*)lengths;
   const long long* of = (const long long*)offs;
 #define LAUNCH(W_) \
-  kmer_scan_halves_kernel<W_><<<grid, SCAN_ROWS, 0, st>>>(p, ln, of, B, L16, L, k, P, top, out)
+  kmer_scan_halves_kernel<W_><<<grid, K17_THREADS, 0, st>>>(p, ln, of, B, L16, k, P, top, out)
   switch (W) {
     LT_W_CASES_2_4(LAUNCH)
     LT_W_CASES_5_16(LAUNCH)

@@ -23,6 +23,7 @@ torch.sort passes over sign-flipped int64 planes (``sort_words``), then
 ``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
 of run lengths over rows of up to 8 planes (W <= 16). ``word_runs`` is K14
 in K2's modes (a counts payload, cutoff, histogram) over the same rows.
+K14 is K2's two passes over multi-plane rows.
 
 ``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
@@ -66,11 +67,12 @@ def _check_runs_args(keys, counts) -> None:
 RUNS_STEP = 256  # rows a warp of K2 takes at a time (csrc/count.cu K2_STEP)
 
 
-def _runs_scratch_bytes(n: int) -> int:
-    """K2's scratch for n rows: a 16-byte Span for each warp of the grid
-    (at most one a step of the n + 1 rows it reads, the last a SENTINEL,
-    rounded up to a block of 8 warps) and the count pass's done counter."""
-    return 16 * ((n + RUNS_STEP) // RUNS_STEP + 8) + 4
+def _runs_scratch_bytes(n: int, step: int = RUNS_STEP) -> int:
+    """The scratch of K2 (steps of RUNS_STEP rows) or K14 (_word_runs_step)
+    for n rows: a 16-byte Span for each warp of the grid (at most one a
+    step of the n + 1 rows it reads, the last past the end, rounded up to a
+    block of 8 warps) and the count pass's done counter."""
+    return 16 * ((n + step) // step + 8) + 4
 
 
 def runs(keys: torch.Tensor, counts: torch.Tensor | None = None, cutoff: int = 1,
@@ -173,41 +175,41 @@ def _check_runs_words_args(planes, W: int, counts=None) -> None:
         kernels.need(counts.device == lo.device, "runs_words: tensors on two devices")
 
 
+def _word_runs_step(W: int) -> int:
+    """Rows a warp of K14 takes at a step (csrc/count.cu WordRows::STEP): 32
+    lanes of 8 rows at one plane, 4 at two to four, 2 past that."""
+    P = n_planes(W)
+    return 32 * (8 if P == 1 else 4 if P <= 4 else 2)
+
+
 def _runs_words_launch(planes, W: int, counts, cutoff: int, want_hist: bool, modes: bool):
     """K14 on the card: (words (R, W) int32, values (R,) int32 with modes
-    (word_runs) or int64 run lengths without (runs_words, whose instance
-    has no counts, cutoff or histogram code), hist (256,) int32 or None);
-    counted under the wrapper's name."""
+    (word_runs) or int64 run lengths without (runs_words), hist (256,)
+    int32 or None): a count pass (R), the one host sync, and a write pass
+    into outputs of exactly R rows; counted under the wrapper's name."""
     name = "word_runs" if modes else "runs_words"
     planes = [h.contiguous() for h in planes]
     counts = counts.contiguous() if counts is not None else None
     lo = planes[0]
     dev = lo.device
     n = lo.shape[0]
+    kernels.need(n < 1 << 32, f"{name}: {n} rows: a run's length must fit a u32")
     lib = kernels.lib()
     ptrs = np.array([h.data_ptr() for h in planes], dtype=np.uint64)
     cnt_p = counts.data_ptr() if counts is not None else None
-    block_off = torch.empty(max(1, -(-n // 256)), dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
+    nbytes = _runs_scratch_bytes(n, _word_runs_step(W))
+    scratch = torch.empty(-(-nbytes // 8) + 1, dtype=torch.int64, device=dev)  # + the total
     hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
     st = kernels.stream(lo)
-    if modes:
-        rc = lib.lt_word_runs_count(ptrs.ctypes.data, len(planes), cnt_p, n, int(cutoff),
-                                    hist.data_ptr() if hist is not None else None,
-                                    block_off.data_ptr(), total.data_ptr(), st)
-    else:
-        rc = lib.lt_runs_words_count(ptrs.ctypes.data, len(planes), n, block_off.data_ptr(),
-                                     total.data_ptr(), st)
+    rc = lib.lt_word_runs_count(ptrs.ctypes.data, len(planes), cnt_p, n, int(cutoff),
+                                scratch.data_ptr(), nbytes, scratch[-1:].data_ptr(), st)
     kernels.check(rc, name)
-    R = int(total.item())
+    R = int(scratch[-1])
     uniq = torch.empty(R, W, dtype=torch.int32, device=dev)
     vals = torch.empty(R, dtype=torch.int32 if modes else torch.int64, device=dev)
-    if modes:
-        rc = lib.lt_word_runs_write(ptrs.ctypes.data, len(planes), cnt_p, n, W, int(cutoff),
-                                    block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
-    else:
-        rc = lib.lt_runs_words_write(ptrs.ctypes.data, len(planes), n, W,
-                                     block_off.data_ptr(), uniq.data_ptr(), vals.data_ptr(), st)
+    rc = lib.lt_word_runs_write(ptrs.ctypes.data, len(planes), cnt_p, n, W, int(cutoff),
+                                hist.data_ptr() if hist is not None else None, uniq.data_ptr(),
+                                vals.data_ptr(), int(not modes), scratch.data_ptr(), nbytes, st)
     kernels.check(rc, name)
     kernels.launches[name] += 1
     return uniq, vals, hist

@@ -326,19 +326,26 @@ def kmer_scan_halves(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int
         return out
     packed, lengths = packed.contiguous(), lengths.contiguous()
     dev = packed.device
-    n_pl = (words_for_k(k) + 1) // 2
     if out is None:
-        out = tuple(torch.empty(n, dtype=torch.int64, device=dev) for _ in range(n_pl))
-    B = packed.shape[0]
+        out = tuple(torch.empty(n, dtype=torch.int64, device=dev)
+                    for _ in range((words_for_k(k) + 1) // 2))
     if n:
-        offs = torch.cumsum(nv, 0) - nv
-        ptrs = np.array([h.data_ptr() for h in out], dtype=np.uint64)
-        rc = kernels.lib().lt_kmer_scan_halves(
-            packed.data_ptr(), lengths.data_ptr(), offs.data_ptr(), B, packed.shape[1], L, k,
-            P, top_mask(k), n_pl, ptrs.ctypes.data, kernels.stream(packed))
-        kernels.check(rc, "kmer_scan_halves")
-        kernels.launches["kmer_scan_halves"] += 1
+        scan_halves_launch(packed, lengths, torch.cumsum(nv, 0) - nv, k, L, out)
     return out
+
+
+def scan_halves_launch(packed, lengths, offs, k: int, L: int, out: tuple) -> None:
+    """K17's launch alone, after kmer_scan_halves' checks and its host sync
+    on the valid count: read r's valid k-mers into rows offs[r] + p of the
+    contiguous CUDA planes `out` (offs: (B,) int64, the exclusive prefix of
+    the reads' valid counts)."""
+    ptrs = np.array([h.data_ptr() for h in out], dtype=np.uint64)
+    rc = kernels.lib().lt_kmer_scan_halves(
+        packed.data_ptr(), lengths.data_ptr(), offs.data_ptr(), packed.shape[0],
+        packed.shape[1], L, k, L - k + 1, top_mask(k), len(out), ptrs.ctypes.data,
+        kernels.stream(packed))
+    kernels.check(rc, "kmer_scan_halves")
+    kernels.launches["kmer_scan_halves"] += 1
 
 
 def kmer_scan_halves_plain(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int) -> tuple:

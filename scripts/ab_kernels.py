@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
+K14 (`count.word_runs` in its three modes and `count.runs_words`) and the
+k-mer scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`) of one
+tree's leon_tpu_torch on the card, beside the PyTorch call that computes the
+same function where there is one, on inputs made from fixed seeds.
+
+    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14]
+
+PATH is the root of a checkout (the package is imported from there), so
+two trees (a parent and a change) are compared by running the script once
+for each, in turns, in one call on one card (parent, change, change,
+parent). Each run prints one JSON line: the card's name and power limit,
+and per record its time in ms (CUDA events, mean of `reps` calls after one
+warm-up; under 50 us the profiler's device time, as chip_smoke.py times).
+
+Inputs (chip_smoke.py's shapes):
+  runs         chip_smoke.py phase 3's slab: 7 x 65,536 reads of 100 bp from
+               a 2 Mbp random contig with 1% substitutions, K1 at k = 31,
+               torch.sort; length mode (library: torch.unique_consecutive
+               with counts)
+  runs:merge   the distinct run and every third row again, sorted with the
+               counts as payload; counts + histogram
+  runs:solid   the distinct run's compaction at the abundance cutoff
+  lookup:bench the solid rows of that run, 100,000 of them and 100,000 with
+               low bits flipped as queries (library: torch.searchsorted)
+  lookup:yeast 14,254,300 sorted distinct random 31-mer keys, the same
+               200,000-query mix
+  lookup:w4/w8/w16  2,024,000 / 1,777,017 / 530,019 sorted distinct random
+               rows of k = 63 / 127 / 255, the same query mix
+  scan:k1      K1 on one 65,536-read chunk of phase 3's reads (L = 104,
+               k = 31), as DeviceCounter.add_packed launches it
+  scan:w4/w8/w16  K17 on one 65,536-read chunk at phase 9's shapes: phase 3's
+               reads at k = 63, 250-bp reads (gen_fastq's 250-bp corpus) at
+               k = 127, 300-600 bp reads (chip_smoke.long_reads) at k = 255:
+               the kernel alone (its C entry with the offsets made first),
+               ":wrapper" the whole wrapper call (with its host sync on the
+               valid count) and ":sync" the valid count alone (its device
+               work by the profiler: the host's wait shows in ":wrapper"
+               less the kernel)
+  word_runs:w4/w8/w16  K14 over phase 9's rows at the same three shapes
+               (every chunk scanned by K17): ":slab" the first chunk's sorted
+               rows in length mode (library: torch.unique_consecutive(dim=0)
+               over the stacked planes), ":merge" the merge of every chunk's
+               slab run (counts + histogram), ":solid" the solid compaction
+               at the abundance cutoff, ":runs_words" count_batch's K14
+               over every valid row sorted (library as ":slab")
+Every record is checked exact against the tree's plain version first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECTIONS = ("k2", "k8", "scan", "k14")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", required=True, help="root of the checkout to time")
+    ap.add_argument("--label", default="", help="name printed with the results")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help=f"comma-separated sections of {SECTIONS}")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only takes {SECTIONS}")
+    sys.path.insert(0, ROOT)  # chip_smoke.py's read generators, from this script's tree
+    import chip_smoke
+
+    sys.path.insert(0, args.tree)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("ab_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    from leon_tpu_torch import kernels, state
+    from leon_tpu_torch.ops import count, kmer, unitig
+
+    dev = torch.device("cuda")
+    kernels.lib()
+
+    def ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        t = t0.elapsed_time(t1) / reps
+        if t >= 1.0:
+            return t
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        d = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA") / 1e3 / reps
+        return d if 0 < d < 0.05 else t
+
+    def same(a, b) -> None:
+        for x, y in zip(a, b):
+            if x is None and y is None:
+                continue
+            if not torch.equal(x.to(torch.int64), y.to(torch.int64).to(x.device)):
+                raise AssertionError("kernel differs from its plain version")
+
+    out = {"rows": {}}
+
+    def slab_reads(nr: int, reverse: bool):
+        """chip_smoke.py phase 3's reads: (nr, 104) codes of 100 bp from a 2
+        Mbp random contig, 1% substitutions (kernel_checks also reverses
+        every other read and shortens every 997th: `reverse`)."""
+        rng = np.random.default_rng(20261016)
+        L, READ_LEN = 104, 100
+        contig = rng.integers(0, 4, 2_000_000, dtype=np.uint8)
+        starts = rng.integers(0, contig.size - READ_LEN, nr)
+        codes = np.zeros((nr, L), np.uint8)
+        codes[:, :READ_LEN] = contig[starts[:, None] + np.arange(READ_LEN)]
+        mut = rng.random((nr, READ_LEN)) < 0.01
+        codes[:, :READ_LEN][mut] = (codes[:, :READ_LEN][mut] + 1) & 3
+        lengths = np.full(nr, READ_LEN, np.int32)
+        if reverse:
+            rev = np.arange(nr) % 2 == 1
+            codes[rev, :READ_LEN] = (3 - codes[rev, :READ_LEN])[:, ::-1]
+            lengths[:: 997] = rng.integers(0, READ_LEN, lengths[:: 997].size)
+            codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+        return codes, lengths
+
+    def chunks_of(codes, lengths):
+        B = chip_smoke.B
+        packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        return [(packed[s : s + B], ln[s : s + B]) for s in range(0, codes.shape[0], B)]
+
+    wide_inputs = {}
+
+    def wide(W: int):
+        """(k, chunks, L) of phase 9's reads at one width."""
+        if W not in wide_inputs:
+            if W == 4:
+                codes, lengths = slab_reads(7 * chip_smoke.B, True)
+                k = 63
+            elif W == 8:
+                os.makedirs(chip_smoke.WORK, exist_ok=True)
+                path = os.path.join(chip_smoke.WORK, "ab_200k_250bp.fastq")
+                chip_smoke.gen_fastq(path, 200_000, 2_000_000, 250)
+                codes, lengths = chip_smoke.fastq_codes(path)
+                k = 127
+            else:
+                codes, lengths = chip_smoke.long_reads(2 * chip_smoke.B, 300, 600)
+                k = 255
+            wide_inputs[W] = (k, chunks_of(codes, lengths), codes.shape[1])
+        return wide_inputs[W]
+
+    if "k2" in only:  # K2 on chip_smoke.py phase 3's slab
+        K, L = 31, 104
+        codes, lengths = slab_reads(7 * 65536, False)
+        packed = state.packed_to_torch(kmer.pack_codes_np(codes), "cpu").to(dev)
+        skeys = torch.sort(kmer.kmer_scan(packed, torch.from_numpy(lengths).to(dev), K, L)).values
+        del packed
+        rk, rc, _ = count.runs(skeys)
+        same(count.runs(skeys), count.runs_plain(skeys))
+        out["runs"] = ms(lambda: count.runs(skeys), 10)
+        out["runs:unique_consecutive"] = ms(
+            lambda: torch.unique_consecutive(skeys, return_counts=True), 10)
+        ms_, perm = torch.sort(torch.cat([rk, rk[::3]]))
+        mc = torch.cat([rc, rc[::3]])[perm]
+        same(count.runs(ms_, mc, 1, True), count.runs_plain(ms_, mc, 1, True))
+        out["runs:merge"] = ms(lambda: count.runs(ms_, mc, 1, True), 10)
+        hist = count.runs_plain(ms_, mc, 1, True)[2].cpu().numpy().astype(np.int64)
+        cutoff = count.auto_cutoff(hist)
+        same(count.compact_solid(rk, rc, cutoff), count.runs_plain(rk, rc, cutoff)[:2])
+        out["runs:solid"] = ms(lambda: count.compact_solid(rk, rc, cutoff), 10)
+        sk = count.compact_solid(rk, rc, cutoff)[0]
+        out["rows"].update({"runs": skeys.numel(), "distinct": rk.numel(), "merge": ms_.numel(),
+                            "solid": sk.numel(), "cutoff": cutoff})
+        del skeys, ms_, mc
+
+    if "k8" in only:
+        def queries(rows, words: bool):
+            r = np.random.default_rng(8)
+            q = rows[torch.from_numpy(r.integers(0, rows.shape[0], 100_000)).to(dev)]
+            if words:
+                miss = q.clone()
+                miss[:, 0] ^= 0x155
+            else:
+                miss = (q ^ 0x155) & ((1 << 62) - 1)
+            return torch.cat([q, miss])
+
+        def random_rows(M: int, k: int, seed: int):
+            r = np.random.default_rng(seed)
+            W = -(-k // 16)
+            w = r.integers(0, 1 << 32, (M, W), dtype=np.uint64).astype(np.uint32)
+            top = 2 * k - 32 * (W - 1)
+            if top < 32:
+                w[:, W - 1] &= np.uint32((1 << top) - 1)
+            w = w[np.lexsort(w.T)]
+            w = w[np.concatenate([[True], (w[1:] != w[:-1]).any(axis=1)])]
+            return state.words_to_torch(w, dev)
+
+        sets = [("yeast", torch.unique(torch.from_numpy(
+            np.random.default_rng(31).integers(0, 1 << 62, 14_254_300)).to(dev)), 31),
+                ("w4", random_rows(2_024_000, 63, 4), 63),
+                ("w8", random_rows(1_777_017, 127, 8), 127),
+                ("w16", random_rows(530_019, 255, 16), 255)]
+        if "k2" in only:
+            sets.insert(0, ("bench", sk, 31))
+        for name, rows, k in sets:
+            words = rows.dim() == 2
+            q = queries(rows, words)
+            same(unitig.solid_lookup(rows, k, q), unitig.solid_lookup_plain(rows, k, q))
+            out[f"lookup:{name}"] = ms(lambda: unitig.solid_lookup(rows, k, q), 20)
+            if not words:
+                out[f"lookup:{name}:searchsorted"] = ms(lambda: torch.searchsorted(rows, q), 20)
+            out["rows"][f"lookup:{name}"] = rows.shape[0]
+
+    if "scan" in only:
+        # K1 as DeviceCounter.add_packed launches it: one chunk into a slab view
+        codes, lengths = slab_reads(chip_smoke.B, True)
+        (p1, l1), = chunks_of(codes, lengths)
+        L = codes.shape[1]
+        want = kmer.kmer_scan_plain(p1, l1, 31, L)
+        slab = torch.empty(want.numel(), dtype=torch.int64, device=dev)
+        same([kmer.kmer_scan(p1, l1, 31, L, out=slab)], [want])
+        out["scan:k1"] = ms(lambda: kmer.kmer_scan(p1, l1, 31, L, out=slab), 20)
+        out["rows"]["scan:k1"] = want.numel()
+        del want, slab
+        lib = kernels.lib()
+        for W in (4, 8, 16):
+            k, chunks, L = wide(W)
+            p0, l0 = chunks[0]
+            P = L - k + 1
+            same(kmer.kmer_scan_halves(p0, l0, k, L), kmer.kmer_scan_halves_plain(p0, l0, k, L))
+            nv = torch.clamp(l0.to(torch.int64) - (k - 1), 0, P)
+            n = int(nv.sum())
+            offs = torch.cumsum(nv, 0) - nv
+            dst = tuple(torch.empty(n, dtype=torch.int64, device=dev)
+                        for _ in range(state.n_planes(W)))
+            ptrs = np.array([h.data_ptr() for h in dst], dtype=np.uint64)
+            st = kernels.stream(p0)
+
+            def raw():
+                kernels.check(lib.lt_kmer_scan_halves(
+                    p0.data_ptr(), l0.data_ptr(), offs.data_ptr(), p0.shape[0], p0.shape[1], L,
+                    k, P, kmer.top_mask(k), len(dst), ptrs.ctypes.data, st), "kmer_scan_halves")
+
+            raw()
+            same(dst, kmer.kmer_scan_halves(p0, l0, k, L))
+            out[f"scan:w{W}"] = ms(raw, 20)
+            out[f"scan:w{W}:wrapper"] = ms(lambda: kmer.kmer_scan_halves(p0, l0, k, L), 20)
+            out[f"scan:w{W}:sync"] = ms(
+                lambda: int(torch.clamp(l0.to(torch.int64) - (k - 1), 0, P).sum()), 20)
+            out["rows"][f"scan:w{W}"] = n
+            del dst
+
+    if "k14" in only:
+        for W in (4, 8, 16):
+            k, chunks, L = wide(W)
+            tag = f"word_runs:w{W}"
+            scans = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
+            srt = count.sort_planes(scans[0])
+            same(count.word_runs(srt, W), count.word_runs_plain(srt, W))
+            stacked = torch.stack(srt, dim=1)
+            out[f"{tag}:slab"] = ms(lambda: count.word_runs(srt, W), 10)
+            out[f"{tag}:slab:unique_consecutive"] = ms(
+                lambda: torch.unique_consecutive(stacked, dim=0, return_counts=True), 3)
+            out["rows"][f"{tag}:slab"] = srt[0].numel()
+            del stacked, srt
+            slab_runs = [count.word_runs(count.sort_planes(h), W)[:2] for h in scans]
+            words = torch.cat([r[0] for r in slab_runs])
+            counts = torch.cat([r[1] for r in slab_runs])
+            del slab_runs
+            mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+            mc = counts[perm]
+            del words, counts, perm
+            gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
+            same((gw, gc, gh), count.word_runs_plain(mpl, W, mc, 1, True))
+            out[f"{tag}:merge"] = ms(lambda: count.word_runs(mpl, W, mc, 1, True), 10)
+            out["rows"][f"{tag}:merge"] = [mc.numel(), gw.shape[0]]
+            del mpl, mc
+            cutoff = count.auto_cutoff(gh.cpu().numpy().astype(np.int64))
+            gpl = state.words_to_planes(gw)
+            same(count.word_runs(gpl, W, gc, cutoff), count.word_runs_plain(gpl, W, gc, cutoff))
+            out[f"{tag}:solid"] = ms(lambda: count.word_runs(gpl, W, gc, cutoff), 10)
+            out["rows"][f"{tag}:solid"] = [gc.numel(), int((gc >= cutoff).sum()), cutoff]
+            del gw, gc, gh, gpl
+            apl = count.sort_planes(tuple(torch.cat([s[q] for s in scans])
+                                          for q in range(state.n_planes(W))))
+            del scans
+            same(count.runs_words(apl, W), count.runs_words_plain(apl, W))
+            stacked = torch.stack(apl, dim=1)
+            out[f"{tag}:runs_words"] = ms(lambda: count.runs_words(apl, W), 10)
+            out[f"{tag}:runs_words:unique_consecutive"] = ms(
+                lambda: torch.unique_consecutive(stacked, dim=0, return_counts=True), 3)
+            out["rows"][f"{tag}:runs_words"] = apl[0].numel()
+            del apl, stacked
+            torch.cuda.empty_cache()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
