@@ -78,10 +78,14 @@ run right after phase 3, whose reads and solid set they reuse):
      or pass 2^31 - 1, runs of 1-3 rows at every offset of a step edge,
      all-ones top words and the all-ones row; neighbouring runs differ in
      one word) at W = 4, 8 and 16 in its three modes, cutoffs 1, 2, 255
-     and 256 with the histogram, and K17 on adversarial reads (scan_case:
+     and 256 with the histogram, K17 on adversarial reads (scan_case:
      k = 17 to 255, L mod 16 = 0, 1, 15, reads of length 0, k - 1, k, L,
-     palindromes and all-ones top words at k = 16W), each equal to its
-     plain version;
+     palindromes and all-ones top words at k = 16W), and K18 and K19 on
+     adversarial reads (walk_case: the same k and L mod 16, H = 1..8, so
+     W = 2..16; reads of length 0, k - 1, k, k + 1, L and longer than L,
+     anchors at 0 and len - k, unanchored and all-error reads,
+     bifurcations on both sides, sides past the anchor's k bases), each
+     equal to its plain version;
  10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
      (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
@@ -99,8 +103,9 @@ run right after phase 3, whose reads and solid set they reuse):
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s; for K8, which searches the run, the queries, its
-outputs and one row of the run a query, as `bound_note` says), then,
-last, the device line. Kernels under ~50 us
+outputs and one row of the run a query, as `bound_note` says; K18 and
+K19, bound by their Bloom probes, note their probe floor's script),
+then, last, the device line. Kernels under ~50 us
 are timed from the profiler's device time, the rest with CUDA events.
 Work files go to build/chip_smoke/ beside this script.
 """
@@ -228,7 +233,9 @@ def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps calls (after one warm-up): CUDA
     events around the calls, or, for a call whose kernels and copies take
     under SMALL_MS of device time by the profiler, that device time (events
-    around calls that short read the host's dispatch)."""
+    around calls that short read the host's dispatch). The profiler's time
+    counts only when it recorded each of its kernels and copies at least
+    once per call: late in a run it has kept one launch of ten."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -247,9 +254,10 @@ def cuda_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_ms = sum(e.device_time_total for e in prof.key_averages()
-                 if e.device_type.name == "CUDA") / 1e3 / reps
-    return dev_ms if 0 < dev_ms < SMALL_MS else ms
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.device_time_total for e in dev) / 1e3 / reps
+    whole = bool(dev) and min(e.count for e in dev) >= reps
+    return dev_ms if whole and 0 < dev_ms < SMALL_MS else ms
 
 
 def timed(fn) -> tuple:
@@ -294,6 +302,11 @@ def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", moved_bytes=moved,
                 library_ms=library_ms, bound_note=bound_note)
+
+
+# K18 and K19 wait on their Bloom probes, not on their bytes
+WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
+                   "(scripts/ab_kernels.py --only walk, PERF.md rows 10-11c)")
 
 
 def max_abs_err(a, b) -> int:
@@ -857,6 +870,166 @@ def scan_adversarial() -> None:
             n_rows += got[0].numel()
     log(f"kmer_scan_halves ok on adversarial reads at k = {SCAN_KS}, L mod 16 = "
         f"{SCAN_L_MOD16} ({n_rows} valid k-mers)")
+
+
+WALK_KS = SCAN_KS
+WALK_L_MOD16 = SCAN_L_MOD16
+# (k, L) of long rows: the default max_device_len (a chunk holding a read
+# over 1,024 bp), at W = 4 and, one column past it, at W = 16
+WALK_LONG = ((63, 2048), (255, 2049))
+
+
+def walk_case(k: int, mod: int, n_random: int, L: int = 0):
+    """(codes (B, L) uint8, lengths (B,) int32, bitset (n_words,) u32,
+    n_words, H) of one adversarial walk input: L = 16 m + mod > 2k + 24 (or
+    the L given: a long row, WALK_LONG), so a side can walk past the
+    anchor's k bases; a contig with a (k-1)-base
+    repeat whose two copies differ in the bases before and after it (true
+    bifurcations on both sides), its k-mers in a lean filter (6 bits a
+    k-mer: false-positive bifurcations), H = 1..8 by (k, mod); reads of
+    length 0, k - 1, k, k + 1 and L; longer than L (L + 7, 2L: the row holds
+    L columns); a contig k-mer then random bases (the anchor at 0, an all-
+    error right side) and the mirror (the anchor at len - k); a random read
+    (unanchored, or all errors); reads across each repeat copy; a read with
+    20% errors (errors within the first k steps of both sides); a
+    homopolymer; error-free contig reads anchored at 0 and at len - k (their
+    first, last k-mer has the smallest min(f, r)); then n_random contig
+    reads of random length (0..L+20) and strand with 3% substitutions."""
+    import numpy as np
+
+    from leon_tpu_torch.ops import bloom, kmer
+
+    rng = np.random.default_rng(k * 1000 + mod + 11)
+    L = L or 16 * -(-(2 * k + 24) // 16) + mod
+    H = 1 + (k + mod) % 8
+    contig = rng.integers(0, 4, 3 * L + 400, dtype=np.uint8)
+    rep = rng.integers(0, 4, k - 1, dtype=np.uint8)
+    a1 = L // 2 + 100
+    a2 = a1 + L + 150
+    for a, before, after in ((a1, 0, 1), (a2, 2, 3)):
+        contig[a - 1], contig[a : a + k - 1], contig[a + k - 1] = before, rep, after
+
+    def mutate(r, rate):
+        mut = rng.random(r.size) < rate
+        r[mut] = (r[mut] + rng.integers(1, 4, int(mut.sum()))) & 3
+        return r
+
+    def take(start, n, rc=False):
+        r = contig[start : start + n].copy()
+        return (3 - r)[::-1].copy() if rc else r
+
+    rows = [(np.zeros(0, np.uint8), 0), (take(5, k - 1), k - 1), (take(9, k), k),
+            (take(13, k + 1), k + 1), (mutate(take(17, L), 0.03), L),
+            (take(21, L), L + 7), (mutate(take(25, L, True), 0.03), 2 * L),
+            (np.concatenate([take(29, k), rng.integers(0, 4, L - k, dtype=np.uint8)]), L),
+            (np.concatenate([rng.integers(0, 4, L - k, dtype=np.uint8), take(33, k)]), L),
+            (rng.integers(0, 4, L, dtype=np.uint8), L),
+            (take(a1 - L // 2, L), L), (take(a2 - L // 2, L, True), L),
+            (take(a1 - 3, L), L - 5), (take(a2 + k - L + 3, L, True), L),
+            (mutate(take(37, L), 0.2), L), (np.full(L, 1, np.uint8), L)]
+    # error-free contig reads whose smallest min(f, r) is their first k-mer
+    # (the anchor at 0) and their last (the anchor at len - k)
+    win = np.lib.stride_tricks.sliding_window_view(contig, k)
+    f, r = bloom.hash_words(kmer.pack_codes_batch_np(win, k), k, SEED)
+    v = np.minimum(f, r)
+    after = np.lib.stride_tricks.sliding_window_view(v[1:], L - k).min(axis=1)
+    first = int(np.flatnonzero(v[: after.size] < after)[0])
+    before = np.lib.stride_tricks.sliding_window_view(v, L - k).min(axis=1)
+    last = int(np.flatnonzero(v[L - k :] < before[: v.size - L + k])[0])
+    rows += [(take(first, L), L), (take(last, L), L)]
+    for _ in range(n_random):
+        n = int(rng.integers(0, L + 21))
+        r = mutate(take(int(rng.integers(0, contig.size - L)), L, bool(rng.integers(0, 2))), 0.03)
+        rows.append((r, n))
+    codes = np.zeros((len(rows), L), np.uint8)
+    lengths = np.array([n for _, n in rows], np.int32)
+    for i, (r, n) in enumerate(rows):
+        codes[i, : min(n, L)] = r[: min(n, L)]
+    solid, _ = kmer.kmer_words_batch_np(win, np.zeros(win.shape[0], np.int64), k)
+    solid = np.unique(solid, axis=0)
+    n_words = bloom.choose_n_words(solid.shape[0], 6.0)
+    return codes, lengths, bloom.build_np(solid, n_words, H, SEED, k), n_words, H
+
+
+def decode_inputs(enc: dict, codes, lengths, k: int, decodable=None) -> tuple:
+    """K19's inputs from an encoded batch (unpack_compact's dict) as numpy
+    arrays: scal (B, 9+W) int32 with each anchored read's forward anchor
+    words (from its codes: the host's dictionary lookup), errgaps int32,
+    errnts and bifs uint8. Reads outside `decodable` (default: all) go in
+    as unanchored; the streams keep their events."""
+    import numpy as np
+
+    from leon_tpu_torch.ops import kmer
+
+    nb = codes.shape[0]
+    W = kmer.words_for_k(k)
+    canon, orient = kmer.kmer_words_batch_np(codes, enc["apos"].astype(np.int64), k)
+    afwd = np.where(orient[:, None], kmer.revcomp_words_batch_np(canon, k), canon)
+    anch = enc["anchored"] & (True if decodable is None else decodable)
+    et = enc["nerr_r"] + enc["nerr_l"]
+    bt = enc["nbif_r"] + enc["nbif_l"]
+    scal = np.zeros((nb, 9 + W), np.int32)
+    scal[:, 0] = enc["apos"]
+    scal[:, 1] = anch
+    scal[:, 2] = np.where(anch, lengths, 0)
+    scal[:, 3], scal[:, 4] = enc["nerr_r"], enc["nerr_l"]
+    scal[:, 5], scal[:, 6] = enc["nbif_r"], enc["nbif_l"]
+    scal[:, 7] = np.cumsum(et) - et
+    scal[:, 8] = np.cumsum(bt) - bt
+    scal[:, 9:] = afwd.view(np.int32)
+    return (scal, enc["errgap_flat"].astype(np.int32), enc["errnt_flat"].astype(np.uint8),
+            enc["bif_flat"].astype(np.uint8))
+
+
+def walk_adversarial() -> None:
+    """K18 (with and without the confirmed bits) and K19 (on what K18
+    encoded; reads longer than L go in unanchored) against their plain
+    versions on the card, exactly, on every walk_case (k = 17 .. 255, W = 2
+    .. 16, L mod 16 = 0, 1, 15; and the long rows of WALK_LONG, with the
+    confirmed bits only: their plain versions take a minute), 4,096 random
+    reads beside the edge reads; every anchored read of length <= L decodes
+    to itself."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import kmer, walk
+
+    dev = torch.device("cuda")
+    n_steps = 0
+    cases = [(k, mod, 0) for k in WALK_KS for mod in WALK_L_MOD16]
+    for k, mod, long_l in cases + [(k, 0, L) for k, L in WALK_LONG]:
+        codes, lengths, bitset, nw, h = walk_case(k, mod, 4096, long_l)
+        B_, L = codes.shape
+        pd = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+        ld = torch.from_numpy(lengths).to(dev)
+        bd = state.bitset_to_torch(bitset, dev)
+        for conf in (True, False)[: 1 if long_l else 2]:
+            e_d = walk.walk_encode_words(pd, ld, bd, nw, k, h, SEED, L, conf)
+            e_p = walk.walk_encode_plain(pd, ld, bd, nw, k, h, SEED, L, conf)
+            for n in ("meta", "tot", "conf"):
+                max_abs_err(e_d[n], e_p[n])
+            tot = e_p["tot"].to(torch.int64)
+            for n, row in (("ev_gap", 0), ("ev_nt", 0), ("ev_bif", 1)):
+                valid = torch.arange(L - k, device=dev)[None, :] < tot[row][:, None]
+                max_abs_err(e_d[n].to(torch.int64)[valid], e_p[n].to(torch.int64)[valid])
+        incl = torch.cumsum(e_d["tot"], dim=1)
+        ce, cb = (-(-int(incl[i, -1]) // 8) * 8 for i in (0, 1))
+        buf = walk.walk_pack(e_d, incl, L, k, ce, cb, False).cpu().numpy()
+        enc = walk.unpack_compact(buf.view(np.uint16), B_, B_, L, ce, cb, False, k)
+        dec_np = decode_inputs(enc, codes, lengths, k, lengths <= L)
+        dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in dec_np)
+        d_d = walk.walk_decode_words(*dec_in, bd, nw, k, h, SEED, L)
+        max_abs_err(d_d, walk.walk_decode_plain(*dec_in, bd, nw, k, h, SEED, L))
+        back = walk.unpack_codes_u32_np(d_d.cpu().numpy().view(np.uint32), L)
+        rows = np.flatnonzero(dec_np[0][:, 1])
+        inside = np.arange(L)[None, :] < lengths[rows, None]
+        if not ((back[rows] == codes[rows]) | ~inside).all():
+            raise AssertionError(f"walk_case k={k} mod={mod}: decode did not restore reads")
+        n_steps += int(torch.clamp(ld.to(torch.int64) - k, 0, L - k)[e_d["meta"][:, 0] > 0]
+                       .sum())
+    log(f"walk_encode_words, walk_decode_words ok on adversarial reads at k = {WALK_KS}, "
+        f"L mod 16 = {WALK_L_MOD16} and (k, L) = {WALK_LONG} ({n_steps} walk steps)")
 
 
 # ---------------------------------------------------------------------------
@@ -1553,7 +1726,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     records[n_enc] = record(
         err, cuda_ms(lambda: enc_d(False), 10),
         cuda_ms(lambda: walk.walk_encode_plain(p0, l0, bits, nw, k, H, SEED, L, False), 1),
-        nbytes(p0, l0, bits, e_d["meta"], e_d["tot"]) + ev_bytes)
+        nbytes(p0, l0, bits, e_d["meta"], e_d["tot"]) + ev_bytes, bound_note=WALK_BOUND_NOTE)
     nb = p0.shape[0]
     anchored = int(e_d["meta"][:, 0].sum())
     log(f"{n_enc} ok: {anchored}/{nb} anchored, {n_ev[0]} err, {n_ev[1]} bif events ({tag})")
@@ -1564,23 +1737,9 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     cap_bif = -(-int(incl[1, -1]) // 8) * 8
     buf = walk.walk_pack(e_d, incl, L, k, cap_err, cap_bif, False).cpu().numpy()
     enc = walk.unpack_compact(buf.view(np.uint16), nb, nb, L, cap_err, cap_bif, False, k)
-    canon, orient = kmer.kmer_words_batch_np(codes[:nb], enc["apos"].astype(np.int64), k)
-    afwd = np.where(orient[:, None], kmer.revcomp_words_batch_np(canon, k), canon)
     anch = enc["anchored"]
-    et = enc["nerr_r"] + enc["nerr_l"]
-    bt = enc["nbif_r"] + enc["nbif_l"]
-    scal = np.zeros((nb, 9 + W), np.int32)
-    scal[:, 0] = enc["apos"]
-    scal[:, 1] = anch
-    scal[:, 2] = np.where(anch, lengths[:nb], 0)
-    scal[:, 3], scal[:, 4] = enc["nerr_r"], enc["nerr_l"]
-    scal[:, 5], scal[:, 6] = enc["nbif_r"], enc["nbif_l"]
-    scal[:, 7] = np.cumsum(et) - et
-    scal[:, 8] = np.cumsum(bt) - bt
-    scal[:, 9:] = afwd.view(np.int32)
-    dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-        scal, enc["errgap_flat"].astype(np.int32), enc["errnt_flat"].astype(np.uint8),
-        enc["bif_flat"].astype(np.uint8)))
+    dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in decode_inputs(enc, codes[:nb], lengths[:nb], k))
     d_d = walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L)
     err = max_abs_err(d_d, walk.walk_decode_plain(*dec_in, bits, nw, k, H, SEED, L))
     back = walk.unpack_codes_u32_np(d_d.cpu().numpy().view(np.uint32), L)
@@ -1591,7 +1750,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     records[n_dec] = record(
         err, cuda_ms(lambda: walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L), 10),
         cuda_ms(lambda: walk.walk_decode_plain(*dec_in, bits, nw, k, H, SEED, L), 1),
-        nbytes(dec_in, bits, d_d))
+        nbytes(dec_in, bits, d_d), bound_note=WALK_BOUND_NOTE)
     log(f"{n_dec} ok: {rows.size} reads restored ({tag})")
     return dict(k=k, n_reads=codes.shape[0], L=L, valid_rows=n_rows, distinct=n_distinct,
                 cutoff=cutoff, n_solid=n_solid, n_words=nw, anchored=anchored,
@@ -1604,10 +1763,12 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
     at k = 127 (W = 8) on the whole 250-bp corpus of phase 6 (the solid
     count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
     300-600 bp (long_reads); first K14 and K17 on adversarial inputs
-    (words_adversarial, scan_adversarial). Returns the figures and, per k of
+    (words_adversarial, scan_adversarial) and K18 and K19
+    (walk_adversarial). Returns the figures and, per k of
     W >= 8, the reads, solid rows and Bloom bitset phase 10 takes over."""
     words_adversarial()
     scan_adversarial()
+    walk_adversarial()
     fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63,
                              UNITIG4)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])

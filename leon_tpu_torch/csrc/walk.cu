@@ -514,8 +514,8 @@ __global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
 
 // ---------------------------------------------------------------------------
 // K18 walk_encode_words and K19 walk_decode_words — K4's encode and decode
-// re-walk with the window as W = ceil(k/16) = 2..16 u32 words (17 <= k <=
-// 255; the main path takes them for 32 <= k <= 255, K4 serves k <= 31).
+// re-walk for 17 <= k <= 255 (the main path takes them for 32 <= k <= 255;
+// K4 serves k <= 31). Width-free: one instance per hash count H = 1..8.
 //
 // Replaces: leon_tpu/ops/walk.py encode_batch_compact_packed (554-565) ->
 // _encode_compact_impl (432-545) with _anchor_state (357), _anchor_scan
@@ -523,232 +523,459 @@ __global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
 // decode_batch_flat_packed (819-841) -> decode_batch_flat, decode_batch and
 // _walk_decode_fused (700-796), at any W.
 //
-// Bound on the H100: as K4, the latency of the dependent Bloom probes (4
-// one-word probes per step, each step needing the last one's base); the
-// W-word window adds a few register shifts a step. Design: K4's, one thread
-// per read with the walk state in registers. K18's anchor scan rolls (f, r)
-// and reads the leaving base back from the packed row (no window rides
-// along the scan), then re-packs the anchor's k bases as Kmer<W>; the walk
-// advances with shl2 masked to 2k bits (right) and the reference's
-// unmasked shr2_ins (left). The r chain's rotate while the first k bases
-// enter is j & 31 (the reference's min(j, k-1) & 31 wraps at k >= 33).
-// Outputs are K4's: meta, tot, the event rows in walk order and the conf
-// bits, so walk_pack serves both; errpos is implied by the gaps (side-
-// local), as in the flat layout. K19 takes scal (B, 9+W), hashes the anchor
-// from scratch (hash_kmer<W>) and walks the flat streams as K4 does.
+// Bound on the H100: the Bloom probes. Every anchor position costs one and
+// every walk step four, each a random 4-byte word of a bitset that sits in
+// L2: a 32-byte sector a probe, up to 32 L1 wavefronts a warp instruction.
+// scripts/walk_probe_floor.cu times that floor (the same probes with no
+// dependency between them; PERF.md §6 gives these kernels' share of it).
+// Design: one thread per read (a chunk gives each SM ~16 warps, each with 4
+// probes in flight a step), and no device-memory access on a step's chain
+// but the probes:
+// - No window. The base leaving it is the walked base k positions back,
+//   read from a ring of the thread's walked bases in shared memory: RW
+//   words, RW the power of two >= ceil(k/16) + 1 (4..32), so the anchor's
+//   words fit; one ring a side, both starting from the anchor. Shared memory
+//   does not grow with L: at most 32 KB a block.
+// - K18 reads the read's own bases from its packed row in device memory, one
+//   word load per 16 columns, the next word loaded a word ahead.
+// - The rolling (f, r) pair is all the hashing a step does; K19 hashes the
+//   anchor once, base by base from its words in order.
+// - The walked word and the output word (K18's confirmed bits, K19's bases)
+//   build in registers and are stored once per 16 positions: each side
+//   writes its words in order. A block zeroes its output rows (contiguous)
+//   first, in one coalesced pass, so no thread zeroes its own row.
+// - K18's anchor scan rolls WALKW_SCAN_UNROLL positions, issues their probes
+//   together, then folds them in order (the first index wins ties).
+// - K19 loads the stream values a step may need (the next bif rank, the
+//   next error's rank and gap) one event ahead.
+// Events (a few a read) go straight to device memory, in walk order.
+// Outputs are K4's: meta, tot, the event rows and the conf bits (walk_pack
+// serves both); K19 takes scal (B, 9+W).
 // ---------------------------------------------------------------------------
 
-template <int W>
-static __device__ __forceinline__ int leaving_w(bool in_r, const Kmer<W>& fwd, int hs) {
-  return in_r ? (int)((word_at<W>(fwd, hs >> 5) >> (hs & 31)) & 3u) : (int)(fwd.w[0] & 3u);
-}
+#define WALKW_THREADS 128
+#define WALKW_SCAN_UNROLL 4
+// Registers a thread. Under __launch_bounds__(WALKW_THREADS) ptxas held both
+// kernels at 48 and spilled K19 at H <= 6 (5-10% slower at W = 8, 16: PERF.md
+// §6); a chunk's grid gives an SM ~16 warps, so 64 costs no occupancy.
+#define WALKW_REGS 64
 
-template <int W>
-static __device__ __forceinline__ Kmer<W> advance_w(bool in_r, const Kmer<W>& fwd, int b, int k,
-                                                    uint32_t top) {
-  return in_r ? shl2<W>(fwd, (uint32_t)b, top) : shr2_ins<W>(fwd, (uint32_t)b, k);
-}
-
-template <int W>
-__global__ void walk_encode_words_kernel(const uint32_t* __restrict__ packed,
-                                         const int32_t* __restrict__ lengths, int B, int L16,
-                                         int L, int k, int H, uint32_t n_words, uint32_t top,
-                                         const __grid_constant__ HashTabs tb,
-                                         const uint32_t* __restrict__ bits, int L16c, int ME,
-                                         int32_t* __restrict__ meta, int32_t* __restrict__ tot,
-                                         uint16_t* __restrict__ ev_gap,
-                                         uint8_t* __restrict__ ev_nt,
-                                         uint8_t* __restrict__ ev_bif,
-                                         uint16_t* __restrict__ conf) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const uint32_t* pr = packed + (size_t)row * L16;
-  uint16_t* cw = conf + (size_t)row * L16c;
-  for (int w = 0; w < L16c; ++w) cw[w] = 0;
-  const int len = min(lengths[row], L);
-  const int hs = 2 * (k - 1);
-
-  // anchor: the member position with the smallest min(f, r); the first
-  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381)
-  uint32_t f = 0, r = 0, af = 0, ar = 0, best = 0xFFFFFFFFu;
-  bool anchored = false;
-  int apos = 0;
-  for (int j = 0; j < len; ++j) {
-    const int x = base_at(pr, j);
-    if (j >= k) {
-      const int o = base_at(pr, j - k);  // base leaving the window
-      f = rol1(f ^ sel4(tb.t[2], o)) ^ sel4(tb.t[0], x);
-      r = ror1(r ^ sel4(tb.t[1], o)) ^ sel4(tb.t[3], x);
-    } else {
-      f = rol1(f) ^ sel4(tb.t[0], x);
-      r = r ^ rolr(sel4(tb.t[1], x), j);
-    }
-    const int p = j - k + 1;
-    if (p >= 0) {
-      const bool mem = probe(bits, f, r, H, n_words);
-      const uint32_t v = mem ? min(f, r) : 0xFFFFFFFFu;
-      anchored |= mem;
-      if (p == 0 || v < best) {
-        best = v;
-        apos = p;
-        af = f;
-        ar = r;
-      }
-    }
+// the hash tables in shared memory as [kind * 4 + base] (HashTabs order)
+static __device__ __forceinline__ void load_tabs(const HashTabs& tb, uint32_t* st) {
+  const int i = threadIdx.x;
+  if (i < 16) {
+    const int kd = i >> 2, b = i & 3;
+    st[i] = kd == 0 ? sel4(tb.t[0], b)
+          : kd == 1 ? sel4(tb.t[1], b)
+          : kd == 2 ? sel4(tb.t[2], b)
+                    : sel4(tb.t[3], b);
   }
-  Kmer<W> afwd = {};
-  for (int i = 0; i < k; ++i) afwd = shl2<W>(afwd, (uint32_t)base_at(pr, min(apos + i, L - 1)), top);
+}
 
-  // fused walk: nr right steps from the anchor, then reset and apos left
-  // steps (walk.py:247-354)
-  int nerr_r = 0, nerr_l = 0, nbif_r = 0, nbif_l = 0;
-  const int total = anchored ? max(len - k, 0) : 0;
-  const int nr = max(len - k - apos, 0);
-  uint16_t* eg = ev_gap + (size_t)row * ME;
-  uint8_t* en = ev_nt + (size_t)row * ME;
-  uint8_t* eb = ev_bif + (size_t)row * ME;
-  Kmer<W> fwd = afwd;
-  f = af;
-  r = ar;
-  int last = -1;
-  for (int s = 0; s < total; ++s) {
-    const bool in_r = s < nr;
-    if (s == nr) {
-      fwd = afwd;
-      f = af;
-      r = ar;
-      last = -1;
+// table value [kind][b] (HashTabs order) for a runtime base b
+static __device__ __forceinline__ uint32_t tab(const uint32_t* st, int kind, int b) {
+  return st[kind * 4 + b];
+}
+
+// wordmask with H fixed: returns the word index, *mask the H-bit mask
+template <int H>
+static __device__ __forceinline__ uint32_t wordmask_h(uint32_t f, uint32_t r, uint32_t n_words,
+                                                      uint32_t* mask) {
+  const uint32_t lo = min(f, r), hi = max(f, r);
+  uint32_t m = 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) m |= 1u << ((i < 6 ? hi >> (5 * i) : lo >> (5 * (i - 6))) & 31u);
+  *mask = m;
+  return __umulhi(lo, n_words);
+}
+
+// One step's 4 candidate probes (walk.py:299-313) from the chains (f, r) and
+// the leaving base o: bit c of the result set = base c solid. *fb, *rb are
+// the chains with o rolled out (next_chains adds the base walked).
+template <int H, bool RIGHT>
+static __device__ __forceinline__ unsigned probe4(int o, uint32_t f, uint32_t r,
+                                                  const HashTabs& tb, const uint32_t* st,
+                                                  const uint32_t* __restrict__ bits,
+                                                  uint32_t n_words, uint32_t* fb, uint32_t* rb) {
+  *fb = RIGHT ? rol1(f ^ tab(st, 2, o)) : ror1(f ^ tab(st, 0, o));
+  *rb = RIGHT ? ror1(r ^ tab(st, 1, o)) : rol1(r ^ tab(st, 3, o));
+  uint32_t v[4], m[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = __ldg(bits + wordmask_h<H>(*fb ^ tb.t[RIGHT ? 0 : 2][c],
+                                      *rb ^ tb.t[RIGHT ? 3 : 1][c], n_words, &m[c]));
+  unsigned sm = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) sm |= (unsigned)((v[c] & m[c]) == m[c]) << c;
+  return sm;
+}
+
+// the chains after a step that walked base b: fb ^ T[b], rb ^ Tcrot[b] on
+// the right, fb ^ Trot[b], rb ^ Tc[b] on the left
+template <bool RIGHT>
+static __device__ __forceinline__ void next_chains(const uint32_t* st, uint32_t fb, uint32_t rb,
+                                                   int b, uint32_t* f, uint32_t* r) {
+  *f = fb ^ tab(st, RIGHT ? 0 : 2, b);
+  *r = rb ^ tab(st, RIGHT ? 3 : 1, b);
+}
+
+// ring words a side for k: the power of two >= ceil(k/16) + 1
+static inline int walkw_ring(int k) {
+  int r = 4;
+  while (r < (k + 15) / 16 + 1) r *= 2;
+  return r;
+}
+
+// base at column c of a thread's ring (interleaved: its word w at ring[w * T])
+static __device__ __forceinline__ int rbase(const uint32_t* ring, int T, int rm, int c) {
+  return (int)((ring[((c >> 4) & rm) * T] >> (2 * (c & 15))) & 3u);
+}
+
+// the bits of a side's first word (column j0) that hold anchor bases: the
+// columns below j0 on the right, above it on the left
+template <bool RIGHT>
+static __device__ __forceinline__ uint32_t anchor_part(int j0) {
+  const int sh = 2 * (j0 & 15);
+  return RIGHT ? (1u << sh) - 1u : (sh == 30 ? 0u : ~0u << (sh + 2));
+}
+
+// A thread's packed row of n words read column by column, upwards or
+// downwards: one word load per 16 columns, the next word loaded a word ahead.
+template <bool UP>
+struct Cols {
+  const uint32_t* p;
+  int n;
+  uint32_t cur, nxt;
+  __device__ __forceinline__ uint32_t ld(int w) const {
+    return (w >= 0 && w < n) ? __ldg(p + w) : 0u;
+  }
+  __device__ __forceinline__ Cols(const uint32_t* p_, int n_, int j) : p(p_), n(n_) {
+    cur = ld(j >> 4);
+    nxt = ld((j >> 4) + (UP ? 1 : -1));
+  }
+  // the base at column j, the column next to the last one taken
+  __device__ __forceinline__ int take(int j) {
+    const int b = (int)((cur >> (2 * (j & 15))) & 3u);
+    if ((j & 15) == (UP ? 15 : 0)) {
+      cur = nxt;
+      nxt = ld((j >> 4) + (UP ? 2 : -2));
     }
-    const int lidx = in_r ? s : s - nr;
-    const int j = in_r ? apos + k + s : apos - 1 - lidx;
-    const int b = base_at(pr, j);
-    uint32_t cf[4], cr[4];
-    const unsigned sm =
-        step_probe(in_r, leaving_w<W>(in_r, fwd, hs), f, r, tb, bits, H, n_words, cf, cr);
+    return b;
+  }
+};
+
+// One side of K18's walk (walk.py:247-354): `steps` steps from the anchor
+// chains (f, r); events appended at *ne / *nb; confirmed bits into crow
+// (the read's conf row in device memory), walked bases into the ring.
+template <int H, bool RIGHT>
+static __device__ __forceinline__ void encode_side(
+    const uint32_t* __restrict__ pr, int L16, uint32_t* ring, int T, int rm, const uint32_t* st,
+    const HashTabs& tb, const uint32_t* __restrict__ bits, uint32_t n_words, int k, int L,
+    int L16c, int apos, int steps, int b_last, uint32_t f, uint32_t r,
+    uint16_t* __restrict__ crow, uint16_t* __restrict__ eg, uint8_t* __restrict__ en,
+    uint8_t* __restrict__ eb, int* ne, int* nb, int* side_err, int* side_bif) {
+  int last = -1, serr = 0, sbif = 0;
+  const int j0 = RIGHT ? apos + k : apos - 1;
+  Cols<RIGHT> rd(pr, L16, j0);
+  uint32_t cw = 0, hw = steps > 0 ? ring[((j0 >> 4) & rm) * T] & anchor_part<RIGHT>(j0) : 0u;
+  for (int s = 0; s < steps; ++s) {
+    const int j = RIGHT ? j0 + s : j0 - s;
+    const int b = (RIGHT && j >= L) ? b_last : rd.take(j);
+    uint32_t fb, rb;
+    const unsigned sm = probe4<H, RIGHT>(rbase(ring, T, rm, RIGHT ? j - k : j + k), f, r, tb,
+                                         st, bits, n_words, &fb, &rb);
     const int scount = __popc(sm);
     const unsigned below = (1u << b) - 1u;
     const bool solid_b = (sm >> b) & 1u;
     if (solid_b) {
       if (scount == 1) {
-        if (L16c) cw[j >> 4] |= (uint16_t)(1u << (j & 15));
+        if (!RIGHT || j < L) cw |= 1u << (j & 15);
       } else {
-        eb[nbif_r + nbif_l] = (uint8_t)__popc(sm & below);  // rank among solid
-        if (in_r) ++nbif_r; else ++nbif_l;
+        eb[(*nb)++] = (uint8_t)__popc(sm & below);  // rank among solid
+        ++sbif;
       }
     } else {
-      const int e = nerr_r + nerr_l;
-      eg[e] = (uint16_t)max(lidx - last - 1, 0);
-      en[e] = (uint8_t)__popc(~sm & below);  // rank among non-solid
-      last = lidx;
-      if (in_r) ++nerr_r; else ++nerr_l;
+      eg[*ne] = (uint16_t)(s - last - 1);
+      en[(*ne)++] = (uint8_t)__popc(~sm & below);  // rank among non-solid
+      last = s;
+      ++serr;
     }
     // on an error with a solid candidate, advance on the smallest solid base
     const int b_adv = (!solid_b && scount >= 1) ? __ffs(sm) - 1 : b;
-    f = sel4v(cf, b_adv);
-    r = sel4v(cr, b_adv);
-    fwd = advance_w<W>(in_r, fwd, b_adv, k, top);
+    next_chains<RIGHT>(st, fb, rb, b_adv, &f, &r);
+    hw |= (uint32_t)b_adv << (2 * (j & 15));
+    if ((j & 15) == (RIGHT ? 15 : 0) || s == steps - 1) {
+      ring[((j >> 4) & rm) * T] = hw;
+      if (L16c && (!RIGHT || (j >> 4) < L16c)) crow[j >> 4] = (uint16_t)cw;
+      hw = cw = 0;
+    }
   }
-  int32_t* m = meta + (size_t)row * 6;
-  m[0] = anchored;
-  m[1] = apos;
-  m[2] = nbif_r;
-  m[3] = nerr_r;
-  m[4] = nbif_l;
-  m[5] = nerr_l;
-  tot[row] = nerr_r + nerr_l;
-  tot[B + row] = nbif_r + nbif_l;
+  *side_err = serr;
+  *side_bif = sbif;
 }
 
-template <int W>
-__global__ void walk_decode_words_kernel(const int32_t* __restrict__ scal, int B,
-                                         const int32_t* __restrict__ errgaps,
-                                         const uint8_t* __restrict__ errnts,
-                                         const uint8_t* __restrict__ bifs, long long n_err,
-                                         long long n_bif, int L, int L16, int k, int H,
-                                         uint32_t n_words, uint32_t top,
-                                         const __grid_constant__ HashTabs tb,
-                                         const uint32_t* __restrict__ bits,
-                                         uint32_t* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const int32_t* sc = scal + (size_t)row * (9 + W);
-  uint32_t* o = out + (size_t)row * L16;
-  for (int w = 0; w < L16; ++w) o[w] = 0;
-  if (sc[1] == 0) return;  // unanchored: the host restores raw segments
-  const int apos = sc[0], len = sc[2];
-  const int nerr_r = sc[3], nerr_l = sc[4], nbif_r = sc[5], nbif_l = sc[6];
-  const long long err_base = sc[7], bif_base = sc[8];
-  Kmer<W> afwd;
-#pragma unroll
-  for (int j = 0; j < W; ++j) afwd.w[j] = (uint32_t)sc[9 + j];
-  const int ME = max(1, L - k);
-  const int hs = 2 * (k - 1);
+// meta (B, 6): anchored, apos, nbif_r, nerr_r, nbif_l, nerr_l
+// tot (2, B): error events, bif events per read
+// ev_gap/ev_nt/ev_bif (B, ME): the read's events in walk order
+// conf (B, L16c): confirmed-position bits (L16c = 0 without with_conf)
+// Shared memory: 16 table words, two rings of RW words a thread.
+template <int H>
+__global__ void __maxnreg__(WALKW_REGS)
+    walk_encode_words_kernel(const uint32_t* __restrict__ packed,
+                             const int32_t* __restrict__ lengths, int B, int L16, int L, int k,
+                             uint32_t n_words, const __grid_constant__ HashTabs tb,
+                             const uint32_t* __restrict__ bits, int L16c, int ME, int RW,
+                             int32_t* __restrict__ meta, int32_t* __restrict__ tot,
+                             uint16_t* __restrict__ ev_gap, uint8_t* __restrict__ ev_nt,
+                             uint8_t* __restrict__ ev_bif, uint16_t* __restrict__ conf) {
+  extern __shared__ uint32_t smem[];
+  const int T = blockDim.x, tid = threadIdx.x, row0 = blockIdx.x * T;
+  const int n = min(T, B - row0);
+  uint32_t* st = smem;
+  load_tabs(tb, st);
+  // the block's conf rows, contiguous: the walk stores only the words it visits
+  uint16_t* cblk = conf + (size_t)row0 * L16c;
+  for (int i = tid; i < n * L16c; i += T) cblk[i] = 0;
+  __syncthreads();
+  if (tid >= n) return;
+  const int row = row0 + tid, rm = RW - 1;
+  uint32_t* ring_r = smem + 16 + tid;
+  uint32_t* ring_l = ring_r + (size_t)RW * T;
+  const uint32_t* pr = packed + (size_t)row * L16;
+  const int lenf = lengths[row];
+  const int len = min(lenf, L);
 
-  for (int i = 0; i < k; ++i) {  // the anchor's own bases
-    const int p = apos + i;
-    if (p >= 0 && p < L) o[p >> 4] |= (uint32_t)base_of<W>(afwd, i, k) << (2 * (p & 15));
-  }
-  uint32_t af, ar;
-  hash_kmer<W>(afwd, k, tb, &af, &ar);
-  uint32_t f = af, r = ar;
-  Kmer<W> fwd = afwd;
-
-  const int total = max(len - k, 0);
-  const int nr = max(len - k - apos, 0);
-  // this side's error run: count, base offset, next error's side-local step
-  int side_n = nerr_r, ei = 0;
-  long long ebase = err_base;
-  long long next_err = (side_n > 0 && ebase < n_err) ? errgaps[ebase] : -1;
-  int pbif = 0;
-  for (int s = 0; s < total; ++s) {
-    const bool in_r = s < nr;
-    if (s == nr) {  // side switch: back to the anchor, left error run
-      fwd = afwd;
-      f = af;
-      r = ar;
-      side_n = nerr_l;
-      ei = 0;
-      ebase = err_base + nerr_r;
-      next_err = (side_n > 0 && ebase < n_err) ? errgaps[ebase] : -1;
+  // anchor: the member position with the smallest min(f, r); the first
+  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381).
+  // Positions past len-k are never members, so the scan stops at len.
+  uint32_t af = 0, ar = 0, best = 0xFFFFFFFFu;
+  bool anchored = false;
+  int apos = 0;
+  const int P = len - k + 1;
+  if (P > 0) {
+    Cols<true> xs(pr, L16, 0), os(pr, L16, 0);  // the bases entering and leaving
+    uint32_t f = 0, r = 0;
+    for (int j = 0; j < k; ++j) {
+      const int x = xs.take(j);
+      f = rol1(f) ^ tab(st, 0, x);
+      r ^= rolr(tab(st, 1, x), j);
     }
-    const int lidx = in_r ? s : s - nr;
-    const int j = in_r ? apos + k + s : apos - 1 - lidx;
-    const bool is_err = ei < side_n && lidx == next_err;
+    constexpr int U = WALKW_SCAN_UNROLL;
+    for (int p0 = 0; p0 < P; p0 += U) {
+      uint32_t hf[U], hr[U], v[U], m[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u;
+        if (p > 0 && p < P) {
+          const int x = xs.take(p + k - 1), o = os.take(p - 1);
+          f = rol1(f ^ tab(st, 2, o)) ^ tab(st, 0, x);
+          r = ror1(r ^ tab(st, 1, o)) ^ tab(st, 3, x);
+        }
+        hf[u] = f;
+        hr[u] = r;
+        const uint32_t wi = wordmask_h<H>(f, r, n_words, &m[u]);
+        v[u] = p < P ? __ldg(bits + wi) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u;
+        if (p < P) {
+          const bool mem = (v[u] & m[u]) == m[u];
+          const uint32_t val = mem ? min(hf[u], hr[u]) : 0xFFFFFFFFu;
+          anchored |= mem;
+          if (p == 0 || val < best) {
+            best = val;
+            apos = p;
+            af = hf[u];
+            ar = hr[u];
+          }
+        }
+      }
+    }
+  }
+
+  // the reference's fused schedule (walk.py:271-282): min(len-k, ME) steps,
+  // the first len-k-apos of them on the right (past column L-1 when the
+  // read is longer than the row, where the base read is column L-1's), the
+  // rest on the left
+  const int total = anchored ? min(max(lenf - k, 0), ME) : 0;
+  const int nr = min(max(lenf - k - apos, 0), total);
+  int b_last = 0;
+  if (total > 0) {
+    // both rings start from the anchor's words (the read's own bases)
+    for (int w = apos >> 4; w <= (apos + k - 1) >> 4; ++w) {
+      const uint32_t v = __ldg(pr + w);
+      ring_r[(w & rm) * T] = v;
+      ring_l[(w & rm) * T] = v;
+    }
+    if (lenf > L) b_last = (int)((__ldg(pr + ((L - 1) >> 4)) >> (2 * ((L - 1) & 15))) & 3u);
+  }
+  uint16_t* eg = ev_gap + (size_t)row * ME;
+  uint8_t* en = ev_nt + (size_t)row * ME;
+  uint8_t* eb = ev_bif + (size_t)row * ME;
+  uint16_t* crow = conf + (size_t)row * L16c;
+  int ne = 0, nb = 0, nerr_r, nbif_r, nerr_l, nbif_l;
+  encode_side<H, true>(pr, L16, ring_r, T, rm, st, tb, bits, n_words, k, L, L16c, apos, nr,
+                       b_last, af, ar, crow, eg, en, eb, &ne, &nb, &nerr_r, &nbif_r);
+  encode_side<H, false>(pr, L16, ring_l, T, rm, st, tb, bits, n_words, k, L, L16c, apos,
+                        total - nr, b_last, af, ar, crow, eg, en, eb, &ne, &nb, &nerr_l,
+                        &nbif_l);
+  int32_t* mt = meta + (size_t)row * 6;
+  mt[0] = anchored;
+  mt[1] = apos;
+  mt[2] = nbif_r;
+  mt[3] = nerr_r;
+  mt[4] = nbif_l;
+  mt[5] = nerr_l;
+  tot[row] = ne;
+  tot[B + row] = nb;
+}
+
+// rank at place pbif of a read's bif queue (its right events, then its
+// left; the queue at q, n_q of its values in the stream)
+static __device__ __forceinline__ int bif_rank(const uint8_t* __restrict__ q, int n_q, int nbif_r,
+                                               int nbif_l, int ME, int pbif) {
+  const int p = min(pbif, 2 * ME - 1);
+  if (p < nbif_r) return p < n_q ? q[p] : 0;
+  const int t = min(p - nbif_r, ME - 1);
+  return (t < nbif_l && nbif_r + t < n_q) ? q[nbif_r + t] : 0;
+}
+
+// values of a stream of n from index base on, as an int (0 past its end)
+static __device__ __forceinline__ int stream_left(long long n, long long base) {
+  return (int)max(0LL, min(n - base, 0x7FFFFFFFLL));
+}
+
+// One side of K19's re-walk (walk.py:700-796): `steps` steps from the anchor
+// chains (f, r), this side's error run (gaps eg, ranks en; n_ev events in
+// the stream), the read's bif queue at *pbif; decoded bases into orow (the
+// read's output row in device memory), walked ones into the ring. The stream values a step may
+// need (the next bif rank, the next error's rank and the gap after it) are
+// loaded one event ahead, off the step's chain.
+template <int H, bool RIGHT>
+static __device__ __forceinline__ void decode_side(
+    uint32_t* __restrict__ orow, uint32_t* ring, int T, int rm, const uint32_t* st,
+    const HashTabs& tb, const uint32_t* __restrict__ bits, uint32_t n_words, int k, int ME,
+    int apos, int steps, uint32_t f, uint32_t r, const int32_t* __restrict__ eg,
+    const uint8_t* __restrict__ en, int n_ev, const uint8_t* __restrict__ q, int n_q,
+    int nbif_r, int nbif_l, int* pbif) {
+  if (steps <= 0) return;
+  const int j0 = RIGHT ? apos + k : apos - 1;
+  // the side's first word keeps the anchor's bases (decoded = walked there)
+  uint32_t hw = ring[((j0 >> 4) & rm) * T] & anchor_part<RIGHT>(j0), ow = hw;
+  // the next error's side-local step (-1: none left) and rank, the gap
+  // after it
+  int ei = 0, ns_next = 0, gap_next = 0;
+  long long next_err = -1;
+  if (n_ev > 0) {
+    next_err = eg[0];
+    ns_next = en[0];
+  }
+  if (n_ev > 1) gap_next = eg[1];
+  int rank_next = bif_rank(q, n_q, nbif_r, nbif_l, ME, *pbif);
+  for (int s = 0; s < steps; ++s) {
+    const int j = RIGHT ? j0 + s : j0 - s;
+    const bool is_err = s == next_err;
     int rank_ns = 0;
     if (is_err) {
-      rank_ns = errnts[ebase + ei] & 3;
+      rank_ns = ns_next & 3;
       ++ei;
-      next_err = (ei < side_n && ebase + ei < n_err) ? next_err + 1 + errgaps[ebase + ei] : -1;
+      const bool more = ei < n_ev;
+      next_err = more ? next_err + 1 + gap_next : -1;
+      ns_next = more ? en[ei] : 0;
+      gap_next = ei + 1 < n_ev ? eg[ei + 1] : 0;
     }
-    uint32_t cf[4], cr[4];
-    const unsigned sm =
-        step_probe(in_r, leaving_w<W>(in_r, fwd, hs), f, r, tb, bits, H, n_words, cf, cr);
+    uint32_t fb, rb;
+    const unsigned sm = probe4<H, RIGHT>(rbase(ring, T, rm, RIGHT ? j - k : j + k), f, r, tb,
+                                         st, bits, n_words, &fb, &rb);
     const int scount = __popc(sm);
     const int b_uniq = nth_set(sm, 0);
     int b;
     if (is_err) {
       b = nth_set(~sm & 0xFu, rank_ns);
     } else if (scount >= 2) {  // bifurcation: next rank of the read's queue
-      const int q = min(pbif, 2 * ME - 1);
-      int rank = 0;
-      if (q < nbif_r) {
-        if (bif_base + q < n_bif) rank = bifs[bif_base + q];
-      } else {
-        const int t = min(q - nbif_r, ME - 1);
-        if (t < nbif_l && bif_base + nbif_r + t < n_bif) rank = bifs[bif_base + nbif_r + t];
-      }
-      b = nth_set(sm, rank & 3);
-      ++pbif;
+      b = nth_set(sm, rank_next & 3);
+      ++*pbif;
+      rank_next = bif_rank(q, n_q, nbif_r, nbif_l, ME, *pbif);
     } else {
       b = b_uniq;
     }
-    if (j >= 0 && j < L) o[j >> 4] |= (uint32_t)b << (2 * (j & 15));
     const int b_adv = (is_err && scount >= 1) ? b_uniq : b;
-    f = sel4v(cf, b_adv);
-    r = sel4v(cr, b_adv);
-    fwd = advance_w<W>(in_r, fwd, b_adv, k, top);
+    const int sh = 2 * (j & 15);
+    ow |= (uint32_t)b << sh;
+    hw |= (uint32_t)b_adv << sh;
+    if ((j & 15) == (RIGHT ? 15 : 0) || s == steps - 1) {
+      orow[j >> 4] = ow;
+      ring[((j >> 4) & rm) * T] = hw;
+      ow = hw = 0;
+    }
+    next_chains<RIGHT>(st, fb, rb, b_adv, &f, &r);
   }
 }
+
+// scal (B, 9+W): apos, anchored, length, nerr_r, nerr_l, nbif_r, nbif_l,
+// err_base, bif_base, anchor words. out (B, L16): bases, 16 per u32. A
+// read is walked over min(length, L) columns; a row whose anchor does not
+// fit the batch (apos outside [0, L-k]) decodes to zeros, as an unanchored
+// one. Shared memory: 16 table words, two rings of RW words a thread.
+template <int H>
+__global__ void __maxnreg__(WALKW_REGS)
+    walk_decode_words_kernel(const int32_t* __restrict__ scal, int B, int W,
+                             const int32_t* __restrict__ errgaps,
+                             const uint8_t* __restrict__ errnts, const uint8_t* __restrict__ bifs,
+                             long long n_err, long long n_bif, int L, int L16, int k,
+                             uint32_t n_words, const __grid_constant__ HashTabs tb,
+                             const uint32_t* __restrict__ bits, int RW,
+                             uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const int T = blockDim.x, tid = threadIdx.x, row0 = blockIdx.x * T;
+  const int n = min(T, B - row0);
+  uint32_t* st = smem;
+  load_tabs(tb, st);
+  // the block's output rows, contiguous: a read stores only the words it decodes
+  uint32_t* oblk = out + (size_t)row0 * L16;
+  for (int i = tid; i < n * L16; i += T) oblk[i] = 0;
+  __syncthreads();
+  if (tid >= n) return;
+  const int32_t* sc = scal + (size_t)(row0 + tid) * (9 + W);
+  if (sc[1] == 0 || sc[0] < 0 || sc[0] > L - k) return;
+  const int apos = sc[0], len = min(sc[2], L), rm = RW - 1;
+  uint32_t* orow = out + (size_t)(row0 + tid) * L16;
+  uint32_t* ring_r = smem + 16 + tid;
+  uint32_t* ring_l = ring_r + (size_t)RW * T;
+  // the anchor's bases into the output row and both rings, hashed as they
+  // go (base i at bit 2(k-1-i) of the words: the top word first)
+  uint32_t af = 0, ar = 0, acc = 0, aw = 0;
+  for (int i = 0, t = 2 * (k - 1); i < k; ++i, t -= 2) {
+    if (i == 0 || (t & 31) == 30) aw = (uint32_t)sc[9 + (t >> 5)];
+    const int b = (int)((aw >> (t & 31)) & 3u);
+    af = rol1(af) ^ tab(st, 0, b);
+    ar ^= rolr(tab(st, 1, b), i);
+    const int p = apos + i;
+    acc |= (uint32_t)b << (2 * (p & 15));
+    if ((p & 15) == 15 || i == k - 1) {
+      orow[p >> 4] = acc;
+      ring_r[((p >> 4) & rm) * T] = acc;
+      ring_l[((p >> 4) & rm) * T] = acc;
+      acc = 0;
+    }
+  }
+  const int nerr_r = sc[3], nerr_l = sc[4], nbif_r = sc[5], nbif_l = sc[6];
+  const long long err_l = sc[7] + nerr_r, bif_base = sc[8];
+  const int ME = max(1, L - k);
+  const int total = max(len - k, 0);
+  const int nr = min(max(len - k - apos, 0), total);
+  const int n_q = stream_left(n_bif, bif_base);
+  int pbif = 0;
+  decode_side<H, true>(orow, ring_r, T, rm, st, tb, bits, n_words, k, ME, apos, nr, af, ar,
+                       errgaps + sc[7], errnts + sc[7],
+                       min(nerr_r, stream_left(n_err, sc[7])), bifs + bif_base, n_q, nbif_r,
+                       nbif_l, &pbif);
+  decode_side<H, false>(orow, ring_l, T, rm, st, tb, bits, n_words, k, ME, apos, total - nr, af,
+                        ar, errgaps + err_l, errnts + err_l, min(nerr_l, stream_left(n_err, err_l)),
+                        bifs + bif_base, n_q, nbif_r, nbif_l, &pbif);
+}
+
 
 // ---------------------------------------------------------------------------
 // C entry points
@@ -862,36 +1089,45 @@ extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int 
   return (int)cudaGetLastError();
 }
 
+// K18/K19 launch geometry: WALKW_THREADS threads a block, each with two
+// rings of walkw_ring(k) words beside the 16 table words (at most 32 KB)
+#define WALKW_H_CASES(LAUNCH)                                                                \
+  LT_W_CASE(1, LAUNCH) LT_W_CASE(2, LAUNCH) LT_W_CASE(3, LAUNCH) LT_W_CASE(4, LAUNCH)      \
+  LT_W_CASE(5, LAUNCH) LT_W_CASE(6, LAUNCH) LT_W_CASE(7, LAUNCH) LT_W_CASE(8, LAUNCH)
+
+static inline size_t walkw_smem(int RW) {
+  return (16 + 2 * (size_t)RW * WALKW_THREADS) * sizeof(uint32_t);
+}
+
 extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int B, int L16,
-                                    int L, int k, int H, unsigned n_words, unsigned top,
-                                    const void* tabs16, const void* bitset, int with_conf, int ME,
-                                    void* meta, void* tot, void* ev_gap, void* ev_nt,
-                                    void* ev_bif, void* conf, void* stream) {
+                                    int L, int k, int H, unsigned n_words, const void* tabs16,
+                                    const void* bitset, int with_conf, int ME, void* meta,
+                                    void* tot, void* ev_gap, void* ev_nt, void* ev_bif,
+                                    void* conf, void* stream) {
   if (k < 17 || k > 255 || H < 1 || H > 8 || L < k + 1 || ME != L - k ||
       L16 != (L + 15) / 16 || n_words == 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
-  const unsigned grid = grid_for(B, WALK_THREADS);
+  const int L16c = with_conf ? L16 : 0;
+  const int RW = walkw_ring(k);
+  const unsigned grid = grid_for(B, WALKW_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* p = (const uint32_t*)packed;
   const int32_t* ln = (const int32_t*)lengths;
   const uint32_t* bs = (const uint32_t*)bitset;
-  const int L16c = with_conf ? L16 : 0;
   int32_t* m = (int32_t*)meta;
   int32_t* tt = (int32_t*)tot;
   uint16_t* eg = (uint16_t*)ev_gap;
   uint8_t* en = (uint8_t*)ev_nt;
   uint8_t* eb = (uint8_t*)ev_bif;
   uint16_t* cf = (uint16_t*)conf;
-#define LAUNCH(W_)                                                                          \
-  walk_encode_words_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(p, ln, B, L16, L, k, H, n_words, \
-                                                              top, tb, bs, L16c, ME, m, tt, eg, \
-                                                              en, eb, cf)
-  switch ((k + 15) / 16) {
-    LT_W_CASES_2_4(LAUNCH)
-    LT_W_CASES_5_16(LAUNCH)
+#define LAUNCH(H_)                                                                          \
+  walk_encode_words_kernel<H_><<<grid, WALKW_THREADS, walkw_smem(RW), st>>>(                \
+      p, ln, B, L16, L, k, n_words, tb, bs, L16c, ME, RW, m, tt, eg, en, eb, cf)
+  switch (H) {
+    WALKW_H_CASES(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
@@ -901,15 +1137,16 @@ extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int
 extern "C" int lt_walk_decode_words(const void* scal, int B, int W, const void* errgaps,
                                     const void* errnts, const void* bifs, long long n_err,
                                     long long n_bif, int L, int L16, int k, int H,
-                                    unsigned n_words, unsigned top, const void* tabs16,
-                                    const void* bitset, void* out, void* stream) {
+                                    unsigned n_words, const void* tabs16, const void* bitset,
+                                    void* out, void* stream) {
   if (k < 17 || k > 255 || H < 1 || H > 8 || W != (k + 15) / 16 || L < k + 1 ||
       L16 != (L + 15) / 16 || n_words == 0)
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
-  const unsigned grid = grid_for(B, WALK_THREADS);
+  const int RW = walkw_ring(k);
+  const unsigned grid = grid_for(B, WALKW_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t* sc = (const int32_t*)scal;
   const int32_t* eg = (const int32_t*)errgaps;
@@ -917,13 +1154,11 @@ extern "C" int lt_walk_decode_words(const void* scal, int B, int W, const void* 
   const uint8_t* bf = (const uint8_t*)bifs;
   const uint32_t* bs = (const uint32_t*)bitset;
   uint32_t* o = (uint32_t*)out;
-#define LAUNCH(W_)                                                                         \
-  walk_decode_words_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(sc, B, eg, en, bf, n_err, n_bif, \
-                                                              L, L16, k, H, n_words, top, tb,  \
-                                                              bs, o)
-  switch (W) {
-    LT_W_CASES_2_4(LAUNCH)
-    LT_W_CASES_5_16(LAUNCH)
+#define LAUNCH(H_)                                                                          \
+  walk_decode_words_kernel<H_><<<grid, WALKW_THREADS, walkw_smem(RW), st>>>(                \
+      sc, B, W, eg, en, bf, n_err, n_bif, L, L16, k, n_words, tb, bs, RW, o)
+  switch (H) {
+    WALKW_H_CASES(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH

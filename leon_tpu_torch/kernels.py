@@ -80,10 +80,10 @@ _SIGS = {
     "lt_bloom_build_words": [_P, _P, _I64, _I, _U, _U, _I, _I, _P, _P, _P],
     "lt_walk_dense": [_P, _P, _I, _I, _I, _I, _U, _U, _P, _P, _I, _P, _P],
     "lt_kmer_scan_halves": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P, _P],
-    "lt_walk_encode_words": [_P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _I, _I,
+    "lt_walk_encode_words": [_P, _P, _I, _I, _I, _I, _I, _U, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P],
     "lt_walk_decode_words": [_P, _I, _I, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
-                             _U, _U, _P, _P, _P, _P],
+                             _U, _P, _P, _P, _P],
 }
 
 

@@ -13,10 +13,12 @@ Device half (new), kernel K4 (csrc/walk.cu), one CUDA thread per read:
 - ``walk_decode``: the decode re-walk from the flat event streams, bases
   packed 16 per u32 (walk.py:700-936).
 
-Kernels K18 and K19 (csrc/walk.cu): K4's encode and decode re-walk with
-the window as W = ceil(k/16) u32 words (k <= 255), the main path's route for
-32 <= k <= 255: ``walk_encode_words`` (K4's outputs, so ``walk_pack`` serves
-both) and ``walk_decode_words`` (scal of width 9+W, up to 25).
+Kernels K18 and K19 (csrc/walk.cu): K4's encode and decode re-walk for
+17 <= k <= 255, width-free (the base leaving the window is read from a
+ring of the walked bases in shared memory, its size set by k alone), the
+main path's route for 32 <= k <= 255:
+``walk_encode_words`` (K4's outputs, so ``walk_pack`` serves both) and
+``walk_decode_words`` (scal of width 9+W, W = ceil(k/16), up to 25).
 ``encode_batch_compact_packed`` and ``decode_batch_flat_packed`` pick the
 kernel by k. walk_encode_plain and walk_decode_plain, over (B, W) words,
 are the plain versions of both generations.
@@ -203,8 +205,7 @@ def _encode_launch(packed, lengths, bitset, n_words: int, k: int, H: int, seed: 
                 out["ev_nt"].data_ptr(), out["ev_bif"].data_ptr(), out["conf"].data_ptr(),
                 kernels.stream(packed))
         lib = kernels.lib()
-        rc = (lib.lt_walk_encode_words(*head, top_mask(k), *tail) if words
-              else lib.lt_walk_encode(*head, *tail))
+        rc = (lib.lt_walk_encode_words if words else lib.lt_walk_encode)(*head, *tail)
         kernels.check(rc, name)
         kernels.launches[name] += 1
     return out
@@ -247,8 +248,7 @@ def walk_encode_words(packed: torch.Tensor, lengths: torch.Tensor, bitset: torch
                       n_words: int, k: int, H: int, seed: int, L: int,
                       with_conf: bool) -> dict:
     """walk_encode for 17 <= k <= 255 (kernel K18; the main path takes it
-    for 32 <= k <= 255): the same arguments and outputs, the window as W =
-    ceil(k/16) = 2..16 u32 words."""
+    for 32 <= k <= 255): the same arguments and outputs."""
     _check_walk_args(packed, lengths, bitset, n_words, k, H, L, MAX_K_WORDS, MIN_K_WIDE)
     if not kernels.on_cuda(packed, "walk_encode_words"):
         return walk_encode_plain(packed, lengths, bitset, n_words, k, H, seed, L, with_conf)
@@ -685,8 +685,7 @@ def _decode_launch(scal, errgaps, errnts, bifs, bitset, n_words: int, k: int, H:
                 bifs.data_ptr(), errgaps.shape[0], bifs.shape[0], L, L16, k, H, int(n_words))
         tail = (tab.ctypes.data, bitset.data_ptr(), out.data_ptr(), kernels.stream(scal))
         lib = kernels.lib()
-        rc = (lib.lt_walk_decode_words(*args, top_mask(k), *tail) if words
-              else lib.lt_walk_decode(*args, *tail))
+        rc = (lib.lt_walk_decode_words if words else lib.lt_walk_decode)(*args, *tail)
         kernels.check(rc, name)
         kernels.launches[name] += 1
     return out

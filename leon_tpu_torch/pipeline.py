@@ -32,9 +32,10 @@ chunk_block), the host unitig thread, the ordered frame pool, the tail
 and the decode driver. Archives are byte-identical to leon_tpu's for the
 same input and config.
 
-Not here: the compile-service retry, the multi-chip placer, checkpoints,
-stream mode (inputs over cfg.stream_threshold_bytes) and the host-count
-fallback (ROADMAP.md queue 1, item 9). Reaching one raises
+Not here: the compile-service retry and the host-count fallback (never
+ported); checkpoints, profile_dir and stream mode (inputs over
+cfg.stream_threshold_bytes; ROADMAP.md queue 1, item 9); the multi-chip
+placer (mesh_devices > 1; item 11). Asking for one of the last four raises
 NotImplementedError naming its item. The walk sizes its event
 buffers from the per-read counts the kernel produced, so no chunk
 overflows and the reference's cap retry and dense fallback have no
@@ -78,9 +79,9 @@ BATCH_CUDA = 65536  # lanes per walk chunk on the card
 BATCH_CPU = 8192
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: int = 9):
     return NotImplementedError(
-        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item 9)")
+        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item {item})")
 
 
 def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
@@ -95,6 +96,9 @@ def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]
     if cfg.batch_reads is None:
         cfg = dataclasses.replace(
             cfg, batch_reads=BATCH_CUDA if device.type == "cuda" else BATCH_CPU)
+    if (cfg.mesh_devices or 1) > 1:
+        raise _not_ported(f"mesh_devices={cfg.mesh_devices} (lanes sharded over several cards)",
+                          11)
     if cfg.checkpoint:
         raise _not_ported("checkpoint resume")
     if cfg.profile_dir:

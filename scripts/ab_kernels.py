@@ -5,7 +5,7 @@ k-mer scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`) of one
 tree's leon_tpu_torch on the card, beside the PyTorch call that computes the
 same function where there is one, on inputs made from fixed seeds.
 
-    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14]
+    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14,walk]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -45,6 +45,24 @@ Inputs (chip_smoke.py's shapes):
                slab run (counts + histogram), ":solid" the solid compaction
                at the abundance cutoff, ":runs_words" count_batch's K14
                over every valid row sorted (library as ":slab")
+  walk:w2/w4/w8/w16/l2048  K18 (`walk.walk_encode_words`, without the
+               confirmed bits) and K19 (`walk.walk_decode_words`, on what K18
+               encoded) alone on one 65,536-read chunk: W = 2 phase 3's reads
+               at k = 31 (beside K4's `walk_encode` and `walk_decode` on the
+               same chunk: k4_enc_ms, k4_dec_ms), W = 4 the same reads at
+               k = 63, W = 8 the 250-bp corpus at k = 127, W = 16
+               chip_smoke.long_reads at k = 255, l2048 long_reads of 1,025-
+               2,048 bp at k = 63 (L = 2048, the default max_device_len), each
+               against the Bloom filter the main path builds from the
+               chunks' reads (phase 9's: K17, K14, K16, 24 bits a solid
+               k-mer, H = 4). Beside each: its probes (K18 one an anchor
+               position and four a step, K19 four a step), the probe floor
+               (scripts/walk_probe_floor.cu: the same probes, the same
+               threads, no dependency between them), the arithmetic bound
+               (STEP_OPS a step, ANCHOR_OPS an anchor position, over the
+               card's issue rate), the byte bound, the bound (the largest of
+               the three) and the kernel's share of it; and the registers
+               ptxas gave the tree's walk kernels
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -57,7 +75,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk")
 
 
 def main() -> int:
@@ -83,7 +101,7 @@ def main() -> int:
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     from leon_tpu_torch import kernels, state
-    from leon_tpu_torch.ops import count, kmer, unitig
+    from leon_tpu_torch.ops import bloom, count, kmer, unitig, walk
 
     dev = torch.device("cuda")
     kernels.lib()
@@ -146,11 +164,16 @@ def main() -> int:
     wide_inputs = {}
 
     def wide(W: int):
-        """(k, chunks, L) of phase 9's reads at one width."""
+        """(k, chunks, L, the first chunk's codes and lengths) of phase 9's
+        reads at one width (W = 2: phase 3's reads at k = 31; W = 0: one
+        chunk of 1,025-2,048 bp reads at k = 63)."""
         if W not in wide_inputs:
-            if W == 4:
-                codes, lengths = slab_reads(7 * chip_smoke.B, True)
+            if W == 0:
+                codes, lengths = chip_smoke.long_reads(chip_smoke.B, 1025, 2048)
                 k = 63
+            elif W <= 4:
+                codes, lengths = slab_reads(7 * chip_smoke.B, True)
+                k = 31 if W == 2 else 63
             elif W == 8:
                 os.makedirs(chip_smoke.WORK, exist_ok=True)
                 path = os.path.join(chip_smoke.WORK, "ab_200k_250bp.fastq")
@@ -160,7 +183,8 @@ def main() -> int:
             else:
                 codes, lengths = chip_smoke.long_reads(2 * chip_smoke.B, 300, 600)
                 k = 255
-            wide_inputs[W] = (k, chunks_of(codes, lengths), codes.shape[1])
+            wide_inputs[W] = (k, chunks_of(codes, lengths), codes.shape[1],
+                              codes[: chip_smoke.B], lengths[: chip_smoke.B])
         return wide_inputs[W]
 
     if "k2" in only:  # K2 on chip_smoke.py phase 3's slab
@@ -238,7 +262,7 @@ def main() -> int:
         del want, slab
         lib = kernels.lib()
         for W in (4, 8, 16):
-            k, chunks, L = wide(W)
+            k, chunks, L = wide(W)[:3]
             p0, l0 = chunks[0]
             P = L - k + 1
             same(kmer.kmer_scan_halves(p0, l0, k, L), kmer.kmer_scan_halves_plain(p0, l0, k, L))
@@ -266,7 +290,7 @@ def main() -> int:
 
     if "k14" in only:
         for W in (4, 8, 16):
-            k, chunks, L = wide(W)
+            k, chunks, L = wide(W)[:3]
             tag = f"word_runs:w{W}"
             scans = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
             srt = count.sort_planes(scans[0])
@@ -306,10 +330,203 @@ def main() -> int:
             out["rows"][f"{tag}:runs_words"] = apl[0].numel()
             del apl, stacked
             torch.cuda.empty_cache()
+    if "walk" in only:
+        out["walk"] = walk_section(args.tree, wide, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
     return 0
+
+
+# Thread instructions K18 and K19 must issue (csrc/walk.cu, counted by hand;
+# recount them when the kernels change). A walk step: the leaving base from
+# the ring (its word index, shared-memory load, shift and mask: 8), rolled
+# out of both chains (two table loads, two xors, two rotates: 6); per
+# candidate two xors, min, max, the word index (mulhi), the H-bit mask
+# (shift, mask, shift, or per hash), the load and the membership test (and,
+# compare, or): 9 + 4H; pick the base, roll it into the chains and the
+# walked word (popcount, its bit, two table loads, two xors, shift, or: 9).
+# An anchor position: one base in and one out (shift and mask each: 4; four
+# table loads, two xors, two rotates, two xors: 10), one probe (5 + 4H + 3),
+# the fold (min, compare, four selects: 6).
+
+
+def step_ops(H: int) -> int:
+    return 14 + 4 * (9 + 4 * H) + 9
+
+
+def anchor_ops(H: int) -> int:
+    return 14 + 5 + 4 * H + 3 + 6
+
+
+def issue_rate() -> float:
+    """Thread instructions a second the card can issue: SMs x 4 warp
+    schedulers x 32 lanes x its maximum SM clock (nvidia-smi)."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], check=True, capture_output=True,
+                         text=True, timeout=60).stdout.split()[0]
+    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32 * float(mhz) * 1e6
+
+
+def probe_floor_lib():
+    """scripts/walk_probe_floor.cu built with nvcc into build/ab_kernels/."""
+    import ctypes
+    import shutil
+
+    src = os.path.join(ROOT, "scripts", "walk_probe_floor.cu")
+    out_dir = os.path.join(ROOT, "build", "ab_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libwalk_probe_floor.so")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src], check=True, timeout=600)
+    lib = ctypes.CDLL(so)
+    P, I, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.lt_probe_floor.argtypes = [P, Un, I, P, I, Un, P, P]
+    lib.lt_probe_floor.restype = ctypes.c_int
+    return lib
+
+
+def walk_registers(tree: str) -> dict:
+    """Registers ptxas gave each walk kernel's instances in the tree's last
+    kernel build (build/leon_tpu_torch/ptxas.log): name -> [min, max]."""
+    import re
+
+    path = os.path.join(tree, "build", "leon_tpu_torch", "ptxas.log")
+    regs, cur = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = re.sub(r"^_Z\d+", "", m.group(1))
+                cur = next((n for n in ("walk_encode_words_kernel", "walk_decode_words_kernel",
+                                        "walk_encode_kernel", "walk_decode_kernel")
+                            if name.startswith(n)), None)
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                lo, hi = regs.get(cur, (999, 0))
+                regs[cur] = [min(lo, int(m.group(1))), max(hi, int(m.group(1)))]
+                cur = None
+    return regs
+
+
+def walk_section(tree: str, wide, ms, same, dev) -> dict:
+    """K18 and K19 alone on one chunk at W = 2, 4, 8, 16 and L = 2048 (and
+    K4 at W = 2) with their probe counts, probe floor and bounds; see the
+    docstring."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import kernels, state
+    from leon_tpu_torch.ops import bloom, count, kmer, walk
+
+    H, SEED = chip_smoke.H, chip_smoke.SEED
+    floor = probe_floor_lib()
+    issue_per_s = issue_rate()
+    res = {"issue_rate": issue_per_s, "step_ops": step_ops(H), "anchor_ops": anchor_ops(H)}
+
+    def main_filter(W, k, chunks, L):
+        """The main path's Bloom filter over every chunk's k-mers (phase 9)."""
+        Wd = kmer.words_for_k(k)
+        runs = [count.word_runs(count.sort_planes(kmer.kmer_scan_halves(p, ln, k, L)), Wd)[:2]
+                for p, ln in chunks]
+        words = torch.cat([r[0] for r in runs])
+        counts = torch.cat([r[1] for r in runs])
+        del runs
+        mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+        gw, gc, gh = count.word_runs(mpl, Wd, counts[perm], 1, True)
+        del words, counts, perm, mpl
+        hist = gh.cpu().numpy().astype(np.int64)
+        cutoff = count.auto_cutoff(hist)
+        sw, _ = count.compact_solid_words(gw, gc, cutoff)
+        n_solid = int(hist[min(cutoff, 255):].sum())
+        bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
+        nw = bloom.choose_n_words(n_solid, bpk)
+        ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
+        return bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, k), nw, n_solid
+
+    def floor_ms(bits, nw, counts):
+        c = counts.to(torch.int32).contiguous()
+        o = torch.empty(c.numel(), dtype=torch.int32, device=dev)
+        st = kernels.stream(c)
+
+        def run():
+            kernels.check(floor.lt_probe_floor(bits.data_ptr(), nw, H, c.data_ptr(), c.numel(),
+                                               0x5EED, o.data_ptr(), st),
+                          "probe_floor")
+        return ms(run, 10)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for W in (2, 4, 8, 16, 0):
+        k, chunks, L, codes0, lengths0 = wide(W)
+        tag = f"walk:w{W}" if W else f"walk:l{L}"
+        bits, nw, n_solid = main_filter(W, k, chunks, L)
+        p0, l0 = chunks[0]
+        ME = L - k
+        enc_d = walk.walk_encode_words(p0, l0, bits, nw, k, H, SEED, L, False)
+        enc_p = walk.walk_encode_plain(p0, l0, bits, nw, k, H, SEED, L, False)
+        same([enc_d["meta"], enc_d["tot"]], [enc_p["meta"], enc_p["tot"]])
+        tot = enc_p["tot"].to(torch.int64)
+        for n, row in (("ev_gap", 0), ("ev_nt", 0), ("ev_bif", 1)):
+            valid = torch.arange(ME, device=dev)[None, :] < tot[row][:, None]
+            same([enc_d[n].to(torch.int64)[valid]], [enc_p[n].to(torch.int64)[valid]])
+        del enc_p
+        incl = torch.cumsum(enc_d["tot"], dim=1)
+        ce, cb = (-(-int(incl[i, -1]) // 8) * 8 for i in (0, 1))
+        buf = walk.walk_pack(enc_d, incl, L, k, ce, cb, False).cpu().numpy()
+        nb = p0.shape[0]
+        enc = walk.unpack_compact(buf.view(np.uint16), nb, nb, L, ce, cb, False, k)
+        dec_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in chip_smoke.decode_inputs(enc, codes0, lengths0, k))
+        dec_d = walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L)
+        same([dec_d], [walk.walk_decode_plain(*dec_in, bits, nw, k, H, SEED, L)])
+        rec = {"k": k, "L": L, "n_words": nw, "n_solid": n_solid}
+        rec["enc_ms"] = ms(lambda: walk.walk_encode_words(p0, l0, bits, nw, k, H, SEED, L,
+                                                          False), 10)
+        rec["dec_ms"] = ms(lambda: walk.walk_decode_words(*dec_in, bits, nw, k, H, SEED, L), 10)
+        if W == 2:  # K4 on the same chunk and filter
+            e4 = walk.walk_encode(p0, l0, bits, nw, k, H, SEED, L, False)
+            same([e4["meta"], e4["tot"]], [enc_d["meta"], enc_d["tot"]])
+            same([walk.walk_decode(*dec_in, bits, nw, k, H, SEED, L)], [dec_d])
+            rec["k4_enc_ms"] = ms(lambda: walk.walk_encode(p0, l0, bits, nw, k, H, SEED, L,
+                                                           False), 10)
+            rec["k4_dec_ms"] = ms(lambda: walk.walk_decode(*dec_in, bits, nw, k, H, SEED, L), 10)
+        # probes, from the lengths: every read scans its min(len, L) - k + 1
+        # anchor positions, every anchored read walks min(len - k, ME) steps
+        ln = l0.to(torch.int64)
+        anchored = enc_d["meta"][:, 0].to(torch.bool)
+        scan = torch.clamp(torch.clamp(ln, max=L) - k + 1, min=0)
+        steps = torch.where(anchored, torch.clamp(ln - k, 0, ME), 0)
+        enc_probes, dec_probes = scan + 4 * steps, 4 * steps
+        rec["probes_enc"] = int(enc_probes.sum())
+        rec["probes_dec"] = int(dec_probes.sum())
+        rec["anchor_positions"], rec["steps"] = int(scan.sum()), int(steps.sum())
+        rec["floor_enc_ms"] = floor_ms(bits, nw, enc_probes)
+        rec["floor_dec_ms"] = floor_ms(bits, nw, dec_probes)
+        rec["arith_enc_ms"] = ((rec["anchor_positions"] * anchor_ops(H)
+                                + rec["steps"] * step_ops(H)) / issue_per_s * 1e3)
+        rec["arith_dec_ms"] = rec["steps"] * step_ops(H) / issue_per_s * 1e3
+        n_ev = enc_d["tot"].to(torch.int64).sum(dim=1).tolist()
+        rec["bytes_enc_ms"] = (nbytes(p0, l0, bits, enc_d["meta"], enc_d["tot"])
+                               + 3 * n_ev[0] + n_ev[1]) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rec["bytes_dec_ms"] = (nbytes(*dec_in, bits, dec_d)
+                               / chip_smoke.HBM_BYTES_PER_S * 1e3)
+        for side in ("enc", "dec"):
+            bound = max(rec[f"floor_{side}_ms"], rec[f"arith_{side}_ms"], rec[f"bytes_{side}_ms"])
+            rec[f"bound_{side}_ms"] = bound
+            rec[f"share_{side}"] = bound / rec[f"{side}_ms"]
+        res[tag[5:]] = rec
+        print(json.dumps({tag: rec}), flush=True)
+        del bits, enc_d, dec_d, dec_in
+        torch.cuda.empty_cache()
+    res["registers"] = walk_registers(tree)
+    return res
 
 
 if __name__ == "__main__":

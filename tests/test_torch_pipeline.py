@@ -191,3 +191,22 @@ def test_unitig_build_failure_falls_back_to_bloom(tmp_path, monkeypatch, capsys)
     out = pipeline.decompress(str(tmp_path / "a.leon"), str(tmp_path / "a.out"), cfg=cfg,
                               device="cpu")["output"]
     assert open(out, "rb").read() == open(src, "rb").read()
+
+
+@pytest.mark.parametrize("mesh", [2, 4])
+def test_mesh_devices_above_one_raises(tmp_path, mesh):
+    """A request for several cards raises NotImplementedError naming
+    ROADMAP queue 1, item 11 at compress and at decompress, before any
+    work, instead of running on one card; mesh_devices = 1 (REF_KW, the
+    tests above) runs."""
+    from leon_tpu_torch import LeonConfig as PortConfig
+
+    rng = np.random.default_rng(mesh)
+    src, arc = str(tmp_path / "r.fastq"), str(tmp_path / "r.leon")
+    _fastq(src, rng, rng.integers(0, 4, 500, dtype=np.uint8))
+    cfg = PortConfig(mesh_devices=mesh, **PORT_KW)
+    with pytest.raises(NotImplementedError, match=r"mesh_devices=.*queue 1, item 11"):
+        pipeline.compress(src, arc, cfg=cfg, device="cpu")
+    pipeline.compress(src, arc, cfg=PortConfig(mesh_devices=1, **PORT_KW), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"mesh_devices=.*queue 1, item 11"):
+        pipeline.decompress(arc, str(tmp_path / "out.fastq"), cfg=cfg, device="cpu")
