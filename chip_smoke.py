@@ -14,8 +14,12 @@ run right after phase 3, whose reads and solid set they reuse):
      from a fixed seed, require it to equal its plain PyTorch version
      (integer-exact: tolerance 0; K1-K4 against CPU copies, the unitig
      kernels K5-K8 against the plain version on the card), and time both
-     on the card (K2 in its three modes: records `runs`, `runs:merge`,
-     `runs:solid`); the device unitig payload must equal the native host
+     on the card (K1 on the 7-chunk slab in one launch and, record
+     `kmer_scan:chunk`, on one 65,536-read chunk into a slab view as the
+     counter launches it; K2 in its three modes: records `runs`,
+     `runs:merge`, `runs:solid`); K1 on adversarial reads (scan_case at
+     k = 1, 2, 15, 16, 17, 31, L mod 16 = 0, 1, 15, through `out=` into a
+     view one key into its buffer); the device unitig payload must equal the native host
      builder's; K2 on adversarial inputs (k2_case: a key repeated 2^22
      times, run sums that wrap u32 or pass 2^31 - 1, runs of 1-3 rows at
      every offset of a step edge, a SENTINEL tail, n = 0, 1, 2) at
@@ -84,8 +88,10 @@ run right after phase 3, whose reads and solid set they reuse):
      adversarial reads (walk_case: the same k and L mod 16, H = 1..8, so
      W = 2..16; reads of length 0, k - 1, k, k + 1, L and longer than L,
      anchors at 0 and len - k, unanchored and all-error reads,
-     bifurcations on both sides, sides past the anchor's k bases), each
-     equal to its plain version;
+     bifurcations on both sides, sides past the anchor's k bases), and K16
+     on adversarial rows (bloom_adversarial: W = 1..16 at k = 16W - 15,
+     16W - 1 and 16W, H = 1..8, garbage above 2k, 64 words for 4,096 rows,
+     a sparse valid, S = 0), each equal to its plain version;
  10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
      (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
@@ -153,6 +159,7 @@ PIN127 = {
 # kernel -> (CUDA source, the TPU program it replaces)
 KERNELS = {
     "kmer_scan": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:141"),
+    "kmer_scan:chunk": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:141"),
     "runs": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:45"),
     "runs:merge": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:226"),
     "runs:solid": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:707"),
@@ -371,6 +378,19 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
         cuda_ms(lambda: kmer.kmer_scan_plain(packed_d, lengths_d, K, L), 2),
         nbytes(packed_d, lengths_d, got))
     log(f"kmer_scan ok: {got.numel()} keys")
+    # K1 as DeviceCounter.add_packed launches it: one chunk into a slab view
+    P = L - K + 1
+    p1, l1 = packed_d[:B], lengths_d[:B]
+    view = torch.empty(2 * B * P, dtype=torch.int64, device=dev)[B * P :]
+    kmer.kmer_scan(p1, l1, K, L, out=view)
+    records["kmer_scan:chunk"] = record(
+        max_abs_err(view, want[: B * P]),
+        cuda_ms(lambda: kmer.kmer_scan(p1, l1, K, L, out=view), 20),
+        cuda_ms(lambda: kmer.kmer_scan_plain(p1, l1, K, L), 2), nbytes(p1, l1, view))
+    log(f"kmer_scan:chunk ok: {B * P} keys, {records['kmer_scan:chunk']['ms']:.4f} ms "
+        f"(the slab's {nr} reads in one launch {records['kmer_scan']['ms']:.4f} ms)")
+    del view
+    k1_adversarial()
 
     # K2: raw slab, then a merge with a count payload, then the solid compaction
     skeys = torch.sort(got).values
@@ -819,6 +839,8 @@ def words_adversarial() -> None:
 
 SCAN_KS = (17, 31, 32, 33, 63, 64, 65, 127, 128, 255)
 SCAN_L_MOD16 = (0, 1, 15)
+# K1's k (k <= 31): W = 1 at both ends, the word edge, and the largest k
+K1_KS = (1, 2, 15, 16, 17, 31)
 
 
 def scan_case(k: int, mod: int, n_random: int):
@@ -870,6 +892,34 @@ def scan_adversarial() -> None:
             n_rows += got[0].numel()
     log(f"kmer_scan_halves ok on adversarial reads at k = {SCAN_KS}, L mod 16 = "
         f"{SCAN_L_MOD16} ({n_rows} valid k-mers)")
+
+
+def k1_adversarial() -> None:
+    """K1 against its plain version on the card, exactly, on every scan_case
+    at K1_KS (k = 1 .. 31, L mod 16 = 0, 1, 15), 4,096 random reads beside
+    the edge reads, written through `out=` into a slab view one key past
+    an allocation's start (the key before it must stay as it was)."""
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import kmer
+
+    dev = torch.device("cuda")
+    n_keys = 0
+    for k in K1_KS:
+        for mod in SCAN_L_MOD16:
+            codes, lengths = scan_case(k, mod, 4096)
+            L = codes.shape[1]
+            pd = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+            ld = torch.from_numpy(lengths).to(dev)
+            n = codes.shape[0] * (L - k + 1)
+            buf = torch.full((n + 1,), -7, dtype=torch.int64, device=dev)
+            kmer.kmer_scan(pd, ld, k, L, out=buf[1:])
+            max_abs_err(buf[1:], kmer.kmer_scan_plain(pd, ld, k, L))
+            max_abs_err(buf[:1], torch.full((1,), -7, dtype=torch.int64))
+            n_keys += n
+    log(f"kmer_scan ok on adversarial reads at k = {K1_KS}, L mod 16 = {SCAN_L_MOD16} "
+        f"({n_keys} keys)")
 
 
 WALK_KS = SCAN_KS
@@ -1030,6 +1080,50 @@ def walk_adversarial() -> None:
                        .sum())
     log(f"walk_encode_words, walk_decode_words ok on adversarial reads at k = {WALK_KS}, "
         f"L mod 16 = {WALK_L_MOD16} and (k, L) = {WALK_LONG} ({n_steps} walk steps)")
+
+
+# K16's k: for every W = 1..16 the pad edges of its table hash (16W - 15,
+# 16W - 1 and 16W code-0 bases cancelled: 15, 1, none; k <= 255)
+BLOOM_KS = tuple(k for W in range(1, 17) for k in (16 * W - 15, 16 * W - 1, 16 * W)
+                 if k <= 255)
+
+
+def bloom_adversarial() -> None:
+    """K16 against its plain version on the card, exactly, at every k of
+    BLOOM_KS and H = 1..8: 4,096 random rows with garbage above 2k in the
+    top word (the all-zero and the all-ones row among them), every row
+    valid into 64 words (64 rows a word: hot words) and a sparse valid (a
+    row in five) into 4,099 of 4,160 allocated words (the rest must stay
+    zero); and S = 0."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom
+
+    dev = torch.device("cuda")
+    n_builds = 0
+    for k in BLOOM_KS:
+        W = -(-k // 16)
+        rng = np.random.default_rng(k)
+        rows = rng.integers(0, 1 << 32, (4096, W), dtype=np.uint64).astype(np.uint32)
+        rows[0], rows[1] = 0, 0xFFFFFFFF
+        words = state.words_to_torch(rows, dev)
+        ones = torch.ones(4096, dtype=torch.bool, device=dev)
+        sparse = torch.from_numpy(rng.random(4096) < 0.2).to(dev)
+        for h in range(1, 9):
+            for valid, n_alloc, nw in ((ones, 64, 64), (sparse, 4160, 4099)):
+                got = bloom.bloom_build_words(words, valid, n_alloc, nw, h, SEED, k)
+                max_abs_err(got, bloom.bloom_build_words_plain(words, valid, n_alloc, nw, h,
+                                                               SEED, k))
+                if got[nw:].any():
+                    raise AssertionError(f"bloom_build_words k={k}: words past n_words set")
+                n_builds += 1
+        empty = words[:0]
+        max_abs_err(bloom.bloom_build_words(empty, ones[:0], 64, 64, 4, SEED, k),
+                    torch.zeros(64, dtype=torch.int32))
+    log(f"bloom_build_words ok on adversarial rows at {len(BLOOM_KS)} k (W = 1..16, "
+        f"k = 16W - 15, 16W - 1, 16W <= 255) x H = 1..8 ({n_builds} builds, and S = 0)")
 
 
 # ---------------------------------------------------------------------------
@@ -1764,11 +1858,13 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
     count must equal PIN127's), and at k = 255 (W = 16) on 131,072 reads of
     300-600 bp (long_reads); first K14 and K17 on adversarial inputs
     (words_adversarial, scan_adversarial) and K18 and K19
-    (walk_adversarial). Returns the figures and, per k of
+    (walk_adversarial), and K16 at the pad edges of its table hash
+    (bloom_adversarial). Returns the figures and, per k of
     W >= 8, the reads, solid rows and Bloom bitset phase 10 takes over."""
     words_adversarial()
     scan_adversarial()
     walk_adversarial()
+    bloom_adversarial()
     fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63,
                              UNITIG4)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])

@@ -58,28 +58,73 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
 // scratch), then a sort-dedup of the (word, bit) pairs and a scatter-add of
 // single bits, which equals OR.
 //
-// Bound on the H100: the k-step from-scratch hash per row (ALU: each step
-// picks its word out of W with a select chain, so k = 255 costs 255 x 16
-// selects a row) and one random 4-byte atomic per valid row into a bitset
-// that stays in the 50 MB L2; the words are read once (4W bytes a row).
-// Design: one thread per row, the row's words in registers, one atomicOr
-// of its H-bit mask (all H bits of a key share one word): OR is
-// order-free, so the partial is exact and deterministic, with no sort.
-// Words past n_words stay zero.
+// Bound on the H100: the rows' bytes (4W a row, read once) and one random
+// 4-byte atomic a valid row into a bitset that stays in the 50 MB L2; a
+// base-by-base hash (hash_kmer: a select over W words, two table selects
+// and two runtime rotations a base, ~4,000 instructions a row at k = 255)
+// made the kernel bound by its arithmetic instead. Design: the hash a word
+// at a time (hash_kmer_tab, kmer_words.cuh): each block builds the eight
+// 16-entry (f, r) nibble tables in shared memory (16 KB, each entry held
+// once per bank pair, so no lookup conflicts) once and walks rows with a
+// grid-stride loop (as many blocks as the card holds at once), so a row
+// costs 8W table loads; the row comes in 16- or 8-byte loads. The threads
+// of a warp whose rows are not valid idle while the others hash: the cost
+// follows the rows, not the valid rows. One atomicOr sets a row's
+// H-bit mask (all H bits of a key share one word): OR is order-free, so
+// the partial is exact and deterministic, with no sort. Words past n_words
+// stay zero.
 // ---------------------------------------------------------------------------
 
+#define K16_THREADS 256
+
 template <int W>
-__global__ void bloom_build_words_kernel(const uint32_t* __restrict__ words,
-                                         const uint8_t* __restrict__ valid, long long S,
-                                         uint32_t n_words, int H, int k,
-                                         const __grid_constant__ HashTabs tabs,
-                                         uint32_t* __restrict__ bits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S || !valid[i]) return;
-  uint32_t f, r, wi, mask;
-  hash_kmer<W>(load_kmer<W>(words, i), k, tabs, &f, &r);
-  wordmask(f, r, H, n_words, &wi, &mask);
-  atomicOr(bits + wi, mask);
+__global__ void __launch_bounds__(K16_THREADS)
+    bloom_build_words_kernel(const uint32_t* __restrict__ words,
+                             const uint8_t* __restrict__ valid, long long S, uint32_t n_words,
+                             int H, int k, uint32_t top, uint32_t padf, uint32_t padr, bool vec,
+                             const __grid_constant__ HashTabs tabs,
+                             uint32_t* __restrict__ bits) {
+  __shared__ NibbleTabs tab;
+  build_nibble_tabs(tabs, tab);
+  __syncthreads();
+  const long long step = (long long)gridDim.x * K16_THREADS;
+  for (long long i = (long long)blockIdx.x * K16_THREADS + threadIdx.x; i < S; i += step) {
+    if (!__ldg(valid + i)) continue;
+    uint32_t f, r, wi, mask;
+    hash_kmer_tab<W>(load_kmer_vec<W>(words, i, vec), k, top, padf, padr, tab, &f, &r);
+    wordmask(f, r, H, n_words, &wi, &mask);
+    atomicOr(bits + wi, mask);
+  }
+}
+
+// one instance: as many blocks as are resident on the card at once, or
+// fewer for a small S
+template <int W>
+static cudaError_t launch_bloom_words(const uint32_t* w, const uint8_t* v, long long S,
+                                      uint32_t n_words, int H, int k, const HashTabs& tb,
+                                      uint32_t* b, cudaStream_t st) {
+  static int resident = 0;  // blocks of this instance the card holds at once
+  if (!resident) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_build_words_kernel<W>,
+                                                        K16_THREADS, 0);
+    if (e != cudaSuccess) return e;
+    resident = max(1, sms * per_sm);
+  }
+  uint32_t padf, padr;
+  nibble_tab_pads(tb, k, &padf, &padr);
+  const uint32_t top = 2 * k - 32 * (W - 1) >= 32 ? 0xFFFFFFFFu
+                                                  : (1u << (2 * k - 32 * (W - 1))) - 1u;
+  const int align = W % 4 == 0 ? 16 : 8;
+  const bool vec = (reinterpret_cast<uintptr_t>(w) % align) == 0;
+  const long long need = (S + K16_THREADS - 1) / K16_THREADS;
+  const unsigned grid = (unsigned)min(need, (long long)resident);
+  bloom_build_words_kernel<W><<<grid, K16_THREADS, 0, st>>>(w, v, S, n_words, H, k, top, padf,
+                                                            padr, vec, tb, b);
+  return cudaGetLastError();
 }
 
 extern "C" int lt_bloom_build_words(const void* words, const void* valid, long long S, int W,
@@ -94,13 +139,10 @@ extern "C" int lt_bloom_build_words(const void* words, const void* valid, long l
   if (S <= 0) return (int)cudaSuccess;
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
-  const int threads = 256;
-  const unsigned grid = (unsigned)((S + threads - 1) / threads);
   const uint32_t* w = (const uint32_t*)words;
   const uint8_t* v = (const uint8_t*)valid;
   uint32_t* b = (uint32_t*)bitset;
-#define LAUNCH(W_) \
-  bloom_build_words_kernel<W_><<<grid, threads, 0, st>>>(w, v, S, n_words, H, k, tb, b)
+#define LAUNCH(W_) e = launch_bloom_words<W_>(w, v, S, n_words, H, k, tb, b, st)
   switch (W) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
@@ -108,5 +150,5 @@ extern "C" int lt_bloom_build_words(const void* words, const void* valid, long l
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)e;
 }

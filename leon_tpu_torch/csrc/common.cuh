@@ -19,7 +19,7 @@ struct HashTabs {
 
 static __device__ __forceinline__ uint32_t rol1(uint32_t x) { return (x << 1) | (x >> 31); }
 static __device__ __forceinline__ uint32_t ror1(uint32_t x) { return (x >> 1) | (x << 31); }
-static __device__ __forceinline__ uint32_t rolr(uint32_t x, int r) {
+static __host__ __device__ __forceinline__ uint32_t rolr(uint32_t x, int r) {
   r &= 31;
   return r ? (x << r) | (x >> (32 - r)) : x;
 }

@@ -6,43 +6,81 @@
 // _kmer_scan_impl (a lax.scan over base columns producing (B, P, W) u32
 // words plus is_rc/valid masks).
 //
-// Bound on the H100: device-memory bytes written, 8 per k-mer (the packed
-// input is 1/32 of that). The design keeps the reference's O(L) rolling
-// update but never materialises the (B, P, W) words or the masks: one
-// thread per read rolls forward and reverse-complement k-mers as one
-// uint64 (k <= 31) and stores min(fwd, rc) — or INT64_MAX for positions
-// past len-k and pad lanes — at out[read * P + p].
+// Bound on the H100: device-memory bytes written, 8 per position (the
+// packed input is 1/32 of that). The reference's (B, P, W) words and masks
+// are never materialised: out[read * P + p] gets min(fwd, rc) as one
+// int64 key (k <= 31), or INT64_MAX for p > len - k. Design (K17's, below,
+// over dense rows): one thread per output key, cut from the packed bits
+// with no roll. The k-mer at p is the 2k <= 62-bit field x from bit 2p of
+// the read's row (base p lowest; two funnel shifts over words p/16 .. +2,
+// which the lanes of a warp share through L1); its reverse complement is
+// ~x masked to 2k bits, and the forward key is x with its 32 2-bit groups
+// reversed (rev2 of each half, halves swapped) shifted right by 64 - 2k.
+// A block takes K1_KEYS / P whole reads, so their keys are one contiguous
+// range of out, and its threads walk that range: every store instruction
+// of a warp writes 32 consecutive int64s (a thread per read wrote 8 bytes
+// P * 8 bytes apart, one sector a lane, and ran a chain of L steps). The
+// stores are marked streaming (evict first): the slab is sorted only once
+// it is full, far past L2 (14% faster than plain stores at one chunk).
 #include "common.cuh"
 #include "kmer_words.cuh"
 
-__global__ void kmer_scan_kernel(const uint32_t* __restrict__ packed,
-                                 const int32_t* __restrict__ lengths, int B, int L16,
-                                 int L, int k, int P, int64_t* __restrict__ out) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const uint32_t* pr = packed + (size_t)row * L16;
-  int64_t* o = out + (size_t)row * P;
-  const int last = lengths[row] - k;  // valid positions: p <= last
+// the 16 2-bit groups of x in reverse order
+static __device__ __forceinline__ uint32_t rev2(uint32_t x) {
+  const uint32_t r = __brev(x);
+  return ((r >> 1) & 0x55555555u) | ((r & 0x55555555u) << 1);
+}
+
+#define K1_THREADS 256
+#define K1_KEYS 2048  // keys a block writes (whole reads: at least one read)
+
+__global__ void __launch_bounds__(K1_THREADS)
+    kmer_scan_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ lengths,
+                     int B, int L16, int k, int P, int R, int64_t* __restrict__ out) {
+  const long long r0 = (long long)blockIdx.x * R;
+  const int n = (int)min((long long)R, (long long)B - r0) * P;  // the block's keys
+  const uint32_t* rows = packed + r0 * L16;
+  const int32_t* lens = lengths + r0;
+  int64_t* o = out + r0 * P;
+  const int t = threadIdx.x;
+  // key i of the block is (read r, position p), i = r * P + p; a step of
+  // K1_THREADS keys is dr reads and dp positions
+  const int dr = K1_THREADS / P, dp = K1_THREADS - dr * P;
+  int r = t / P, p = t - r * P;
   const uint64_t kmask = (1ull << (2 * k)) - 1;
-  const int shift = 2 * (k - 1);
-  uint64_t fwd = 0, rc = 0;
-  uint32_t w = 0;
-  for (int j = 0; j < L; ++j) {
-    if ((j & 15) == 0) w = __ldg(pr + (j >> 4));
-    const uint64_t b = (w >> (2 * (j & 15))) & 3u;
-    fwd = ((fwd << 2) | b) & kmask;
-    rc = (rc >> 2) | ((3ull - b) << shift);
-    const int p = j - k + 1;
-    if (p >= 0) o[p] = p <= last ? (int64_t)(fwd < rc ? fwd : rc) : LT_SENTINEL;
+  const int s = 64 - 2 * k;  // the reversed field's shift, 2..62
+  for (int i = t; i < n; i += K1_THREADS) {
+    int64_t v = LT_SENTINEL;
+    if (p <= __ldg(lens + r) - k) {
+      const uint32_t* row = rows + (size_t)r * L16;
+      const int a = p >> 4, sh = 2 * (p & 15);
+      // words past the row hold no base of this k-mer: read as 0
+      const uint32_t w0 = __ldg(row + a);
+      const uint32_t w1 = a + 1 < L16 ? __ldg(row + a + 1) : 0u;
+      const uint32_t w2 = a + 2 < L16 ? __ldg(row + a + 2) : 0u;
+      const uint32_t lo = __funnelshift_r(w0, w1, sh), hi = __funnelshift_r(w1, w2, sh);
+      const uint64_t rc = ~(((uint64_t)hi << 32) | lo) & kmask;
+      const uint64_t fwd = (((uint64_t)rev2(lo) << 32) | rev2(hi)) >> s;
+      v = (int64_t)(fwd < rc ? fwd : rc);
+    }
+    __stcs(reinterpret_cast<long long*>(o + i), (long long)v);
+    p += dp;
+    r += dr;
+    if (p >= P) {
+      p -= P;
+      ++r;
+    }
   }
 }
 
 extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int L16, int L,
                             int k, int P, void* out, void* stream) {
-  if (k < 1 || k > 31 || P != L - k + 1 || L16 != (L + 15) / 16) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  kmer_scan_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)packed, (const int32_t*)lengths, B, L16, L, k, P, (int64_t*)out);
+  if (k < 1 || k > 31 || P < 1 || P != L - k + 1 || L16 != (L + 15) / 16)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  const int R = max(1, K1_KEYS / P);  // reads a block takes
+  kmer_scan_kernel<<<(unsigned)((B + R - 1) / R), K1_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)packed, (const int32_t*)lengths, B, L16, k, P, R, (int64_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -169,12 +207,6 @@ __global__ void __launch_bounds__(SCAN_ROWS)
 
 #define K17_THREADS 256
 #define K17_READS 16  // reads a block takes
-
-// the 16 2-bit groups of x in reverse order
-static __device__ __forceinline__ uint32_t rev2(uint32_t x) {
-  const uint32_t r = __brev(x);
-  return ((r >> 1) & 0x55555555u) | ((r & 0x55555555u) << 1);
-}
 
 template <int W>
 __global__ void __launch_bounds__(K17_THREADS)

@@ -122,6 +122,120 @@ static __device__ __forceinline__ void hash_kmer(const Kmer<W>& a, int k, const 
   *r = hr;
 }
 
+// ---------------------------------------------------------------------------
+// Hashing a word at a time from nibble tables (the same (f, r) as
+// hash_kmer). Base i of a k-mer sits at bit-pair m = k-1-i of its words:
+// f XORs rol(T[b_m], m) and r XORs rol(Tc[b_m], k-1-m) =
+// rol(ror(Tc[b_m], m), k-1) over m < k. With m = 16j + 2n + t (word j,
+// nibble n, pair t of the nibble):
+//   f = padf ^ XOR_j rol(G(w_j), 16j),  G(w) = XOR_n Tf_n[nibble n of w],
+//   r = rol(padr ^ XOR_j ror(Gc(w_j), 16j), k-1),  Gc likewise with Tr_n,
+//   Tf_n[x] = rol(T[x & 3], 2n) ^ rol(T[x >> 2], 2n + 1),
+//   Tr_n[x] = ror(Tc[x & 3], 2n) ^ ror(Tc[x >> 2], 2n + 1),
+// where the top word is masked to its 2k bits, so that m = k .. 16W-1 read
+// as code 0, and padf / padr are those code-0 terms, which cancel them.
+// A rotation by 16j is none for even j and 16 for odd j, so the even and
+// odd words are summed apart and rotated once. Each (Tf_n, Tr_n) pair is
+// one 64-bit entry, and each of the 8 x 16 entries is held 16 times, copy
+// c at bank pair c: lane l reads copy l mod 16, so the 16 lanes of a
+// half-warp never share a bank whatever their nibbles (random bytes into
+// 256-entry tables put ~3 lanes of a half-warp on one bank pair, and ran
+// 1.2-1.4x slower at W = 8 and 16). A word costs 8 table loads; the tables
+// take 16 KB.
+// ---------------------------------------------------------------------------
+
+typedef uint2 NibbleTabs[8][16][16];  // [n][x][copy] = (Tf_n[x], Tr_n[x])
+
+// fill tab from tb with the block's threads; the caller synchronises
+static __device__ __forceinline__ void build_nibble_tabs(const HashTabs& tb, NibbleTabs& tab) {
+  for (int e = threadIdx.x; e < 8 * 16 * 16; e += blockDim.x) {
+    const int n = e >> 8, x = (e >> 4) & 15;
+    uint32_t f = 0, r = 0;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int b = (x >> (2 * t)) & 3, s = 2 * n + t;
+      f ^= rolr(sel4(tb.t[0], b), s);
+      r ^= rolr(sel4(tb.t[1], b), 32 - s);
+    }
+    tab[n][x][e & 15] = make_uint2(f, r);
+  }
+}
+
+// (padf, padr): the terms of code-0 bases at m = k .. 16W-1 (host)
+static inline void nibble_tab_pads(const HashTabs& tb, int k, uint32_t* padf,
+                                   uint32_t* padr) {
+  uint32_t f = 0, r = 0;
+  for (int m = k; m < 16 * ((k + 15) / 16); ++m) {
+    f ^= rolr(tb.t[0][0], m);
+    r ^= rolr(tb.t[1][0], 32 - (m & 31));
+  }
+  *padf = f;
+  *padr = r;
+}
+
+template <int W>
+static __device__ __forceinline__ void hash_kmer_tab(const Kmer<W>& a, int k, uint32_t top,
+                                                     uint32_t padf, uint32_t padr,
+                                                     const NibbleTabs& tab, uint32_t* f,
+                                                     uint32_t* r) {
+  const int c = threadIdx.x & 15;
+  uint32_t fe = padf, re = padr, fo = 0, ro = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    const uint32_t w = j == W - 1 ? a.w[j] & top : a.w[j];
+    uint32_t gf = 0, gr = 0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint2 e = tab[n][(w >> (4 * n)) & 15u][c];
+      gf ^= e.x;
+      gr ^= e.y;
+    }
+    if (j & 1) {
+      fo ^= gf;
+      ro ^= gr;
+    } else {
+      fe ^= gf;
+      re ^= gr;
+    }
+  }
+  *f = fe ^ rolr(fo, 16);
+  *r = rolr(re ^ rolr(ro, 16), k - 1);
+}
+
+// row `row` of (S, W) words: 16- or 8-byte loads where W allows and `vec`
+// says the base is aligned to them
+template <int W>
+static __device__ __forceinline__ Kmer<W> load_kmer_vec(const uint32_t* __restrict__ words,
+                                                        long long row, bool vec) {
+  Kmer<W> x;
+  if constexpr (W % 4 == 0) {
+    if (vec) {
+      const uint4* p = reinterpret_cast<const uint4*>(words + row * W);
+#pragma unroll
+      for (int j = 0; j < W / 4; ++j) {
+        const uint4 v = __ldg(p + j);
+        x.w[4 * j] = v.x;
+        x.w[4 * j + 1] = v.y;
+        x.w[4 * j + 2] = v.z;
+        x.w[4 * j + 3] = v.w;
+      }
+      return x;
+    }
+  } else if constexpr (W % 2 == 0) {
+    if (vec) {
+      const uint2* p = reinterpret_cast<const uint2*>(words + row * W);
+#pragma unroll
+      for (int j = 0; j < W / 2; ++j) {
+        const uint2 v = __ldg(p + j);
+        x.w[2 * j] = v.x;
+        x.w[2 * j + 1] = v.y;
+      }
+      return x;
+    }
+  }
+  return load_kmer<W>(words, row);
+}
+
 template <int W>
 static __device__ __forceinline__ bool same_kmer(const Kmer<W>& a, const Kmer<W>& b) {
   bool eq = true;

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
-K14 (`count.word_runs` in its three modes and `count.runs_words`) and the
-k-mer scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`) of one
+K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
+scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
+K18 and K19 and the Bloom builds K16 and K3 of one
 tree's leon_tpu_torch on the card, beside the PyTorch call that computes the
 same function where there is one, on inputs made from fixed seeds.
 
-    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14,walk]
+    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14,walk,bloom]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -29,7 +30,8 @@ Inputs (chip_smoke.py's shapes):
   lookup:w4/w8/w16  2,024,000 / 1,777,017 / 530,019 sorted distinct random
                rows of k = 63 / 127 / 255, the same query mix
   scan:k1      K1 on one 65,536-read chunk of phase 3's reads (L = 104,
-               k = 31), as DeviceCounter.add_packed launches it
+               k = 31), as DeviceCounter.add_packed launches it; ":slab"
+               the 7-chunk slab in one launch (chip_smoke.py phase 3's)
   scan:w4/w8/w16  K17 on one 65,536-read chunk at phase 9's shapes: phase 3's
                reads at k = 63, 250-bp reads (gen_fastq's 250-bp corpus) at
                k = 127, 300-600 bp reads (chip_smoke.long_reads) at k = 255:
@@ -63,6 +65,21 @@ Inputs (chip_smoke.py's shapes):
                card's issue rate), the byte bound, the bound (the largest of
                the three) and the kernel's share of it; and the registers
                ptxas gave the tree's walk kernels
+  bloom:w4/w8/w16  K16 (`bloom.bloom_build_words`) over the main path's
+               solid rows at each width (phase 9's: K17, K14, the solid
+               compaction; 24 bits a solid k-mer, H = 4), as the
+               WordCounter calls it; ":partial" over the whole distinct run
+               with its solid rows marked valid (the tensor path's and
+               mesh's partial, a sparse valid); ":hot" the same solid rows
+               into 64 words (every atomic on 64 addresses). Beside each:
+               rows, valid rows, bytes (the valid mask, the valid rows'
+               words, the bitset), the byte bound, the table loads
+               (8W 64-bit (f, r) entries a valid row) and the table-load
+               bound (their 32-bit words over 132 SMs x 32 lanes x the
+               maximum SM clock: shared memory's rate), and the ptxas
+               registers of the tree's K1, K3 and K16 instances
+  bloom:k3     K3 (`bloom.bloom_build`) on phase 3's slab run at its cutoff
+               (k = 31), the queue's next entry, with its byte bound
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -75,7 +92,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom")
 
 
 def main() -> int:
@@ -101,7 +118,7 @@ def main() -> int:
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     from leon_tpu_torch import kernels, state
-    from leon_tpu_torch.ops import bloom, count, kmer, unitig, walk
+    from leon_tpu_torch.ops import count, kmer, unitig
 
     dev = torch.device("cuda")
     kernels.lib()
@@ -260,6 +277,14 @@ def main() -> int:
         out["scan:k1"] = ms(lambda: kmer.kmer_scan(p1, l1, 31, L, out=slab), 20)
         out["rows"]["scan:k1"] = want.numel()
         del want, slab
+        codes, lengths = slab_reads(7 * chip_smoke.B, True)
+        p7 = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+        l7 = torch.from_numpy(lengths).to(dev)
+        slab = kmer.kmer_scan(p7, l7, 31, L)
+        same([slab], [kmer.kmer_scan_plain(p7, l7, 31, L)])
+        out["scan:k1:slab"] = ms(lambda: kmer.kmer_scan(p7, l7, 31, L, out=slab), 10)
+        out["rows"]["scan:k1:slab"] = slab.numel()
+        del p7, l7, slab
         lib = kernels.lib()
         for W in (4, 8, 16):
             k, chunks, L = wide(W)[:3]
@@ -332,6 +357,8 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "walk" in only:
         out["walk"] = walk_section(args.tree, wide, ms, same, dev)
+    if "bloom" in only:
+        out["bloom"] = bloom_section(args.tree, wide, slab_reads, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -359,15 +386,21 @@ def anchor_ops(H: int) -> int:
     return 14 + 5 + 4 * H + 3 + 6
 
 
-def issue_rate() -> float:
-    """Thread instructions a second the card can issue: SMs x 4 warp
-    schedulers x 32 lanes x its maximum SM clock (nvidia-smi)."""
+def lane_rate() -> float:
+    """Lane-cycles a second: SMs x 32 lanes x the card's maximum SM clock
+    (nvidia-smi)."""
     import torch
 
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], check=True, capture_output=True,
                          text=True, timeout=60).stdout.split()[0]
-    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32 * float(mhz) * 1e6
+    return torch.cuda.get_device_properties(0).multi_processor_count * 32 * float(mhz) * 1e6
+
+
+def issue_rate() -> float:
+    """Thread instructions a second the card can issue: 4 warp schedulers
+    an SM, each a warp's instruction a clock."""
+    return 4 * lane_rate()
 
 
 def probe_floor_lib():
@@ -389,9 +422,14 @@ def probe_floor_lib():
     return lib
 
 
-def walk_registers(tree: str) -> dict:
-    """Registers ptxas gave each walk kernel's instances in the tree's last
-    kernel build (build/leon_tpu_torch/ptxas.log): name -> [min, max]."""
+WALK_KERNELS = ("walk_encode_words_kernel", "walk_decode_words_kernel", "walk_encode_kernel",
+                "walk_decode_kernel")
+
+
+def registers(tree: str, names: tuple) -> dict:
+    """Registers ptxas gave the instances of the named kernels in the tree's
+    last kernel build (build/leon_tpu_torch/ptxas.log): name -> [min, max]
+    (a name that prefixes another comes after it in `names`)."""
     import re
 
     path = os.path.join(tree, "build", "leon_tpu_torch", "ptxas.log")
@@ -401,9 +439,7 @@ def walk_registers(tree: str) -> dict:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = re.sub(r"^_Z\d+", "", m.group(1))
-                cur = next((n for n in ("walk_encode_words_kernel", "walk_decode_words_kernel",
-                                        "walk_encode_kernel", "walk_decode_kernel")
-                            if name.startswith(n)), None)
+                cur = next((n for n in names if name.startswith(n)), None)
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and cur:
@@ -411,6 +447,109 @@ def walk_registers(tree: str) -> dict:
                 regs[cur] = [min(lo, int(m.group(1))), max(hi, int(m.group(1)))]
                 cur = None
     return regs
+
+
+def main_solid(k: int, chunks, L: int, dev) -> dict:
+    """The main path's count of every chunk's k-mers at 32 <= k <= 255
+    (phase 9's: K17, each slab's sort + K14, their merge, the cutoff, the
+    solid compaction) and its Bloom sizing: the distinct rows and counts,
+    the cutoff, the solid rows, n_solid and n_words."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom, count, kmer
+
+    W = kmer.words_for_k(k)
+    runs = [count.word_runs(count.sort_planes(kmer.kmer_scan_halves(p, ln, k, L)), W)[:2]
+            for p, ln in chunks]
+    words = torch.cat([r[0] for r in runs])
+    counts = torch.cat([r[1] for r in runs])
+    del runs
+    mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+    gw, gc, gh = count.word_runs(mpl, W, counts[perm], 1, True)
+    del words, counts, perm, mpl
+    hist = gh.cpu().numpy().astype(np.int64)
+    cutoff = count.auto_cutoff(hist)
+    sw, _ = count.compact_solid_words(gw, gc, cutoff)
+    n_solid = int(hist[min(cutoff, 255):].sum())
+    bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
+    return {"distinct": gw, "counts": gc, "cutoff": cutoff, "solid": sw, "n_solid": n_solid,
+            "n_words": bloom.choose_n_words(n_solid, bpk)}
+
+
+def bloom_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
+    """K16 at the main path's solid sets (W = 4, 8, 16), its partial over
+    the distinct run and its hot-word case, and K3 at bench, with their
+    bounds; see the docstring."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom, count, kmer
+
+    H, SEED = chip_smoke.H, chip_smoke.SEED
+    lanes = lane_rate()
+    res = {"lane_rate": lanes}
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def k16(tag, words, valid, n_alloc, nw, k):
+        got = bloom.bloom_build_words(words, valid, n_alloc, nw, H, SEED, k)
+        same([got], [bloom.bloom_build_words_plain(words, valid, n_alloc, nw, H, SEED, k)])
+        W = words.shape[1]
+        n_valid = int(valid.sum())
+        rec = {"k": k, "rows": words.shape[0], "valid": n_valid, "n_words": nw,
+               "ms": ms(lambda: bloom.bloom_build_words(words, valid, n_alloc, nw, H, SEED, k),
+                        10),
+               "bytes": nbytes(valid, got) + 4 * W * n_valid}  # valid rows' words only
+        rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rec["table_loads"] = 8 * W * n_valid
+        rec["table_ms"] = 2 * rec["table_loads"] / lanes * 1e3  # 64-bit entries
+        rec["bound_ms"] = max(rec["bytes_ms"], rec["table_ms"])
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        res[tag] = rec
+        print(json.dumps({f"bloom:{tag}": rec}), flush=True)
+
+    for W in (4, 8, 16):
+        k, chunks, L = wide(W)[:3]
+        sol = main_solid(k, chunks, L, dev)
+        sw, nw = sol["solid"], sol["n_words"]
+        ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
+        k16(f"w{W}", sw, ones, nw, nw, k)
+        k16(f"w{W}:partial", sol["distinct"], sol["counts"] >= sol["cutoff"],
+            bloom.alloc_words(nw), nw, k)
+        if W == 4:
+            k16(f"w{W}:hot", sw, ones, 64, 64, k)
+        del sol, sw, ones
+        torch.cuda.empty_cache()
+
+    # K3 on phase 3's slab run (k = 31), sized as the pipeline sizes it
+    K, L = 31, 104
+    codes, lengths = slab_reads(7 * chip_smoke.B, False)
+    packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+    skeys = torch.sort(kmer.kmer_scan(packed, torch.from_numpy(lengths).to(dev), K, L)).values
+    del packed
+    rk, rc, _ = count.runs(skeys)
+    del skeys
+    hist = count.runs_plain(rk, rc, 1, True)[2].cpu().numpy().astype(np.int64)
+    cutoff = count.auto_cutoff(hist)
+    n_solid = int(hist[min(cutoff, 255):].sum())
+    bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
+    nw = bloom.choose_n_words(n_solid, bpk)
+    bits = bloom.bloom_build(rk, rc, cutoff, nw, H, SEED, K)
+    same([bits], [bloom.bloom_build_plain(rk, rc, cutoff, nw, H, SEED, K)])
+    rec = {"k": K, "rows": rk.numel(), "valid": n_solid, "n_words": nw,
+           "ms": ms(lambda: bloom.bloom_build(rk, rc, cutoff, nw, H, SEED, K), 10),
+           "bytes": nbytes(rk, rc, bits)}
+    rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+    res["k3"] = rec
+    print(json.dumps({"bloom:k3": rec}), flush=True)
+    res["registers"] = registers(tree, ("bloom_build_words_kernel", "bloom_build_kernel",
+                                        "kmer_scan_kernel"))
+    return res
 
 
 def walk_section(tree: str, wide, ms, same, dev) -> dict:
@@ -421,33 +560,21 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
     import torch
 
     import chip_smoke
-    from leon_tpu_torch import kernels, state
-    from leon_tpu_torch.ops import bloom, count, kmer, walk
+    from leon_tpu_torch import kernels
+    from leon_tpu_torch.ops import bloom, walk
 
     H, SEED = chip_smoke.H, chip_smoke.SEED
     floor = probe_floor_lib()
     issue_per_s = issue_rate()
     res = {"issue_rate": issue_per_s, "step_ops": step_ops(H), "anchor_ops": anchor_ops(H)}
 
-    def main_filter(W, k, chunks, L):
+    def main_filter(k, chunks, L):
         """The main path's Bloom filter over every chunk's k-mers (phase 9)."""
-        Wd = kmer.words_for_k(k)
-        runs = [count.word_runs(count.sort_planes(kmer.kmer_scan_halves(p, ln, k, L)), Wd)[:2]
-                for p, ln in chunks]
-        words = torch.cat([r[0] for r in runs])
-        counts = torch.cat([r[1] for r in runs])
-        del runs
-        mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
-        gw, gc, gh = count.word_runs(mpl, Wd, counts[perm], 1, True)
-        del words, counts, perm, mpl
-        hist = gh.cpu().numpy().astype(np.int64)
-        cutoff = count.auto_cutoff(hist)
-        sw, _ = count.compact_solid_words(gw, gc, cutoff)
-        n_solid = int(hist[min(cutoff, 255):].sum())
-        bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
-        nw = bloom.choose_n_words(n_solid, bpk)
-        ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
-        return bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, k), nw, n_solid
+        sol = main_solid(k, chunks, L, dev)
+        ones = torch.ones(sol["solid"].shape[0], dtype=torch.bool, device=dev)
+        nw = sol["n_words"]
+        return (bloom.bloom_build_words(sol["solid"], ones, nw, nw, H, SEED, k), nw,
+                sol["n_solid"])
 
     def floor_ms(bits, nw, counts):
         c = counts.to(torch.int32).contiguous()
@@ -466,7 +593,7 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
     for W in (2, 4, 8, 16, 0):
         k, chunks, L, codes0, lengths0 = wide(W)
         tag = f"walk:w{W}" if W else f"walk:l{L}"
-        bits, nw, n_solid = main_filter(W, k, chunks, L)
+        bits, nw, n_solid = main_filter(k, chunks, L)
         p0, l0 = chunks[0]
         ME = L - k
         enc_d = walk.walk_encode_words(p0, l0, bits, nw, k, H, SEED, L, False)
@@ -525,7 +652,7 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
         print(json.dumps({tag: rec}), flush=True)
         del bits, enc_d, dec_d, dec_in
         torch.cuda.empty_cache()
-    res["registers"] = walk_registers(tree)
+    res["registers"] = registers(tree, WALK_KERNELS)
     return res
 
 
