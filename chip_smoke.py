@@ -26,7 +26,16 @@ run right after phase 3, whose reads and solid set they reuse):
      cutoffs 1, 2 and 300 with the histogram, and K8 on adversarial runs
      (k8_case: queries below the first row and above the last, equal to
      them, one row, five rows, top 16 bits of two values) at k = 15, 16,
-     31 and W = 2, 4, 8, 16, each equal to its plain version;
+     31 and W = 2, 4, 8, 16, K6 on adversarial graphs (rank_case: chains
+     of 2^16 - 1, 2^16, 2^16 + 1 nodes, chains with no sampled node and
+     with every node sampled, singletons, self-twin chains, two nodes
+     sharing a successor, cycles of 1-8 nodes with and without a sampled
+     ruler, all mixed, node ids placed by K6's ruler sampling) in every
+     mode and through chain_rank, and K3 on
+     adversarial runs (k3_case: k = 1, 2, 15, 16, 17, 31, cutoffs that keep
+     no row, every row or one in five, H = 1..8, 64 and 4,099 words, an
+     unaligned view, M = 0, 1), each equal to its plain version; the K6
+     record times the whole optimistic chain_rank (five launches);
   4. build a yeast-sized genome on the card (linear contigs plus two
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
@@ -436,6 +445,7 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
         cuda_ms(lambda: bloom.bloom_build_plain(rk, rc, cutoff, n_words, H, SEED, K), 2),
         nbytes(rk, rc, bits_d))
     log(f"bloom_build ok: {n_words} words")
+    k3_adversarial()
 
     # K4 on one chunk
     p1d, l1d = packed_d[:B].contiguous(), lengths_d[:B].contiguous()
@@ -513,6 +523,7 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     # K5-K8 on the solid run the pipeline hands the device build; K8 on
     # adversarial runs at every width
     unitig_checks(records, sk, sc, cutoff, rk.numel(), "bench")
+    rank_adversarial()
     lookup_adversarial()
     return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig, codes=codes,
                 lengths=lengths, n_distinct=rk.numel(), cutoff=cutoff, k4_enc=e_d)
@@ -712,6 +723,227 @@ def lookup_adversarial() -> None:
             n_hits += int(hit.sum())
     log(f"solid_lookup ok on {len(K8_CASES)} adversarial runs at k = {K8_KS} "
         f"({n_hits} hits)")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K6 and K3 on adversarial inputs (tests/test_torch_rank_model.py
+# and tests/test_torch_bloom_table.py hold models of both kernels and the
+# plain versions to leon_tpu's on the same generators)
+# ---------------------------------------------------------------------------
+
+RANK_CASES = ("chain_pow2m1", "chain_pow2", "chain_pow2p1", "chain_unsampled", "chain_sampled",
+              "singletons", "self_twin", "shared_succ", "cycles_free", "cycles_ruled", "mixed")
+RANK_CYCLES = (1, 2, 3, 4, 5, 8)  # cycle lengths of the cycles_* cases
+RANK_RLOGS = (0, 2, -1)  # ruler samplings: every node, one in 4, only where orbits end
+
+
+def rank_sampled(ids, rlog: int):
+    """K6's ruler sampling of node ids (csrc/unitig.cu rk_sampled): a u32
+    multiplicative hash whose top rlog bits are zero (rlog 0: every node,
+    -1: none)."""
+    import numpy as np
+
+    ids = np.asarray(ids, np.int64)
+    if rlog < 0:
+        return np.zeros(ids.shape, bool)
+    if rlog == 0:
+        return np.ones(ids.shape, bool)
+    m = 0xFFFFFFFF
+    h = (ids * 0x9E3779B1) & m
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & m
+    h ^= h >> 13
+    return (h >> (32 - rlog)) == 0
+
+
+def rank_case(name: str, rlog: int, t: int = 6, scale: int = 1):
+    """(nxt, prev) (N,) int32 of one adversarial K6 input, as K5 links them
+    (prev[s] = the largest d with nxt[d] = s), node ids shuffled: one chain
+    of 2^t - 1, 2^t or 2^t + 1 nodes (beside a short one); a chain of 2^t
+    nodes none of which is sampled at rlog (its head the one ruler), and
+    one of 2^(t-2) nodes all sampled (every node a ruler); 1,000 * scale
+    singletons; a self-twin chain (nodes c_0..c_m then their twins c_m ^ 1
+    .. c_0 ^ 1, as a unitig adjacent to its own reverse complement); two
+    chains that share one successor (the even-k palindrome); cycles of
+    RANK_CYCLES nodes with no node sampled as a ruler at rlog, or with one;
+    and all of these mixed with tails that run into cycles. The
+    chain_*sampled and cycles_* cases take their ids by rank_sampled at
+    rlog."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)) * 131 + 7 * t + scale)
+    edges = []
+    n_single = 1000 * scale  # at least: every id no structure takes is a singleton
+    N = 4 * (1 << t) + 2 * n_single + 16384 * scale + 4096
+    used = np.zeros(N, bool)
+    perm = rng.permutation(N)
+    smp = rank_sampled(perm, rlog)
+    order = {None: iter(perm), True: iter(perm[smp]), False: iter(perm[~smp]),
+             "pair": iter(rng.permutation(N // 2))}
+
+    def draw(key):
+        for x in order[key]:
+            if key == "pair":
+                if not used[2 * x] and not used[2 * x + 1]:
+                    used[2 * x] = used[2 * x + 1] = True
+                    return int(x)
+            elif not used[x]:
+                used[x] = True
+                return int(x)
+        return None
+
+    def take(n: int, n_sampled: int = -1):
+        """n unused ids; n_sampled of them sampled at rlog where rlog allows
+        (at rlog 0 every id is sampled, at -1 none)."""
+        if n_sampled < 0 or rlog <= 0:
+            return [draw(None) for _ in range(n)]
+        out = [draw(True) for _ in range(n_sampled)] + [draw(False) for _ in range(n - n_sampled)]
+        rng.shuffle(out)
+        return out
+
+    def chain(ids, close=False):
+        edges.extend(zip(ids[:-1], ids[1:]))
+        if close:
+            edges.append((ids[-1], ids[0]))
+
+    def self_twin(m: int):
+        fwd = [2 * draw("pair") for _ in range(m)]
+        chain(fwd + [d ^ 1 for d in reversed(fwd)])
+
+    def shared(la: int, lb: int, ls: int, into_cycle: bool = False):
+        a, b, c = take(la), take(lb), take(ls)
+        chain(a)
+        chain(b)
+        chain(c, close=into_cycle)
+        edges.append((a[-1], c[0]))
+        edges.append((b[-1], c[0]))
+
+    if name.startswith("chain_pow2"):
+        n = (1 << t) + {"chain_pow2m1": -1, "chain_pow2": 0, "chain_pow2p1": 1}[name]
+        chain(take(n))
+        chain(take(3))
+    elif name == "chain_unsampled":
+        chain(take(1 << t, 0))
+    elif name == "chain_sampled":
+        n = 1 << (t - 2)
+        chain(take(n, n))
+    elif name == "singletons":
+        pass
+    elif name == "self_twin":
+        for m in (1, 2, 5, 33):
+            self_twin(m)
+    elif name == "shared_succ":
+        shared(1, 1, 1)
+        shared(3, 2, 9)
+        shared(7, 1, 1 << t)
+    elif name.startswith("cycles"):
+        for L in RANK_CYCLES:
+            for _ in range(2):
+                chain(take(L, 1 if name == "cycles_ruled" else 0), close=True)
+    elif name == "mixed":
+        for L in rng.integers(1, 300, 40 * scale):
+            chain(take(int(L)))
+        for L in RANK_CYCLES + (37, 300):
+            chain(take(L, 0), close=True)
+            chain(take(L, 1), close=True)
+        for _ in range(3):
+            shared(int(rng.integers(1, 40)), int(rng.integers(1, 40)),
+                   int(rng.integers(2, 60)), into_cycle=True)
+            shared(int(rng.integers(1, 40)), int(rng.integers(1, 40)), int(rng.integers(1, 60)))
+        for m in (1, 4, 30):
+            self_twin(m)
+        chain(take(1 << t))
+    else:
+        raise KeyError(name)
+    nxt = np.full(N, -1, np.int64)
+    prev = np.full(N, -1, np.int64)
+    if edges:
+        e = np.array(edges, np.int64)
+        nxt[e[:, 0]] = e[:, 1]
+        np.maximum.at(prev, e[:, 1], e[:, 0])
+    return nxt.astype(np.int32), prev.astype(np.int32)
+
+
+def rank_adversarial() -> None:
+    """K6 against its plain version on the card, exactly, in every mode
+    (and chain_rank's two variants) on every rank_case at chains of 2^16
+    +-1 nodes among 0.5-0.9M, ids placed by K6's own ruler sampling."""
+    import torch
+
+    from leon_tpu_torch.ops import unitig
+
+    dev = torch.device("cuda")
+    n_runs = 0
+    for name in RANK_CASES:
+        nxt_np, prev_np = rank_case(name, unitig.RULER_LOG2, t=16, scale=32)
+        nxt, prev = torch.from_numpy(nxt_np).to(dev), torch.from_numpy(prev_np).to(dev)
+        for mode in (unitig.ACYCLIC, unitig.FULL, unitig.RANK):
+            max_abs_err(unitig.unitig_rank(nxt, prev, mode),
+                        unitig.unitig_rank_plain(nxt, prev, mode))
+            n_runs += 1
+        for acyclic in (True, False):
+            for a, b in zip(unitig.chain_rank(nxt, prev, acyclic),
+                            unitig.chain_rank_plain(nxt, prev, acyclic)):
+                max_abs_err(a, b)
+    log(f"unitig_rank ok on {len(RANK_CASES)} adversarial graphs ({n_runs} rankings, and "
+        f"chain_rank both ways)")
+
+
+K3_KS = (1, 2, 15, 16, 17, 31)
+K3_KEEP = ("none", "all", "fifth")
+
+
+def k3_case(k: int, keep: str, M: int):
+    """(keys (M,) int64 sorted distinct k-mers, counts (M,) int32, cutoff)
+    for K3: random keys of 2k bits (all 4^k at k <= 8 where M is larger),
+    the all-zero and the top key among them; the cutoff keeps no row, every
+    row, or one in five."""
+    import numpy as np
+
+    rng = np.random.default_rng(31 * k + len(keep) + M)
+    top = (1 << (2 * k)) - 1
+    if top < 4 * M:
+        keys = np.arange(min(M, top + 1), dtype=np.int64)
+    else:
+        keys = np.unique(np.concatenate([[0, top], rng.integers(0, top, M, dtype=np.int64)]))
+        keys = keys[:M]
+    counts = rng.integers(1, 5, keys.size).astype(np.int32)
+    if keep == "fifth":
+        counts[:] = 1
+        counts[rng.random(keys.size) < 0.2] = 7
+        cutoff = 5
+    else:
+        cutoff = 100 if keep == "none" else 1
+    return keys, counts, cutoff
+
+
+def k3_adversarial() -> None:
+    """K3 against its plain version on the card, exactly, at K3_KS with
+    cutoffs that keep no row, every row and one in five, H = 1..8: 3,001
+    rows (no multiple of a warp's 128) into 64 words (hot words) and into
+    4,099; a view one row in (unaligned: the scalar loads); M = 0, 1."""
+    import torch
+
+    from leon_tpu_torch.ops import bloom
+
+    dev = torch.device("cuda")
+    n_builds = 0
+    for k in K3_KS:
+        for keep in K3_KEEP:
+            keys_np, counts_np, cutoff = k3_case(k, keep, 3001)
+            keys = torch.from_numpy(keys_np).to(dev)
+            counts = torch.from_numpy(counts_np).to(dev)
+            for h in range(1, 9):
+                for nw, lo in ((64, 0), (4099, 0), (4099, 1)):
+                    kk, cc = keys[lo:], counts[lo:]
+                    max_abs_err(bloom.bloom_build(kk, cc, cutoff, nw, h, SEED, k),
+                                bloom.bloom_build_plain(kk, cc, cutoff, nw, h, SEED, k))
+                    n_builds += 1
+            for m in (0, 1):
+                max_abs_err(bloom.bloom_build(keys[:m], counts[:m], 1, 64, 4, SEED, k),
+                            bloom.bloom_build_plain(keys[:m], counts[:m], 1, 64, 4, SEED, k))
+    log(f"bloom_build ok on adversarial runs at k = {K3_KS}, cutoffs keeping {K3_KEEP} "
+        f"({n_builds} builds, and M = 0, 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -1159,26 +1391,26 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
         cuda_ms(lambda: unitig.unitig_links_plain(rows, k), 1), nbytes(rows, nxt, prev))
     log(f"[{tag}] unitig_links ok: {M} solid rows, {int((nxt >= 0).sum())} internal edges")
 
-    # K6: the start states and one round of every mode, then whole rankings
+    # K6: one pass in every mode, then both chain_rank variants; the record
+    # times the whole optimistic ranking (one pass: its bound reads nxt and
+    # prev and writes S once)
     err = 0
     for mode in (unitig.ACYCLIC, unitig.FULL, unitig.RANK):
-        S0 = unitig.double_init(nxt, prev, mode)
-        err = max(err, max_abs_err(S0, unitig.double_init_plain(nxt, prev, mode).cpu()))
-        got, ch = unitig.unitig_double(S0, mode)
-        exp, ch_p = unitig.unitig_double_plain(S0, mode)
-        err = max(err, max_abs_err(got, exp.cpu()), max_abs_err(ch, ch_p.cpu()))
+        err = max(err, max_abs_err(unitig.unitig_rank(nxt, prev, mode),
+                                   unitig.unitig_rank_plain(nxt, prev, mode)))
     ranked = {}
     for acyclic in (True, False):
         got = unitig.chain_rank(nxt, prev, acyclic)
         exp = unitig.chain_rank_plain(nxt, prev, acyclic)
         err = max(err, *(max_abs_err(a, b.cpu()) for a, b in zip(got, exp)))
         ranked[acyclic] = got
-    S0 = unitig.double_init(nxt, prev, unitig.ACYCLIC)
     records[n_double] = record(
-        err, cuda_ms(lambda: unitig.unitig_double(S0, unitig.ACYCLIC), 10),
-        cuda_ms(lambda: unitig.unitig_double_plain(S0, unitig.ACYCLIC), 3),
-        nbytes(S0, unitig.unitig_double(S0, unitig.ACYCLIC)))
-    log(f"[{tag}] unitig_double ok")
+        err, cuda_ms(lambda: unitig.chain_rank(nxt, prev, True), 10),
+        cuda_ms(lambda: unitig.chain_rank_plain(nxt, prev, True), 2),
+        nbytes(nxt, prev, ranked[True][2]))
+    full_ms = cuda_ms(lambda: unitig.chain_rank(nxt, prev, False), 5)
+    log(f"[{tag}] unitig_rank ok: chain_rank {records[n_double]['ms']:.4f} ms, "
+        f"the full variant {full_ms:.4f} ms ({2 * M} nodes)")
 
     # K7 on both rankings; then the whole build (dispatch + drain) and the
     # plain build on the card
@@ -1222,7 +1454,8 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
         raise AssertionError(f"[{tag}] device payload differs from the native host builder's")
     n_chains = unitig.parse_payload(payload, k)[0].size
     log(f"[{tag}] unitig_emit ok; build: {n_chains} chains, cycles flagged {cyc}, "
-        f"payload {len(payload)} B = the native host builder's")
+        f"payload {len(payload)} B = the native host builder's; dispatch_build + "
+        f"drain_build {t_kernel * 1e3:.2f} ms (host clock, first call)")
 
     # K8: solid rows, and rows that are not in the run (low bits flipped)
     rng = np.random.default_rng(8)
@@ -1248,14 +1481,15 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
                 host_build_s=t_host, peak_device_bytes=peak)
 
 
-def yeast_phase() -> dict:
+def yeast_solid() -> tuple:
     """A yeast-sized genome made on the card from a seeded generator: linear
     contigs of 14.2 Mbp in all and two circular plasmids (48 and 6.3 kbp).
     Each contig (a circular one extended by its first k-1 bases) is cut
     into windows of 128 bp at a stride of 128 - (k-1), so every k-mer lies
     in exactly one window; two copies of the windows give every genomic
-    k-mer a count of at least 2. K1 + sort + K2 count them; K5-K8 are then
-    held against their plain versions."""
+    k-mer a count of at least 2. K1 + sort + K2 count them. Returns the
+    solid keys and counts, the cutoff, the distinct count and the genome's
+    size, contig counts and windows."""
     import numpy as np
     import torch
 
@@ -1298,10 +1532,17 @@ def yeast_phase() -> dict:
     del keys, packed
     cutoff = 2
     sk, sc = count.compact_solid(uk, uc, cutoff)
-    log(f"[yeast] genome {total} bp in {len(linear)} linear + {len(circular)} circular contigs, "
-        f"{2 * B} windows -> {uk.numel()} distinct, {sk.numel()} solid k-mers")
+    return sk, sc, cutoff, uk.numel(), (total, len(linear), len(circular), 2 * B)
+
+
+def yeast_phase() -> dict:
+    """yeast_solid's run; K5-K8 are then held against their plain
+    versions."""
+    sk, sc, cutoff, nu, (total, n_lin, n_circ, n_win) = yeast_solid()
+    log(f"[yeast] genome {total} bp in {n_lin} linear + {n_circ} circular contigs, "
+        f"{n_win} windows -> {nu} distinct, {sk.numel()} solid k-mers")
     records: dict = {}
-    fig = unitig_checks(records, sk, sc, cutoff, uk.numel(), "yeast")
+    fig = unitig_checks(records, sk, sc, cutoff, nu, "yeast")
     if not fig["cycles_flagged"]:
         raise AssertionError("[yeast] the optimistic build did not flag the plasmid cycles")
     fig["genome_bp"] = total

@@ -6,27 +6,91 @@
 // (hash every row from scratch with hash_words, wordbit per row, then a
 // sort-dedup of the (word, bit) pairs and a scatter-add that equals OR).
 //
-// Bound on the H100: the k-step from-scratch hash per row (ALU) plus one
-// random 4-byte atomic per solid row; the bitset (~6 MB at the bench's
-// 2M solid k-mers) stays in the 50 MB L2. Design: one thread per row,
-// rows below the cutoff return at once; the H mask bits of a row live in
-// one word, so a single atomicOr sets them. OR is order-free: the result
-// is deterministic and equals the reference's [:n_words] prefix (the
+// Bound on the H100: the run's bytes (a key and a count a row, read once)
+// and one random 4-byte atomic a solid row into a bitset that stays in the
+// 50 MB L2. A key is K16's W = 2 row (the int64's low and high words), so
+// it hashes as K16 does, a word at a time from the nibble tables built in
+// shared memory once per block (hash_kmer_tab<2>, 16 table loads a row;
+// at k < 32 the code-0 bases k .. 31 above the key are cancelled by padf /
+// padr), not base by base. Most rows are below the cutoff (four in five
+// at the bench), so a warp first compacts its solid rows: it reads 128 rows
+// a step (a lane's four keys and four counts in 16-byte loads), appends
+// the solid keys to its queue in shared memory (ballot order; OR is
+// order-free), and hashes 32 at a time, so no lane idles while another
+// hashes; the rest of the queue is hashed at the end. Warps walk the run
+// with a grid-stride loop over the card's resident blocks. One atomicOr
+// sets a row's H-bit mask (all H bits share one word): the result is
+// deterministic and equals the reference's [:n_words] prefix (the
 // reference pads the array to alloc_words).
 #include "common.cuh"
 #include "kmer_words.cuh"
 
-__global__ void bloom_build_kernel(const int64_t* __restrict__ keys,
-                                   const int32_t* __restrict__ counts, long long M,
-                                   int32_t cutoff, uint32_t n_words, int H, int k,
-                                   const __grid_constant__ HashTabs tabs,
-                                   uint32_t* __restrict__ bits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M || counts[i] < cutoff) return;
+#define K3_THREADS 256
+#define K3_WARPS (K3_THREADS / 32)
+#define K3_TILE 128  // rows a warp reads a step: four a lane
+#define K3_QUEUE (K3_TILE + 32)  // under 32 pending keys plus a tile's
+
+static __device__ __forceinline__ void k3_set(uint64_t key, int k, uint32_t n_words, int H,
+                                              uint32_t padf, uint32_t padr,
+                                              const NibbleTabs& tab,
+                                              uint32_t* __restrict__ bits) {
+  Kmer<2> x;
+  x.w[0] = (uint32_t)key;
+  x.w[1] = (uint32_t)(key >> 32);
   uint32_t f, r, wi, mask;
-  hash_key((uint64_t)keys[i], k, tabs, &f, &r);
+  hash_kmer_tab<2>(x, k, 0xFFFFFFFFu, padf, padr, tab, &f, &r);
   wordmask(f, r, H, n_words, &wi, &mask);
   atomicOr(bits + wi, mask);
+}
+
+__global__ void __launch_bounds__(K3_THREADS)
+    bloom_build_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ counts,
+                       long long M, int32_t cutoff, uint32_t n_words, int H, int k,
+                       uint32_t padf, uint32_t padr, bool vec,
+                       const __grid_constant__ HashTabs tabs, uint32_t* __restrict__ bits) {
+  __shared__ NibbleTabs tab;
+  __shared__ uint64_t queue[K3_WARPS][K3_QUEUE];
+  build_nibble_tabs(tabs, tab);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  uint64_t* q = queue[wib];
+  const unsigned below = (1u << lane) - 1u;
+  int pending = 0;  // keys in q, the same in every lane
+  const long long warps = (long long)gridDim.x * K3_WARPS;
+  for (long long t = (long long)blockIdx.x * K3_WARPS + wib; t * K3_TILE < M; t += warps) {
+    const long long r0 = t * K3_TILE + 4 * lane;
+    int64_t key[4];
+    bool solid[4];
+    if (vec && r0 + 3 < M) {
+      const int4 c = __ldg(reinterpret_cast<const int4*>(counts + r0));
+      const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(keys + r0));
+      const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(keys + r0 + 2));
+      solid[0] = c.x >= cutoff, solid[1] = c.y >= cutoff;
+      solid[2] = c.z >= cutoff, solid[3] = c.w >= cutoff;
+      key[0] = a.x, key[1] = a.y, key[2] = b.x, key[3] = b.y;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = r0 + j < M;
+        solid[j] = in && __ldg(counts + r0 + j) >= cutoff;
+        key[j] = in ? __ldg(keys + r0 + j) : 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned m = __ballot_sync(0xffffffffu, solid[j]);
+      if (solid[j]) q[pending + __popc(m & below)] = (uint64_t)key[j];
+      pending += __popc(m);
+    }
+    __syncwarp();
+    while (pending >= 32) {
+      pending -= 32;
+      const uint64_t x = q[pending + lane];
+      __syncwarp();  // read before the next tile's appends overwrite the slot
+      k3_set(x, k, n_words, H, padf, padr, tab, bits);
+    }
+  }
+  if (lane < pending) k3_set(q[lane], k, n_words, H, padf, padr, tab, bits);
 }
 
 extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M, int cutoff,
@@ -37,12 +101,20 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
   cudaError_t e = cudaMemsetAsync(bitset, 0, (size_t)n_words * sizeof(uint32_t), st);
   if (e != cudaSuccess) return (int)e;
   if (M <= 0) return (int)cudaSuccess;
+  static int resident = 0;  // blocks the card holds at once
+  if (!resident && (e = resident_blocks(bloom_build_kernel, K3_THREADS, &resident)) != cudaSuccess)
+    return (int)e;
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
-  const int threads = 256;
-  bloom_build_kernel<<<(unsigned)((M + threads - 1) / threads), threads, 0, st>>>(
-      (const int64_t*)keys, (const int32_t*)counts, M, cutoff, n_words, H, k, tb,
-      (uint32_t*)bitset);
+  uint32_t padf, padr;
+  nibble_tab_pads(tb, k, 2, &padf, &padr);
+  const bool vec = reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(counts) % 16 == 0;
+  const long long tiles = (M + K3_TILE - 1) / K3_TILE;
+  const unsigned grid = (unsigned)min((tiles + K3_WARPS - 1) / K3_WARPS, (long long)resident);
+  bloom_build_kernel<<<grid, K3_THREADS, 0, st>>>((const int64_t*)keys, (const int32_t*)counts,
+                                                  M, cutoff, n_words, H, k, padf, padr, vec, tb,
+                                                  (uint32_t*)bitset);
   return (int)cudaGetLastError();
 }
 
@@ -105,17 +177,11 @@ static cudaError_t launch_bloom_words(const uint32_t* w, const uint8_t* v, long 
                                       uint32_t* b, cudaStream_t st) {
   static int resident = 0;  // blocks of this instance the card holds at once
   if (!resident) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_build_words_kernel<W>,
-                                                        K16_THREADS, 0);
+    const cudaError_t e = resident_blocks(bloom_build_words_kernel<W>, K16_THREADS, &resident);
     if (e != cudaSuccess) return e;
-    resident = max(1, sms * per_sm);
   }
   uint32_t padf, padr;
-  nibble_tab_pads(tb, k, &padf, &padr);
+  nibble_tab_pads(tb, k, W, &padf, &padr);
   const uint32_t top = 2 * k - 32 * (W - 1) >= 32 ? 0xFFFFFFFFu
                                                   : (1u << (2 * k - 32 * (W - 1))) - 1u;
   const int align = W % 4 == 0 ? 16 : 8;

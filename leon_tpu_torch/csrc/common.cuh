@@ -68,3 +68,19 @@ static __device__ __forceinline__ void hash_key(uint64_t key, int k, const HashT
 static __device__ __forceinline__ int base_at(const uint32_t* __restrict__ row, int j) {
   return (int)((__ldg(row + (j >> 4)) >> (2 * (j & 15))) & 3u);
 }
+
+// Blocks of `kern` the card holds at once at `threads` a block, at most
+// per_sm_cap an SM: the grid of a grid-stride or cooperative launch. An
+// error where the kernel cannot be resident at all.
+template <typename F>
+static cudaError_t resident_blocks(F kern, int threads, int* out, int per_sm_cap = 1 << 30) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, 0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *out = sms * (per_sm < per_sm_cap ? per_sm : per_sm_cap);
+  return cudaSuccess;
+}

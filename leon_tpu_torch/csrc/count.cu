@@ -609,36 +609,22 @@ struct WordRows {
 // Host side: the grid, the scratch and the two passes of any row policy
 // ---------------------------------------------------------------------------
 
-static int card_sms(int* sms) {
-  static int n = 0;
-  if (!n) {
-    int dev = 0;
-    LT_TRY(cudaGetDevice(&dev));
-    LT_TRY(cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev));
-  }
-  *sms = n;
-  return 0;
-}
-
 // The grid both passes of Rows use for n rows: (blocks, steps a warp), at
 // most the blocks the card holds at once of either pass (found once).
 template <class Rows>
 static int runs_grid(long long n, long long* blocks, long long* per) {
-  static int per_sm = 0;
-  int sms = 0;
-  LT_TRY((cudaError_t)card_sms(&sms));
-  if (!per_sm) {
+  static int resident = 0;
+  if (!resident) {
     int least = 1 << 30;
     for (auto k : {runs_pass_kernel<Rows, false>, runs_pass_kernel<Rows, true>}) {
       int b = 0;
-      LT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k, K2_THREADS, 0));
+      LT_TRY(resident_blocks(k, K2_THREADS, &b));
       least = std::min(least, b);
     }
-    if (least < 1) return (int)cudaErrorInvalidConfiguration;
-    per_sm = least;
+    resident = least;
   }
   const long long steps = (n + Rows::STEP) / Rows::STEP;
-  *blocks = std::min((long long)per_sm * sms, (steps + K2_WARPS - 1) / K2_WARPS);
+  *blocks = std::min((long long)resident, (steps + K2_WARPS - 1) / K2_WARPS);
   *per = (steps + *blocks * K2_WARPS - 1) / (*blocks * K2_WARPS);
   return 0;
 }

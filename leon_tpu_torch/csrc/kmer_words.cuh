@@ -161,11 +161,12 @@ static __device__ __forceinline__ void build_nibble_tabs(const HashTabs& tb, Nib
   }
 }
 
-// (padf, padr): the terms of code-0 bases at m = k .. 16W-1 (host)
-static inline void nibble_tab_pads(const HashTabs& tb, int k, uint32_t* padf,
+// (padf, padr): the terms of code-0 bases at m = k .. 16W-1 (host), for a
+// k-mer hashed as W >= ceil(k/16) words
+static inline void nibble_tab_pads(const HashTabs& tb, int k, int W, uint32_t* padf,
                                    uint32_t* padr) {
   uint32_t f = 0, r = 0;
-  for (int m = k; m < 16 * ((k + 15) / 16); ++m) {
+  for (int m = k; m < 16 * W; ++m) {
     f ^= rolr(tb.t[0][0], m);
     r ^= rolr(tb.t[1][0], 32 - (m & 31));
   }

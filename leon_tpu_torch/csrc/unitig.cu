@@ -8,7 +8,7 @@
 // so the packed output is bit-identical:
 //
 //   K5 links   lt_unitig_buckets, lt_unitig_links (+ _words)
-//   K6 double  lt_unitig_init, lt_unitig_double (one round), lt_unitig_break
+//   K6 rank    lt_unitig_rank (the whole chain ranking), lt_unitig_break
 //   K7 emit    lt_unitig_emit_mins, _heads, _lens, _bases (+ _bases_words)
 //   K8 lookup  lt_solid_lookup (+ _words)
 //
@@ -24,9 +24,9 @@
 //
 // Bound on the H100: dependent random loads. K5 runs 8 bucketed binary
 // searches per row (a 2^16-entry prefix table narrows each to ~log2(M/2^16)
-// probes of the sorted rows); a K6 round is one 16-byte gather per node
-// (pointer and both carries ride in one int4, as the reference rides them
-// as columns of one matrix for a single row-gather); K7 is scatters
+// probes of the sorted rows); K6 is one list-ranking pass (a few dependent
+// loads a node; state int4 {P, c0, c1, 0}, as the reference rides pointer
+// and carries as columns of one matrix); K7 is scatters
 // (atomicMin, atomicOr) into zeroed buffers. One thread per row or node;
 // OR and MIN are order-free, so results do not depend on scheduling. A
 // W-word row lives in registers (Kmer<W>): K5 holds the row, its reverse
@@ -168,56 +168,424 @@ extern "C" int lt_unitig_links(const void* keys, int M, int k, const void* start
 }
 
 // ---------------------------------------------------------------------------
-// K6 pointer doubling (unitig.py:512-584)
+// K6 chain ranking (unitig.py:512-584)
 // ---------------------------------------------------------------------------
 //
-// State S[d] = {P, c0, c1, 0}. Modes (fold of the carries with their
-// values at P):
-//   0 acyclic   P = prev or self; c0 rank (sum), c1 reached-a-head (or)
-//   1 full      P = nxt or self;  c0 reached-a-tail (or), c1 min id (min)
-//   2 rank      P = prev or self; c0 rank (sum), c1 unused
+// State S[d] = {P, c0, c1, 0}: the reference's _double folded over each
+// node's orbit d, f(d), f(f(d)), ... until no pointer moves (at most
+// D = bitlen(N-1) + 1 rounds). Modes (the carries and their folds):
+//   0 acyclic   f = prev or self; c0 rank (sum), c1 reached-a-head (or)
+//   1 full      f = nxt or self;  c0 reached-a-tail (or), c1 min id (min)
+//   2 rank      f = prev or self; c0 rank (sum), c1 unused
+//
+// The reference doubles every pointer every round: O(N log L) work and a
+// 16-byte gather a node a round. Here the ranking is one list-ranking pass
+// over a sparse ruling set (Helman-JaJa), five launches, no host read:
+//   rulers  the nodes where orbits end (f(d) = d: a head in modes 0 and 2,
+//           a tail in mode 1); every node whose id a fixed hash samples at
+//           one in 2^RK_RULER_LOG2 (no randomness: the result cannot
+//           depend on it); in mode 1, every node d whose successor's prev
+//           is not d (two nodes that share a successor: K5's atomicMax
+//           keeps one as prev, so the other starts a segment of its own).
+//   walk    a thread a ruler walks its segment against the orbit, along
+//           nxt where prev[nxt[x]] == x (modes 0, 2: over (nxt, prev)
+//           pairs it overwrites in place) or along prev (mode 1), up to
+//           the next ruler, writing each node's ruler and distance to it
+//           (mode 1: and the min id on the way). The longest segment,
+//           about 2^RK_RULER_LOG2 ln(N / 2^RK_RULER_LOG2) dependent
+//           loads, sets its time.
+//   link    the rulers alone are ranked by pointer jumping, in one
+//           cooperative launch (a grid barrier a round, at most
+//           bitlen(rulers) + 1 rounds).
+//   fold    a pass over the nodes combines each node's value with its
+//           ruler's.
+//   cycles  a node whose orbit never reaches a fixed point (on a cycle, or,
+//           in mode 1, leading into one) has a state that depends on the
+//           number of rounds the reference ran; these nodes run the
+//           reference's own rounds over their list alone, in one
+//           cooperative launch (int32 wraparound included). The resolved
+//           nodes' pointers move while 2^(j-1) is below their longest
+//           distance (rounds j <= J), so the rounds stop at the first j > J
+//           that moved no pointer of the list, or at D. With no such node
+//           the launch returns at once.
+// A node that reaches a fixed point gets the converged state (P its head
+// or tail). The link and cycle launches are cooperative, so their blocks
+// are co-resident and a software grid barrier is safe; what one block
+// writes there, another reads through L2 (ld.cg), never a stale L1 line.
 
-__global__ void init_kernel(int mode, int N, const int32_t* __restrict__ nxt,
-                            const int32_t* __restrict__ prev, int4* __restrict__ S) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  int4 s;
-  if (mode == 1) {
-    const int n = nxt[d];
-    s = make_int4(n >= 0 ? n : d, n < 0, d, 0);
-  } else {
-    const int p = prev[d];
-    s = make_int4(p >= 0 ? p : d, p >= 0, mode == 0 ? (p < 0) : 0, 0);
-  }
-  S[d] = s;
+#define RK_RULER_LOG2 5  // a node in 32 sampled as a ruler (ops/unitig.py RULER_LOG2)
+#define RK_THREADS 256
+#define RK_ITEMS 8  // nodes a thread of the rulers and fold passes (one atomic a block)
+#define RK_COOP_THREADS 1024
+#define RK_COOP_PER_SM 1  // cooperative blocks an SM: the barrier's cost grows with blocks
+#define RK_BATCH 4  // rulers a thread loads at once in a link round
+// the control block (int32, zeroed by the entry): ruler count, cycle-list
+// length, the longest distance of a resolved node, which buffer holds the
+// rulers' final state; the grid barrier's count and generation, each on a
+// 128-byte line of its own (waiting blocks poll the generation); a flag a
+// round of each cooperative launch
+#define RK_CNT 0
+#define RK_NCYC 1
+#define RK_MAXD 2
+#define RK_FIN 3
+#define RK_BAR 32
+#define RK_GEN 64
+#define RK_ACT 96
+#define RK_CHG 160
+#define RK_CTL_INTS 256
+#define RK_ALL 0xffffffffu
+
+static __device__ __forceinline__ bool rk_sampled(int d) {
+  uint32_t h = (uint32_t)d * 0x9E3779B1u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  return (h >> (32 - RK_RULER_LOG2)) == 0u;
 }
 
-// one round, S -> S2 (never in place: a round must not see its own
-// writes); *changed is set when any pointer moved
-__global__ void double_kernel(int mode, int N, const int4* __restrict__ S,
-                              int4* __restrict__ S2, int32_t* __restrict__ changed) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  bool moved = false;
-  if (d < N) {
-    const int4 s = S[d];
-    const int4 g = S[s.x];
-    int4 o;
-    o.x = g.x;
-    o.w = 0;
-    if (mode == 0) {
-      o.y = s.y + g.y;
-      o.z = s.z | g.z;
-    } else if (mode == 1) {
-      o.y = s.y | g.y;
-      o.z = min(s.z, g.z);
-    } else {
-      o.y = s.y + g.y;
-      o.z = s.z;
-    }
-    S2[d] = o;
-    moved = g.x != s.x;
+// the reference's round for one node: P = P[P], the carries folded (sums
+// wrap as int32)
+template <int MODE>
+static __device__ __forceinline__ int4 rk_fold(int4 s, int4 g) {
+  int4 o;
+  o.x = g.x;
+  o.w = 0;
+  if (MODE == 0) {
+    o.y = (int)((uint32_t)s.y + (uint32_t)g.y);
+    o.z = s.z | g.z;
+  } else if (MODE == 1) {
+    o.y = s.y | g.y;
+    o.z = min(s.z, g.z);
+  } else {
+    o.y = (int)((uint32_t)s.y + (uint32_t)g.y);
+    o.z = s.z;
   }
-  if (__any_sync(0xffffffffu, moved) && (threadIdx.x & 31) == 0) *changed = 1;
+  return o;
+}
+
+// the first of c slots a thread reserves in an append to ctl[at]: a scan
+// over the block, one atomic a block; every thread of the block calls it
+static __device__ __forceinline__ int rk_reserve(int c, int32_t* __restrict__ ctl, int at) {
+  __shared__ int wsum[RK_THREADS / 32];
+  __shared__ int base;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = c;  // inclusive scan over the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(RK_ALL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[w] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t = 0;
+    for (int i = 0; i < RK_THREADS / 32; ++i) {
+      const int v = wsum[i];
+      wsum[i] = t;
+      t += v;
+    }
+    base = t ? atomicAdd(ctl + at, t) : 0;
+  }
+  __syncthreads();
+  return base + wsum[w] + x - c;
+}
+
+// every block of a cooperative launch: the last to arrive resets the count
+// and bumps the generation the others wait on. With flag >= 0 the barrier
+// also returns whether any thread of the grid passed v: a block ORs its
+// threads first and one thread a block sets ctl[flag] (one store to that
+// address a block, not one a warp), then reads it back after the barrier
+static __device__ __forceinline__ bool rk_grid_barrier(int32_t* __restrict__ ctl,
+                                                       bool v = false, int flag = -1) {
+  __shared__ int any;
+  const int b = __syncthreads_or(v);
+  if (threadIdx.x == 0) {
+    if (b && flag >= 0) ctl[flag] = 1;
+    volatile int32_t* gen = ctl + RK_GEN;
+    const int32_t g = *gen;
+    __threadfence();
+    if (atomicAdd(ctl + RK_BAR, 1) == (int)gridDim.x - 1) {
+      ctl[RK_BAR] = 0;
+      __threadfence();
+      atomicAdd(ctl + RK_GEN, 1);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+    any = flag >= 0 ? *(volatile int32_t*)(ctl + flag) : 0;
+  }
+  __syncthreads();
+  return any != 0;
+}
+
+// T[d] after the walk: a node a walk reached, and every ruler, holds its
+// ruler index o and distance l as (-o - 2, -l - 2), both <= -2; a node no
+// walk reached keeps its first value, (nxt, prev) in modes 0 and 2 (its
+// nxt >= 0: it lies on a cycle), (0, 0) in mode 1. A prev of -2 or less
+// matches no node, so a walk never steps into a node another walk wrote
+static __device__ __forceinline__ int2 rk_mark(int o, int l) { return make_int2(-o - 2, -l - 2); }
+static __device__ __forceinline__ bool rk_reached(int2 t) { return t.x <= -2; }
+#define RK_LISTED INT32_MIN  // T[d] = (RK_LISTED, list index) for a node of the cycle list
+
+// rulers: RN[ruler index] = d; T[d] = (nxt[d], prev[d]) in modes 0 and 2,
+// which the walk reads and rewrites in place (one 8-byte pair a step, and
+// half the footprint of a separate array: 32 MB at 4M nodes stays in the
+// 50 MB L2); in mode 1 T[d] = a ruler's mark or (0, 0), and aux[d] = d (a
+// ruler's own min id). A block takes RK_ITEMS * RK_THREADS nodes
+template <int MODE>
+__global__ void __launch_bounds__(RK_THREADS)
+rank_rulers_kernel(int N, const int32_t* __restrict__ nxt, const int32_t* __restrict__ prev,
+                   int2* __restrict__ T, int32_t* __restrict__ RN,
+                   int32_t* __restrict__ aux, int32_t* __restrict__ ctl) {
+  const int d0 = blockIdx.x * (RK_THREADS * RK_ITEMS) + threadIdx.x;
+  unsigned flags = 0;
+#pragma unroll
+  for (int j = 0; j < RK_ITEMS; ++j) {
+    const int d = d0 + j * RK_THREADS;
+    if (d >= N) break;
+    const int n = nxt[d];
+    bool ruler;
+    if (MODE == 1) {
+      ruler = n < 0 || rk_sampled(d) || __ldg(prev + n) != d;
+      aux[d] = d;
+    } else {
+      const int p = prev[d];
+      ruler = p < 0 || rk_sampled(d);
+      T[d] = make_int2(n, p);
+    }
+    flags |= (unsigned)ruler << j;
+  }
+  int ri = rk_reserve(__popc(flags), ctl, RK_CNT);
+#pragma unroll
+  for (int j = 0; j < RK_ITEMS; ++j) {
+    const int d = d0 + j * RK_THREADS;
+    if (d >= N) break;
+    const bool ruler = (flags >> j) & 1u;
+    if (ruler) RN[ri] = d;
+    if (MODE == 1) T[d] = ruler ? rk_mark(ri, 0) : make_int2(0, 0);
+    ri += ruler;
+  }
+}
+
+// walk: a thread a ruler (a grid of the card's resident blocks), against
+// the orbit up to the next ruler, marking every node it reaches (and its
+// ruler) in T; RS[i] = the segment's node count. A walk stops after N
+// nodes: an input whose prev is not K5's could loop
+template <int MODE>
+__global__ void __launch_bounds__(RK_THREADS)
+rank_walk_kernel(int N, const int32_t* __restrict__ prev,
+                 const int32_t* __restrict__ RN, int2* __restrict__ T,
+                 int32_t* __restrict__ RS, int32_t* __restrict__ aux,
+                 const int32_t* __restrict__ ctl) {
+  const int cnt = ctl[RK_CNT];
+  const int step = gridDim.x * RK_THREADS;
+  for (int i = blockIdx.x * RK_THREADS + threadIdx.x; i < cnt; i += step) {
+    const int u = RN[i];
+    int len = 1;
+    if (MODE == 1) {
+      int mn = u, y = prev[u];
+      while (y >= 0 && len < N && !rk_sampled(y)) {
+        const int py = prev[y];
+        mn = min(mn, y);
+        T[y] = rk_mark(i, len++);
+        aux[y] = mn;
+        y = py;
+      }
+    } else {
+      // no walk reads a ruler's pair (a walk stops before a sampled node,
+      // and a head has no prev), so this one may mark it
+      int x = u, y = T[u].x;
+      T[u] = rk_mark(i, 0);
+      while (y >= 0 && len < N && !rk_sampled(y)) {
+        const int2 e = T[y];  // (nxt, prev) of y, or a mark: one load a step
+        if (e.y != x) break;
+        T[y] = rk_mark(i, len++);
+        x = y;
+        y = e.x;
+      }
+    }
+    RS[i] = len;
+  }
+}
+
+// link (cooperative): a ruler's state {next ruler or -1, distance to it,
+// head (modes 0, 2) or min id (mode 1), tail (mode 1)}, pointer jumping
+// double-buffered in A[0, N) and A[N, 2N); then the longest distance of a
+// node that reached a fixed point, and which buffer is final
+template <int MODE>
+__global__ void __launch_bounds__(RK_COOP_THREADS)
+rank_link_kernel(int N, const int32_t* __restrict__ nxt, const int32_t* __restrict__ prev,
+                 const int2* __restrict__ T, const int32_t* __restrict__ aux,
+                 const int32_t* __restrict__ RN, const int32_t* __restrict__ RS,
+                 int4* __restrict__ A, int32_t* __restrict__ ctl) {
+  const int cnt = ctl[RK_CNT];
+  const int t0 = blockIdx.x * RK_COOP_THREADS + threadIdx.x;
+  const int step = gridDim.x * RK_COOP_THREADS;
+  int4* cur = A;
+  int4* nx = A + N;
+  for (int i = t0; i < cnt; i += step) {
+    const int u = RN[i];
+    int4 s;
+    // a ruler whose f-successor no walk reached (an input that is not
+    // K5's) links to itself: it stays unresolved
+    if (MODE == 1) {
+      const int q = nxt[u];
+      if (q < 0) {
+        s = make_int4(-1, 0, u, u);
+      } else {
+        const int2 t = T[q];
+        s = rk_reached(t) ? make_int4(-t.x - 2, -t.y - 1, min(u, aux[q]), 0)
+                          : make_int4(i, 1, u, 0);
+      }
+    } else {
+      const int p = prev[u];
+      if (p < 0) {
+        s = make_int4(-1, 0, u, 0);
+      } else {
+        const int2 t = T[p];
+        s = rk_reached(t) ? make_int4(-t.x - 2, -t.y - 1, 0, 0) : make_int4(i, 1, 0, 0);
+      }
+    }
+    __stcg(cur + i, s);
+  }
+  rk_grid_barrier(ctl);
+  const int cap = 33 - __clz(max(cnt, 1));  // bitlen(cnt) + 1 rounds: past it, a ring
+  for (int j = 0; j < cap; ++j) {
+    bool linked = false;
+    for (int i0 = t0; i0 < cnt; i0 += RK_BATCH * step) {
+      int4 s[RK_BATCH], g[RK_BATCH];
+#pragma unroll
+      for (int b = 0; b < RK_BATCH; ++b) {
+        const int i = i0 + b * step;
+        s[b] = i < cnt ? __ldcg(cur + i) : make_int4(-1, 0, 0, 0);
+      }
+#pragma unroll
+      for (int b = 0; b < RK_BATCH; ++b)
+        if (s[b].x >= 0) g[b] = __ldcg(cur + s[b].x);
+#pragma unroll
+      for (int b = 0; b < RK_BATCH; ++b) {
+        const int i = i0 + b * step;
+        if (i >= cnt) break;
+        if (s[b].x >= 0) {
+          s[b].x = g[b].x;
+          s[b].y = (int)((uint32_t)s[b].y + (uint32_t)g[b].y);
+          if (MODE == 1) {
+            s[b].z = min(s[b].z, g[b].z);
+            s[b].w = g[b].w;
+          } else {
+            s[b].z = g[b].z;
+          }
+          linked |= s[b].x >= 0;
+        }
+        __stcg(nx + i, s[b]);
+      }
+    }
+    const bool any = rk_grid_barrier(ctl, linked, RK_ACT + j);
+    int4* t = cur;
+    cur = nx;
+    nx = t;
+    if (!any) break;
+  }
+  int md = -1;
+  for (int i = t0; i < cnt; i += step) {
+    const int4 s = __ldcg(cur + i);
+    if (s.x < 0) md = max(md, s.y + RS[i] - 1);
+  }
+  for (int o = 16; o > 0; o >>= 1) md = max(md, __shfl_xor_sync(RK_ALL, md, o));
+  if ((threadIdx.x & 31) == 0 && md > 0) atomicMax(ctl + RK_MAXD, md);
+  if (t0 == 0) ctl[RK_FIN] = cur != A;
+}
+
+// fold: a resolved node's state from its ruler's; every other node joins
+// the cycle list U, with T[d] = (RK_LISTED, its list index). A block takes
+// RK_ITEMS * RK_THREADS nodes
+template <int MODE>
+__global__ void __launch_bounds__(RK_THREADS)
+rank_fold_kernel(int N, int2* __restrict__ T, const int32_t* __restrict__ aux,
+                 const int4* __restrict__ A, int4* __restrict__ S, int32_t* __restrict__ U,
+                 int32_t* __restrict__ ctl) {
+  const int d0 = blockIdx.x * (RK_THREADS * RK_ITEMS) + threadIdx.x;
+  const int4* RF = A + (ctl[RK_FIN] ? N : 0);
+  unsigned flags = 0;
+#pragma unroll
+  for (int j = 0; j < RK_ITEMS; ++j) {
+    const int d = d0 + j * RK_THREADS;
+    if (d >= N) break;
+    const int2 t = T[d];
+    const int4 r = rk_reached(t) ? RF[-t.x - 2] : make_int4(0, 0, 0, 0);
+    if (!rk_reached(t) || r.x >= 0) {
+      flags |= 1u << j;
+    } else if (MODE == 1) {
+      S[d] = make_int4(r.w, 1, min(aux[d], r.z), 0);
+    } else {
+      S[d] = make_int4(r.z, (int)((uint32_t)r.y + (uint32_t)(-t.y - 2)), MODE == 0, 0);
+    }
+  }
+  int c = rk_reserve(__popc(flags), ctl, RK_NCYC);
+#pragma unroll
+  for (int j = 0; j < RK_ITEMS; ++j) {
+    if ((flags >> j) & 1u) {
+      const int d = d0 + j * RK_THREADS;
+      U[c] = d;
+      T[d] = make_int2(RK_LISTED, c);
+      ++c;
+    }
+  }
+}
+
+// cycles (cooperative): the reference's rounds over the list alone, from
+// its start state, double-buffered in B[0, N) and B[N, 2N), pointers as
+// list indices
+template <int MODE>
+__global__ void __launch_bounds__(RK_COOP_THREADS)
+rank_cycle_kernel(int N, int D, const int32_t* __restrict__ nxt,
+                  const int32_t* __restrict__ prev, const int2* __restrict__ T,
+                  const int32_t* __restrict__ U, int4* __restrict__ B, int4* __restrict__ S,
+                  int32_t* __restrict__ ctl) {
+  const int nc = ctl[RK_NCYC];
+  if (nc == 0) return;  // every block returns before any barrier
+  const int md = ctl[RK_MAXD];
+  const int J = md <= 1 ? 0 : 32 - __clz(md - 1);  // ceil(log2(longest distance))
+  const int t0 = blockIdx.x * RK_COOP_THREADS + threadIdx.x;
+  const int step = gridDim.x * RK_COOP_THREADS;
+  int4* cur = B;
+  int4* nx = B + N;
+  for (int i = t0; i < nc; i += step) {
+    const int x = U[i];
+    int4 s;
+    int P;
+    if (MODE == 1) {
+      const int n = nxt[x];
+      P = n >= 0 ? n : x;
+      s = make_int4(0, n < 0, x, 0);
+    } else {
+      const int p = prev[x];
+      P = p >= 0 ? p : x;
+      s = make_int4(0, p >= 0, MODE == 0 ? (p < 0) : 0, 0);
+    }
+    const int2 t = T[P];
+    s.x = t.x == RK_LISTED ? t.y : i;  // P leaves the list only on an input that is not K5's
+    __stcg(cur + i, s);
+  }
+  rk_grid_barrier(ctl);
+  for (int j = 1; j <= D; ++j) {
+    bool moved = false;
+    for (int i = t0; i < nc; i += step) {
+      const int4 s = __ldcg(cur + i);
+      const int4 g = __ldcg(cur + s.x);
+      moved |= g.x != s.x;
+      __stcg(nx + i, rk_fold<MODE>(s, g));
+    }
+    const bool any = rk_grid_barrier(ctl, moved, RK_CHG + j);
+    int4* t = cur;
+    cur = nx;
+    nx = t;
+    if (j > J && !any) break;
+  }
+  for (int i = t0; i < nc; i += step) {
+    const int4 s = __ldcg(cur + i);
+    S[U[i]] = make_int4(U[s.x], s.y, s.z, 0);
+  }
 }
 
 // cycle break after the full first pass: a node on no path to a tail that
@@ -235,23 +603,57 @@ __global__ void break_kernel(int N, const int4* __restrict__ S, int32_t* __restr
   }
 }
 
-extern "C" int lt_unitig_init(int mode, int N, const void* nxt, const void* prev, void* S,
-                              void* stream) {
-  if (mode < 0 || mode > 2 || N <= 0) return (int)cudaErrorInvalidValue;
-  init_kernel<<<ut_blocks(N), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      mode, N, (const int32_t*)nxt, (const int32_t*)prev, (int4*)S);
+template <int MODE>
+static int rank_launch(int N, const int32_t* nxt, const int32_t* prev, int4* S,
+                       int2* T, int32_t* RN, int32_t* RS, int4* A, int32_t* U, int32_t* aux,
+                       int32_t* ctl, cudaStream_t st) {
+  static int walk_grid = 0, link_grid = 0, cycle_grid = 0;
+  if (!walk_grid) {
+    LT_TRY(resident_blocks(rank_link_kernel<MODE>, RK_COOP_THREADS, &link_grid, RK_COOP_PER_SM));
+    LT_TRY(resident_blocks(rank_cycle_kernel<MODE>, RK_COOP_THREADS, &cycle_grid,
+                           RK_COOP_PER_SM));
+    LT_TRY(resident_blocks(rank_walk_kernel<MODE>, RK_THREADS, &walk_grid));
+  }
+  int D = 1;  // the reference's round cap: max(1, bitlen(N - 1)) + 1
+  while ((1ll << D) <= (long long)N - 1) ++D;
+  D += 1;
+  LT_TRY(cudaMemsetAsync(ctl, 0, RK_CTL_INTS * sizeof(int32_t), st));
+  const unsigned nb = (unsigned)((N + RK_THREADS * RK_ITEMS - 1) / (RK_THREADS * RK_ITEMS));
+  rank_rulers_kernel<MODE><<<nb, RK_THREADS, 0, st>>>(N, nxt, prev, T, RN, aux, ctl);
+  LT_TRY(cudaGetLastError());
+  rank_walk_kernel<MODE><<<walk_grid, RK_THREADS, 0, st>>>(N, prev, RN, T, RS, aux, ctl);
+  LT_TRY(cudaGetLastError());
+  const int2* Tc = T;
+  const int32_t *auxc = aux, *RNc = RN, *RSc = RS, *Uc = U;
+  void* link_args[] = {&N, &nxt, &prev, &Tc, &auxc, &RNc, &RSc, &A, &ctl};
+  LT_TRY(cudaLaunchCooperativeKernel((const void*)rank_link_kernel<MODE>, link_grid,
+                                     RK_COOP_THREADS, link_args, 0, st));
+  rank_fold_kernel<MODE><<<nb, RK_THREADS, 0, st>>>(N, T, aux, A, S, U, ctl);
+  LT_TRY(cudaGetLastError());
+  void* cycle_args[] = {&N, &D, &nxt, &prev, &Tc, &Uc, &A, &S, &ctl};
+  LT_TRY(cudaLaunchCooperativeKernel((const void*)rank_cycle_kernel<MODE>, cycle_grid,
+                                     RK_COOP_THREADS, cycle_args, 0, st));
   return (int)cudaGetLastError();
 }
 
-// changed: 1 int32, zeroed here
-extern "C" int lt_unitig_double(int mode, int N, const void* S, void* S2, void* changed,
-                                void* stream) {
-  if (mode < 0 || mode > 2 || N <= 0) return (int)cudaErrorInvalidValue;
+// S: (N,) int4 output. Scratch: T (N,) int2; RN, RS, U (N,) int32; A (2N,)
+// int4; aux (N,) int32 in mode 1 (else unused, may be null); ctl
+// RK_CTL_INTS int32
+extern "C" int lt_unitig_rank(int mode, int N, const void* nxt, const void* prev,
+                              void* S, void* T, void* RN, void* RS, void* A, void* U, void* aux,
+                              void* ctl, void* stream) {
+  if (mode < 0 || mode > 2 || N <= 0 || (mode == 1 && !aux))
+    return (int)cudaErrorInvalidValue;
+  const int32_t* n = (const int32_t*)nxt;
+  const int32_t* p = (const int32_t*)prev;
   cudaStream_t st = (cudaStream_t)stream;
-  LT_TRY(cudaMemsetAsync(changed, 0, sizeof(int32_t), st));
-  double_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(mode, N, (const int4*)S, (int4*)S2,
-                                                      (int32_t*)changed);
-  return (int)cudaGetLastError();
+#define RK_ARGS                                                                         \
+  N, n, p, (int4*)S, (int2*)T, (int32_t*)RN, (int32_t*)RS, (int4*)A, (int32_t*)U, \
+      (int32_t*)aux, (int32_t*)ctl, st
+  if (mode == 0) return rank_launch<0>(RK_ARGS);
+  if (mode == 1) return rank_launch<1>(RK_ARGS);
+  return rank_launch<2>(RK_ARGS);
+#undef RK_ARGS
 }
 
 extern "C" int lt_unitig_break(int N, const void* S, void* nxt, void* prev, void* stream) {

@@ -58,8 +58,7 @@ _SIGS = {
                        _U, _P, _P, _P, _P],
     "lt_unitig_buckets": [_P, _I, _I, _P, _P],
     "lt_unitig_links": [_P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "lt_unitig_init": [_I, _I, _P, _P, _P, _P],
-    "lt_unitig_double": [_I, _I, _P, _P, _P, _P],
+    "lt_unitig_rank": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "lt_unitig_break": [_I, _P, _P, _P, _P],
     "lt_unitig_emit_mins": [_I, _P, _I, _P, _P, _P, _P],
     "lt_unitig_emit_heads": [_I, _P, _P, _P, _P, _P],

@@ -12,8 +12,8 @@ payload byte for byte:
   module reaches jax through them.
 - Device half (new), kernels K5-K8 (csrc/unitig.cu), used when the solid
   count is at most ``unitig_device_max_kmers``: ``unitig_links`` (K5: the
-  successor search and the internal edges), ``unitig_double`` (K6: one
-  pointer-doubling round, with ``double_init`` and ``break_cycles``),
+  successor search and the internal edges), ``unitig_rank`` (K6: the
+  whole chain ranking in one list-ranking pass, with ``break_cycles``),
   ``unitig_emit`` (K7: chain ids, lengths and the packed bases) and
   ``solid_lookup`` (K8: the DICT's anchor k-mers into the solid run). They
   replace _build_dev_impl, _topbits, _bucket_starts, _searchsorted_words_dev
@@ -49,7 +49,7 @@ from leon_tpu_torch import kernels, state
 __all__ = [
     "chains_cap", "build_np_payload", "payload_from", "parse_payload",
     "rebuild_bitset_np", "spell_canon", "sort_rows_bigint", "solid_kmers_sorted",
-    "unitig_links", "unitig_double", "unitig_emit", "solid_lookup", "chain_rank",
+    "unitig_links", "unitig_rank", "unitig_emit", "solid_lookup", "chain_rank",
     "chain_rank_plain", "build", "build_plain", "dispatch_build", "drain_build",
     "solid_indices", "LinksNotChains",
 ]
@@ -550,23 +550,55 @@ def unitig_links_plain(rows: torch.Tensor, k: int):
     return nxt.to(torch.int32), prev.to(torch.int32)
 
 
-def double_init(nxt: torch.Tensor, prev: torch.Tensor, mode: int) -> torch.Tensor:
-    """K6 start state (N, 4) int32 for `mode` (unitig.py:559-584)."""
+RULER_LOG2 = 5  # K6 samples a node as a ruler at one in 2^RULER_LOG2 (csrc/unitig.cu)
+_RANK_CTL_INTS = 256  # K6's control block (RK_CTL_INTS)
+_RANK_LAUNCHES = 5  # K6's kernels a ranking: rulers, walk, link, fold, cycles
+
+
+def unitig_rank(nxt: torch.Tensor, prev: torch.Tensor, mode: int) -> torch.Tensor:
+    """K6: the state (N, 4) int32 [P, c0, c1, 0] of every node for `mode`
+    (csrc/unitig.cu), equal to the reference's pointer doubling run until
+    no pointer moves (unitig.py:512-584), by one list-ranking pass over a
+    sparse ruling set: five launches, no host read. Counts its launches
+    under K6's name, unitig_double."""
     N = nxt.shape[0]
-    _check_nodes(N // 2, nxt, prev, name="double_init")
-    kernels.need(N > 0 and mode in (ACYCLIC, FULL, RANK), "double_init: bad mode or empty")
-    if not kernels.on_cuda(nxt, "double_init"):
-        return double_init_plain(nxt, prev, mode)
-    S = torch.empty((N, 4), dtype=torch.int32, device=nxt.device)
-    rc = kernels.lib().lt_unitig_init(mode, N, nxt.contiguous().data_ptr(),
-                                      prev.contiguous().data_ptr(), S.data_ptr(),
-                                      kernels.stream(nxt))
+    _check_nodes(N // 2, nxt, prev, name="unitig_rank")
+    kernels.need(N > 0 and mode in (ACYCLIC, FULL, RANK), "unitig_rank: bad mode or empty")
+    if not kernels.on_cuda(nxt, "unitig_rank"):
+        return unitig_rank_plain(nxt, prev, mode)
+    nxt, prev = nxt.contiguous(), prev.contiguous()
+    dev = nxt.device
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    S, T, A = i32(N, 4), i32(N, 2), i32(2 * N, 4)
+    RN, RS, U, ctl = i32(N), i32(N), i32(N), i32(_RANK_CTL_INTS)
+    aux = i32(N) if mode == FULL else None
+    rc = kernels.lib().lt_unitig_rank(
+        mode, N, nxt.data_ptr(), prev.data_ptr(), S.data_ptr(), T.data_ptr(),
+        RN.data_ptr(), RS.data_ptr(), A.data_ptr(), U.data_ptr(),
+        None if aux is None else aux.data_ptr(), ctl.data_ptr(), kernels.stream(nxt))
     kernels.check(rc, "unitig_double")
-    kernels.launches["unitig_double"] += 1
+    kernels.launches["unitig_double"] += _RANK_LAUNCHES
+    return S
+
+
+def unitig_rank_plain(nxt: torch.Tensor, prev: torch.Tensor, mode: int) -> torch.Tensor:
+    """Plain version of unitig_rank: the reference's rounds, stopped at the
+    first round that moves no pointer, at most D = bitlen(N - 1) + 1. The
+    reference's docstring (unitig.py:513-527) shows this equals D rounds."""
+    N = nxt.shape[0]
+    S = double_init_plain(nxt, prev, mode)
+    for _ in range(max(1, (N - 1).bit_length()) + 1):
+        S, changed = unitig_double_plain(S, mode)
+        if not int(changed.item()):
+            break
     return S
 
 
 def double_init_plain(nxt: torch.Tensor, prev: torch.Tensor, mode: int) -> torch.Tensor:
+    """The reference's start state (N, 4) int32 for `mode` (unitig.py:559-584)."""
     ids = torch.arange(nxt.shape[0], dtype=torch.int32, device=nxt.device)
     z = torch.zeros_like(ids)
     if mode == FULL:
@@ -577,24 +609,9 @@ def double_init_plain(nxt: torch.Tensor, prev: torch.Tensor, mode: int) -> torch
     return torch.stack(cols, dim=1)
 
 
-def unitig_double(S: torch.Tensor, mode: int):
-    """K6: one pointer-doubling round. Returns (S2, changed): changed is a
-    (1,) int32 tensor, 1 when any pointer moved (unitig.py:537-544)."""
-    _check_state(S, "unitig_double")
-    kernels.need(S.shape[0] > 0 and mode in (ACYCLIC, FULL, RANK), "unitig_double: bad mode")
-    if not kernels.on_cuda(S, "unitig_double"):
-        return unitig_double_plain(S, mode)
-    S = S.contiguous()
-    S2 = torch.empty_like(S)
-    changed = torch.empty(1, dtype=torch.int32, device=S.device)
-    rc = kernels.lib().lt_unitig_double(mode, S.shape[0], S.data_ptr(), S2.data_ptr(),
-                                        changed.data_ptr(), kernels.stream(S))
-    kernels.check(rc, "unitig_double")
-    kernels.launches["unitig_double"] += 1
-    return S2, changed
-
-
 def unitig_double_plain(S: torch.Tensor, mode: int):
+    """One of the reference's pointer-doubling rounds: (S2, changed), changed
+    a (1,) int32 tensor, 1 when any pointer moved (unitig.py:537-544)."""
     G = S[S[:, 0].long()]
     if mode == ACYCLIC:
         c0, c1 = S[:, 1] + G[:, 1], S[:, 2] | G[:, 2]
@@ -632,43 +649,25 @@ def break_cycles_plain(S: torch.Tensor, nxt: torch.Tensor, prev: torch.Tensor):
     return nxt, prev
 
 
-def _chain_rank(nxt, prev, assume_acyclic: bool, init, step, cut):
-    N = nxt.shape[0]
-    D = max(1, (N - 1).bit_length()) + 1
-
-    def run(mode, nxt, prev):
-        S = init(nxt, prev, mode)
-        for _ in range(D):
-            S, changed = step(S, mode)
-            if not int(changed.item()):
-                break
-        return S
-
+def _chain_rank(nxt, prev, assume_acyclic: bool, rank, cut):
     if assume_acyclic:
-        return nxt, prev, run(ACYCLIC, nxt, prev)
-    nxt, prev = cut(run(FULL, nxt, prev), nxt, prev)
-    return nxt, prev, run(RANK, nxt, prev)
+        return nxt, prev, rank(nxt, prev, ACYCLIC)
+    nxt, prev = cut(rank(nxt, prev, FULL), nxt, prev)
+    return nxt, prev, rank(nxt, prev, RANK)
 
 
 def chain_rank(nxt: torch.Tensor, prev: torch.Tensor, assume_acyclic: bool):
-    """Head and rank of every node by pointer doubling (K6); the full
-    variant first cuts the cycles. Returns (nxt, prev, S): S[:, 0] is the
-    head, S[:, 1] the rank, and in the acyclic variant S[:, 2] == 0 marks a
-    node that reached no head (a cycle).
-
-    The host reads the changed flag after every round and stops at the
-    first round that moved no pointer; the reference's docstring
-    (unitig.py:513-527) shows this equals running all D rounds. Chains
-    converge in log2(longest chain) + 1 rounds, well under D on real data,
-    and each round past that point would cost a full pass of gathers,
-    against one 4-byte read per round."""
-    return _chain_rank(nxt, prev, assume_acyclic, double_init, unitig_double, break_cycles)
+    """Head and rank of every node (K6); the full variant first cuts the
+    cycles. Returns (nxt, prev, S): S[:, 0] is the head, S[:, 1] the rank,
+    and in the acyclic variant S[:, 2] == 0 marks a node that reached no
+    head (a cycle). One K6 pass a ranking, five launches (eleven in the
+    full variant, the cut included), no host read."""
+    return _chain_rank(nxt, prev, assume_acyclic, unitig_rank, break_cycles)
 
 
 def chain_rank_plain(nxt: torch.Tensor, prev: torch.Tensor, assume_acyclic: bool):
-    """Plain version of chain_rank (the plain K6 steps on any device)."""
-    return _chain_rank(nxt, prev, assume_acyclic, double_init_plain, unitig_double_plain,
-                       break_cycles_plain)
+    """Plain version of chain_rank (the reference's rounds on any device)."""
+    return _chain_rank(nxt, prev, assume_acyclic, unitig_rank_plain, break_cycles_plain)
 
 
 def _check_emit(rows, k, nxt, prev, S, cap: int, cap_bases: int) -> None:

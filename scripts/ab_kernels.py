@@ -2,11 +2,12 @@
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
 K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
 scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
-K18 and K19 and the Bloom builds K16 and K3 of one
+K18 and K19, the Bloom builds K16 and K3 and the chain ranking K6 of one
 tree's leon_tpu_torch on the card, beside the PyTorch call that computes the
 same function where there is one, on inputs made from fixed seeds.
 
-    python3 scripts/ab_kernels.py --tree PATH [--label NAME] [--only k2,k8,scan,k14,walk,bloom]
+    python3 scripts/ab_kernels.py --tree PATH [--label NAME]
+        [--only k2,k8,scan,k14,walk,bloom,rank,k3]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -77,9 +78,25 @@ Inputs (chip_smoke.py's shapes):
                (8W 64-bit (f, r) entries a valid row) and the table-load
                bound (their 32-bit words over 132 SMs x 32 lanes x the
                maximum SM clock: shared memory's rate), and the ptxas
-               registers of the tree's K1, K3 and K16 instances
-  bloom:k3     K3 (`bloom.bloom_build`) on phase 3's slab run at its cutoff
-               (k = 31), the queue's next entry, with its byte bound
+               registers of the tree's K1 and K16 instances
+  bloom:k3     (section k3) K3 (`bloom.bloom_build`) on phase 3's slab run at
+               its cutoff (k = 31), with its byte bound and ptxas registers
+  rank:bench/yeast/w4/w8/w16  (section rank) K6: `unitig.chain_rank` whole,
+               optimistic (the time includes any host read the tree makes;
+               ":full" the full variant: FULL, the cycle cut, RANK) on the
+               links K5 makes over phase 3's bench solid run (2,014,298
+               31-mers), chip_smoke.py's yeast genome (yeast_solid: 14.25M
+               solid 31-mers, two plasmid cycles) and phase 9's solid sets at
+               k = 63 / 127 / 255; its bound (nxt and prev read, S written:
+               24 bytes a node); "build_ms" the whole device build,
+               dispatch_build + drain_build (host clock after a sync, mean of
+               3 after one), "build_peak_bytes" the device memory it takes
+               above what the caller holds (torch.cuda.max_memory_allocated);
+               on a tree with `unitig.unitig_rank`, "kernels" the device
+               time of each of its kernels by the profiler. K6's ruler
+               sampling is a constant (RK_RULER_LOG2 in csrc/unitig.cu): to
+               retune it, run this section on a copy of the tree with the
+               constant edited, beside the tree itself
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -92,7 +109,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3")
 
 
 def main() -> int:
@@ -358,7 +375,11 @@ def main() -> int:
     if "walk" in only:
         out["walk"] = walk_section(args.tree, wide, ms, same, dev)
     if "bloom" in only:
-        out["bloom"] = bloom_section(args.tree, wide, slab_reads, ms, same, dev)
+        out["bloom"] = bloom_section(args.tree, wide, ms, same, dev)
+    if "k3" in only:
+        out["k3"] = k3_section(args.tree, slab_reads, ms, same, dev)
+    if "rank" in only:
+        out["rank"] = rank_section(wide, slab_reads, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -478,10 +499,10 @@ def main_solid(k: int, chunks, L: int, dev) -> dict:
             "n_words": bloom.choose_n_words(n_solid, bpk)}
 
 
-def bloom_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
+def bloom_section(tree: str, wide, ms, same, dev) -> dict:
     """K16 at the main path's solid sets (W = 4, 8, 16), its partial over
-    the distinct run and its hot-word case, and K3 at bench, with their
-    bounds; see the docstring."""
+    the distinct run and its hot-word case, with their bounds; see the
+    docstring."""
     import numpy as np
     import torch
 
@@ -526,7 +547,20 @@ def bloom_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
         del sol, sw, ones
         torch.cuda.empty_cache()
 
-    # K3 on phase 3's slab run (k = 31), sized as the pipeline sizes it
+    res["registers"] = registers(tree, ("bloom_build_words_kernel", "kmer_scan_kernel"))
+    return res
+
+
+def bench_run(slab_reads, dev):
+    """Phase 3's slab run at k = 31 (K1, torch.sort, K2): the distinct keys
+    and counts, the cutoff, and the pipeline's Bloom size."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom, count, kmer
+
     K, L = 31, 104
     codes, lengths = slab_reads(7 * chip_smoke.B, False)
     packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
@@ -538,17 +572,86 @@ def bloom_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
     cutoff = count.auto_cutoff(hist)
     n_solid = int(hist[min(cutoff, 255):].sum())
     bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
-    nw = bloom.choose_n_words(n_solid, bpk)
+    return rk, rc, cutoff, n_solid, bloom.choose_n_words(n_solid, bpk)
+
+
+def k3_section(tree: str, slab_reads, ms, same, dev) -> dict:
+    """K3 on phase 3's slab run at its cutoff, with its byte bound."""
+    import chip_smoke
+    from leon_tpu_torch.ops import bloom
+
+    H, SEED, K = chip_smoke.H, chip_smoke.SEED, 31
+    rk, rc, cutoff, n_solid, nw = bench_run(slab_reads, dev)
     bits = bloom.bloom_build(rk, rc, cutoff, nw, H, SEED, K)
     same([bits], [bloom.bloom_build_plain(rk, rc, cutoff, nw, H, SEED, K)])
     rec = {"k": K, "rows": rk.numel(), "valid": n_solid, "n_words": nw,
-           "ms": ms(lambda: bloom.bloom_build(rk, rc, cutoff, nw, H, SEED, K), 10),
-           "bytes": nbytes(rk, rc, bits)}
+           "ms": ms(lambda: bloom.bloom_build(rk, rc, cutoff, nw, H, SEED, K), 20),
+           "bytes": 12 * rk.numel() + 4 * nw}
     rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
-    res["k3"] = rec
+    rec["share"] = rec["bytes_ms"] / rec["ms"]
+    rec["registers"] = registers(tree, ("bloom_build_kernel",))
     print(json.dumps({"bloom:k3": rec}), flush=True)
-    res["registers"] = registers(tree, ("bloom_build_words_kernel", "bloom_build_kernel",
-                                        "kmer_scan_kernel"))
+    return rec
+
+
+def rank_section(wide, slab_reads, ms, same, dev) -> dict:
+    """K6 (chain_rank) on the bench, yeast and phase 9 solid sets; see the
+    docstring."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from leon_tpu_torch.ops import count, unitig
+
+    def sets():
+        rk, rc, cutoff, _n, _nw = bench_run(slab_reads, dev)
+        yield "bench", count.compact_solid(rk, rc, cutoff)[0], 31, rk.numel()
+        del rk, rc
+        sk, _sc, _c, nu, _g = chip_smoke.yeast_solid()
+        yield "yeast", sk, 31, nu
+        del sk
+        for W in (4, 8, 16):
+            k, chunks, L = wide(W)[:3]
+            sol = main_solid(k, chunks, L, dev)
+            yield f"w{W}", sol["solid"], k, sol["distinct"].shape[0]
+            del sol
+
+    res = {}
+    for name, rows, k, nu in sets():
+        nxt, prev = unitig.unitig_links(rows, k)
+        N = nxt.shape[0]
+        rec = {"nodes": N, "bound_ms": 24 * N / chip_smoke.HBM_BYTES_PER_S * 1e3}
+        for acyclic, tag in ((True, ""), (False, ":full")):
+            same(unitig.chain_rank(nxt, prev, acyclic), unitig.chain_rank_plain(nxt, prev, acyclic))
+            rec[f"ms{tag}"] = ms(lambda: unitig.chain_rank(nxt, prev, acyclic), 10)
+        rec["cycles"] = bool((unitig.chain_rank_plain(nxt, prev, True)[2][:, 2] == 0).any())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        unitig.drain_build(unitig.dispatch_build(rows, k, nu))
+        torch.cuda.synchronize()
+        rec["build_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            unitig.drain_build(unitig.dispatch_build(rows, k, nu))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        rec["build_ms"] = sum(walls[1:]) / 3
+        if hasattr(unitig, "unitig_rank"):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    unitig.chain_rank(nxt, prev, True)
+                torch.cuda.synchronize()
+            rec["kernels"] = {e.key[:40]: e.device_time_total / 1e3 / 10
+                              for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        res[name] = rec
+        print(json.dumps({f"rank:{name}": rec}), flush=True)
+        del nxt, prev, rows
+        torch.cuda.empty_cache()
     return res
 
 

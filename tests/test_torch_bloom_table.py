@@ -8,6 +8,11 @@ above 2k in the top word; then K16's plain version against the builds it
 replaces, leon_tpu's build_device and mesh._bloom_words_local (run op by op:
 their jitted programs take a minute to compile at k = 255), at W = 2, 4, 8
 and 16 with H = 1..8 and n_words = 64, so that many rows share a word.
+K3 `bloom_build` (k <= 31) hashes its int64 keys as K16's W = 2 rows: the
+model at W = 2 against the reference's hash at k = 1, 2, 15, 16, 17 and 31,
+and a model of K3's warp compaction (128 rows a warp a step, the solid
+keys queued in ballot order and hashed 32 at a time) on chip_smoke.py's
+k3_case runs at cutoffs that keep no row, every row and one in five.
 Everything is integer: the tolerance is 0."""
 
 import jax
@@ -18,6 +23,7 @@ import torch
 
 from leon_tpu.ops import bloom as ref_bloom
 from leon_tpu.parallel import mesh as ref_mesh
+import chip_smoke
 from leon_tpu_torch import state
 from leon_tpu_torch.ops import bloom, kmer
 
@@ -47,9 +53,10 @@ def nibble_tables(tab):
     return tf, tr
 
 
-def pads(tab, k: int):
-    """(padf, padr): the terms of the code-0 bases at m = k .. 16W - 1."""
-    W = -(-k // 16)
+def pads(tab, k: int, W: int = 0):
+    """(padf, padr): the terms of the code-0 bases at m = k .. 16W - 1 (W
+    defaults to ceil(k/16); K3 hashes a key as W = 2 words at every k)."""
+    W = W or -(-k // 16)
     f = r = u32(0)
     for m in range(k, 16 * W):
         f ^= _rol(tab[0][0], m)
@@ -57,14 +64,16 @@ def pads(tab, k: int):
     return u32(f), u32(r)
 
 
-def hash_tab_model(words, k: int, seed: int):
-    """(f, r) of (n, W) u32 words as the kernel computes them."""
+def hash_tab_model(words, k: int, seed: int, top=None):
+    """(f, r) of (n, W) u32 words as the kernel computes them; top masks the
+    top word (K16: the k-mer's 2k bits; K3, whose keys are exact, passes
+    0xFFFFFFFF)."""
     tab = ref_bloom.tables(seed, k)
     tf, tr = nibble_tables(tab)
-    padf, padr = pads(tab, k)
     W = words.shape[1]
+    padf, padr = pads(tab, k, W)
     w = words.astype(np.uint32).copy()
-    w[:, W - 1] &= u32(kmer.top_mask(k))
+    w[:, W - 1] &= u32(kmer.top_mask(k) if top is None else top)
     acc_f = [np.full(len(w), padf, np.uint32), np.zeros(len(w), np.uint32)]  # even, odd words
     acc_r = [np.full(len(w), padr, np.uint32), np.zeros(len(w), np.uint32)]
     for j in range(W):
@@ -145,3 +154,78 @@ def test_plain_build_matches_reference_builds(k, h):
     got = bloom.bloom_build_words_plain(tw, torch.from_numpy(valid), N_ALLOC, N_WORDS, h, SEED, k)
     np.testing.assert_array_equal(state.bitset_from_torch(got), part)
     assert part[:N_WORDS].any() and not part[N_WORDS:].any()
+
+
+K3_KS = chip_smoke.K3_KS
+
+
+def _key_words(keys):
+    """int64 keys as K3 reads them: (n, 2) u32, low word first."""
+    k64 = np.asarray(keys, np.int64).view(np.uint64)
+    return np.stack([(k64 & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                     (k64 >> np.uint64(32)).astype(np.uint32)], axis=1)
+
+
+@pytest.mark.parametrize("k", K3_KS)
+def test_k3_table_hash_at_two_words(k):
+    """K3's hash, the table hash over a key's two words at every k <= 31
+    (no top mask; pads over m = k .. 31), equals the reference's hash of
+    the key's ceil(k/16) words and the port's plain hash_keys_plain."""
+    rng = np.random.default_rng(k)
+    top = (1 << (2 * k)) - 1
+    keys = np.concatenate([[0, top], rng.integers(0, top, 500, dtype=np.int64, endpoint=True)])
+    w2 = _key_words(keys)
+    f, r = hash_tab_model(w2, k, SEED, top=0xFFFFFFFF)
+    rf, rr = ref_bloom.hash_words(w2[:, : -(-k // 16)], k, SEED, np)
+    np.testing.assert_array_equal(f, rf)
+    np.testing.assert_array_equal(r, rr)
+    pf, pr = bloom.hash_keys_plain(torch.from_numpy(keys), k, bloom.tables(SEED, k))
+    np.testing.assert_array_equal(f, pf.numpy().astype(np.uint32))
+    np.testing.assert_array_equal(r, pr.numpy().astype(np.uint32))
+
+
+def k3_compaction_model(counts, cutoff: int, n_warps: int, tile: int = 128):
+    """Row indices in the order K3's warps hash them: warp w takes tiles w,
+    w + n_warps, ... of `tile` rows (four a lane), queues its solid rows in
+    ballot order (row j of every lane, then row j + 1), hashes 32 off the
+    queue's top while it holds 32, and the rest at the end."""
+    M = counts.size
+    order = []
+    for w in range(n_warps):
+        queue = []
+        for t0 in range(w * tile, M, n_warps * tile):
+            for j in range(4):
+                for lane in range(32):
+                    r = t0 + 4 * lane + j
+                    if r < M and counts[r] >= cutoff:
+                        queue.append(r)
+            while len(queue) >= 32:
+                order.extend(queue[-32:])
+                del queue[-32:]
+        order.extend(queue)
+    return np.array(order, np.int64)
+
+
+@pytest.mark.parametrize("keep", chip_smoke.K3_KEEP)
+@pytest.mark.parametrize("k", (15, 31))
+def test_k3_compaction_model(k, keep):
+    """Every row at or above the cutoff is hashed exactly once, no other
+    row is, whatever the grid; the bitset the model's rows set (4,099 and
+    64 words, H = 1..8) equals the plain build's."""
+    keys, counts, cutoff = chip_smoke.k3_case(k, keep, 3001)
+    solid = np.flatnonzero(counts >= cutoff)
+    assert solid.size == {"none": 0, "all": keys.size}.get(keep, solid.size)
+    if keep == "fifth":
+        assert 0.1 < solid.size / keys.size < 0.3
+    for n_warps in (1, 3, 64):
+        order = k3_compaction_model(counts, cutoff, n_warps)
+        np.testing.assert_array_equal(np.sort(order), solid)
+    tk, tc = torch.from_numpy(keys), torch.from_numpy(counts)
+    for h in range(1, 9):
+        for nw in (64, 4099):
+            f, r = hash_tab_model(_key_words(keys[order]), k, SEED, top=0xFFFFFFFF)
+            wi, mask = bloom.wordmask_from_hashes(f, r, h, nw)
+            bits = np.zeros(nw, np.uint32)
+            np.bitwise_or.at(bits, wi, mask)
+            want = bloom.bloom_build_plain(tk, tc, cutoff, nw, h, SEED, k)
+            np.testing.assert_array_equal(bits, state.bitset_from_torch(want))
