@@ -31,7 +31,15 @@ run right after phase 3, whose reads and solid set they reuse):
      with every node sampled, singletons, self-twin chains, two nodes
      sharing a successor, cycles of 1-8 nodes with and without a sampled
      ruler, all mixed, node ids placed by K6's ruler sampling) in every
-     mode and through chain_rank, and K3 on
+     mode and through chain_rank, K5 on adversarial runs (k5_case at
+     K5_KS: k = 1, 2, 15, 16, 17, 31 and each width's 16W - 15 and 16W
+     (255 at W = 16): chains of 1, 2, 2^t - 1, 2^t, 2^t + 1 k-mers, a run
+     in one bucket of K5's table, one row, self-twin chains, flanked
+     palindromes), K7 on adversarial inputs (k7_case at K5_KS: those
+     chains, cycles in both variants, self-twin chains, palindromes whose
+     chains share positions, the chain capacity at the chain count and
+     one below it, the base capacity cut inside a prefix; the chains and
+     palindromes again with 64-bit collision keys), and K3 on
      adversarial runs (k3_case: k = 1, 2, 15, 16, 17, 31, cutoffs that keep
      no row, every row or one in five, H = 1..8, 64 and 4,099 words, an
      unaligned view, M = 0, 1), each equal to its plain version; the K6
@@ -39,7 +47,8 @@ run right after phase 3, whose reads and solid set they reuse):
   4. build a yeast-sized genome on the card (linear contigs plus two
      circular plasmids), count it with K1 + sort + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
-     cycle variant taken, the payload equal to the native host builder's;
+     cycle variant taken with K5 launched once (its rebuild reuses the
+     links) and K7 twice, the payload equal to the native host builder's;
   5. compress and decompress twelve small corpora (lossy and lossless
      FASTQ, long-read FASTA, k = 15, 16, 31, 32, 48, 64, 65, 96 and 255,
      both Bloom-set sections, then two more at k = 65 and 255 with the
@@ -323,6 +332,9 @@ def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None,
 # K18 and K19 wait on their Bloom probes, not on their bytes
 WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
                    "(scripts/ab_kernels.py --only walk, PERF.md rows 10-11c)")
+# K5 waits on its searches' random loads
+LINKS_BOUND_NOTE = ("bytes only; K5's binding bound is its probe floor "
+                    "(scripts/ab_kernels.py --only links, PERF.md rows 17a, 17a (W))")
 
 
 def max_abs_err(a, b) -> int:
@@ -523,7 +535,9 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     # K5-K8 on the solid run the pipeline hands the device build; K8 on
     # adversarial runs at every width
     unitig_checks(records, sk, sc, cutoff, rk.numel(), "bench")
+    k5_adversarial()
     rank_adversarial()
+    k7_adversarial()
     lookup_adversarial()
     return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig, codes=codes,
                 lengths=lengths, n_distinct=rk.numel(), cutoff=cutoff, k4_enc=e_d)
@@ -944,6 +958,180 @@ def k3_adversarial() -> None:
                             bloom.bloom_build_plain(keys[:m], counts[:m], 1, 64, 4, SEED, k))
     log(f"bloom_build ok on adversarial runs at k = {K3_KS}, cutoffs keeping {K3_KEEP} "
         f"({n_builds} builds, and M = 0, 1)")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K5 and K7 on adversarial runs (tests/test_torch_links_emit_model.py
+# holds numpy models of both kernels, and the plain versions to leon_tpu's,
+# on the same generators)
+# ---------------------------------------------------------------------------
+
+# every width's shortest and longest k (W = 2..16; k <= 255) beside the key route's
+K5_KS = tuple(dict.fromkeys((1, 2, 15, 16, 17, 31) + tuple(
+    k for W in range(2, 17) for k in (16 * W - 15, min(16 * W, 255)))))
+K5_CASES = ("chains", "one_bucket", "single", "self_twin", "palindromes")
+K7_CASES = ("chains", "cycles", "cycles_full", "self_twin", "palindromes", "cap_at", "cap_over",
+            "cap_bases_cut")
+
+
+def canon_rows(seqs, k: int):
+    """The sorted distinct canonical k-mers of sequences of base codes, in
+    the device build's form: (M,) int64 keys at k <= 31, else (M, W) u32
+    words."""
+    import numpy as np
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import kmer, unitig
+
+    out = []
+    for s in seqs:
+        s = np.asarray(s, np.uint8)
+        if s.size >= k:
+            win = s[np.arange(s.size - k + 1)[:, None] + np.arange(k)]
+            f = kmer.pack_codes_batch_np(win, k)
+            r = kmer.pack_codes_batch_np((3 - win)[:, ::-1], k)
+            out.append(np.where(unitig._np_lex_less(r, f)[:, None], r, f))
+    w = unitig.sort_rows_bigint(np.concatenate(out))
+    w = w[np.concatenate(([True], (w[1:] != w[:-1]).any(axis=1)))]
+    return state.words_to_keys(w) if k <= 31 else np.ascontiguousarray(w)
+
+
+def k5_case(name: str, k: int, scale: int = 1):
+    """One adversarial K5 run at k (canon_rows' form): chains of 1, 2,
+    2^t - 1, 2^t and 2^t + 1 k-mers (t = 3 and 6, or 16 at scale > 1) and
+    isolated k-mers; rows that all start with k - min(6, k/2) A bases (one
+    bucket of the prefix table: the searches take log2 M rounds), chains
+    among them; one row; self-twin chains (a sequence, then its reverse
+    complement; A^m T^m A^m); palindromic k-mers with 14-base flanks (at
+    even k their two nodes share successors)."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)) * 1009 + 7 * k + scale)
+
+    def rnd(n):
+        return rng.integers(0, 4, n, dtype=np.uint8)
+
+    def rc(a):
+        return (3 - a)[::-1]
+
+    if name == "chains":
+        seqs = [rnd(n + k - 1) for t in (3, 16 if scale > 1 else 6)
+                for n in (1, 2, (1 << t) - 1, 1 << t, (1 << t) + 1)]
+        seqs += [rnd(k) for _ in range(50 * scale)]
+    elif name == "one_bucket":
+        h = k - min(6, k // 2)
+        seqs = [np.concatenate([np.zeros(h + int(n), np.uint8), rnd(k - h)])
+                for n in rng.integers(0, max(1, h), 40 * scale)]
+        seqs += [np.concatenate([np.zeros(h, np.uint8), rnd(k - h)]) for _ in range(100 * scale)]
+    elif name == "single":
+        seqs = [rnd(k)]
+    elif name == "self_twin":
+        m = k // 2 + 5
+        seqs = [np.concatenate([a, rc(a)]) for a in (rnd(max(2 * k, 40)) for _ in range(scale))]
+        seqs.append(np.concatenate([np.zeros(m, np.uint8), np.full(m, 3, np.uint8),
+                                    np.zeros(m, np.uint8)]))
+    elif name == "palindromes":
+        seqs = [np.concatenate([rnd(14), a, rc(a), rnd(14)])
+                for a in (rnd(k // 2) for _ in range(8 * scale))]
+        seqs.append(np.concatenate([rnd(14), np.zeros(k // 2 + 2, np.uint8),
+                                    np.full(k // 2 + 2, 3, np.uint8), rnd(14)]))
+    else:
+        raise KeyError(name)
+    return canon_rows(seqs, k)
+
+
+def k7_case(name: str, k: int, scale: int = 1, device: str = "cpu") -> dict:
+    """One adversarial K7 input at k, on `device`: the run, K5's and K6's
+    plain outputs (nxt, prev, S of chain_rank_plain, optimistic or full as
+    `acyclic` says) and the capacities: k5_case's chains, self-twin chains
+    and palindromes; circular contigs of 1, 2, 5, 40 and 201 k-mers beside
+    a linear one (the optimistic ranking flags them; "cycles_full" the full
+    variant); the chain capacity at the chain count and one below it
+    (overflow); the base capacity cut inside the last chain's prefix."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch.ops import unitig
+
+    rng = np.random.default_rng(sum(map(ord, name)) * 31 + k + scale)
+    if name.startswith("cycles"):
+        seqs = []
+        for n in (1, 2, 5, 40, 201):
+            c = rng.integers(0, 4, n, dtype=np.uint8)
+            seqs.append(np.tile(c, -(-(n + k + 4) // n))[: n + k + 4])
+        seqs.append(rng.integers(0, 4, 300 * scale + k, dtype=np.uint8))
+        rows = canon_rows(seqs, k)
+    else:
+        rows = k5_case({"cap_at": "chains", "cap_over": "chains",
+                        "cap_bases_cut": "chains"}.get(name, name), k, scale)
+    run = torch.from_numpy(rows.view(np.int32) if rows.ndim == 2 else rows).to(device)
+    acyclic = name != "cycles_full"
+    nxt, prev = unitig.unitig_links_plain(run, k)
+    nxt, prev, S = unitig.chain_rank_plain(nxt, prev, acyclic)
+    M = run.shape[0]
+    cap = unitig.chains_cap(M)
+    cap_bases = unitig._caps(M, k, cap)
+    if name.startswith("cap"):
+        buf = unitig.unitig_emit_plain(run, k, nxt, prev, S, cap, cap_bases, acyclic)
+        n = int(buf[0])
+        lens = buf[4 : 4 + n].to(torch.int64)
+        if name == "cap_at":
+            cap = n
+        elif name == "cap_over":
+            cap = max(1, n - 1)
+        else:
+            last = int((lens + k - 1).sum() - (lens[-1] + k - 1))
+            cap_bases = max(16, (last + (k - 1) // 2) // 16 * 16)
+        cap_bases = cap_bases if name == "cap_bases_cut" else unitig._caps(M, k, cap)
+    return dict(run=run, k=k, nxt=nxt, prev=prev, S=S, cap=cap, cap_bases=cap_bases,
+                acyclic=acyclic)
+
+
+def k5_adversarial(scale: int = 2) -> None:
+    """K5 against its plain version on the card, exactly, on every k5_case
+    at K5_KS."""
+    import torch
+
+    from leon_tpu_torch.ops import unitig
+
+    dev = torch.device("cuda")
+    n = 0
+    for k in K5_KS:
+        for name in K5_CASES:
+            rows = k5_case(name, k, scale)
+            run = torch.from_numpy(rows.view("int32") if rows.ndim == 2 else rows).to(dev)
+            for a, b in zip(unitig.unitig_links(run, k), unitig.unitig_links_plain(run, k)):
+                max_abs_err(a, b)
+            n += 1
+    log(f"unitig_links ok on {n} adversarial runs ({len(K5_CASES)} cases at k = {K5_KS})")
+
+
+def k7_adversarial() -> None:
+    """K7 against its plain version on the card, exactly, on every k7_case
+    at K5_KS (its K5 and K6 inputs from their plain versions on the card);
+    the chains and palindromes again with 64-bit collision keys (which the
+    wrapper takes where 2M + (k-1) cap reaches EMIT_KEY32_LIMIT)."""
+    from leon_tpu_torch.ops import unitig
+
+    n = 0
+    limit = unitig.EMIT_KEY32_LIMIT
+    for k in K5_KS:
+        for name in K7_CASES:
+            c = k7_case(name, k, device="cuda")
+            args = [c["run"], k, c["nxt"], c["prev"], c["S"], c["cap"], c["cap_bases"],
+                    c["acyclic"]]
+            want = unitig.unitig_emit_plain(*args)
+            max_abs_err(unitig.unitig_emit(*args), want)
+            n += 1
+            if name in ("chains", "palindromes"):
+                try:
+                    unitig.EMIT_KEY32_LIMIT = 0
+                    max_abs_err(unitig.unitig_emit(*args), want)
+                finally:
+                    unitig.EMIT_KEY32_LIMIT = limit
+                n += 1
+    log(f"unitig_emit ok on {n} adversarial inputs ({len(K7_CASES)} cases at k = {K5_KS}, "
+        f"chains and palindromes with 32- and 64-bit keys)")
 
 
 # ---------------------------------------------------------------------------
@@ -1374,7 +1562,7 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     import numpy as np
     import torch
 
-    from leon_tpu_torch import state
+    from leon_tpu_torch import kernels, state
     from leon_tpu_torch.ops import unitig
 
     n_links, n_double, n_emit, n_lookup = names
@@ -1388,7 +1576,8 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     records[n_links] = record(
         max(max_abs_err(nxt, want[0].cpu()), max_abs_err(prev, want[1].cpu())),
         cuda_ms(lambda: unitig.unitig_links(rows, k), 5),
-        cuda_ms(lambda: unitig.unitig_links_plain(rows, k), 1), nbytes(rows, nxt, prev))
+        cuda_ms(lambda: unitig.unitig_links_plain(rows, k), 1), nbytes(rows, nxt, prev),
+        bound_note=LINKS_BOUND_NOTE)
     log(f"[{tag}] unitig_links ok: {M} solid rows, {int((nxt >= 0).sum())} internal edges")
 
     # K6: one pass in every mode, then both chain_rank variants; the record
@@ -1429,6 +1618,7 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    before = dict(kernels.launches)
     t = time.time()
     infl = unitig.dispatch_build(rows, k, nu)
     cyc = int(infl.buf[2])
@@ -1436,6 +1626,11 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     torch.cuda.synchronize()
     t_kernel = time.time() - t
     peak = torch.cuda.max_memory_allocated()
+    build_launches = {n: kernels.launches[n] - before.get(n, 0)
+                      for n in ("unitig_links", "unitig_emit")}
+    if build_launches["unitig_links"] != 1:
+        raise AssertionError(f"[{tag}] a device build launched K5 {build_launches['unitig_links']} "
+                             f"times (cycles flagged {cyc}): its rebuilds must reuse the links")
     t = time.time()
     plain_bufs = [unitig.build_plain(rows, k, cap, cb, a) for a in (True, False)]
     torch.cuda.synchronize()
@@ -1455,7 +1650,8 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     n_chains = unitig.parse_payload(payload, k)[0].size
     log(f"[{tag}] unitig_emit ok; build: {n_chains} chains, cycles flagged {cyc}, "
         f"payload {len(payload)} B = the native host builder's; dispatch_build + "
-        f"drain_build {t_kernel * 1e3:.2f} ms (host clock, first call)")
+        f"drain_build {t_kernel * 1e3:.2f} ms (host clock, first call), launches "
+        f"{build_launches}")
 
     # K8: solid rows, and rows that are not in the run (low bits flipped)
     rng = np.random.default_rng(8)
@@ -1478,7 +1674,7 @@ def unitig_checks(records: dict, rows, counts, cutoff: int, nu: int, label: str,
     log(f"[{tag}] solid_lookup ok: {int(hit.sum())}/{q.shape[0]} hits")
     return dict(n_solid=M, n_distinct=nu, n_chains=n_chains, cycles_flagged=cyc,
                 payload_bytes=len(payload), build_s=t_kernel, plain_build_s=t_plain,
-                host_build_s=t_host, peak_device_bytes=peak)
+                host_build_s=t_host, peak_device_bytes=peak, build_launches=build_launches)
 
 
 def yeast_solid() -> tuple:
@@ -1545,6 +1741,9 @@ def yeast_phase() -> dict:
     fig = unitig_checks(records, sk, sc, cutoff, nu, "yeast")
     if not fig["cycles_flagged"]:
         raise AssertionError("[yeast] the optimistic build did not flag the plasmid cycles")
+    if fig["build_launches"] != {"unitig_links": 1, "unitig_emit": 2}:
+        raise AssertionError(f"[yeast] the build's K5, K7 launches {fig['build_launches']} != "
+                             "1, 2 (the full variant's rebuild reuses K5's links)")
     fig["genome_bp"] = total
     fig["kernels"] = records
     return fig

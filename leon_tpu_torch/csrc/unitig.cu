@@ -9,7 +9,7 @@
 //
 //   K5 links   lt_unitig_buckets, lt_unitig_links (+ _words)
 //   K6 rank    lt_unitig_rank (the whole chain ranking), lt_unitig_break
-//   K7 emit    lt_unitig_emit_mins, _heads, _lens, _bases (+ _bases_words)
+//   K7 emit    lt_unitig_emit (+ _words)
 //   K8 lookup  lt_solid_lookup (+ _words)
 //
 // Input is the solid run: sorted, distinct k-mers, every row solid (the
@@ -22,20 +22,17 @@
 // i's k-mer (o = 0) or its reverse complement (o = 1), never
 // materialised. Node ids are int32 (2M < 2^31).
 //
-// Bound on the H100: dependent random loads. K5 runs 8 bucketed binary
-// searches per row (a 2^16-entry prefix table narrows each to ~log2(M/2^16)
-// probes of the sorted rows); K6 is one list-ranking pass (a few dependent
-// loads a node; state int4 {P, c0, c1, 0}, as the reference rides pointer
-// and carries as columns of one matrix); K7 is scatters
-// (atomicMin, atomicOr) into zeroed buffers. One thread per row or node;
-// OR and MIN are order-free, so results do not depend on scheduling. A
-// W-word row lives in registers (Kmer<W>): K5 holds the row, its reverse
-// complement, a neighbour and the probed row, 4W words.
+// Bound on the H100: random loads. K5 searches a prefix table sized to the
+// run, a thread a directed node with its (at most five) searches in flight
+// together; K6 is one list-ranking pass (a few dependent loads a node;
+// state int4 {P, c0, c1, 0}, as the reference rides pointer and carries as
+// columns of one matrix); K7 is a scatter-min that reads first, then plain
+// byte stores into a position-ordered plane and a pack (atomics only where
+// chains collide). A W-word row lives in registers (Kmer<W>).
 #include "common.cuh"
 #include "kmer_words.cuh"
 
 #define UT_THREADS 256
-#define UT_TBITS 16
 
 #define LT_TRY(x)                              \
   do {                                         \
@@ -59,111 +56,174 @@ static __device__ __forceinline__ uint64_t revcomp(uint64_t x, int k) {
   return x >> (64 - 2 * k);
 }
 
-// spelled form of directed node d
-static __device__ __forceinline__ uint64_t node_key(const int64_t* __restrict__ keys,
-                                                    int d, int k) {
-  const uint64_t x = (uint64_t)keys[d >> 1];
-  return (d & 1) ? revcomp(x, k) : x;
-}
-
-// the top min(16, 2k) bits of a key: its prefix-table bucket
-static __device__ __forceinline__ int top_bits(int64_t key, int k) {
-  const int T = min(UT_TBITS, 2 * k);
-  return (int)(((uint64_t)key >> (2 * k - T)) & ((1u << T) - 1u));
-}
-
-// index of q in the sorted keys, or -1; the search stays inside q's bucket
-// (an exact match lies there), so it equals a search over all M rows
-static __device__ __forceinline__ int find_key(const int64_t* __restrict__ keys, int M,
-                                               const int32_t* __restrict__ starts,
-                                               int64_t q, int k) {
-  const int p = top_bits(q, k);
-  int lo = starts[p], hi = starts[p + 1];
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < q) lo = mid + 1;
-    else hi = mid;
-  }
-  return (lo < M && __ldg(keys + lo) == q) ? lo : -1;
-}
-
 // ---------------------------------------------------------------------------
 // K5 links (unitig.py:367-418, 469-508)
 // ---------------------------------------------------------------------------
+//
+// A directed node's successor by base b is y_b = x << 2 | b (its spelled
+// form x, top base dropped) or its reverse complement yr_b = xr >> 2 |
+// (3 - b) << 2(k-1) (xr the twin's form), whichever is smaller, yr_b only
+// when strictly smaller. The four y_b are four consecutive values, so they
+// are one search: the lower bound of y_0, then the next four rows. Each
+// yr_b that is taken is a search of its own (about half of them on random
+// k-mers). A thread a directed node runs its (at most five) searches
+// together: the prefix-table lookups first, then rounds that load every
+// unfinished search's middle row at once, so that a thread keeps up to five
+// independent loads in flight instead of a chain of dependent ones.
+//
+// The prefix table (`starts`) has 2^T + 1 entries over the top T bits,
+// T sized by the wrapper to the run (about log2 M, so a bucket holds about
+// one row; ops/unitig.py links_table_bits) and at most 2k - 2, so that the
+// four y_b share a bucket. Any T gives the same links: an exact match lies
+// in its own bucket (the reference's docstring, unitig.py:382-386), and a
+// lower bound that passes a bucket's rows is the next bucket's start, the
+// global lower bound. A search that probes its match records it, so a
+// taken yr_b needs no final load; the forward search loads the four rows
+// from its lower bound.
+
+#define K5_SEARCHES 5  // the forward candidates' search, then yr_0 .. yr_3
+#define K5_PAL 0x80    // outc's bit: the row is its own reverse complement
+
+// the top T bits of a 2k-bit key (T <= 2k - 2; T = 0: one bucket)
+static __device__ __forceinline__ int top_bits(uint64_t key, int k, int T) {
+  return T ? (int)((key >> (2 * k - T)) & ((1u << T) - 1u)) : 0;
+}
 
 // starts[b] = first row whose bucket is >= b, for b in [0, 2^T]; thread i
 // writes the buckets between row i-1's and row i's (row M: the end), so
 // every entry is written once and no histogram or scan is needed
-__global__ void buckets_kernel(const int64_t* __restrict__ keys, int M, int k,
+__global__ void buckets_kernel(const int64_t* __restrict__ keys, int M, int k, int T,
                                int32_t* __restrict__ starts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i > M) return;
-  const int T = min(UT_TBITS, 2 * k);
-  const int cur = i < M ? top_bits(keys[i], k) : (1 << T);
-  const int prv = i > 0 ? top_bits(keys[i - 1], k) : -1;
+  const int cur = i < M ? top_bits((uint64_t)keys[i], k, T) : (1 << T);
+  const int prv = i > 0 ? top_bits((uint64_t)keys[i - 1], k, T) : -1;
   for (int b = prv + 1; b <= cur; ++b) starts[b] = i;
 }
 
-// per directed node: out-degree, and the first successor (base order
-// 0..3); a neighbour takes its rc form only when that is strictly smaller,
-// so a palindromic neighbour keeps o = 0
-__global__ void succ_kernel(const int64_t* __restrict__ keys, int M, int k,
-                            const int32_t* __restrict__ starts, int32_t* __restrict__ succ,
-                            int32_t* __restrict__ outc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const uint64_t mask = (1ull << (2 * k)) - 1ull;
-  const uint64_t x0 = (uint64_t)keys[i];
-  const uint64_t r0 = revcomp(x0, k);
-  for (int o = 0; o < 2; ++o) {
-    const uint64_t x = o ? r0 : x0, xr = o ? x0 : r0;
-    int oc = 0, s = -1;
-    for (int b = 0; b < 4; ++b) {
-      const uint64_t y = ((x << 2) | (uint64_t)b) & mask;
-      const uint64_t yr = (xr >> 2) | ((uint64_t)(3 - b) << (2 * (k - 1)));
-      const bool take_rc = yr < y;
-      const int j = find_key(keys, M, starts, (int64_t)(take_rc ? yr : y), k);
-      if (j >= 0 && ++oc == 1) s = 2 * j + (int)take_rc;
-    }
-    succ[2 * i + o] = s;
-    outc[2 * i + o] = oc;
+// per directed node d: its first successor in base order 0..3, and its
+// out-degree with K5_PAL where its row is a palindrome
+__global__ void __launch_bounds__(UT_THREADS)
+succ_kernel(const int64_t* __restrict__ keys, int M, int k, int T,
+            const int32_t* __restrict__ starts, int32_t* __restrict__ succ,
+            uint8_t* __restrict__ outc) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= 2 * M) return;
+  const uint64_t x0 = (uint64_t)__ldg(keys + (d >> 1)), r0 = revcomp(x0, k);
+  const uint64_t x = (d & 1) ? r0 : x0, xr = (d & 1) ? x0 : r0;
+  const uint64_t fwd = (x << 2) & ((1ull << (2 * k)) - 1ull);  // y_b = fwd | b
+  uint64_t q[K5_SEARCHES];
+  bool act[K5_SEARCHES];
+  q[0] = fwd;
+  act[0] = false;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    q[1 + b] = (xr >> 2) | ((uint64_t)(3 - b) << (2 * (k - 1)));
+    act[1 + b] = q[1 + b] < (fwd | (uint64_t)b);
+    act[0] |= !act[1 + b];
   }
+  int lo[K5_SEARCHES], hi[K5_SEARCHES], hit[K5_SEARCHES];
+#pragma unroll
+  for (int s = 0; s < K5_SEARCHES; ++s) {
+    const int p = top_bits(q[s], k, T);
+    lo[s] = act[s] ? __ldg(starts + p) : 0;
+    hi[s] = act[s] ? __ldg(starts + p + 1) : 0;
+    hit[s] = -1;
+  }
+  for (;;) {  // lower bounds: a round loads every unfinished search's middle row
+    uint64_t v[K5_SEARCHES];
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < K5_SEARCHES; ++s) {
+      v[s] = lo[s] < hi[s] ? (uint64_t)__ldg(keys + ((lo[s] + hi[s]) >> 1)) : 0ull;
+      any |= lo[s] < hi[s];
+    }
+    if (!any) break;
+#pragma unroll
+    for (int s = 0; s < K5_SEARCHES; ++s) {
+      if (lo[s] < hi[s]) {
+        const int mid = (lo[s] + hi[s]) >> 1;
+        if (v[s] < q[s]) {
+          lo[s] = mid + 1;
+        } else {
+          hi[s] = mid;
+          if (v[s] == q[s]) hit[s] = mid;
+        }
+      }
+    }
+  }
+  uint64_t v[4];  // the four rows from fwd's lower bound: fwd | b is among them if present
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    v[t] = act[0] && lo[0] + t < M ? (uint64_t)__ldg(keys + lo[0] + t) : ~0ull;
+  int oc = 0, sc = -1;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    int j = hit[1 + b];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (!act[1 + b] && v[t] == (fwd | (uint64_t)b)) j = lo[0] + t;
+    if (j >= 0 && ++oc == 1) sc = 2 * j + (int)act[1 + b];
+  }
+  succ[d] = sc;
+  outc[d] = (uint8_t)(oc | (x0 == r0 ? K5_PAL : 0));
 }
 
-// nxt = succ where the edge is internal (in(s) = out(twin of s)); prev by
-// scatter, where a max keeps the reference's last-writer-wins order on the
-// (palindromic) case of two nodes sharing one successor
-__global__ void link_kernel(int N, const int32_t* __restrict__ succ,
-                            const int32_t* __restrict__ outc, int32_t* __restrict__ nxt,
-                            int32_t* __restrict__ prev) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  const int s = succ[d];
-  const bool internal = outc[d] == 1 && s >= 0 && outc[s ^ 1] == 1;
-  nxt[d] = internal ? s : -1;
-  if (internal) atomicMax(prev + s, d);
+// A row at a time, its two nodes: nxt = succ where the edge is internal
+// (out(d) = 1 and in(s) = out(twin of s) = 1: a byte gathered at random,
+// from N bytes that stay in L2 where N int32 would not). prev is pulled
+// from the twin, with no scatter: an internal edge d -> s has the internal
+// twin edge s^1 -> d^1 (the reverse complement swaps in- and out-degrees),
+// so prev[s] = succ[s^1] ^ 1 where s^1's edge is internal. The odd node of
+// a palindromic row spells the even one's k-mer, which every search
+// returns (yr only when strictly smaller), so it has no prev; where two
+// nodes share a successor (a palindromic row's two nodes) the pull names
+// the larger, the reference's last writer (unitig.py:508, scatter-max in
+// the plain version).
+__global__ void link_kernel(int M, const int2* __restrict__ succ2,
+                            const uint8_t* __restrict__ outc, int2* __restrict__ nxt2,
+                            int2* __restrict__ prev2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M) return;
+  const int2 s = succ2[i];
+  const uint8_t o0 = outc[2 * i], o1 = outc[2 * i + 1];
+  const bool in0 =
+      (o0 & ~K5_PAL) == 1 && s.x >= 0 && (__ldg(outc + (s.x ^ 1)) & ~K5_PAL) == 1;
+  const bool in1 =
+      (o1 & ~K5_PAL) == 1 && s.y >= 0 && (__ldg(outc + (s.y ^ 1)) & ~K5_PAL) == 1;
+  nxt2[i] = make_int2(in0 ? s.x : -1, in1 ? s.y : -1);
+  prev2[i] = make_int2(in1 ? s.y ^ 1 : -1, in0 && !(o0 & K5_PAL) ? s.x ^ 1 : -1);
+}
+
+// the table's bits: 0 <= T <= min(K5_TBITS_MAX, 2k - 2)
+#define K5_TBITS_MAX 26
+static bool k5_bits_ok(int k, int T) {
+  return T >= 0 && T <= K5_TBITS_MAX && T <= (k > 1 ? 2 * k - 2 : 0);
 }
 
 // starts: (2^T + 1) int32
-extern "C" int lt_unitig_buckets(const void* keys, int M, int k, void* starts, void* stream) {
-  if (k < 1 || k > 31 || M < 0) return (int)cudaErrorInvalidValue;
+extern "C" int lt_unitig_buckets(const void* keys, int M, int k, int T, void* starts,
+                                 void* stream) {
+  if (k < 1 || k > 31 || M < 0 || !k5_bits_ok(k, T)) return (int)cudaErrorInvalidValue;
   buckets_kernel<<<ut_blocks((long long)M + 1), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)keys, M, k, (int32_t*)starts);
+      (const int64_t*)keys, M, k, T, (int32_t*)starts);
   return (int)cudaGetLastError();
 }
 
-// succ, outc: (2M,) int32 scratch; nxt, prev: (2M,) int32 outputs
-extern "C" int lt_unitig_links(const void* keys, int M, int k, const void* starts, void* succ,
-                               void* outc, void* nxt, void* prev, void* stream) {
-  if (k < 1 || k > 31 || M <= 0) return (int)cudaErrorInvalidValue;
+// so: (5 * 2M) bytes of scratch: succ (2M int32), then outc (2M bytes);
+// nxt, prev: (2M,) int32 outputs
+extern "C" int lt_unitig_links(const void* keys, int M, int k, int T, const void* starts,
+                               void* so, void* nxt, void* prev, void* stream) {
+  if (k < 1 || k > 31 || M <= 0 || !k5_bits_ok(k, T)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = 2 * M;
-  LT_TRY(cudaMemsetAsync(prev, 0xFF, (size_t)N * sizeof(int32_t), st));  // -1
-  succ_kernel<<<ut_blocks(M), UT_THREADS, 0, st>>>(
-      (const int64_t*)keys, M, k, (const int32_t*)starts, (int32_t*)succ, (int32_t*)outc);
+  int32_t* succ = (int32_t*)so;
+  uint8_t* outc = (uint8_t*)(succ + N);
+  succ_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>((const int64_t*)keys, M, k, T,
+                                                   (const int32_t*)starts, succ, outc);
   LT_TRY(cudaGetLastError());
-  link_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(
-      N, (const int32_t*)succ, (const int32_t*)outc, (int32_t*)nxt, (int32_t*)prev);
+  link_kernel<<<ut_blocks(M), UT_THREADS, 0, st>>>(M, (const int2*)succ, outc, (int2*)nxt,
+                                                   (int2*)prev);
   return (int)cudaGetLastError();
 }
 
@@ -668,112 +728,439 @@ extern "C" int lt_unitig_break(int N, const void* S, void* nxt, void* prev, void
 // ---------------------------------------------------------------------------
 //
 // buf (u32): [n_chains, overflow, has_cycles, 0 | len_nodes (cap) |
-// 2-bit bases (cap_bases/16 words, code t at bits 2t)], zeroed by the
-// caller. Between the launches the wrapper takes two prefix sums: cid
-// (inclusive, of the keep-head flags) and start (exclusive, of the chains'
-// base counts).
+// 2-bit bases (cap_bases/16 words, code t at bits 2t)]. One C entry a call
+// launches everything, on scratch the wrapper allocates once (em_layout).
+//   mins   the chain's min id m, kept at its head as ~m by a scatter-max
+//          that reads first (nodes run in id order, so a chain's min lands
+//          early and later nodes skip the atomic: no chain holds its head's
+//          address for its length), over an array zeroed with the counts
+//          by one memset; in the acyclic mode, the cycle flag.
+//   heads  keep_head = no prev and an even m. The reference keeps a head
+//          when min id <= min twin id (tmn); tmn >= m when m is even (only
+//          m - 2's twin could be smaller, and m - 2 is not in the chain),
+//          and tmn = m - 1 when m is odd (m's own twin), so tmn needs no
+//          pass. The flags' prefix sum (the reference's cid, a jnp.cumsum)
+//          as two levels: each block of EM_SCAN nodes writes its inclusive
+//          counts beside the flags (cl), then one block scans the blocks'
+//          totals (boff) and writes the header.
+//   lens   len_nodes at each kept tail, and its chain's base count at
+//          bp[c + 1]; the tails below cap are counted. bp's prefix sum
+//          (the reference's start) the same two levels: start[c] is chain
+//          c's first position, start[cap] the bases in all.
+//   bases  each kept node's last base at start + (k-1) + rank, and each
+//          kept head's k-1 prefix bases, a warp's heads one after another
+//          over the warp's lanes (a base a lane, coalesced), as bytes of a
+//          position-ordered plane; then a pass packs 16 bytes into a word.
+// Every position below start[cap] has exactly one writer when every kept
+// chain below cap has a tail (its region is its prefix and one node a
+// rank), so the bytes are plain stores and the positions past start[cap]
+// are zero. A chain with no tail (two nodes that share a successor, at
+// even-k palindromes) writes into other chains' positions; then (a device
+// flag: fewer tails than kept chains below cap) every write takes an
+// atomicMax of (key << 2 | base) into a zeroed key plane in the byte
+// plane's place (32-bit words where every key fits, else 64), the key its
+// rank in the reference's write order (even nodes by id, odd nodes by id,
+// then prefix base j = 0 .. k-2 over the chains by id: ops/unitig.py
+// _node_key, _prefix_key), and the pack reads the largest: the reference's
+// last writer. Bound: S read, the run, cl and start gathered, the plane
+// written and read, the buffer written; the scatters land at random
+// positions.
 
-// per-chain min id and min twin id, kept at the head: scatter-min over
-// head; in the acyclic mode a node that reached no head flags a cycle
-__global__ void emit_mins_kernel(int N, const int4* __restrict__ S, int acyclic,
-                                 int32_t* __restrict__ cm, int32_t* __restrict__ tmn,
-                                 uint32_t* __restrict__ buf) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  const int4 s = S[d];
-  atomicMin(cm + s.x, d);
-  atomicMin(tmn + s.x, d ^ 1);
-  if (acyclic && s.z == 0) buf[2] = 1u;
+#define EM_T 256             // threads a block of the scans
+#define EM_SCAN (4 * EM_T)   // items a block scans, 4 a thread
+#define EM_SCAN_LOG2 10
+#define EM_TAILS 0  // ctl: the kept chains below cap that have a tail
+#define EM_CYC 1    // ctl: a node reached no head (the acyclic mode's cycle flag)
+
+// The work buffer (int64 units): aux = bp (cap + 1), ctl (4 int32); a
+// region that holds cm (N u32), then the byte plane (cap_bases) or, where
+// chains collide, the key plane (cap_bases keys of kb bytes: 4 where every
+// key << 2 fits 32 bits, else 8); cl (N int32); boff and soff (a block's
+// offset each). ops/unitig.py _emit_work_words mirrors the size.
+struct EmLayout {
+  long long region, cl, boff, soff, words;
+};
+
+static long long em_blocks(long long n) { return (n + EM_SCAN - 1) / EM_SCAN; }
+
+static EmLayout em_layout(int N, int cap, long long cap_bases, int kb) {
+  EmLayout L;
+  const long long half = ((long long)N + 1) / 2, keys = (cap_bases * kb + 7) / 8;
+  L.region = (cap + 4) & ~1ll;  // 16-byte aligned: the pack's loads
+  L.cl = L.region + (half > keys ? half : keys);
+  L.boff = L.cl + half;
+  L.soff = L.boff + em_blocks(N);
+  L.words = L.soff + em_blocks((long long)cap + 1);
+  return L;
 }
 
-__global__ void emit_heads_kernel(int N, const int32_t* __restrict__ prev,
-                                  const int32_t* __restrict__ cm, const int32_t* __restrict__ tmn,
-                                  int32_t* __restrict__ kh) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  kh[d] = prev[d] < 0 && cm[d] <= tmn[d];
-}
-
-// len_nodes at each kept chain's tail; the header
-__global__ void emit_lens_kernel(int N, const int32_t* __restrict__ nxt,
-                                 const int4* __restrict__ S,
-                                 const int32_t* __restrict__ kh, const int32_t* __restrict__ cid,
-                                 int cap, uint32_t* __restrict__ buf) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d == 0) {
-    const uint32_t total = (uint32_t)cid[N - 1];
-    buf[0] = total;
-    buf[1] = total > (uint32_t)cap;
+// exclusive scan of x over the block's EM_T threads (every thread calls
+// it); *total the block's sum
+template <typename T>
+static __device__ __forceinline__ T em_block_excl(T x, T* total) {
+  __shared__ T ws[EM_T / 32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  T v = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(RK_ALL, v, o);
+    if (lane >= o) v += y;
   }
-  if (d >= N || nxt[d] >= 0) return;
-  const int4 s = S[d];
-  if (!kh[s.x]) return;
-  const int c = cid[s.x] - 1;
-  if (c < cap) buf[4 + c] = (uint32_t)(s.y + 1);
+  if (lane == 31) ws[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    T u = lane < EM_T / 32 ? ws[lane] : (T)0;
+#pragma unroll
+    for (int o = 1; o < EM_T / 32; o <<= 1) {
+      const T y = __shfl_up_sync(RK_ALL, u, o);
+      if (lane >= o) u += y;
+    }
+    if (lane < EM_T / 32) ws[lane] = u;
+  }
+  __syncthreads();
+  const T pre = (w ? ws[w - 1] : (T)0) + v - x;
+  *total = ws[EM_T / 32 - 1];
+  __syncthreads();
+  return pre;
 }
 
-static __device__ __forceinline__ void put_base(uint32_t* __restrict__ packed, long long pos,
-                                                long long cap_bases, uint32_t code) {
-  if (code && pos >= 0 && pos < cap_bases)
-    atomicOr(packed + (pos >> 4), code << (2 * (pos & 15)));
+// chain index of head h (the kept heads before it), or -1 where h is no
+// kept head: cl[h] = (the block's kept heads up to h << 1) | keep_head
+static __device__ __forceinline__ int em_chain(const int32_t* __restrict__ cl,
+                                               const long long* __restrict__ boff, int h) {
+  const int v = __ldg(cl + h);
+  return (v & 1) ? (v >> 1) + (int)__ldg(boff + (h >> EM_SCAN_LOG2)) - 1 : -1;
 }
 
-// each kept node's last base at start + (k-1) + rank; each kept head's
-// k-1 prefix bases, most significant first
-__global__ void emit_bases_kernel(const int64_t* __restrict__ keys, int N, int k,
-                                  const int4* __restrict__ S, const int32_t* __restrict__ kh,
-                                  const int32_t* __restrict__ cid,
-                                  const long long* __restrict__ start, int cap,
-                                  long long cap_bases, uint32_t* __restrict__ packed) {
+// chain c's first position
+static __device__ __forceinline__ long long em_start(const long long* __restrict__ bp,
+                                                     const long long* __restrict__ soff, int c) {
+  return __ldg(bp + c) + __ldg(soff + (c >> EM_SCAN_LOG2));
+}
+
+static __device__ __forceinline__ bool em_collide(const uint32_t* __restrict__ buf,
+                                                  const int32_t* __restrict__ ctl, int cap) {
+  return (unsigned)ctl[EM_TAILS] < min(buf[0], (uint32_t)cap);
+}
+
+static __device__ __forceinline__ unsigned long long em_node_key(int d, int M) {
+  return 1ull + (unsigned long long)(d & 1) * (unsigned)M + (unsigned)(d >> 1);
+}
+
+static __device__ __forceinline__ unsigned long long em_prefix_key(int j, int c, int M, int cap) {
+  return 1ull + 2ull * (unsigned)M + (unsigned long long)j * (unsigned)cap + (unsigned)c;
+}
+
+// K: the key plane's word (uint32_t or unsigned long long), the plane
+// aliasing the byte plane
+template <typename K>
+static __device__ __forceinline__ void em_put(long long pos, uint32_t base,
+                                              unsigned long long key, bool collide,
+                                              long long cap_bases, void* __restrict__ plane) {
+  if (pos < 0 || pos >= cap_bases) return;
+  if (collide) atomicMax(reinterpret_cast<K*>(plane) + pos, (K)((key << 2) | base));
+  else reinterpret_cast<uint8_t*>(plane)[pos] = (uint8_t)base;
+}
+
+// cm[h] = ~(min node id whose head is h), a max over a zeroed array (0:
+// no node, whose head the reference keeps, as an even min); in the acyclic
+// mode a node that reached no head flags a cycle (a store a block)
+__global__ void __launch_bounds__(UT_THREADS)
+emit_mins_kernel(int N, const int4* __restrict__ S, int acyclic, uint32_t* __restrict__ cm,
+                 int32_t* __restrict__ ctl) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  const int4 s = S[d];
-  if (!kh[s.x]) return;
-  const int c = cid[s.x] - 1;
-  if (c >= cap) return;
-  const uint64_t f = node_key(keys, d, k);
-  const long long st = start[c];
-  put_base(packed, st + (k - 1) + s.y, cap_bases, (uint32_t)(f & 3u));
-  if (s.x == d)
-    for (int j = 0; j < k - 1; ++j)
-      put_base(packed, st + j, cap_bases, (uint32_t)((f >> (2 * (k - 1) - 2 * j)) & 3u));
+  bool cyc = false;
+  if (d < N) {
+    int h;
+    if (acyclic) {
+      const int4 s = S[d];
+      h = s.x;
+      cyc = s.z == 0;
+    } else {
+      h = reinterpret_cast<const int*>(S)[4 * (long long)d];
+    }
+    const uint32_t v = ~(uint32_t)d;
+    if (v > __ldcg(cm + h)) atomicMax(cm + h, v);
+  }
+  if (__syncthreads_or(cyc) && threadIdx.x == 0) ctl[EM_CYC] = 1;
 }
 
-// cm, tmn: (N,) int32 filled with N by the caller
-extern "C" int lt_unitig_emit_mins(int N, const void* S, int acyclic, void* cm, void* tmn,
-                                   void* buf, void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  emit_mins_kernel<<<ut_blocks(N), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      N, (const int4*)S, acyclic, (int32_t*)cm, (int32_t*)tmn, (uint32_t*)buf);
+// keep_head flags, a block of EM_SCAN nodes (4 a thread) with their
+// block-inclusive counts (cl) and the block's total (boff, scanned later);
+// the buffer's header and lens zeroed on the way
+__global__ void __launch_bounds__(EM_T)
+emit_heads_kernel(int N, const int32_t* __restrict__ prev, const uint32_t* __restrict__ cm,
+                  int32_t* __restrict__ cl, long long* __restrict__ boff,
+                  uint32_t* __restrict__ buf, int cap) {
+  for (int i = blockIdx.x * EM_T + threadIdx.x; i < 4 + cap; i += gridDim.x * EM_T) buf[i] = 0u;
+  const int d0 = blockIdx.x * EM_SCAN + 4 * threadIdx.x;
+  int kh[4], cnt = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int d = d0 + q;
+    kh[q] = 0;
+    if (d < N) {
+      const uint32_t v = cm[d];
+      kh[q] = prev[d] < 0 && (v == 0u || !(~v & 1u));  // no prev, an even min id
+    }
+    cnt += kh[q];
+  }
+  int tot;
+  int pre = em_block_excl<int>(cnt, &tot);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    pre += kh[q];
+    if (d0 + q < N) cl[d0 + q] = (pre << 1) | kh[q];
+  }
+  if (threadIdx.x == 0) boff[blockIdx.x] = tot;
+}
+
+// one block: a[0, n) to its exclusive prefix sum, in place; with hdr, the
+// kept heads in all (the sum) go to the header: n_chains, overflow, and
+// the cycle flag from ctl
+__global__ void __launch_bounds__(EM_T)
+emit_top_kernel(long long* __restrict__ a, int n, uint32_t* __restrict__ hdr,
+                const int32_t* __restrict__ ctl, int cap) {
+  long long carry = 0;
+  for (int base = 0; base < n; base += EM_SCAN) {
+    long long v[4], s = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + 4 * threadIdx.x + q;
+      v[q] = i < n ? a[i] : 0;
+      s += v[q];
+    }
+    long long tot;
+    long long pre = carry + em_block_excl<long long>(s, &tot);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = base + 4 * threadIdx.x + q;
+      if (i < n) a[i] = pre;
+      pre += v[q];
+    }
+    carry += tot;
+  }
+  if (hdr && threadIdx.x == 0) {
+    hdr[0] = (uint32_t)carry;
+    hdr[1] = carry > cap;
+    hdr[2] = ctl[EM_CYC] != 0;
+  }
+}
+
+// len_nodes at each kept chain's tail, its base count at bp[c + 1]; ctl
+// counts the tails
+__global__ void __launch_bounds__(UT_THREADS)
+emit_lens_kernel(int N, int k, const int32_t* __restrict__ nxt, const int2* __restrict__ S2,
+                 const int32_t* __restrict__ cl, const long long* __restrict__ boff, int cap,
+                 uint32_t* __restrict__ buf, long long* __restrict__ bp,
+                 int32_t* __restrict__ ctl) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  int tail = 0;
+  if (d < N && nxt[d] < 0) {
+    const int2 s = S2[2 * (long long)d];
+    const int c = em_chain(cl, boff, s.x);
+    if (c >= 0 && c < cap) {
+      buf[4 + c] = (uint32_t)(s.y + 1);
+      bp[c + 1] = (long long)s.y + k;
+      tail = 1;
+    }
+  }
+  const int t = __syncthreads_count(tail);
+  if (threadIdx.x == 0 && t) atomicAdd(ctl + EM_TAILS, t);
+}
+
+// bp[0, n) to its block-inclusive sums, a block of EM_SCAN entries, and
+// each block's total (soff, scanned later)
+__global__ void __launch_bounds__(EM_T)
+emit_bscan_kernel(long long* __restrict__ bp, int n, long long* __restrict__ soff) {
+  const int i0 = blockIdx.x * EM_SCAN + 4 * threadIdx.x;
+  long long v[4], s = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[q] = i0 + q < n ? bp[i0 + q] : 0;
+    s += v[q];
+  }
+  long long tot;
+  long long pre = em_block_excl<long long>(s, &tot);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    pre += v[q];
+    if (i0 + q < n) bp[i0 + q] = pre;
+  }
+  if (threadIdx.x == 0) soff[blockIdx.x] = tot;
+}
+
+// the key plane, zeroed only where chains collide
+template <typename K>
+__global__ void emit_zero_kernel(long long n, const uint32_t* __restrict__ buf,
+                                 const int32_t* __restrict__ ctl, int cap, K* __restrict__ win) {
+  if (!em_collide(buf, ctl, cap)) return;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    win[i] = 0;
+}
+
+// word j of row i, LSW first (W words a row; an int64 key is two words, its
+// base i at bit 2(k-1-i) as in a W-word row)
+template <int W, bool KEYS>
+static __device__ __forceinline__ uint32_t em_word(const void* __restrict__ run, int i, int j) {
+  if constexpr (KEYS)
+    return __ldg(reinterpret_cast<const uint32_t*>(run) + 2 * (long long)i + j);
+  else
+    return __ldg(reinterpret_cast<const uint32_t*>(run) + (long long)i * W + j);
+}
+
+// base j (0 = first) of node d's spelled k-mer: base j of its row, or the
+// complement of the row's base k-1-j where d spells the reverse complement
+template <int W, bool KEYS>
+static __device__ __forceinline__ uint32_t em_base(const void* __restrict__ run, int d, int j,
+                                                   int k) {
+  const int t = 2 * (k - 1 - ((d & 1) ? k - 1 - j : j));
+  const uint32_t b = (em_word<W, KEYS>(run, d >> 1, t >> 5) >> (t & 31)) & 3u;
+  return (d & 1) ? 3u - b : b;
+}
+
+// a thread a node: its last base (one word of its row); then the warp's
+// kept heads' prefixes, a head at a time, base j on lane j mod 32 (the
+// head's row read by every lane: one transaction a word)
+template <int W, bool KEYS, typename K>
+__global__ void __launch_bounds__(UT_THREADS)
+emit_bases_kernel(const void* __restrict__ run, int N, int k, const int2* __restrict__ S2,
+                  const int32_t* __restrict__ cl, const long long* __restrict__ boff,
+                  const long long* __restrict__ bp, const long long* __restrict__ soff, int cap,
+                  long long cap_bases, const int32_t* __restrict__ ctl,
+                  const uint32_t* __restrict__ buf, void* __restrict__ plane) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, M = N >> 1;
+  const bool collide = em_collide(buf, ctl, cap);
+  int c = -1, h = -1, r = 0;
+  if (d < N) {
+    const int2 s = S2[2 * (long long)d];
+    h = s.x;
+    r = s.y;
+    c = em_chain(cl, boff, h);
+    if (c >= cap) c = -1;
+  }
+  long long st = 0;
+  if (c >= 0) {
+    st = em_start(bp, soff, c);
+    em_put<K>(st + (k - 1) + r, em_base<W, KEYS>(run, d, k - 1, k), em_node_key(d, M), collide,
+              cap_bases, plane);
+  }
+  unsigned heads = __ballot_sync(RK_ALL, c >= 0 && h == d);
+  while (heads) {
+    const int src = __ffs(heads) - 1;
+    heads &= heads - 1;
+    const long long hs = __shfl_sync(RK_ALL, st, src);
+    const int hc = __shfl_sync(RK_ALL, c, src), hd = __shfl_sync(RK_ALL, d, src);
+    for (int j = lane; j < k - 1; j += 32)
+      em_put<K>(hs + j, em_base<W, KEYS>(run, hd, j, k), em_prefix_key(j, hc, M, cap),
+                collide, cap_bases, plane);
+  }
+}
+
+// word i of the packed bases from positions 16i .. 16i+15: the plane's
+// bytes below start[cap] (zero past it), or the key plane's bases
+template <typename K>
+__global__ void emit_pack_kernel(long long n_words, const void* __restrict__ plane,
+                                 const long long* __restrict__ bp,
+                                 const long long* __restrict__ soff, int cap,
+                                 const int32_t* __restrict__ ctl, uint32_t* __restrict__ buf) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n_words) return;
+  const long long p0 = 16 * i;
+  uint32_t v = 0;
+  if (em_collide(buf, ctl, cap)) {
+    const K* win = reinterpret_cast<const K*>(plane);
+#pragma unroll
+    for (int t = 0; t < 16; ++t) v |= (uint32_t)(__ldg(win + p0 + t) & 3u) << (2 * t);
+  } else {
+    const long long tb = em_start(bp, soff, cap);
+    if (p0 < tb) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(plane) + i);
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int t = 0; t < 16; ++t)
+        if (p0 + t < tb) v |= ((w[t >> 2] >> (8 * (t & 3))) & 3u) << (2 * t);
+    }
+  }
+  buf[4 + cap + i] = v;
+}
+
+template <int W, bool KEYS, typename K>
+static int em_launch(const void* run, int N, int k, const void* S, const void* nxt,
+                     const void* prev, int acyclic, int cap, long long cap_bases, void* work,
+                     long long work_words, void* buf, cudaStream_t st) {
+  static int zero_grid = 0;
+  if (!zero_grid) LT_TRY(resident_blocks(emit_zero_kernel<K>, UT_THREADS, &zero_grid));
+  const EmLayout L = em_layout(N, cap, cap_bases, (int)sizeof(K));
+  if (work_words < L.words) return (int)cudaErrorInvalidValue;
+  long long* w = (long long*)work;
+  long long* bp = w;
+  int32_t* ctl = (int32_t*)(w + cap + 1);
+  uint32_t* cm = (uint32_t*)(w + L.region);
+  void* plane = w + L.region;  // after cm: the byte plane, or the key plane
+  int32_t* cl = (int32_t*)(w + L.cl);
+  long long* boff = w + L.boff;
+  long long* soff = w + L.soff;
+  uint32_t* b = (uint32_t*)buf;
+  const int2* S2 = (const int2*)S;
+  const int nb = (int)em_blocks(N), sb = (int)em_blocks((long long)cap + 1);
+  LT_TRY(cudaMemsetAsync(w, 0, (size_t)L.region * sizeof(long long) + (size_t)N * 4, st));
+  emit_mins_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(N, (const int4*)S, acyclic, cm, ctl);
+  LT_TRY(cudaGetLastError());
+  emit_heads_kernel<<<nb, EM_T, 0, st>>>(N, (const int32_t*)prev, cm, cl, boff, b, cap);
+  LT_TRY(cudaGetLastError());
+  emit_top_kernel<<<1, EM_T, 0, st>>>(boff, nb, b, ctl, cap);
+  LT_TRY(cudaGetLastError());
+  emit_lens_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(N, k, (const int32_t*)nxt, S2, cl, boff,
+                                                       cap, b, bp, ctl);
+  LT_TRY(cudaGetLastError());
+  emit_bscan_kernel<<<sb, EM_T, 0, st>>>(bp, cap + 1, soff);
+  LT_TRY(cudaGetLastError());
+  emit_top_kernel<<<1, EM_T, 0, st>>>(soff, sb, nullptr, ctl, cap);
+  LT_TRY(cudaGetLastError());
+  emit_zero_kernel<K><<<zero_grid, UT_THREADS, 0, st>>>(cap_bases, b, ctl, cap, (K*)plane);
+  LT_TRY(cudaGetLastError());
+  emit_bases_kernel<W, KEYS, K><<<ut_blocks(N), UT_THREADS, 0, st>>>(
+      run, N, k, S2, cl, boff, bp, soff, cap, cap_bases, ctl, b, plane);
+  LT_TRY(cudaGetLastError());
+  emit_pack_kernel<K><<<ut_blocks(cap_bases / 16), UT_THREADS, 0, st>>>(cap_bases / 16, plane,
+                                                                      bp, soff, cap, ctl, b);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lt_unitig_emit_heads(int N, const void* prev, const void* cm, const void* tmn,
-                                    void* kh, void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
-  emit_heads_kernel<<<ut_blocks(N), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      N, (const int32_t*)prev, (const int32_t*)cm, (const int32_t*)tmn, (int32_t*)kh);
-  return (int)cudaGetLastError();
+// key_bits 32 where every key << 2 | base fits 32 bits (2M + (k-1) cap <
+// 2^30, the wrapper's choice), else 64
+template <int W, bool KEYS>
+static int em_launch_keys(int key_bits, const void* run, int N, int k, const void* S,
+                          const void* nxt, const void* prev, int acyclic, int cap,
+                          long long cap_bases, void* work, long long work_words, void* buf,
+                          cudaStream_t st) {
+  if (key_bits == 32 && (long long)N + (long long)(k - 1) * cap >= (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  if (key_bits == 32)
+    return em_launch<W, KEYS, uint32_t>(run, N, k, S, nxt, prev, acyclic, cap, cap_bases, work,
+                                        work_words, buf, st);
+  if (key_bits == 64)
+    return em_launch<W, KEYS, unsigned long long>(run, N, k, S, nxt, prev, acyclic, cap,
+                                                  cap_bases, work, work_words, buf, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int lt_unitig_emit_lens(int N, const void* nxt, const void* S, const void* kh,
-                                   const void* cid, int cap, void* buf, void* stream) {
-  if (N <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
-  emit_lens_kernel<<<ut_blocks(N), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      N, (const int32_t*)nxt, (const int4*)S, (const int32_t*)kh, (const int32_t*)cid, cap,
-      (uint32_t*)buf);
-  return (int)cudaGetLastError();
+static bool em_args_ok(int N, int cap, long long cap_bases) {
+  return N > 0 && cap > 0 && cap_bases > 0 && cap_bases % 16 == 0;
 }
 
-extern "C" int lt_unitig_emit_bases(const void* keys, int N, int k, const void* S,
-                                    const void* kh, const void* cid, const void* start, int cap,
-                                    long long cap_bases, void* buf, void* stream) {
-  if (N <= 0 || cap <= 0 || k < 1 || k > 31) return (int)cudaErrorInvalidValue;
-  emit_bases_kernel<<<ut_blocks(N), UT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)keys, N, k, (const int4*)S,
-      (const int32_t*)kh, (const int32_t*)cid, (const long long*)start, cap, cap_bases,
-      (uint32_t*)buf + 4 + cap);
-  return (int)cudaGetLastError();
+// keys: (M,) int64, N = 2M; S (N, 4) int32; nxt, prev (N,) int32; work:
+// work_words int64 of scratch (em_layout); buf: the output
+extern "C" int lt_unitig_emit(const void* keys, int N, int k, const void* S, const void* nxt,
+                              const void* prev, int acyclic, int cap, long long cap_bases,
+                              int key_bits, void* work, long long work_words, void* buf,
+                              void* stream) {
+  if (!em_args_ok(N, cap, cap_bases) || k < 1 || k > 31) return (int)cudaErrorInvalidValue;
+  return em_launch_keys<2, true>(key_bits, keys, N, k, S, nxt, prev, acyclic, cap, cap_bases,
+                                 work, work_words, buf, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -880,108 +1267,6 @@ static __device__ __forceinline__ Kmer<W> revcomp_w(const Kmer<W>& a, int k) {
   return r;
 }
 
-// spelled form of directed node d
-template <int W>
-static __device__ __forceinline__ Kmer<W> node_kmer(const uint32_t* __restrict__ rows, int d,
-                                                    int k) {
-  const Kmer<W> x = load_kmer<W>(rows, d >> 1);
-  return (d & 1) ? revcomp_w<W>(x, k) : x;
-}
-
-// the top min(16, 2k) bits of a 2k-bit k-mer, which straddle two words
-// when the shift's offset passes 16 (unitig.py _topbits, 351-364)
-template <int W>
-static __device__ __forceinline__ int top_bits_w(const Kmer<W>& a, int k) {
-  const int T = min(UT_TBITS, 2 * k);
-  const int shift = 2 * k - T, wi = shift >> 5, off = shift & 31;
-  uint32_t tb = word_at(a, wi) >> off;
-  if (off && wi + 1 < W) tb |= word_at(a, wi + 1) << (32 - off);
-  return (int)(tb & ((1u << T) - 1u));
-}
-
-// row index of q in the sorted rows, or -1; the search stays inside q's
-// bucket and compares rows as unsigned big integers, most significant word
-// first (unitig.py _searchsorted_words_dev, 377-418)
-template <int W>
-static __device__ __forceinline__ int find_row(const uint32_t* __restrict__ rows, int M,
-                                               const int32_t* __restrict__ starts,
-                                               const Kmer<W>& q, int k) {
-  const int p = top_bits_w<W>(q, k);
-  int lo = starts[p], hi = starts[p + 1];
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (lex_less(load_kmer<W>(rows, mid), q)) lo = mid + 1;
-    else hi = mid;
-  }
-  return (lo < M && same_kmer(load_kmer<W>(rows, lo), q)) ? lo : -1;
-}
-
-template <int W>
-__global__ void buckets_words_kernel(const uint32_t* __restrict__ rows, int M, int k,
-                                     int32_t* __restrict__ starts) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > M) return;
-  const int T = min(UT_TBITS, 2 * k);
-  const int cur = i < M ? top_bits_w<W>(load_kmer<W>(rows, i), k) : (1 << T);
-  const int prv = i > 0 ? top_bits_w<W>(load_kmer<W>(rows, i - 1), k) : -1;
-  for (int b = prv + 1; b <= cur; ++b) starts[b] = i;
-}
-
-// succ_kernel over W-word rows: the neighbour y = x << 2 | b (top word
-// masked), its twin yr = xr >> 2 | (3 - b) << 2(k-1); the rc form only
-// when strictly smaller
-template <int W>
-__global__ void succ_words_kernel(const uint32_t* __restrict__ rows, int M, int k, uint32_t top,
-                                  const int32_t* __restrict__ starts, int32_t* __restrict__ succ,
-                                  int32_t* __restrict__ outc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M) return;
-  const Kmer<W> x0 = load_kmer<W>(rows, i);
-  const Kmer<W> r0 = revcomp_w<W>(x0, k);
-  for (int o = 0; o < 2; ++o) {
-    Kmer<W> x, xr;  // word by word: a select of whole structs goes to the stack
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      x.w[j] = o ? r0.w[j] : x0.w[j];
-      xr.w[j] = o ? x0.w[j] : r0.w[j];
-    }
-    int oc = 0, s = -1;
-    for (int b = 0; b < 4; ++b) {
-      const Kmer<W> y = shl2<W>(x, (uint32_t)b, top);
-      const Kmer<W> yr = shr2_ins<W>(xr, (uint32_t)(3 - b), k);
-      const bool take_rc = lex_less(yr, y);
-      Kmer<W> cy;
-#pragma unroll
-      for (int t = 0; t < W; ++t) cy.w[t] = take_rc ? yr.w[t] : y.w[t];
-      const int j = find_row<W>(rows, M, starts, cy, k);
-      if (j >= 0 && ++oc == 1) s = 2 * j + (int)take_rc;
-    }
-    succ[2 * i + o] = s;
-    outc[2 * i + o] = oc;
-  }
-}
-
-// emit_bases_kernel over W-word rows
-template <int W>
-__global__ void emit_bases_words_kernel(const uint32_t* __restrict__ rows, int N, int k,
-                                        const int4* __restrict__ S,
-                                        const int32_t* __restrict__ kh,
-                                        const int32_t* __restrict__ cid,
-                                        const long long* __restrict__ start, int cap,
-                                        long long cap_bases, uint32_t* __restrict__ packed) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= N) return;
-  const int4 s = S[d];
-  if (!kh[s.x]) return;
-  const int c = cid[s.x] - 1;
-  if (c >= cap) return;
-  const Kmer<W> f = node_kmer<W>(rows, d, k);
-  const long long st = start[c];
-  put_base(packed, st + (k - 1) + s.y, cap_bases, f.w[0] & 3u);
-  if (s.x == d)
-    for (int j = 0; j < k - 1; ++j) put_base(packed, st + j, cap_bases, (uint32_t)base_of(f, j, k));
-}
-
 // sign of (row r - x), words compared most significant first and read
 // only until two differ (the top word decides almost every probe)
 template <int W>
@@ -992,6 +1277,182 @@ static __device__ __forceinline__ int cmp_row(const uint32_t* r, const Kmer<W>& 
     if (a != x.w[j]) return a < x.w[j] ? -1 : 1;
   }
   return 0;
+}
+
+// the top T bits of row i, from the one or two words that hold them
+// (unitig.py _topbits, 351-364)
+template <int W>
+static __device__ __forceinline__ int row_top_bits(const uint32_t* __restrict__ rows,
+                                                   long long i, int k, int T) {
+  if (!T) return 0;
+  const int shift = 2 * k - T, wi = shift >> 5, off = shift & 31;
+  const uint32_t* r = rows + i * W;
+  uint32_t tb = __ldg(r + wi) >> off;
+  if (off && wi + 1 < W) tb |= __ldg(r + wi + 1) << (32 - off);
+  return (int)(tb & ((1u << T) - 1u));
+}
+
+template <int W>
+__global__ void buckets_words_kernel(const uint32_t* __restrict__ rows, int M, int k, int T,
+                                     int32_t* __restrict__ starts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > M) return;
+  const int cur = i < M ? row_top_bits<W>(rows, i, k, T) : (1 << T);
+  const int prv = i > 0 ? row_top_bits<W>(rows, i - 1, k, T) : -1;
+  for (int b = prv + 1; b <= cur; ++b) starts[b] = i;
+}
+
+// word j of search s's query in succ_words_kernel: s = 0 fwd, s = 1 + b
+// yr_b = xr >> 2 | (3 - b) << ti in the top word (s and j are constants
+// where it is called, so fwd and xr stay in registers)
+template <int W>
+static __device__ __forceinline__ uint32_t k5_qword(const Kmer<W>& fwd, const Kmer<W>& xr, int s,
+                                                    int j, int ti) {
+  if (s == 0) return fwd.w[j];
+  const uint32_t v = (xr.w[j] >> 2) | (j + 1 < W ? xr.w[j + 1 < W ? j + 1 : j] << 30 : 0u);
+  return j == W - 1 ? v | ((uint32_t)(4 - s) << ti) : v;
+}
+
+// succ_kernel over W-word rows: fwd = x << 2 (top word masked), yr_b =
+// xr >> 2 | (3 - b) << 2(k-1), whose inserted base lies in the top word
+// (k >= 16W - 15). The thread holds fwd and xr and makes a query's words
+// where they are compared (k5_qword); a round loads each unfinished search's
+// middle row's top word first, and the lower words only where the top
+// words tie, a tie at a time (so that the five searches' state stays in
+// registers at every W)
+template <int W>
+__global__ void __launch_bounds__(UT_THREADS)
+succ_words_kernel(const uint32_t* __restrict__ rows, int M, int k, int T, uint32_t top,
+                  const int32_t* __restrict__ starts, int32_t* __restrict__ succ,
+                  uint8_t* __restrict__ outc) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= 2 * M) return;
+  Kmer<W> fwd, xr;
+  bool pal;
+  {
+    const Kmer<W> x0 = load_kmer<W>(rows, d >> 1);
+    const Kmer<W> r0 = revcomp_w<W>(x0, k);
+    pal = same_kmer(x0, r0);
+    Kmer<W> x;  // word by word: a select of whole structs goes to the stack
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      x.w[j] = (d & 1) ? r0.w[j] : x0.w[j];
+      xr.w[j] = (d & 1) ? x0.w[j] : r0.w[j];
+    }
+    fwd = shl2<W>(x, 0u, top);  // y_b = fwd | b
+  }
+  const int ti = (2 * (k - 1)) & 31;  // the inserted base's bit in the top word
+  bool act[K5_SEARCHES];
+  int lo[K5_SEARCHES], hi[K5_SEARCHES], hit[K5_SEARCHES];
+  act[0] = false;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {  // yr_b < fwd | b, most significant word first
+    int c = 0;
+#pragma unroll
+    for (int j = W - 1; j >= 0; --j) {
+      const uint32_t q = k5_qword<W>(fwd, xr, 1 + b, j, ti);
+      const uint32_t y = j ? fwd.w[j] : fwd.w[0] | (uint32_t)b;
+      if (c == 0 && q != y) c = q < y ? -1 : 1;
+    }
+    act[1 + b] = c < 0;
+    act[0] |= c >= 0;
+  }
+  // the top T <= 26 bits lie in the top two words (k >= 16W - 15): read
+  // at fixed indices, as a word chosen by a runtime index would send fwd
+  // and xr to local memory
+  const int sh = 2 * k - T - 32 * (W - 2);
+#pragma unroll
+  for (int s = 0; s < K5_SEARCHES; ++s) {
+    const uint64_t h = ((uint64_t)k5_qword<W>(fwd, xr, s, W - 1, ti) << 32) |
+                       k5_qword<W>(fwd, xr, s, W - 2, ti);
+    const int p = T ? (int)((h >> sh) & ((1u << T) - 1u)) : 0;
+    lo[s] = act[s] ? __ldg(starts + p) : 0;
+    hi[s] = act[s] ? __ldg(starts + p + 1) : 0;
+    hit[s] = -1;
+  }
+  for (;;) {
+    uint32_t tw[K5_SEARCHES];
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < K5_SEARCHES; ++s) {
+      const long long mid = (lo[s] + hi[s]) >> 1;
+      tw[s] = lo[s] < hi[s] ? __ldg(rows + mid * W + (W - 1)) : 0u;
+      any |= lo[s] < hi[s];
+    }
+    if (!any) break;
+    unsigned ties = 0;  // the searches whose middle row's top word equals the query's
+#pragma unroll
+    for (int s = 0; s < K5_SEARCHES; ++s) {
+      if (lo[s] < hi[s]) {
+        const int mid = (lo[s] + hi[s]) >> 1;
+        const uint32_t qt = k5_qword<W>(fwd, xr, s, W - 1, ti);
+        if (tw[s] < qt) lo[s] = mid + 1;
+        else if (tw[s] > qt) hi[s] = mid;
+        else ties |= 1u << s;
+      }
+    }
+    while (ties) {  // the lower words, one tie at a time (one copy of the compare)
+      const int t = __ffs(ties) - 1;
+      ties &= ties - 1;
+      int mid = 0;
+#pragma unroll
+      for (int s = 0; s < K5_SEARCHES; ++s)
+        if (s == t) mid = (lo[s] + hi[s]) >> 1;
+      const uint32_t* r = rows + (long long)mid * W;
+      int c = 0;
+#pragma unroll
+      for (int j = W - 2; j >= 0; --j) {
+        if (c == 0) {
+          const uint32_t a = __ldg(r + j), q = k5_qword<W>(fwd, xr, t, j, ti);
+          if (a != q) c = a < q ? -1 : 1;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < K5_SEARCHES; ++s) {
+        if (s == t) {
+          if (c < 0) {
+            lo[s] = mid + 1;
+          } else {
+            hi[s] = mid;
+            if (c == 0) hit[s] = mid;
+          }
+        }
+      }
+    }
+  }
+  // the rows from fwd's lower bound: row t holds fwd | b[t] where its words
+  // above the low two bits equal fwd's, compared from the top word; the
+  // first row that differs ends the run of them (the rows are sorted)
+  bool fm[4];
+  uint32_t fb[4];
+  bool go = act[0];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const long long j = (long long)lo[0] + t;
+    fm[t] = false;
+    fb[t] = 0;
+    if (go && j < M) {
+      const uint32_t* r = rows + j * W;
+      bool same = true;
+#pragma unroll
+      for (int q = W - 1; q >= 1; --q) same = same && __ldg(r + q) == fwd.w[q];
+      const uint32_t w0 = same ? __ldg(r) : 0u;
+      fm[t] = same && (w0 & ~3u) == fwd.w[0];
+      fb[t] = w0 & 3u;
+    }
+    go = fm[t];
+  }
+  int oc = 0, sc = -1;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    int j = hit[1 + b];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (!act[1 + b] && fm[t] && fb[t] == (uint32_t)b) j = lo[0] + t;
+    if (j >= 0 && ++oc == 1) sc = 2 * j + (int)act[1 + b];
+  }
+  succ[d] = sc;
+  outc[d] = (uint8_t)(oc | (pal ? K5_PAL : 0));
 }
 
 // K8 over W-word rows: the sample holds whole rows (S * 4W bytes), and
@@ -1045,15 +1506,16 @@ static uint32_t top_mask_of(int k) {
   return bits < 32 ? (1u << bits) - 1u : 0xFFFFFFFFu;
 }
 
-// rows: (M, W) int32 u32 words; starts: (2^16 + 1) int32
-extern "C" int lt_unitig_buckets_words(const void* rows, int M, int W, int k, void* starts,
-                                       void* stream) {
-  if (!words_k_ok(W, k) || M < 0) return (int)cudaErrorInvalidValue;
+// rows: (M, W) int32 u32 words; starts: (2^T + 1) int32
+extern "C" int lt_unitig_buckets_words(const void* rows, int M, int W, int k, int T,
+                                       void* starts, void* stream) {
+  if (!words_k_ok(W, k) || M < 0 || !k5_bits_ok(k, T)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint32_t* r = (const uint32_t*)rows;
   int32_t* sp = (int32_t*)starts;
-#define LAUNCH(W_) \
-  buckets_words_kernel<W_><<<ut_blocks((long long)M + 1), UT_THREADS, 0, st>>>(r, M, k, sp)
+#define LAUNCH(W_)                                                                         \
+  buckets_words_kernel<W_><<<ut_blocks((long long)M + 1), UT_THREADS, 0, st>>>(r, M, k, T, \
+                                                                               sp)
   switch (W) {
     LT_W_CASES_2_4(LAUNCH)
     LT_W_CASES_5_16(LAUNCH)
@@ -1063,20 +1525,21 @@ extern "C" int lt_unitig_buckets_words(const void* rows, int M, int W, int k, vo
   return (int)cudaGetLastError();
 }
 
-// succ, outc: (2M,) int32 scratch; nxt, prev: (2M,) int32 outputs
-extern "C" int lt_unitig_links_words(const void* rows, int M, int W, int k, const void* starts,
-                                     void* succ, void* outc, void* nxt, void* prev,
+// so: (5 * 2M) bytes of scratch (succ, then outc); nxt, prev: (2M,) int32
+extern "C" int lt_unitig_links_words(const void* rows, int M, int W, int k, int T,
+                                     const void* starts, void* so, void* nxt, void* prev,
                                      void* stream) {
-  if (!words_k_ok(W, k) || M <= 0) return (int)cudaErrorInvalidValue;
+  if (!words_k_ok(W, k) || M <= 0 || !k5_bits_ok(k, T)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = 2 * M;
-  LT_TRY(cudaMemsetAsync(prev, 0xFF, (size_t)N * sizeof(int32_t), st));  // -1
   const uint32_t* r = (const uint32_t*)rows;
   const int32_t* sp = (const int32_t*)starts;
   const uint32_t top = top_mask_of(k);
-#define LAUNCH(W_)                                                               \
-  succ_words_kernel<W_><<<ut_blocks(M), UT_THREADS, 0, st>>>(r, M, k, top, sp, \
-                                                               (int32_t*)succ, (int32_t*)outc)
+  int32_t* succ = (int32_t*)so;
+  uint8_t* outc = (uint8_t*)(succ + N);
+#define LAUNCH(W_)                                                                  \
+  succ_words_kernel<W_><<<ut_blocks(N), UT_THREADS, 0, st>>>(r, M, k, T, top, sp, succ, \
+                                                             outc)
   switch (W) {
     LT_W_CASES_2_4(LAUNCH)
     LT_W_CASES_5_16(LAUNCH)
@@ -1084,33 +1547,28 @@ extern "C" int lt_unitig_links_words(const void* rows, int M, int W, int k, cons
   }
 #undef LAUNCH
   LT_TRY(cudaGetLastError());
-  link_kernel<<<ut_blocks(N), UT_THREADS, 0, st>>>(
-      N, (const int32_t*)succ, (const int32_t*)outc, (int32_t*)nxt, (int32_t*)prev);
+  link_kernel<<<ut_blocks(M), UT_THREADS, 0, st>>>(M, (const int2*)succ, outc, (int2*)nxt,
+                                                   (int2*)prev);
   return (int)cudaGetLastError();
 }
 
-extern "C" int lt_unitig_emit_bases_words(const void* rows, int N, int W, int k, const void* S,
-                                          const void* kh, const void* cid, const void* start,
-                                          int cap, long long cap_bases, void* buf,
-                                          void* stream) {
-  if (N <= 0 || cap <= 0 || !words_k_ok(W, k)) return (int)cudaErrorInvalidValue;
+// rows: (M, W) int32 u32 words; the rest as lt_unitig_emit
+extern "C" int lt_unitig_emit_words(const void* rows, int N, int W, int k, const void* S,
+                                    const void* nxt, const void* prev, int acyclic, int cap,
+                                    long long cap_bases, int key_bits, void* work,
+                                    long long work_words, void* buf, void* stream) {
+  if (!em_args_ok(N, cap, cap_bases) || !words_k_ok(W, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const uint32_t* r = (const uint32_t*)rows;
-  const int4* sp = (const int4*)S;
-  const int32_t* khp = (const int32_t*)kh;
-  const int32_t* cp = (const int32_t*)cid;
-  const long long* stp = (const long long*)start;
-  uint32_t* packed = (uint32_t*)buf + 4 + cap;
-#define LAUNCH(W_)                                                                 \
-  emit_bases_words_kernel<W_><<<ut_blocks(N), UT_THREADS, 0, st>>>(r, N, k, sp, khp, cp, \
-                                                                    stp, cap, cap_bases, packed)
+#define LAUNCH(W_)                                                                         \
+  return em_launch_keys<W_, false>(key_bits, rows, N, k, S, nxt, prev, acyclic, cap, cap_bases, \
+                                   work, work_words, buf, st)
   switch (W) {
     LT_W_CASES_2_4(LAUNCH)
     LT_W_CASES_5_16(LAUNCH)
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // q: (Q, W) int32 u32 words

@@ -466,15 +466,26 @@ def _find_plain(rows: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.where((lo < M) & (rows[jc] == q).all(dim=1), jc, -1)
 
 
-def _buckets(rows: torch.Tensor, k: int) -> torch.Tensor:
-    """(2^T + 1,) int32 prefix table over the top min(16, 2k) bits (card)."""
-    T = min(16, 2 * k)
+LINKS_TABLE_MAX = 26  # K5's most table bits (K5_TBITS_MAX in csrc/unitig.cu)
+
+
+def links_table_bits(M: int, k: int) -> int:
+    """Bits T of K5's prefix table over a run of M rows: bitlen(M), so a
+    bucket holds about one row, at most LINKS_TABLE_MAX and 2k - 2 (the
+    four forward candidates of a node then share a bucket). Any T gives
+    the same links (csrc/unitig.cu); bitlen(M) - 1 measured the same on
+    the H100 (PERF.md §6)."""
+    return max(0, min(M.bit_length(), LINKS_TABLE_MAX, 2 * k - 2))
+
+
+def _buckets(rows: torch.Tensor, k: int, T: int) -> torch.Tensor:
+    """(2^T + 1,) int32 prefix table over the top T bits (card)."""
     starts = torch.empty((1 << T) + 1, dtype=torch.int32, device=rows.device)
     lib, st = kernels.lib(), kernels.stream(rows)
     if rows.dim() == 1:
-        rc = lib.lt_unitig_buckets(rows.data_ptr(), rows.shape[0], k, starts.data_ptr(), st)
+        rc = lib.lt_unitig_buckets(rows.data_ptr(), rows.shape[0], k, T, starts.data_ptr(), st)
     else:
-        rc = lib.lt_unitig_buckets_words(rows.data_ptr(), rows.shape[0], rows.shape[1], k,
+        rc = lib.lt_unitig_buckets_words(rows.data_ptr(), rows.shape[0], rows.shape[1], k, T,
                                          starts.data_ptr(), st)
     kernels.check(rc, "unitig_buckets")
     return starts
@@ -483,18 +494,20 @@ def _buckets(rows: torch.Tensor, k: int) -> torch.Tensor:
 def unitig_links(rows: torch.Tensor, k: int):
     """K5: (nxt, prev) (2M,) int32 — each directed node's successor along
     an internal edge and its predecessor, -1 where none (unitig.py:469-508).
-    rows: a non-empty solid run."""
+    rows: a non-empty solid run. The search table has links_table_bits
+    bits."""
     _check_run(rows, k, "unitig_links")
     kernels.need(rows.shape[0] > 0, "unitig_links: empty run")
     if not kernels.on_cuda(rows, "unitig_links"):
         return unitig_links_plain(rows, k)
     rows = rows.contiguous()
     M = rows.shape[0]
-    starts = _buckets(rows, k)
-    succ, outc, nxt, prev = (torch.empty(2 * M, dtype=torch.int32, device=rows.device)
-                             for _ in range(4))
-    ptrs = (starts.data_ptr(), succ.data_ptr(), outc.data_ptr(), nxt.data_ptr(),
-            prev.data_ptr(), kernels.stream(rows))
+    T = links_table_bits(M, k)
+    starts = _buckets(rows, k, T)
+    so = torch.empty(5 * 2 * M, dtype=torch.uint8, device=rows.device)  # succ, out-degrees
+    nxt, prev = (torch.empty(2 * M, dtype=torch.int32, device=rows.device) for _ in range(2))
+    ptrs = (T, starts.data_ptr(), so.data_ptr(), nxt.data_ptr(), prev.data_ptr(),
+            kernels.stream(rows))
     if rows.dim() == 1:
         rc = kernels.lib().lt_unitig_links(rows.data_ptr(), M, k, *ptrs)
     else:
@@ -683,11 +696,26 @@ def _check_emit(rows, k, nxt, prev, S, cap: int, cap_bases: int) -> None:
                  "unitig_emit: tensors on two devices")
 
 
+_EMIT_SCAN = 1024  # nodes a block of K7's prefix sums takes (EM_SCAN in csrc/unitig.cu)
+EMIT_KEY32_LIMIT = 1 << 30  # K7's collision keys take 32 bits below this (2M + (k-1) cap)
+
+
+def _emit_work_words(N: int, cap: int, cap_bases: int, key_bytes: int) -> int:
+    """int64 words of K7's scratch (csrc/unitig.cu em_layout): the chains'
+    base counts and the counts; a region for the chain minima, then the
+    byte plane or the collision keys; the heads' block counts and both
+    scans' block offsets."""
+    half = (N + 1) // 2
+    region = max(half, -(-cap_bases * key_bytes // 8))
+    return (cap + 4) // 2 * 2 + region + half + -(-N // _EMIT_SCAN) + -(-(cap + 1) // _EMIT_SCAN)
+
+
 def unitig_emit(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
                 S: torch.Tensor, cap: int, cap_bases: int, acyclic: bool) -> torch.Tensor:
     """K7: the reference's output buffer, u32 bits in int32: [n_chains,
     overflow, has_cycles, 0 | len_nodes (cap) | packed bases (cap_bases/16)]
-    (unitig.py:586-645)."""
+    (unitig.py:586-645). One C entry a call (csrc/unitig.cu), counted
+    once."""
     _check_emit(rows, k, nxt, prev, S, cap, cap_bases)
     if not kernels.on_cuda(rows, "unitig_emit"):
         return unitig_emit_plain(rows, k, nxt, prev, S, cap, cap_bases, acyclic)
@@ -695,26 +723,16 @@ def unitig_emit(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tenso
     nxt, prev = nxt.contiguous(), prev.contiguous()
     dev = rows.device
     N = S.shape[0]
-    lib, st = kernels.lib(), kernels.stream(rows)
-    buf = torch.zeros(4 + cap + cap_bases // 16, dtype=torch.int32, device=dev)
-    cm = torch.full((N,), N, dtype=torch.int32, device=dev)
-    tmn = torch.full((N,), N, dtype=torch.int32, device=dev)
-    kernels.check(lib.lt_unitig_emit_mins(N, S.data_ptr(), int(acyclic), cm.data_ptr(),
-                                          tmn.data_ptr(), buf.data_ptr(), st), "unitig_emit")
-    kh = torch.empty(N, dtype=torch.int32, device=dev)
-    kernels.check(lib.lt_unitig_emit_heads(N, prev.data_ptr(), cm.data_ptr(), tmn.data_ptr(),
-                                           kh.data_ptr(), st), "unitig_emit")
-    cid = torch.cumsum(kh, 0, dtype=torch.int32)
-    kernels.check(lib.lt_unitig_emit_lens(N, nxt.data_ptr(), S.data_ptr(), kh.data_ptr(),
-                                          cid.data_ptr(), cap, buf.data_ptr(), st),
-                  "unitig_emit")
-    start = _chain_starts(buf[4 : 4 + cap], k)
-    ptrs = (S.data_ptr(), kh.data_ptr(), cid.data_ptr(), start.data_ptr(), cap, cap_bases,
-            buf.data_ptr(), st)
+    buf = torch.empty(4 + cap + cap_bases // 16, dtype=torch.int32, device=dev)
+    key_bits = 32 if N + (k - 1) * cap < EMIT_KEY32_LIMIT else 64
+    nw = _emit_work_words(N, cap, cap_bases, key_bits // 8)
+    work = torch.empty(nw, dtype=torch.int64, device=dev)
+    ptrs = (S.data_ptr(), nxt.data_ptr(), prev.data_ptr(), int(acyclic), cap, cap_bases,
+            key_bits, work.data_ptr(), nw, buf.data_ptr(), kernels.stream(rows))
     if rows.dim() == 1:
-        rc = lib.lt_unitig_emit_bases(rows.data_ptr(), N, k, *ptrs)
+        rc = kernels.lib().lt_unitig_emit(rows.data_ptr(), N, k, *ptrs)
     else:
-        rc = lib.lt_unitig_emit_bases_words(rows.data_ptr(), N, rows.shape[1], k, *ptrs)
+        rc = kernels.lib().lt_unitig_emit_words(rows.data_ptr(), N, rows.shape[1], k, *ptrs)
     kernels.check(rc, "unitig_emit")
     kernels.launches["unitig_emit"] += 1
     return buf
@@ -734,16 +752,30 @@ def _base_at(F: torch.Tensor, t: int) -> torch.Tensor:
     return (F[:, t // 32] >> (t % 32)) & 3
 
 
+# K7's write order (unitig.py:612-636) as keys: where writes share a
+# position, the largest key lands. The even nodes' last bases by id, then the
+# odd nodes' by id, then the kept heads' prefixes, base j = 0 .. k-2, each j
+# over the chain ids (csrc/unitig.cu em_node_key, em_prefix_key).
+def _node_key(d, M: int):
+    return 1 + (d & 1) * M + (d >> 1)
+
+
+def _prefix_key(j: int, c, M: int, cap: int):
+    return 1 + 2 * M + j * cap + c
+
+
 def unitig_emit_plain(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch.Tensor,
                       S: torch.Tensor, cap: int, cap_bases: int, acyclic: bool) -> torch.Tensor:
     """Plain version of unitig_emit: the reference's scatters over a u8
-    base plane, then the 2-bit pack. Bases are ORed in (bit planes by
-    scatter-max), as the kernel's atomicOr does; the reference overwrites,
-    which differs only where two bases share a position (ROADMAP queue 3,
-    even-k palindromes)."""
+    base plane, then the 2-bit pack. Where two writes reach one position
+    (a kept chain with no tail, at even-k palindromes: ROADMAP queue 3),
+    the base that lands is the reference's last writer (_node_key,
+    _prefix_key): the largest key of each position by scatter-max, then
+    that write's base."""
     _check_emit(rows, k, nxt, prev, S, cap, cap_bases)
     dev = rows.device
     N = S.shape[0]
+    M = N // 2
     i64 = dict(dtype=torch.int64, device=dev)
     ids = torch.arange(N, **i64)
     head, rank = S[:, 0].long(), S[:, 1].long()
@@ -765,18 +797,21 @@ def unitig_emit_plain(rows: torch.Tensor, k: int, nxt: torch.Tensor, prev: torch
     F = _node_keys_plain(_u32_rows(rows), k)
     pos = [start[cid[ok]] + (k - 1) + rank[ok]]
     code = [_base_at(F[ok], 0)]
+    key = [_node_key(ids[ok], M)]
     hd = ok & keep_head
-    hstart, hF = start[cid[hd]], F[hd]
+    hc, hF = cid[hd], F[hd]
+    hstart = start[hc]
     for j in range(k - 1):
         pos.append(hstart + j)
         code.append(_base_at(hF, 2 * (k - 1) - 2 * j))
-    pos, code = torch.cat(pos), torch.cat(code)
+        key.append(_prefix_key(j, hc, M, cap))
+    pos, code, key = torch.cat(pos), torch.cat(code), torch.cat(key)
     inb = (pos >= 0) & (pos < cap_bases)
-    pos, code = pos[inb], code[inb]
+    pos, code, key = pos[inb], code[inb], key[inb]
+    last = torch.zeros(cap_bases, **i64).scatter_reduce(0, pos, key, reduce="amax")
+    win = key == last[pos]
     bases = torch.zeros(cap_bases, **i64)
-    for bit in (1, 2):
-        plane = torch.zeros(cap_bases, **i64).scatter_reduce(0, pos, code & bit, reduce="amax")
-        bases |= plane
+    bases[pos[win]] = code[win]
     packed = (bases.reshape(-1, 16) << (2 * torch.arange(16, **i64))).sum(dim=1)
     hdr = torch.tensor([total, int(total > cap), int(cyc), 0], **i64)
     from leon_tpu_torch.ops.kmer import i32_bits
@@ -845,11 +880,12 @@ def solid_lookup_plain(rows: torch.Tensor, k: int, q: torch.Tensor):
 
 
 def build(rows: torch.Tensor, k: int, cap_chains: int, cap_bases: int,
-          assume_acyclic: bool = True) -> torch.Tensor:
+          assume_acyclic: bool = True, links=None) -> torch.Tensor:
     """The device build (K5 -> K6 -> K7) over a non-empty solid run;
     returns unitig_emit's buffer. assume_acyclic runs the optimistic
-    variant, which only flags cycles (buffer word 2)."""
-    nxt, prev = unitig_links(rows, k)
+    variant, which only flags cycles (buffer word 2). `links`, K5's
+    (nxt, prev) of these rows from an earlier build, skips K5."""
+    nxt, prev = unitig_links(rows, k) if links is None else links
     nxt, prev, S = chain_rank(nxt, prev, assume_acyclic)
     return unitig_emit(rows, k, nxt, prev, S, cap_chains, cap_bases, assume_acyclic)
 
@@ -869,6 +905,7 @@ class _Inflight:
     k: int
     cap_chains: int
     cap_bases: int
+    links: tuple | None     # K5's (nxt, prev) of rows, which every rebuild reuses
 
 
 def _caps(M: int, k: int, cap_chains: int) -> int:
@@ -881,26 +918,30 @@ def _caps(M: int, k: int, cap_chains: int) -> int:
 def dispatch_build(solid: torch.Tensor, k: int, nu: int) -> _Inflight:
     """Run the optimistic device build, K5-K7 (unitig.py:718-745), over the
     solid run in the counter's form (K2's or K14's solid mode). `nu` is the
-    exact distinct count, which sets the frozen chain capacity."""
+    exact distinct count, which sets the frozen chain capacity. K5's links
+    stay with the build (8 bytes a node) until it is drained."""
     _check_run(solid, k, "dispatch_build")
     M = solid.shape[0]
     cap = chains_cap(nu)
     cb = _caps(M, k, cap)
+    links = None
     if M:
-        buf = build(solid, k, cap, cb)
+        links = unitig_links(solid, k)
+        buf = build(solid, k, cap, cb, links=links)
     else:
         buf = torch.zeros(4, dtype=torch.int32, device=solid.device)
-    return _Inflight(buf, solid, k, cap, cb)
+    return _Inflight(buf, solid, k, cap, cb, links)
 
 
 def drain_build(infl: _Inflight) -> bytes | None:
     """The payload of a dispatched build, or None (the caller writes
     BLOOM): a flagged cycle re-runs the full variant; a chain overflow
     retries once at cap * RETRY_FACTOR (unitig.py:748-782). Every rebuild
-    reads the dispatched solid run."""
+    reads the dispatched solid run and reuses its K5 links (K5 runs once a
+    build)."""
 
     def rebuild(cap, cb, acyclic):
-        return build(infl.rows, infl.k, cap, cb, acyclic)
+        return build(infl.rows, infl.k, cap, cb, acyclic, links=infl.links)
 
     def host(b):
         return b.cpu().numpy().view(np.uint32)

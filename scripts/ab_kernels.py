@@ -2,12 +2,13 @@
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
 K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
 scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
-K18 and K19, the Bloom builds K16 and K3 and the chain ranking K6 of one
-tree's leon_tpu_torch on the card, beside the PyTorch call that computes the
-same function where there is one, on inputs made from fixed seeds.
+K18 and K19, the Bloom builds K16 and K3, and the device unitig build's
+K5 links, K6 chain ranking and K7 emission of one tree's leon_tpu_torch on
+the card, beside the PyTorch call that computes the same function where
+there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
-        [--only k2,k8,scan,k14,walk,bloom,rank,k3]
+        [--only k2,k8,scan,k14,walk,bloom,rank,k3,links,emit]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -97,6 +98,28 @@ Inputs (chip_smoke.py's shapes):
                sampling is a constant (RK_RULER_LOG2 in csrc/unitig.cu): to
                retune it, run this section on a copy of the tree with the
                constant edited, beside the tree itself
+  links:bench/yeast/w4/w8/w16  (section links) K5 (`unitig.unitig_links`) on
+               the same runs as rank: its time, "bytes" (the run read, nxt
+               and prev written) and their bound, "floor_ms" its probe floor
+               (scripts/links_probe_floor.cu: a table entry and a row word
+               for each search of the change's design that lands at a
+               random place, "random_searches": node 2i's reverse-
+               complement forms and node 2i + 1's forward search, of
+               "searches" in all; the others follow the rows' order; no
+               dependency between them), the bound (the larger) and the
+               share of it; at k = 31 "library_ms", one torch.searchsorted of
+               the 8 candidate keys of every row over the run (the search
+               part alone); "kernels" each kernel's device time by the
+               profiler, "T" the change's table bits; the ptxas registers
+  emit:bench/yeast/w4/w8/w16  (section emit) K7 (`unitig.unitig_emit`) on
+               the optimistic ranking of the same runs: its time, bytes (the
+               run, nxt, prev, S read, the buffer written), bound, share and
+               kernels as links; then the device build, dispatch_build +
+               drain_build: "build_ms" (host clock after a sync, mean of 3
+               after one), "build_split" (one profiled build: its kernels'
+               device time, D2H, the other copies and memsets, and the rest
+               of its wall, the host's), "build_launches" (K5, K6's
+               kernels, K7 a build) and "build_peak_bytes"
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -109,7 +132,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3", "links", "emit")
 
 
 def main() -> int:
@@ -380,6 +403,10 @@ def main() -> int:
         out["k3"] = k3_section(args.tree, slab_reads, ms, same, dev)
     if "rank" in only:
         out["rank"] = rank_section(wide, slab_reads, ms, same, dev)
+    if "links" in only:
+        out["links"] = links_section(args.tree, wide, slab_reads, ms, same, dev)
+    if "emit" in only:
+        out["emit"] = emit_section(args.tree, wide, slab_reads, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -424,23 +451,31 @@ def issue_rate() -> float:
     return 4 * lane_rate()
 
 
-def probe_floor_lib():
-    """scripts/walk_probe_floor.cu built with nvcc into build/ab_kernels/."""
+def floor_lib(name: str, fn: str, argtypes: list):
+    """scripts/<name>.cu built with nvcc into build/ab_kernels/, with the C
+    entry `fn`'s argument types set."""
     import ctypes
     import shutil
 
-    src = os.path.join(ROOT, "scripts", "walk_probe_floor.cu")
+    src = os.path.join(ROOT, "scripts", f"{name}.cu")
     out_dir = os.path.join(ROOT, "build", "ab_kernels")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libwalk_probe_floor.so")
+    so = os.path.join(out_dir, f"lib{name}.so")
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     subprocess.run([nvcc, "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                     "-shared", "-Xcompiler", "-fPIC", "-o", so, src], check=True, timeout=600)
     lib = ctypes.CDLL(so)
-    P, I, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.lt_probe_floor.argtypes = [P, Un, I, P, I, Un, P, P]
-    lib.lt_probe_floor.restype = ctypes.c_int
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def probe_floor_lib():
+    """scripts/walk_probe_floor.cu (K18 and K19's probe floor)."""
+    import ctypes
+
+    P, I, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    return floor_lib("walk_probe_floor", "lt_probe_floor", [P, Un, I, P, I, Un, P, P])
 
 
 WALK_KERNELS = ("walk_encode_words_kernel", "walk_decode_words_kernel", "walk_encode_kernel",
@@ -594,32 +629,208 @@ def k3_section(tree: str, slab_reads, ms, same, dev) -> dict:
     return rec
 
 
-def rank_section(wide, slab_reads, ms, same, dev) -> dict:
-    """K6 (chain_rank) on the bench, yeast and phase 9 solid sets; see the
-    docstring."""
+def unitig_sets(wide, slab_reads, dev):
+    """The device build's solid runs, one at a time: (name, rows, k, the
+    distinct count) for phase 3's bench run (k = 31), chip_smoke.py's yeast
+    genome and phase 9's solid sets at W = 4, 8, 16."""
+    import chip_smoke
+    from leon_tpu_torch.ops import count
+
+    rk, rc, cutoff, _n, _nw = bench_run(slab_reads, dev)
+    yield "bench", count.compact_solid(rk, rc, cutoff)[0], 31, rk.numel()
+    del rk, rc
+    sk, _sc, _c, nu, _g = chip_smoke.yeast_solid()
+    yield "yeast", sk, 31, nu
+    del sk
+    for W in (4, 8, 16):
+        k, chunks, L = wide(W)[:3]
+        sol = main_solid(k, chunks, L, dev)
+        yield f"w{W}", sol["solid"], k, sol["distinct"].shape[0]
+        del sol
+
+
+def profile_kernels(fn, reps: int) -> dict:
+    """Device time a call of each kernel and copy of fn() by the profiler
+    (ms, mean over reps calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:48]: e.device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
+def links_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
+    """K5 on the device build's runs with its byte bound, its probe floor
+    (scripts/links_probe_floor.cu: a table entry and a row word for each
+    search of the change's design that lands at a random place, no
+    dependency between them) and, at k <= 31, one
+    torch.searchsorted of the 8 candidate keys of every row over the run
+    (the search part alone: the links need the counts and the internal
+    edges besides)."""
+    import ctypes
+
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import kernels
+    from leon_tpu_torch.ops import unitig
+
+    P, I, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    floor = floor_lib("links_probe_floor", "lt_links_floor", [P, Un, P, Un, I, P, I, Un, P, P])
+    res = {}
+    for name, rows, k, nu in unitig_sets(wide, slab_reads, dev):
+        M = rows.shape[0]
+        nxt, prev = unitig.unitig_links(rows, k)
+        same((nxt, prev), unitig.unitig_links_plain(rows, k))
+        N = 2 * M
+        T = max(0, min(M.bit_length(), 26, 2 * k - 2))  # the change's table (links_table_bits)
+        rec = {"k": k, "rows": M, "nodes": N, "T": T,
+               "ms": ms(lambda: unitig.unitig_links(rows, k), 10),
+               "bytes": rows.numel() * rows.element_size() + 8 * N}
+        rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+        x0 = unitig._u32_rows(rows)
+        rc = unitig._revcomp_plain(x0, k)
+        take, cands = [], []
+        for x, xr in ((x0, rc), (rc, x0)):
+            t_o = []
+            for b in range(4):
+                cy, trc = unitig._successor_plain(x, xr, b, k)
+                t_o.append(trc)
+                cands.append(cy)
+            take.append(torch.stack(t_o, dim=1))
+        take = torch.stack(take, dim=1).reshape(N, 4)  # node 2i + o
+        fwd_search = (~take).any(dim=1).to(torch.int32)
+        rc_searches = take.sum(dim=1).to(torch.int32)
+        rec["searches"] = int(fwd_search.sum() + rc_searches.sum())
+        # the searches at random places: node 2i's rc forms (xr = the row's
+        # reverse complement) and node 2i + 1's forward search (x << 2, x the
+        # reverse complement); the others follow the rows' order
+        odd = torch.arange(N, device=dev) % 2 == 1
+        counts = torch.where(odd, fwd_search, rc_searches).contiguous()
+        rec["random_searches"] = int(counts.sum())
+        tab = torch.zeros((1 << T) + 1, dtype=torch.int32, device=dev)
+        out = torch.empty(N, dtype=torch.int32, device=dev)
+        rw = rows.element_size() * (rows.shape[1] if rows.dim() == 2 else 1) // 4
+        st = kernels.stream(rows)
+
+        def run_floor():
+            kernels.check(floor.lt_links_floor(tab.data_ptr(), tab.numel(), rows.data_ptr(), M,
+                                               rw, counts.data_ptr(), N, 0x5EED, out.data_ptr(),
+                                               st), "links_floor")
+
+        rec["floor_ms"] = ms(run_floor, 10)
+        rec["bound_ms"] = max(rec["bytes_ms"], rec["floor_ms"])
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        if rows.dim() == 1:
+            q = torch.cat([c.reshape(-1) for c in cands]).contiguous()
+            rec["library_ms"] = ms(lambda: torch.searchsorted(rows, q), 10)
+            rec["library_note"] = ("torch.searchsorted of the 8 candidate keys of every row: "
+                                   "the search part alone")
+            del q
+        rec["kernels"] = profile_kernels(lambda: unitig.unitig_links(rows, k), 10)
+        res[name] = rec
+        print(json.dumps({f"links:{name}": rec}), flush=True)
+        del nxt, prev, x0, rc, take, cands, counts, tab, out, rows
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, ("succ_words_kernel", "succ_kernel", "buckets_words_kernel",
+                                        "buckets_kernel", "link_kernel"))
+    return res
+
+
+def emit_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
+    """K7 on the optimistic ranking of each device build's run, with its
+    byte bound; then the device build (dispatch_build + drain_build): its
+    wall (host clock after a sync, mean of 3 after one), split by the
+    profiler into kernel time, memset time, D2H time and the rest (host),
+    its launches a build and its peak memory above what the caller holds."""
     import time
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from leon_tpu_torch.ops import count, unitig
-
-    def sets():
-        rk, rc, cutoff, _n, _nw = bench_run(slab_reads, dev)
-        yield "bench", count.compact_solid(rk, rc, cutoff)[0], 31, rk.numel()
-        del rk, rc
-        sk, _sc, _c, nu, _g = chip_smoke.yeast_solid()
-        yield "yeast", sk, 31, nu
-        del sk
-        for W in (4, 8, 16):
-            k, chunks, L = wide(W)[:3]
-            sol = main_solid(k, chunks, L, dev)
-            yield f"w{W}", sol["solid"], k, sol["distinct"].shape[0]
-            del sol
+    from leon_tpu_torch import kernels
+    from leon_tpu_torch.ops import unitig
 
     res = {}
-    for name, rows, k, nu in sets():
+    for name, rows, k, nu in unitig_sets(wide, slab_reads, dev):
+        M = rows.shape[0]
+        nxt, prev = unitig.unitig_links(rows, k)
+        n2, p2, S = unitig.chain_rank(nxt, prev, True)
+        cap = unitig.chains_cap(nu)
+        cb = unitig._caps(M, k, cap)
+        buf = unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, True)
+        same([buf], [unitig.unitig_emit_plain(rows, k, n2, p2, S, cap, cb, True)])
+        rec = {"k": k, "rows": M, "nodes": 2 * M, "cap": cap, "cap_bases": cb,
+               "ms": ms(lambda: unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, True), 10),
+               "bytes": sum(t.numel() * t.element_size() for t in (rows, n2, p2, S, buf))}
+        rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rec["share"] = rec["bytes_ms"] / rec["ms"]
+        rec["kernels"] = profile_kernels(
+            lambda: unitig.unitig_emit(rows, k, n2, p2, S, cap, cb, True), 10)
+        del nxt, prev, n2, p2, S, buf
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        before = dict(kernels.launches)
+        unitig.drain_build(unitig.dispatch_build(rows, k, nu))
+        torch.cuda.synchronize()
+        rec["build_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        rec["build_launches"] = {n: kernels.launches[n] - before.get(n, 0)
+                                 for n in ("unitig_links", "unitig_double", "unitig_emit")}
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            unitig.drain_build(unitig.dispatch_build(rows, k, nu))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        rec["build_ms"] = sum(walls[1:]) / 3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            unitig.drain_build(unitig.dispatch_build(rows, k, nu))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        dev_ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+        def total(pred):
+            return sum(e.device_time_total for e in dev_ev if pred(e.key)) / 1e3
+
+        d2h = total(lambda n: "DtoH" in n or "Device -> Host" in n)
+        copies = total(lambda n: "Memcpy" in n or "Memset" in n)
+        kern = total(lambda n: True) - copies
+        rec["build_split"] = {"profiled_wall_ms": wall, "kernel_ms": kern, "d2h_ms": d2h,
+                              "other_copies_ms": copies - d2h,
+                              "host_ms": wall - kern - copies}
+        res[name] = rec
+        print(json.dumps({f"emit:{name}": rec}), flush=True)
+        del rows
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, ("emit_bases_kernel", "emit_bases_words_kernel",
+                                        "emit_mins_kernel", "emit_heads_kernel",
+                                        "emit_lens_kernel", "emit_pack_kernel"))
+    return res
+
+
+def rank_section(wide, slab_reads, ms, same, dev) -> dict:
+    """K6 (chain_rank) on the bench, yeast and phase 9 solid sets; see the
+    docstring."""
+    import time
+
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch.ops import unitig
+
+    res = {}
+    for name, rows, k, nu in unitig_sets(wide, slab_reads, dev):
         nxt, prev = unitig.unitig_links(rows, k)
         N = nxt.shape[0]
         rec = {"nodes": N, "bound_ms": 24 * N / chip_smoke.HBM_BYTES_PER_S * 1e3}
@@ -642,12 +853,7 @@ def rank_section(wide, slab_reads, ms, same, dev) -> dict:
             walls.append((time.perf_counter() - t) * 1e3)
         rec["build_ms"] = sum(walls[1:]) / 3
         if hasattr(unitig, "unitig_rank"):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    unitig.chain_rank(nxt, prev, True)
-                torch.cuda.synchronize()
-            rec["kernels"] = {e.key[:40]: e.device_time_total / 1e3 / 10
-                              for e in prof.key_averages() if e.device_type.name == "CUDA"}
+            rec["kernels"] = profile_kernels(lambda: unitig.chain_rank(nxt, prev, True), 10)
         res[name] = rec
         print(json.dumps({f"rank:{name}": rec}), flush=True)
         del nxt, prev, rows

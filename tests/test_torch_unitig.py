@@ -146,8 +146,10 @@ def test_even_k_palindrome_matches_reference_device(rng, seq):
     forever on A10 T10 A10 at k = 16 and its numpy one raises, so they are
     not called. Here the port's device build equals the reference's
     device build byte for byte, and, like it, spells fewer k-mers than the
-    solid run holds (with flanks the two differ where bases collide:
-    test_torch_pipeline.py::test_even_k_palindrome_archive_is_rejected)."""
+    solid run holds. Where bases of two chains land on one position (with
+    flanks: test_torch_pipeline.py::test_even_k_palindrome_archive_is_rejected,
+    and test_torch_unitig_words.py at k = 32) the port writes the
+    reference's last writer, so the two stay equal."""
     k = 16
     words, counts = _run(rng, k, [_self_twin_seqs(rng)[seq]])
     nu = words.shape[0]

@@ -172,6 +172,24 @@ def test_cycle_links_and_cut_match_numpy(k, extra):
     np.testing.assert_array_equal(S[:, 1].numpy(), rank_np)
 
 
+def test_even_k_palindrome_matches_reference_device():
+    """At k = 32 (W = 2), A18 T18 holds the palindromic k-mer A16 T16, whose
+    two directed nodes share one successor; with 14-base flanks on both
+    sides a kept chain has no tail and its bases land on positions of
+    other chains. The port's device build writes there the reference's
+    last writer, so its payload equals leon_tpu's device build byte for
+    byte (the host builders are not called: ROADMAP.md queue 3)."""
+    k = 32
+    rng = np.random.default_rng(k)
+    flanks = rng.integers(0, 4, (2, 14), dtype=np.uint8)
+    seq = np.concatenate([flanks[0], np.zeros(18, np.uint8), np.full(18, 3, np.uint8),
+                          flanks[1]])
+    words, counts = _run(rng, k, [seq])
+    nu = words.shape[0]
+    got = _port(words, counts, k, nu)
+    assert got is not None and got == _reference(words, counts, k, nu)
+
+
 def _isolated_run(rng, k, n):
     """n random solid k-mers (count 2), far apart in the graph: one chain
     each."""
