@@ -124,6 +124,29 @@ run right after phase 3, whose reads and solid set they reuse):
      step; K12 at D = k + 1 on the first quarter of its lanes), and timed
      there (records `name:w8`, `name:w16`; K14 also
      against torch.unique_consecutive, count_batch against torch.unique).
+ 11. inputs past one card's limits (leon_tpu_torch/pipeline.py, ops/count.py):
+     (a) phase 6's corpora in stream mode (stream_threshold_bytes = 1: each
+     pass parses again, pass 2 uploads its chunks) with a forced
+     multi-run spill (slabs of 2**22 k-mers, a merge at every second slab,
+     runs of 2**21 rows or more to host RAM; at least two spills) at k = 31,
+     63 and 127, once with each unitig builder: each archive must be PIN,
+     PIN63 or PIN127, and the path's kernels must launch, the spilled Bloom
+     build (K3, or K16 past k = 31) among them; (b) in a child process
+     (`python3 chip_smoke.py --large-corpus`), a corpus over 1 GiB
+     (LARGE: 5,000,000 reads of 100 bp from a 20 Mbp random contig, 1%
+     substitutions, every other read reverse-complemented, by the
+     vectorised gen_large_fastq) compressed with the bench's flags and
+     the default configuration but count_spill_rows = 2**24 and
+     count_merge_factor = 2 (at the defaults its largest merged run,
+     about 58M rows, stays under the 64M spill threshold): it must take
+     stream mode and spill at least twice, round-trip exactly, launch
+     K1-K4 and K3 on the spilled Bloom, and write the archive of the
+     same file compressed in memory and unspilled on the card (no
+     reference pin: leon_tpu is not run at that size); the child prints
+     its walls, spans, spills, the card's peak memory and its peak RSS;
+     (c) a checkpoint resume on the bench corpus: the second run launches
+     neither K1 nor K2 and writes PIN; (d) compress with profile_dir: a
+     Chrome trace appears and the archive is PIN.
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s; for K8, which searches the run, the queries, its
@@ -136,9 +159,11 @@ Work files go to build/chip_smoke/ beside this script.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -252,10 +277,12 @@ def card_line() -> str:
 
 
 SMALL_MS = 0.05  # below this, events around Python calls read host dispatch
+SLOW_MS = 200.0  # a first call this long is one of the reps: no warm-up to pay off
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls (after one warm-up): CUDA
+    """Mean device time of fn() over reps calls (after one warm-up, or,
+    for a call of SLOW_MS or more, the first call counted as a rep): CUDA
     events around the calls, or, for a call whose kernels and copies take
     under SMALL_MS of device time by the profiler, that device time (events
     around calls that short read the host's dispatch). The profiler's time
@@ -264,9 +291,16 @@ def cuda_ms(fn, reps: int) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    first = t0.elapsed_time(t1)
+    if first >= SLOW_MS:
+        _, rest = timed(lambda: [fn() for _ in range(reps - 1)])
+        return (first + rest) / reps
     t0.record()
     for _ in range(reps):
         fn()
@@ -2724,6 +2758,27 @@ def corpora() -> dict:
     return paths
 
 
+def sha256_of(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def check_pin(label: str, arc: str, st: dict, pin: dict) -> tuple:
+    """Raise unless the archive and its stats are the reference's (pin);
+    returns the archive's size and SHA-256."""
+    size, digest = os.path.getsize(arc), sha256_of(arc)
+    if ((size, digest) != (pin["bytes"], pin["sha256"])
+            or st["n_anchored"] != pin["n_anchored"]
+            or st["n_solid_kmers"] != pin.get("n_solid", st["n_solid_kmers"])):
+        raise AssertionError(f"{label}: archive {size} B sha256 {digest} n_anchored "
+                             f"{st['n_anchored']} n_solid {st['n_solid_kmers']} != the "
+                             f"reference's {pin}")
+    return size, digest
+
+
 def main_path(records: dict, card: str, paths: dict) -> None:
     import torch
 
@@ -2771,15 +2826,7 @@ def main_path(records: dict, card: str, paths: dict) -> None:
 
         if seq_lines(src) != seq_lines(out):
             raise AssertionError(f"{label}: sequence round trip is not exact")
-        with open(arc, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
-        size = os.path.getsize(arc)
-        if ((size, digest) != (pin["bytes"], pin["sha256"])
-                or st["n_anchored"] != pin["n_anchored"]
-                or st["n_solid_kmers"] != pin.get("n_solid", st["n_solid_kmers"])):
-            raise AssertionError(f"{label}: archive {size} B sha256 {digest} n_anchored "
-                                 f"{st['n_anchored']} n_solid {st['n_solid_kmers']} != the "
-                                 f"reference's {pin}")
+        size, digest = check_pin(label, arc, st, pin)
         missing = [k for k in path if launches.get(counter(k), 0) < 1]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the main path: {missing}")
@@ -2792,6 +2839,240 @@ def main_path(records: dict, card: str, paths: dict) -> None:
             f"({t_d:.2f} s) on {card} (host clock, end to end)")
         log(f"compress spans: {json.dumps(st.get('span_s', {}))}")
     log(f"compress, decompress walls (s), one call: {json.dumps(walls)}")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: inputs past one card's limits
+# ---------------------------------------------------------------------------
+
+# (a): slabs of 2**22 k-mers (a 65,536-read chunk is a slab of its own), a
+# merge at every second slab, every merged run of 2**21 rows or more spilled
+FORCED_SPILL = {"stream_threshold_bytes": 1, "count_slab_kmers": 1 << 22,
+                "count_merge_factor": 1, "count_spill_rows": 1 << 21}
+# (b): over 1 GiB of FASTQ in fixed 220-byte records
+LARGE = {"n_reads": 5_000_000, "contig_len": 20_000_000, "read_len": 100, "seed": 0x5EED}
+LARGE_EXTRA = {"count_spill_rows": 1 << 24, "count_merge_factor": 2}
+LARGE_HEADER = b"@SRRX."  # then 9 digits and a newline: 16 bytes
+
+
+def gen_large_fastq(path: str) -> None:
+    """LARGE's corpus, vectorised: reads from a random contig, 1%
+    substitutions, every other read reverse-complemented, headers
+    "@SRRX.<9 digits>", qualities 35-69, written 250,000 records at a time."""
+    import numpy as np
+
+    n, G, L = LARGE["n_reads"], LARGE["contig_len"], LARGE["read_len"]
+    rng = np.random.default_rng(LARGE["seed"])
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    contig = rng.integers(0, 4, G, dtype=np.uint8)
+    hl = len(LARGE_HEADER) + 10
+    rec_len = hl + 2 * (L + 1) + 2
+    with open(path, "wb") as f:
+        for s in range(0, n, 250_000):
+            m = min(250_000, n - s)
+            idx = np.arange(s, s + m)
+            r = contig[rng.integers(0, G - L, m)[:, None] + np.arange(L)]
+            mut = rng.random((m, L)) < 0.01
+            r = np.where(mut, (r + rng.integers(1, 4, (m, L), dtype=np.uint8)) & 3, r)
+            odd = idx % 2 == 1
+            r[odd] = (3 - r[odd])[:, ::-1]
+            rec = np.empty((m, rec_len), np.uint8)
+            rec[:, : len(LARGE_HEADER)] = np.frombuffer(LARGE_HEADER, np.uint8)
+            for j in range(9):
+                rec[:, len(LARGE_HEADER) + j] = 48 + (idx // 10 ** (8 - j)) % 10
+            rec[:, hl - 1] = 10
+            rec[:, hl : hl + L] = bases[r]
+            rec[:, hl + L] = 10
+            rec[:, hl + L + 1 : hl + L + 3] = np.frombuffer(b"+\n", np.uint8)
+            rec[:, hl + L + 3 : hl + 2 * L + 3] = rng.integers(35, 70, (m, L), dtype=np.uint8)
+            rec[:, -1] = 10
+            f.write(rec.tobytes())
+
+
+def large_seqs_equal(src: str, out: str) -> bool:
+    """The decompressed FASTQ's sequence lines equal LARGE's reads (the
+    output's headers are synthesised, so its lines are found by newline)."""
+    import numpy as np
+
+    n, L = LARGE["n_reads"], LARGE["read_len"]
+    hl = len(LARGE_HEADER) + 10
+    want = np.fromfile(src, dtype=np.uint8).reshape(n, -1)[:, hl : hl + L]
+    got = np.fromfile(out, dtype=np.uint8)
+    nl = np.flatnonzero(got == 10)
+    if nl.size != 4 * n:
+        return False
+    starts = nl[0::4] + 1
+    if not (nl[1::4] - starts == L).all():
+        return False
+    return bool((got[starts[:, None] + np.arange(L)] == want).all())
+
+
+def large_corpus_child() -> int:
+    """Phase 11 (b), run by the parent as its own process so that its peak
+    host RSS is its own: compress LARGE's corpus in stream mode with its
+    spills, decompress it, then compress it in memory and unspilled; print
+    one JSON line of what was measured. Raises on a failed check."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from leon_tpu_torch import LeonConfig, kernels, pipeline
+
+    os.makedirs(WORK, exist_ok=True)
+    src = os.path.join(WORK, "large_5M.fastq")
+    arc, mem_arc = os.path.join(WORK, "large.leon"), os.path.join(WORK, "large_mem.leon")
+    out = os.path.join(WORK, "large.out.fastq")
+    t = time.time()
+    gen_large_fastq(src)
+    fig = {"input_bytes": os.path.getsize(src), "gen_s": time.time() - t}
+    if fig["input_bytes"] <= 1 << 30:
+        raise AssertionError(f"the large corpus is {fig['input_bytes']} B, not over 1 GiB")
+    kernels.lib()
+    cfg = LeonConfig(noheader=True, noqual=True, **LARGE_EXTRA)
+    kernels.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.time()
+    st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    fig["compress_s"] = time.time() - t
+    fig["compress_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    fig["compress_peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    fig["launches"] = dict(kernels.launches)
+    missing = [n for n in ("kmer_scan", "runs", "bloom_build", "walk_encode", "walk_pack")
+               if fig["launches"].get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"large corpus: kernels never launched: {missing}")
+    for key in ("stream_mode", "count_spills", "n_reads", "n_solid_kmers", "abundance",
+                "output_bytes", "ratio", "span_s"):
+        fig[key] = st[key]
+    if not st["stream_mode"] or st["count_spills"] < 2:
+        raise AssertionError(f"large corpus: stream mode {st['stream_mode']}, spills "
+                             f"{st['count_spills']}: wanted stream mode and two spills or more")
+    log(f"large corpus: {fig['input_bytes']} B took stream mode: {st['stream_mode']}; "
+        f"spills: {st['count_spills']}")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    dst = pipeline.decompress(arc, out, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    fig["decompress_s"] = time.time() - t
+    fig["decompress_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    fig["decompress_span_s"] = dst["span_s"]
+    fig["peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    if not large_seqs_equal(src, out):
+        raise AssertionError("large corpus: sequence round trip is not exact")
+    os.unlink(out)
+    mem_cfg = LeonConfig(noheader=True, noqual=True, stream_threshold_bytes=fig["input_bytes"],
+                         count_spill_rows=1 << 30)
+    t = time.time()
+    mst = pipeline.compress(src, mem_arc, cfg=mem_cfg, device="cuda")
+    torch.cuda.synchronize()
+    fig["in_memory_compress_s"] = time.time() - t
+    if mst["stream_mode"] or mst["count_spills"]:
+        raise AssertionError("large corpus: the comparison run streamed or spilled")
+    fig["sha256"], want = sha256_of(arc), sha256_of(mem_arc)
+    if fig["sha256"] != want:
+        raise AssertionError(f"large corpus: the streamed, spilled archive {fig['sha256']} != "
+                             f"the in-memory, unspilled archive {want}")
+    for p in (src, arc, mem_arc):
+        os.unlink(p)
+    print(json.dumps({"large_corpus": fig}), flush=True)
+    return 0
+
+
+
+
+def stream_phase(paths: dict) -> dict:
+    """Phase 11 (see the module docstring): (a) stream mode with a forced
+    multi-run spill on phase 6's corpora, (b) the corpus over 1 GiB in a
+    child process, (c) a checkpoint resume, (d) profile_dir."""
+    import torch
+
+    from leon_tpu_torch import LeonConfig, kernels, pipeline
+
+    fig = {}
+    host_path = ["kmer_scan", "runs", "bloom_build", "walk_encode", "walk_pack"]
+    wide_path = ["kmer_scan_halves", "word_runs", "bloom_build_words", "walk_encode_words",
+                 "walk_pack"]
+    device_build = ["unitig_links", "unitig_double", "unitig_emit", "solid_lookup"]
+    for label, corpus, k, pin in (("k=31", "ecoli_500k", K, PIN),
+                                  (f"k={K63}", "ecoli_500k", K63, PIN63),
+                                  (f"k={K127}, 250 bp", "ecoli_200k_250bp", K127, PIN127)):
+        for builder, dev_max in (("host builder", 0), ("device builder", 1 << 30)):
+            name = f"{label}, {builder}"
+            arc = os.path.join(WORK, "stream.leon")
+            cfg = LeonConfig(noheader=True, noqual=True, kmer_size=k,
+                             unitig_device_max_kmers=dev_max, **FORCED_SPILL)
+            kernels.launches.clear()
+            t = time.time()
+            st = pipeline.compress(paths[corpus], arc, cfg=cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            launches = dict(kernels.launches)
+            check_pin(f"stream, spilled ({name})", arc, st, pin)
+            if not st["stream_mode"] or st["count_spills"] < 2:
+                raise AssertionError(f"{name}: stream mode {st['stream_mode']}, spills "
+                                     f"{st['count_spills']}")
+            path = (host_path if k == K else wide_path) + (device_build if dev_max else [])
+            missing = [n for n in path if launches.get(n, 0) < 1]
+            if missing:
+                raise AssertionError(f"{name}: kernels never launched: {missing}")
+            fig[name] = {"compress_s": wall, "spills": st["count_spills"],
+                         "host_merge_s": st["span_s"].get("count.fin.host_merge"),
+                         "launches": launches}
+            log(f"stream, spilled ({name}) ok: archive = the reference's, stream mode, "
+                f"{st['count_spills']} spills, {wall:.2f} s, launches {launches}")
+
+    # the child needs the card's memory: the cache this process kept from the
+    # earlier phases goes back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"before the large corpus: this process holds {torch.cuda.memory_allocated()} B "
+        f"of the card's memory ({torch.cuda.memory_reserved()} B reserved)")
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--large-corpus"],
+                         capture_output=True, text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    sys.stderr.write(res.stderr[-8000:])
+    if res.returncode != 0:
+        raise AssertionError(f"large corpus: the child exited {res.returncode}")
+    fig["large_corpus"] = json.loads(res.stdout.strip().splitlines()[-1])["large_corpus"]
+
+    src = paths["ecoli_500k"]
+    ck = os.path.join(WORK, "count.ckpt")
+    if os.path.exists(ck):
+        os.unlink(ck)
+    cfg = LeonConfig(noheader=True, noqual=True, checkpoint=ck)
+    arc = os.path.join(WORK, "ckpt.leon")
+    st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
+    check_pin("checkpoint written", arc, st, PIN)
+    kernels.launches.clear()
+    t = time.time()
+    st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    fig["resumed_compress_s"] = time.time() - t
+    check_pin("checkpoint resumed", arc, st, PIN)
+    if not st["resumed"] or kernels.launches["kmer_scan"] or kernels.launches["runs"]:
+        raise AssertionError(f"checkpoint: resumed {st['resumed']}, launches "
+                             f"{dict(kernels.launches)}: K1 or K2 ran on a resumed count")
+    log(f"checkpoint resume ok: archive = the reference's, K1 and K2 not launched, "
+        f"{fig['resumed_compress_s']:.2f} s, launches {dict(kernels.launches)}")
+
+    prof = os.path.join(WORK, "profile")
+    if os.path.isdir(prof):
+        for p in os.listdir(prof):
+            os.unlink(os.path.join(prof, p))
+    st = pipeline.compress(src, arc, cfg=LeonConfig(noheader=True, noqual=True, profile_dir=prof),
+                           device="cuda")
+    check_pin("profile_dir", arc, st, PIN)
+    traces = [p for p in os.listdir(prof) if p.endswith(".pt.trace.json")]
+    if len(traces) != 1 or os.path.getsize(os.path.join(prof, traces[0])) == 0:
+        raise AssertionError(f"profile_dir: traces {traces}")
+    log(f"profile_dir ok: trace {traces[0]} ({os.path.getsize(os.path.join(prof, traces[0]))} B), "
+        "archive = the reference's")
+    return fig
 
 
 def main() -> int:
@@ -2838,10 +3119,13 @@ def main() -> int:
     done("phase 5")
     main_path(records, card, paths)
     done("phase 6")
+    stream_fig = stream_phase(paths)
+    done("phase 11")
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
     log(f"[multiword kernels] {json.dumps(wide_fig)}")
     log(f"[long-k tensor path and graph] {json.dumps(longk_fig)}")
+    log(f"[inputs past one card's limits] {json.dumps(stream_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]
@@ -2858,4 +3142,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(large_corpus_child() if sys.argv[1:] == ["--large-corpus"] else main())

@@ -13,9 +13,16 @@ as the reference leaves its sort to ``lax.sort``.
 ``DeviceCounter`` streams k-mer keys through one slab on the device: the
 scan kernel writes into the slab, a full slab is sorted and reduced to its
 distinct run, and runs merge (sort with the counts as payload, then K2)
-once they outgrow ``merge_factor`` slabs. Slab and run sizes are set for
-an 80 GB card; a run past ``SPILL_ROWS`` would need the reference's host
-spill (count.py:592-600, 643-704), which the port does not have yet.
+once they outgrow ``merge_factor`` slabs. Slab, merge and spill sizes are
+the config's (``count_slab_kmers``, ``count_merge_factor``,
+``count_spill_rows``). A merged run of ``spill_rows`` rows or more moves
+to host RAM (a non-blocking copy into pinned memory, resolved at the next
+spill or at finalize) and the device merge restarts empty, so the card
+holds at most a spill's rows plus ``merge_factor`` slabs of runs whatever
+the input's size. ``finalize`` after a spill merges every run on the host
+(the native k-way merge), takes the histogram, cutoff and the exact solid
+count there, and sends the solid rows to the card once for the Bloom build
+(count.py:285-306, 391-440, 504-524, 592-600, 643-706).
 
 ``count_batch`` is the one-shot count of (B, P, W) canonical words
 (k <= 255, counterpart of count.py:88-104): the valid rows, sorted by
@@ -30,14 +37,15 @@ multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
 planes into the slab, ``sort_planes`` + K14 reduce slabs and merge runs,
 ``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
 over those solid rows.
-Both counters share ``_SlabCounter``'s slab, flush, merge, spill check and
+Both counters share ``_SlabCounter``'s slab, flush, merge, spill and
 finalize. ``merge_counts`` (host) is a copy of count.py:107-170,
-``auto_cutoff`` of count.py:761-784.
+``histogram`` of count.py:173-174, ``auto_cutoff`` of count.py:761-784.
 """
 
 from __future__ import annotations
 
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +53,9 @@ import torch
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
 from leon_tpu_torch.ops.kmer import SENTINEL, kmer_scan, kmer_scan_halves, words_for_k
-from leon_tpu_torch.state import n_planes, planes_to_words, words_to_planes
+from leon_tpu_torch.state import (keys_from_torch, n_planes, planes_to_words, words_to_keys,
+                                  words_to_planes, words_to_torch)
+from leon_tpu_torch.utils.trace import span
 
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
@@ -430,28 +440,85 @@ def auto_cutoff(hist: np.ndarray) -> int:
 # ---------------------------------------------------------------------------
 
 
-SLAB_KMERS = 1 << 27   # 1 GiB of int64 keys; the sort transient is ~3x that
-SPILL_ROWS = 1 << 30   # largest distinct run kept on the card (12 GiB)
+def histogram(counts: np.ndarray, max_count: int = 255) -> np.ndarray:
+    """Counts clamped at max_count, binned (a copy of count.py:173-174)."""
+    return np.bincount(np.minimum(counts, max_count), minlength=max_count + 1)
+
+
+class Run(NamedTuple):
+    """finalize's distinct run, what the unitig builders take. Unspilled:
+    rows (M,) int64 keys or (M, W) int32 words and counts (M,) int32, the
+    whole distinct run on the device; solid its solid rows on the device
+    where the Bloom build compacted them (WordCounter), else None. After a
+    spill: rows are the solid rows in host memory ((n_solid, W) u32, LSW
+    first), counts None, and solid the same rows on the device in the
+    counter's form. nu is the exact distinct count."""
+
+    rows: object
+    counts: torch.Tensor | None
+    nu: int
+    solid: torch.Tensor | None
+
+
+def _host_run(rows: torch.Tensor, counts: torch.Tensor, W: int) -> tuple:
+    """A run in host memory -> the reference's spilled form: (uniq (M, W)
+    u32 LSW first, counts (M,) int64)."""
+    if rows.dim() == 1:
+        uniq = keys_from_torch(rows, W)
+    else:
+        uniq = np.array(rows.numpy().view(np.uint32))
+    return uniq, counts.numpy().astype(np.int64)
+
+
+class _Spilling:
+    """A spilled run's copy to the host: a non-blocking D2H into pinned
+    memory on the card (the caller's stream orders it before any later
+    reuse of the device rows), the tensors themselves on the CPU."""
+
+    def __init__(self, rows: torch.Tensor, counts: torch.Tensor):
+        self.done = None
+        if rows.device.type != "cuda":
+            self.rows, self.counts = rows, counts
+            return
+        self.rows = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        self.counts = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+        self.rows.copy_(rows, non_blocking=True)
+        self.counts.copy_(counts, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(rows.device))
+
+    def resolve(self, W: int) -> tuple:
+        if self.done is not None:
+            self.done.synchronize()
+        return _host_run(self.rows, self.counts, W)
 
 
 class _SlabCounter:
     """What both counters share (see the module docstring): the slab (one to
     eight (n,) int64 buffers the scan kernel writes into), its flush to a
     sorted distinct run, the merge of runs past merge_factor slabs, the
-    spill check and finalize's selection rules. A subclass says how rows
-    are scanned, sorted, reduced and hashed."""
+    spill of a merged run to host RAM and finalize's selection rules. A
+    subclass says how rows are scanned, sorted, reduced, uploaded and
+    hashed."""
 
-    def __init__(self, k: int, device, slab_kmers: int, merge_factor: int, n_bufs: int):
+    def __init__(self, k: int, device, slab_kmers: int, merge_factor: int, spill_rows: int,
+                 n_bufs: int):
         self.k = k
+        self.W = words_for_k(k)
         self.device = torch.device(device)
         self.slab = int(slab_kmers)
         self.merge_factor = int(merge_factor)
+        self.spill_rows = int(spill_rows)
         self._n_bufs = n_bufs
         self._buf: list | None = None  # slab storage (grows to slab)
         self._fill = 0
-        self._runs: list = []  # (rows, counts int32) distinct runs
+        self._runs: list = []  # (rows, counts int32) distinct runs on the device
         self._runs_n = 0
         self._next_merge = self.merge_factor * self.slab
+        # spilled runs: (uniq, counts) host pairs, the newest maybe still a
+        # _Spilling (depth-1 deferral: at most one copy in flight)
+        self._host_runs: list = []
+        self.n_spills = 0
 
     def _reserve(self, n: int) -> list:
         """(n,) views of the slab buffers for the scan kernel to write into."""
@@ -471,7 +538,7 @@ class _SlabCounter:
         self._fill = need
         return views
 
-    def _flush_slab(self) -> None:
+    def _flush_slab(self, merge: bool = True) -> None:
         if not self._fill:
             return
         filled = [b[: self._fill] for b in self._buf]
@@ -479,7 +546,7 @@ class _SlabCounter:
         rows, counts = self._slab_run(filled)
         self._runs.append((rows, counts))
         self._runs_n += counts.numel()
-        if self._runs_n >= self._next_merge and len(self._runs) > 1:
+        if merge and self._runs_n >= self._next_merge and len(self._runs) > 1:
             self._merge_runs()
 
     def _merged(self, want_hist: bool):
@@ -491,28 +558,66 @@ class _SlabCounter:
 
     def _merge_runs(self) -> None:
         rows, counts, _ = self._merged(False)
-        self._check_spill(counts.numel())
+        if counts.numel() >= self.spill_rows:
+            self._spill(rows, counts)
+            return
         self._runs = [(rows, counts)]
         self._runs_n = counts.numel()
         self._next_merge = self._runs_n + self.merge_factor * self.slab
 
-    @staticmethod
-    def _check_spill(n: int) -> None:
-        if n >= SPILL_ROWS:
-            raise NotImplementedError(
-                f"distinct k-mer run of {n} rows exceeds the on-card limit "
-                f"{SPILL_ROWS}: the host-spilled count is ROADMAP.md queue 1, item 9")
+    def _spill(self, rows: torch.Tensor, counts: torch.Tensor) -> None:
+        """Move a merged run to host RAM and restart the device merge
+        hierarchy empty (count.py:407-426): this run's copy starts, the
+        previous one's is resolved."""
+        copy = _Spilling(rows, counts)
+        if self._host_runs and isinstance(self._host_runs[-1], _Spilling):
+            self._host_runs[-1] = self._host_runs[-1].resolve(self.W)
+        self._host_runs.append(copy)
+        self._runs, self._runs_n = [], 0
+        self._next_merge = self.merge_factor * self.slab
+        self.n_spills += 1
+
+    def _host_merged(self) -> tuple | None:
+        """Every run, on the device and spilled, merged into one host run
+        (uniq (M, W) u32 LSW first, counts (M,) int64), or None when there
+        is none (count.py:489-524). The device runs merge first, and that
+        merge spills too where it reaches spill_rows."""
+        self._flush_slab()
+        self._buf = None
+        if len(self._runs) > 1:
+            self._merge_runs()
+        parts = [r.resolve(self.W) if isinstance(r, _Spilling) else r for r in self._host_runs]
+        self._host_runs = []
+        if self._runs:
+            (rows, counts), = self._runs
+            self._runs, self._runs_n = [], 0
+            parts.append(_host_run(rows.cpu(), counts.cpu(), self.W))
+        if not parts:
+            return None
+        return parts[0] if len(parts) == 1 else merge_counts(parts)
+
+    def distinct_run(self) -> tuple:
+        """The whole count as the compacted distinct multiset on the host:
+        (uniq (M, W) u32 LSW first, counts (M,) int32 clamped), sorted
+        (count.py:526-536; the exchange unit of a count across processes)."""
+        hm = self._host_merged()
+        if hm is None:
+            return np.zeros((0, self.W), np.uint32), np.zeros(0, np.int32)
+        uniq, counts = hm
+        return uniq, np.minimum(counts, _I32_MAX).astype(np.int32)
 
     def finalize(self, abundance, bits_per_kmer, H, seed: int,
                  lossy_quals: bool = False, unitig_max: int = 0):
         """Returns (bitset (n_words,) int32, n_words, cutoff, n_solid,
-        hist (256,) int64 numpy, H, run) where run = (rows, counts, nu,
-        solid) is the final distinct run on the device (None when empty):
-        rows are (M,) int64 keys or (M, W) int32 words; solid is the run's
-        solid rows when the Bloom build compacted them (WordCounter), else
-        None. The selection rules are leon_tpu's DeviceCounter.finalize
-        (count.py:557-641)."""
-        self._flush_slab()
+        hist (256,) int64 numpy, H, run): run is a Run, or None when the
+        count is empty. The selection rules are leon_tpu's
+        DeviceCounter.finalize (count.py:557-641): without a spill the
+        final merge stays on the device and n_solid is read from the
+        clamped histogram; after one, _finalize_host."""
+        if self._host_runs:
+            return self._finalize_host(abundance, bits_per_kmer, H, seed, lossy_quals,
+                                       unitig_max)
+        self._flush_slab(merge=False)  # the final collapse never spills (count.py:442-487)
         self._buf = None
         if not self._runs:
             hist = np.zeros(256, np.int64)
@@ -530,10 +635,41 @@ class _SlabCounter:
             rows, counts, hist_t = self._merge_sorted(rows, counts, False, True)
         else:
             rows, counts, hist_t = self._merged(True)
-        self._check_spill(counts.numel())
         hist = hist_t.cpu().numpy().astype(np.int64)
         cutoff = abundance if abundance is not None else auto_cutoff(hist)
         n_solid = int(hist[min(cutoff, 255):].sum())
+        bits_per_kmer, H, n_words = self._bloom_size(hist, cutoff, n_solid, bits_per_kmer, H,
+                                                     lossy_quals, unitig_max)
+        bitset, solid = self._bloom(rows, counts, cutoff, n_words, H, seed)
+        return bitset, n_words, cutoff, n_solid, hist, H, Run(rows, counts, int(hist.sum()), solid)
+
+    def _finalize_host(self, abundance, bits_per_kmer, H, seed: int, lossy_quals: bool,
+                       unitig_max: int):
+        """finalize after a spill (count.py:643-704): one host k-way merge
+        of every run; the histogram, cutoff and the exact solid count
+        (counts >= cutoff, where the unspilled path reads the clamped
+        histogram) on the host; the solid rows go to the card once, where
+        K3 or K16 builds the Bloom filter (the bitset of the reference's
+        host build_np)."""
+        with span("count.fin.host_merge"):
+            uniq, counts = self._host_merged()
+        hist = histogram(counts)
+        cutoff = abundance if abundance is not None else auto_cutoff(hist)
+        solid_m = counts >= cutoff
+        n_solid = int(solid_m.sum())
+        bits_per_kmer, H, n_words = self._bloom_size(hist, cutoff, n_solid, bits_per_kmer, H,
+                                                     lossy_quals, unitig_max)
+        solid = np.ascontiguousarray(uniq[solid_m])
+        with span("count.fin.upload"):
+            rows = self._upload(solid)
+        bitset = self._bloom_solid(rows, n_words, H, seed)
+        return bitset, n_words, cutoff, n_solid, hist, H, Run(solid, None, int(hist.sum()), rows)
+
+    def _bloom_size(self, hist, cutoff: int, n_solid: int, bits_per_kmer, H, lossy_quals: bool,
+                    unitig_max: int) -> tuple:
+        """(bits_per_kmer, H, n_words): the auto rule where not given; the
+        UNITIGS section replaces a stored filter where the solid count
+        admits it (bloom.auto_params). Warns where the filter saturates."""
         auto_bpk, auto_h = bloom.auto_params(
             hist, cutoff, lossy_quals,
             stored_filter=not (0 < n_solid <= unitig_max))
@@ -542,20 +678,19 @@ class _SlabCounter:
         if H is None:
             H = auto_h
         n_words = bloom.choose_n_words(max(1, n_solid), bits_per_kmer)
-        bitset, solid = self._bloom(rows, counts, cutoff, n_words, H, seed)
         warn = bloom.saturation_warning(n_solid, n_words, bits_per_kmer)
         if warn:
             print(f"[leon-tpu-torch] {warn}", file=sys.stderr)
-        return (bitset, n_words, cutoff, n_solid, hist, H,
-                (rows, counts, int(hist.sum()), solid))
+        return bits_per_kmer, H, n_words
 
 
 class DeviceCounter(_SlabCounter):
     """Counts canonical k-mers of k <= 31 as one int64 key each (K1 into the
     slab, torch.sort, K2; the Bloom build K3)."""
 
-    def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
-        super().__init__(k, device, slab_kmers, merge_factor, 1)
+    def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
+                 spill_rows: int = 64 << 20):
+        super().__init__(k, device, slab_kmers, merge_factor, spill_rows, 1)
 
     def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
         """Scan one packed chunk (B, ceil(L/16)) int32 straight into the slab."""
@@ -578,6 +713,13 @@ class DeviceCounter(_SlabCounter):
     def _bloom(self, keys, counts, cutoff: int, n_words: int, H: int, seed: int):
         return bloom.bloom_build(keys, counts, cutoff, n_words, H, seed, self.k), None
 
+    def _upload(self, solid: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(words_to_keys(solid)).to(self.device)
+
+    def _bloom_solid(self, keys, n_words: int, H: int, seed: int):
+        ones = torch.ones(keys.shape[0], dtype=torch.int32, device=keys.device)
+        return bloom.bloom_build(keys, ones, 1, n_words, H, seed, self.k)
+
 
 class WordCounter(_SlabCounter):
     """Counts canonical k-mers of 32 <= k <= 255 (W = 2..16 u32 words) with
@@ -589,9 +731,10 @@ class WordCounter(_SlabCounter):
     K14 in count mode; the Bloom build is K14's solid mode, then K16 over
     those rows (which finalize hands on for the unitig builder)."""
 
-    def __init__(self, k: int, device, slab_kmers: int = SLAB_KMERS, merge_factor: int = 4):
-        self.W = words_for_k(k)
-        super().__init__(k, device, slab_kmers, merge_factor, n_planes(self.W))
+    def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
+                 spill_rows: int = 64 << 20):
+        super().__init__(k, device, slab_kmers, merge_factor, spill_rows,
+                         n_planes(words_for_k(k)))
 
     def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
         """Scan one packed chunk's valid k-mers straight into the slab."""
@@ -615,5 +758,11 @@ class WordCounter(_SlabCounter):
 
     def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):
         solid = compact_solid_words(words, counts, cutoff)[0]
-        ones = torch.ones(solid.shape[0], dtype=torch.bool, device=solid.device)
-        return bloom.bloom_build_words(solid, ones, n_words, n_words, H, seed, self.k), solid
+        return self._bloom_solid(solid, n_words, H, seed), solid
+
+    def _upload(self, solid: np.ndarray) -> torch.Tensor:
+        return words_to_torch(solid, self.device)
+
+    def _bloom_solid(self, words, n_words: int, H: int, seed: int):
+        ones = torch.ones(words.shape[0], dtype=torch.bool, device=words.device)
+        return bloom.bloom_build_words(words, ones, n_words, n_words, H, seed, self.k)

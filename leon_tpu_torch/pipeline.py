@@ -27,17 +27,25 @@ thread under the encode stage (unitig.thread_build). A device failure
 raises: the BLOOM section is written only where the frozen size and
 capacity rules say so.
 
+Inputs of any size (leon_tpu/pipeline.py:497-572, :914-917): an input over
+cfg.stream_threshold_bytes is parsed again for each pass and keeps neither
+the parsed blocks nor the uploaded chunks (pass 2 uploads each chunk
+itself), and the counter spills merged runs past cfg.count_spill_rows to
+host RAM (ops/count.py), so host and card memory stay bounded by the
+block, the slab and the spill. A cfg.checkpoint file holds the count
+pass's result (the reference's format, so each package resumes the
+other's); a matching run skips pass 1. cfg.profile_dir runs compress
+again under torch.profiler and writes a Chrome trace there.
+
 Kept from the reference: the chunking (_bucket_len, _lane_bucket,
 chunk_block), the host unitig thread, the ordered frame pool, the tail
 and the decode driver. Archives are byte-identical to leon_tpu's for the
 same input and config.
 
 Not here: the compile-service retry and the host-count fallback (never
-ported); checkpoints, profile_dir and stream mode (inputs over
-cfg.stream_threshold_bytes; ROADMAP.md queue 1, item 9); the multi-chip
-placer (mesh_devices > 1; item 11). Asking for one of the last four raises
-NotImplementedError naming its item. The walk sizes its event
-buffers from the per-read counts the kernel produced, so no chunk
+ported); the multi-chip placer (mesh_devices > 1), which raises
+NotImplementedError naming ROADMAP.md queue 1, item 11. The walk sizes its
+event buffers from the per-read counts the kernel produced, so no chunk
 overflows and the reference's cap retry and dense fallback have no
 counterpart; chunks are encoded one at a time (the card is idle >99% of
 the run, PERF.md §5, so the reference's dispatch-ahead queue would buy
@@ -47,6 +55,7 @@ nothing).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 import threading
@@ -79,11 +88,6 @@ BATCH_CUDA = 65536  # lanes per walk chunk on the card
 BATCH_CPU = 8192
 
 
-def _not_ported(what: str, item: int = 9):
-    return NotImplementedError(
-        f"{what} is not ported to leon_tpu_torch yet (ROADMAP.md queue 1, item {item})")
-
-
 def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
     """Explicit lane count per device (never cfg.resolved(), which imports
     jax), and the checks every entry point shares."""
@@ -97,12 +101,9 @@ def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]
         cfg = dataclasses.replace(
             cfg, batch_reads=BATCH_CUDA if device.type == "cuda" else BATCH_CPU)
     if (cfg.mesh_devices or 1) > 1:
-        raise _not_ported(f"mesh_devices={cfg.mesh_devices} (lanes sharded over several cards)",
-                          11)
-    if cfg.checkpoint:
-        raise _not_ported("checkpoint resume")
-    if cfg.profile_dir:
-        raise _not_ported("profile_dir tracing")
+        raise NotImplementedError(
+            f"mesh_devices={cfg.mesh_devices} (lanes sharded over several cards) is not ported "
+            "to leon_tpu_torch yet (ROADMAP.md queue 1, item 11)")
     require_native()
     return cfg, device
 
@@ -197,12 +198,88 @@ def frame_bloom(bitset: np.ndarray) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+_CKPT_VERSION = 4  # leon_tpu/pipeline.py:145: counts Bloom layout + key fields
+_CKPT_MAGIC = b"LEONCKPT"
+
+
+def _ckpt_key(cfg: LeonConfig, k: int, input_path: str, lossy_quals: bool) -> tuple:
+    """What a checkpoint must match (leon_tpu/pipeline.py:148-159): the
+    fields that change the count pass's result, the quality mode (the auto
+    Bloom sizing differs by mode) and the input's name and size."""
+    try:
+        size = bank.total_size(input_path)
+    except OSError:
+        size = -1
+    return (_CKPT_VERSION, k, cfg.seed, cfg.bloom_hashes,
+            cfg.bloom_bits_per_kmer, cfg.abundance, cfg.max_device_len,
+            lossy_quals, cfg.unitig_sections,
+            os.path.basename(input_path), size)
+
+
+def _load_count_checkpoint(cfg: LeonConfig, k: int, input_path: str, lossy_quals: bool):
+    """(bitset (n_words,) u32, n_words, cutoff, n_solid, n_hashes, UNITIGS
+    payload or None) from cfg.checkpoint, or None when there is none or it
+    does not match (leon_tpu/pipeline.py:165-197). The format: magic | u32
+    json_len | JSON header | raw <u4 bitset | optional raw UNITIGS payload.
+    No pickle: a hostile file is at worst ignored."""
+    if not cfg.checkpoint or not os.path.exists(cfg.checkpoint):
+        return None
+    try:
+        with open(cfg.checkpoint, "rb") as f:
+            if f.read(8) != _CKPT_MAGIC:
+                return None
+            jlen = int.from_bytes(f.read(4), "little")
+            if jlen > 1 << 20:
+                return None
+            d = json.loads(f.read(jlen))
+            if d.get("key") != list(_ckpt_key(cfg, k, input_path, lossy_quals)):
+                return None
+            n_words, nb = int(d["n_words"]), int(d["bitset_bytes"])
+            ub = int(d.get("unitig_bytes", 0))
+            if nb != 4 * n_words or n_words <= 0 or not 0 <= ub <= os.path.getsize(cfg.checkpoint):
+                return None
+            raw = f.read(nb)
+            uni = f.read(ub) if ub else None
+        if len(raw) != nb or (ub and len(uni) != ub):
+            return None
+        return (np.frombuffer(raw, dtype="<u4"), n_words, int(d["cutoff"]), int(d["n_solid"]),
+                int(d["n_hashes"]), uni)
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        return None
+
+
+def _save_count_checkpoint(cfg: LeonConfig, k: int, input_path: str, lossy_quals: bool,
+                           bitset: np.ndarray, n_words: int, cutoff: int, n_solid: int,
+                           n_hashes: int, unitig_payload: Optional[bytes]) -> None:
+    """Write cfg.checkpoint (leon_tpu/pipeline.py:200-225): the resolved
+    section decision rides along (no payload = the BLOOM section), so a
+    resumed run writes the same archive."""
+    raw = bitset.astype("<u4").tobytes()
+    hdr = json.dumps({
+        "key": list(_ckpt_key(cfg, k, input_path, lossy_quals)),
+        "bitset_bytes": len(raw),
+        "n_words": int(n_words), "cutoff": int(cutoff),
+        "n_solid": int(n_solid), "n_hashes": int(n_hashes),
+        "unitig_bytes": len(unitig_payload) if unitig_payload else 0,
+    }).encode()
+    tmp = cfg.checkpoint + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_CKPT_MAGIC)
+        f.write(len(hdr).to_bytes(4, "little"))
+        f.write(hdr)
+        f.write(raw)
+        if unitig_payload:
+            f.write(unitig_payload)
+    os.replace(tmp, cfg.checkpoint)
+
+
 def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
-                dev_cache: dict, lossy_quals: bool):
-    """K-mer counting + Bloom build on the device. dev_cache keeps each
-    chunk's uploaded (packed, lengths) for the encode pass."""
+                dev_cache: Optional[dict], lossy_quals: bool):
+    """K-mer counting + Bloom build on the device. dev_cache (None in
+    stream mode) keeps each chunk's uploaded (packed, lengths) for the
+    encode pass. Returns the counter's finalize tuple and its spill count."""
     counter = (count.DeviceCounter if k <= K.MAX_K else count.WordCounter)(
-        k, device, merge_factor=cfg.count_merge_factor)
+        k, device, cfg.count_slab_kmers, cfg.count_merge_factor, cfg.count_spill_rows)
     ci = 0
     for prep in preps:
         for ch in chunk_block(prep, cfg, k):
@@ -212,31 +289,37 @@ def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
             with span("count.pack_h2d"):
                 packed = state.packed_to_torch(ch.packed, device)
                 dlen = torch.from_numpy(ch.dev_len).to(device)
-                dev_cache[ci - 1] = (packed, dlen)
+                if dev_cache is not None:
+                    dev_cache[ci - 1] = (packed, dlen)
             with span("count.dispatch"):
                 counter.add_packed(packed, dlen, ch.L)
     with span("count.finalize"):
-        return counter.finalize(
+        res = counter.finalize(
             cfg.abundance, cfg.bloom_bits_per_kmer, H, seed, lossy_quals,
             unitig_max=cfg.unitig_max_kmers if cfg.unitig_sections else 0)
+    return res, counter.n_spills
 
 
-def _solid_rows(run, cutoff: int) -> torch.Tensor:
-    """The run's solid rows on the device: the (M, W) words K14 compacted
-    for the multiword Bloom build, else K2's solid mode over the keys."""
-    rows, counts, _, solid = run
-    return count.compact_solid(rows, counts, cutoff)[0] if solid is None else solid
+def _solid_rows(run: count.Run, cutoff: int) -> torch.Tensor:
+    """The run's solid rows on the device: the rows the Bloom build
+    compacted (K14, or those a spilled count uploaded), else K2's solid
+    mode over the keys."""
+    return count.compact_solid(run.rows, run.counts, cutoff)[0] if run.solid is None else run.solid
 
 
-def _start_unitig_thread(run, cutoff: int, n_solid: int, k: int, W: int, out: list):
-    """Ship the run's solid rows down and build the unitig payload on a
-    host thread under the encode stage (leon_tpu/pipeline.py:643-700)."""
-    with span("unitig.solid_d2h"):
-        solid = _solid_rows(run, cutoff)
-        if solid.dim() == 1:
-            words = state.keys_from_torch(solid, W)
-        else:
-            words = solid.cpu().numpy().view(np.uint32)
+def _start_unitig_thread(run: count.Run, cutoff: int, n_solid: int, k: int, W: int, out: list):
+    """Build the unitig payload on a host thread under the encode stage
+    (leon_tpu/pipeline.py:643-700), from the solid rows shipped down, or
+    from those a spilled count already holds in host memory."""
+    if run.counts is None:
+        words = run.rows
+    else:
+        with span("unitig.solid_d2h"):
+            solid = _solid_rows(run, cutoff)
+            if solid.dim() == 1:
+                words = state.keys_from_torch(solid, W)
+            else:
+                words = solid.cpu().numpy().view(np.uint32)
     words = np.ascontiguousarray(words)
     hp = words
     if words.shape[0] < n_solid:
@@ -244,11 +327,10 @@ def _start_unitig_thread(run, cutoff: int, n_solid: int, k: int, W: int, out: li
         # reference's zero-padded compaction hands the builder n_solid
         # rows: the port hands it the same rows, for the same bytes
         hp = np.concatenate([words, np.zeros((n_solid - words.shape[0], W), np.uint32)])
-    nu = run[2]
 
     def build(rows):
         return (unitig.build_np_payload(rows, np.full(rows.shape[0], cutoff, np.int32),
-                                        cutoff, k, nu, nthreads=3), rows)
+                                        cutoff, k, run.nu, nthreads=3), rows)
 
     def _host_build():
         try:
@@ -268,6 +350,25 @@ def _start_unitig_thread(run, cutoff: int, n_solid: int, k: int, W: int, out: li
     t = threading.Thread(target=_host_build, daemon=True)
     t.start()
     return t
+
+
+def _unitig_sections(thread, out: list, inflight, n_words: int) -> tuple:
+    """Join the host build or drain the device build and apply the frozen
+    size rule (UNITIGS only when smaller than the bitset). Returns (payload
+    or None for BLOOM, the DICT's enumeration: ("host", solid rows) or
+    ("infl", the device build, whose rows K8 searches), else None)."""
+    if thread is not None:
+        with span("tail.unitig_join"):
+            thread.join()
+        p, hs = out[0] if out else (None, None)
+        if p is not None and len(p) < 4 * n_words:
+            return p, ("host", hs)
+    if inflight is not None:
+        with span("tail.unitig_drain"):
+            p = unitig.drain_build(inflight)
+        if p is not None and len(p) < 4 * n_words:
+            return p, ("infl", inflight)
+    return None, None
 
 
 def _walk_chunk(ch: Chunk, packed, dlen, bitset, n_words: int, k: int, H: int,
@@ -291,6 +392,18 @@ def compress(input_path: str, output_path: Optional[str] = None,
     """Compress a FASTA/FASTQ file into a .leon archive on `device`
     ('cuda' or 'cpu'); returns the reference's stats dict."""
     cfg, device = _setup(cfg, device)
+    if cfg.profile_dir:
+        # the same call under torch.profiler (leon_tpu/pipeline.py:458-468)
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            st = compress(input_path, output_path, dataclasses.replace(cfg, profile_dir=None),
+                          device=device)
+        os.makedirs(cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(cfg.profile_dir,
+                                              f"compress.{time.time_ns()}.pt.trace.json"))
+        return st
     try:
         return _compress_impl(input_path, output_path, cfg, device, None)
     except bank.IrregularInput:
@@ -311,8 +424,7 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
     k = cfg.kmer_size
     W = K.words_for_k(k)
     fmt = bank.sniff_format(input_path)
-    if bank.total_size(input_path) > cfg.stream_threshold_bytes:
-        raise _not_ported("stream mode (inputs over stream_threshold_bytes)")
+    stream_mode = bank.total_size(input_path) > cfg.stream_threshold_bytes
 
     header_mode = 0 if cfg.noheader else 1
     if fmt == bank.FASTA or cfg.noqual:
@@ -357,45 +469,64 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
             yield b, p
 
     final_nl = bank.final_newline(input_path)
-    # pass 1 parses while the device counts; pass 2 replays from RAM
-    bp_cache: list = []
-
-    def iter_bp():
-        if bp_cache:
-            yield from bp_cache
-            return
-        for bp in timed_bp():
-            bp_cache.append(bp)
-            yield bp
-
+    # in memory, pass 1 parses while the device counts and pass 2 replays
+    # its blocks from RAM; in stream mode each pass parses again
+    bp_cache: Optional[list] = None if stream_mode else []
     t_parse = time.time() - t0
 
     # --- pass 1: k-mer counting + solidity threshold + Bloom build ---
     t1 = time.time()
     seed = cfg.seed
-    tally = {"reads": 0}
+    tally = {"reads": 0, "blocks": 0}
 
     def iter_preps():
-        tally["reads"] = 0
-        for b, p in iter_bp():
+        for b, p in timed_bp():
+            if bp_cache is not None:
+                bp_cache.append((b, p))
             tally["reads"] += b.n_reads
+            tally["blocks"] += 1
             yield p
 
-    dev_cache: dict = {}
-    bitset, n_words, cutoff, n_solid, _hist, H, run = _count_pass(
-        iter_preps(), cfg, k, cfg.bloom_hashes, seed, device, dev_cache, lossy)
     unitig_thread = None
     unitig_inflight = None
     unitig_out: list = []
-    if (cfg.unitig_sections and run is not None
-            and 0 < n_solid <= cfg.unitig_max_kmers):
-        if n_solid <= cfg.unitig_device_max_kmers:
-            with span("count.unitig_dispatch"):
-                unitig_inflight = unitig.dispatch_build(_solid_rows(run, cutoff), k, run[2])
+    sections = None  # (UNITIGS payload or None, the DICT's enumeration), once resolved
+    n_spills = 0
+    dev_cache: Optional[dict] = None if stream_mode else {}
+    ck = _load_count_checkpoint(cfg, k, input_path, lossy)
+    if ck is not None:
+        # resume: the bitset goes up, the stored section decision stands,
+        # and a pass without the count counts the records
+        # (leon_tpu/pipeline.py:777-783), with the parser pass 2 takes: in
+        # memory it is pass 1's parse, whose blocks pass 2 replays
+        bitset_np, n_words, cutoff, n_solid, H, ck_payload = ck
+        bitset = state.bitset_to_torch(bitset_np, device)
+        sections = (ck_payload, None)
+        if bp_cache is None:
+            n_reads = sum(b.n_reads for b in raw_blocks())
         else:
-            unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
-    run = None
-    n_reads = tally["reads"]
+            for _ in iter_preps():
+                pass
+            n_reads = tally["reads"]
+    else:
+        (bitset, n_words, cutoff, n_solid, _hist, H, run), n_spills = _count_pass(
+            iter_preps(), cfg, k, cfg.bloom_hashes, seed, device, dev_cache, lossy)
+        if (cfg.unitig_sections and run is not None
+                and 0 < n_solid <= cfg.unitig_max_kmers):
+            if n_solid <= cfg.unitig_device_max_kmers:
+                with span("count.unitig_dispatch"):
+                    unitig_inflight = unitig.dispatch_build(_solid_rows(run, cutoff), k, run.nu)
+            else:
+                unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
+        run = None
+        n_reads = tally["reads"]
+        if cfg.checkpoint:
+            # the section decision is part of the checkpoint, so it is
+            # resolved now (leon_tpu/pipeline.py:756-776)
+            sections = _unitig_sections(unitig_thread, unitig_out, unitig_inflight, n_words)
+            _save_count_checkpoint(cfg, k, input_path, lossy,
+                                   state.bitset_from_torch(bitset)[:n_words], n_words, cutoff,
+                                   n_solid, H, sections[0])
     t_count = time.time() - t1
 
     meta = container.Meta(
@@ -442,14 +573,18 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
 
     try:
         ci = 0
-        for block, prep in iter_bp():
+        for block, prep in (bp_cache or timed_bp()):
             be = blockcodec.BlockEncoder(cfg, meta, adict, block, prep)
             for ch in chunk_block(prep, cfg, k):
                 ci += 1
                 enc = None
                 if _walkable(ch, k):
-                    packed, dlen = dev_cache.pop(ci - 1)
-                    enc = _walk_chunk(ch, packed, dlen, bitset, n_words, k, H, seed, with_conf)
+                    up = dev_cache.pop(ci - 1, None) if dev_cache else None
+                    if up is None:  # stream mode or a resumed count: upload here
+                        with span("enc.pack_h2d"):
+                            up = (state.packed_to_torch(ch.packed, device),
+                                  torch.from_numpy(ch.dev_len).to(device))
+                    enc = _walk_chunk(ch, *up, bitset, n_words, k, H, seed, with_conf)
                     counters["anchored"] += int(enc["anchored"].sum())
                 with span("enc.subbatch"):
                     be.add_subbatch(blockcodec.SubbatchData(
@@ -459,25 +594,16 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
                 todo = be.finish_streams()
             commit_q.append((frame_pool.submit(_frame_job, todo, block.n_reads), block.n_reads))
             _commit(max(4, 2 * n_frame_workers))
-            _progress(cfg, "encode", counters["blocks_done"] + 1, len(bp_cache))
+            _progress(cfg, "encode", counters["blocks_done"] + 1, tally["blocks"])
         _commit(0)
     finally:
         frame_pool.shutdown(wait=True)
+    bp_cache = dev_cache = None
     t_encode = time.time() - t1
 
-    unitig_payload = None
-    solid_rows = None
-    if unitig_thread is not None:
-        with span("tail.unitig_join"):
-            unitig_thread.join()
-        p, hs = unitig_out[0] if unitig_out else (None, None)
-        if p is not None and len(p) < 4 * n_words:  # frozen size rule
-            unitig_payload, solid_rows = p, hs
-    if unitig_inflight is not None:
-        with span("tail.unitig_drain"):
-            p = unitig.drain_build(unitig_inflight)
-        if p is not None and len(p) < 4 * n_words:  # frozen size rule
-            unitig_payload = p
+    if sections is None:
+        sections = _unitig_sections(unitig_thread, unitig_out, unitig_inflight, n_words)
+    unitig_payload, dict_src = sections
     if unitig_payload is not None:
         with span("tail.unitig_frame"):
             writer.section(container.TAG_UNITIGS, frames.frame(unitig_payload))
@@ -487,13 +613,16 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
     with span("tail.dict"):
         if unitig_payload is None or not len(adict):
             dict_payload = adict.payload(None)
-        elif unitig_inflight is not None:
+        elif dict_src is None:
+            # a resumed count holds only the payload bytes: enumerate it
+            dict_payload = adict.payload(unitig.solid_kmers_sorted(unitig_payload, k))
+        elif dict_src[0] == "infl":
             # the build's solid run IS the enumeration: look the anchors up
             # on the device instead of shipping the run down
             dict_payload = adict.payload_indexed(
-                *unitig.solid_indices(unitig_inflight, adict.words_array()))
+                *unitig.solid_indices(dict_src[1], adict.words_array()))
         else:
-            dict_payload = adict.payload(solid_rows)
+            dict_payload = adict.payload(dict_src[1])
         writer.section(container.TAG_DICT, dict_payload)
     total = writer.close()
     in_bytes = bank.total_size(input_path)
@@ -512,6 +641,9 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
         "output_bytes": total,
         "ratio": in_bytes / total if total else 0.0,
         "stream_bytes": {blockcodec_stream_name(s): v for s, v in sorted(stream_sizes.items())},
+        "stream_mode": stream_mode,
+        "count_spills": n_spills,
+        "resumed": ck is not None,
         "time_parse_s": round(t_parse, 3),
         "time_count_s": round(t_count, 3),
         "time_encode_s": round(t_encode, 3),

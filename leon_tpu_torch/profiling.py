@@ -8,7 +8,8 @@ default (native host unitig builder on a thread), the device unitig
 build (unitig_device_max_kmers = 2**30), k = 63 (the multiword route,
 K17-K19, W = 4) and k = 63 with the device unitig build (K5-K8 over W-word
 rows), and 200k reads of 250 bp from the same contig at k = 127 (W = 8),
-with either unitig builder: N rounds, each compressing and decompressing
+with either unitig builder, and the default once more with slabs of 2**27
+k-mers (count_slab_kmers; the default is 2**25): N rounds, each compressing and decompressing
 once per configuration in turn (host clock, each run ends in a
 synchronize), then one profiled compress per configuration and one
 profiled decompress at k = 31, 63 and 127 under torch.profiler. Prints the card's name and power
@@ -69,7 +70,8 @@ def main() -> int:
                                                unitig_device_max_kmers=1 << 30),
                "k127": LeonConfig(noheader=True, noqual=True, kmer_size=127),
                "k127_device_unitig": LeonConfig(noheader=True, noqual=True, kmer_size=127,
-                                                unitig_device_max_kmers=1 << 30)}
+                                                unitig_device_max_kmers=1 << 30),
+               "slab27": LeonConfig(noheader=True, noqual=True, count_slab_kmers=1 << 27)}
     srcs = {name: src250 if name.startswith("k127") else src for name in configs}
     arcs = {name: os.path.join(work, f"{name}.leon") for name in configs}
     n = {name: PIN127["n_reads"] if name.startswith("k127") else PIN["n_reads"]
@@ -96,6 +98,7 @@ def main() -> int:
 
     for name, fn, cfg, a in (
             ("compress", pipeline.compress, configs["default"], (src, arcs["default"])),
+            ("compress_slab27", pipeline.compress, configs["slab27"], (src, arcs["slab27"])),
             ("compress_device_unitig", pipeline.compress, configs["device_unitig"],
              (src, arcs["device_unitig"])),
             ("compress_k63", pipeline.compress, configs["k63"], (src, arcs["k63"])),
