@@ -147,6 +147,19 @@ run right after phase 3, whose reads and solid set they reuse):
      (c) a checkpoint resume on the bench corpus: the second run launches
      neither K1 nor K2 and writes PIN; (d) compress with profile_dir: a
      Chrome trace appears and the archive is PIN.
+ 12. several devices (leon_tpu_torch/pipeline.py's placer,
+     parallel/distributed.py): (a) the bench corpus compressed and
+     decompressed with its lanes sharded over a four-shard mesh on the one
+     card (device=["cuda:0"] * 4, mesh_devices = 4) at k = 31 with the host
+     unitig builder and at k = 63 with the device builder: each archive
+     must be PIN or PIN63, the decode on the mesh must give the input's
+     sequences, and K1 / K17 (count), K4 / K18 (encode) and K4 / K19
+     (decode) must launch, at least once a shard a chunk; (b)
+     compress_distributed over gloo in two child processes on the one card
+     (`python3 chip_smoke.py --distributed-rank R N PG SRC ARC`, each rank
+     on its default device cuda:(R mod the card count), here cuda:0) on the
+     bench corpus at k = 31: rank 0's archive must be PIN. It prints the walls and launch counts beside
+     the card's name and power limit.
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s; for K8, which searches the run, the queries, its
@@ -3075,6 +3088,142 @@ def stream_phase(paths: dict) -> dict:
     return fig
 
 
+# ---------------------------------------------------------------------------
+# phase 12: several devices
+# ---------------------------------------------------------------------------
+
+MESH = 4
+# label -> (k, unitig_device_max_kmers, pin, the count, encode and decode kernels)
+MESH_RUNS = {
+    "k=31, host builder": (K, 0, PIN, ("kmer_scan", "walk_encode", "walk_decode")),
+    f"k={K63}, device builder": (K63, 1 << 30, PIN63,
+                                 ("kmer_scan_halves", "walk_encode_words", "walk_decode_words")),
+}
+DIST_RANKS = 2
+
+
+def distributed_rank_child(rank: int, n_ranks: int, pg: str, src: str, arc: str) -> int:
+    """One rank of phase 12 (b): compress_distributed of src into arc over a
+    gloo group of n_ranks processes (a file rendezvous at pg), on the
+    rank's default device; prints one JSON line (stats, launches, wall)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from leon_tpu_torch import LeonConfig, kernels
+    from leon_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"file://{pg}", n_ranks, rank)
+    try:
+        kernels.lib()
+        torch.distributed.barrier()
+        t = time.time()
+        st = distributed.compress_distributed(src, arc, cfg=LeonConfig(noheader=True, noqual=True))
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        st["wall_s"] = time.time() - t
+        st["launches"] = dict(kernels.launches)
+    finally:
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"rank": rank, "stats": st}), flush=True)
+    return 0
+
+
+def mesh_phase(paths: dict, card: str, devices=("cuda:0",) * MESH,
+               n_ranks: int = DIST_RANKS) -> dict:
+    """Phase 12 (see the module docstring): the mesh over `devices`, then
+    n_ranks processes."""
+    import torch
+
+    from leon_tpu_torch import LeonConfig, kernels, pipeline
+
+    fig = {}
+    src = paths["ecoli_500k"]
+    n = len(seq_lines(src))
+    devices = list(devices)
+    for label, (k, dev_max, pin, (scan, enc, dec)) in MESH_RUNS.items():
+        arc = os.path.join(WORK, "mesh.leon")
+        out = os.path.join(WORK, "mesh.out.fastq")
+        cfg = LeonConfig(noheader=True, noqual=True, kmer_size=k, unitig_device_max_kmers=dev_max,
+                         mesh_devices=len(devices))
+        kernels.launches.clear()
+        torch.cuda.synchronize()
+        t = time.time()
+        st = pipeline.compress(src, arc, cfg=cfg, device=devices)
+        torch.cuda.synchronize()
+        t_c = time.time() - t
+        c_launches = dict(kernels.launches)
+        kernels.launches.clear()
+        t = time.time()
+        dst = pipeline.decompress(arc, out, cfg=cfg, device=devices)
+        torch.cuda.synchronize()
+        t_d = time.time() - t
+        d_launches = dict(kernels.launches)
+        if st["mesh_devices"] != len(devices) or dst["mesh_devices"] != len(devices):
+            raise AssertionError(f"mesh ({label}): ran on {st['mesh_devices']} / "
+                                 f"{dst['mesh_devices']} shards, not {len(devices)}")
+        check_pin(f"mesh ({label})", arc, st, pin)
+        if seq_lines(src) != seq_lines(out):
+            raise AssertionError(f"mesh ({label}): the decode on the mesh is not the input")
+        chunks = -(-n // B)
+        got = {scan: c_launches.get(scan, 0), enc: c_launches.get(enc, 0),
+               dec: d_launches.get(dec, 0)}
+        if min(got.values()) < len(devices) * chunks:
+            raise AssertionError(f"mesh ({label}): launches {got}, fewer than {len(devices)} "
+                                 f"shards x {chunks} chunks")
+        fig[label] = {"compress_s": t_c, "decompress_s": t_d, "compress_launches": c_launches,
+                      "decompress_launches": d_launches}
+        log(f"mesh of {len(devices)} shards on {devices} ({label}) ok: archive = the reference's, "
+            f"decode = the input; compress {t_c:.2f} s, decompress {t_d:.2f} s on {card}; "
+            f"launches {got}")
+
+    pg = os.path.join(WORK, "dist.pg")
+    arc = os.path.join(WORK, "dist.leon")
+    for p in (pg, arc):
+        if os.path.exists(p):
+            os.unlink(p)
+    t = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--distributed-rank",
+                               str(r), str(n_ranks), pg, src, arc],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(n_ranks)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.time() - t
+    ranks = {}
+    for r, (proc, (so, se)) in enumerate(zip(procs, outs)):
+        sys.stderr.write(se[-4000:])
+        if proc.returncode != 0:
+            raise AssertionError(f"distributed: rank {r} exited {proc.returncode}")
+        ranks[r] = json.loads(so.strip().splitlines()[-1])["stats"]
+    st0 = ranks[0]
+    if any(s["n_processes"] != n_ranks or not s["device"].startswith("cuda")
+           for s in ranks.values()):
+        raise AssertionError(f"distributed: ranks ran as {[(s['n_processes'], s['device']) for s in ranks.values()]}")
+    st0 = dict(st0, n_anchored=sum(s["n_anchored_local"] for s in ranks.values()))
+    check_pin("distributed", arc, st0, PIN)
+    missing = [(r, name) for r, s in ranks.items() for name in ("kmer_scan", "walk_encode")
+               if s["launches"].get(name, 0) < 1]
+    if missing:
+        raise AssertionError(f"distributed: kernels never launched: {missing}")
+    fig["distributed"] = {"wall_s": wall, "ranks": {r: {"compress_s": s["wall_s"],
+                                                        "launches": s["launches"],
+                                                        "traffic_bytes": s["traffic_bytes"],
+                                                        "parse_sharded": s["parse_sharded"]}
+                                                    for r, s in ranks.items()}}
+    log(f"compress_distributed over {n_ranks} gloo ranks ok (devices "
+        f"{[s['device'] for s in ranks.values()]}): archive = the reference's; {wall:.2f} s "
+        f"from spawn to exit, compress {[round(s['wall_s'], 3) for s in ranks.values()]} s on "
+        f"{card}")
+    return fig
+
+
 def main() -> int:
     import torch
 
@@ -3121,11 +3270,14 @@ def main() -> int:
     done("phase 6")
     stream_fig = stream_phase(paths)
     done("phase 11")
+    mesh_fig = mesh_phase(paths, card)
+    done("phase 12")
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
     log(f"[multiword kernels] {json.dumps(wide_fig)}")
     log(f"[long-k tensor path and graph] {json.dumps(longk_fig)}")
     log(f"[inputs past one card's limits] {json.dumps(stream_fig)}")
+    log(f"[several devices] {card}: {json.dumps(mesh_fig)}")
     out = []
     for name, (src, repl) in KERNELS.items():
         r = records[name]
@@ -3142,4 +3294,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(large_corpus_child() if sys.argv[1:] == ["--large-corpus"] else main())
+    if sys.argv[1:] == ["--large-corpus"]:
+        sys.exit(large_corpus_child())
+    if sys.argv[1:2] == ["--distributed-rank"]:
+        sys.exit(distributed_rank_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7]))
+    sys.exit(main())

@@ -18,7 +18,11 @@ Package layout (counterparts of leon_tpu's modules):
   codecs/      frame coders, headers, block stream assembly
   io/          container, FASTA/FASTQ parsers, decompression record writer
   graph.py     the de Bruijn graph API (K10-K12)
-  pipeline.py  compress / decompress on one device
+  pipeline.py  compress / decompress, on one device or lane-sharded over
+               several (mesh_devices, device=[...])
+  parallel/    mesh.py (a device list, sharded Bloom build, scan, encode),
+               distributed.py (compress_distributed on torch.distributed)
+  entry.py     entry(device), dryrun(devices)
   cli.py       the reference's command line
 """
 

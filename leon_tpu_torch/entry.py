@@ -6,15 +6,22 @@ entry(device)  -> (fn, example_args): the walk-encode step (kernel K15,
                   built from its first k-mers (kernel K13 scan, host
                   build_np), the same batch, bitset and step as
                   __graft_entry__.entry().
-dryrun(devices) -> the tensor path of __graft_entry__.dryrun_multichip,
-                  steps 1-3, on the port's mesh over `devices`: sharded
-                  k-mer scan (K13) and count (torch.sort + K14), the
-                  sharded Bloom build (K16), the sharded encode (K15).
+dryrun(devices) -> __graft_entry__.dryrun_multichip on the port's mesh over
+                  `devices`: steps 1-3, the tensor path (sharded k-mer scan
+                  (K13) and count (torch.sort + K14), the sharded Bloom
+                  build (K16), the sharded encode (K15)); steps 4-5, the
+                  product path (pipeline.compress and decompress with the
+                  lanes sharded over the mesh: the archive equals the
+                  one-device archive, the round trip is exact, and the
+                  mesh decode equals the one-device decode).
 
 Both run on the card unless the caller passes a CPU device.
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -67,9 +74,10 @@ def entry(device=None):
 
 
 def dryrun(devices):
-    """__graft_entry__.dryrun_multichip's steps 1-3 on the mesh over
-    `devices` (k = 15, H = 4, L = 48, B = max(2n, 8) rounded up to a
-    multiple of n): returns ((uniq, counts), bitset replicas, enc)."""
+    """__graft_entry__.dryrun_multichip on the mesh over `devices`: steps 1-3
+    at k = 15, H = 4, L = 48, B = max(2n, 8) rounded up to a multiple of n,
+    then steps 4-5 (_dryrun_product). Raises on any mismatch; returns
+    ((uniq, counts), bitset replicas, enc) of steps 1-3."""
     m = pmesh.make_mesh(devices=devices)
     n = m.size
     k, H, seed = 15, 4, 0x1234ABCD
@@ -91,4 +99,44 @@ def dryrun(devices):
     enc = pmesh.make_sharded_encoder(m, k, H, n_words, seed)(codes, lengths, bitset)
     if tuple(enc["anchored"].shape) != (B,):
         raise AssertionError(f"dryrun: anchored has shape {tuple(enc['anchored'].shape)}")
+    _dryrun_product(list(m.devices))
     return (uniq, counts), bitset, enc
+
+
+def _dryrun_product(devices: list) -> None:
+    """Steps 4-5 of __graft_entry__.dryrun_multichip (__graft_entry__.py:
+    94-134, the same corpus): 96 FASTA reads of 80 bp from a random
+    800-base contig, k = 15, batch_reads = 8n, compressed and decompressed
+    with the lanes sharded over `devices` and on its first device alone."""
+    from leon_tpu_torch import pipeline
+    from leon_tpu_torch.config import LeonConfig
+
+    n = len(devices)
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    contig = rng.integers(0, 4, 800, dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as td:
+        src = os.path.join(td, "in.fasta")
+        with open(src, "wb") as f:
+            for i in range(96):
+                st = int(rng.integers(0, 700))
+                f.write(b">r%d\n%s\n" % (i, bases[contig[st : st + 80]].tobytes()))
+        common = dict(kmer_size=15, batch_reads=8 * n, reads_per_block=64)
+        cfg_mesh = LeonConfig(mesh_devices=n, **common)
+        cfg_one = LeonConfig(mesh_devices=1, **common)
+        a, b = os.path.join(td, "mesh.leon"), os.path.join(td, "one.leon")
+        pipeline.compress(src, a, cfg=cfg_mesh, device=devices)
+        pipeline.compress(src, b, cfg=cfg_one, device=devices[0])
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError("dryrun: mesh archive != single-device archive")
+        d = pipeline.decompress(a, os.path.join(td, "mesh.out"), cfg=cfg_mesh,
+                                device=devices)["output"]
+        with open(src, "rb") as fs, open(d, "rb") as fd:
+            if fs.read() != fd.read():
+                raise AssertionError("dryrun: mesh round trip mismatch")
+        d1 = pipeline.decompress(a, os.path.join(td, "one.out"), cfg=cfg_one,
+                                 device=devices[0])["output"]
+        with open(d, "rb") as fm, open(d1, "rb") as f1:
+            if fm.read() != f1.read():
+                raise AssertionError("dryrun: mesh decode != single-device decode")

@@ -183,6 +183,17 @@ def host_tables(tab: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(tab, dtype=np.uint32)
 
 
+def device_scope(device):
+    """A context in which `device` (a torch.device) is the current CUDA
+    device: the C entry points launch there, so work on another card of a
+    mesh runs in its scope. Nothing for the CPU."""
+    import contextlib
+
+    import torch
+
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 def on_cuda(t, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; any other device raises.
     The wrappers take their plain version only for CPU tensors."""

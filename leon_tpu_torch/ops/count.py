@@ -38,8 +38,13 @@ planes into the slab, ``sort_planes`` + K14 reduce slabs and merge runs,
 ``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
 over those solid rows.
 Both counters share ``_SlabCounter``'s slab, flush, merge, spill and
-finalize. ``merge_counts`` (host) is a copy of count.py:107-170,
-``histogram`` of count.py:173-174, ``auto_cutoff`` of count.py:761-784.
+finalize, on the reference's schedule (its bucketed run sizes decide every
+merge and spill), and take a chunk as lane shards (``add_shards``, the
+mesh) and a distinct run from elsewhere (``ingest_run``, the distributed
+count). ``merge_counts`` (host) is a copy of count.py:107-170,
+``histogram`` of count.py:173-174, ``_bucket_size`` of count.py:267-275,
+``range_boundaries`` and ``range_split`` of count.py:722-759,
+``auto_cutoff`` of count.py:761-784.
 """
 
 from __future__ import annotations
@@ -435,6 +440,44 @@ def auto_cutoff(hist: np.ndarray) -> int:
     return min(c, 50)
 
 
+def range_boundaries(nproc: int, k: int, W: int) -> np.ndarray:
+    """(nproc-1, W) u32 LSW-first boundaries splitting the canonical k-mer
+    space into nproc ranges of equal expected mass (a copy of
+    leon_tpu/ops/count.py:722-737): canonical = min(fwd, rc) of two ~uniform
+    2k-bit values, so P(C <= x) = 1 - (1 - x/T)^2 with T = 2^(2k), and the
+    inverse CDF needs no data (the same on every process)."""
+    import math
+
+    T = 1 << (2 * k)
+    out = np.zeros((max(0, nproc - 1), W), np.uint32)
+    for i in range(1, nproc):
+        x = int(T * (1.0 - math.sqrt(1.0 - i / nproc)))
+        for j in range(W):
+            out[i - 1, j] = (x >> (32 * j)) & 0xFFFFFFFF
+    return out
+
+
+def range_split(uniq: np.ndarray, bounds: np.ndarray) -> np.ndarray:
+    """Split positions of a sorted (M, W) distinct run at the boundary keys
+    (a copy of leon_tpu/ops/count.py:740-759): (nproc+1,) int64 offsets,
+    range q = rows[off[q]:off[q+1]]."""
+    M, W = uniq.shape
+    dt = np.dtype([(f"w{j}", ">u4") for j in range(W - 1, -1, -1)])
+
+    def rec(x):
+        r = np.empty(x.shape[0], dtype=dt)
+        for j in range(W):
+            r[f"w{j}"] = x[:, j]
+        return r
+
+    offs = np.zeros(bounds.shape[0] + 2, np.int64)
+    offs[-1] = M
+    if M and bounds.shape[0]:
+        offs[1:-1] = np.searchsorted(rec(np.ascontiguousarray(uniq)),
+                                     rec(np.ascontiguousarray(bounds)))
+    return offs
+
+
 # ---------------------------------------------------------------------------
 # Streaming counter
 # ---------------------------------------------------------------------------
@@ -493,13 +536,33 @@ class _Spilling:
         return _host_run(self.rows, self.counts, W)
 
 
+def _bucket_size(n: int, floor: int = 1 << 12) -> int:
+    """The reference's size bucket of a run of n rows (a copy of
+    leon_tpu/ops/count.py:267-275): 1/8-octave steps of at least 4096 rows,
+    1/4-octave past 64M rows. The port pads nothing to it; the counters
+    keep it as each run's size for the merge and spill decisions, so that
+    they merge and spill exactly where the reference does."""
+    shift = 3 if n <= (64 << 20) else 2
+    gran = max(floor, 1 << max(0, (n - 1).bit_length() - shift))
+    return -(-n // gran) * gran
+
+
 class _SlabCounter:
     """What both counters share (see the module docstring): the slab (one to
     eight (n,) int64 buffers the scan kernel writes into), its flush to a
     sorted distinct run, the merge of runs past merge_factor slabs, the
     spill of a merged run to host RAM and finalize's selection rules. A
     subclass says how rows are scanned, sorted, reduced, uploaded and
-    hashed."""
+    hashed.
+
+    The schedule is the reference DeviceCounter's (count.py:285-426,
+    442-555), kept as bookkeeping: a slab counts the B * P positions of
+    each chunk (valid or not, at every k) and flushes after the chunk that
+    reaches slab_kmers, so its buffers hold up to a slab plus one chunk; a
+    flushed slab's run joins the runs, and its merge check runs, only when
+    the next slab flushes or the count ends (the reference's deferred
+    compaction); every run counts as _bucket_size of its distinct rows in
+    the merge trigger, the next trigger and both spill tests."""
 
     def __init__(self, k: int, device, slab_kmers: int, merge_factor: int, spill_rows: int,
                  n_bufs: int):
@@ -510,10 +573,12 @@ class _SlabCounter:
         self.merge_factor = int(merge_factor)
         self.spill_rows = int(spill_rows)
         self._n_bufs = n_bufs
-        self._buf: list | None = None  # slab storage (grows to slab)
-        self._fill = 0
-        self._runs: list = []  # (rows, counts int32) distinct runs on the device
-        self._runs_n = 0
+        self._buf: list | None = None  # slab storage (grows to a slab plus a chunk)
+        self._fill = 0  # rows in the buffers
+        self._pend_n = 0  # positions of the chunks in the slab
+        self._pending = None  # the last flushed slab's (rows, counts), not a run yet
+        self._runs: list = []  # (rows, counts int32, bucket) distinct runs on the device
+        self._runs_n = 0  # sum of the runs' buckets
         self._next_merge = self.merge_factor * self.slab
         # spilled runs: (uniq, counts) host pairs, the newest maybe still a
         # _Spilling (depth-1 deferral: at most one copy in flight)
@@ -522,8 +587,6 @@ class _SlabCounter:
 
     def _reserve(self, n: int) -> list:
         """(n,) views of the slab buffers for the scan kernel to write into."""
-        if self._fill and self._fill + n > self.slab:
-            self._flush_slab()
         need = self._fill + n
         if self._buf is None or need > self._buf[0].numel():
             have = self._buf[0].numel() if self._buf is not None else 0
@@ -538,14 +601,51 @@ class _SlabCounter:
         self._fill = need
         return views
 
-    def _flush_slab(self, merge: bool = True) -> None:
-        if not self._fill:
+    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
+        """Scan one packed chunk (B, ceil(L/16)) int32 straight into the slab."""
+        self.add_shards([(packed, lengths)], L)
+
+    def add_shards(self, shards: list, L: int) -> None:
+        """Scan one chunk given as lane blocks [(packed, lengths), ...] in lane
+        order (the mesh's shards, each on its own device) into the one slab
+        on the counter's device, then count the chunk's positions towards
+        the slab (count.py:298-308)."""
+        positions = 0
+        for packed, lengths in shards:
+            n = packed.shape[0] * (L - self.k + 1)
+            positions += n
+            if packed.device == self.device:
+                m = self._scan(packed, lengths, L, self._reserve(n))[0].shape[0]
+                self._fill -= n - m  # K17 writes the valid rows only
+            else:  # another card scans its lanes; its rows come over
+                with kernels.device_scope(packed.device):
+                    rows = self._scan(packed, lengths, L, None)
+                for view, r in zip(self._reserve(rows[0].shape[0]), rows):
+                    view.copy_(r)
+        self._pend_n += positions
+        if self._pend_n >= self.slab:
+            self._flush_slab()
+
+    def _flush_slab(self) -> None:
+        """Reduce the slab to its sorted distinct run; the previous slab's run
+        joins the runs first (count.py:320-333)."""
+        if not self._pend_n:
             return
+        self._resolve_compact()
         filled = [b[: self._fill] for b in self._buf]
-        self._fill = 0
-        rows, counts = self._slab_run(filled)
-        self._runs.append((rows, counts))
-        self._runs_n += counts.numel()
+        self._fill = self._pend_n = 0
+        self._pending = self._slab_run(filled)
+
+    def _resolve_compact(self, merge: bool = True) -> None:
+        """The last flushed slab's run joins the runs at its bucketed size;
+        then the merge trigger is checked (count.py:335-370)."""
+        if self._pending is None:
+            return
+        rows, counts = self._pending
+        self._pending = None
+        bucket = _bucket_size(max(1, counts.numel()))
+        self._runs.append((rows, counts, bucket))
+        self._runs_n += bucket
         if merge and self._runs_n >= self._next_merge and len(self._runs) > 1:
             self._merge_runs()
 
@@ -557,18 +657,27 @@ class _SlabCounter:
         return self._merge_sorted(rows, counts, True, want_hist)
 
     def _merge_runs(self) -> None:
-        rows, counts, _ = self._merged(False)
-        if counts.numel() >= self.spill_rows:
-            self._spill(rows, counts)
+        """count.py:389-405: a lone run spills when its bucket reaches
+        spill_rows; several merge into one, which spills at a bucket of
+        spill_rows or more and else stays as the only run, the next merge
+        due merge_factor slabs past its bucket."""
+        if len(self._runs) <= 1:
+            if self._runs and self._runs[0][2] >= self.spill_rows:
+                self._spill_run(*self._runs[0])
             return
-        self._runs = [(rows, counts)]
-        self._runs_n = counts.numel()
-        self._next_merge = self._runs_n + self.merge_factor * self.slab
+        rows, counts, _ = self._merged(False)
+        bucket = _bucket_size(max(1, counts.numel()))
+        if bucket >= self.spill_rows:
+            self._spill_run(rows, counts, bucket)
+            return
+        self._runs = [(rows, counts, bucket)]
+        self._runs_n = bucket
+        self._next_merge = bucket + self.merge_factor * self.slab
 
-    def _spill(self, rows: torch.Tensor, counts: torch.Tensor) -> None:
-        """Move a merged run to host RAM and restart the device merge
-        hierarchy empty (count.py:407-426): this run's copy starts, the
-        previous one's is resolved."""
+    def _spill_run(self, rows: torch.Tensor, counts: torch.Tensor, bucket: int) -> None:
+        """Move a merged run (bucket: its bucketed size) to host RAM and
+        restart the device merge hierarchy empty (count.py:407-426): this
+        run's copy starts, the previous one's is resolved."""
         copy = _Spilling(rows, counts)
         if self._host_runs and isinstance(self._host_runs[-1], _Spilling):
             self._host_runs[-1] = self._host_runs[-1].resolve(self.W)
@@ -577,19 +686,31 @@ class _SlabCounter:
         self._next_merge = self.merge_factor * self.slab
         self.n_spills += 1
 
+    def _device_empty(self) -> bool:
+        return not self._pend_n and not self._runs and self._pending is None
+
+    def _merged_run(self):
+        """Collapse the slab and the runs on the device into one run, which
+        the merge spills where its bucket reaches spill_rows
+        (count.py:489-502); returns (rows, counts, bucket) or None."""
+        self._flush_slab()
+        self._resolve_compact()
+        self._buf = None
+        if not self._runs:
+            return None
+        if len(self._runs) > 1:
+            self._merge_runs()
+        return self._runs[0] if self._runs else None
+
     def _host_merged(self) -> tuple | None:
         """Every run, on the device and spilled, merged into one host run
         (uniq (M, W) u32 LSW first, counts (M,) int64), or None when there
-        is none (count.py:489-524). The device runs merge first, and that
-        merge spills too where it reaches spill_rows."""
-        self._flush_slab()
-        self._buf = None
-        if len(self._runs) > 1:
-            self._merge_runs()
-        parts = [r.resolve(self.W) if isinstance(r, _Spilling) else r for r in self._host_runs]
+        is none (count.py:504-524)."""
+        r = None if self._device_empty() else self._merged_run()
+        parts = [h.resolve(self.W) if isinstance(h, _Spilling) else h for h in self._host_runs]
         self._host_runs = []
-        if self._runs:
-            (rows, counts), = self._runs
+        if r is not None:
+            rows, counts, _ = r
             self._runs, self._runs_n = [], 0
             parts.append(_host_run(rows.cpu(), counts.cpu(), self.W))
         if not parts:
@@ -606,6 +727,20 @@ class _SlabCounter:
         uniq, counts = hm
         return uniq, np.minimum(counts, _I32_MAX).astype(np.int32)
 
+    def ingest_run(self, uniq: np.ndarray, counts: np.ndarray) -> None:
+        """Feed a sorted distinct run (distinct_run's, maybe another
+        process's) back in as a run of its own, at its bucketed size and
+        with no merge check (count.py:538-555); finalize then takes the
+        cutoff and the Bloom filter from the merged counts."""
+        M = int(uniq.shape[0])
+        if M == 0:
+            return
+        rows = self._upload(np.ascontiguousarray(uniq, dtype=np.uint32))
+        cnt = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)).to(self.device)
+        bucket = _bucket_size(M)
+        self._runs.append((rows, cnt, bucket))
+        self._runs_n += bucket
+
     def finalize(self, abundance, bits_per_kmer, H, seed: int,
                  lossy_quals: bool = False, unitig_max: int = 0):
         """Returns (bitset (n_words,) int32, n_words, cutoff, n_solid,
@@ -614,12 +749,7 @@ class _SlabCounter:
         DeviceCounter.finalize (count.py:557-641): without a spill the
         final merge stays on the device and n_solid is read from the
         clamped histogram; after one, _finalize_host."""
-        if self._host_runs:
-            return self._finalize_host(abundance, bits_per_kmer, H, seed, lossy_quals,
-                                       unitig_max)
-        self._flush_slab(merge=False)  # the final collapse never spills (count.py:442-487)
-        self._buf = None
-        if not self._runs:
+        if self._device_empty():
             hist = np.zeros(256, np.int64)
             cutoff = abundance if abundance is not None else 2
             if bits_per_kmer is None:
@@ -629,8 +759,18 @@ class _SlabCounter:
             n_words = bloom.choose_n_words(1, bits_per_kmer)
             bitset = torch.zeros(n_words, dtype=torch.int32, device=self.device)
             return bitset, n_words, cutoff, 0, hist, H, None
+        if self._host_runs:
+            return self._finalize_host(abundance, bits_per_kmer, H, seed, lossy_quals,
+                                       unitig_max)
+        # the final collapse of the slab, the last flushed slab and the runs
+        # never spills (count.py:442-487)
+        self._resolve_compact(merge=False)
+        if self._pend_n:
+            self._runs.append((*self._slab_run([b[: self._fill] for b in self._buf]), 0))
+            self._fill = self._pend_n = 0
+        self._buf = None
         if len(self._runs) == 1:
-            rows, counts = self._runs[0]
+            rows, counts, _ = self._runs[0]
             self._runs, self._runs_n = [], 0
             rows, counts, hist_t = self._merge_sorted(rows, counts, False, True)
         else:
@@ -692,13 +832,9 @@ class DeviceCounter(_SlabCounter):
                  spill_rows: int = 64 << 20):
         super().__init__(k, device, slab_kmers, merge_factor, spill_rows, 1)
 
-    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
-        """Scan one packed chunk (B, ceil(L/16)) int32 straight into the slab."""
-        B = packed.shape[0]
-        n = B * (L - self.k + 1)
-        kmer_scan(packed, lengths, self.k, L, out=self._reserve(n)[0])
-        if self._fill >= self.slab:
-            self._flush_slab()
+    def _scan(self, packed, lengths, L: int, out) -> tuple:
+        """K1: every position's key (SENTINEL where invalid), into out."""
+        return (kmer_scan(packed, lengths, self.k, L, out=out[0] if out else None),)
 
     def _slab_run(self, filled: list):
         uk, uc, _ = runs(torch.sort(filled[0]).values)
@@ -736,14 +872,9 @@ class WordCounter(_SlabCounter):
         super().__init__(k, device, slab_kmers, merge_factor, spill_rows,
                          n_planes(words_for_k(k)))
 
-    def add_packed(self, packed: torch.Tensor, lengths: torch.Tensor, L: int) -> None:
-        """Scan one packed chunk's valid k-mers straight into the slab."""
-        B = packed.shape[0]
-        n = B * (L - self.k + 1)  # at most; K17 writes the valid rows only
-        m = kmer_scan_halves(packed, lengths, self.k, L, out=tuple(self._reserve(n)))[0].shape[0]
-        self._fill -= n - m
-        if self._fill >= self.slab:
-            self._flush_slab()
+    def _scan(self, packed, lengths, L: int, out) -> tuple:
+        """K17: the valid positions' planes only, at the head of out."""
+        return kmer_scan_halves(packed, lengths, self.k, L, out=tuple(out) if out else None)
 
     def _slab_run(self, filled: list):
         words, counts, _ = word_runs(sort_planes(filled), self.W)

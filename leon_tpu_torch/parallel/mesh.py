@@ -20,8 +20,9 @@ results come back concatenated in lane order on the first device.
   shard; the lane count must split evenly (it raises otherwise, as JAX's
   sharding does).
 
-Cards in several processes (NCCL) belong to parallel/distributed.py's
-port, which is not here yet.
+The same layout shards the main path: pipeline.py's placer splits each
+chunk's lanes over the mesh's devices inside compress and decompress.
+Work across processes is parallel/distributed.py's.
 """
 
 from __future__ import annotations

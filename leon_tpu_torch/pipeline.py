@@ -1,5 +1,5 @@
 """Compression / decompression drivers of the port (counterpart of
-leon_tpu/pipeline.py), on one device.
+leon_tpu/pipeline.py), on one device or lane-sharded over several.
 
   compress:   parse -> k-mer scan into count slabs (K1) -> sort + reduce
               (torch.sort + K2) -> abundance cutoff -> Bloom build (K3) ->
@@ -42,9 +42,18 @@ chunk_block), the host unitig thread, the ordered frame pool, the tail
 and the decode driver. Archives are byte-identical to leon_tpu's for the
 same input and config.
 
+Several devices (leon_tpu/pipeline.py:264-297, the reference's _Placer):
+device= takes one device or a sequence of them (the mesh, in shard order;
+a device may repeat), and mesh_devices picks the first n cards (_setup).
+Each chunk's lanes split into contiguous blocks, one a shard: the shards
+scan into the one counter on the first device (its flushes, merges and
+spills are a one-device run's), the Bloom bitset is copied once to every
+device, and each shard walk-encodes and re-walks its lanes; the results
+join in lane order, so the archive and the decoded output do not depend on
+the mesh. The unitig build and K8 run on the first device.
+
 Not here: the compile-service retry and the host-count fallback (never
-ported); the multi-chip placer (mesh_devices > 1), which raises
-NotImplementedError naming ROADMAP.md queue 1, item 11. The walk sizes its
+ported). The walk sizes its
 event buffers from the per-read counts the kernel produced, so no chunk
 overflows and the reference's cap retry and dense fallback have no
 counterpart; chunks are encoded one at a time (the card is idle >99% of
@@ -69,7 +78,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from leon_tpu_torch import native
+from leon_tpu_torch import kernels, native
 from leon_tpu_torch.codecs import frames
 from leon_tpu_torch.codecs import headers as hcodec
 from leon_tpu_torch.config import LeonConfig
@@ -88,24 +97,79 @@ BATCH_CUDA = 65536  # lanes per walk chunk on the card
 BATCH_CPU = 8192
 
 
-def _setup(cfg: Optional[LeonConfig], device) -> tuple[LeonConfig, torch.device]:
+def _mesh_devices(device, mesh_devices: Optional[int]) -> tuple:
+    """The devices of the run, in shard order: a sequence given as device=
+    is the mesh (repeats allowed; mesh_devices must be None or its length);
+    one CUDA device takes the first mesh_devices visible cards (every
+    visible card when None, as the reference takes jax.devices()); the CPU
+    takes mesh_devices shards, all on the CPU."""
+    if isinstance(device, (list, tuple)):
+        devs = tuple(torch.device(d) for d in device)
+        if not devs:
+            raise ValueError("device: an empty sequence of devices")
+        if mesh_devices is not None and mesh_devices != len(devs):
+            raise ValueError(f"mesh_devices={mesh_devices} but {len(devs)} devices were given")
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda" and torch.cuda.is_available():
+            visible = torch.cuda.device_count()
+            n = visible if mesh_devices is None else mesh_devices
+            if n > visible:
+                raise ValueError(f"mesh_devices={n}: torch sees {visible} CUDA devices")
+            devs = (dev,) if n <= 1 else tuple(torch.device("cuda", i) for i in range(n))
+        else:
+            devs = (dev,) * max(1, mesh_devices or 1)
+    for d in devs:
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+        if d.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {d}")
+    # "cuda" names the current card, as a tensor's device does
+    return tuple(torch.device("cuda", torch.cuda.current_device())
+                 if d.type == "cuda" and d.index is None else d for d in devs)
+
+
+def _setup(cfg: Optional[LeonConfig], device) -> tuple:
     """Explicit lane count per device (never cfg.resolved(), which imports
-    jax), and the checks every entry point shares."""
+    jax), the checks every entry point shares, and the placer. Returns
+    (cfg, the first device, placer)."""
     cfg = cfg or LeonConfig()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
+    devs = _mesh_devices(device, cfg.mesh_devices)
     if cfg.batch_reads is None:
         cfg = dataclasses.replace(
-            cfg, batch_reads=BATCH_CUDA if device.type == "cuda" else BATCH_CPU)
-    if (cfg.mesh_devices or 1) > 1:
-        raise NotImplementedError(
-            f"mesh_devices={cfg.mesh_devices} (lanes sharded over several cards) is not ported "
-            "to leon_tpu_torch yet (ROADMAP.md queue 1, item 11)")
+            cfg, batch_reads=BATCH_CUDA if devs[0].type == "cuda" else BATCH_CPU)
     require_native()
-    return cfg, device
+    return cfg, devs[0], _Placer(devs, cfg.batch_reads)
+
+
+class _Placer:
+    """Where a chunk's lanes go (leon_tpu/pipeline.py:264-297): one device,
+    or contiguous blocks of lanes over the mesh's devices in shard order
+    (parallel/mesh.py's layout, JAX's P("d")), each block uploaded to its
+    own device. As in the reference, a mesh whose size does not divide
+    batch_reads is not used: the run takes its first device alone."""
+
+    def __init__(self, devices: tuple, batch_reads: int):
+        n = len(devices)
+        self.devices = devices if n > 1 and batch_reads % n == 0 else devices[:1]
+        self.n = len(self.devices)
+
+    def blocks(self, lanes: int) -> list:
+        """[(lo, hi), ...]: shard i's lanes, in lane order."""
+        per = -(-lanes // self.n)
+        return [(min(lanes, i * per), min(lanes, (i + 1) * per)) for i in range(self.n)]
+
+    def upload(self, ch: "Chunk") -> list:
+        """[(packed, lengths), ...]: each shard's lanes of the chunk on its
+        device."""
+        return [(state.packed_to_torch(ch.packed[lo:hi], d),
+                 torch.from_numpy(ch.dev_len[lo:hi]).to(d))
+                for d, (lo, hi) in zip(self.devices, self.blocks(ch.codes.shape[0]))]
+
+    def replicas(self, t: torch.Tensor) -> dict:
+        """{device: t there}: one copy to every distinct device of the mesh
+        (the reference's replicated bitset, pipeline.py:826-829)."""
+        return {d: t if d == t.device else t.to(d) for d in dict.fromkeys(self.devices)}
 
 
 def require_native() -> None:
@@ -273,11 +337,14 @@ def _save_count_checkpoint(cfg: LeonConfig, k: int, input_path: str, lossy_quals
     os.replace(tmp, cfg.checkpoint)
 
 
-def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
+def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device, placer: _Placer,
                 dev_cache: Optional[dict], lossy_quals: bool):
-    """K-mer counting + Bloom build on the device. dev_cache (None in
-    stream mode) keeps each chunk's uploaded (packed, lengths) for the
-    encode pass. Returns the counter's finalize tuple and its spill count."""
+    """K-mer counting + Bloom build on the device. Each shard of the mesh
+    scans its lanes of a chunk (K1 or K17); the keys go, in lane order,
+    into one counter on the first device, so that the slabs, merges and
+    spills are a one-device run's. dev_cache (None in stream mode) keeps
+    each chunk's uploaded shards [(packed, lengths), ...] for the encode
+    pass. Returns the counter's finalize tuple and its spill count."""
     counter = (count.DeviceCounter if k <= K.MAX_K else count.WordCounter)(
         k, device, cfg.count_slab_kmers, cfg.count_merge_factor, cfg.count_spill_rows)
     ci = 0
@@ -287,12 +354,11 @@ def _count_pass(preps, cfg: LeonConfig, k: int, H, seed: int, device,
             if not _walkable(ch, k):
                 continue
             with span("count.pack_h2d"):
-                packed = state.packed_to_torch(ch.packed, device)
-                dlen = torch.from_numpy(ch.dev_len).to(device)
+                shards = placer.upload(ch)
                 if dev_cache is not None:
-                    dev_cache[ci - 1] = (packed, dlen)
+                    dev_cache[ci - 1] = shards
             with span("count.dispatch"):
-                counter.add_packed(packed, dlen, ch.L)
+                counter.add_shards(shards, ch.L)
     with span("count.finalize"):
         res = counter.finalize(
             cfg.abundance, cfg.bloom_bits_per_kmer, H, seed, lossy_quals,
@@ -352,6 +418,37 @@ def _start_unitig_thread(run: count.Run, cutoff: int, n_solid: int, k: int, W: i
     return t
 
 
+def _start_unitigs(run: Optional[count.Run], cfg: LeonConfig, cutoff: int, n_solid: int, k: int,
+                   W: int, out: list) -> tuple:
+    """Start the unitig build where the section may be written
+    (leon_tpu/pipeline.py:636-722): on the device when n_solid <=
+    unitig_device_max_kmers, else on a host thread. Returns (thread or None,
+    the device build or None)."""
+    if not (cfg.unitig_sections and run is not None and 0 < n_solid <= cfg.unitig_max_kmers):
+        return None, None
+    if n_solid <= cfg.unitig_device_max_kmers:
+        with span("count.unitig_dispatch"):
+            return None, unitig.dispatch_build(_solid_rows(run, cutoff), k, run.nu)
+    return _start_unitig_thread(run, cutoff, n_solid, k, W, out), None
+
+
+def _dict_payload(adict: blockcodec.AnchorDict, unitig_payload: Optional[bytes], dict_src,
+                  k: int) -> bytes:
+    """The DICT section: indices into the solid enumeration where the UNITIGS
+    section is written (dict_src as _unitig_sections returns it, or None
+    where only the payload's bytes are at hand), else the anchors' words."""
+    if unitig_payload is None or not len(adict):
+        return adict.payload(None)
+    if dict_src is None:
+        # a resumed count holds only the payload bytes: enumerate it
+        return adict.payload(unitig.solid_kmers_sorted(unitig_payload, k))
+    if dict_src[0] == "infl":
+        # the build's solid run IS the enumeration: look the anchors up on
+        # the device instead of shipping the run down
+        return adict.payload_indexed(*unitig.solid_indices(dict_src[1], adict.words_array()))
+    return adict.payload(dict_src[1])
+
+
 def _unitig_sections(thread, out: list, inflight, n_words: int) -> tuple:
     """Join the host build or drain the device build and apply the frozen
     size rule (UNITIGS only when smaller than the bitset). Returns (payload
@@ -371,49 +468,74 @@ def _unitig_sections(thread, out: list, inflight, n_words: int) -> tuple:
     return None, None
 
 
-def _walk_chunk(ch: Chunk, packed, dlen, bitset, n_words: int, k: int, H: int,
+_LANE_KEYS = ("anchored", "apos", "nbif_r", "nerr_r", "nbif_l", "nerr_l", "conf16")
+_FLAT_KEYS = ("errgap_flat", "errnt_flat", "bif_flat")
+
+
+def _walk_chunk(ch: Chunk, shards: list, bitsets: dict, n_words: int, k: int, H: int,
                 seed: int, with_conf: bool) -> dict:
-    """One chunk's walk encode: the flat buffer, sized from the chunk's own
-    event totals (it never overflows), shipped down and unpacked."""
+    """One chunk's walk encode: each shard [(packed, lengths), ...] walks its
+    lanes (K4 or K18) against the bitset on its device into a flat buffer
+    sized from its own event totals (it never overflows), shipped down and
+    unpacked. The shards' enc dicts join in lane order, which is the
+    one-device dict: a lane's fields and its events are its own, and the
+    event streams run lane after lane."""
     with span("enc.walk"):
-        buf, cap_err, cap_bif = walk.encode_batch_compact_packed(
-            packed, dlen, bitset, k, H, n_words, seed, None, None, with_conf, ch.L)
-        buf_h = buf.cpu().numpy().view(np.uint16)
+        bufs = []
+        for packed, dlen in shards:
+            with kernels.device_scope(packed.device):
+                bufs.append(walk.encode_batch_compact_packed(
+                    packed, dlen, bitsets[packed.device], k, H, n_words, seed, None, None,
+                    with_conf, ch.L))
+        bufs = [(buf.cpu().numpy().view(np.uint16), ce, cb) for buf, ce, cb in bufs]
     with span("enc.unpack"):
-        enc = walk.unpack_compact(buf_h, ch.n, ch.codes.shape[0], ch.L, cap_err, cap_bif,
-                                  with_conf=with_conf, k=k)
-    if enc is None:
-        raise RuntimeError("walk buffer overflow with exact capacities")
-    return enc
+        encs = []
+        lo = 0
+        for (packed, _), (buf_h, cap_err, cap_bif) in zip(shards, bufs):
+            B = packed.shape[0]
+            enc = walk.unpack_compact(buf_h, max(0, min(ch.n - lo, B)), B, ch.L, cap_err,
+                                      cap_bif, with_conf=with_conf, k=k)
+            if enc is None:
+                raise RuntimeError("walk buffer overflow with exact capacities")
+            encs.append(enc)
+            lo += B
+    if len(encs) == 1:
+        return encs[0]
+    out = {n: np.concatenate([e[n] for e in encs]) for n in _LANE_KEYS + _FLAT_KEYS}
+    out["compact"] = True
+    return out
 
 
 def compress(input_path: str, output_path: Optional[str] = None,
              cfg: Optional[LeonConfig] = None, *, device) -> dict:
-    """Compress a FASTA/FASTQ file into a .leon archive on `device`
-    ('cuda' or 'cpu'); returns the reference's stats dict."""
-    cfg, device = _setup(cfg, device)
+    """Compress a FASTA/FASTQ file into a .leon archive on `device` ('cuda'
+    or 'cpu', or a sequence of devices: the mesh, _mesh_devices); returns
+    the reference's stats dict. The archive does not depend on the mesh."""
+    cfg, device, placer = _setup(cfg, device)
     if cfg.profile_dir:
         # the same call under torch.profiler (leon_tpu/pipeline.py:458-468)
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
         with profile(activities=acts) as prof:
-            st = compress(input_path, output_path, dataclasses.replace(cfg, profile_dir=None),
-                          device=device)
+            st = compress(input_path, output_path,
+                          dataclasses.replace(cfg, profile_dir=None, mesh_devices=None),
+                          device=list(placer.devices))
         os.makedirs(cfg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.profile_dir,
                                               f"compress.{time.time_ns()}.pt.trace.json"))
         return st
-    try:
-        return _compress_impl(input_path, output_path, cfg, device, None)
-    except bank.IrregularInput:
-        # the optimistic array parser hit irregular structure: restart with
-        # the tolerant parser (leon_tpu/pipeline.py:469-478)
-        return _compress_impl(input_path, output_path, cfg, device, False)
+    with kernels.device_scope(device):
+        try:
+            return _compress_impl(input_path, output_path, cfg, device, placer, None)
+        except bank.IrregularInput:
+            # the optimistic array parser hit irregular structure: restart
+            # with the tolerant parser (leon_tpu/pipeline.py:469-478)
+            return _compress_impl(input_path, output_path, cfg, device, placer, False)
 
 
 def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
-                   device: torch.device, parser_hint: Optional[bool]) -> dict:
+                   device: torch.device, placer: _Placer, parser_hint: Optional[bool]) -> dict:
     span_reset()
     t0 = time.time()
     if output_path is None:
@@ -487,8 +609,7 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
             tally["blocks"] += 1
             yield p
 
-    unitig_thread = None
-    unitig_inflight = None
+    unitig_thread = unitig_inflight = None
     unitig_out: list = []
     sections = None  # (UNITIGS payload or None, the DICT's enumeration), once resolved
     n_spills = 0
@@ -510,14 +631,9 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
             n_reads = tally["reads"]
     else:
         (bitset, n_words, cutoff, n_solid, _hist, H, run), n_spills = _count_pass(
-            iter_preps(), cfg, k, cfg.bloom_hashes, seed, device, dev_cache, lossy)
-        if (cfg.unitig_sections and run is not None
-                and 0 < n_solid <= cfg.unitig_max_kmers):
-            if n_solid <= cfg.unitig_device_max_kmers:
-                with span("count.unitig_dispatch"):
-                    unitig_inflight = unitig.dispatch_build(_solid_rows(run, cutoff), k, run.nu)
-            else:
-                unitig_thread = _start_unitig_thread(run, cutoff, n_solid, k, W, unitig_out)
+            iter_preps(), cfg, k, cfg.bloom_hashes, seed, device, placer, dev_cache, lossy)
+        unitig_thread, unitig_inflight = _start_unitigs(run, cfg, cutoff, n_solid, k, W,
+                                                        unitig_out)
         run = None
         n_reads = tally["reads"]
         if cfg.checkpoint:
@@ -539,6 +655,7 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
 
     # --- pass 2: anchor + walk encode, stream assembly ---
     t1 = time.time()
+    bitsets = placer.replicas(bitset)
     writer = container.Writer(output_path)
     writer.section(container.TAG_META, meta.pack())
     adict = blockcodec.AnchorDict(W)
@@ -582,9 +699,8 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
                     up = dev_cache.pop(ci - 1, None) if dev_cache else None
                     if up is None:  # stream mode or a resumed count: upload here
                         with span("enc.pack_h2d"):
-                            up = (state.packed_to_torch(ch.packed, device),
-                                  torch.from_numpy(ch.dev_len).to(device))
-                    enc = _walk_chunk(ch, *up, bitset, n_words, k, H, seed, with_conf)
+                            up = placer.upload(ch)
+                    enc = _walk_chunk(ch, up, bitsets, n_words, k, H, seed, with_conf)
                     counters["anchored"] += int(enc["anchored"].sum())
                 with span("enc.subbatch"):
                     be.add_subbatch(blockcodec.SubbatchData(
@@ -598,7 +714,7 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
         _commit(0)
     finally:
         frame_pool.shutdown(wait=True)
-    bp_cache = dev_cache = None
+    bp_cache = dev_cache = bitsets = None
     t_encode = time.time() - t1
 
     if sections is None:
@@ -611,25 +727,14 @@ def _compress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
         with span("tail.bloom_frame"):
             writer.section(container.TAG_BLOOM, frame_bloom(state.bitset_from_torch(bitset)))
     with span("tail.dict"):
-        if unitig_payload is None or not len(adict):
-            dict_payload = adict.payload(None)
-        elif dict_src is None:
-            # a resumed count holds only the payload bytes: enumerate it
-            dict_payload = adict.payload(unitig.solid_kmers_sorted(unitig_payload, k))
-        elif dict_src[0] == "infl":
-            # the build's solid run IS the enumeration: look the anchors up
-            # on the device instead of shipping the run down
-            dict_payload = adict.payload_indexed(
-                *unitig.solid_indices(dict_src[1], adict.words_array()))
-        else:
-            dict_payload = adict.payload(dict_src[1])
-        writer.section(container.TAG_DICT, dict_payload)
+        writer.section(container.TAG_DICT, _dict_payload(adict, unitig_payload, dict_src, k))
     total = writer.close()
     in_bytes = bank.total_size(input_path)
     return {
         "input": input_path,
         "output": output_path,
         "device": str(device),
+        "mesh_devices": placer.n,
         "n_reads": n_reads,
         "n_anchored": counters["anchored"],
         "n_solid_kmers": n_solid,
@@ -677,9 +782,14 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _dispatch_block_decode(db: blockcodec.DecodedBlock, meta, dict_words: np.ndarray,
-                           bitset: torch.Tensor, cfg: LeonConfig, device) -> list:
+                           bitsets: dict, cfg: LeonConfig, placer: _Placer) -> list:
     """Launch every sub-batch's decode re-walk (leon_tpu/pipeline.py:1046-1143);
-    returns the handles _assemble_block_seqs drains."""
+    returns the handles _assemble_block_seqs drains. On a mesh each shard
+    re-walks its block of the sub-batch's lanes (K4 or K19) against the
+    bitset on its device, with the whole flat event streams (a lane's
+    err_base and bif_base are offsets into them, pipeline.py:1131-1133);
+    a sub-batch whose lanes do not split evenly is padded with empty lanes
+    to a multiple of the mesh's size (pipeline.py:1113-1117)."""
     k, H, seed = meta.k, meta.n_hashes, meta.seed
     n_segs = db.seg_read.shape[0]
 
@@ -722,14 +832,22 @@ def _dispatch_block_decode(db: blockcodec.DecodedBlock, meta, dict_words: np.nda
         b1 = int(db.bif_base[e]) if e < n_segs else db.bifs.size
         scal[:, 7] -= e0
         scal[:, 8] -= b0
+        pad = -(e - s) % placer.n
+        if pad:
+            sl = np.concatenate([sl, np.zeros(pad, sl.dtype)])
+            anch = np.concatenate([anch, np.zeros(pad, bool)])
+            scal = np.concatenate([scal, np.zeros((pad, scal.shape[1]), np.int32)])
         Lb = _bucket_len(int(sl[anch].max()), k)
-        dec = walk.decode_batch_flat_packed(
-            _to_device(scal, device),
-            _to_device(db.errgaps[e0:e1].astype(np.int32), device),
-            _to_device(db.errnts[e0:e1].astype(np.uint8), device),
-            _to_device(db.bifs[b0:b1].astype(np.uint8), device),
-            bitset, meta.n_words, k, H, seed, Lb)
-        dispatched.append((s, anch, sl, Lb, dec))
+        flats = {d: (_to_device(db.errgaps[e0:e1].astype(np.int32), d),
+                     _to_device(db.errnts[e0:e1].astype(np.uint8), d),
+                     _to_device(db.bifs[b0:b1].astype(np.uint8), d)) for d in bitsets}
+        decs = []
+        for d, (lo, hi) in zip(placer.devices, placer.blocks(scal.shape[0])):
+            with kernels.device_scope(d):
+                decs.append(walk.decode_batch_flat_packed(
+                    _to_device(scal[lo:hi], d), *flats[d], bitsets[d], meta.n_words, k, H, seed,
+                    Lb))
+        dispatched.append((s, anch, sl, Lb, decs))
     return dispatched
 
 
@@ -743,9 +861,10 @@ def _assemble_block_seqs(db: blockcodec.DecodedBlock, dispatched: list) -> tuple
     out_flat = np.zeros(total, dtype=np.uint8)
     seg_start = read_start[db.seg_read] + db.seg_off
 
-    for s, anch, sl, Lb, dec in dispatched:
+    for s, anch, sl, Lb, decs in dispatched:
         with span("dec.drain"):
-            codes = walk.unpack_codes_u32_np(dec.cpu().numpy().view(np.uint32), Lb)
+            dec = np.concatenate([d.cpu().numpy() for d in decs])
+            codes = walk.unpack_codes_u32_np(dec.view(np.uint32), Lb)
         rows = np.flatnonzero(anch)
         lens = sl[rows]
         ragged.move(out_flat, seg_start[s:][rows],
@@ -767,8 +886,15 @@ def _assemble_block_seqs(db: blockcodec.DecodedBlock, dispatched: list) -> tuple
 
 def decompress(input_path: str, output_path: Optional[str] = None,
                cfg: Optional[LeonConfig] = None, *, device) -> dict:
-    """Decompress a .leon archive on `device` ('cuda' or 'cpu')."""
-    cfg, device = _setup(cfg, device)
+    """Decompress a .leon archive on `device` ('cuda' or 'cpu', or a
+    sequence of devices: the mesh, _mesh_devices)."""
+    cfg, device, placer = _setup(cfg, device)
+    with kernels.device_scope(device):
+        return _decompress_impl(input_path, output_path, cfg, device, placer)
+
+
+def _decompress_impl(input_path: str, output_path: Optional[str], cfg: LeonConfig,
+                     device: torch.device, placer: _Placer) -> dict:
     span_reset()
     t0 = time.time()
     r = container.Reader(input_path)
@@ -810,7 +936,7 @@ def decompress(input_path: str, output_path: Optional[str] = None,
     else:
         bloom_bytes, _ = frames.unframe(r.bloom_payload, 0)
         bitset_np = np.frombuffer(bloom_bytes, dtype="<u4")
-    bitset = state.bitset_to_torch(bitset_np, device)
+    bitsets = placer.replicas(state.bitset_to_torch(bitset_np, device))
 
     read_index = 0
     wpool = ThreadPoolExecutor(1, thread_name_prefix="leon-dwr")
@@ -853,8 +979,8 @@ def decompress(input_path: str, output_path: Optional[str] = None,
                 with span("dec.parse_block"):
                     db = blockcodec.parse_block(r.block(bi), meta)
                 with span("dec.dispatch"):
-                    dispatched = _dispatch_block_decode(db, meta, dict_words, bitset,
-                                                        cfg, device)
+                    dispatched = _dispatch_block_decode(db, meta, dict_words, bitsets,
+                                                        cfg, placer)
                 pending.append((db, dispatched, read_index))
                 read_index += db.n_reads
                 if len(pending) > 1:
@@ -871,6 +997,7 @@ def decompress(input_path: str, output_path: Optional[str] = None,
         "input": input_path,
         "output": output_path,
         "device": str(device),
+        "mesh_devices": placer.n,
         "n_reads": read_index,
         "output_bytes": os.path.getsize(output_path),
         "time_total_s": round(time.time() - t0, 3),

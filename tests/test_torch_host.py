@@ -186,3 +186,29 @@ def test_chip_smoke_corpus_is_bench_corpus(tmp_path):
     bench.gen_fastq(str(a), 3000, 20000)
     chip_smoke.gen_fastq(str(b), 3000, 20000)
     assert a.read_bytes() == b.read_bytes()
+
+
+@pytest.mark.parametrize("k", [5, 31, 63, 127, 255])
+@pytest.mark.parametrize("nproc", [1, 2, 3, 8])
+def test_range_split_copies_match_reference(k, nproc):
+    """count.range_boundaries / range_split (the distributed count's key
+    ranges) against leon_tpu/ops/count.py:722-759, on a sorted distinct run
+    with rows on and around every boundary."""
+    from leon_tpu.ops import count as ref_count
+    from leon_tpu_torch.ops import count
+
+    W = (2 * k + 31) // 32
+    bounds = count.range_boundaries(nproc, k, W)
+    np.testing.assert_array_equal(bounds, ref_count.range_boundaries(nproc, k, W))
+    rng = np.random.default_rng(k * 10 + nproc)
+    rows = rng.integers(0, 1 << 32, (300, W), dtype=np.uint64).astype(np.uint32)
+    rows[:, W - 1] &= np.uint32((1 << (2 * k - 32 * (W - 1))) - 1)
+    near = np.concatenate([bounds, bounds]) if bounds.size else np.zeros((0, W), np.uint32)
+    if near.size:
+        near[: len(bounds), 0] -= 1  # one below each boundary
+    rows = np.unique(np.concatenate([rows, bounds, near]), axis=0)
+    rows = rows[np.lexsort(rows.T)]  # ascending, most significant word last
+    np.testing.assert_array_equal(count.range_split(rows, bounds),
+                                  ref_count.range_split(rows, bounds))
+    np.testing.assert_array_equal(count.range_split(rows[:0], bounds),
+                                  ref_count.range_split(rows[:0], bounds))

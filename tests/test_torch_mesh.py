@@ -3,7 +3,8 @@ and encoder over eight CPU shards (a device list with repeats) against
 leon_tpu.parallel.mesh over the eight virtual JAX devices
 (tests/conftest.py) and against one shard, exact; and the port's dryrun
 (steps 1-3 of __graft_entry__.dryrun_multichip) against the same steps
-taken with the reference."""
+taken with the reference, and its steps 4-5 (the product path on the
+mesh)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,3 +144,21 @@ def test_dryrun_matches_reference_steps():
     got = state.dense_from_torch(enc)
     for n, v in want.items():
         np.testing.assert_array_equal(got[n], np.asarray(v), err_msg=n)
+
+
+def test_dryrun_product_steps_detect_a_wrong_shard_order(monkeypatch):
+    """entry.dryrun's steps 4-5 on eight CPU shards pass; with the shards'
+    encodings joined out of lane order the mesh archive is no longer the
+    one-device archive, and dryrun raises."""
+    entry.dryrun(EIGHT)
+    from leon_tpu_torch import pipeline
+
+    walk_chunk = pipeline._walk_chunk
+
+    def swapped(ch, shards, *args):
+        return walk_chunk(ch, shards[::-1], *args) if len(shards) > 1 else walk_chunk(
+            ch, shards, *args)
+
+    monkeypatch.setattr(pipeline, "_walk_chunk", swapped)
+    with pytest.raises(AssertionError, match="mesh archive != single-device archive"):
+        entry.dryrun(EIGHT)

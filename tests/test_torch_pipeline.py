@@ -3,6 +3,8 @@ leon_tpu writes, byte for byte, and each package decodes the other's
 archive to the same bytes. The port runs its plain (CPU) kernel paths with
 a different lane count than the reference (archives are batch-invariant)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -193,20 +195,108 @@ def test_unitig_build_failure_falls_back_to_bloom(tmp_path, monkeypatch, capsys)
     assert open(out, "rb").read() == open(src, "rb").read()
 
 
+def _mesh_corpus(path, rng, n_reads: int = 121):
+    """FASTQ reads of 90 bp from a 900-base contig (tests/test_parallel.py:
+    136-153): with batch_reads = 64, 121 reads leave a 57-lane tail chunk
+    and a decode sub-batch that does not split evenly over 2, 4 or 8
+    shards."""
+    contig = rng.integers(0, 4, 900, dtype=np.uint8)
+    write_fastq(path, [sim_seq(rng, contig, lmin=90, lmax=90) for _ in range(n_reads)], rng)
+
+
+MESH_KW = dict(lossless=True, batch_reads=64, reads_per_block=200)
+
+
 @pytest.mark.parametrize("mesh", [2, 4])
-def test_mesh_devices_above_one_raises(tmp_path, mesh):
-    """A request for several cards raises NotImplementedError naming
-    ROADMAP queue 1, item 11 at compress and at decompress, before any
-    work, instead of running on one card; mesh_devices = 1 (REF_KW, the
-    tests above) runs."""
+def test_mesh_devices_archive_and_decode(tmp_path, mesh):
+    """mesh_devices = 2, 4 on the CPU (that many CPU shards): the archive is
+    the reference's, the decode on the mesh equals the one-device decode
+    and the input, and both ran on every shard."""
     from leon_tpu_torch import LeonConfig as PortConfig
 
     rng = np.random.default_rng(mesh)
     src, arc = str(tmp_path / "r.fastq"), str(tmp_path / "r.leon")
-    _fastq(src, rng, rng.integers(0, 4, 500, dtype=np.uint8))
-    cfg = PortConfig(mesh_devices=mesh, **PORT_KW)
-    with pytest.raises(NotImplementedError, match=r"mesh_devices=.*queue 1, item 11"):
-        pipeline.compress(src, arc, cfg=cfg, device="cpu")
-    pipeline.compress(src, arc, cfg=PortConfig(mesh_devices=1, **PORT_KW), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"mesh_devices=.*queue 1, item 11"):
-        pipeline.decompress(arc, str(tmp_path / "out.fastq"), cfg=cfg, device="cpu")
+    _mesh_corpus(src, rng)
+    ref = str(tmp_path / "ref.leon")
+    ref_pipeline.compress(src, ref, cfg=LeonConfig(mesh_devices=1, **MESH_KW))
+    cfg = PortConfig(mesh_devices=mesh, **MESH_KW)
+    st = pipeline.compress(src, arc, cfg=cfg, device="cpu")
+    assert st["mesh_devices"] == mesh
+    assert open(arc, "rb").read() == open(ref, "rb").read()
+    dm = pipeline.decompress(arc, str(tmp_path / "mesh.fastq"), cfg=cfg, device="cpu")
+    d1 = pipeline.decompress(arc, str(tmp_path / "one.fastq"),
+                             cfg=PortConfig(mesh_devices=1, **MESH_KW), device="cpu")
+    assert dm["mesh_devices"] == mesh and d1["mesh_devices"] == 1
+    assert open(dm["output"], "rb").read() == open(d1["output"], "rb").read() \
+        == open(src, "rb").read()
+
+
+@pytest.mark.parametrize("builder", ["host", "device"])
+@pytest.mark.parametrize("k", [31, 63])
+def test_eight_cpu_shards_match_reference_mesh(tmp_path, k, builder):
+    """device=["cpu"] * 8 against the reference's mesh_devices=8 archive (its
+    eight virtual devices, tests/conftest.py), at k = 31 and 63 with both
+    unitig builders; the mesh decode equals the one-device decode. Two
+    blocks of 121 reads: each has a 57-lane tail chunk and a decode tail
+    that is padded to a multiple of 8."""
+    from leon_tpu_torch import LeonConfig as PortConfig
+
+    rng = np.random.default_rng(k + (builder == "device"))
+    src, arc = str(tmp_path / "r.fastq"), str(tmp_path / "r.leon")
+    _mesh_corpus(src, rng, 242)
+    kw = dict(MESH_KW, reads_per_block=121, kmer_size=k,
+              unitig_device_max_kmers=0 if builder == "host" else 1 << 30)
+    ref = str(tmp_path / "ref.leon")
+    ref_pipeline.compress(src, ref, cfg=LeonConfig(mesh_devices=8, **kw))
+    st = pipeline.compress(src, arc, cfg=PortConfig(**kw), device=["cpu"] * 8)
+    assert st["mesh_devices"] == 8 and st["unitig_bytes"] > 0
+    assert open(arc, "rb").read() == open(ref, "rb").read()
+    dm = pipeline.decompress(arc, str(tmp_path / "mesh.fastq"), cfg=PortConfig(**kw),
+                             device=["cpu"] * 8)
+    d1 = pipeline.decompress(arc, str(tmp_path / "one.fastq"), cfg=PortConfig(**kw),
+                             device="cpu")
+    assert dm["mesh_devices"] == 8
+    assert open(dm["output"], "rb").read() == open(d1["output"], "rb").read() \
+        == open(src, "rb").read()
+
+
+def test_mesh_not_dividing_batch_reads_runs_on_one_device(tmp_path):
+    """batch_reads = 60 does not split over 8 shards: as in the reference
+    (leon_tpu/pipeline.py:277) the run takes its first device alone and
+    writes the same archive."""
+    from leon_tpu_torch import LeonConfig as PortConfig
+
+    rng = np.random.default_rng(60)
+    src = str(tmp_path / "r.fastq")
+    _mesh_corpus(src, rng)
+    kw = dict(MESH_KW, batch_reads=60)
+    arcs = [str(tmp_path / f"{n}.leon") for n in ("ref", "mesh")]
+    ref_pipeline.compress(src, arcs[0], cfg=LeonConfig(mesh_devices=8, **kw))
+    st = pipeline.compress(src, arcs[1], cfg=PortConfig(mesh_devices=8, **kw), device="cpu")
+    assert st["mesh_devices"] == 1
+    assert open(arcs[1], "rb").read() == open(arcs[0], "rb").read()
+
+
+def test_mesh_device_sequence_must_match_mesh_devices(tmp_path):
+    """A sequence of devices is the mesh: mesh_devices must be None or its
+    length (ValueError otherwise, at compress and decompress, before any
+    work); an empty sequence is refused too."""
+    from leon_tpu_torch import LeonConfig as PortConfig
+
+    rng = np.random.default_rng(3)
+    src, arc = str(tmp_path / "r.fastq"), str(tmp_path / "r.leon")
+    _mesh_corpus(src, rng, 40)
+    with pytest.raises(ValueError, match=r"mesh_devices=4 but 2 devices"):
+        pipeline.compress(src, arc, cfg=PortConfig(mesh_devices=4, **MESH_KW),
+                          device=["cpu", "cpu"])
+    assert not os.path.exists(arc)
+    with pytest.raises(ValueError, match="empty sequence"):
+        pipeline.compress(src, arc, cfg=PortConfig(**MESH_KW), device=[])
+    st = pipeline.compress(src, arc, cfg=PortConfig(mesh_devices=2, **MESH_KW),
+                           device=["cpu", "cpu"])
+    assert st["mesh_devices"] == 2
+    with pytest.raises(ValueError, match=r"mesh_devices=8 but 2 devices"):
+        pipeline.decompress(arc, str(tmp_path / "o"), cfg=PortConfig(mesh_devices=8, **MESH_KW),
+                            device=("cpu", "cpu"))
+
+

@@ -174,29 +174,128 @@ def test_spilled_count_pins_exact_solid_count_above_255(tmp_path, k):
     assert st["bloom_bytes"] < 4 * bloom.choose_n_words((1 + n_warm) * exact, 24.0)
 
 
+@pytest.mark.parametrize("k", [31, 63])
+def test_spill_decision_matches_reference_above_255(tmp_path, k):
+    """The same corpus with a spill at 4,000 rows: the reference counts each
+    run at its bucketed size (at least 4,096 rows, leon_tpu/ops/count.py:
+    267), so it spills where exact sizes would not, and the port must spill
+    with it (exact n_solid against the clamped histogram's: 70 against 140
+    at k = 31, 88 against 176 at k = 63 when the two disagree)."""
+    src = str(tmp_path / "hot.fasta")
+    _hot_corpus(src, k, np.random.default_rng(300 + k))
+    kw = dict(kmer_size=k, abundance=300, unitig_sections=False, count_slab_kmers=512,
+              count_merge_factor=1, count_spill_rows=4000)
+    ref_arc, arc = str(tmp_path / "ref.leon"), str(tmp_path / "port.leon")
+    rst = ref_pipeline.compress(src, ref_arc, cfg=RefConfig(**kw, **REF_KW))
+    st = pipeline.compress(src, arc, cfg=LeonConfig(**kw, batch_reads=256, reads_per_block=100),
+                           device="cpu")
+    assert open(arc, "rb").read() == open(ref_arc, "rb").read()
+    assert st["count_spills"] >= 1
+    assert st["n_solid_kmers"] == rst["n_solid_kmers"] == HOT[k][0] - k + 1
+
+
 # ---------------------------------------------------------------------------
 # The counter: a final merge that itself spills; the spilled Bloom build
 # ---------------------------------------------------------------------------
 
 
-def _fed_counters(k: int, feeds: int):
-    """The reference's DeviceCounter and the port's counter at k, both with
-    slabs of 512 k-mers, a merge at every second slab and a spill at 256
-    rows, fed the same 8 reads `feeds` times (tests/test_count_slab.py:103;
-    the reference spills at its first merge, after 6 feeds)."""
+def _counters(k: int, merge_factor: int = 1, spill_rows: int = 256):
+    """The reference's DeviceCounter and the port's counter at k, with slabs
+    of 512 k-mers."""
+    ref = ref_count.DeviceCounter(k, slab_kmers=512, merge_factor=merge_factor,
+                                  spill_rows=spill_rows)
+    cls = count.DeviceCounter if k <= 31 else count.WordCounter
+    return ref, cls(k, "cpu", slab_kmers=512, merge_factor=merge_factor, spill_rows=spill_rows)
+
+
+def _feed(ref, port, seqs: np.ndarray, lens: np.ndarray, L: int) -> None:
+    """One chunk of reads (B, L) into both counters."""
+    canon, _, valid = ref_kmer.kmer_scan(seqs, lens, ref.k)
+    ref.add(canon, valid)
+    port.add_packed(state.packed_to_torch(ref_kmer.pack_codes_np(seqs), "cpu"),
+                    torch.from_numpy(lens), L)
+
+
+def _fed_counters(k: int, feeds: int, merge_factor: int = 1, spill_rows: int = 256,
+                  log: list | None = None):
+    """Both counters at k, with slabs of 512 k-mers, a merge at every second
+    slab and a spill at 256 rows, fed the same 8 reads `feeds` times
+    (tests/test_count_slab.py:103; the reference spills at its first merge,
+    after 6 feeds). With log, their merges and spills are recorded first
+    (_record)."""
     rng = np.random.default_rng(k)
     L = k + 59
     seqs = rng.integers(0, 4, (8, L), dtype=np.uint8)
     lens = np.full(8, L, np.int32)
-    ref = ref_count.DeviceCounter(k, slab_kmers=512, merge_factor=1, spill_rows=256)
-    cls = count.DeviceCounter if k <= 31 else count.WordCounter
-    port = cls(k, "cpu", slab_kmers=512, merge_factor=1, spill_rows=256)
-    packed = ref_kmer.pack_codes_np(seqs)
+    ref, port = _counters(k, merge_factor, spill_rows)
+    if log is not None:
+        _record(ref, log[0])
+        _record(port, log[1])
     for _ in range(feeds):
-        canon, _, valid = ref_kmer.kmer_scan(seqs, lens, k)
-        ref.add(canon, valid)
-        port.add_packed(state.packed_to_torch(packed, "cpu"), torch.from_numpy(lens), L)
+        _feed(ref, port, seqs, lens, L)
     return ref, port, feeds * 8 * (L - k + 1)
+
+
+def _record(counter, events: list) -> None:
+    """Log a counter's merge checks and spills with the sizes they compare:
+    at a merge the run count, the runs' bucketed total and the trigger it
+    passed, then the runs left and the next trigger; at a spill the run's
+    bucketed size. Both packages name the two methods alike."""
+    merge, spill = counter._merge_runs, counter._spill_run
+
+    def merge_runs():
+        before = (len(counter._runs), counter._runs_n, counter._next_merge)
+        merge()
+        events.append(("merge", *before, len(counter._runs), counter._runs_n,
+                       counter._next_merge))
+
+    def spill_run(rows, counts, bucket):
+        events.append(("spill", bucket))
+        spill(rows, counts, bucket)
+
+    counter._merge_runs, counter._spill_run = merge_runs, spill_run
+
+
+# (merge_factor, spill_rows): every merge spills; merged runs stay on the
+# device until their bucket reaches 8,192 rows (over 4,096 distinct); none
+# spills
+SCHEDULES = {"spill_each": (1, 256), "spill_late": (1, 8192), "no_spill": (2, 1 << 30)}
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("k", [15, 63])
+def test_merge_and_spill_schedule_matches_reference(k, schedule):
+    """The port's merges and spills, and the sizes compared at each, are the
+    reference counter's (count.py:285-426): on _fed_counters' feeds, then
+    on 14 chunks of fresh reads (the distinct set grows past one bucket),
+    then with a run from another counter ingested (ingest_run, count.py:
+    538-555), through finalize; the results are equal too."""
+    mf, spill_rows = SCHEDULES[schedule]
+    log = ([], [])
+    ref, port, _ = _fed_counters(k, 8, mf, spill_rows, log)
+    rng = np.random.default_rng(k + 1)
+    L = k + 59
+    lens = np.full(8, L, np.int32)
+    for _ in range(14):
+        _feed(ref, port, rng.integers(0, 4, (8, L), dtype=np.uint8), lens, L)
+    assert log[1] == log[0]
+    other_ref, other_port, _ = _fed_counters(k, 3)
+    ru, rc = other_ref.distinct_run()
+    pu, pc = other_port.distinct_run()
+    np.testing.assert_array_equal(pu, ru)
+    np.testing.assert_array_equal(pc, rc)
+    ref.ingest_run(ru, rc)
+    port.ingest_run(pu, pc)
+    assert port._runs_n == ref._runs_n and len(port._runs) == len(ref._runs)
+    rb, rnw, rcut, rns, rhist, rH, _ = ref.finalize(None, None, None, SEED, False,
+                                                    want_solid=True)
+    pb, pnw, pcut, pns, phist, pH, run = port.finalize(None, None, None, SEED, False)
+    assert log[1] == log[0]
+    assert any(e[0] == "merge" for e in log[0])
+    assert any(e[0] == "spill" for e in log[0]) == (schedule != "no_spill")
+    np.testing.assert_array_equal(phist, rhist)
+    assert (pcut, pns, pnw, pH) == (rcut, rns, rnw, rH)
+    np.testing.assert_array_equal(state.bitset_from_torch(pb), np.asarray(rb)[:rnw])
 
 
 @pytest.mark.parametrize("k", [5, 63])
