@@ -66,8 +66,15 @@ run right after phase 3, whose reads and solid set they reuse):
      reference's bytes, PIN, PIN63 and PIN127), and launch each kernel of
      its path (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack, K19; those and
      K5-K8 over W-word rows) at least once;
-  7. the graph API at full width on phase 3's solid set (2,014,298 k-mers,
-     k = 31): Graph.from_solid, contains / successors / predecessors /
+  7. K10 on adversarial words (k10_case: every bit random, so dirty bits
+     reach the shr2_ins neighbours' first base, at k = 1, 2, 15, 16, 17,
+     31, 32, 33, 63, 64, 127, 128, 254, 255, N = 1, 255, 257, every mode,
+     classic and blocked, an unaligned view) and K12 on adversarial graphs
+     (k12_case: SNP bubbles meeting at the last depth or never, tips, lanes
+     that stop at step 0, rows of S(D + 2) = 35 bytes, D = 1, N below one
+     block and no multiple of any block size), each equal to its plain
+     version; then the graph API at full width on phase 3's solid set
+     (2,014,298 k-mers, k = 31): Graph.from_solid, contains / successors / predecessors /
      is_branching / iter_branching over every node, contains of 2**21
      random k-mers (false-positive rate), the blocked bloom.probe of the
      compressor's filter, walk from every node (100 steps), traverse from
@@ -141,8 +148,8 @@ run right after phase 3, whose reads and solid set they reuse):
      about 58M rows, stays under the 64M spill threshold): it must take
      stream mode and spill at least twice, round-trip exactly, launch
      K1-K4 and K3 on the spilled Bloom, and write the archive of the
-     same file compressed in memory and unspilled on the card (no
-     reference pin: leon_tpu is not run at that size); the child prints
+     same file compressed in memory and unspilled on the card, which must
+     be the reference's (LARGE_PIN, from leon_tpu on the CPU); the child prints
      its walls, spans, spills, the card's peak memory and its peak RSS;
      (c) a checkpoint resume on the bench corpus: the second run launches
      neither K1 nor K2 and writes PIN; (d) compress with profile_dir: a
@@ -379,6 +386,9 @@ def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None,
 # K18 and K19 wait on their Bloom probes, not on their bytes
 WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
                    "(scripts/ab_kernels.py --only walk, PERF.md rows 10-11c)")
+# K10-K12 wait on their Bloom probes' random loads
+GRAPH_BOUND_NOTE = ("bytes only; the graph kernels' binding bound is their probe floor "
+                    "(scripts/ab_kernels.py --only graph, PERF.md rows 14-15c)")
 # K5 waits on its searches' random loads
 LINKS_BOUND_NOTE = ("bytes only; K5's binding bound is its probe floor "
                     "(scripts/ab_kernels.py --only links, PERF.md rows 17a, 17a (W))")
@@ -1822,6 +1832,142 @@ def gather_inputs(dev) -> dict:
     return out
 
 
+# K10 on dirty words (every bit random, so bits 2k..2k+1 shift into base 0
+# of a shr2_ins neighbour where 2k < 32W) at each width's edges, N below,
+# at and above a 256-thread block; K12 on graphs of SNP bubbles and tips
+K10_KS = (1, 2, 15, 16, 17, 31, 32, 33, 63, 64, 127, 128, 254, 255)
+K10_NS = (1, 255, 257)
+# (k, S, D, N, H): cap = S(D + 2) = 35 (no multiple of 16), N below one
+# block, D = k (a SNP's branches meet after k + 1 steps: at the last depth,
+# D - 1), D = k - 1 (they never meet: the lane stops), D = k + 1 (the
+# default), D = 1, N no multiple of any block size; H = 1..8 (K12 loads a
+# probe's hashes after the first in groups)
+K12_CASES = ((15, 7, 3, 300, 8), (15, 4, 15, 5, 4), (31, 5, 31, 1000, 4), (31, 5, 30, 257, 5),
+             (31, 5, 32, 300, 4), (33, 6, 1, 257, 1), (63, 3, 63, 300, 3), (127, 3, 5, 257, 2),
+             (255, 2, 3, 33, 7))
+
+
+def k10_case(k: int, N: int, H: int) -> tuple:
+    """(words (N, W) u32 with every bit random, classic bitset, blocked
+    bitset, n_words) for K10: each bitset (H hashes, 16 bits a k-mer and 7
+    words more, so that n_words is no multiple of 64) holds one in two of
+    the rows and of their 4 shl2 and 4 shr2_ins neighbours as the
+    reference's steps make them from the dirty words, so members,
+    non-members and false positives mix."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch.ops import bloom, kmer
+
+    rng = np.random.default_rng(1000 * k + N)
+    W = kmer.words_for_k(k)
+    words = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64).astype(np.uint32)
+    w64 = torch.from_numpy(words.astype(np.int64))
+    cand = torch.cat([w64] + [step(w64, c, k) for step in (kmer.shl2, kmer.shr2_ins)
+                              for c in range(4)]).numpy().astype(np.uint32)
+    solid = cand[rng.random(cand.shape[0]) < 0.5]
+    solid[:, -1] &= np.uint32(kmer.top_mask(k))
+    nw = bloom.choose_n_words(solid.shape[0], 16.0) + 7
+    return (words, bloom.build_np_classic(solid, nw, H, SEED, k),
+            bloom.build_np(solid, nw, H, SEED, k), nw)
+
+
+def k10_adversarial() -> None:
+    """K10 against its plain version on the card, exactly: k10_case at every
+    k of K10_KS and N of K10_NS (H = 1, 4, 8 by N), each mode (self, out,
+    in), classic and blocked addressing; the words also as an unaligned
+    view (one word into a buffer: the scalar row loads)."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import bloom
+
+    dev = torch.device("cuda")
+    n = 0
+    for k in K10_KS:
+        for N, H in zip(K10_NS, (1, 4, 8)):
+            words_np, classic_np, blocked_np, nw = k10_case(k, N, H)
+            words = state.words_to_torch(words_np, dev)
+            flat = torch.zeros(words.numel() + 1, dtype=torch.int32, device=dev)
+            flat[1:] = words.reshape(-1)
+            views = (words, flat[1:].view(words.shape))
+            for q in views if N == K10_NS[-1] else views[:1]:
+                for classic, bits_np in ((True, classic_np), (False, blocked_np)):
+                    bits = torch.from_numpy(bits_np.view(np.int32)).to(dev)
+                    for mode in ("self", "out", "in"):
+                        a = (bits, q, mode, classic, H, nw, SEED, k)
+                        max_abs_err(bloom.dbg_probe(*a), bloom.dbg_probe_plain(*a))
+                        n += 1
+    log(f"dbg_probe ok on dirty words at k = {K10_KS}, N = {K10_NS}, every mode, classic "
+        f"and blocked ({n} calls)")
+
+
+def k12_case(k: int, S: int, D: int, N: int, H: int) -> tuple:
+    """(starts (N, W) u32, bitset u32, n_words) for K12: the forward
+    k-mers of a random contig, of SNP variants of it (a bubble whose branches
+    meet after k + 1 steps, at depth k - 1) and of tips (a branch of 1..k/2
+    bases off it that ends), spaced 3k + 3 apart, in a classic bitset (H
+    hashes, 64 bits a k-mer, so that a false positive seldom ends a branch
+    early); lanes start before each SNP and tip, on random contig k-mers,
+    on the contig's last k-mer (no successor) and on random words (most
+    stop at step 0)."""
+    import numpy as np
+
+    from leon_tpu_torch.ops import bloom, kmer
+
+    rng = np.random.default_rng(7 * k + 131 * S + D + N)
+    gap, n_feat = 3 * k + 3, 8
+    G = gap * (n_feat + 2)
+    contig = rng.integers(0, 4, G).astype(np.uint8)
+    seqs, starts = [contig], []
+    for j in range(n_feat):
+        p = gap * (j + 1)
+        alt = contig[p - k : p + k + 1].copy()
+        alt[k] = (alt[k] + rng.integers(1, 4)) & 3
+        if j % 2 == 0:  # a SNP: the two paths meet again after k + 1 steps
+            seqs.append(alt)
+        else:  # a tip: 1..k/2 bases off the contig, then nothing
+            seqs.append(alt[: k + 1 + int(rng.integers(0, max(1, k // 2)))])
+        starts.append(contig[p - k : p])
+    for q in rng.integers(0, G - k, 8):
+        starts.append(contig[q : q + k])
+    starts.append(contig[G - k :])
+    kmers = np.concatenate([np.lib.stride_tricks.sliding_window_view(s, k) for s in seqs])
+    solid = np.unique(kmer.pack_codes_batch_np(kmers, k), axis=0)
+    nw = bloom.choose_n_words(solid.shape[0], 64.0)  # few false positives
+    W = kmer.words_for_k(k)
+    lanes = kmer.pack_codes_batch_np(np.stack(starts), k)
+    rnd = rng.integers(0, 1 << 32, (4, W), dtype=np.uint64).astype(np.uint32)
+    lanes = np.concatenate([lanes, rnd])
+    # a SNP's, a tip's, a contig k-mer's, the last k-mer's and a random
+    # word's lane first (every case has them), then the rest in seeded order
+    first = [0, 1, n_feat, n_feat + 8, n_feat + 9]
+    rest = rng.permutation(np.resize(np.arange(lanes.shape[0]), max(0, N - len(first))))
+    return (lanes[np.concatenate([first, rest]).astype(np.int64)[:N]],
+            bloom.build_np_classic(solid, nw, H, SEED, k), nw)
+
+
+def k12_adversarial() -> None:
+    """K12 against its plain version on the card, exactly (bases and n), on
+    k12_case at every (k, S, D, N, H) of K12_CASES."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.graph import dbg_traverse, dbg_traverse_plain
+
+    dev = torch.device("cuda")
+    for k, S, D, N, H in K12_CASES:
+        lanes, bits_np, nw = k12_case(k, S, D, N, H)
+        a = (torch.from_numpy(bits_np.view(np.int32)).to(dev), state.words_to_torch(lanes, dev),
+             H, nw, SEED, k, S, D)
+        (gb, gn), (pb, pn) = dbg_traverse(*a), dbg_traverse_plain(*a)
+        max_abs_err(gb, pb)
+        max_abs_err(gn, pn)
+    log(f"dbg_traverse ok on bubbles and tips at (k, S, D, N, H) = {K12_CASES}")
+
+
 def graph_phase(records: dict, bench_state: dict) -> dict:
     """The graph API on the bench run's solid set (phase 3: 2,014,298
     canonical k-mers at k = 31, W = 2), as its users drive it: every query
@@ -1838,6 +1984,8 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.ops import bloom, gather
     from leon_tpu_torch.ops.kmer import pack_codes_batch_np
 
+    k10_adversarial()
+    k12_adversarial()
     dev = torch.device("cuda")
     words = state.keys_from_torch(bench_state["solid_keys"], 2)
     rnd = state.keys_to_words(np.random.default_rng(31).integers(0, 1 << 62, 1 << 21), 2)
@@ -1913,7 +2061,7 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     records["dbg_probe"] = record(
         err, cuda_ms(lambda: bloom.dbg_probe(*args), 20),
         cuda_ms(lambda: bloom.dbg_probe_plain(*args), 2),
-        nbytes(nodes, dbg.bitset, succ))
+        nbytes(nodes, dbg.bitset, succ), bound_note=GRAPH_BOUND_NOTE)
     log("dbg_probe ok: contains, successors, predecessors, random contains, blocked probe")
 
     wargs = (dbg.bitset, nodes, dbg.n_hashes, dbg.n_words, dbg.seed, K, GRAPH_WALK_STEPS)
@@ -1921,7 +2069,8 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     records["dbg_walk"] = record(
         max(max_abs_err(wb, pb.cpu()), max_abs_err(wn, pn.cpu())),
         cuda_ms(lambda: dbg.walk(nodes, GRAPH_WALK_STEPS), 5),
-        cuda_ms(lambda: dbg_walk_plain(*wargs), 1), nbytes(nodes, dbg.bitset, wb, wn))
+        cuda_ms(lambda: dbg_walk_plain(*wargs), 1), nbytes(nodes, dbg.bitset, wb, wn),
+        bound_note=GRAPH_BOUND_NOTE)
     del pb, pn
     log("dbg_walk ok")
 
@@ -1932,7 +2081,8 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     records["dbg_traverse"] = record(
         max(max_abs_err(tb, pb.cpu()), max_abs_err(tn, pn.cpu())),
         cuda_ms(lambda: dbg.traverse(starts, GRAPH_TRAVERSE_STEPS), 5),
-        cuda_ms(lambda: dbg_traverse_plain(*targs), 1), nbytes(starts, dbg.bitset, tb, tn))
+        cuda_ms(lambda: dbg_traverse_plain(*targs), 1), nbytes(starts, dbg.bitset, tb, tn),
+        bound_note=GRAPH_BOUND_NOTE)
     del pb, pn
     log("dbg_traverse ok")
 
@@ -2527,7 +2677,8 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
     err = max(err, max_abs_err(bloom.dbg_probe(*a), bloom.dbg_probe_plain(*a)))
     records[n_probe] = record(
         err, cuda_ms(lambda: bloom.dbg_probe(*args), 10),
-        cuda_ms(lambda: bloom.dbg_probe_plain(*args), 1), nbytes(nodes, dbg.bitset, succ))
+        cuda_ms(lambda: bloom.dbg_probe_plain(*args), 1), nbytes(nodes, dbg.bitset, succ),
+        bound_note=GRAPH_BOUND_NOTE)
     log(f"{n_probe} ok: contains, successors, predecessors, random contains, blocked probe "
         f"({tag})")
 
@@ -2536,7 +2687,7 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
     records[n_walk] = record(
         max(max_abs_err(wb, pb), max_abs_err(wn, pn)),
         cuda_ms(lambda: dbg.walk(nodes, GRAPH_WALK_STEPS), 3), plain_ms,
-        nbytes(nodes, dbg.bitset, wb, wn))
+        nbytes(nodes, dbg.bitset, wb, wn), bound_note=GRAPH_BOUND_NOTE)
     del pb, pn
     log(f"{n_walk} ok: {nodes.shape[0]} lanes ({tag}; plain {plain_ms / 1e3:.1f} s)")
 
@@ -2553,7 +2704,7 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
         log(f"{n_trav} ok at D = {D}: {nl} lanes, {S} steps ({tag}; plain "
             f"{plain_ms[D] / 1e3:.1f} s)")
     records[n_trav] = record(err, cuda_ms(lambda: dbg.traverse(starts, S, 32), 5), plain_ms[32],
-                             nbytes(starts, dbg.bitset, *trav[32]))
+                             nbytes(starts, dbg.bitset, *trav[32]), bound_note=GRAPH_BOUND_NOTE)
     fig["traverse_deep_ms"] = cuda_ms(lambda: dbg.traverse(starts, S), 3)
     fig["traverse_deep_plain_ms"] = plain_ms[k + 1]
     for n in names:
@@ -2866,6 +3017,15 @@ FORCED_SPILL = {"stream_threshold_bytes": 1, "count_slab_kmers": 1 << 22,
 # (b): over 1 GiB of FASTQ in fixed 220-byte records
 LARGE = {"n_reads": 5_000_000, "contig_len": 20_000_000, "read_len": 100, "seed": 0x5EED}
 LARGE_EXTRA = {"count_spill_rows": 1 << 24, "count_merge_factor": 2}
+# The reference's archive of LARGE's corpus (gen_large_fastq, sha256
+# 08def1b7...2cf5d6): leon_tpu.pipeline.compress(src, out,
+# cfg=LeonConfig(noheader=True, noqual=True, **LARGE_EXTRA)) with jax on the
+# CPU (JAX_PLATFORMS=cpu; about 10 min on 8 cores, 11.5 GB peak RSS).
+LARGE_PIN = {
+    "bytes": 35_819_506,
+    "sha256": "52d510e243f5a9dff784fe53e3e704baed051ad230d1427c6232cf1b1bf541ca",
+    "n_solid": 20_017_798,
+}
 LARGE_HEADER = b"@SRRX."  # then 9 digits and a newline: 16 bytes
 
 
@@ -2990,6 +3150,10 @@ def large_corpus_child() -> int:
     if fig["sha256"] != want:
         raise AssertionError(f"large corpus: the streamed, spilled archive {fig['sha256']} != "
                              f"the in-memory, unspilled archive {want}")
+    got = (os.path.getsize(arc), fig["sha256"], st["n_solid_kmers"])
+    if got != (LARGE_PIN["bytes"], LARGE_PIN["sha256"], LARGE_PIN["n_solid"]):
+        raise AssertionError(f"large corpus: archive (bytes, sha256, n_solid) {got} is not the "
+                             f"reference's {LARGE_PIN}")
     for p in (src, arc, mem_arc):
         os.unlink(p)
     print(json.dumps({"large_corpus": fig}), flush=True)

@@ -22,22 +22,43 @@
 // i of the k-mer at bits 2(k-1-i); every kernel is templated on W in
 // 1..16 (k <= 255).
 //
-// Bound on the H100: K9 and K10 move their inputs and outputs once (bytes
-// over 3.35 TB/s), their gathers hit a bitset of a few MB that stays in
-// the 50 MB L2. K11 and K12 are chains of dependent probes (4 candidates x
-// H words per step, each step needing the last one's base): latency bound,
-// hidden by many lanes per SM. Design: one thread per row / lane with the
-// k-mer words and its (f, r) hash pair in registers; plain __ldg gathers
-// into the bitset. K10 hashes every candidate from scratch (one step, so
-// from-scratch costs 4k table lookups and keeps dirty high bits of the
-// caller's words exactly as the reference treats them); K11 and K12 hash
-// the start node from scratch and then ROLL the pair forward (walk.cu's
-// identity: candidate c of a node whose first base is o has
-// f' = rol1(f ^ Trot[o]) ^ T[c], r' = ror1(r ^ Tc[o]) ^ Tcrot[c]), equal to
-// the reference's from-scratch hash of the shifted node. K12 keeps the 4
-// branch nodes in registers, stops its inner loop at the first converged
-// depth or when every branch has died, and re-walks the chosen branch to
-// emit its bases instead of storing 4 x D bases per lane.
+// Bound on the H100: K9 moves its inputs and outputs once (bytes over
+// 3.35 TB/s); K10-K12 are bound by their Bloom probes, random 4-byte loads
+// into a bitset of a few MB that stays in the 50 MB L2 (the probe floor:
+// scripts/graph_probe_floor.cu, timed by scripts/ab_kernels.py --only
+// graph). K11 and K12 are chains of dependent probes (each step needs the
+// last one's base), hidden by many lanes per SM.
+//
+// Design. A node is hashed once, a word at a time from K16's nibble tables
+// in shared memory (hash_kmer_tab: 8 table loads a word, the top word masked
+// to 2k bits, so it reads the k bases the reference's hash_words reads), and
+// its neighbours' pairs are ROLLED from its (f, r) (tables [T, Tc, Trot,
+// Tcrot] for this k):
+//   out (shl2, o the leaving first base, c the new last base):
+//     f' = rol1(f ^ Trot[o]) ^ T[c],   r' = ror1(r ^ Tc[o]) ^ Tcrot[c];
+//   in (shr2_ins, l the leaving last base, c' the new first base):
+//     f' = ror1(f ^ T[l]) ^ Trot[c'], r' = rol1(r ^ Tcrot[l]) ^ Tc[c'],
+// where c' is base 0 of the shifted words, not c: shr2_ins does not mask,
+// so where 2k < 32W the caller's bits 2k..2k+1 land in base 0 ORed with c.
+// Each equals the reference's from-scratch hash of the neighbour's words.
+// Classic probes of several candidates run in rounds, all of a round's
+// loads in flight together: K10's round i loads hash i of every candidate
+// still alive (the early exit's loads, H round trips at most); K12's first
+// round loads hash 0 and each later one the next three hashes of every
+// survivor (two round trips at H = 4, for a few more loads), since K12
+// waits on its chains, not on its loads. K11 (unchanged) hashes its start
+// node base by base and probes its candidates one after another. K12 gives
+// a lane four threads: at a node each probes one successor, in a bubble
+// each holds one branch and probes its four successors, and the loop takes
+// one probe step a lane whatever the lane is doing, so a lane in a bubble
+// never holds its warp's other lanes for the bubble's whole depth. It stops
+// a bubble at the first converged depth or when every branch has died, and
+// writes, at each depth, the live branches' bases packed in one byte of its
+// row where the chosen branch's bases go; at convergence it keeps the
+// chosen branch's two bits of each byte (no re-walk). A block's rows are one
+// contiguous region that it zero-fills in 16-byte stores before its lanes
+// write the bases they emit; its size follows the lane count, so that
+// small launches spread over every SM.
 #include "common.cuh"
 #include "kmer_words.cuh"
 
@@ -60,14 +81,9 @@ static __device__ __forceinline__ bool probe_classic(const uint32_t* __restrict_
   return true;
 }
 
-template <bool CLASSIC>
-static __device__ __forceinline__ bool member(const uint32_t* __restrict__ bits, uint32_t f,
-                                              uint32_t r, int H, uint32_t n_words) {
-  return CLASSIC ? probe_classic(bits, f, r, H, n_words) : probe(bits, f, r, H, n_words);
-}
-
-// the 4 forward candidates of a node whose pair is (f, r): rolled pairs
-// (see the header) and their classic solidity mask, bit c = base c solid
+// K11's step: the 4 forward candidates of a node whose pair is (f, r):
+// rolled pairs (see the header) and their classic solidity mask, bit c =
+// base c solid, probed one candidate after another
 template <int W>
 static __device__ __forceinline__ unsigned succ_rolled(const Kmer<W>& a, uint32_t f,
                                                        uint32_t r, int k, const HashTabs& tb,
@@ -124,33 +140,135 @@ extern "C" int lt_gather_words(const void* table, long long n, const void* idx, 
 }
 
 // ---------------------------------------------------------------------------
+// Probes of several candidates with their loads in flight together
+// ---------------------------------------------------------------------------
+
+// classic membership of the N candidates (f[c], r[c]) whose bit c of `want`
+// is set -> bit c = candidate c is a member. Round 0 loads hash 0 of every
+// candidate, each later round the next G hashes of every candidate still
+// alive (predicated loads, all of a round in flight); a candidate whose bit
+// is clear leaves. G = 1 makes the early exit's loads (probe_classic's); a
+// larger G trades a few loads for fewer dependent rounds (H = 4, G = 3: two)
+template <int N, int G>
+static __device__ __forceinline__ unsigned probe_classic_n(const uint32_t* __restrict__ bits,
+                                                           const uint32_t* f,
+                                                           const uint32_t* r, unsigned want,
+                                                           int H, uint32_t n_words) {
+  uint32_t h1[N], h2[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    h1[c] = min(f[c], r[c]);
+    h2[c] = max(f[c], r[c]) | 1u;
+  }
+  unsigned alive = want;
+  for (int i = 0; i < H && alive; i += (i ? G : 1)) {
+    const int n = i ? G : 1;  // hashes i .. i + n - 1 this round
+    uint32_t v[G][N];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const uint32_t g = h1[c] + (uint32_t)(i + j) * h2[c];
+        v[j][c] = j < n && i + j < H && (alive >> c) & 1u ? __ldg(bits + __umulhi(g, n_words))
+                                                          : ~0u;
+      }
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const uint32_t g = h1[c] + (uint32_t)(i + j) * h2[c];
+        if (!((v[j][c] >> (g & 31u)) & 1u)) alive &= ~(1u << c);
+      }
+  }
+  return alive;
+}
+
+// blocked membership of 4 candidates: one word each, the 4 loads in flight
+static __device__ __forceinline__ unsigned probe_blocked_4(const uint32_t* __restrict__ bits,
+                                                           const uint32_t* f,
+                                                           const uint32_t* r, int H,
+                                                           uint32_t n_words) {
+  uint32_t wi[4], m[4], v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wordmask(f[c], r[c], H, n_words, &wi[c], &m[c]);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = __ldg(bits + wi[c]);
+  unsigned o = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) o |= (unsigned)((v[c] & m[c]) == m[c]) << c;
+  return o;
+}
+
+// the rolled pairs of the 4 shl2 successors of a node (f, r) whose first
+// base is o (see the header)
+static __device__ __forceinline__ void roll_out(uint32_t f, uint32_t r, int o,
+                                                const HashTabs& tb, uint32_t cf[4],
+                                                uint32_t cr[4]) {
+  const uint32_t fb = rol1(f ^ sel4(tb.t[2], o));
+  const uint32_t rb = ror1(r ^ sel4(tb.t[1], o));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    cf[c] = fb ^ tb.t[0][c];
+    cr[c] = rb ^ tb.t[3][c];
+  }
+}
+
+// the rolled pairs of the 4 shr2_ins predecessors of a node a (f, r)
+template <int W>
+static __device__ __forceinline__ void roll_in(const Kmer<W>& a, uint32_t f, uint32_t r, int k,
+                                               const HashTabs& tb, uint32_t cf[4],
+                                               uint32_t cr[4]) {
+  const int l = (int)(a.w[0] & 3u);
+  // the caller's bits 2k..2k+1 that shr2_ins ORs into base 0 (0 where 2k = 32W)
+  const int dirty = base_of(shr2_ins<W>(a, 0u, k), 0, k);
+  const uint32_t fb = ror1(f ^ sel4(tb.t[0], l));
+  const uint32_t rb = rol1(r ^ sel4(tb.t[3], l));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    cf[c] = fb ^ sel4(tb.t[2], c | dirty);
+    cr[c] = rb ^ sel4(tb.t[1], c | dirty);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K10 dbg_probe: mode 0 = the row itself -> out (N,), mode 1 = its 4 shl2
 // neighbours, mode 2 = its 4 shr2_ins neighbours -> out (N, 4); out is
-// bool storage (one byte, 0 or 1)
+// bool storage (one byte, 0 or 1). A grid of the card's resident blocks,
+// each building the nibble tables once and walking rows grid-stride; a row
+// is hashed once, its neighbours rolled.
 // ---------------------------------------------------------------------------
 
 template <int W, bool CLASSIC>
-__global__ void dbg_probe_kernel(const uint32_t* __restrict__ words, long long N, int mode,
-                                 int k, uint32_t top, const __grid_constant__ HashTabs tabs,
-                                 const uint32_t* __restrict__ bits, int H, uint32_t n_words,
-                                 uint8_t* __restrict__ out) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const Kmer<W> a = load_kmer<W>(words, row);
-  uint32_t f, r;
-  if (mode == 0) {
-    hash_kmer<W>(a, k, tabs, &f, &r);
-    out[row] = member<CLASSIC>(bits, f, r, H, n_words);
-    return;
+__global__ void __launch_bounds__(GRAPH_THREADS)
+    dbg_probe_kernel(const uint32_t* __restrict__ words, long long N, int mode, int k,
+                     uint32_t top, uint32_t padf, uint32_t padr, bool vec,
+                     const __grid_constant__ HashTabs tabs, const uint32_t* __restrict__ bits,
+                     int H, uint32_t n_words, uint8_t* __restrict__ out) {
+  __shared__ NibbleTabs tab;
+  build_nibble_tabs(tabs, tab);
+  __syncthreads();
+  const long long step = (long long)gridDim.x * GRAPH_THREADS;
+  for (long long row = (long long)blockIdx.x * GRAPH_THREADS + threadIdx.x; row < N;
+       row += step) {
+    const Kmer<W> a = load_kmer_vec<W>(words, row, vec);
+    uint32_t f, r;
+    hash_kmer_tab<W>(a, k, top, padf, padr, tab, &f, &r);
+    if (mode == 0) {
+      out[row] = CLASSIC ? (uint8_t)probe_classic_n<1, 1>(bits, &f, &r, 1u, H, n_words)
+                         : (uint8_t)probe(bits, f, r, H, n_words);
+      continue;
+    }
+    uint32_t cf[4], cr[4];
+    if (mode == 1)
+      roll_out(f, r, base_of(a, 0, k), tabs, cf, cr);
+    else
+      roll_in<W>(a, f, r, k, tabs, cf, cr);
+    const unsigned m = CLASSIC ? probe_classic_n<4, 1>(bits, cf, cr, 0xFu, H, n_words)
+                               : probe_blocked_4(bits, cf, cr, H, n_words);
+    // the row's 4 bools, byte c = base c
+    reinterpret_cast<uint32_t*>(out)[row] =
+        (m & 1u) | ((m >> 1) & 1u) << 8 | ((m >> 2) & 1u) << 16 | (m >> 3) << 24;
   }
-  uint32_t o = 0;  // the row's 4 bools, byte c = base c
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const Kmer<W> b = mode == 1 ? shl2<W>(a, (uint32_t)c, top) : shr2_ins<W>(a, (uint32_t)c, k);
-    hash_kmer<W>(b, k, tabs, &f, &r);
-    o |= (uint32_t)member<CLASSIC>(bits, f, r, H, n_words) << (8 * c);
-  }
-  reinterpret_cast<uint32_t*>(out)[row] = o;
 }
 
 // ---------------------------------------------------------------------------
@@ -187,8 +305,8 @@ __global__ void dbg_walk_kernel(const uint32_t* __restrict__ words, long long N,
 }
 
 // ---------------------------------------------------------------------------
-// K12 dbg_traverse (graph.py:125-237), one thread per lane. An outer step
-// from node cur with successor mask m:
+// K12 dbg_traverse (graph.py:125-237), four threads a lane (below). An
+// outer step from node cur with successor mask m:
 //   deg 1: emit the base, advance;
 //   deg >= 2: branch c (m bit c) starts at shl2(cur, c) and takes simple
 //     steps (a branch dies at a node whose degree != 1 and never resumes);
@@ -199,98 +317,170 @@ __global__ void dbg_walk_kernel(const uint32_t* __restrict__ words, long long N,
 //     steps stops the lane;
 //   deg 0: the lane stops.
 // A stopped lane emits nothing more. Output row: the emitted bases, zeros
-// after them; n the count.
+// after them; n the count. Depth d's byte (pos + 1 + d, inside the row: an
+// outer step emits at most D + 2 bytes) holds the live branches' bases,
+// branch c at bits 2c; at d* the chosen branch's bits are kept, and a lane
+// that does not converge writes those bytes back to zero.
 // ---------------------------------------------------------------------------
 
+// zero bytes [0, n) of p with the block's threads: 16-byte stores between
+// the head and tail bytes that lie off a 16-byte boundary
+static __device__ __forceinline__ void zero_region(uint8_t* p, long long n) {
+  long long head = (long long)((16u - (unsigned)(reinterpret_cast<uintptr_t>(p) & 15u)) & 15u);
+  head = head < n ? head : n;
+  const long long body = (n - head) >> 4;
+  const long long tail = head + (body << 4);
+  if (threadIdx.x < head) p[threadIdx.x] = 0;
+  uint4* q = reinterpret_cast<uint4*>(p + head);
+  for (long long i = threadIdx.x; i < body; i += blockDim.x) q[i] = make_uint4(0, 0, 0, 0);
+  if (tail + threadIdx.x < n) p[tail + threadIdx.x] = 0;
+}
+
+// keep branch cbr's two bits of each of the n depth bytes at p (the lane's
+// own stores): the loads go 8 at a time, in flight together
+static __device__ __forceinline__ void keep_branch(uint8_t* p, int n, int cbr) {
+  for (int i = 0; i < n; i += 8) {
+    uint8_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = i + j < n ? p[i + j] : 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (i + j < n) p[i + j] = (uint8_t)((v[j] >> (2 * cbr)) & 3u);
+  }
+}
+
+// Four threads a lane (a quad): at a node (d < 0) all four hold it and
+// thread q probes its successor by base q; in a bubble thread q holds branch
+// q (slot q) and probes its 4 successors. One loop iteration is one probe
+// step of the lane, so a lane in a bubble holds up the other lanes of its
+// warp only for its own steps, and a lane's work spreads over four threads
+// (four times the warps to hide the probes' latency). The quad shares the
+// successor masks and the convergence test by shuffles; its decisions are
+// the same in its four threads. Thread 0 writes the row.
+#define K12_QUAD 4
+#define K12_GROUP 3  // hashes a probe round loads after the first (probe_classic_n)
+
+template <typename T>
+static __device__ __forceinline__ T quad_shfl(unsigned qmask, T v, int src) {
+  return __shfl_sync(qmask, v, src, K12_QUAD);
+}
+
 template <int W>
-__global__ void dbg_traverse_kernel(const uint32_t* __restrict__ words, long long N, int S,
-                                    int D, int k, uint32_t top,
-                                    const __grid_constant__ HashTabs tabs,
-                                    const uint32_t* __restrict__ bits, int H, uint32_t n_words,
-                                    uint8_t* __restrict__ out, int32_t* __restrict__ n_out) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
+__global__ void __launch_bounds__(GRAPH_THREADS)
+    dbg_traverse_kernel(const uint32_t* __restrict__ words, long long N, int S, int D, int k,
+                        uint32_t top, uint32_t padf, uint32_t padr,
+                        const __grid_constant__ HashTabs tabs,
+                        const uint32_t* __restrict__ bits, int H, uint32_t n_words,
+                        uint8_t* __restrict__ out, int32_t* __restrict__ n_out) {
+  __shared__ NibbleTabs tab;
+  build_nibble_tabs(tabs, tab);
   const long long cap = (long long)S * (D + 2);
+  const long long row0 = (long long)blockIdx.x * (blockDim.x / K12_QUAD);
+  const long long rows = min((long long)(blockDim.x / K12_QUAD), N - row0);
+  zero_region(out + row0 * cap, rows * cap);
+  __syncthreads();
+  const int q = threadIdx.x % K12_QUAD;
+  const long long row = row0 + threadIdx.x / K12_QUAD;
+  if (row >= N) return;  // whole quads
+  const unsigned qmask = 0xFu << ((threadIdx.x & 31) & ~3);
   uint8_t* o = out + row * cap;
-  Kmer<W> cur = load_kmer<W>(words, row);
-  uint32_t f, r, cf[4], cr[4];
-  hash_kmer<W>(cur, k, tabs, &f, &r);
+  Kmer<W> node = load_kmer<W>(words, row);  // the node, or in a bubble branch q's (if live)
+  uint32_t f, r;
+  hash_kmer_tab<W>(node, k, top, padf, padr, tab, &f, &r);
+  unsigned live = 1u;  // slots in use
   long long pos = 0;
-  for (int s = 0; s < S; ++s) {
-    const unsigned m = succ_rolled<W>(cur, f, r, k, tabs, bits, H, n_words, cf, cr);
-    const int deg = __popc(m);
-    if (deg == 0) break;
-    if (deg == 1) {
-      const uint32_t u = first_set(m);
-      o[pos++] = (uint8_t)u;
-      cur = shl2<W>(cur, u, top);
-      f = pick4(cf, u);
-      r = pick4(cr, u);
+  int s = 0, d = -1, reached = 0;  // outer step; bubble depth (-1: at a node); depth bytes
+  while (s < S) {
+    uint32_t cf[4], cr[4];
+    if (d < 0) {  // an outer step from the node, held by all four: thread q probes base q
+      roll_out(f, r, base_of(node, 0, k), tabs, cf, cr);
+      const uint32_t fq = pick4(cf, q), rq = pick4(cr, q);
+      const unsigned hit = probe_classic_n<1, K12_GROUP>(bits, &fq, &rq, 1u, H, n_words);
+      unsigned m = 0;
+#pragma unroll
+      for (int j = 0; j < K12_QUAD; ++j) m |= quad_shfl(qmask, hit, j) << j;
+      const int deg = __popc(m);
+      if (deg == 0) break;
+      if (deg == 1) {
+        const uint32_t u = first_set(m);
+        if (q == 0) o[pos] = (uint8_t)u;
+        node = shl2<W>(node, u, top);
+        f = pick4(cf, u);
+        r = pick4(cr, u);
+        ++pos;
+        ++s;
+        continue;
+      }
+      if (D <= 0) break;
+      node = shl2<W>(node, (uint32_t)q, top);  // a bubble: branch q starts at shl2(node, q)
+      f = fq;
+      r = rq;
+      live = m;
+      d = 0;
+      reached = 0;
       continue;
     }
-    // bubble attempt: the 4 branches in registers
-    Kmer<W> bn[4];
-    uint32_t bf[4], br[4];
-    unsigned alive = m;
+    unsigned mq = 0;  // slot q's successors
+    if ((live >> q) & 1u) {
+      roll_out(f, r, base_of(node, 0, k), tabs, cf, cr);
+      mq = probe_classic_n<4, K12_GROUP>(bits, cf, cr, 0xFu, H, n_words);
+    }
+    unsigned mm = 0;  // slot c's at bits 4c..4c+3
+#pragma unroll
+    for (int j = 0; j < K12_QUAD; ++j) mm |= quad_shfl(qmask, mq, j) << (4 * j);
+    // depth d: each live branch takes its unique successor or dies
+    unsigned next = 0, packed = 0;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      bn[c] = shl2<W>(cur, (uint32_t)c, top);
-      bf[c] = cf[c];
-      br[c] = cr[c];
-    }
-    int dstar = -1;
-    for (int d = 0; d < D && alive; ++d) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (!((alive >> c) & 1u)) continue;
-        uint32_t gf[4], gr[4];
-        const unsigned mc = succ_rolled<W>(bn[c], bf[c], br[c], k, tabs, bits, H, n_words,
-                                           gf, gr);
-        if (__popc(mc) != 1) {
-          alive &= ~(1u << c);
-          continue;
-        }
-        const uint32_t u = first_set(mc);
-        bn[c] = shl2<W>(bn[c], u, top);
-        bf[c] = pick4(gf, u);
-        br[c] = pick4(gr, u);
-      }
-      if (!alive) break;
-      const int first = __ffs(alive) - 1;
-      Kmer<W> ref = bn[0];
-#pragma unroll
-      for (int e = 1; e < 4; ++e)
-        if (e == first) ref = bn[e];
-      bool same = true;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if ((alive >> c) & 1u) same &= same_kmer<W>(bn[c], ref);
-      if (same) {
-        dstar = d;
-        break;
+      const unsigned mc = (mm >> (4 * c)) & 0xFu;
+      if ((live >> c) & 1u && __popc(mc) == 1) {
+        next |= 1u << c;
+        packed |= first_set(mc) << (2 * c);
       }
     }
-    if (dstar < 0) break;
-    // emit cbr and re-walk its d*+1 steps for their bases; continue from
-    // its node
-    const uint32_t cbr = (uint32_t)(__ffs(alive) - 1);
-    o[pos++] = (uint8_t)cbr;
-    Kmer<W> b = shl2<W>(cur, cbr, top);
-    uint32_t gf = pick4(cf, cbr), gr = pick4(cr, cbr);
-    for (int d = 0; d <= dstar; ++d) {
-      uint32_t hf[4], hr[4];
-      const uint32_t u = first_set(succ_rolled<W>(b, gf, gr, k, tabs, bits, H, n_words, hf, hr));
-      o[pos++] = (uint8_t)u;
-      b = shl2<W>(b, u, top);
-      gf = pick4(hf, u);
-      gr = pick4(hr, u);
+    if ((next >> q) & 1u) {
+      const uint32_t u = first_set(mq);
+      node = shl2<W>(node, u, top);
+      f = pick4(cf, u);
+      r = pick4(cr, u);
     }
-    cur = b;
-    f = gf;
-    r = gr;
+    live = next;
+    if (!live) break;
+    if (q == 0) o[pos + 1 + d] = (uint8_t)packed;
+    reached = d + 1;
+    const int first = __ffs(live) - 1;
+    unsigned eq = 1u;  // every live branch on the first one's node
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const uint32_t ref = quad_shfl(qmask, node.w[j], first);
+      eq &= !((live >> q) & 1u) || node.w[j] == ref;
+    }
+    eq &= __shfl_xor_sync(qmask, eq, 1, K12_QUAD);
+    eq &= __shfl_xor_sync(qmask, eq, 2, K12_QUAD);
+    if (eq) {
+      // emit cbr = the first live branch and its d+1 step bases; go on from
+      // its node, in slot 0
+      if (q == 0) {
+        o[pos] = (uint8_t)first;
+        keep_branch(o + pos + 1, d + 1, first);
+      }
+      pos += d + 2;
+#pragma unroll
+      for (int j = 0; j < W; ++j) node.w[j] = quad_shfl(qmask, node.w[j], first);
+      f = quad_shfl(qmask, f, first);
+      r = quad_shfl(qmask, r, first);
+      live = 1u;
+      d = -1;
+      ++s;
+      continue;
+    }
+    if (++d == D) break;
   }
-  n_out[row] = (int32_t)pos;
-  for (long long t = pos; t < cap; ++t) o[t] = 0;
+  if (q == 0) {
+    if (d >= 0)  // a bubble that did not converge: its depth bytes back to zero
+      for (int t = 0; t < reached; ++t) o[pos + 1 + t] = 0;
+    n_out[row] = (int32_t)pos;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -306,18 +496,42 @@ static unsigned graph_blocks(long long N) {
   return (unsigned)((N + GRAPH_THREADS - 1) / GRAPH_THREADS);
 }
 
+// as many blocks as are resident on the card at once (each builds the
+// tables once), or fewer for a small N
+template <typename F>
+static cudaError_t resident_grid(F kern, long long N, unsigned* grid) {
+  static int resident = 0;  // per instance: blocks of it the card holds at once
+  if (!resident) {
+    const cudaError_t e = resident_blocks(kern, GRAPH_THREADS, &resident);
+    if (e != cudaSuccess) return e;
+  }
+  *grid = (unsigned)min((long long)graph_blocks(N), (long long)resident);
+  return cudaSuccess;
+}
+
 template <int W>
-static void launch_probe(const void* words, long long N, int mode, int classic, int k,
-                         unsigned top, const HashTabs& tb, const void* bitset, int H,
-                         unsigned n_words, void* out, cudaStream_t st) {
-  if (classic)
-    dbg_probe_kernel<W, true><<<graph_blocks(N), GRAPH_THREADS, 0, st>>>(
-        (const uint32_t*)words, N, mode, k, top, tb, (const uint32_t*)bitset, H, n_words,
-        (uint8_t*)out);
-  else
-    dbg_probe_kernel<W, false><<<graph_blocks(N), GRAPH_THREADS, 0, st>>>(
-        (const uint32_t*)words, N, mode, k, top, tb, (const uint32_t*)bitset, H, n_words,
-        (uint8_t*)out);
+static cudaError_t launch_probe(const void* words, long long N, int mode, int classic, int k,
+                                unsigned top, const HashTabs& tb, const void* bitset, int H,
+                                unsigned n_words, void* out, cudaStream_t st) {
+  uint32_t padf, padr;
+  nibble_tab_pads(tb, k, W, &padf, &padr);
+  const int align = W % 4 == 0 ? 16 : 8;
+  const bool vec = (reinterpret_cast<uintptr_t>(words) % align) == 0;
+  const uint32_t* w = (const uint32_t*)words;
+  const uint32_t* b = (const uint32_t*)bitset;
+  uint8_t* o = (uint8_t*)out;
+  unsigned grid;
+  cudaError_t e;
+  if (classic) {
+    if ((e = resident_grid(dbg_probe_kernel<W, true>, N, &grid)) != cudaSuccess) return e;
+    dbg_probe_kernel<W, true><<<grid, GRAPH_THREADS, 0, st>>>(w, N, mode, k, top, padf, padr,
+                                                              vec, tb, b, H, n_words, o);
+  } else {
+    if ((e = resident_grid(dbg_probe_kernel<W, false>, N, &grid)) != cudaSuccess) return e;
+    dbg_probe_kernel<W, false><<<grid, GRAPH_THREADS, 0, st>>>(w, N, mode, k, top, padf, padr,
+                                                               vec, tb, b, H, n_words, o);
+  }
+  return cudaGetLastError();
 }
 
 extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int classic,
@@ -330,8 +544,9 @@ extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaSuccess;
 #define LAUNCH(W_) \
-  launch_probe<W_>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st)
+  e = launch_probe<W_>(words, N, mode, classic, k, top, tb, bitset, H, n_words, out, st)
   switch (W) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)
@@ -339,7 +554,7 @@ extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int
     LT_W_NO_INSTANCE
   }
 #undef LAUNCH
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 template <int W>
@@ -371,13 +586,30 @@ extern "C" int lt_dbg_walk(const void* words, long long N, int W, int S, int k, 
   return (int)cudaGetLastError();
 }
 
+// K12's block size: the largest of 256, 128, 64, 32 threads (a quad a lane)
+// that still gives two blocks an SM (a lane count too small for that takes
+// 32), so a small launch spreads over every SM; a block zero-fills its rows'
+// region
+static unsigned traverse_threads(long long N) {
+  static int sms = 0;  // the card's SMs (256-thread blocks until it is known)
+  int dev = 0;
+  if (!sms && cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  unsigned t = GRAPH_THREADS;
+  while (t > 32 && (K12_QUAD * N + t - 1) / t < 2LL * sms) t >>= 1;
+  return t;
+}
+
 template <int W>
 static void launch_traverse(const void* words, long long N, int S, int D, int k, unsigned top,
                             const HashTabs& tb, const void* bitset, int H, unsigned n_words,
                             void* out, void* n, cudaStream_t st) {
-  dbg_traverse_kernel<W><<<graph_blocks(N), GRAPH_THREADS, 0, st>>>(
-      (const uint32_t*)words, N, S, D, k, top, tb, (const uint32_t*)bitset, H, n_words,
-      (uint8_t*)out, (int32_t*)n);
+  uint32_t padf, padr;
+  nibble_tab_pads(tb, k, W, &padf, &padr);
+  const unsigned t = traverse_threads(N), lanes = t / K12_QUAD;
+  dbg_traverse_kernel<W><<<(unsigned)((N + lanes - 1) / lanes), t, 0, st>>>(
+      (const uint32_t*)words, N, S, D, k, top, padf, padr, tb, (const uint32_t*)bitset, H,
+      n_words, (uint8_t*)out, (int32_t*)n);
 }
 
 extern "C" int lt_dbg_traverse(const void* words, long long N, int W, int S, int D, int k,

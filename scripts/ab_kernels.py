@@ -2,13 +2,13 @@
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
 K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
 scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
-K18 and K19, the Bloom builds K16 and K3, and the device unitig build's
-K5 links, K6 chain ranking and K7 emission of one tree's leon_tpu_torch on
-the card, beside the PyTorch call that computes the same function where
+K18 and K19, the Bloom builds K16 and K3, the device unitig build's K5
+links, K6 chain ranking and K7 emission, and the graph API's K10-K12 of one
+tree's leon_tpu_torch on the card, beside the PyTorch call that computes the same function where
 there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
-        [--only k2,k8,scan,k14,walk,bloom,rank,k3,links,emit]
+        [--only k2,k8,scan,k14,walk,bloom,rank,k3,links,emit,graph]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -120,6 +120,32 @@ Inputs (chip_smoke.py's shapes):
                device time, D2H, the other copies and memsets, and the rest
                of its wall, the host's), "build_launches" (K5, K6's
                kernels, K7 a build) and "build_peak_bytes"
+  graph:w2/w8/w16  (section graph) the graph API's kernels as chip_smoke.py
+               phases 7 and 10 drive them, on Graph.from_solid of phase 3's
+               2,014,298 solid 31-mers (slab_reads with `reverse`, K1, sort,
+               K2, the cutoff from its merge's histogram) and phase 9's
+               solid sets at k = 127 and 255 (1,777,017 and 530,019 rows):
+               K10 (`bloom.dbg_probe`) over
+               every node in each mode (self, out, in), classic on the
+               graph's bitset (H = 4, 16 bits a k-mer) and blocked on the
+               compress filter (K3's at k = 31, K16's past it); K11
+               (`DBG.walk`, 100 steps from every node); K12 (`DBG.traverse`,
+               16 steps) at D = 32 from 65,536 nodes (the branching nodes
+               first) and at D = k + 1 from those 65,536 and from their
+               first 16,384. Beside each: "loads", the fewest bitset loads
+               any design makes on these inputs (a classic probe's up to its
+               first clear bit, a blocked probe's one word; K12's bubble
+               depths probe only the live branches), counted by a replay in
+               PyTorch (rolled hashes) that must give the kernel's own
+               output; "floor_ms", scripts/graph_probe_floor.cu with those
+               loads, independent, 8 in flight a thread; "chain_ms", the
+               same kernel with each row's or lane's probe steps as one
+               chain of dependent loads (one a step: the fewest dependent
+               rounds; "max_steps" the longest lane's); "bytes_ms" (nodes
+               read, outputs written); for K10 "table_ms", its hash's 8W
+               64-bit table entries a row over shared memory's rate (as
+               bloom's); "bound_ms" the largest, "share" bound / ms; the
+               ptxas registers of the tree's graph kernels
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -132,7 +158,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3", "links", "emit")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3", "links", "emit", "graph")
 
 
 def main() -> int:
@@ -407,6 +433,8 @@ def main() -> int:
         out["links"] = links_section(args.tree, wide, slab_reads, ms, same, dev)
     if "emit" in only:
         out["emit"] = emit_section(args.tree, wide, slab_reads, ms, same, dev)
+    if "graph" in only:
+        out["graph"] = graph_section(args.tree, wide, slab_reads, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -962,6 +990,289 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
         del bits, enc_d, dec_d, dec_in
         torch.cuda.empty_cache()
     res["registers"] = registers(tree, WALK_KERNELS)
+    return res
+
+
+M32 = 0xFFFFFFFF
+
+
+def graph_replay(bloom, kmer, k: int, seed: int, H: int, n_words: int, bits, dev):
+    """PyTorch replays of the graph kernels' probes on int64-held u32 values
+    (rolled hashes, as csrc/graph.cu rolls them): (probe_loads, walk_loads,
+    traverse_loads), each returning the kernel's own output beside the
+    loads (a classic probe's up to its first clear bit, a blocked probe's
+    one word: the fewest any design makes) and the dependent steps (one a
+    probe step: the fewest dependent rounds) of each row or lane."""
+    import torch
+
+    tab = torch.tensor(bloom.tables(seed, k).astype("int64"), device=dev)
+    T, Tc, Trot, Tcrot = tab
+    b64 = bits.to(torch.int64) & M32
+    t0 = 2 * (k - 1)
+
+    def rol(x, s):
+        s %= 32
+        return ((x << s) | (x >> (32 - s))) & M32 if s else x
+
+    def base0(w):
+        return (w[..., t0 // 32] >> (t0 % 32)) & 3
+
+    def roll_out(f, r, w):
+        o = base0(w)
+        return (rol(f ^ Trot[o], 1)[..., None] ^ T), (rol(r ^ Tc[o], 31)[..., None] ^ Tcrot)
+
+    def roll_in(f, r, w):
+        lb = w[:, 0] & 3
+        cp = torch.arange(4, device=dev)[None, :] | base0(kmer.shr2_ins(w, 0, k))[:, None]
+        return (rol(f ^ T[lb], 31)[:, None] ^ Trot[cp]), (rol(r ^ Tcrot[lb], 1)[:, None] ^ Tc[cp])
+
+    def classic(f, r):
+        """(member, loads) of candidates (..., C): loads up to the first clear bit."""
+        h1, h2 = torch.minimum(f, r), torch.maximum(f, r) | 1
+        alive = torch.ones(f.shape, dtype=torch.bool, device=dev)
+        loads = torch.zeros(f.shape, dtype=torch.int32, device=dev)
+        g = h1
+        for i in range(H):
+            if i:
+                g = (g + h2) & M32
+            loads += alive
+            alive &= ((b64[(g * n_words) >> 32] >> (g & 31)) & 1) == 1
+        return alive, loads
+
+    def start(words):
+        w = words.to(torch.int64) & M32
+        f, r = bloom.hash_words_plain(w, k, bloom.tables(seed, k))
+        return w, f, r
+
+    def probe_loads(words, mode, is_classic):
+        """(member (N,) or (N, 4), loads (N,), steps (N,))."""
+        w, f, r = start(words)
+        if mode != "self":
+            f, r = (roll_out if mode == "out" else roll_in)(f, r, w)
+        else:
+            f, r = f[:, None], r[:, None]
+        ones = torch.ones(w.shape[0], dtype=torch.int32, device=dev)
+        if is_classic:
+            m, ld = classic(f, r)
+            return m.squeeze(1) if mode == "self" else m, ld.sum(1), ones
+        return None, f.shape[1] * ones, ones
+
+    def walk_loads(words, S):
+        """(n (N,), loads (N,), steps (N,))."""
+        cur, f, r = start(words)
+        N = cur.shape[0]
+        ar = torch.arange(N, device=dev)
+        alive = torch.ones(N, dtype=torch.bool, device=dev)
+        n = torch.zeros(N, dtype=torch.int32, device=dev)
+        loads = torch.zeros(N, dtype=torch.int32, device=dev)
+        steps = torch.zeros(N, dtype=torch.int32, device=dev)
+        for _ in range(S):
+            cf, cr = roll_out(f, r, cur)
+            m, ld = classic(cf, cr)
+            loads += torch.where(alive, ld.sum(1), 0)
+            steps += alive.to(torch.int32)
+            u = torch.argmax(m.to(torch.int32), dim=1)
+            go = alive & (m.sum(1) == 1)
+            n += go.to(torch.int32)
+            cur = torch.where(go[:, None], kmer.shl2(cur, u, k), cur)
+            f = torch.where(go, cf[ar, u], f)
+            r = torch.where(go, cr[ar, u], r)
+            alive = go
+            if not bool(alive.any()):
+                break
+        return n, loads, steps
+
+    def traverse_loads(words, S, D):
+        """(n (N,), loads (N,), steps (N,)): an outer step probes the node's
+        4 candidates, a bubble depth the 4 candidates of each live branch."""
+        cur, f, r = start(words)
+        N, W = cur.shape
+        ar = torch.arange(N, device=dev)
+        alive = torch.ones(N, dtype=torch.bool, device=dev)
+        n = torch.zeros(N, dtype=torch.int64, device=dev)
+        loads = torch.zeros(N, dtype=torch.int64, device=dev)
+        steps = torch.zeros(N, dtype=torch.int64, device=dev)
+        for _ in range(S):
+            if not bool(alive.any()):
+                break
+            cf, cr = roll_out(f, r, cur)
+            m, ld = classic(cf, cr)
+            loads += torch.where(alive, ld.sum(1), 0)
+            steps += alive.to(torch.int64)
+            deg = m.sum(1)
+            simple, branch = alive & (deg == 1), alive & (deg >= 2)
+            u = torch.argmax(m.to(torch.int32), dim=1)
+            bn = torch.stack([kmer.shl2(cur, c, k) for c in range(4)], dim=1)  # (N, 4, W)
+            bf, br = cf.clone(), cr.clone()
+            live = m & branch[:, None]
+            active = branch.clone()
+            dstar = torch.full((N,), -1, dtype=torch.int64, device=dev)
+            cnode, cfh, crh = cur.clone(), f.clone(), r.clone()
+            for d in range(D):
+                if not bool(active.any()):
+                    break
+                gf, gr = roll_out(bf, br, bn)  # (N, 4, 4)
+                mm, ll = classic(gf, gr)
+                stepping = live & active[:, None]
+                ll = ll * stepping[..., None]
+                loads += ll.sum((1, 2))
+                steps += active.to(torch.int64)
+                uc = torch.argmax(mm.to(torch.int32), dim=2)
+                go = stepping & (mm.sum(2) == 1)
+                live = torch.where(active[:, None], go, live)
+                nb = kmer.shl2(bn.reshape(-1, W), uc.reshape(-1), k).reshape(N, 4, W)
+                bn = torch.where(go[..., None], nb, bn)
+                bf = torch.where(go, gf.gather(2, uc[..., None]).squeeze(2), bf)
+                br = torch.where(go, gr.gather(2, uc[..., None]).squeeze(2), br)
+                any_live = live.any(1)
+                first = torch.argmax(live.to(torch.int32), dim=1)
+                ref = bn[ar, first]
+                same = ((bn == ref[:, None, :]).all(2) | ~live).all(1)
+                now = active & any_live & same
+                dstar = torch.where(now, d, dstar)
+                cnode = torch.where(now[:, None], ref, cnode)
+                cfh = torch.where(now, bf[ar, first], cfh)
+                crh = torch.where(now, br[ar, first], crh)
+                active &= any_live & ~same
+            conv = branch & (dstar >= 0)
+            n += torch.where(simple, 1, torch.where(conv, dstar + 2, 0))
+            cur = torch.where(simple[:, None], kmer.shl2(cur, u, k),
+                              torch.where(conv[:, None], cnode, cur))
+            f = torch.where(simple, cf[ar, u], torch.where(conv, cfh, f))
+            r = torch.where(simple, cr[ar, u], torch.where(conv, crh, r))
+            alive = simple | conv
+        return n.to(torch.int32), loads.to(torch.int32), steps.to(torch.int32)
+
+    return probe_loads, walk_loads, traverse_loads
+
+
+GRAPH_KERNELS = ("dbg_probe_kernel", "dbg_walk_kernel", "dbg_traverse_kernel")
+
+
+def graph_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
+    """K10, K11 and K12 at phase 7's and phase 10's shapes with the loads of
+    their designs, their probe floors and bounds; see the docstring."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import kernels, state
+    from leon_tpu_torch.graph import Graph
+    from leon_tpu_torch.ops import bloom, count, kmer
+
+    P, I, I64, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+    floor = floor_lib("graph_probe_floor", "lt_graph_floor", [P, Un, P, I64, Un, I, P, P])
+    H, SEED = chip_smoke.H, chip_smoke.SEED
+    S_WALK, S_TRAV, LANES = (chip_smoke.GRAPH_WALK_STEPS, chip_smoke.GRAPH_TRAVERSE_STEPS,
+                             chip_smoke.GRAPH_TRAVERSE_LANES)
+
+    def floor_ms(bits, nw, counts, dep):
+        c = counts.to(torch.int32).contiguous()
+        o = torch.empty(c.numel(), dtype=torch.int32, device=dev)
+        st = kernels.stream(c)
+
+        def run():
+            kernels.check(floor.lt_graph_floor(bits.data_ptr(), nw, c.data_ptr(), c.numel(),
+                                               0x5EED, int(dep), o.data_ptr(), st), "graph_floor")
+        return ms(run, 10)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    lanes_per_s = lane_rate()
+
+    def bounds(rec, bits, nw, loads, steps, moved, hashed=0, W=0):
+        rec["loads"] = int(loads.to(torch.int64).sum())
+        rec["floor_ms"] = floor_ms(bits, nw, loads, False)
+        rec["chain_ms"] = floor_ms(bits, nw, steps, True)
+        rec["max_steps"] = int(steps.max())
+        rec["bytes_ms"] = moved / chip_smoke.HBM_BYTES_PER_S * 1e3
+        # K10 hashes each row from K16's tables: 8W 64-bit entries a row
+        rec["table_ms"] = 2 * 8 * W * hashed / lanes_per_s * 1e3
+        rec["bound_ms"] = max(rec["floor_ms"], rec["chain_ms"], rec["bytes_ms"], rec["table_ms"])
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+
+    def solid_sets():
+        # phase 3's: its reads (slab_reads with `reverse`), the cutoff and the
+        # filter's size from the histogram of its merge (the run and every
+        # third row again), K3's filter
+        rk, rc = bench_run(lambda nr, _rev: slab_reads(nr, True), dev)[:2]
+        mk, perm = torch.sort(torch.cat([rk, rk[::3]]))
+        hist = count.runs(mk, torch.cat([rc, rc[::3]])[perm], 1, True)[2]
+        hist = hist.cpu().numpy().astype(np.int64)
+        del mk, perm
+        cutoff = count.auto_cutoff(hist)
+        bpk, _h = bloom.auto_params(hist, cutoff, False, stored_filter=False)
+        nw3 = bloom.choose_n_words(int(hist[min(cutoff, 255):].sum()), bpk)
+        solid = count.compact_solid(rk, rc, cutoff)[0]
+        bits3 = bloom.bloom_build(rk, rc, cutoff, nw3, H, SEED, 31)
+        del rk, rc
+        yield "w2", 31, state.keys_to_words(solid.cpu().numpy(), 2), bits3, nw3
+        for W in (8, 16):
+            k, chunks, L = wide(W)[:3]
+            sol = main_solid(k, chunks, L, dev)
+            sw = sol["solid"]
+            ones = torch.ones(sw.shape[0], dtype=torch.bool, device=dev)
+            nw = sol["n_words"]
+            yield (f"w{W}", k, sw.cpu().numpy().view(np.uint32), 
+                   bloom.bloom_build_words(sw, ones, nw, nw, H, SEED, k), nw)
+            del sol, sw
+
+    res = {}
+    for name, k, words, cbits, cnw in solid_sets():
+        G = Graph.from_solid(words, k)
+        dbg = G.dbg
+        nodes = state.words_to_torch(G.index.sorted_words, dev)
+        gb, gnw = dbg.bitset, dbg.n_words
+        rec = {"k": k, "nodes": nodes.shape[0], "n_words": gnw, "compress_n_words": cnw}
+        # the graph's own filter (classic, its seed and H) and the compressor's
+        for is_classic, bits, nw, h, seed in ((True, gb, gnw, dbg.n_hashes, dbg.seed),
+                                               (False, cbits, cnw, H, SEED)):
+            probe_loads, _w, _t = graph_replay(bloom, kmer, k, seed, h, nw, bits, dev)
+            for mode in ("self", "out", "in"):
+                tag = f"probe:{mode}:{'classic' if is_classic else 'blocked'}"
+                a = (bits, nodes, mode, is_classic, h, nw, seed, k)
+                got = bloom.dbg_probe(*a)
+                same([got], [bloom.dbg_probe_plain(*a)])
+                member, loads, steps = probe_loads(nodes, mode, is_classic)
+                if member is not None:
+                    same([got], [member])  # the replay follows the kernel
+                r = {"ms": ms(lambda: bloom.dbg_probe(*a), 20),
+                     "member_share": float(got.float().mean())}
+                bounds(r, bits, nw, loads, steps, nbytes(nodes, got), nodes.shape[0],
+                       nodes.shape[1])
+                rec[tag] = r
+        _p, walk_loads, traverse_loads = graph_replay(bloom, kmer, k, dbg.seed, dbg.n_hashes,
+                                                      gnw, gb, dev)
+        wb, wn = dbg.walk(nodes, S_WALK)
+        n, loads, steps = walk_loads(nodes, S_WALK)
+        same([wn], [n])
+        r = {"ms": ms(lambda: dbg.walk(nodes, S_WALK), 3), "lanes": nodes.shape[0],
+             "steps": S_WALK, "mean_steps": float(wn.float().mean())}
+        bounds(r, gb, gnw, loads, steps, nbytes(nodes, wb, wn))
+        rec["walk"] = r
+        del wb, wn
+        branch = dbg.is_branching(nodes)
+        starts = torch.cat([nodes[branch], nodes[~branch]])[:LANES].contiguous()
+        for tag, D, lanes in (("traverse:d32", 32, starts), ("traverse:deep", k + 1, starts),
+                              ("traverse:deep16k", k + 1, starts[: LANES // 4])):
+            if tag == "traverse:deep" and D == 32:
+                continue
+            tb, tn = dbg.traverse(lanes, S_TRAV, D)
+            n, loads, steps = traverse_loads(lanes, S_TRAV, D)
+            same([tn], [n])
+            r = {"ms": ms(lambda: dbg.traverse(lanes, S_TRAV, D), 5), "lanes": lanes.shape[0],
+                 "D": D, "out_bytes": tb.numel(), "mean_bases": float(tn.float().mean())}
+            bounds(r, gb, gnw, loads, steps, nbytes(lanes, tb, tn))
+            rec[tag] = r
+            del tb, tn
+        res[name] = rec
+        print(json.dumps({f"graph:{name}": rec}), flush=True)
+        del G, dbg, nodes, starts, cbits
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, GRAPH_KERNELS)
     return res
 
 
