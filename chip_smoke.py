@@ -72,8 +72,12 @@ run right after phase 3, whose reads and solid set they reuse):
      classic and blocked, an unaligned view) and K12 on adversarial graphs
      (k12_case: SNP bubbles meeting at the last depth or never, tips, lanes
      that stop at step 0, rows of S(D + 2) = 35 bytes, D = 1, N below one
-     block and no multiple of any block size), each equal to its plain
-     version; then the graph API at full width on phase 3's solid set
+     block and no multiple of any block size) and K11 on adversarial walks
+     (k11_case at k = 1..64 of K11_KS: start words with random bits above
+     2k, SNP bubbles, false-positive branches, lanes that stop at step 0
+     and at step S - 1, walks past k steps; N = 61, 257; an unaligned
+     view), each equal to its plain version; then the graph API at full
+     width on phase 3's solid set
      (2,014,298 k-mers, k = 31): Graph.from_solid, contains / successors / predecessors /
      is_branching / iter_branching over every node, contains of 2**21
      random k-mers (false-positive rate), the blocked bloom.probe of the
@@ -82,7 +86,10 @@ run right after phase 3, whose reads and solid set they reuse):
      gather (2**24 indices into 1, 2 and 8 MB tables); each of K9-K12
      launched at least once, then held against its plain version on the
      card, exactly, and timed (K9 also against torch.take);
-  8. the tensor-level k-mer path on phase 3's 458,752 reads: at k = 31,
+  8. K15 on adversarial reads (k15_case, walk_case's edge reads, at k =
+     1..64 of K15_KS and L mod 16 = 0, 1, 15; the codes also as an
+     unaligned view), equal to its plain version; then the tensor-level
+     k-mer path on phase 3's 458,752 reads: at k = 31,
      K13 scan + torch.sort + K14 count equal phase 3's distinct run and
      solid keys, K16 over the solid rows equals K3's bitset, K15 on one
      chunk agrees with K4; at k = 63 (W = 4) scan, count, K16, K15 and
@@ -117,7 +124,8 @@ run right after phase 3, whose reads and solid set they reuse):
      on adversarial rows (bloom_adversarial: W = 1..16 at k = 16W - 15,
      16W - 1 and 16W, H = 1..8, garbage above 2k, 64 words for 4,096 rows,
      a sparse valid, S = 0), each equal to its plain version;
- 10. phases 8 and 7 past four words, on phase 9's reads and solid sets: at
+ 10. K11 and K15 on their adversarial cases past k = 64; then phases 8 and
+     7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
      (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
      the 4-shard Bloom build (= one shard = phase 9's K16), K15 on one
@@ -1420,7 +1428,8 @@ def walk_case(k: int, mod: int, n_random: int, L: int = 0):
     (unanchored, or all errors); reads across each repeat copy; a read with
     20% errors (errors within the first k steps of both sides); a
     homopolymer; error-free contig reads anchored at 0 and at len - k (their
-    first, last k-mer has the smallest min(f, r)); then n_random contig
+    first, last k-mer has the smallest min(f, r), where the contig has such
+    reads); then n_random contig
     reads of random length (0..L+20) and strand with 3% substitutions."""
     import numpy as np
 
@@ -1456,14 +1465,15 @@ def walk_case(k: int, mod: int, n_random: int, L: int = 0):
             (mutate(take(37, L), 0.2), L), (np.full(L, 1, np.uint8), L)]
     # error-free contig reads whose smallest min(f, r) is their first k-mer
     # (the anchor at 0) and their last (the anchor at len - k)
+    # (at k < 17, where few k-mers exist, a contig may have neither)
     win = np.lib.stride_tricks.sliding_window_view(contig, k)
     f, r = bloom.hash_words(kmer.pack_codes_batch_np(win, k), k, SEED)
     v = np.minimum(f, r)
     after = np.lib.stride_tricks.sliding_window_view(v[1:], L - k).min(axis=1)
-    first = int(np.flatnonzero(v[: after.size] < after)[0])
+    first = np.flatnonzero(v[: after.size] < after)[:1]
     before = np.lib.stride_tricks.sliding_window_view(v, L - k).min(axis=1)
-    last = int(np.flatnonzero(v[L - k :] < before[: v.size - L + k])[0])
-    rows += [(take(first, L), L), (take(last, L), L)]
+    last = np.flatnonzero(v[L - k :] < before[: v.size - L + k])[:1]
+    rows += [(take(int(i), L), L) for i in np.concatenate([first, last])]
     for _ in range(n_random):
         n = int(rng.integers(0, L + 21))
         r = mutate(take(int(rng.integers(0, contig.size - L)), L, bool(rng.integers(0, 2))), 0.03)
@@ -1968,6 +1978,114 @@ def k12_adversarial() -> None:
     log(f"dbg_traverse ok on bubbles and tips at (k, S, D, N, H) = {K12_CASES}")
 
 
+# K11 on walks through SNP bubbles, tips and false positives from dirty
+# start words; K15 on walk_case's reads (K18's edge reads) down to k = 1,
+# where the leaving base may lie in the word a side is building, and at
+# k = 5, where both sides' first words may be one. Phase 7 runs the cases at
+# k <= 64, phase 8 K15's at k <= 64, phase 10 the rest.
+K11_KS = (1, 15, 16, 17, 31, 32, 33, 63, 64, 127, 128, 255)
+K11_NS = (61, 257)
+K15_KS = (1, 5) + K11_KS[1:]
+
+
+def k11_case(k: int, N: int) -> tuple:
+    """(starts (N, W) u32, classic bitset u32, n_words, H, S) for K11: S =
+    2k + 40 steps (a walk past k steps wraps its ring); a random contig of
+    3S + 6k + 6 bases whose forward k-mers, with SNP variants of it every
+    2k + 2 bases in its middle third (true bifurcations), fill a classic
+    bitset: at N < 256 of 16 bits a k-mer with H = 1..3 hashes (many false
+    positives: walks stop at spurious branches), else of 24 bits with H =
+    4..8 (most walks run long); lanes start on contig k-mers, S - 1 steps
+    before the contig's end (a lane that stops at step S - 1 unless a false
+    positive stops it first), on its last k-mer and on random words (stops
+    at step 0) and before each SNP; every start carries random bits above
+    2k in its top word (shl2 masks them, the hash reads k bases)."""
+    import numpy as np
+
+    from leon_tpu_torch.ops import bloom, kmer
+
+    rng = np.random.default_rng(11 * k + N)
+    S = 2 * k + 40
+    H, bits_per_kmer = (1 + k % 3, 16.0) if N < 256 else (4 + k % 5, 24.0)
+    G = 3 * S + 6 * k + 6
+    contig = rng.integers(0, 4, G).astype(np.uint8)
+    seqs, snps = [contig], list(range(G // 3, 2 * G // 3 - k, 2 * k + 2))
+    for p in snps:
+        alt = contig[p - k + 1 : p + k].copy()
+        alt[k - 1] = (alt[k - 1] + rng.integers(1, 4)) & 3
+        seqs.append(alt)
+    kmers = np.concatenate([np.lib.stride_tricks.sliding_window_view(q, k) for q in seqs])
+    solid = np.unique(kmer.pack_codes_batch_np(kmers, k), axis=0)
+    nw = bloom.choose_n_words(solid.shape[0], bits_per_kmer)
+    pos = np.concatenate([[G - k - (S - 1), G - k], np.array(snps) - k - 3,
+                          rng.integers(0, G - k, max(0, N - len(snps) - 6))])
+    pos = np.clip(pos, 0, G - k)
+    starts = kmer.pack_codes_batch_np(contig[pos[:, None] + np.arange(k)], k)
+    W = kmer.words_for_k(k)
+    rnd = rng.integers(0, 1 << 32, (4, W), dtype=np.uint64).astype(np.uint32)
+    lanes = np.concatenate([starts, rnd])[:N]
+    dirty = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
+    lanes[:, -1] |= dirty & ~np.uint32(kmer.top_mask(k))
+    return lanes, bloom.build_np_classic(solid, nw, H, SEED, k), nw, H, S
+
+
+def k11_adversarial(ks: tuple) -> None:
+    """K11 against its plain version on the card, exactly (bases and n), on
+    k11_case at each k of ks and N of K11_NS, the starts also as an
+    unaligned view (one word into a buffer)."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch import state
+    from leon_tpu_torch.graph import dbg_walk, dbg_walk_plain
+
+    dev = torch.device("cuda")
+    for k in ks:
+        for N in K11_NS:
+            lanes, bits_np, nw, h, S = k11_case(k, N)
+            words = state.words_to_torch(lanes, dev)
+            flat = torch.zeros(words.numel() + 1, dtype=torch.int32, device=dev)
+            flat[1:] = words.reshape(-1)
+            bits = torch.from_numpy(bits_np.view(np.int32)).to(dev)
+            for q in (words, flat[1:].view(words.shape)):
+                a = (bits, q, h, nw, SEED, k, S)
+                (gb, gn), (pb, pn) = dbg_walk(*a), dbg_walk_plain(*a)
+                max_abs_err(gb, pb)
+                max_abs_err(gn, pn)
+    log(f"dbg_walk ok on bubbles, false positives and dirty starts at k = {ks}, N = {K11_NS}")
+
+
+def k15_case(k: int, mod: int, n_random: int):
+    """K15's adversarial reads: walk_case (k = 1..255)."""
+    return walk_case(k, mod, n_random)
+
+
+def k15_adversarial(ks: tuple) -> None:
+    """K15 against its plain version on the card, exactly (all 15 outputs),
+    on k15_case at each k of ks and L mod 16 = 0, 1, 15, 1,024 random reads
+    beside the edge reads, the codes also as an unaligned view."""
+    import numpy as np
+    import torch
+
+    from leon_tpu_torch.ops import walk
+
+    dev = torch.device("cuda")
+    for k in ks:
+        for mod in WALK_L_MOD16:
+            codes_np, lengths_np, bits_np, nw, h = k15_case(k, mod, 1024)
+            codes = torch.from_numpy(codes_np).to(dev)
+            flat = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=dev)
+            flat[1:] = codes.reshape(-1)
+            a = (torch.from_numpy(lengths_np).to(dev),
+                 torch.from_numpy(bits_np.view(np.int32)).to(dev), k, h, nw, SEED)
+            want = walk.encode_batch_plain(codes, *a)
+            for c in (codes, flat[1:].view(codes.shape)) if mod == 1 else (codes,):
+                got = walk.encode_batch(c, *a)
+                for n in want:
+                    max_abs_err(got[n], want[n])
+    log(f"walk_dense ok on edge reads at k = {ks}, L mod 16 = {WALK_L_MOD16}")
+
+
 def graph_phase(records: dict, bench_state: dict) -> dict:
     """The graph API on the bench run's solid set (phase 3: 2,014,298
     canonical k-mers at k = 31, W = 2), as its users drive it: every query
@@ -1985,6 +2103,7 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.ops.kmer import pack_codes_batch_np
 
     k10_adversarial()
+    k11_adversarial(tuple(k for k in K11_KS if k <= 64))
     k12_adversarial()
     dev = torch.device("cuda")
     words = state.keys_from_torch(bench_state["solid_keys"], 2)
@@ -2166,6 +2285,7 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.ops import bloom, count, kmer, walk
     from leon_tpu_torch.parallel import mesh
 
+    k15_adversarial(tuple(k for k in K15_KS if k <= 64))
     dev = torch.device("cuda")
     codes = torch.from_numpy(bench_state["codes"]).to(dev)
     lengths = torch.from_numpy(bench_state["lengths"]).to(dev)
@@ -2713,9 +2833,12 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
 
 
 def longk_phase(records: dict, hand: dict) -> dict:
-    """Phase 10: longk_checks at k = 127 (W = 8) on the 200,000 reads of 250
-    bp and their 1,777,017 solid k-mers (PIN127's), then at k = 255 (W = 16)
-    on phase 9's 131,072 reads of 300-600 bp and their solid set."""
+    """Phase 10: K11 and K15 on their adversarial cases past k = 64, then
+    longk_checks at k = 127 (W = 8) on the 200,000 reads of 250 bp and their
+    1,777,017 solid k-mers (PIN127's), then at k = 255 (W = 16) on phase 9's
+    131,072 reads of 300-600 bp and their solid set."""
+    k11_adversarial(tuple(k for k in K11_KS if k > 64))
+    k15_adversarial(tuple(k for k in K15_KS if k > 64))
     return {f"k{k}": longk_checks(records, names, hand.pop(k), k)
             for k, names in ((K127, LONGK8), (K255, LONGK16))}
 

@@ -132,8 +132,8 @@ extern "C" int lt_bloom_build(const void* keys, const void* counts, long long M,
 //
 // Bound on the H100: the rows' bytes (4W a row, read once) and one random
 // 4-byte atomic a valid row into a bitset that stays in the 50 MB L2; a
-// base-by-base hash (hash_kmer: a select over W words, two table selects
-// and two runtime rotations a base, ~4,000 instructions a row at k = 255)
+// base-by-base hash (a select over W words, two table selects and two
+// runtime rotations a base, ~4,000 instructions a row at k = 255)
 // made the kernel bound by its arithmetic instead. Design: the hash a word
 // at a time (hash_kmer_tab, kmer_words.cuh): each block builds the eight
 // 16-entry (f, r) nibble tables in shared memory (16 KB, each entry held

@@ -19,8 +19,8 @@
 //                     convergence test and the ragged compaction.
 //
 // k-mers are W = ceil(k/16) little-endian u32 words (FORMAT.md §3), base
-// i of the k-mer at bits 2(k-1-i); every kernel is templated on W in
-// 1..16 (k <= 255).
+// i of the k-mer at bits 2(k-1-i); K10 and K12 are templated on W in 1..16
+// (k <= 255), K11 takes W at run time.
 //
 // Bound on the H100: K9 moves its inputs and outputs once (bytes over
 // 3.35 TB/s); K10-K12 are bound by their Bloom probes, random 4-byte loads
@@ -46,8 +46,7 @@
 // still alive (the early exit's loads, H round trips at most); K12's first
 // round loads hash 0 and each later one the next three hashes of every
 // survivor (two round trips at H = 4, for a few more loads), since K12
-// waits on its chains, not on its loads. K11 (unchanged) hashes its start
-// node base by base and probes its candidates one after another. K12 gives
+// waits on its chains, not on its loads; K11's rounds are K10's. K12 gives
 // a lane four threads: at a node each probes one successor, in a bubble
 // each holds one branch and probes its four successors, and the loop takes
 // one probe step a lane whatever the lane is doing, so a lane in a bubble
@@ -63,45 +62,6 @@
 #include "kmer_words.cuh"
 
 #define GRAPH_THREADS 256
-
-// ---------------------------------------------------------------------------
-// classic addressing (ops/bloom.py wordbit_classic_from_hashes 225-244):
-// g_i = h1 + i*h2 (mod 2^32), h1 = min(f, r), h2 = max(f, r) | 1; word
-// mulhi32(g_i, n_words), bit g_i & 31; member iff all H bits are set
-// ---------------------------------------------------------------------------
-
-static __device__ __forceinline__ bool probe_classic(const uint32_t* __restrict__ bits,
-                                                     uint32_t f, uint32_t r, int H,
-                                                     uint32_t n_words) {
-  const uint32_t h1 = min(f, r), h2 = max(f, r) | 1u;
-  for (int i = 0; i < H; ++i) {
-    const uint32_t g = h1 + (uint32_t)i * h2;
-    if (!((__ldg(bits + __umulhi(g, n_words)) >> (g & 31u)) & 1u)) return false;
-  }
-  return true;
-}
-
-// K11's step: the 4 forward candidates of a node whose pair is (f, r):
-// rolled pairs (see the header) and their classic solidity mask, bit c =
-// base c solid, probed one candidate after another
-template <int W>
-static __device__ __forceinline__ unsigned succ_rolled(const Kmer<W>& a, uint32_t f,
-                                                       uint32_t r, int k, const HashTabs& tb,
-                                                       const uint32_t* __restrict__ bits,
-                                                       int H, uint32_t n_words,
-                                                       uint32_t cf[4], uint32_t cr[4]) {
-  const int o = base_of(a, 0, k);
-  const uint32_t fb = rol1(f ^ sel4(tb.t[2], o));
-  const uint32_t rb = ror1(r ^ sel4(tb.t[1], o));
-  unsigned m = 0;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    cf[c] = fb ^ tb.t[0][c];
-    cr[c] = rb ^ tb.t[3][c];
-    if (probe_classic(bits, cf[c], cr[c], H, n_words)) m |= 1u << c;
-  }
-  return m;
-}
 
 // argmax over 4 bools: the first set base, 0 when none is set
 static __device__ __forceinline__ uint32_t first_set(unsigned m) {
@@ -275,33 +235,96 @@ __global__ void __launch_bounds__(GRAPH_THREADS)
 // K11 dbg_walk (graph.py:87-113): at each of S steps follow the unique
 // successor; bases[:, s] is the argmax of the step's successors (it repeats
 // once the lane has stopped: the frozen node's successors do not change),
-// n the number of steps taken before the first step whose degree != 1
+// n the number of steps taken before the first step whose degree != 1.
+//
+// Width-free: a lane's state is its (f, r), a ring of bases and two ring
+// positions, whatever W. The ring is the node's sequence: column c (the
+// start node's base c for c < k, the base walked at step c - k after it) at
+// bit-pair (k - 1 - c) mod 16RW of RW = W + 1 words in shared memory, so
+// that the start node's words go in as they are (word j = ring word j; its
+// bits above 2k are never read before a walked base replaces them) and a
+// step reads its leaving first base, column s, k columns behind the base it
+// writes. The walked bases build a word in a register, stored when it is
+// whole; at k < 16 the leaving base may lie in that word. The start node is
+// hashed once from K16's nibble tables, a word at a time; a step rolls its
+// 4 candidates' pairs and probes them in rounds of one hash each (the early
+// exit's loads: three hashes a round after the first, and four threads a
+// lane, were slower on the H100 at W = 2, 8 and 16; PERF.md §6). A row's
+// bytes go out in 16-byte stores (RowChunks). The card's resident blocks
+// walk the rows grid-stride, each building the tables once.
 // ---------------------------------------------------------------------------
 
-template <int W>
-__global__ void dbg_walk_kernel(const uint32_t* __restrict__ words, long long N, int S, int k,
-                                uint32_t top, const __grid_constant__ HashTabs tabs,
-                                const uint32_t* __restrict__ bits, int H, uint32_t n_words,
-                                uint8_t* __restrict__ bases, int32_t* __restrict__ n_out) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  Kmer<W> cur = load_kmer<W>(words, row);
-  uint32_t f, r, cf[4], cr[4];
-  hash_kmer<W>(cur, k, tabs, &f, &r);
-  uint8_t* out = bases + row * (long long)S;
-  int s = 0;
-  uint32_t u = 0;
-  for (; s < S; ++s) {
-    const unsigned m = succ_rolled<W>(cur, f, r, k, tabs, bits, H, n_words, cf, cr);
-    u = first_set(m);
-    out[s] = (uint8_t)u;
-    if (__popc(m) != 1) break;
-    cur = shl2<W>(cur, u, top);
-    f = pick4(cf, u);
-    r = pick4(cr, u);
+// (f, r) of the W words at w (ring words, a word every `stride`), top word
+// masked to 2k bits, from the nibble tables (kmer_words.cuh hash_kmer_tab,
+// with W a runtime count)
+static __device__ __forceinline__ void hash_ring_tab(const uint32_t* w, int stride, int W, int k,
+                                                     uint32_t top, uint32_t padf, uint32_t padr,
+                                                     const NibbleTabs& tab, uint32_t* f,
+                                                     uint32_t* r) {
+  const int c = threadIdx.x & 15;
+  uint32_t fe = padf, re = padr, fo = 0, ro = 0;
+  for (int j = 0; j < W; ++j) {
+    uint32_t gf = 0, gr = 0;
+    nibble_terms(j == W - 1 ? w[j * stride] & top : w[j * stride], tab, c, &gf, &gr);
+    if (j & 1) {
+      fo ^= gf;
+      ro ^= gr;
+    } else {
+      fe ^= gf;
+      re ^= gr;
+    }
   }
-  n_out[row] = s;
-  for (int t = s + 1; t < S; ++t) out[t] = (uint8_t)u;
+  *f = fe ^ rolr(fo, 16);
+  *r = rolr(re ^ rolr(ro, 16), k - 1);
+}
+
+// Shared memory: the nibble tables, then a ring of RW words a thread (word
+// i of thread t at ring[i * GRAPH_THREADS + t]).
+__global__ void __launch_bounds__(GRAPH_THREADS)
+    dbg_walk_kernel(const uint32_t* __restrict__ words, long long N, int W, int S, int k,
+                    uint32_t top, uint32_t padf, uint32_t padr,
+                    const __grid_constant__ HashTabs tabs, const uint32_t* __restrict__ bits,
+                    int H, uint32_t n_words, int RW, uint8_t* __restrict__ bases,
+                    int32_t* __restrict__ n_out) {
+  __shared__ NibbleTabs tab;
+  extern __shared__ uint32_t ring_smem[];
+  build_nibble_tabs(tabs, tab);
+  __syncthreads();
+  uint32_t* ring = ring_smem + threadIdx.x;
+  const int M = 16 * RW;  // bit-pairs in the ring
+  const long long step = (long long)gridDim.x * GRAPH_THREADS;
+  for (long long row = (long long)blockIdx.x * GRAPH_THREADS + threadIdx.x; row < N;
+       row += step) {
+    const uint32_t* wr = words + row * W;
+    for (int j = 0; j < W; ++j) ring[j * GRAPH_THREADS] = __ldg(wr + j);
+    uint32_t f, r;
+    hash_ring_tab(ring, GRAPH_THREADS, W, k, top, padf, padr, tab, &f, &r);
+    RowChunks<uint8_t> out(bases + row * (long long)S, S);
+    int rp = k - 1, wp = M - 1;  // the pairs of the leaving base and of the next walked one
+    uint32_t acc = 0;            // walked bases of ring word wp >> 4 so far
+    int s = 0;
+    uint32_t u = 0;
+    for (; s < S; ++s) {
+      const uint32_t wv = (rp >> 4) == (wp >> 4) ? acc : ring[(rp >> 4) * GRAPH_THREADS];
+      uint32_t cf[4], cr[4];
+      roll_out(f, r, (int)((wv >> (2 * (rp & 15))) & 3u), tabs, cf, cr);
+      const unsigned m = probe_classic_n<4, 1>(bits, cf, cr, 0xFu, H, n_words);
+      u = first_set(m);
+      out.put(s, u);
+      if (__popc(m) != 1) break;
+      f = pick4(cf, u);
+      r = pick4(cr, u);
+      acc |= u << (2 * (wp & 15));
+      if ((wp & 15) == 0) {
+        ring[(wp >> 4) * GRAPH_THREADS] = acc;
+        acc = 0;
+      }
+      wp = wp ? wp - 1 : M - 1;
+      rp = rp ? rp - 1 : M - 1;
+    }
+    n_out[row] = s;
+    out.fill(s + 1, u);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -322,19 +345,6 @@ __global__ void dbg_walk_kernel(const uint32_t* __restrict__ words, long long N,
 // branch c at bits 2c; at d* the chosen branch's bits are kept, and a lane
 // that does not converge writes those bytes back to zero.
 // ---------------------------------------------------------------------------
-
-// zero bytes [0, n) of p with the block's threads: 16-byte stores between
-// the head and tail bytes that lie off a 16-byte boundary
-static __device__ __forceinline__ void zero_region(uint8_t* p, long long n) {
-  long long head = (long long)((16u - (unsigned)(reinterpret_cast<uintptr_t>(p) & 15u)) & 15u);
-  head = head < n ? head : n;
-  const long long body = (n - head) >> 4;
-  const long long tail = head + (body << 4);
-  if (threadIdx.x < head) p[threadIdx.x] = 0;
-  uint4* q = reinterpret_cast<uint4*>(p + head);
-  for (long long i = threadIdx.x; i < body; i += blockDim.x) q[i] = make_uint4(0, 0, 0, 0);
-  if (tail + threadIdx.x < n) p[tail + threadIdx.x] = 0;
-}
 
 // keep branch cbr's two bits of each of the n depth bytes at p (the lane's
 // own stores): the loads go 8 at a time, in flight together
@@ -557,15 +567,6 @@ extern "C" int lt_dbg_probe(const void* words, long long N, int W, int mode, int
   return (int)e;
 }
 
-template <int W>
-static void launch_walk(const void* words, long long N, int S, int k, unsigned top,
-                        const HashTabs& tb, const void* bitset, int H, unsigned n_words,
-                        void* bases, void* n, cudaStream_t st) {
-  dbg_walk_kernel<W><<<graph_blocks(N), GRAPH_THREADS, 0, st>>>(
-      (const uint32_t*)words, N, S, k, top, tb, (const uint32_t*)bitset, H, n_words,
-      (uint8_t*)bases, (int32_t*)n);
-}
-
 extern "C" int lt_dbg_walk(const void* words, long long N, int W, int S, int k, unsigned top,
                            const void* tabs16, const void* bitset, int H, unsigned n_words,
                            void* bases, void* n, void* stream) {
@@ -575,14 +576,20 @@ extern "C" int lt_dbg_walk(const void* words, long long N, int W, int S, int k, 
   if (S == 0) return (int)cudaMemsetAsync(n, 0, (size_t)N * sizeof(int32_t), st);
   HashTabs tb;
   memcpy(&tb, tabs16, sizeof(tb));
-#define LAUNCH(W_) launch_walk<W_>(words, N, S, k, top, tb, bitset, H, n_words, bases, n, st)
-  switch (W) {
-    LT_W_CASE(1, LAUNCH)
-    LT_W_CASES_2_4(LAUNCH)
-    LT_W_CASES_5_16(LAUNCH)
-    LT_W_NO_INSTANCE
+  uint32_t padf, padr;
+  nibble_tab_pads(tb, k, W, &padf, &padr);
+  const int RW = W + 1;  // 16(W + 1) >= k + 16 bit-pairs: a word between reader and writer
+  const size_t smem = (size_t)RW * GRAPH_THREADS * sizeof(uint32_t);
+  static int resident[17];  // blocks the card holds at once, by W
+  if (!resident[W]) {
+    const cudaError_t e =
+        resident_blocks(dbg_walk_kernel, GRAPH_THREADS, &resident[W], 1 << 30, smem);
+    if (e != cudaSuccess) return (int)e;
   }
-#undef LAUNCH
+  const unsigned grid = (unsigned)min((long long)graph_blocks(N), (long long)resident[W]);
+  dbg_walk_kernel<<<grid, GRAPH_THREADS, smem, st>>>(
+      (const uint32_t*)words, N, W, S, k, top, padf, padr, tb, (const uint32_t*)bitset, H,
+      n_words, RW, (uint8_t*)bases, (int32_t*)n);
   return (int)cudaGetLastError();
 }
 

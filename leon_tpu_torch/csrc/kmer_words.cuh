@@ -51,7 +51,7 @@ static inline bool load_planes(const void* host_ptrs, int P, PlanePtrs* out) {
 
 // ---------------------------------------------------------------------------
 // k-mer words (leon_tpu/ops/kmer.py top_mask 30-33, shl2 36-45,
-// shr2_ins 48-58) and from-scratch hashing (ops/bloom.py hash_words 97-117)
+// shr2_ins 48-58)
 // ---------------------------------------------------------------------------
 
 template <int W>
@@ -109,23 +109,11 @@ static __device__ __forceinline__ int base_of(const Kmer<W>& a, int i, int k) {
   return (int)((word_at(a, t >> 5) >> (t & 31)) & 3u);
 }
 
-template <int W>
-static __device__ __forceinline__ void hash_kmer(const Kmer<W>& a, int k, const HashTabs& tb,
-                                                 uint32_t* f, uint32_t* r) {
-  uint32_t hf = 0, hr = 0;
-  for (int i = 0; i < k; ++i) {
-    const int b = base_of(a, i, k);
-    hf ^= rolr(sel4(tb.t[0], b), (k - 1 - i) & 31);
-    hr ^= rolr(sel4(tb.t[1], b), i & 31);
-  }
-  *f = hf;
-  *r = hr;
-}
-
 // ---------------------------------------------------------------------------
-// Hashing a word at a time from nibble tables (the same (f, r) as
-// hash_kmer). Base i of a k-mer sits at bit-pair m = k-1-i of its words:
-// f XORs rol(T[b_m], m) and r XORs rol(Tc[b_m], k-1-m) =
+// Hashing a word at a time from nibble tables (the (f, r) of
+// leon_tpu/ops/bloom.py hash_words 97-117). Base i of a k-mer sits at
+// bit-pair m = k-1-i of its words: f XORs rol(T[b_m], m) and r XORs
+// rol(Tc[b_m], k-1-m) =
 // rol(ror(Tc[b_m], m), k-1) over m < k. With m = 16j + 2n + t (word j,
 // nibble n, pair t of the nibble):
 //   f = padf ^ XOR_j rol(G(w_j), 16j),  G(w) = XOR_n Tf_n[nibble n of w],
@@ -174,6 +162,17 @@ static inline void nibble_tab_pads(const HashTabs& tb, int k, int W, uint32_t* p
   *padr = r;
 }
 
+// G(w) and Gc(w) of one word (copy c of the tables) XORed into (gf, gr)
+static __device__ __forceinline__ void nibble_terms(uint32_t w, const NibbleTabs& tab, int c,
+                                                    uint32_t* gf, uint32_t* gr) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const uint2 e = tab[n][(w >> (4 * n)) & 15u][c];
+    *gf ^= e.x;
+    *gr ^= e.y;
+  }
+}
+
 template <int W>
 static __device__ __forceinline__ void hash_kmer_tab(const Kmer<W>& a, int k, uint32_t top,
                                                      uint32_t padf, uint32_t padr,
@@ -183,14 +182,8 @@ static __device__ __forceinline__ void hash_kmer_tab(const Kmer<W>& a, int k, ui
   uint32_t fe = padf, re = padr, fo = 0, ro = 0;
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    const uint32_t w = j == W - 1 ? a.w[j] & top : a.w[j];
     uint32_t gf = 0, gr = 0;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const uint2 e = tab[n][(w >> (4 * n)) & 15u][c];
-      gf ^= e.x;
-      gr ^= e.y;
-    }
+    nibble_terms(j == W - 1 ? a.w[j] & top : a.w[j], tab, c, &gf, &gr);
     if (j & 1) {
       fo ^= gf;
       ro ^= gr;

@@ -369,150 +369,6 @@ __global__ void walk_decode_kernel(const int32_t* __restrict__ scal, int B, int 
 }
 
 // ---------------------------------------------------------------------------
-// K15 walk_dense — the dense, slot-ordered event tensors of encode_batch,
-// for k <= 255 (W = ceil(k/16) <= 16 words of window).
-//
-// Replaces: leon_tpu/ops/walk.py encode_batch (621-665) -> walk_planes
-// (384-402: _anchor_state 357, _anchor_scan 113, _pack_window 147, then
-// _walk_side 171-244 once right and once left from the anchor state),
-// slotify, _gap_plane (405-416) and _conf_mask (419-429).
-//
-// Bound on the H100: latency of the dependent Bloom probes, as K4 (4
-// one-word probes per step, each step needing the last one's base); the
-// outputs are 20 bytes per event slot and one per base, zeroed by memsets.
-// Design: one thread per read; the anchor scan rolls (f, r) from the codes
-// (the leaving base read back from the row, so no window rides along), the
-// anchor's window is re-packed from its k bases as W u32 words, and each
-// side walks from it with the window in registers (shl2 masked to 2k bits
-// on the right, the reference's unmasked shr2_ins on the left). Each event
-// lands at once in its side's next slot: bif rank among solid bases,
-// absolute errpos (apos+k+s right, apos-1-s left), errnt rank among
-// non-solid bases and the side-local gap (s minus the side's last error
-// step minus 1); confirmed bases (one solid candidate, the read's own)
-// set their column, so the anchor span is never confirmed. The right side
-// runs min(len - k - apos, ME) steps (a base past column L-1 reads column
-// L-1, as the reference's clipped gather), the left side apos steps.
-// Codes are taken & 3 (the reference's input is 0..3).
-// ---------------------------------------------------------------------------
-
-// output pointers, in the reference's dict order: anchored, apos, nbif_r,
-// nerr_r, nbif_l, nerr_l, then per side (r, l) bif, errpos, errnt, gap,
-// then confirmed
-struct DenseOut {
-  void* p[15];
-};
-
-template <int W, bool RIGHT>
-static __device__ __forceinline__ void dense_side(const uint8_t* __restrict__ cr, int L, int k,
-                                                  int H, uint32_t n_words, const HashTabs& tb,
-                                                  const uint32_t* __restrict__ bits,
-                                                  uint32_t top, Kmer<W> fwd, uint32_t f,
-                                                  uint32_t r, int apos, int steps,
-                                                  uint8_t* __restrict__ bif,
-                                                  int32_t* __restrict__ errpos,
-                                                  uint8_t* __restrict__ errnt,
-                                                  int32_t* __restrict__ gap,
-                                                  uint8_t* __restrict__ conf, int32_t* n_bif,
-                                                  int32_t* n_err) {
-  const int ho = 2 * (k - 1);
-  int nb = 0, ne = 0, last = -1;
-  for (int s = 0; s < steps; ++s) {
-    const int j = RIGHT ? apos + k + s : apos - 1 - s;
-    const int b = __ldg(cr + (RIGHT ? min(j, L - 1) : j)) & 3;
-    const int o = RIGHT ? (int)((word_at<W>(fwd, ho >> 5) >> (ho & 31)) & 3u)
-                        : (int)(fwd.w[0] & 3u);
-    uint32_t cf[4], cr4[4];
-    const unsigned sm = step_probe(RIGHT, o, f, r, tb, bits, H, n_words, cf, cr4);
-    const int scount = __popc(sm);
-    const unsigned below = (1u << b) - 1u;
-    const bool solid_b = (sm >> b) & 1u;
-    if (solid_b) {
-      if (scount == 1) {
-        if (j < L) conf[j] = 1;
-      } else {
-        bif[nb++] = (uint8_t)__popc(sm & below);  // rank among solid
-      }
-    } else {
-      errpos[ne] = j;
-      errnt[ne] = (uint8_t)__popc(~sm & below);  // rank among non-solid
-      gap[ne] = s - last - 1;
-      last = s;
-      ++ne;
-    }
-    // on an error with a solid candidate, advance on the smallest solid base
-    const int b_adv = (!solid_b && scount >= 1) ? __ffs(sm) - 1 : b;
-    f = sel4v(cf, b_adv);
-    r = sel4v(cr4, b_adv);
-    fwd = RIGHT ? shl2<W>(fwd, (uint32_t)b_adv, top) : shr2_ins<W>(fwd, (uint32_t)b_adv, k);
-  }
-  *n_bif = nb;
-  *n_err = ne;
-}
-
-template <int W>
-__global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
-                                  const int32_t* __restrict__ lengths, int B, int L, int k,
-                                  int H, uint32_t n_words, const __grid_constant__ HashTabs tb,
-                                  const uint32_t* __restrict__ bits, int ME, uint32_t top,
-                                  const __grid_constant__ DenseOut o) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const uint8_t* cr = codes + (size_t)row * L;
-  const int len = lengths[row];
-  const int lenc = min(len, L);
-
-  // anchor: the member position with the smallest min(f, r); the first
-  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381)
-  uint32_t f = 0, r = 0, af = 0, ar = 0, best = 0xFFFFFFFFu;
-  bool anchored = false;
-  int apos = 0;
-  for (int j = 0; j < lenc; ++j) {
-    const int x = __ldg(cr + j) & 3;
-    if (j >= k) {
-      const int ob = __ldg(cr + j - k) & 3;  // base leaving the window
-      f = rol1(f ^ sel4(tb.t[2], ob)) ^ sel4(tb.t[0], x);
-      r = ror1(r ^ sel4(tb.t[1], ob)) ^ sel4(tb.t[3], x);
-    } else {
-      f = rol1(f) ^ sel4(tb.t[0], x);
-      r = r ^ rolr(sel4(tb.t[1], x), j);
-    }
-    const int p = j - k + 1;
-    if (p >= 0) {
-      const bool mem = probe(bits, f, r, H, n_words);
-      const uint32_t v = mem ? min(f, r) : 0xFFFFFFFFu;
-      anchored |= mem;
-      if (p == 0 || v < best) {
-        best = v;
-        apos = p;
-        af = f;
-        ar = r;
-      }
-    }
-  }
-  ((uint8_t*)o.p[0])[row] = anchored;
-  ((int32_t*)o.p[1])[row] = apos;
-  int32_t* nbif_r = (int32_t*)o.p[2] + row;
-  int32_t* nerr_r = (int32_t*)o.p[3] + row;
-  int32_t* nbif_l = (int32_t*)o.p[4] + row;
-  int32_t* nerr_l = (int32_t*)o.p[5] + row;
-  if (!anchored) {
-    *nbif_r = *nerr_r = *nbif_l = *nerr_l = 0;
-    return;
-  }
-  Kmer<W> afwd = {};
-  for (int i = 0; i < k; ++i) afwd = shl2<W>(afwd, (uint32_t)(__ldg(cr + apos + i) & 3), top);
-  const size_t ev = (size_t)row * ME;
-  uint8_t* conf = (uint8_t*)o.p[14] + (size_t)row * L;
-  dense_side<W, true>(cr, L, k, H, n_words, tb, bits, top, afwd, af, ar, apos,
-                      min(max(len - k - apos, 0), ME), (uint8_t*)o.p[6] + ev,
-                      (int32_t*)o.p[7] + ev, (uint8_t*)o.p[8] + ev, (int32_t*)o.p[9] + ev, conf,
-                      nbif_r, nerr_r);
-  dense_side<W, false>(cr, L, k, H, n_words, tb, bits, top, afwd, af, ar, apos, apos,
-                       (uint8_t*)o.p[10] + ev, (int32_t*)o.p[11] + ev, (uint8_t*)o.p[12] + ev,
-                       (int32_t*)o.p[13] + ev, conf, nbif_l, nerr_l);
-}
-
-// ---------------------------------------------------------------------------
 // K18 walk_encode_words and K19 walk_decode_words — K4's encode and decode
 // re-walk for 17 <= k <= 255 (the main path takes them for 32 <= k <= 255;
 // K4 serves k <= 31). Width-free: one instance per hash count H = 1..8.
@@ -550,7 +406,9 @@ __global__ void walk_dense_kernel(const uint8_t* __restrict__ codes,
 //   next error's rank and gap) one event ahead.
 // Events (a few a read) go straight to device memory, in walk order.
 // Outputs are K4's: meta, tot, the event rows and the conf bits (walk_pack
-// serves both); K19 takes scal (B, 9+W).
+// serves both); K19 takes scal (B, 9+W). K15 (below) walks with K18's code:
+// anchor_scan, anchor_rings and encode_side, which writes through an event
+// sink (K18's EventRows, K15's DenseSide).
 // ---------------------------------------------------------------------------
 
 #define WALKW_THREADS 128
@@ -664,26 +522,48 @@ struct Cols {
   }
 };
 
-// One side of K18's walk (walk.py:247-354): `steps` steps from the anchor
-// chains (f, r); events appended at *ne / *nb; confirmed bits into crow
-// (the read's conf row in device memory), walked bases into the ring.
-template <int H, bool RIGHT>
+// K18's events and conf words (one sink for both sides): the read's event
+// rows in walk order, its conf row in device memory (L16c words, 0 without
+// with_conf)
+struct EventRows {
+  uint16_t* eg;
+  uint8_t* en;
+  uint8_t* eb;
+  uint16_t* crow;
+  int L16c, ne, nb;
+  __device__ __forceinline__ void bif(int rank) { eb[nb++] = (uint8_t)rank; }
+  __device__ __forceinline__ void err(int j, int gap, int nt) {
+    eg[ne] = (uint16_t)gap;
+    en[ne++] = (uint8_t)nt;
+  }
+  template <bool RIGHT>
+  __device__ __forceinline__ void conf(int j, uint32_t cw) {
+    if (L16c && (!RIGHT || (j >> 4) < L16c)) crow[j >> 4] = (uint16_t)cw;
+  }
+};
+
+// One side of the walk (walk.py:247-354) from the anchor chains (f, r),
+// `steps` steps: events into the sink, confirmed bits (cw0 the first word's
+// carried ones) flushed to it a word at a time, walked bases into the ring.
+// NEAR: the leaving base may lie in the word being built (k < 16).
+template <int H, bool RIGHT, bool NEAR, class Sink>
 static __device__ __forceinline__ void encode_side(
     const uint32_t* __restrict__ pr, int L16, uint32_t* ring, int T, int rm, const uint32_t* st,
     const HashTabs& tb, const uint32_t* __restrict__ bits, uint32_t n_words, int k, int L,
-    int L16c, int apos, int steps, int b_last, uint32_t f, uint32_t r,
-    uint16_t* __restrict__ crow, uint16_t* __restrict__ eg, uint8_t* __restrict__ en,
-    uint8_t* __restrict__ eb, int* ne, int* nb, int* side_err, int* side_bif) {
+    int apos, int steps, int b_last, uint32_t f, uint32_t r, uint32_t cw0, Sink& out,
+    int* side_err, int* side_bif) {
   int last = -1, serr = 0, sbif = 0;
   const int j0 = RIGHT ? apos + k : apos - 1;
   Cols<RIGHT> rd(pr, L16, j0);
-  uint32_t cw = 0, hw = steps > 0 ? ring[((j0 >> 4) & rm) * T] & anchor_part<RIGHT>(j0) : 0u;
+  uint32_t cw = cw0, hw = steps > 0 ? ring[((j0 >> 4) & rm) * T] & anchor_part<RIGHT>(j0) : 0u;
   for (int s = 0; s < steps; ++s) {
     const int j = RIGHT ? j0 + s : j0 - s;
     const int b = (RIGHT && j >= L) ? b_last : rd.take(j);
+    const int c = RIGHT ? j - k : j + k;  // the column leaving the window
+    const int o = NEAR && (c >> 4) == (j >> 4) ? (int)((hw >> (2 * (c & 15))) & 3u)
+                                                : rbase(ring, T, rm, c);
     uint32_t fb, rb;
-    const unsigned sm = probe4<H, RIGHT>(rbase(ring, T, rm, RIGHT ? j - k : j + k), f, r, tb,
-                                         st, bits, n_words, &fb, &rb);
+    const unsigned sm = probe4<H, RIGHT>(o, f, r, tb, st, bits, n_words, &fb, &rb);
     const int scount = __popc(sm);
     const unsigned below = (1u << b) - 1u;
     const bool solid_b = (sm >> b) & 1u;
@@ -691,12 +571,11 @@ static __device__ __forceinline__ void encode_side(
       if (scount == 1) {
         if (!RIGHT || j < L) cw |= 1u << (j & 15);
       } else {
-        eb[(*nb)++] = (uint8_t)__popc(sm & below);  // rank among solid
+        out.bif(__popc(sm & below));  // rank among solid
         ++sbif;
       }
     } else {
-      eg[*ne] = (uint16_t)(s - last - 1);
-      en[(*ne)++] = (uint8_t)__popc(~sm & below);  // rank among non-solid
+      out.err(j, s - last - 1, __popc(~sm & below));  // rank among non-solid
       last = s;
       ++serr;
     }
@@ -706,7 +585,7 @@ static __device__ __forceinline__ void encode_side(
     hw |= (uint32_t)b_adv << (2 * (j & 15));
     if ((j & 15) == (RIGHT ? 15 : 0) || s == steps - 1) {
       ring[((j >> 4) & rm) * T] = hw;
-      if (L16c && (!RIGHT || (j >> 4) < L16c)) crow[j >> 4] = (uint16_t)cw;
+      out.template conf<RIGHT>(j, cw);
       hw = cw = 0;
     }
   }
@@ -714,41 +593,17 @@ static __device__ __forceinline__ void encode_side(
   *side_bif = sbif;
 }
 
-// meta (B, 6): anchored, apos, nbif_r, nerr_r, nbif_l, nerr_l
-// tot (2, B): error events, bif events per read
-// ev_gap/ev_nt/ev_bif (B, ME): the read's events in walk order
-// conf (B, L16c): confirmed-position bits (L16c = 0 without with_conf)
-// Shared memory: 16 table words, two rings of RW words a thread.
+// K18's and K15's anchor (walk.py:357-381): the member position with the
+// smallest min(f, r) over the len - k + 1 positions of the packed row; the
+// first index wins ties and an all-0xFFFFFFFF row gives 0. WALKW_SCAN_UNROLL
+// positions are rolled and probed together, then folded in order.
 template <int H>
-__global__ void __maxnreg__(WALKW_REGS)
-    walk_encode_words_kernel(const uint32_t* __restrict__ packed,
-                             const int32_t* __restrict__ lengths, int B, int L16, int L, int k,
-                             uint32_t n_words, const __grid_constant__ HashTabs tb,
-                             const uint32_t* __restrict__ bits, int L16c, int ME, int RW,
-                             int32_t* __restrict__ meta, int32_t* __restrict__ tot,
-                             uint16_t* __restrict__ ev_gap, uint8_t* __restrict__ ev_nt,
-                             uint8_t* __restrict__ ev_bif, uint16_t* __restrict__ conf) {
-  extern __shared__ uint32_t smem[];
-  const int T = blockDim.x, tid = threadIdx.x, row0 = blockIdx.x * T;
-  const int n = min(T, B - row0);
-  uint32_t* st = smem;
-  load_tabs(tb, st);
-  // the block's conf rows, contiguous: the walk stores only the words it visits
-  uint16_t* cblk = conf + (size_t)row0 * L16c;
-  for (int i = tid; i < n * L16c; i += T) cblk[i] = 0;
-  __syncthreads();
-  if (tid >= n) return;
-  const int row = row0 + tid, rm = RW - 1;
-  uint32_t* ring_r = smem + 16 + tid;
-  uint32_t* ring_l = ring_r + (size_t)RW * T;
-  const uint32_t* pr = packed + (size_t)row * L16;
-  const int lenf = lengths[row];
-  const int len = min(lenf, L);
-
-  // anchor: the member position with the smallest min(f, r); the first
-  // index wins ties and an all-0xFFFFFFFF row gives 0 (walk.py:357-381).
-  // Positions past len-k are never members, so the scan stops at len.
-  uint32_t af = 0, ar = 0, best = 0xFFFFFFFFu;
+static __device__ __forceinline__ bool anchor_scan(const uint32_t* __restrict__ pr, int L16,
+                                                   int len, int k, const uint32_t* st,
+                                                   const uint32_t* __restrict__ bits,
+                                                   uint32_t n_words, int* apos_out,
+                                                   uint32_t* af, uint32_t* ar) {
+  uint32_t best = 0xFFFFFFFFu;
   bool anchored = false;
   int apos = 0;
   const int P = len - k + 1;
@@ -786,13 +641,62 @@ __global__ void __maxnreg__(WALKW_REGS)
           if (p == 0 || val < best) {
             best = val;
             apos = p;
-            af = hf[u];
-            ar = hr[u];
+            *af = hf[u];
+            *ar = hr[u];
           }
         }
       }
     }
   }
+  *apos_out = apos;
+  return anchored;
+}
+
+// both rings start from the anchor's words (the read's own bases)
+static __device__ __forceinline__ void anchor_rings(const uint32_t* __restrict__ pr, int apos,
+                                                    int k, uint32_t* ring_r, uint32_t* ring_l,
+                                                    int T, int rm) {
+  for (int w = apos >> 4; w <= (apos + k - 1) >> 4; ++w) {
+    const uint32_t v = __ldg(pr + w);
+    ring_r[(w & rm) * T] = v;
+    ring_l[(w & rm) * T] = v;
+  }
+}
+
+// meta (B, 6): anchored, apos, nbif_r, nerr_r, nbif_l, nerr_l
+// tot (2, B): error events, bif events per read
+// ev_gap/ev_nt/ev_bif (B, ME): the read's events in walk order
+// conf (B, L16c): confirmed-position bits (L16c = 0 without with_conf)
+// Shared memory: 16 table words, two rings of RW words a thread.
+template <int H>
+__global__ void __maxnreg__(WALKW_REGS)
+    walk_encode_words_kernel(const uint32_t* __restrict__ packed,
+                             const int32_t* __restrict__ lengths, int B, int L16, int L, int k,
+                             uint32_t n_words, const __grid_constant__ HashTabs tb,
+                             const uint32_t* __restrict__ bits, int L16c, int ME, int RW,
+                             int32_t* __restrict__ meta, int32_t* __restrict__ tot,
+                             uint16_t* __restrict__ ev_gap, uint8_t* __restrict__ ev_nt,
+                             uint8_t* __restrict__ ev_bif, uint16_t* __restrict__ conf) {
+  extern __shared__ uint32_t smem[];
+  const int T = blockDim.x, tid = threadIdx.x, row0 = blockIdx.x * T;
+  const int n = min(T, B - row0);
+  uint32_t* st = smem;
+  load_tabs(tb, st);
+  // the block's conf rows, contiguous: the walk stores only the words it visits
+  uint16_t* cblk = conf + (size_t)row0 * L16c;
+  for (int i = tid; i < n * L16c; i += T) cblk[i] = 0;
+  __syncthreads();
+  if (tid >= n) return;
+  const int row = row0 + tid, rm = RW - 1;
+  uint32_t* ring_r = smem + 16 + tid;
+  uint32_t* ring_l = ring_r + (size_t)RW * T;
+  const uint32_t* pr = packed + (size_t)row * L16;
+  const int lenf = lengths[row];
+  const int len = min(lenf, L);
+
+  uint32_t af = 0, ar = 0;
+  int apos;
+  const bool anchored = anchor_scan<H>(pr, L16, len, k, st, bits, n_words, &apos, &af, &ar);
 
   // the reference's fused schedule (walk.py:271-282): min(len-k, ME) steps,
   // the first len-k-apos of them on the right (past column L-1 when the
@@ -802,24 +706,17 @@ __global__ void __maxnreg__(WALKW_REGS)
   const int nr = min(max(lenf - k - apos, 0), total);
   int b_last = 0;
   if (total > 0) {
-    // both rings start from the anchor's words (the read's own bases)
-    for (int w = apos >> 4; w <= (apos + k - 1) >> 4; ++w) {
-      const uint32_t v = __ldg(pr + w);
-      ring_r[(w & rm) * T] = v;
-      ring_l[(w & rm) * T] = v;
-    }
+    anchor_rings(pr, apos, k, ring_r, ring_l, T, rm);
     if (lenf > L) b_last = (int)((__ldg(pr + ((L - 1) >> 4)) >> (2 * ((L - 1) & 15))) & 3u);
   }
-  uint16_t* eg = ev_gap + (size_t)row * ME;
-  uint8_t* en = ev_nt + (size_t)row * ME;
-  uint8_t* eb = ev_bif + (size_t)row * ME;
-  uint16_t* crow = conf + (size_t)row * L16c;
-  int ne = 0, nb = 0, nerr_r, nbif_r, nerr_l, nbif_l;
-  encode_side<H, true>(pr, L16, ring_r, T, rm, st, tb, bits, n_words, k, L, L16c, apos, nr,
-                       b_last, af, ar, crow, eg, en, eb, &ne, &nb, &nerr_r, &nbif_r);
-  encode_side<H, false>(pr, L16, ring_l, T, rm, st, tb, bits, n_words, k, L, L16c, apos,
-                        total - nr, b_last, af, ar, crow, eg, en, eb, &ne, &nb, &nerr_l,
-                        &nbif_l);
+  EventRows ev{ev_gap + (size_t)row * ME, ev_nt + (size_t)row * ME, ev_bif + (size_t)row * ME,
+               conf + (size_t)row * L16c, L16c, 0, 0};
+  int nerr_r, nbif_r, nerr_l, nbif_l;
+  encode_side<H, true, false>(pr, L16, ring_r, T, rm, st, tb, bits, n_words, k, L, apos, nr,
+                              b_last, af, ar, 0u, ev, &nerr_r, &nbif_r);
+  encode_side<H, false, false>(pr, L16, ring_l, T, rm, st, tb, bits, n_words, k, L, apos,
+                               total - nr, b_last, af, ar, 0u, ev, &nerr_l, &nbif_l);
+  const int ne = ev.ne, nb = ev.nb;
   int32_t* mt = meta + (size_t)row * 6;
   mt[0] = anchored;
   mt[1] = apos;
@@ -978,6 +875,197 @@ __global__ void __maxnreg__(WALKW_REGS)
 
 
 // ---------------------------------------------------------------------------
+// K15 walk_dense — the dense, slot-ordered event tensors of encode_batch,
+// k <= 255: K18's walk with the reference's dense outputs.
+//
+// Replaces: leon_tpu/ops/walk.py encode_batch (621-665) -> walk_planes
+// (384-402: _anchor_state 357, _anchor_scan 113, _pack_window 147, then
+// _walk_side 171-244 once right and once left from the anchor state),
+// slotify, _gap_plane (405-416) and _conf_mask (419-429).
+//
+// Bound on the H100: the Bloom probes, as K18's (one an anchor position,
+// four a step), and the outputs' bytes: 20 an event slot and one a column,
+// B(20 ME + L) in all, nearly all of them zeros.
+// Design: the codes (B, L) uint8, taken & 3, are first packed 16 columns to
+// a word (dense_pack_kernel, into the caller's (B, ceil(L/16)) scratch), so
+// that the walk is K18's device code: its anchor scan (anchor_scan), its
+// rings of walked bases and its row reads (encode_side), one instance per
+// H. Each block zeroes its rows of the eight event planes and the confirmed
+// plane (contiguous) in one pass of 16-byte stores (15 memsets cost about
+// as much; each read writing its own rows whole, zeros and all, was 1.3-1.5x
+// slower on the H100: PERF.md §6). Then each read walks its right side
+// (min(len - k - apos, ME) steps; a base past column L-1 reads column L-1,
+// as the reference's clipped gather) and its left side (apos steps) from
+// the anchor, each event landing in its side's next slot (bif rank among
+// solid bases, absolute errpos, errnt rank among non-solid bases, the
+// side-local gap; errors, most of a walk's steps at k = 255, are built in
+// registers 16 bytes at a time, RowChunks), and the confirmed columns (one
+// solid candidate, the read's own base; never the anchor span) of 16
+// columns built in a register and stored as 16 bytes where any is set, the
+// widest stores the row's alignment allows. At k < 16 the leaving base may
+// lie in the word being built (encode_side's NEAR), and at k < 15 both
+// sides' first words may be one: the left side carries the right side's
+// bits there.
+// ---------------------------------------------------------------------------
+
+// output pointers, in the reference's dict order: anchored, apos, nbif_r,
+// nerr_r, nbif_l, nerr_l, then per side (r, l) bif, errpos, errnt, gap,
+// then confirmed
+struct DenseOut {
+  void* p[15];
+};
+
+// Registers a thread: K18's and three chunks of error slots a side in flight
+// (ptxas gives 80; under WALKW_REGS it ran 5% slower at W = 8 and 16: PERF.md
+// §6). A 65,536-read grid (512 blocks) is resident at 80.
+#define WALKD_REGS 96
+
+// (B, L) codes -> (B, L16) packed words (kmer.pack_codes_np's layout, codes
+// taken & 3, zero past column L-1): a thread a word
+__global__ void dense_pack_kernel(const uint8_t* __restrict__ codes, int B, int L, int L16,
+                                  uint32_t* __restrict__ packed) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)B * L16) return;
+  const long long row = i / L16;
+  const int c0 = 16 * (int)(i - row * L16);
+  const uint8_t* cr = codes + row * L + c0;
+  const int n = min(16, L - c0);
+  uint32_t v = 0;
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+    if (t < n) v |= (uint32_t)(__ldg(cr + t) & 3) << (2 * t);
+  packed[i] = v;
+}
+
+// 16 column bytes of confirmed bits cw (byte t = bit t) at p, n <= 16 of
+// them inside the row: the widest stores p's alignment allows
+static __device__ __forceinline__ void store_conf16(uint8_t* p, uint32_t cw, int n) {
+  uint32_t v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint32_t x = cw >> (4 * t);
+    v[t] = (x & 1u) | (x & 2u) << 7 | (x & 4u) << 14 | (x & 8u) << 21;
+  }
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(p);
+  if (n == 16 && (a & 15u) == 0) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else if (n == 16 && (a & 7u) == 0) {
+    reinterpret_cast<uint2*>(p)[0] = make_uint2(v[0], v[1]);
+    reinterpret_cast<uint2*>(p)[1] = make_uint2(v[2], v[3]);
+  } else if (n == 16 && (a & 3u) == 0) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) reinterpret_cast<uint32_t*>(p)[t] = v[t];
+  } else if (n == 16 && (a & 1u) == 0) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      reinterpret_cast<uint16_t*>(p)[t] = (uint16_t)(v[t >> 1] >> (16 * (t & 1)));
+  } else {
+    for (int t = 0; t < n; ++t) p[t] = (uint8_t)((cw >> t) & 1u);
+  }
+}
+
+// K15's events and confirmed columns of one side: its four (B, ME) slot
+// planes at the read's row, the read's (B, L) confirmed row (zeroed first,
+// so a word with no confirmed column stores nothing); `first` keeps the
+// first word's bits for the other side (k < 15: a shared word)
+struct DenseSide {
+  uint8_t* bifs;
+  RowChunks<int32_t> errpos;
+  RowChunks<uint8_t> errnt;
+  RowChunks<int32_t> gaps;
+  uint8_t* crow;
+  int L, ne, nb;
+  uint32_t first;
+  bool flushed;
+  __device__ __forceinline__ void bif(int rank) { bifs[nb++] = (uint8_t)rank; }
+  __device__ __forceinline__ void err(int j, int gap, int nt) {
+    errpos.put(ne, (uint32_t)j);
+    errnt.put(ne, (uint32_t)nt);
+    gaps.put(ne++, (uint32_t)gap);
+  }
+  // the errors not yet stored (their last chunk)
+  __device__ __forceinline__ void end() {
+    errpos.end(ne);
+    errnt.end(ne);
+    gaps.end(ne);
+  }
+  template <bool RIGHT>
+  __device__ __forceinline__ void conf(int j, uint32_t cw) {
+    if (!flushed) {
+      first = cw;
+      flushed = true;
+    }
+    const int c0 = j & ~15;
+    if (cw && c0 < L) store_conf16(crow + c0, cw, min(16, L - c0));
+  }
+};
+
+// per row: the 15 planes' bytes (DenseOut order)
+static __device__ __forceinline__ long long dense_row_bytes(int i, int ME, int L) {
+  return i == 0 ? 1 : i < 6 ? 4 : i == 14 ? L : (i - 6) % 2 == 0 ? ME : 4LL * ME;
+}
+
+template <int H>
+__global__ void __maxnreg__(WALKD_REGS)
+    walk_dense_kernel(const uint32_t* __restrict__ packed, const int32_t* __restrict__ lengths,
+                      int B, int L16, int L, int k, uint32_t n_words,
+                      const __grid_constant__ HashTabs tb, const uint32_t* __restrict__ bits,
+                      int ME, int RW, const __grid_constant__ DenseOut o) {
+  extern __shared__ uint32_t smem[];
+  const int T = blockDim.x, tid = threadIdx.x, row0 = blockIdx.x * T;
+  const int n = min(T, B - row0);
+  uint32_t* st = smem;
+  load_tabs(tb, st);
+  // the block's rows of each event plane and of the confirmed plane
+  // (contiguous): the walk stores only its events and confirmed words
+  for (int i = 6; i < 15; ++i) {
+    const long long rb = dense_row_bytes(i, ME, L);
+    zero_region((uint8_t*)o.p[i] + row0 * rb, n * rb);
+  }
+  __syncthreads();
+  if (tid >= n) return;
+  const int row = row0 + tid, rm = RW - 1;
+  uint32_t* ring_r = smem + 16 + tid;
+  uint32_t* ring_l = ring_r + (size_t)RW * T;
+  const uint32_t* pr = packed + (size_t)row * L16;
+  const int lenf = lengths[row];
+  uint32_t af = 0, ar = 0;
+  int apos;
+  const bool anchored =
+      anchor_scan<H>(pr, L16, min(lenf, L), k, st, bits, n_words, &apos, &af, &ar);
+  ((uint8_t*)o.p[0])[row] = anchored;
+  ((int32_t*)o.p[1])[row] = apos;
+  int nerr_r = 0, nbif_r = 0, nerr_l = 0, nbif_l = 0;
+  if (anchored) {
+    const int nr = min(max(lenf - k - apos, 0), ME);
+    anchor_rings(pr, apos, k, ring_r, ring_l, T, rm);
+    const int b_last =
+        lenf > L ? (int)((__ldg(pr + ((L - 1) >> 4)) >> (2 * ((L - 1) & 15))) & 3u) : 0;
+    const size_t ev = (size_t)row * ME;
+    uint8_t* crow = (uint8_t*)o.p[14] + (size_t)row * L;
+    DenseSide right{(uint8_t*)o.p[6] + ev,
+                    RowChunks<int32_t>((int32_t*)o.p[7] + ev, ME),
+                    RowChunks<uint8_t>((uint8_t*)o.p[8] + ev, ME),
+                    RowChunks<int32_t>((int32_t*)o.p[9] + ev, ME), crow, L, 0, 0, 0u, false};
+    encode_side<H, true, true>(pr, L16, ring_r, T, rm, st, tb, bits, n_words, k, L, apos, nr,
+                               b_last, af, ar, 0u, right, &nerr_r, &nbif_r);
+    right.end();
+    const uint32_t carry = ((apos - 1) >> 4) == ((apos + k) >> 4) ? right.first : 0u;
+    DenseSide left{(uint8_t*)o.p[10] + ev,
+                   RowChunks<int32_t>((int32_t*)o.p[11] + ev, ME),
+                   RowChunks<uint8_t>((uint8_t*)o.p[12] + ev, ME),
+                   RowChunks<int32_t>((int32_t*)o.p[13] + ev, ME), crow, L, 0, 0, 0u, false};
+    encode_side<H, false, true>(pr, L16, ring_l, T, rm, st, tb, bits, n_words, k, L, apos, apos,
+                                b_last, af, ar, carry, left, &nerr_l, &nbif_l);
+    left.end();
+  }
+  ((int32_t*)o.p[2])[row] = nbif_r;
+  ((int32_t*)o.p[3])[row] = nerr_r;
+  ((int32_t*)o.p[4])[row] = nbif_l;
+  ((int32_t*)o.p[5])[row] = nerr_l;
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
 
@@ -1051,44 +1139,6 @@ extern "C" int lt_walk_decode(const void* scal, int B, int W, const void* errgap
   return (int)cudaGetLastError();
 }
 
-// outs15: the host array of the 15 output pointers (DenseOut order)
-extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int L, int k, int H,
-                             unsigned n_words, unsigned top, const void* tabs16,
-                             const void* bitset, int ME, const void* outs15, void* stream) {
-  if (k < 1 || k > 255 || H < 1 || H > 8 || L < k || ME != max(L - k, 1) || n_words == 0)
-    return (int)cudaErrorInvalidValue;
-  if (B <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  DenseOut od;
-  memcpy(&od, outs15, sizeof(od));
-  // bytes per read of each output: the (B, ME) event slots and the
-  // (B, L) confirmed row must read zero past what the walk writes
-  const size_t me = (size_t)ME;
-  const size_t per_row[15] = {1, 4, 4, 4, 4, 4, me, 4 * me, me, 4 * me,
-                              me, 4 * me, me, 4 * me, (size_t)L};
-  for (int i = 0; i < 15; ++i) {
-    cudaError_t e = cudaMemsetAsync(od.p[i], 0, per_row[i] * (size_t)B, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  HashTabs tb;
-  memcpy(&tb, tabs16, sizeof(tb));
-  const unsigned grid = grid_for(B, WALK_THREADS);
-  const uint8_t* c = (const uint8_t*)codes;
-  const int32_t* ln = (const int32_t*)lengths;
-  const uint32_t* bs = (const uint32_t*)bitset;
-#define LAUNCH(W_) \
-  walk_dense_kernel<W_><<<grid, WALK_THREADS, 0, st>>>(c, ln, B, L, k, H, n_words, tb, bs, ME, \
-                                                       top, od)
-  switch ((k + 15) / 16) {
-    LT_W_CASE(1, LAUNCH)
-    LT_W_CASES_2_4(LAUNCH)
-    LT_W_CASES_5_16(LAUNCH)
-    LT_W_NO_INSTANCE
-  }
-#undef LAUNCH
-  return (int)cudaGetLastError();
-}
-
 // K18/K19 launch geometry: WALKW_THREADS threads a block, each with two
 // rings of walkw_ring(k) words beside the 16 table words (at most 32 KB)
 #define WALKW_H_CASES(LAUNCH)                                                                \
@@ -1097,6 +1147,40 @@ extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int 
 
 static inline size_t walkw_smem(int RW) {
   return (16 + 2 * (size_t)RW * WALKW_THREADS) * sizeof(uint32_t);
+}
+
+// outs15: the host array of the 15 output pointers (DenseOut order);
+// packed: the caller's (B, ceil(L/16)) int32 scratch
+extern "C" int lt_walk_dense(const void* codes, const void* lengths, int B, int L, int k, int H,
+                             unsigned n_words, const void* tabs16, const void* bitset, int ME,
+                             const void* outs15, void* packed, void* stream) {
+  if (k < 1 || k > 255 || H < 1 || H > 8 || L < k || ME != max(L - k, 1) || n_words == 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  DenseOut od;
+  memcpy(&od, outs15, sizeof(od));
+  HashTabs tb;
+  memcpy(&tb, tabs16, sizeof(tb));
+  const int L16 = (L + 15) / 16;
+  uint32_t* pk = (uint32_t*)packed;
+  dense_pack_kernel<<<grid_for((long long)B * L16, 256), 256, 0, st>>>((const uint8_t*)codes, B,
+                                                                       L, L16, pk);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int RW = walkw_ring(k);
+  const unsigned grid = grid_for(B, WALKW_THREADS);
+  const int32_t* ln = (const int32_t*)lengths;
+  const uint32_t* bs = (const uint32_t*)bitset;
+#define LAUNCH(H_)                                                                          \
+  walk_dense_kernel<H_><<<grid, WALKW_THREADS, walkw_smem(RW), st>>>(pk, ln, B, L16, L, k, \
+                                                                     n_words, tb, bs, ME, RW, od)
+  switch (H) {
+    WALKW_H_CASES(LAUNCH)
+    LT_W_NO_INSTANCE
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
 }
 
 extern "C" int lt_walk_encode_words(const void* packed, const void* lengths, int B, int L16,

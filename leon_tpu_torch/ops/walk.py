@@ -48,7 +48,7 @@ import torch
 from leon_tpu_torch import kernels
 from leon_tpu_torch.ops import bloom
 from leon_tpu_torch.ops.kmer import (MAX_K, MAX_K_WORDS, MIN_K_WIDE, i32_bits, need_words_k,
-                                      shl2, shr2_ins, top_mask, unpack_codes, words_for_k)
+                                      shl2, shr2_ins, unpack_codes, words_for_k)
 
 _M32 = 0xFFFFFFFF
 
@@ -496,9 +496,10 @@ def encode_batch(codes: torch.Tensor, lengths: torch.Tensor, bitset: torch.Tenso
     if B:
         ptrs = np.array([out[n].data_ptr() for n, _, _ in DENSE], dtype=np.uint64)
         tab = kernels.host_tables(bloom.tables(seed, k))
+        packed = torch.empty((B, (L + 15) // 16), dtype=torch.int32, device=codes.device)
         rc = kernels.lib().lt_walk_dense(
-            codes.data_ptr(), lengths.data_ptr(), B, L, k, H, int(n_words), top_mask(k),
-            tab.ctypes.data, bitset.data_ptr(), ME, ptrs.ctypes.data, kernels.stream(codes))
+            codes.data_ptr(), lengths.data_ptr(), B, L, k, H, int(n_words), tab.ctypes.data,
+            bitset.data_ptr(), ME, ptrs.ctypes.data, packed.data_ptr(), kernels.stream(codes))
         kernels.check(rc, "walk_dense")
         kernels.launches["walk_dense"] += 1
     return out

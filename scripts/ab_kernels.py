@@ -2,13 +2,13 @@
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
 K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
 scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
-K18 and K19, the Bloom builds K16 and K3, the device unitig build's K5
+K18 and K19, the tensor path's dense walk K15 and `count_batch`, the Bloom builds K16 and K3, the device unitig build's K5
 links, K6 chain ranking and K7 emission, and the graph API's K10-K12 of one
 tree's leon_tpu_torch on the card, beside the PyTorch call that computes the same function where
 there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
-        [--only k2,k8,scan,k14,walk,bloom,rank,k3,links,emit,graph]
+        [--only k2,k8,scan,k14,walk,dense,bloom,rank,k3,links,emit,graph]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -67,6 +67,27 @@ Inputs (chip_smoke.py's shapes):
                card's issue rate), the byte bound, the bound (the largest of
                the three) and the kernel's share of it; and the registers
                ptxas gave the tree's walk kernels
+  dense:w4/w8/w16  (section dense) K15 (`walk.encode_batch`, the tensor
+               path's dense walk: the codes packed, then the walk) on the
+               first 65,536 reads of walk's inputs at k = 63, 127 and 255
+               (L = 104, 250, 600), against the main path's filter of those
+               reads, beside K18 (`walk.walk_encode_words` with the
+               confirmed bits, "k18_ms") on the same chunk and filter: its
+               probes (one an anchor position and four a step: the right
+               side's min(len - k - apos, ME) steps and the left side's
+               apos), "floor_ms" their probe floor
+               (scripts/walk_probe_floor.cu), "bytes_ms" (codes, lengths and
+               the bitset read, the packed copy written and read, the 15
+               outputs written) over 3.35 TB/s, the bound (the larger),
+               "share" and "k18_plus_bytes_ms"; "device_ms" and
+               "k18_device_ms", the device time alone (kernels and
+               memsets by the profiler; "device" K15's by kernel: the
+               wrapper's host work shows in "ms" less it); then
+               "count_batch_ms", the
+               whole `count.count_batch` over every read's valid k-mers
+               (`kmer.kmer_scan_words`) beside "unique_ms",
+               `torch.unique(dim=0, return_counts=True)` of the same rows;
+               the ptxas registers of the tree's K15 and K18 kernels
   bloom:w4/w8/w16  K16 (`bloom.bloom_build_words`) over the main path's
                solid rows at each width (phase 9's: K17, K14, the solid
                compaction; 24 bits a solid k-mer, H = 4), as the
@@ -132,7 +153,9 @@ Inputs (chip_smoke.py's shapes):
                (`DBG.walk`, 100 steps from every node); K12 (`DBG.traverse`,
                16 steps) at D = 32 from 65,536 nodes (the branching nodes
                first) and at D = k + 1 from those 65,536 and from their
-               first 16,384. Beside each: "loads", the fewest bitset loads
+               first 16,384 (K11's bases and n from its first 262,144 nodes
+               also held against its plain version). Beside each: "loads",
+               the fewest bitset loads
                any design makes on these inputs (a classic probe's up to its
                first clear bit, a blocked probe's one word; K12's bubble
                depths probe only the live branches), counted by a replay in
@@ -158,7 +181,31 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk", "bloom", "rank", "k3", "links", "emit", "graph")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "dense", "bloom", "rank", "k3", "links", "emit",
+            "graph")
+
+
+def slab_reads(nr: int, reverse: bool):
+    """chip_smoke.py phase 3's reads: (nr, 104) codes of 100 bp from a 2
+    Mbp random contig, 1% substitutions (kernel_checks also reverses
+    every other read and shortens every 997th: `reverse`)."""
+    import numpy as np
+
+    rng = np.random.default_rng(20261016)
+    L, READ_LEN = 104, 100
+    contig = rng.integers(0, 4, 2_000_000, dtype=np.uint8)
+    starts = rng.integers(0, contig.size - READ_LEN, nr)
+    codes = np.zeros((nr, L), np.uint8)
+    codes[:, :READ_LEN] = contig[starts[:, None] + np.arange(READ_LEN)]
+    mut = rng.random((nr, READ_LEN)) < 0.01
+    codes[:, :READ_LEN][mut] = (codes[:, :READ_LEN][mut] + 1) & 3
+    lengths = np.full(nr, READ_LEN, np.int32)
+    if reverse:
+        rev = np.arange(nr) % 2 == 1
+        codes[rev, :READ_LEN] = (3 - codes[rev, :READ_LEN])[:, ::-1]
+        lengths[:: 997] = rng.integers(0, READ_LEN, lengths[:: 997].size)
+        codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    return codes, lengths
 
 
 def main() -> int:
@@ -218,26 +265,6 @@ def main() -> int:
 
     out = {"rows": {}}
 
-    def slab_reads(nr: int, reverse: bool):
-        """chip_smoke.py phase 3's reads: (nr, 104) codes of 100 bp from a 2
-        Mbp random contig, 1% substitutions (kernel_checks also reverses
-        every other read and shortens every 997th: `reverse`)."""
-        rng = np.random.default_rng(20261016)
-        L, READ_LEN = 104, 100
-        contig = rng.integers(0, 4, 2_000_000, dtype=np.uint8)
-        starts = rng.integers(0, contig.size - READ_LEN, nr)
-        codes = np.zeros((nr, L), np.uint8)
-        codes[:, :READ_LEN] = contig[starts[:, None] + np.arange(READ_LEN)]
-        mut = rng.random((nr, READ_LEN)) < 0.01
-        codes[:, :READ_LEN][mut] = (codes[:, :READ_LEN][mut] + 1) & 3
-        lengths = np.full(nr, READ_LEN, np.int32)
-        if reverse:
-            rev = np.arange(nr) % 2 == 1
-            codes[rev, :READ_LEN] = (3 - codes[rev, :READ_LEN])[:, ::-1]
-            lengths[:: 997] = rng.integers(0, READ_LEN, lengths[:: 997].size)
-            codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
-        return codes, lengths
-
     def chunks_of(codes, lengths):
         B = chip_smoke.B
         packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
@@ -247,9 +274,10 @@ def main() -> int:
     wide_inputs = {}
 
     def wide(W: int):
-        """(k, chunks, L, the first chunk's codes and lengths) of phase 9's
-        reads at one width (W = 2: phase 3's reads at k = 31; W = 0: one
-        chunk of 1,025-2,048 bp reads at k = 63)."""
+        """(k, chunks, L, the first chunk's codes and lengths, every read's
+        codes and lengths) of phase 9's reads at one width (W = 2: phase 3's
+        reads at k = 31; W = 0: one chunk of 1,025-2,048 bp reads at k =
+        63)."""
         if W not in wide_inputs:
             if W == 0:
                 codes, lengths = chip_smoke.long_reads(chip_smoke.B, 1025, 2048)
@@ -267,7 +295,7 @@ def main() -> int:
                 codes, lengths = chip_smoke.long_reads(2 * chip_smoke.B, 300, 600)
                 k = 255
             wide_inputs[W] = (k, chunks_of(codes, lengths), codes.shape[1],
-                              codes[: chip_smoke.B], lengths[: chip_smoke.B])
+                              codes[: chip_smoke.B], lengths[: chip_smoke.B], codes, lengths)
         return wide_inputs[W]
 
     if "k2" in only:  # K2 on chip_smoke.py phase 3's slab
@@ -423,6 +451,8 @@ def main() -> int:
             torch.cuda.empty_cache()
     if "walk" in only:
         out["walk"] = walk_section(args.tree, wide, ms, same, dev)
+    if "dense" in only:
+        out["dense"] = dense_section(args.tree, wide, ms, same, dev)
     if "bloom" in only:
         out["bloom"] = bloom_section(args.tree, wide, ms, same, dev)
     if "k3" in only:
@@ -928,7 +958,7 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
         return sum(t.numel() * t.element_size() for t in ts)
 
     for W in (2, 4, 8, 16, 0):
-        k, chunks, L, codes0, lengths0 = wide(W)
+        k, chunks, L, codes0, lengths0 = wide(W)[:5]
         tag = f"walk:w{W}" if W else f"walk:l{L}"
         bits, nw, n_solid = main_filter(k, chunks, L)
         p0, l0 = chunks[0]
@@ -992,6 +1022,102 @@ def walk_section(tree: str, wide, ms, same, dev) -> dict:
     res["registers"] = registers(tree, WALK_KERNELS)
     return res
 
+
+
+DENSE_KERNELS = ("walk_dense_kernel", "dense_pack_kernel", "walk_encode_words_kernel")
+
+
+def dense_section(tree: str, wide, ms, same, dev) -> dict:
+    """K15 beside K18 on one chunk at W = 4, 8, 16 with K15's probes, probe
+    floor and byte bound; count_batch beside torch.unique(dim=0); see the
+    docstring."""
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import kernels
+    from leon_tpu_torch.ops import bloom, count, kmer, walk
+
+    H, SEED = chip_smoke.H, chip_smoke.SEED
+    floor = probe_floor_lib()
+    res = {}
+
+    def floor_ms(bits, nw, counts):
+        c = counts.to(torch.int32).contiguous()
+        o = torch.empty(c.numel(), dtype=torch.int32, device=dev)
+        st = kernels.stream(c)
+
+        def run():
+            kernels.check(floor.lt_probe_floor(bits.data_ptr(), nw, H, c.data_ptr(), c.numel(),
+                                               0x5EED, o.data_ptr(), st),
+                          "probe_floor")
+        return ms(run, 10)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for W in (4, 8, 16):
+        k, chunks, L, codes0, lengths0, codes, lengths = wide(W)
+        tag = f"dense:w{W}"
+        sol = main_solid(k, chunks, L, dev)
+        nw = sol["n_words"]
+        ones = torch.ones(sol["solid"].shape[0], dtype=torch.bool, device=dev)
+        bits = bloom.bloom_build_words(sol["solid"], ones, nw, nw, H, SEED, k)
+        del sol, ones
+        c1 = torch.from_numpy(codes0).to(dev)
+        l1 = torch.from_numpy(lengths0).to(dev)
+        p0, pl0 = chunks[0]
+        enc = walk.encode_batch(c1, l1, bits, k, H, nw, SEED)
+        same([enc[n] for n, _, _ in walk.DENSE],
+             [v for v in walk.encode_batch_plain(c1, l1, bits, k, H, nw, SEED).values()])
+        rec = {"k": k, "L": L, "reads": c1.shape[0], "n_words": nw}
+        rec["ms"] = ms(lambda: walk.encode_batch(c1, l1, bits, k, H, nw, SEED), 10)
+        rec["k18_ms"] = ms(lambda: walk.walk_encode_words(p0, pl0, bits, nw, k, H, SEED, L,
+                                                          True), 10)
+        # the device time alone: the kernels' and memsets' by the profiler
+        rec["device"] = profile_kernels(
+            lambda: walk.encode_batch(c1, l1, bits, k, H, nw, SEED), 10)
+        rec["device_ms"] = sum(rec["device"].values())
+        rec["k18_device_ms"] = sum(profile_kernels(
+            lambda: walk.walk_encode_words(p0, pl0, bits, nw, k, H, SEED, L, True), 10).values())
+        # K15's probes: every read scans its min(len, L) - k + 1 anchor
+        # positions; an anchored read walks min(len - k - apos, ME) steps
+        # right and apos left
+        ME = max(1, L - k)
+        ln = l1.to(torch.int64)
+        apos = enc["apos"].to(torch.int64)
+        scan = torch.clamp(torch.clamp(ln, max=L) - k + 1, min=0)
+        steps = torch.where(enc["anchored"], torch.clamp(ln - k - apos, 0, ME) + apos, 0)
+        probes = scan + 4 * steps
+        rec["anchor_positions"], rec["steps"] = int(scan.sum()), int(steps.sum())
+        rec["probes"] = int(probes.sum())
+        rec["floor_ms"] = floor_ms(bits, nw, probes)
+        packed_bytes = 2 * c1.shape[0] * ((L + 15) // 16) * 4
+        rec["bytes"] = nbytes(c1, l1, bits, *enc.values()) + packed_bytes
+        rec["bytes_ms"] = rec["bytes"] / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rec["bound_ms"] = max(rec["floor_ms"], rec["bytes_ms"])
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        rec["k18_plus_bytes_ms"] = rec["k18_ms"] + rec["bytes_ms"]
+        del enc, c1, l1
+        # count_batch over every read beside torch.unique(dim=0) of its rows
+        ca = torch.from_numpy(codes).to(dev)
+        la = torch.from_numpy(lengths).to(dev)
+        canon, _rc, valid = kmer.kmer_scan_words(ca, la, k)
+        del ca, la, _rc
+        rows = canon.reshape(-1, kmer.words_for_k(k))[valid.reshape(-1)]
+        uq, cn = count.count_batch(canon, valid)
+        lu, lc = torch.unique(rows, dim=0, return_counts=True)
+        if uq.shape[0] != lu.shape[0] or int(cn.sum()) != int(lc.sum()):
+            raise AssertionError("count_batch and torch.unique disagree")
+        rec["rows"], rec["distinct"] = rows.shape[0], uq.shape[0]
+        del uq, cn, lu, lc
+        rec["count_batch_ms"] = ms(lambda: count.count_batch(canon, valid), 3)
+        rec["unique_ms"] = ms(lambda: torch.unique(rows, dim=0, return_counts=True), 3)
+        res[tag[6:]] = rec
+        print(json.dumps({tag: rec}), flush=True)
+        del canon, valid, rows, bits
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, DENSE_KERNELS)
+    return res
 
 M32 = 0xFFFFFFFF
 
@@ -1147,6 +1273,7 @@ def graph_replay(bloom, kmer, k: int, seed: int, H: int, n_words: int, bits, dev
 
 
 GRAPH_KERNELS = ("dbg_probe_kernel", "dbg_walk_kernel", "dbg_traverse_kernel")
+WALK_CHECK_LANES = 1 << 18  # K11's lanes held against its plain version
 
 
 def graph_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
@@ -1159,7 +1286,7 @@ def graph_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
 
     import chip_smoke
     from leon_tpu_torch import kernels, state
-    from leon_tpu_torch.graph import Graph
+    from leon_tpu_torch.graph import Graph, dbg_walk_plain
     from leon_tpu_torch.ops import bloom, count, kmer
 
     P, I, I64, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
@@ -1249,6 +1376,9 @@ def graph_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
         wb, wn = dbg.walk(nodes, S_WALK)
         n, loads, steps = walk_loads(nodes, S_WALK)
         same([wn], [n])
+        m = min(nodes.shape[0], WALK_CHECK_LANES)
+        same([wb[:m], wn[:m]], dbg_walk_plain(gb, nodes[:m], dbg.n_hashes, gnw, dbg.seed, k,
+                                              S_WALK))
         r = {"ms": ms(lambda: dbg.walk(nodes, S_WALK), 3), "lanes": nodes.shape[0],
              "steps": S_WALK, "mean_steps": float(wn.float().mean())}
         bounds(r, gb, gnw, loads, steps, nbytes(nodes, wb, wn))
