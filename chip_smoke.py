@@ -88,15 +88,25 @@ run right after phase 3, whose reads and solid set they reuse):
      card, exactly, and timed (K9 also against torch.take);
   8. K15 on adversarial reads (k15_case, walk_case's edge reads, at k =
      1..64 of K15_KS and L mod 16 = 0, 1, 15; the codes also as an
-     unaligned view), equal to its plain version; then the tensor-level
+     unaligned view), K13 on adversarial reads (k13_case: code bytes above
+     3 at column 0, at the last column, past a read's end, before windows
+     within the reach of their rc bits, at every other column, a read of
+     only 0xFF, at k = 1..64 of K13_KS and L mod 16 = 0, 1, 15, and rows of
+     more than 2,048 positions, K13_LONG; the codes also as an unaligned
+     view) and K20 on adversarial rows (tie_case: runs of 1, 2, 31, 32, 33,
+     1,024, 1,025 and 65,536 equal top words, runs of equal rows, one run
+     of every row, words around the int64 sign flip, rows equal but for
+     word 0, at W = 3, 4, 8, 16; count_batch too), each equal to its plain
+     version; then the tensor-level
      k-mer path on phase 3's 458,752 reads: at k = 31,
      K13 scan + torch.sort + K14 count equal phase 3's distinct run and
      solid keys, K16 over the solid rows equals K3's bitset, K15 on one
-     chunk agrees with K4; at k = 63 (W = 4) scan, count, K16, K15 and
+     chunk agrees with K4; at k = 63 (W = 4) scan, count (the top sort,
+     K20, K14), K16, K15 and
      the graph API (K10/K11 at W = 4); the 4-shard mesh on the one card
      equals one shard; entry() on the card equals its CPU run; each of
-     K13-K16 launched at least once, then held against its plain version
-     on the card, exactly, and timed (K14 also against
+     K13-K16 and K20 launched at least once, then held against its plain
+     version on the card, exactly, and timed (K14 also against
      torch.unique_consecutive, count_batch against torch.unique);
   9. the multiword route of compress and decompress at three widths, as
      65,536-lane packed chunks: k = 63 on phase 3's reads (the distinct
@@ -124,18 +134,19 @@ run right after phase 3, whose reads and solid set they reuse):
      on adversarial rows (bloom_adversarial: W = 1..16 at k = 16W - 15,
      16W - 1 and 16W, H = 1..8, garbage above 2k, 64 words for 4,096 rows,
      a sparse valid, S = 0), each equal to its plain version;
- 10. K11 and K15 on their adversarial cases past k = 64; then phases 8 and
-     7 past four words, on phase 9's reads and solid sets: at
+ 10. K11, K15 and K13 on their adversarial cases past k = 64; then phases
+     8 and 7 past four words, on phase 9's reads and solid sets: at
      k = 127 (W = 8) K13 over the 200,000 reads of 250 bp, count_batch
-     (sort + K14's run lengths; 19,755,554 distinct, 1,777,017 solid),
+     (the top sort, K20, K14's run lengths; 19,755,554 distinct, 1,777,017
+     solid),
      the 4-shard Bloom build (= one shard = phase 9's K16), K15 on one
      chunk, and the graph API on the solid set (every query over every
      node, 2**21 random k-mers, the blocked probe of phase 9's filter,
      walk from every node, traverse from 65,536 nodes at D = 32 and
      D = k + 1); then the same at k = 255 (W = 16) on phase 9's 131,072
      reads of 300-600 bp; each of K10-K15 launched at least once at each
-     width, its output on the path held against its plain version on
-     the card, exactly, at the path's shapes (every read, node, lane and
+     width (and K20), its output on the path held against its plain
+     version on the card, exactly, at the path's shapes (every read, node, lane and
      step; K12 at D = k + 1 on the first quarter of its lanes), and timed
      there (records `name:w8`, `name:w16`; K14 also
      against torch.unique_consecutive, count_batch against torch.unique).
@@ -248,6 +259,7 @@ KERNELS = {
     "dbg_traverse": ("leon_tpu_torch/csrc/graph.cu", "leon_tpu/graph.py:125"),
     "kmer_scan_words": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:129"),
     "runs_words": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:88"),
+    "sort_ties": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:45"),
     "bloom_build_words": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/parallel/mesh.py:33"),
     "walk_dense": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:621"),
     "kmer_scan_halves": ("leon_tpu_torch/csrc/kmer.cu", "leon_tpu/ops/kmer.py:141"),
@@ -258,7 +270,7 @@ KERNELS = {
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
-TENSOR = ("kmer_scan_words", "runs_words", "bloom_build_words", "walk_dense")
+TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "walk_dense")
 # the main path's multiword route (32 <= k <= 255): K17, K14 (word_runs),
 # K16, K18 (+ walk_pack), K19. A record's name up to ":" is its launch
 # counter: K16 has one record on the tensor path (phase 8, as mesh.py
@@ -270,8 +282,9 @@ WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_
 WIDE8, WIDE16 = (tuple(f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
 KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
 # the tensor path and the graph API past four words (phase 10): K13, K14's
-# run lengths, K15 and K10-K12 at W = 8 (k = 127) and W = 16 (k = 255)
-LONGK = ("kmer_scan_words", "runs_words", "walk_dense", "dbg_probe", "dbg_walk", "dbg_traverse")
+# run lengths, K15, K10-K12 and K20 at W = 8 (k = 127) and W = 16 (k = 255)
+LONGK = ("kmer_scan_words", "runs_words", "walk_dense", "dbg_probe", "dbg_walk", "dbg_traverse",
+         "sort_ties")
 LONGK8, LONGK16 = (tuple(f"{n}:w{w}" for n in LONGK) for w in (8, 16))
 KERNELS.update({n: KERNELS[c] for n, c in zip(LONGK8 + LONGK16, LONGK + LONGK)})
 # the device unitig build over W-word rows (k > 31): K5, K6, K7 and K8 at
@@ -2086,6 +2099,153 @@ def k15_adversarial(ks: tuple) -> None:
     log(f"walk_dense ok on edge reads at k = {ks}, L mod 16 = {WALK_L_MOD16}")
 
 
+# K13's adversarial reads (k13_case): bytes above 3 where each reach of them
+# shows; phase 8 runs the k <= 64, phase 10 the rest; K13_LONG's rows hold
+# more positions than one job of K13_POS (csrc/kmer.cu) at both ends of the
+# widths.
+K13_KS = (1, 5, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 255)
+K13_L_MOD16 = (0, 1, 15)
+K13_LONG = ((31, 2100), (255, 2351))
+K13_DIRTY = (4, 7, 0x80, 0xFC, 0xFF)  # code bytes above 3
+
+
+def k13_case(k: int, mod: int, n_random: int, L: int = 0):
+    """(codes (B, L) uint8, lengths (B,) int32) of one adversarial K13
+    input: L = 16 m + mod >= k + 40 (or the L given); reads of length 0, k -
+    1, k and L; a byte above 3 (from K13_DIRTY) at column 0, at the last
+    column, past a read's end (length k + 2, the byte at column k + 6), alone
+    at column 20 (so windows start 1 .. 20 columns after it: its rc bits
+    reach 16W - k positions past the last window that holds it), at every
+    other column, and a read of only 0xFF; at even k a palindrome; then
+    n_random random reads of random lengths (the bytes past a read's end
+    left random), one in four with 1-3 bytes above 3 at random columns."""
+    import numpy as np
+
+    rng = np.random.default_rng(13 * k + mod + L)
+    L = L or 16 * -(-(k + 40) // 16) + mod
+    B = 10 + n_random
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lengths = np.concatenate([[0, k - 1, k, L, L, L, k + 2, L, L, L],
+                              rng.integers(0, L + 1, n_random)]).astype(np.int32)
+    d = [K13_DIRTY[(k + i) % len(K13_DIRTY)] for i in range(5)]
+    codes[4, 0], codes[5, L - 1], codes[6, k + 6], codes[7, 20] = d[:4]
+    codes[8, ::2] = d[4]
+    codes[9] = 0xFF
+    if k % 2 == 0:
+        half = codes[3, : k // 2]
+        codes[3, k // 2 : k] = (3 - half)[::-1]
+    for r in np.flatnonzero(rng.random(n_random) < 0.25) + 10:
+        cols = rng.integers(0, L, rng.integers(1, 4))
+        codes[r, cols] = rng.integers(4, 256, cols.size)
+    return codes, lengths
+
+
+def k13_adversarial(ks: tuple) -> None:
+    """K13 against its plain version on the card, exactly (canon, is_rc,
+    valid), on k13_case at each k of ks and L mod 16 = 0, 1, 15 (1,024
+    random reads beside the edge reads; at L mod 16 = 1 the codes also as an
+    unaligned view), and on K13_LONG's rows at the k of ks."""
+    import torch
+
+    from leon_tpu_torch.ops import kmer
+
+    dev = torch.device("cuda")
+    cases = [(k, mod, 1024, 0) for k in ks for mod in K13_L_MOD16]
+    cases += [(k, 1, 16, L) for k, L in K13_LONG if k in ks]
+    for k, mod, nr, L in cases:
+        codes_np, lengths_np = k13_case(k, mod, nr, L)
+        codes = torch.from_numpy(codes_np).to(dev)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        flat = torch.zeros(codes.numel() + 1, dtype=torch.uint8, device=dev)
+        flat[1:] = codes.reshape(-1)
+        want = kmer.kmer_scan_words_plain(codes, lengths, k)
+        for c in (codes, flat[1:].view(codes.shape)) if mod == 1 else (codes,):
+            for a, b in zip(kmer.kmer_scan_words(c, lengths, k), want):
+                max_abs_err(a, b)
+    log(f"kmer_scan_words ok on dirty and edge reads at k = {ks}, L mod 16 = {K13_L_MOD16}, "
+        f"long rows {[c for c in K13_LONG if c[0] in ks]}")
+
+
+# K20's adversarial rows (tie_case): runs of equal top 64 bits across the
+# kernel's warp (32 rows) and block (1,024) limits and past them
+TIE_WS = (3, 4, 8, 16)
+TIE_RUNS = (1, 2, 31, 32, 33, 1024, 1025, 65536)
+TIE_EQUAL = (2, 32, 1024, 2000)  # runs of equal rows
+TIE_EDGES = (0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)  # u32 words around the int64 sign flip
+
+
+def tie_case(W: int, every: bool = False):
+    """(canon (B, P, W) int32 holding u32 words, valid (B, P) bool) of one
+    adversarial K20 input: runs of TIE_RUNS rows with equal top words W-1
+    and W-2, and runs of TIE_EQUAL equal rows (or, with `every`, one run of
+    70,000 rows); a run's rows are drawn from a pool of distinct rows whose
+    lower words are TIE_EDGES or random, half of them equal to the first but
+    for word 0, the first ones' word 0 each of TIE_EDGES; top words from
+    TIE_EDGES too (each of them in turn for the first eight runs); no row is all ones (the
+    reference ties that row with its invalid marker, ROADMAP queue 3); the
+    rows shuffled into 64 positions a read, one position in 8 invalid
+    (random words)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2000 + W + 100 * every)
+    edges = np.array(TIE_EDGES, np.uint64)
+
+    def words(n):
+        w = rng.integers(0, 1 << 32, (n, W), dtype=np.uint64)
+        pick = rng.random((n, W)) < 0.5
+        w[pick] = edges[rng.integers(0, len(edges), int(pick.sum()))]
+        return w
+
+    runs = []
+    sizes = [(70_000, False)] if every else [(n, False) for n in TIE_RUNS] + [
+        (n, True) for n in TIE_EQUAL]
+    second = rng.choice(1 << 32, len(sizes), replace=False)  # word W-2: a top key a run
+    for size, equal in sizes:
+        pool = words(1 if equal else max(1, min(size, 8 + size // 256)))
+        pool[1::2, 1:] = pool[0, 1:]  # equal to the first but for word 0
+        pool[: len(edges), 0] = edges[: pool.shape[0]]
+        run = pool[rng.integers(0, pool.shape[0], size)]
+        run[:, W - 1] = edges[len(runs) % len(edges)] if len(runs) < 8 else words(1)[0, W - 1]
+        run[:, W - 2] = second[len(runs)]
+        runs.append(run)
+    rows = np.concatenate(runs)
+    ones = (rows == 0xFFFFFFFF).all(axis=1)
+    rows[ones, 0] = 0xFFFFFFFE
+    rows = rows[rng.permutation(rows.shape[0])]
+    n_all = rows.shape[0] + rows.shape[0] // 7
+    valid = np.ones(n_all, bool)
+    valid[rng.choice(n_all, n_all - rows.shape[0], replace=False)] = False
+    canon = rng.integers(0, 1 << 32, (-(-n_all // 64) * 64, W), dtype=np.uint64)
+    canon[: n_all][valid] = rows
+    valid = np.concatenate([valid, np.zeros(canon.shape[0] - n_all, bool)])
+    return (canon.astype(np.uint32).view(np.int32).reshape(-1, 64, W),
+            valid.reshape(-1, 64))
+
+
+def tie_adversarial() -> None:
+    """K20 against its plain version on the card, exactly, on tie_case at
+    each W of TIE_WS (runs of every size, and one run of every row), and
+    count_batch against count_batch_plain on the same rows."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    for W in TIE_WS:
+        for every in (False, True):
+            canon_np, valid_np = tie_case(W, every)
+            canon = torch.from_numpy(canon_np).to(dev)
+            valid = torch.from_numpy(valid_np).to(dev)
+            keys, src, rows = count.top_sort(canon, valid)
+            for a, b in zip(count.sort_ties(keys, src, rows, W),
+                            count.sort_ties_plain(keys, src, rows, W)):
+                max_abs_err(a, b)
+            for a, b in zip(count.count_batch(canon, valid), count.count_batch_plain(canon, valid)):
+                max_abs_err(a, b)
+    log(f"sort_ties, count_batch ok on runs of {TIE_RUNS} equal top words and one run of every "
+        f"row at W = {TIE_WS}")
+
+
 def graph_phase(records: dict, bench_state: dict) -> dict:
     """The graph API on the bench run's solid set (phase 3: 2,014,298
     canonical k-mers at k = 31, W = 2), as its users drive it: every query
@@ -2268,7 +2428,8 @@ def k4_agrees(enc: dict, k4: dict, L: int) -> None:
 def tensor_phase(records: dict, bench_state: dict) -> dict:
     """The tensor-level k-mer path on phase 3's 458,752 bench reads (L =
     104): at k = 31 the scan (K13) and count (torch.sort + K14) must give
-    phase 3's distinct run and solid keys, K16 over the solid rows K3's
+    phase 3's distinct run and solid keys (at k = 63 the count takes the
+    top sort, K20 and K14, and must equal count_batch_plain), K16 over the solid rows K3's
     bitset, and K15 on one chunk K4's walk; at k = 63 (W = 4) scan, count,
     K16 (H = 4, the reference's default bits per k-mer), K15 on one chunk,
     and the graph API on the solid set (successors of every node, walk of
@@ -2286,6 +2447,8 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.parallel import mesh
 
     k15_adversarial(tuple(k for k in K15_KS if k <= 64))
+    k13_adversarial(tuple(k for k in K13_KS if k <= 64))
+    tie_adversarial()
     dev = torch.device("cuda")
     codes = torch.from_numpy(bench_state["codes"]).to(dev)
     lengths = torch.from_numpy(bench_state["lengths"]).to(dev)
@@ -2396,6 +2559,21 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
     log(f"walk_dense ok: k=31 {enc31['anchored'].float().mean().item():.4f}, "
         f"k=63 {anch63:.4f} anchored")
 
+    # K20 on the path's k = 63 rows after the top sort; count_batch against
+    # its plain version, and timed beside torch.unique(dim=0) (below)
+    err = max(max_abs_err(a, b) for a, b in zip((uniq63, cnt63),
+                                                 count.count_batch_plain(got[0], got[2])))
+    tkeys, tsrc, trows = count.top_sort(got[0], got[2])
+    tp = count.sort_ties(tkeys, tsrc, trows, 4)
+    err = max(err, *(max_abs_err(a, b)
+                     for a, b in zip(tp, count.sort_ties_plain(tkeys, tsrc, trows, 4))))
+    records["sort_ties"] = record(
+        err, cuda_ms(lambda: count.sort_ties(tkeys, tsrc, trows, 4), 5),
+        cuda_ms(lambda: count.sort_ties_plain(tkeys, tsrc, trows, 4), 2),
+        nbytes(tkeys, tsrc, tp) + tkeys.numel() * 4 * 4)
+    log(f"sort_ties ok: {tkeys.numel()} rows (k=63)")
+    fig["count_batch63_ms"] = cuda_ms(lambda: count.count_batch(got[0], got[2]), 3)
+    del tkeys, tsrc, trows, tp
     rows = got[0].reshape(-1, 4)[got[2].reshape(-1)]
     del got
     planes = count.sort_words(rows)
@@ -2652,8 +2830,9 @@ LONGK_DEEP_LANES = GRAPH_TRAVERSE_LANES // 4
 def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
     """Phases 8 and 7 at one k past four words, on phase 9's reads and solid
     set at that k (`hand`), as their users drive them. The tensor path: K13
-    over every read, count_batch (sort_planes + K14's run lengths) over its
-    valid rows, which must give phase 9's distinct and solid counts and
+    over every read, count_batch (the top sort, K20, K14's run lengths) over
+    its valid rows (equal to count_batch_plain), which must give phase 9's
+    distinct and solid counts and
     solid rows; the solid rows' blocked Bloom filter built through
     sharded_bloom_build on 4 shards of the one card, which must equal one
     shard and phase 9's K16 bitset; K15 on the first 65,536 reads. The
@@ -2666,7 +2845,7 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
     path is held against its plain version on the same inputs on the card
     (exact) and timed at those shapes, every lane and step (K12 at the
     default depth on the first LONGK_DEEP_LANES lanes): the plain versions
-    of K11, K12, K13 and K15, which take seconds, on their one checking
+    of K11, K12, K13, K15 and K20, which take seconds, on their one checking
     call."""
     import numpy as np
     import torch
@@ -2676,7 +2855,7 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
     from leon_tpu_torch.ops import bloom, count, kmer, walk
     from leon_tpu_torch.parallel import mesh
 
-    n_scan, n_runs, n_dense, n_probe, n_walk, n_trav = names
+    n_scan, n_runs, n_dense, n_probe, n_walk, n_trav, n_ties = names
     dev = torch.device("cuda")
     W = kmer.words_for_k(k)
     tag = f"k={k}, W={W}"
@@ -2761,6 +2940,19 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
 
     # count_batch beside torch.unique(dim=0), which also sorts; K14 beside
     # torch.unique_consecutive over the same sorted rows (its own function)
+    # K20 on the path's rows after the top sort; count_batch against its
+    # plain version
+    err = max(max_abs_err(a, b) for a, b in zip((uniq, cnt),
+                                                 count.count_batch_plain(canon, valid)))
+    tkeys, tsrc, trows = count.top_sort(canon, valid)
+    tp = count.sort_ties(tkeys, tsrc, trows, W)
+    want, plain_ms = timed(lambda: count.sort_ties_plain(tkeys, tsrc, trows, W))
+    err = max(err, *(max_abs_err(a, b) for a, b in zip(tp, want)))
+    del want
+    records[n_ties] = record(err, cuda_ms(lambda: count.sort_ties(tkeys, tsrc, trows, W), 5),
+                             plain_ms, nbytes(tkeys, tsrc, tp) + tkeys.numel() * 4 * W)
+    log(f"{n_ties} ok: {tkeys.numel()} rows ({tag})")
+    del tkeys, tsrc, trows, tp
     rows = canon.reshape(-1, W)[valid.reshape(-1)]
     fig["count_batch_ms"] = cuda_ms(lambda: count.count_batch(canon, valid), 3)
     fig["unique_ms"] = cuda_ms(lambda: torch.unique(rows, dim=0, return_counts=True), 1)
@@ -2833,12 +3025,13 @@ def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
 
 
 def longk_phase(records: dict, hand: dict) -> dict:
-    """Phase 10: K11 and K15 on their adversarial cases past k = 64, then
+    """Phase 10: K11, K15 and K13 on their adversarial cases past k = 64, then
     longk_checks at k = 127 (W = 8) on the 200,000 reads of 250 bp and their
     1,777,017 solid k-mers (PIN127's), then at k = 255 (W = 16) on phase 9's
     131,072 reads of 300-600 bp and their solid set."""
     k11_adversarial(tuple(k for k in K11_KS if k > 64))
     k15_adversarial(tuple(k for k in K15_KS if k > 64))
+    k13_adversarial(tuple(k for k in K13_KS if k > 64))
     return {f"k{k}": longk_checks(records, names, hand.pop(k), k)
             for k, names in ((K127, LONGK8), (K255, LONGK16))}
 

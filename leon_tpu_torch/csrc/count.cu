@@ -767,3 +767,269 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
                     values_i64 ? nullptr : out_values, values_i64 ? out_values : nullptr,
                     scratch, scratch_bytes, nullptr, stream);
 }
+
+// ---------------------------------------------------------------------------
+// K20 sort_ties — count_batch's valid rows in the reference's order (u32
+// words, MSW first) after one library sort of their top 64 bits, written as
+// the P = ceil(W/2) sign-flipped int64 planes K14 reduces (W = 3..16).
+//
+// Replaces: the sort of leon_tpu/ops/count.py _sort_count_device (45-85,
+// lax.sort over W key columns, called from count_batch 88-104), with
+// torch.sort of one int64 key (words W-1 and W-2, sign-flipped) and its
+// row index before it. (The P-pass LSD sort it replaces gathered every
+// plane sorted so far again at each pass: P(P+1)/2 random plane gathers.)
+//
+// Input: keys (n,) int64 sorted ascending, src (n,) int64: sorted row i is
+// row src[i] of rows (N, W) u32; dst (n,) int64 or null: where sorted row
+// i goes (dst[i], or i). Output: the planes of every row at its place, each
+// run of equal keys ordered by its rows (MSW first; equal rows are equal,
+// so their order is moot).
+//
+// Bound on the H100: device-memory bytes, keys and src read (16 n), the rows
+// gathered (4W n; a row is 4W contiguous bytes) and the planes written
+// (8P n). Design: one thread a sorted position, whole rows gathered with
+// 16- or 8-byte loads where W and alignment allow. A position that is its
+// own run writes its row at once. The first row of a longer run finds the
+// run's end by a galloping search over the keys. Runs of up to ST_WARP_RUN
+// rows are settled by their head's warp, one run after another: a lane a
+// row, all rows equal (duplicates are common: at W = 4, 17.4M rows hold
+// 10.0M distinct) checked by one vote, else each lane's rank counted over
+// the run's rows broadcast by shuffles. Runs of up to ST_BLOCK_RUN rows are
+// listed (a warp-aggregated atomic a class) for sort_ties_block_kernel: a
+// block a run, its rows in shared memory, the same vote and ranks. (Runs
+// wholly inside a warp settled at once instead, each lane's rank counted
+// over the warp's 32 rows by shuffles, took 0.96 / 2.29 / 3.95 ms of
+// device time against 0.87 / 1.78 / 3.16 at W = 4 / 8 / 16: PERF.md §6,
+// row 12b.) Longer
+// runs are listed for the caller, which orders them by the next plane
+// (torch.sort within each run) and runs these kernels again over them with
+// the finer runs as keys (ops/count.py _tie_rounds); in the last round the
+// keys cover every word, so every run is of equal rows and each thread
+// writes its own row (final).
+// ---------------------------------------------------------------------------
+
+#define ST_THREADS 256
+#define ST_WARP_RUN 32     // runs of up to this many rows: a warp
+#define ST_BLOCK_RUN 1024  // up to this many: a block, rows in shared memory
+#define ST_LEN_BITS 11     // a listed block run: start << ST_LEN_BITS | length
+
+// lists: [0] block runs listed, [1] long runs listed, then cap_mid block
+// runs, then (start, length) pairs of the long runs (ops/count.py
+// _ties_lists)
+template <int W>
+static __device__ __forceinline__ void st_put(const PlanePtrs& out, long long pos,
+                                              const Kmer<W>& c) {
+  constexpr int NH = (W + 1) / 2;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    out.p[h][pos] =
+        (int64_t)((((unsigned long long)word_or_zero<W>(c, 2 * h + 1) << 32) | c.w[2 * h]) ^
+                  (1ull << 63));
+}
+
+// the first index past i whose key differs from keys[i] (keys[i + 1] equals it)
+static __device__ long long st_run_end(const long long* __restrict__ keys, long long n,
+                                       long long i, long long key) {
+  long long lo = i + 1, step = 1;  // keys[lo] == key
+  for (;;) {
+    const long long hi = lo + step;
+    if (hi >= n || keys[hi] != key) {
+      long long b = hi < n ? hi : n;  // b == n or keys[b] != key
+      while (b - lo > 1) {
+        const long long m = lo + (b - lo) / 2;
+        if (keys[m] == key)
+          lo = m;
+        else
+          b = m;
+      }
+      return b;
+    }
+    lo = hi;
+    step <<= 1;
+  }
+}
+
+// a slot of a list for each lane that wants one (every lane calls it)
+static __device__ __forceinline__ unsigned long long st_slot(bool want,
+                                                             unsigned long long* counter) {
+  const unsigned m = __ballot_sync(K2_FULL, want);
+  if (!m) return 0;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  unsigned long long base = 0;
+  if (lane == leader) base = atomicAdd(counter, (unsigned long long)__popc(m));
+  base = __shfl_sync(K2_FULL, base, leader);
+  return base + __popc(m & ((1u << lane) - 1u));
+}
+
+// rank of row r among the m rows of a run (ties by index t), counted over
+// row(j) for j < m; all equal: its own index
+template <int W, class Row>
+static __device__ __forceinline__ int st_rank(const Kmer<W>& r, int t, int m, Row row) {
+  int rank = 0;
+  for (int j = 0; j < m; ++j) {
+    const Kmer<W> o = row(j);
+    rank += (int)(lex_less<W>(o, r) || (j < t && same_kmer<W>(o, r)));
+  }
+  return rank;
+}
+
+template <int W>
+__global__ void __launch_bounds__(ST_THREADS)
+    sort_ties_kernel(const long long* __restrict__ keys, const long long* __restrict__ src,
+                     const uint32_t* __restrict__ rows, bool vec, long long n,
+                     const long long* __restrict__ dst, bool final_,
+                     const __grid_constant__ PlanePtrs out, unsigned long long* __restrict__ lists,
+                     long long cap_mid) {
+  const long long i = (long long)blockIdx.x * ST_THREADS + threadIdx.x;
+  const bool in = i < n;
+  if (final_) {  // every run is of equal rows
+    if (in) st_put<W>(out, dst ? dst[i] : i, load_kmer_vec<W>(rows, src[i], vec));
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long key = in ? keys[i] : 0;
+  long long kp = __shfl_up_sync(K2_FULL, key, 1), kn = __shfl_down_sync(K2_FULL, key, 1);
+  if (lane == 0 && in && i > 0) kp = keys[i - 1];
+  if (lane == 31 && i + 1 < n) kn = keys[i + 1];
+  const bool eq_prev = in && i > 0 && kp == key, eq_next = i + 1 < n && kn == key;
+  if (in && !eq_prev && !eq_next)
+    st_put<W>(out, dst ? dst[i] : i, load_kmer_vec<W>(rows, src[i], vec));
+  const bool head = in && !eq_prev && eq_next;
+  const long long len = head ? st_run_end(keys, n, i, key) - i : 0;
+  const bool mid = len > ST_WARP_RUN && len <= ST_BLOCK_RUN, lng = len > ST_BLOCK_RUN;
+  const unsigned long long sm = st_slot(mid, lists);
+  if (mid) lists[2 + sm] = ((unsigned long long)i << ST_LEN_BITS) | (unsigned long long)len;
+  const unsigned long long sl = st_slot(lng, lists + 1);
+  if (lng) {
+    lists[2 + cap_mid + 2 * sl] = (unsigned long long)i;
+    lists[2 + cap_mid + 2 * sl + 1] = (unsigned long long)len;
+  }
+  // the warp's runs of 2 .. ST_WARP_RUN rows, one after another
+  unsigned todo = __ballot_sync(K2_FULL, head && len <= ST_WARP_RUN);
+  while (todo) {
+    const int h = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const long long s = __shfl_sync(K2_FULL, i, h);
+    const int m = (int)__shfl_sync(K2_FULL, len, h);
+    Kmer<W> r = {};
+    if (lane < m) r = load_kmer_vec<W>(rows, src[s + lane], vec);
+    bool diff = false;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const uint32_t v0 = __shfl_sync(K2_FULL, r.w[w], 0);  // every lane shuffles
+      diff |= lane < m && r.w[w] != v0;
+    }
+    int rank = lane;
+    if (__any_sync(K2_FULL, diff))
+      rank = st_rank<W>(r, lane, m, [&](int j) {
+        Kmer<W> o;
+#pragma unroll
+        for (int w = 0; w < W; ++w) o.w[w] = __shfl_sync(K2_FULL, r.w[w], j);
+        return o;
+      });
+    if (lane < m) st_put<W>(out, dst ? dst[s + rank] : s + rank, r);
+  }
+}
+
+// the listed runs of ST_WARP_RUN + 1 .. ST_BLOCK_RUN rows, a block a run
+// (a grid of the card's resident blocks), the run's rows in dynamic shared
+// memory
+template <int W>
+__global__ void __launch_bounds__(ST_THREADS)
+    sort_ties_block_kernel(const long long* __restrict__ src, const uint32_t* __restrict__ rows,
+                           bool vec, const long long* __restrict__ dst,
+                           const __grid_constant__ PlanePtrs out,
+                           const unsigned long long* __restrict__ lists) {
+  extern __shared__ uint32_t s_run[];  // ST_BLOCK_RUN rows of W words
+  const unsigned long long nm = lists[0];
+  for (unsigned long long e = blockIdx.x; e < nm; e += gridDim.x) {
+    const unsigned long long ent = lists[2 + e];
+    const long long s = (long long)(ent >> ST_LEN_BITS);
+    const int m = (int)(ent & ((1u << ST_LEN_BITS) - 1u));
+    for (int t = threadIdx.x; t < m; t += ST_THREADS) {
+      const Kmer<W> r = load_kmer_vec<W>(rows, src[s + t], vec);
+#pragma unroll
+      for (int w = 0; w < W; ++w) s_run[t * W + w] = r.w[w];
+    }
+    __syncthreads();
+    bool diff = false;
+    for (int t = threadIdx.x; t < m; t += ST_THREADS)
+#pragma unroll
+      for (int w = 0; w < W; ++w) diff |= s_run[t * W + w] != s_run[w];
+    const bool any = __syncthreads_or(diff);
+    for (int t = threadIdx.x; t < m; t += ST_THREADS) {
+      Kmer<W> r;
+#pragma unroll
+      for (int w = 0; w < W; ++w) r.w[w] = s_run[t * W + w];
+      const int rank = any ? st_rank<W>(r, t, m, [&](int j) {
+        Kmer<W> o;  // every lane reads row j: a broadcast
+#pragma unroll
+        for (int w = 0; w < W; ++w) o.w[w] = s_run[j * W + w];
+        return o;
+      })
+                           : t;
+      st_put<W>(out, dst ? dst[s + rank] : s + rank, r);
+    }
+    __syncthreads();
+  }
+}
+
+// K20 over n sorted keys (see above): the lists' two counters zeroed, the
+// position pass, then the block pass (a grid of resident blocks reading the
+// listed count). lists: 2 + cap_mid + 2 cap_long u64 (cap_mid >= n / 33 + 1,
+// cap_long >= n / 1025 + 1); with final_ no run is listed.
+extern "C" int lt_sort_ties(const void* keys, const void* src, const void* rows, long long n,
+                            int W, const void* dst, int final_, int n_planes, const void* planes,
+                            void* lists, long long cap_mid, void* stream) {
+  if (n < 0 || W < 3 || W > 16 || n_planes != (W + 1) / 2 ||
+      cap_mid < n / (ST_WARP_RUN + 1) + 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  PlanePtrs out;
+  if (!load_planes(planes, n_planes, &out)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  LT_TRY(cudaMemsetAsync(lists, 0, 2 * sizeof(unsigned long long), st));
+  const long long* k = (const long long*)keys;
+  const long long* s = (const long long*)src;
+  const uint32_t* r = (const uint32_t*)rows;
+  const long long* d = (const long long*)dst;
+  unsigned long long* ls = (unsigned long long*)lists;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(rows);
+  const bool vec = W % 4 == 0 ? (a & 15) == 0 : (a & 7) == 0;
+  const unsigned grid = (unsigned)((n + ST_THREADS - 1) / ST_THREADS);
+  const size_t smem = (size_t)ST_BLOCK_RUN * W * sizeof(uint32_t);
+#define LAUNCH(W_)                                                                            \
+  {                                                                                           \
+    sort_ties_kernel<W_><<<grid, ST_THREADS, 0, st>>>(k, s, r, vec, n, d, final_ != 0, out,   \
+                                                      ls, cap_mid);                           \
+    LT_TRY(cudaGetLastError());                                                               \
+    if (!final_) {                                                                            \
+      LT_TRY(cudaFuncSetAttribute(sort_ties_block_kernel<W_>,                                 \
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));   \
+      int blocks = 0;                                                                         \
+      LT_TRY(resident_blocks(sort_ties_block_kernel<W_>, ST_THREADS, &blocks, 1 << 30, smem)); \
+      sort_ties_block_kernel<W_><<<blocks, ST_THREADS, smem, st>>>(s, r, vec, d, out, ls);    \
+    }                                                                                         \
+  }                                                                                           \
+  break;
+  switch (W) {
+    case 3: LAUNCH(3)
+    case 4: LAUNCH(4)
+    case 5: LAUNCH(5)
+    case 6: LAUNCH(6)
+    case 7: LAUNCH(7)
+    case 8: LAUNCH(8)
+    case 9: LAUNCH(9)
+    case 10: LAUNCH(10)
+    case 11: LAUNCH(11)
+    case 12: LAUNCH(12)
+    case 13: LAUNCH(13)
+    case 14: LAUNCH(14)
+    case 15: LAUNCH(15)
+    case 16: LAUNCH(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}

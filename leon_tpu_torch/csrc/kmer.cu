@@ -94,82 +94,253 @@ extern "C" int lt_kmer_scan(const void* packed, const void* lengths, int B, int 
 // (shl2 / shr2_ins), then canonical() = lex_less(rc, fwd) per position.
 //
 // Bound on the H100: device-memory bytes, (4W + 2) written per position
-// against 1 read (the codes). Design: one thread per read rolls fwd and rc
-// as W registers each, with the reference's u32 word arithmetic (the
-// same bits for any code byte, not only 0..3), and produces min(fwd, rc),
-// is_rc and valid at every one of the P = L - k + 1 positions: the
-// reference scans all L columns, so positions past a read's end hold the
-// words of the bytes there. Palindromes keep the forward strand. A read's
-// outputs are one contiguous row, but the rows of neighbouring threads lie
-// P * W words apart, so a thread storing its own row sends each warp store
-// to 32 sectors. The block therefore stages a tile of positions of its
-// SCAN_ROWS reads in shared memory (rows padded to an odd word stride, so
-// the per-thread stores hit 32 banks), then each warp copies whole row
-// segments out, lane by lane: every store instruction writes up to 32
-// neighbouring words (or bytes) of one row. The codes come in the same way,
-// a tile of columns per row per warp load, instead of one scattered byte
-// per thread and column. The tile is planes_tile of the W-word k-mer's
-// (W + 1) / 2 planes: 32 positions for W <= 4, 16 for W <= 10 and
-// 8 past it, so the staged words (64 x (TILE*W + 1) u32, which a tile of 32
-// would make 41 KB at W = 5 and 132 KB at W = 16) and code columns stay at
-// 45 KB or less, inside the 48 KB of static shared memory.
+// against 1 read (the codes). The outputs cover every one of the P = L - k
+// + 1 positions (the reference scans all L columns, so positions past a
+// read's end hold the words of the bytes there); palindromes keep the
+// forward strand.
+//
+// Design: one thread a position, the k-mer cut from the codes with no roll.
+// A block takes a job whose outputs are one contiguous range: R whole reads
+// (P <= K13_POS: R = K13_POS / P, fewer where their packed codes would pass
+// K13_CODE_WORDS), or K13_POS positions of one read. It loads the job's code
+// bytes coalesced (a thread 16 columns through aligned u32 loads) and packs
+// them 16 to a u32 in shared memory (kmer.pack_codes_np's layout: byte & 3),
+// beside a 16-bit mask a word of the columns whose byte is above 3. Each
+// position's k-mer is then cut as K17 cuts it (two funnel shifts a word over
+// the packed words, ~x as the reverse complement, rev2 for the forward
+// strand; the lesser, MSW first) into a tile of rows staged in shared
+// memory at an odd word stride, and the block copies the tile out as three
+// contiguous ranges (canon words, is_rc and valid bytes) in 16-byte
+// streaming stores. (A thread a read rolled its k-mer through all L columns,
+// a chain of L dependent steps of O(W) work, and 64-thread blocks stored a
+// tile of 8-32 positions between two barriers.)
+//
+// Dirty bytes. The reference rolls u32 words, so a code byte b > 3 leaks past
+// its two bits. In fwd = ((fwd << 2) | b) mod 2^2k the bits of b above bit 1
+// land on the bases before it and are masked at 2k: b reaches only the
+// windows that hold it. In rc = (rc >> 2) | ((3 - b) mod 2^32) << 2(k - 1),
+// unmasked, 3 - b wraps, so its bits above bit 1 fill the top word up to bit
+// 32W - 1 and shift down two a column: b at column i reaches every position
+// whose window ends at a column j with i <= j <= i + 16W - 1, that is up to
+// 16W - k (0..15) positions past the last window that holds it. So the cut
+// is exact at a position p (window ending at j = p + k - 1) where no byte
+// above 3 lies in columns [j - 16W + 1, j]. Where one does, the position's
+// thread rolls the reference's u32 arithmetic (shl2, shr2_ins) over those
+// columns from a zero state, reading the raw bytes: exact for any byte, as a
+// byte in an earlier column is masked out of fwd and shifted out of rc by j.
+// A job with no byte above 3 skips the check.
 // ---------------------------------------------------------------------------
 
-#define SCAN_ROWS 64  // reads per block, one thread each
-#define SCAN_TILE 32  // positions staged per pass, W <= 4
+#define K13_THREADS 256
+#define K13_POS 2048         // positions a job takes at most
+#define K13_CODE_WORDS 2048  // packed code words a job holds (8 KB)
 
-// positions K13 stages per pass over k-mers of nh int64 planes
-__host__ __device__ constexpr int planes_tile(int nh) {
-  return nh <= 2 ? SCAN_TILE : nh <= 5 ? 16 : 8;
+// positions a thread takes in a tile: the staged rows stay within 4-17 KB
+__host__ __device__ constexpr int k13_items(int W) {
+  return W == 1 ? 8 : W == 2 ? 4 : W <= 4 ? 2 : 1;
 }
 
-template <int W>
-__global__ void __launch_bounds__(SCAN_ROWS)
-    kmer_scan_words_kernel(const uint8_t* __restrict__ codes,
-                           const int32_t* __restrict__ lengths, int B, int L, int k, int P,
-                           uint32_t top, uint32_t* __restrict__ canon,
-                           uint8_t* __restrict__ is_rc, uint8_t* __restrict__ valid) {
-  constexpr int TILE = planes_tile((W + 1) / 2);
-  __shared__ uint8_t sc[SCAN_ROWS][TILE + 4];     // the tile's code columns
-  __shared__ uint32_t sw[SCAN_ROWS][TILE * W + 1];  // canonical words
-  __shared__ uint8_t sf[2][SCAN_ROWS][TILE + 4];  // is_rc, valid
-  const long long row0 = (long long)blockIdx.x * SCAN_ROWS;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int nrows = (int)min((long long)SCAN_ROWS, (long long)B - row0);
-  const int last = t < nrows ? lengths[row0 + t] - k : -1;  // valid positions: p <= last
-  Kmer<W> fwd = {}, rc = {};
-  for (int c0 = 0; c0 < L; c0 += TILE) {
-    const int nc = min(TILE, L - c0);
-    for (int r = warp; r < nrows; r += SCAN_ROWS / 32)
-      if (lane < nc) sc[r][lane] = __ldg(codes + (size_t)(row0 + r) * L + c0 + lane);
-    __syncthreads();
-    // positions [pa, pa + np) end in columns [c0, c0 + nc)
-    const int pa = max(0, c0 - k + 1);
-    const int np = c0 + nc - k + 1 - pa;
-    for (int q = 0; q < nc; ++q) {
-      const uint32_t b = sc[t][q];
-      fwd = shl2<W>(fwd, b, top);
-      rc = shr2_ins<W>(rc, 3u - b, k);
-      const int p = c0 + q - k + 1;
-      if (p < 0) continue;
-      const int i = p - pa;
-      const bool take_rc = lex_less<W>(rc, fwd);
+// 4 code bytes -> their 2-bit codes (byte e & 3 at bits 2e)
+static __device__ __forceinline__ uint32_t pack4(uint32_t x) {
+  uint32_t t = x & 0x03030303u;
+  t |= t >> 6;
+  return (t & 0xFu) | ((t >> 12) & 0xF0u);
+}
+
+// 4 code bytes -> bit e set where byte e is above 3
+static __device__ __forceinline__ uint32_t dirty4(uint32_t x) {
+  const uint32_t m = (((x >> 2) & 0x3F3F3F3Fu) + 0x7F7F7F7Fu) & 0x80808080u;
+  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) | ((m >> 28) & 8u);
+}
+
+// columns 16g .. 16g + 15 of a row of L code bytes (bytes past L read as 0):
+// the packed word and the dirty mask. The bytes come in through the aligned
+// u32 words that hold them (one to five), funnel-shifted into place.
+static __device__ __forceinline__ void load16(const uint8_t* __restrict__ row, int L, int g,
+                                              uint32_t* pk, uint32_t* dm) {
+  const int nb = min(16, L - 16 * g);  // >= 1
+  const uintptr_t a = reinterpret_cast<uintptr_t>(row + 16 * g);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+  const int off = (int)(a & 3u), nw = (off + nb + 3) >> 2;
+  uint32_t v[5];
 #pragma unroll
-      for (int w = 0; w < W; ++w) sw[t][i * W + w] = take_rc ? rc.w[w] : fwd.w[w];
-      sf[0][t][i] = take_rc;
-      sf[1][t][i] = p <= last;
-    }
-    __syncthreads();
-    if (np <= 0) continue;
-    for (int r = warp; r < nrows; r += SCAN_ROWS / 32) {
-      uint32_t* oc = canon + ((size_t)(row0 + r) * P + pa) * W;
-      for (int q = lane; q < np * W; q += 32) oc[q] = sw[r][q];
-      if (lane < np) {
-        const size_t o = (size_t)(row0 + r) * P + pa + lane;
-        is_rc[o] = sf[0][r][lane];
-        valid[o] = sf[1][r][lane];
+  for (int i = 0; i < 5; ++i) v[i] = i < nw ? __ldg(w + i) : 0u;
+  uint32_t p = 0, d = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t x = __funnelshift_r(v[i], v[i + 1], 8 * off);
+    const int keep = nb - 4 * i;  // bytes of x inside the row
+    x = keep >= 4 ? x : keep <= 0 ? 0u : x & ((1u << (8 * keep)) - 1u);
+    p |= pack4(x) << (8 * i);
+    d |= dirty4(x) << (4 * i);
+  }
+  *pk = p;
+  *dm = d;
+}
+
+// any byte above 3 in columns lo .. hi of a job's row (its dirty masks)
+static __device__ __forceinline__ bool k13_dirty(const uint16_t* d, int lo, int hi) {
+  for (int g = lo >> 4; g <= hi >> 4; ++g) {
+    uint32_t m = d[g];
+    if (g == lo >> 4) m &= 0xFFFFu << (lo & 15);
+    if (g == hi >> 4) m &= 0xFFFFu >> (15 - (hi & 15));
+    if (m) return true;
+  }
+  return false;
+}
+
+// the canonical k-mer whose window starts at bit-pair sh of w[0] (packed
+// codes; w[W] may lie past the window), as K17 cuts it
+template <int W>
+static __device__ __forceinline__ Kmer<W> k13_cut(const uint32_t* w, int sh, int s, uint32_t top,
+                                                  bool* take_rc) {
+  uint32_t x[W];
+  uint32_t lo = w[0];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t hi = w[i + 1];
+    x[i] = __funnelshift_r(lo, hi, sh);
+    lo = hi;
+  }
+  x[W - 1] &= top;
+  Kmer<W> fwd, rc;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    rc.w[j] = ~x[j];
+    fwd.w[j] = __funnelshift_r(rev2(x[W - 1 - j]), j + 1 < W ? rev2(x[W - 2 - j]) : 0u, s);
+  }
+  rc.w[W - 1] &= top;
+  *take_rc = lex_less<W>(rc, fwd);
+  return *take_rc ? rc : fwd;
+}
+
+// the reference's roll over code bytes row[lo .. j] from a zero state
+template <int W>
+static __device__ Kmer<W> k13_roll(const uint8_t* __restrict__ row, int lo, int j, int k,
+                                   uint32_t top, bool* take_rc) {
+  Kmer<W> fwd = {}, rc = {};
+  for (int c = lo; c <= j; ++c) {
+    const uint32_t b = __ldg(row + c);
+    fwd = shl2<W>(fwd, b, top);
+    rc = shr2_ins<W>(rc, 3u - b, k);
+  }
+  *take_rc = lex_less<W>(rc, fwd);
+  return *take_rc ? rc : fwd;
+}
+
+// words [0, n) of a tile (word q of the tile at s[(q / W) * SW + q % W])
+// to dst: the words before dst's first 16-byte boundary one by one, then
+// 16-byte streaming stores, then the last words
+template <int W, int SW>
+static __device__ __forceinline__ uint32_t k13_staged(const uint32_t* s, int q) {
+  return SW == W ? s[q] : s[(q / W) * SW + q % W];
+}
+
+template <int W, int SW>
+static __device__ __forceinline__ void k13_copy_words(const uint32_t* s, uint32_t* dst, int n) {
+  const int t = threadIdx.x;
+  const unsigned mis = (unsigned)(reinterpret_cast<uintptr_t>(dst) & 15u);
+  const int head = min(n, (int)(((16u - mis) & 15u) >> 2));
+  if (t < head) __stcs(dst + t, k13_staged<W, SW>(s, t));
+  const int body = (n - head) >> 2, tail = head + 4 * body;
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i = t; i < body; i += K13_THREADS) {
+    const int q = head + 4 * i;
+    __stcs(d4 + i, make_uint4(k13_staged<W, SW>(s, q), k13_staged<W, SW>(s, q + 1),
+                              k13_staged<W, SW>(s, q + 2), k13_staged<W, SW>(s, q + 3)));
+  }
+  if (tail + t < n) __stcs(dst + tail + t, k13_staged<W, SW>(s, tail + t));
+}
+
+// bytes [0, n) of s (16-byte aligned) to dst, likewise
+static __device__ __forceinline__ void k13_copy_bytes(const uint8_t* s, uint8_t* dst, int n) {
+  const int t = threadIdx.x;
+  const int head = min(n, (int)((16u - (unsigned)(reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u));
+  if (t < head) dst[t] = s[t];
+  const int body = (n - head) >> 4, tail = head + 16 * body;
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i = t; i < body; i += K13_THREADS) {
+    const uint8_t* q = s + head + 16 * i;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = q[4 * j] | (q[4 * j + 1] << 8) | (q[4 * j + 2] << 16) | ((uint32_t)q[4 * j + 3] << 24);
+    __stcs(d4 + i, make_uint4(v[0], v[1], v[2], v[3]));
+  }
+  if (tail + t < n) dst[tail + t] = s[tail + t];
+}
+
+// A job (block): CH == 0: reads [blockIdx.x R, + R), every position; else
+// read blockIdx.x / CH, positions [K13_POS c, + K13_POS) for c =
+// blockIdx.x mod CH.
+template <int W>
+__global__ void __launch_bounds__(K13_THREADS)
+    kmer_scan_words_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+                           int B, int L, int k, int P, uint32_t top, int R, int CH,
+                           uint32_t* __restrict__ canon, uint8_t* __restrict__ is_rc,
+                           uint8_t* __restrict__ valid) {
+  constexpr int NT = K13_THREADS * k13_items(W);  // positions a tile
+  constexpr int SW = W | 1;                       // staged row stride: odd, no bank conflicts
+  __shared__ uint32_t s_code[K13_CODE_WORDS];
+  __shared__ uint16_t s_dirty[K13_CODE_WORDS];
+  __shared__ uint32_t s_rows[NT * SW];
+  __shared__ __align__(16) uint8_t s_flags[2][NT];
+  long long r0;
+  int nr, p0, p1;
+  if (CH == 0) {
+    r0 = (long long)blockIdx.x * R;
+    nr = (int)min((long long)R, (long long)B - r0);
+    p0 = 0;
+    p1 = P;
+  } else {
+    r0 = blockIdx.x / CH;
+    nr = 1;
+    p0 = (int)(blockIdx.x % CH) * K13_POS;
+    p1 = min(P, p0 + K13_POS);
+  }
+  const int np = p1 - p0, n = nr * np;
+  // a row's packed words [g0, ge) cover the columns the job's positions read
+  // (the dirty reach included); one zero pad word follows them
+  const int g0 = max(0, p0 + k - 16 * W) >> 4;
+  const int nws = ((p1 + k - 1 + 15) >> 4) - g0 + 1;
+  bool dirty = false;
+  for (int it = threadIdx.x; it < nr * nws; it += K13_THREADS) {
+    const int ri = it / nws, gi = it - ri * nws;
+    uint32_t pk = 0, dm = 0;
+    if (gi < nws - 1) load16(codes + (size_t)(r0 + ri) * L, L, g0 + gi, &pk, &dm);
+    s_code[it] = pk;
+    s_dirty[it] = (uint16_t)dm;
+    dirty |= dm != 0;
+  }
+  const bool job_dirty = __syncthreads_or(dirty);
+  const int s = 2 * (16 * W - k);  // the reversed field's shift, 0..30
+  const long long o0 = r0 * P + p0;  // the job's first output position
+  for (int t0 = 0; t0 < n; t0 += NT) {
+    const int nt = min(NT, n - t0);
+#pragma unroll
+    for (int e = 0; e < k13_items(W); ++e) {
+      const int f = threadIdx.x + e * K13_THREADS;  // the position's row in the tile
+      if (f < nt) {
+        const int ri = (t0 + f) / np, p = p0 + t0 + f - ri * np;
+        const int j = p + k - 1, lo = max(0, j - 16 * W + 1);
+        bool take_rc;
+        Kmer<W> c;
+        if (job_dirty && k13_dirty(s_dirty + ri * nws, lo - 16 * g0, j - 16 * g0))
+          c = k13_roll<W>(codes + (size_t)(r0 + ri) * L, lo, j, k, top, &take_rc);
+        else
+          c = k13_cut<W>(s_code + ri * nws + (p >> 4) - g0, 2 * (p & 15), s, top, &take_rc);
+#pragma unroll
+        for (int w = 0; w < W; ++w) s_rows[f * SW + w] = c.w[w];
+        s_flags[0][f] = take_rc;
+        s_flags[1][f] = p <= __ldg(lengths + r0 + ri) - k;
       }
     }
+    __syncthreads();
+    const long long ob = o0 + t0;
+    k13_copy_words<W, SW>(s_rows, canon + ob * W, nt * W);
+    k13_copy_bytes(s_flags[0], is_rc + ob, nt);
+    k13_copy_bytes(s_flags[1], valid + ob, nt);
+    __syncthreads();
   }
 }
 
@@ -290,16 +461,27 @@ extern "C" int lt_kmer_scan_words(const void* codes, const void* lengths, int B,
                                   void* stream) {
   if (k < 1 || k > 255 || P < 1 || P != L - k + 1) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaSuccess;
-  const int threads = SCAN_ROWS;
-  const unsigned grid = (unsigned)((B + threads - 1) / threads);
+  // jobs: R whole reads (a read's packed words and pad fit K13_CODE_WORDS
+  // whenever P <= K13_POS), or CH jobs of K13_POS positions a read
+  int R = 1, CH = 0;
+  long long grid;
+  if (P <= K13_POS) {
+    R = max(1, min(K13_POS / P, K13_CODE_WORDS / ((L + 15) / 16 + 1)));
+    grid = ((long long)B + R - 1) / R;
+  } else {
+    CH = (P + K13_POS - 1) / K13_POS;
+    grid = (long long)B * CH;
+  }
+  if (grid > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* c = (const uint8_t*)codes;
   const int32_t* ln = (const int32_t*)lengths;
   uint32_t* oc = (uint32_t*)canon;
   uint8_t* orc = (uint8_t*)is_rc;
   uint8_t* ov = (uint8_t*)valid;
-#define LAUNCH(W_) \
-  kmer_scan_words_kernel<W_><<<grid, threads, 0, st>>>(c, ln, B, L, k, P, top, oc, orc, ov)
+#define LAUNCH(W_)                                                                      \
+  kmer_scan_words_kernel<W_><<<(unsigned)grid, K13_THREADS, 0, st>>>(c, ln, B, L, k, P, top, \
+                                                                    R, CH, oc, orc, ov)
   switch ((k + 15) / 16) {
     LT_W_CASE(1, LAUNCH)
     LT_W_CASES_2_4(LAUNCH)

@@ -25,12 +25,16 @@ count there, and sends the solid rows to the card once for the Bloom build
 (count.py:285-306, 391-440, 504-524, 592-600, 643-706).
 
 ``count_batch`` is the one-shot count of (B, P, W) canonical words
-(k <= 255, counterpart of count.py:88-104): the valid rows, sorted by
-torch.sort passes over sign-flipped int64 planes (``sort_words``), then
-``runs_words``, the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key
-of run lengths over rows of up to 8 planes (W <= 16). ``word_runs`` is K14
-in K2's modes (a counts payload, cutoff, histogram) over the same rows.
-K14 is K2's two passes over multi-plane rows.
+(k <= 255, counterpart of count.py:88-104): at W >= 3 ``top_sort`` (one
+torch.sort of the valid rows' top 64 bits with their row index), then
+``sort_ties``, the wrapper of kernel K20 (csrc/count.cu), which gathers
+the rows in that order as sign-flipped int64 planes and orders each run of
+equal top bits by the lower words (at W <= 2 one torch.sort of the one
+plane, ``sort_words``); then ``runs_words``, the wrapper of kernel K14
+(csrc/count.cu), a reduce-by-key of run lengths over rows of up to 8
+planes (W <= 16). ``word_runs`` is K14 in K2's modes (a counts payload,
+cutoff, histogram) over the same rows. K14 is K2's two passes over
+multi-plane rows.
 
 ``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
@@ -64,6 +68,7 @@ from leon_tpu_torch.utils.trace import span
 
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
+_SIGN = -(1 << 63)  # int64 sign bit (state.words_to_planes' flip)
 
 
 # ---------------------------------------------------------------------------
@@ -340,20 +345,156 @@ def compact_solid_words(words: torch.Tensor, counts: torch.Tensor, cutoff: int):
     return out_w, out_c
 
 
-def count_batch(canon: torch.Tensor, valid: torch.Tensor):
-    """Count one batch of canonical k-mers (counterpart of leon_tpu
-    count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
-    valid (B, P) bool, W <= 16 (k <= 255). Returns (uniq (M, W) int32 words
-    sorted MSW first, counts (M,) int64) on canon's device: the valid rows,
-    sorted by torch.sort, reduced by K14."""
+# ---------------------------------------------------------------------------
+# count_batch: one sort of the top 64 bits, then kernel K20 (sort_ties) and K14
+# ---------------------------------------------------------------------------
+
+TIE_WARP_RUN, TIE_BLOCK_RUN = 32, 1024  # csrc/count.cu ST_WARP_RUN, ST_BLOCK_RUN
+
+
+def _check_count_batch_args(canon, valid) -> int:
     kernels.need(canon.dtype == torch.int32 and canon.dim() == 3 and 1 <= canon.shape[2] <= 16,
                  "count_batch: canon must be (B, P, W <= 16) int32")
     kernels.need(valid.dtype == torch.bool and valid.shape == canon.shape[:2],
                  "count_batch: valid must be (B, P) bool")
     kernels.need(valid.device == canon.device, "count_batch: tensors on two devices")
+    return canon.shape[2]
+
+
+def top_sort(canon: torch.Tensor, valid: torch.Tensor):
+    """count_batch's library sort (W >= 3): the valid rows of (B, P, W) int32
+    canon by their top 64 bits (words W-1 and W-2, sign-flipped: signed
+    order is their u32 order, MSW first). Returns (keys (n,) int64 sorted,
+    src (n,) int64: sorted row i is row src[i] of rows, rows (B*P, W) int32,
+    canon's rows)."""
     W = canon.shape[2]
-    rows = canon.reshape(-1, W)[valid.reshape(-1)]
-    return runs_words(sort_words(rows), W)
+    rows = canon.contiguous().reshape(-1, W)
+    idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    if W % 2 == 0:  # words W-2 and W-1 are the last int64 of a row
+        top = rows.view(torch.int64)[:, -1][idx]
+    else:
+        top = ((rows[:, W - 1][idx].to(torch.int64) << 32)
+               | (rows[:, W - 2][idx].to(torch.int64) & _M32))
+    keys, perm = torch.sort(top ^ _SIGN)
+    return keys, idx[perm], rows
+
+
+def _check_sort_ties_args(keys, src, rows, W: int) -> None:
+    kernels.need(3 <= W <= 16 and rows.dtype == torch.int32 and rows.dim() == 2
+                 and rows.shape[1] == W, "sort_ties: rows must be (N, W) int32, 3 <= W <= 16")
+    kernels.need(keys.dtype == torch.int64 and keys.dim() == 1 and src.dtype == torch.int64
+                 and src.shape == keys.shape, "sort_ties: keys and src must be (n,) int64")
+    kernels.need(keys.device == src.device == rows.device, "sort_ties: tensors on two devices")
+
+
+def sort_ties(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int) -> tuple:
+    """Rows in the reference's order after the sort of their top 64 bits
+    (kernel K20): keys (n,) int64 sorted (top_sort's), src (n,) int64 (sorted
+    row i is rows[src[i]]), rows (N, W) int32, 3 <= W <= 16. Returns the
+    P = ceil(W/2) sign-flipped int64 planes (state.words_to_planes) of the
+    n rows, each run of equal keys ordered by its rows, MSW first: the input
+    of runs_words. On the card: K20 over the runs of up to TIE_BLOCK_RUN
+    rows, then rounds over the next plane for longer ones (_tie_rounds)."""
+    _check_sort_ties_args(keys, src, rows, W)
+    if not kernels.on_cuda(rows, "sort_ties"):
+        return sort_ties_plain(keys, src, rows, W)
+    out = _tie_rounds(keys.contiguous(), src.contiguous(), rows.contiguous(), W,
+                      _sort_ties_launch)
+    if keys.shape[0]:
+        kernels.launches["sort_ties"] += 1
+    return out
+
+
+def _ties_lists(n: int) -> tuple:
+    """(capacity of block runs, of long runs) of K20's lists for n rows."""
+    return n // (TIE_WARP_RUN + 1) + 1, n // (TIE_BLOCK_RUN + 1) + 1
+
+
+def _sort_ties_launch(keys, src, rows, W: int, out: tuple, dst, final: bool):
+    """One round of K20 on the card into the planes `out` (dst: where sorted
+    row i goes, None for i). Returns the runs of more than TIE_BLOCK_RUN rows
+    it left (starts, lengths), or None (after the host read of their count)."""
+    n = keys.shape[0]
+    cap_mid, cap_long = _ties_lists(n)
+    lists = torch.empty(2 + cap_mid + 2 * cap_long, dtype=torch.int64, device=keys.device)
+    ptrs = np.array([h.data_ptr() for h in out], dtype=np.uint64)
+    rc = kernels.lib().lt_sort_ties(
+        keys.data_ptr(), src.data_ptr(), rows.data_ptr(), n, W,
+        dst.data_ptr() if dst is not None else None, int(final), len(out), ptrs.ctypes.data,
+        lists.data_ptr(), cap_mid, kernels.stream(keys))
+    kernels.check(rc, "sort_ties")
+    n_long = 0 if final or n == 0 else int(lists[1])
+    if not n_long:
+        return None
+    ent = lists[2 + cap_mid : 2 + cap_mid + 2 * n_long].view(n_long, 2)
+    return ent[:, 0], ent[:, 1]
+
+
+def _tie_rounds(keys, src, rows, W: int, launch) -> tuple:
+    """K20's rounds: `launch` (the card's _sort_ties_launch, or a model of it)
+    settles every run of up to TIE_BLOCK_RUN rows and returns the longer
+    ones; those are ordered by their next plane (a stable torch.sort by the
+    plane, then by run) and launched again with the runs of equal (run,
+    plane) as keys, until the planes run out: in that last round every run
+    holds equal rows (final)."""
+    n = keys.shape[0]
+    out = tuple(torch.empty(n, dtype=torch.int64, device=rows.device)
+                for _ in range(n_planes(W)))
+    longs = launch(keys, src, rows, W, out, None, False)
+    pos, q = None, n_planes(W) - 2  # the plane below the key
+    while longs is not None:
+        starts, lengths = longs
+        run = torch.repeat_interleave(torch.arange(lengths.shape[0], device=rows.device),
+                                      lengths)
+        first = torch.cumsum(lengths, 0) - lengths
+        x = starts[run] + torch.arange(run.shape[0], device=rows.device) - first[run]
+        src, pos = src[x], (x if pos is None else pos[x])
+        u = rows[src].to(torch.int64) & _M32
+        nxt = (u[:, 2 * q] | (u[:, 2 * q + 1] << 32 if 2 * q + 1 < W else 0)) ^ _SIGN
+        o1 = torch.sort(nxt, stable=True).indices
+        order = o1[torch.sort(run[o1], stable=True).indices]
+        run, nxt, src = run[order], nxt[order], src[order]
+        new = torch.ones_like(run, dtype=torch.bool)
+        new[1:] = (run[1:] != run[:-1]) | (nxt[1:] != nxt[:-1])
+        longs = launch(torch.cumsum(new, 0), src, rows, W, out, pos, q == 0)
+        q -= 1
+    return out
+
+
+def sort_ties_plain(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int) -> tuple:
+    """Plain version of sort_ties: the rows' planes sorted by (run of equal
+    keys, the planes below the top one) with sort_planes' stable passes."""
+    _check_sort_ties_args(keys, src, rows, W)
+    planes = words_to_planes(rows[src])
+    run = torch.zeros_like(keys)
+    if keys.shape[0] > 1:
+        run[1:] = torch.cumsum(keys[1:] != keys[:-1], 0)
+    _, perm = sort_planes(planes[:-1] + (run,), with_perm=True)
+    return tuple(h[perm] for h in planes)
+
+
+def count_batch(canon: torch.Tensor, valid: torch.Tensor):
+    """Count one batch of canonical k-mers (counterpart of leon_tpu
+    count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
+    valid (B, P) bool, W <= 16 (k <= 255). Returns (uniq (M, W) int32 words
+    sorted MSW first, counts (M,) int64) on canon's device: at W <= 2 the
+    valid rows sorted by torch.sort (one plane), else top_sort and K20
+    sort_ties; then K14 runs_words."""
+    W = _check_count_batch_args(canon, valid)
+    if W <= 2:
+        return runs_words(sort_words(canon.reshape(-1, W)[valid.reshape(-1)]), W)
+    return runs_words(sort_ties(*top_sort(canon, valid), W), W)
+
+
+def count_batch_plain(canon: torch.Tensor, valid: torch.Tensor):
+    """Plain version of count_batch: the same library sorts, sort_ties_plain
+    and runs_words_plain."""
+    W = _check_count_batch_args(canon, valid)
+    if W <= 2:
+        planes = sort_words(canon.reshape(-1, W)[valid.reshape(-1)])
+    else:
+        planes = sort_ties_plain(*top_sort(canon, valid), W)
+    return runs_words_plain(planes, W)
 
 
 def merge_counts(partials: list) -> tuple[np.ndarray, np.ndarray]:

@@ -3,8 +3,9 @@
 Device half (new): ``kmer_scan``, the wrapper of kernel K1
 (csrc/kmer.cu), and ``kmer_scan_plain``, its plain PyTorch version;
 ``kmer_scan_words``, the wrapper of kernel K13 (the unpacked scan to
-(B, P, W) u32 words, k <= 255, counterpart of kmer.kmer_scan), and
-``kmer_scan_words_plain``; ``kmer_scan_halves``, the wrapper of kernel
+(B, P, W) u32 words, k <= 255, counterpart of kmer.kmer_scan: each k-mer
+cut from the codes, the reference's roll where a code byte above 3
+reaches), and ``kmer_scan_words_plain``; ``kmer_scan_halves``, the wrapper of kernel
 K17 (the main path's scan for 32 <= k <= 255: the valid positions only,
 compacted, as the ceil(W/2) sign-flipped int64 planes the counter sorts), and
 ``kmer_scan_halves_plain``; ``shl2``, ``shr2_ins``, ``lex_less`` and

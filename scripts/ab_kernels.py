@@ -2,13 +2,14 @@
 """Time kernels K2 (`count.runs`, three modes), K8 (`unitig.solid_lookup`),
 K14 (`count.word_runs` in its three modes and `count.runs_words`), the k-mer
 scans K1 (`kmer.kmer_scan`) and K17 (`kmer.kmer_scan_halves`), the walks
-K18 and K19, the tensor path's dense walk K15 and `count_batch`, the Bloom builds K16 and K3, the device unitig build's K5
+K18 and K19, the tensor path's K13, K15 and `count_batch` (K20), the Bloom
+builds K16 and K3, the device unitig build's K5
 links, K6 chain ranking and K7 emission, and the graph API's K10-K12 of one
 tree's leon_tpu_torch on the card, beside the PyTorch call that computes the same function where
 there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
-        [--only k2,k8,scan,k14,walk,dense,bloom,rank,k3,links,emit,graph]
+        [--only k2,k8,scan,k14,walk,dense,tensor,bloom,rank,k3,links,emit,graph]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -82,12 +83,25 @@ Inputs (chip_smoke.py's shapes):
                "share" and "k18_plus_bytes_ms"; "device_ms" and
                "k18_device_ms", the device time alone (kernels and
                memsets by the profiler; "device" K15's by kernel: the
-               wrapper's host work shows in "ms" less it); then
-               "count_batch_ms", the
-               whole `count.count_batch` over every read's valid k-mers
-               (`kmer.kmer_scan_words`) beside "unique_ms",
-               `torch.unique(dim=0, return_counts=True)` of the same rows;
-               the ptxas registers of the tree's K15 and K18 kernels
+               wrapper's host work shows in "ms" less it); the ptxas
+               registers of the tree's K15 and K18 kernels
+  tensor:w4/w8/w16  (section tensor) K13 (`kmer.kmer_scan_words`) over every
+               read of walk's inputs at k = 63, 127 and 255 (458,752 x 104,
+               200,000 x 250, 131,072 x 300-600 bp: PERF.md row 12a), held
+               against its plain version: "k13_ms", its bytes (codes and
+               lengths read, canon, is_rc and valid written), bound and
+               share; then `count.count_batch` over the valid rows (row
+               12b), held against `torch.unique(dim=0, return_counts=True)`
+               of the same rows put in the u32 order: "count_batch_ms"
+               beside "unique_ms", "bound_ms" (the valid rows read once,
+               uniq and counts written once, one read and write of the top
+               sort's int64 keys and indices) and "device" (each kernel's
+               and copy's device time by the profiler); on a tree with K20,
+               "top_sort_ms" (the valid rows' top 64 bits, torch.sort),
+               "sort_ties_ms" (K20, held against its plain version) with
+               its bytes (keys and indices read, rows gathered, planes
+               written) and bound, and "runs_words_ms" (K14 on its planes);
+               the ptxas registers of the tree's K13, K20 and K14 kernels
   bloom:w4/w8/w16  K16 (`bloom.bloom_build_words`) over the main path's
                solid rows at each width (phase 9's: K17, K14, the solid
                compaction; 24 bits a solid k-mer, H = 4), as the
@@ -181,8 +195,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("k2", "k8", "scan", "k14", "walk", "dense", "bloom", "rank", "k3", "links", "emit",
-            "graph")
+SECTIONS = ("k2", "k8", "scan", "k14", "walk", "dense", "tensor", "bloom", "rank", "k3", "links",
+            "emit", "graph")
 
 
 def slab_reads(nr: int, reverse: bool):
@@ -453,6 +467,8 @@ def main() -> int:
         out["walk"] = walk_section(args.tree, wide, ms, same, dev)
     if "dense" in only:
         out["dense"] = dense_section(args.tree, wide, ms, same, dev)
+    if "tensor" in only:
+        out["tensor"] = tensor_section(args.tree, wide, ms, same, dev)
     if "bloom" in only:
         out["bloom"] = bloom_section(args.tree, wide, ms, same, dev)
     if "k3" in only:
@@ -1029,13 +1045,12 @@ DENSE_KERNELS = ("walk_dense_kernel", "dense_pack_kernel", "walk_encode_words_ke
 
 def dense_section(tree: str, wide, ms, same, dev) -> dict:
     """K15 beside K18 on one chunk at W = 4, 8, 16 with K15's probes, probe
-    floor and byte bound; count_batch beside torch.unique(dim=0); see the
-    docstring."""
+    floor and byte bound; see the docstring."""
     import torch
 
     import chip_smoke
     from leon_tpu_torch import kernels
-    from leon_tpu_torch.ops import bloom, count, kmer, walk
+    from leon_tpu_torch.ops import bloom, walk
 
     H, SEED = chip_smoke.H, chip_smoke.SEED
     floor = probe_floor_lib()
@@ -1056,7 +1071,7 @@ def dense_section(tree: str, wide, ms, same, dev) -> dict:
         return sum(t.numel() * t.element_size() for t in ts)
 
     for W in (4, 8, 16):
-        k, chunks, L, codes0, lengths0, codes, lengths = wide(W)
+        k, chunks, L, codes0, lengths0 = wide(W)[:5]
         tag = f"dense:w{W}"
         sol = main_solid(k, chunks, L, dev)
         nw = sol["n_words"]
@@ -1098,25 +1113,78 @@ def dense_section(tree: str, wide, ms, same, dev) -> dict:
         rec["share"] = rec["bound_ms"] / rec["ms"]
         rec["k18_plus_bytes_ms"] = rec["k18_ms"] + rec["bytes_ms"]
         del enc, c1, l1
-        # count_batch over every read beside torch.unique(dim=0) of its rows
-        ca = torch.from_numpy(codes).to(dev)
-        la = torch.from_numpy(lengths).to(dev)
-        canon, _rc, valid = kmer.kmer_scan_words(ca, la, k)
-        del ca, la, _rc
-        rows = canon.reshape(-1, kmer.words_for_k(k))[valid.reshape(-1)]
-        uq, cn = count.count_batch(canon, valid)
-        lu, lc = torch.unique(rows, dim=0, return_counts=True)
-        if uq.shape[0] != lu.shape[0] or int(cn.sum()) != int(lc.sum()):
-            raise AssertionError("count_batch and torch.unique disagree")
-        rec["rows"], rec["distinct"] = rows.shape[0], uq.shape[0]
-        del uq, cn, lu, lc
-        rec["count_batch_ms"] = ms(lambda: count.count_batch(canon, valid), 3)
-        rec["unique_ms"] = ms(lambda: torch.unique(rows, dim=0, return_counts=True), 3)
         res[tag[6:]] = rec
         print(json.dumps({tag: rec}), flush=True)
-        del canon, valid, rows, bits
+        del bits
         torch.cuda.empty_cache()
     res["registers"] = registers(tree, DENSE_KERNELS)
+    return res
+
+
+TENSOR_KERNELS = ("kmer_scan_words_kernel", "sort_ties_block_kernel", "sort_ties_kernel",
+                  "runs_pass_kernel")
+
+
+def tensor_section(tree: str, wide, ms, same, dev) -> dict:
+    """K13 and count_batch (with K20 where the tree has it) at PERF.md rows
+    12a and 12b's shapes; see the docstring."""
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import count, kmer
+
+    res = {}
+    rate = chip_smoke.HBM_BYTES_PER_S / 1e3  # bytes a ms
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for W in (4, 8, 16):
+        k, *_, codes, lengths = wide(W)
+        ca = torch.from_numpy(codes).to(dev)
+        la = torch.from_numpy(lengths).to(dev)
+        got = kmer.kmer_scan_words(ca, la, k)
+        same(got, kmer.kmer_scan_words_plain(ca, la, k))
+        canon, is_rc, valid = got
+        rec = {"k": k, "reads": ca.shape[0], "L": ca.shape[1], "positions": valid.numel()}
+        rec["k13_ms"] = ms(lambda: kmer.kmer_scan_words(ca, la, k), 10)
+        rec["k13_bytes"] = nbytes(ca, la, canon, is_rc, valid)
+        rec["k13_bound_ms"] = rec["k13_bytes"] / rate
+        rec["k13_share"] = rec["k13_bound_ms"] / rec["k13_ms"]
+        del ca, la, is_rc, got
+        # count_batch, exact against torch.unique(dim=0) of the same rows
+        # (put in the u32 order), and timed beside it
+        rows = canon.reshape(-1, W)[valid.reshape(-1)]
+        uq, cn = count.count_batch(canon, valid)
+        lu, lc = torch.unique(rows, dim=0, return_counts=True)
+        lp, perm = count.sort_planes(state.words_to_planes(lu), with_perm=True)
+        same((uq, cn), (state.planes_to_words(lp, W), lc[perm]))
+        n, M = rows.shape[0], uq.shape[0]
+        rec["rows"], rec["distinct"] = n, M
+        del lu, lc, lp, perm
+        rec["count_batch_ms"] = ms(lambda: count.count_batch(canon, valid), 5)
+        rec["unique_ms"] = ms(lambda: torch.unique(rows, dim=0, return_counts=True), 3)
+        # the valid rows read once, uniq and counts written once, one pass of
+        # the top sort's keys and indices (read and written)
+        rec["bound_bytes"] = 4 * W * n + (4 * W + 8) * M + 32 * n
+        rec["bound_ms"] = rec["bound_bytes"] / rate
+        rec["device"] = profile_kernels(lambda: count.count_batch(canon, valid), 3)
+        if hasattr(count, "sort_ties"):
+            keys, src, frows = count.top_sort(canon, valid)
+            tp = count.sort_ties(keys, src, frows, W)
+            same(tp, count.sort_ties_plain(keys, src, frows, W))
+            rec["top_sort_ms"] = ms(lambda: count.top_sort(canon, valid), 5)
+            rec["sort_ties_ms"] = ms(lambda: count.sort_ties(keys, src, frows, W), 10)
+            rec["sort_ties_bytes"] = nbytes(keys, src, *tp) + 4 * W * n
+            rec["sort_ties_bound_ms"] = rec["sort_ties_bytes"] / rate
+            rec["runs_words_ms"] = ms(lambda: count.runs_words(tp, W), 10)
+            del keys, src, frows, tp
+        res[f"w{W}"] = rec
+        print(json.dumps({f"tensor:w{W}": rec}), flush=True)
+        del canon, valid, rows, uq, cn
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, TENSOR_KERNELS)
     return res
 
 M32 = 0xFFFFFFFF
