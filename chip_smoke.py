@@ -64,8 +64,8 @@ run right after phase 3, whose reads and solid set they reuse):
      then k = 63 and k = 127 again with the device unitig build; each run
      must give the exact sequence round trip and its pinned archive (the
      reference's bytes, PIN, PIN63 and PIN127), and launch each kernel of
-     its path (K1-K4; K5-K8; K17, K14, K16, K18, walk_pack, K19; those and
-     K5-K8 over W-word rows) at least once;
+     its path (K1-K4; K5-K8; K17, K21, K20, K14, K16, K18, walk_pack, K19;
+     those and K5-K8 over W-word rows) at least once;
   7. K10 on adversarial words (k10_case: every bit random, so dirty bits
      reach the shr2_ins neighbours' first base, at k = 1, 2, 15, 16, 17,
      31, 32, 33, 63, 64, 127, 128, 254, 255, N = 1, 255, 257, every mode,
@@ -85,7 +85,11 @@ run right after phase 3, whose reads and solid set they reuse):
      65,536 nodes (16 steps, D = 32), and the Pallas probe script's
      gather (2**24 indices into 1, 2 and 8 MB tables); each of K9-K12
      launched at least once, then held against its plain version on the
-     card, exactly, and timed (K9 also against torch.take);
+     card, exactly, and timed (K9 also against torch.take); before them K9
+     on adversarial indices (k9_case: M mod 4 = 0..3, each 16-byte phase of
+     the index view, negative and out-of-range indices, tables of 1 and 257
+     words and the three above, and their 2**24 indices as an unaligned
+     view);
   8. K15 on adversarial reads (k15_case, walk_case's edge reads, at k =
      1..64 of K15_KS and L mod 16 = 0, 1, 15; the codes also as an
      unaligned view), K13 on adversarial reads (k13_case: code bytes above
@@ -96,8 +100,9 @@ run right after phase 3, whose reads and solid set they reuse):
      view) and K20 on adversarial rows (tie_case: runs of 1, 2, 31, 32, 33,
      1,024, 1,025 and 65,536 equal top words, runs of equal rows, one run
      of every row, words around the int64 sign flip, rows equal but for
-     word 0, at W = 3, 4, 8, 16; count_batch too), each equal to its plain
-     version; then the tensor-level
+     word 0, at W = 3, 4, 8, 16; count_batch too; and with tie_counts as
+     its payload, as the WordCounter's merges run it, then K14's count
+     mode), each equal to its plain version; then the tensor-level
      k-mer path on phase 3's 458,752 reads: at k = 31,
      K13 scan + torch.sort + K14 count equal phase 3's distinct run and
      solid keys, K16 over the solid rows equals K3's bitset, K15 on one
@@ -112,7 +117,10 @@ run right after phase 3, whose reads and solid set they reuse):
      65,536-lane packed chunks: k = 63 on phase 3's reads (the distinct
      run and cutoff must equal phase 8's), k = 127 on phase 6's 250-bp
      corpus (the solid count must equal PIN127's) and k = 255 on 131,072
-     reads of 300-600 bp: K17 scan, K14 slab runs, merge (counts,
+     reads of 300-600 bp: K17 scan, the WordCounter's sorts (each chunk's
+     slab by sort_slab: K21 plane_rows, the top sort, K20; their merge by
+     sort_rows: the top sort, K20 with the counts as its payload; each
+     equal to the LSD sort of the same rows), K14 slab runs, merge (counts,
      histogram) and solid mode, K16 over the run's solid rows, K18 encode
      and K19 decode of one chunk, then the device unitig build over the
      solid rows (K5, K6, K7, K8 at W = 4, 8 and 16; the payload must equal
@@ -147,7 +155,7 @@ run right after phase 3, whose reads and solid set they reuse):
      reads of 300-600 bp; each of K10-K15 launched at least once at each
      width (and K20), its output on the path held against its plain
      version on the card, exactly, at the path's shapes (every read, node, lane and
-     step; K12 at D = k + 1 on the first quarter of its lanes), and timed
+     step; K12 at D = k + 1 on the first sixteenth of its lanes), and timed
      there (records `name:w8`, `name:w16`; K14 also
      against torch.unique_consecutive, count_batch against torch.unique).
  11. inputs past one card's limits (leon_tpu_torch/pipeline.py, ops/count.py):
@@ -267,19 +275,25 @@ KERNELS = {
     "bloom_build_words:main": ("leon_tpu_torch/csrc/bloom.cu", "leon_tpu/ops/bloom.py:422"),
     "walk_encode_words": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:556"),
     "walk_decode_words": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:820"),
+    "plane_rows": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:194"),
+    "sort_ties:main": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
 TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "walk_dense")
 # the main path's multiword route (32 <= k <= 255): K17, K14 (word_runs),
-# K16, K18 (+ walk_pack), K19. A record's name up to ":" is its launch
-# counter: K16 has one record on the tensor path (phase 8, as mesh.py
-# calls it) and one on the main path (phase 9, over the solid rows); the
-# multiword kernels have one record at k = 63 (W = 4) and one each at
-# W = 8 and W = 16 (":w8", ":w16").
+# K16, K18 (+ walk_pack), K19, and the WordCounter's sorts K21 (plane_rows)
+# and K20 (sort_ties, with the counts as payload on a merge). A record's
+# name up to ":" is its launch counter: K16 has one record on the tensor
+# path (phase 8, as mesh.py calls it) and one on the main path (phase 9,
+# over the solid rows), K20 one each on the tensor path (phases 8 and 10)
+# and the main path (phase 9: ":main", ":main8", ":main16"); the multiword
+# kernels have one record at k = 63 (W = 4) and one each at W = 8 and
+# W = 16 (":w8", ":w16").
 WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
-        "walk_decode_words")
-WIDE8, WIDE16 = (tuple(f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
+        "walk_decode_words", "plane_rows", "sort_ties:main")
+WIDE8, WIDE16 = (tuple(f"{n}{w}" if n == "sort_ties:main" else f"{n.split(':')[0]}:w{w}"
+                       for n in WIDE) for w in (8, 16))
 KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
 # the tensor path and the graph API past four words (phase 10): K13, K14's
 # run lengths, K15, K10-K12 and K20 at W = 8 (k = 127) and W = 16 (k = 255)
@@ -410,6 +424,13 @@ WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
 # K10-K12 wait on their Bloom probes' random loads
 GRAPH_BOUND_NOTE = ("bytes only; the graph kernels' binding bound is their probe floor "
                     "(scripts/ab_kernels.py --only graph, PERF.md rows 14-15c)")
+# K9 waits on its random table loads, K20 on its random row gathers
+GATHER_BOUND_NOTE = ("bytes only; K9's binding bound is floor (b), its random L2 loads "
+                     "(scripts/gather_floor.cu via scripts/ab_kernels.py --only gather, "
+                     "PERF.md rows 1-2)")
+TIES_BOUND_NOTE = ("bytes only; K20's gather floor (c), its rows gathered in sort order "
+                   "(scripts/gather_floor.cu via scripts/ab_kernels.py --only wordsort, "
+                   "PERF.md rows 4b-8c, 12b)")
 # K5 waits on its searches' random loads
 LINKS_BOUND_NOTE = ("bytes only; K5's binding bound is its probe floor "
                     "(scripts/ab_kernels.py --only links, PERF.md rows 17a, 17a (W))")
@@ -1855,6 +1876,56 @@ def gather_inputs(dev) -> dict:
     return out
 
 
+# K9's adversarial indices (k9_case): every M mod 4 and every 16-byte phase
+# of the index view (an unaligned view), indices from -3n to 3n with the
+# edges -n - 1, -n, -1, 0, n - 1 and n (a negative index counts from the
+# end, then indices clamp into [0, n)), on tables of 1 and 257 words and
+# the three of GATHER_TABLE_MB
+K9_MS = (0, 1, 2, 3, 4, 5, 6, 7, 1021, 4096, 65539)
+K9_OFFS = (0, 1, 2, 3)
+K9_SMALL_N = (1, 257)
+
+
+def k9_case(n: int, M: int, seed: int):
+    """(table (n,) int32 holding u32 bits, base (M + 3,) int32): one K9
+    input is idx = base[off : off + M] for an offset off of K9_OFFS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    base = rng.integers(-3 * n, 3 * n + 1, M + 3).astype(np.int32)
+    edges = np.array([-n - 1, -n, -1, 0, n - 1, n], np.int64)
+    pick = rng.random(M + 3) < 0.25
+    base[pick] = edges[rng.integers(0, edges.size, int(pick.sum()))]
+    return table, base
+
+
+def k9_adversarial(gin: dict) -> None:
+    """K9 against its plain version on the card, exactly, on k9_case at every
+    (M, offset) of K9_MS x K9_OFFS over the small tables and the three of
+    gather_inputs, and on those tables' 2**24 indices as an unaligned view of
+    2**24 - 1."""
+    import torch
+
+    from leon_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    tables = [torch.from_numpy(k9_case(n, 0, n)[0]).to(dev) for n in K9_SMALL_N]
+    tables += [gin[mb][0] for mb in GATHER_TABLE_MB]
+    for t, table in enumerate(tables):
+        n = table.numel()
+        for M in K9_MS:
+            base = torch.from_numpy(k9_case(n, M, 100 * t + M)[1]).to(dev)
+            for off in K9_OFFS:
+                idx = base[off : off + M]
+                max_abs_err(gather.gather_words(table, idx), gather.gather_words_plain(table, idx))
+    for mb in GATHER_TABLE_MB:
+        table, idx = gin[mb]
+        max_abs_err(gather.gather_words(table, idx[1:]), gather.gather_words_plain(table, idx[1:]))
+    log(f"gather_words ok on M = {K9_MS} at offsets {K9_OFFS}, tables of {K9_SMALL_N} words "
+        f"and {GATHER_TABLE_MB} MB, and 2**24 - 1 unaligned indices")
+
+
 # K10 on dirty words (every bit random, so bits 2k..2k+1 shift into base 0
 # of a shr2_ins neighbour where 2k < 32W) at each width's edges, N below,
 # at and above a 256-thread block; K12 on graphs of SNP bubbles and tips
@@ -2222,10 +2293,25 @@ def tie_case(W: int, every: bool = False):
             valid.reshape(-1, 64))
 
 
+def tie_counts(n: int, seed: int):
+    """(n,) int32 counts for tie_case's rows as a merge's payload: 1-99,
+    and one row in 16 between 2**30 and 2**31 - 1, so that runs of equal rows
+    sum past 2**31 - 1 (clamped) and past 2**32 (the u32 sum wraps)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = rng.integers(1, 100, n)
+    big = rng.random(n) < 1 / 16
+    c[big] = rng.integers(1 << 30, 1 << 31, int(big.sum()))
+    return c.astype(np.int32)
+
+
 def tie_adversarial() -> None:
     """K20 against its plain version on the card, exactly, on tie_case at
-    each W of TIE_WS (runs of every size, and one run of every row), and
-    count_batch against count_batch_plain on the same rows."""
+    each W of TIE_WS (runs of every size, and one run of every row), also
+    with tie_counts as its payload (as the WordCounter's merges run it:
+    the rows' top keys sorted, K20 carrying the counts), and count_batch
+    against count_batch_plain on the same rows."""
     import torch
 
     from leon_tpu_torch.ops import count
@@ -2242,8 +2328,18 @@ def tie_adversarial() -> None:
                 max_abs_err(a, b)
             for a, b in zip(count.count_batch(canon, valid), count.count_batch_plain(canon, valid)):
                 max_abs_err(a, b)
+            words = rows[valid.reshape(-1)]
+            counts = torch.from_numpy(tie_counts(words.shape[0], W)).to(dev)
+            keys, src = torch.sort(count._top_keys(words))
+            (gp, gc), (pp, pc) = (count.sort_ties(keys, src, words, W, counts),
+                                  count.sort_ties_plain(keys, src, words, W, counts))
+            for a, b in zip(gp + (gc,), pp + (pc,)):
+                max_abs_err(a, b)
+            for a, b in zip(count.word_runs(gp, W, gc, 1, True),
+                            count.word_runs_plain(pp, W, pc, 1, True)):
+                max_abs_err(a, b)
     log(f"sort_ties, count_batch ok on runs of {TIE_RUNS} equal top words and one run of every "
-        f"row at W = {TIE_WS}")
+        f"row at W = {TIE_WS}, with and without a counts payload")
 
 
 def graph_phase(records: dict, bench_state: dict) -> dict:
@@ -2270,6 +2366,7 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     rnd = state.keys_to_words(np.random.default_rng(31).integers(0, 1 << 62, 1 << 21), 2)
     contig = bench_state["contig"]
     gin = gather_inputs(dev)
+    k9_adversarial(gin)
     torch.cuda.synchronize()
 
     kernels.launches.clear()
@@ -2377,7 +2474,7 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
             elem_per_s=GATHER_M / ms * 1e3, moved=nbytes(table, idx, gathered[mb]))
     big = per_table[GATHER_TABLE_MB[-1]]
     records["gather_words"] = record(err, big["ms"], big["plain_ms"], big["moved"],
-                                     big["library_ms"])
+                                     big["library_ms"], bound_note=GATHER_BOUND_NOTE)
     log(f"gather_words ok: {json.dumps(per_table)}")
     for k in GRAPH:
         records[k]["launches"] = launches[k]
@@ -2643,7 +2740,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import bloom, count, kmer, walk
 
-    n_scan, n_runs, n_bloom, n_enc, n_dec = names
+    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties = names
     dev = torch.device("cuda")
     L = codes.shape[1]
     W = kmer.words_for_k(k)
@@ -2675,25 +2772,56 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
         f"{records[n_scan]['ms']:.4f} ms, the wrapper with its host sync {wrapper_ms:.4f} ms")
     del dst
 
-    # K14: slab runs (length mode), their merge (counts + histogram), solid mode
+    # K21 on the first chunk's slab, as the WordCounter's slab sort runs it
+    h0 = planes[0]
+    rows0, top0 = count.plane_rows(h0, W)
+    err = max(max_abs_err(a, b) for a, b in zip((rows0, top0), count.plane_rows_plain(h0, W)))
+    records[n_prows] = record(
+        err, cuda_ms(lambda: count.plane_rows(h0, W), 10),
+        cuda_ms(lambda: count.plane_rows_plain(h0, W), 2), nbytes(h0, rows0, top0))
+    log(f"{n_prows} ok: {h0[0].numel()} slab rows ({tag})")
+    del rows0, top0, h0
+
+    # the WordCounter's sorts (sort_slab: K21, the top sort, K20; sort_rows:
+    # the top sort, K20 with the counts), each equal to the LSD sort of the
+    # same planes (sorted rows are unique); K14: slab runs (length mode),
+    # their merge (counts + histogram), solid mode
     slab_runs = []
     for i, h in enumerate(planes):
-        srt = count.sort_planes(h)
+        srt = count.sort_slab(h, W)
         got = count.word_runs(srt, W)
         if i == 0:
-            want = count.word_runs_plain(srt, W)
-            err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            lsd = count.sort_planes(h)
+            err = max(max_abs_err(a, b) for a, b in zip(srt, lsd))
+            want = count.word_runs_plain(lsd, W)
+            err = max(err, max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            del lsd
         slab_runs.append(got[:2])
     del planes, srt
     words = torch.cat([r[0] for r in slab_runs])
     counts = torch.cat([r[1] for r in slab_runs])
     del slab_runs
-    mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
-    mc = counts[perm]
-    del words, counts, perm
+    mpl, mc = count.sort_rows(words, counts)
+    lpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+    lc = counts[perm]
+    err = max(err, *(max_abs_err(a, b) for a, b in zip(mpl, lpl)))
+    # K20 with the counts as its payload, as sort_rows launches it
+    keys, src = torch.sort(count._top_keys(words))
+    tp, tc = count.sort_ties(keys, src, words, W, counts)
+    pp, pc = count.sort_ties_plain(keys, src, words, W, counts)
+    terr = max(max_abs_err(a, b) for a, b in zip(tp + (tc,), pp + (pc,)))
+    records[n_ties] = record(
+        terr, cuda_ms(lambda: count.sort_ties(keys, src, words, W, counts), 5),
+        cuda_ms(lambda: count.sort_ties_plain(keys, src, words, W, counts), 2),
+        nbytes(keys, src, words, counts, tp, tc), bound_note=TIES_BOUND_NOTE)
+    log(f"{n_ties} ok: {words.shape[0]} merge rows with their counts ({tag}); the merge's "
+        f"sort {cuda_ms(lambda: count.sort_rows(words, counts), 5):.4f} ms, its LSD sort "
+        f"{cuda_ms(lambda: count.sort_planes(state.words_to_planes(words), True), 2):.4f} ms")
+    del words, counts, perm, keys, src, tp, tc, pp, pc
     gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
     err = max(err, *(max_abs_err(a, b) for a, b in
-                     zip((gw, gc, gh), count.word_runs_plain(mpl, W, mc, 1, True))))
+                     zip((gw, gc, gh), count.word_runs_plain(lpl, W, lc, 1, True))))
+    del lpl, lc
     hist = gh.cpu().numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
     sw, sc = count.compact_solid_words(gw, gc, cutoff)
@@ -2821,10 +2949,10 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
 # ---------------------------------------------------------------------------
 
 # the plain traversal pays 4 x D probe steps an outer step, each a few
-# hundred PyTorch ops (61 s for 16,384 lanes x 16 steps at D = 256 on an
-# H100): at the default D = k + 1 it is held on the first quarter of the
-# lanes
-LONGK_DEEP_LANES = GRAPH_TRAVERSE_LANES // 4
+# hundred PyTorch ops (61-66 s for 16,384 lanes x 16 steps at D = 256 on
+# an H100): at the default D = k + 1 it is held on the first sixteenth of
+# the lanes
+LONGK_DEEP_LANES = GRAPH_TRAVERSE_LANES // 16
 
 
 def longk_checks(records: dict, names: tuple, hand: dict, k: int) -> dict:
@@ -3488,8 +3616,8 @@ def stream_phase(paths: dict) -> dict:
 
     fig = {}
     host_path = ["kmer_scan", "runs", "bloom_build", "walk_encode", "walk_pack"]
-    wide_path = ["kmer_scan_halves", "word_runs", "bloom_build_words", "walk_encode_words",
-                 "walk_pack"]
+    wide_path = ["kmer_scan_halves", "plane_rows", "sort_ties", "word_runs", "bloom_build_words",
+                 "walk_encode_words", "walk_pack"]
     device_build = ["unitig_links", "unitig_double", "unitig_emit", "solid_lookup"]
     for label, corpus, k, pin in (("k=31", "ecoli_500k", K, PIN),
                                   (f"k={K63}", "ecoli_500k", K63, PIN63),

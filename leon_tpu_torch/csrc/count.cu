@@ -781,16 +781,20 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
 //
 // Input: keys (n,) int64 sorted ascending, src (n,) int64: sorted row i is
 // row src[i] of rows (N, W) u32; dst (n,) int64 or null: where sorted row
-// i goes (dst[i], or i). Output: the planes of every row at its place, each
-// run of equal keys ordered by its rows (MSW first; equal rows are equal,
-// so their order is moot).
+// i goes (dst[i], or i); pay (N,) int32 or null: a payload that travels
+// with its row (the WordCounter's merge: each distinct row's count,
+// leon_tpu/ops/count.py _merge_sorted_runs 226-254 sorts it along). Output:
+// the planes of every row at its place, each run of equal keys ordered by
+// its rows (MSW first, equal rows in src order: the sort is stable), and
+// pay_out[place] = pay[src] wherever a row is written.
 //
 // Bound on the H100: device-memory bytes, keys and src read (16 n), the rows
-// gathered (4W n; a row is 4W contiguous bytes) and the planes written
-// (8P n). Design: one thread a sorted position, whole rows gathered with
-// 16- or 8-byte loads where W and alignment allow. A position that is its
-// own run writes its row at once. The first row of a longer run finds the
-// run's end by a galloping search over the keys. Runs of up to ST_WARP_RUN
+// gathered (4W n; a row is 4W contiguous bytes; a payload 4 n more) and the
+// planes written (8P n; a payload 4 n). Design: one thread a sorted
+// position, whole rows gathered with 16- or 8-byte loads where W and
+// alignment allow; a row's payload is gathered where the row is written. A
+// position that is its own run writes its row at once. The first row of a
+// longer run finds the run's end by a galloping search over the keys. Runs of up to ST_WARP_RUN
 // rows are settled by their head's warp, one run after another: a lane a
 // row, all rows equal (duplicates are common: at W = 4, 17.4M rows hold
 // 10.0M distinct) checked by one vote, else each lane's rank counted over
@@ -813,18 +817,26 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
 #define ST_BLOCK_RUN 1024  // up to this many: a block, rows in shared memory
 #define ST_LEN_BITS 11     // a listed block run: start << ST_LEN_BITS | length
 
+// the payload that travels with the rows (both null without one)
+struct TiePay {
+  const int32_t* in;
+  int32_t* out;
+};
+
 // lists: [0] block runs listed, [1] long runs listed, then cap_mid block
 // runs, then (start, length) pairs of the long runs (ops/count.py
 // _ties_lists)
-template <int W>
-static __device__ __forceinline__ void st_put(const PlanePtrs& out, long long pos,
-                                              const Kmer<W>& c) {
+// row c (row j of the input) at its place pos, with its payload where PAY
+template <int W, bool PAY>
+static __device__ __forceinline__ void st_put(const PlanePtrs& out, const TiePay& pay,
+                                              long long pos, const Kmer<W>& c, long long j) {
   constexpr int NH = (W + 1) / 2;
 #pragma unroll
   for (int h = 0; h < NH; ++h)
     out.p[h][pos] =
         (int64_t)((((unsigned long long)word_or_zero<W>(c, 2 * h + 1) << 32) | c.w[2 * h]) ^
                   (1ull << 63));
+  if constexpr (PAY) pay.out[pos] = __ldg(pay.in + j);
 }
 
 // the first index past i whose key differs from keys[i] (keys[i + 1] equals it)
@@ -873,17 +885,20 @@ static __device__ __forceinline__ int st_rank(const Kmer<W>& r, int t, int m, Ro
   return rank;
 }
 
-template <int W>
+template <int W, bool PAY>
 __global__ void __launch_bounds__(ST_THREADS)
     sort_ties_kernel(const long long* __restrict__ keys, const long long* __restrict__ src,
                      const uint32_t* __restrict__ rows, bool vec, long long n,
                      const long long* __restrict__ dst, bool final_,
-                     const __grid_constant__ PlanePtrs out, unsigned long long* __restrict__ lists,
-                     long long cap_mid) {
+                     const __grid_constant__ PlanePtrs out, const TiePay pay,
+                     unsigned long long* __restrict__ lists, long long cap_mid) {
   const long long i = (long long)blockIdx.x * ST_THREADS + threadIdx.x;
   const bool in = i < n;
   if (final_) {  // every run is of equal rows
-    if (in) st_put<W>(out, dst ? dst[i] : i, load_kmer_vec<W>(rows, src[i], vec));
+    if (in) {
+      const long long j = src[i];
+      st_put<W, PAY>(out, pay, dst ? dst[i] : i, load_kmer_vec<W>(rows, j, vec), j);
+    }
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -892,8 +907,10 @@ __global__ void __launch_bounds__(ST_THREADS)
   if (lane == 0 && in && i > 0) kp = keys[i - 1];
   if (lane == 31 && i + 1 < n) kn = keys[i + 1];
   const bool eq_prev = in && i > 0 && kp == key, eq_next = i + 1 < n && kn == key;
-  if (in && !eq_prev && !eq_next)
-    st_put<W>(out, dst ? dst[i] : i, load_kmer_vec<W>(rows, src[i], vec));
+  if (in && !eq_prev && !eq_next) {
+    const long long j = src[i];
+    st_put<W, PAY>(out, pay, dst ? dst[i] : i, load_kmer_vec<W>(rows, j, vec), j);
+  }
   const bool head = in && !eq_prev && eq_next;
   const long long len = head ? st_run_end(keys, n, i, key) - i : 0;
   const bool mid = len > ST_WARP_RUN && len <= ST_BLOCK_RUN, lng = len > ST_BLOCK_RUN;
@@ -912,7 +929,8 @@ __global__ void __launch_bounds__(ST_THREADS)
     const long long s = __shfl_sync(K2_FULL, i, h);
     const int m = (int)__shfl_sync(K2_FULL, len, h);
     Kmer<W> r = {};
-    if (lane < m) r = load_kmer_vec<W>(rows, src[s + lane], vec);
+    const long long sj = lane < m ? src[s + lane] : 0;  // needed again only with PAY
+    if (lane < m) r = load_kmer_vec<W>(rows, sj, vec);
     bool diff = false;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
@@ -927,18 +945,18 @@ __global__ void __launch_bounds__(ST_THREADS)
         for (int w = 0; w < W; ++w) o.w[w] = __shfl_sync(K2_FULL, r.w[w], j);
         return o;
       });
-    if (lane < m) st_put<W>(out, dst ? dst[s + rank] : s + rank, r);
+    if (lane < m) st_put<W, PAY>(out, pay, dst ? dst[s + rank] : s + rank, r, sj);
   }
 }
 
 // the listed runs of ST_WARP_RUN + 1 .. ST_BLOCK_RUN rows, a block a run
 // (a grid of the card's resident blocks), the run's rows in dynamic shared
 // memory
-template <int W>
+template <int W, bool PAY>
 __global__ void __launch_bounds__(ST_THREADS)
     sort_ties_block_kernel(const long long* __restrict__ src, const uint32_t* __restrict__ rows,
                            bool vec, const long long* __restrict__ dst,
-                           const __grid_constant__ PlanePtrs out,
+                           const __grid_constant__ PlanePtrs out, const TiePay pay,
                            const unsigned long long* __restrict__ lists) {
   extern __shared__ uint32_t s_run[];  // ST_BLOCK_RUN rows of W words
   const unsigned long long nm = lists[0];
@@ -968,7 +986,7 @@ __global__ void __launch_bounds__(ST_THREADS)
         return o;
       })
                            : t;
-      st_put<W>(out, dst ? dst[s + rank] : s + rank, r);
+      st_put<W, PAY>(out, pay, dst ? dst[s + rank] : s + rank, r, PAY ? src[s + t] : 0);
     }
     __syncthreads();
   }
@@ -977,12 +995,14 @@ __global__ void __launch_bounds__(ST_THREADS)
 // K20 over n sorted keys (see above): the lists' two counters zeroed, the
 // position pass, then the block pass (a grid of resident blocks reading the
 // listed count). lists: 2 + cap_mid + 2 cap_long u64 (cap_mid >= n / 33 + 1,
-// cap_long >= n / 1025 + 1); with final_ no run is listed.
+// cap_long >= n / 1025 + 1); with final_ no run is listed. pay and pay_out:
+// both (int32) or neither.
 extern "C" int lt_sort_ties(const void* keys, const void* src, const void* rows, long long n,
                             int W, const void* dst, int final_, int n_planes, const void* planes,
-                            void* lists, long long cap_mid, void* stream) {
+                            const void* pay, void* pay_out, void* lists, long long cap_mid,
+                            void* stream) {
   if (n < 0 || W < 3 || W > 16 || n_planes != (W + 1) / 2 ||
-      cap_mid < n / (ST_WARP_RUN + 1) + 1)
+      cap_mid < n / (ST_WARP_RUN + 1) + 1 || (pay == nullptr) != (pay_out == nullptr))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   PlanePtrs out;
@@ -994,23 +1014,139 @@ extern "C" int lt_sort_ties(const void* keys, const void* src, const void* rows,
   const uint32_t* r = (const uint32_t*)rows;
   const long long* d = (const long long*)dst;
   unsigned long long* ls = (unsigned long long*)lists;
+  const TiePay tp = {(const int32_t*)pay, (int32_t*)pay_out};
   const uintptr_t a = reinterpret_cast<uintptr_t>(rows);
   const bool vec = W % 4 == 0 ? (a & 15) == 0 : (a & 7) == 0;
   const unsigned grid = (unsigned)((n + ST_THREADS - 1) / ST_THREADS);
   const size_t smem = (size_t)ST_BLOCK_RUN * W * sizeof(uint32_t);
-#define LAUNCH(W_)                                                                            \
+#define LAUNCH_PAY(W_, P_)                                                                    \
   {                                                                                           \
-    sort_ties_kernel<W_><<<grid, ST_THREADS, 0, st>>>(k, s, r, vec, n, d, final_ != 0, out,   \
-                                                      ls, cap_mid);                           \
+    sort_ties_kernel<W_, P_><<<grid, ST_THREADS, 0, st>>>(k, s, r, vec, n, d, final_ != 0,    \
+                                                          out, tp, ls, cap_mid);              \
     LT_TRY(cudaGetLastError());                                                               \
     if (!final_) {                                                                            \
-      LT_TRY(cudaFuncSetAttribute(sort_ties_block_kernel<W_>,                                 \
+      LT_TRY(cudaFuncSetAttribute(sort_ties_block_kernel<W_, P_>,                             \
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));   \
       int blocks = 0;                                                                         \
-      LT_TRY(resident_blocks(sort_ties_block_kernel<W_>, ST_THREADS, &blocks, 1 << 30, smem)); \
-      sort_ties_block_kernel<W_><<<blocks, ST_THREADS, smem, st>>>(s, r, vec, d, out, ls);    \
+      LT_TRY(resident_blocks(sort_ties_block_kernel<W_, P_>, ST_THREADS, &blocks, 1 << 30,    \
+                             smem));                                                          \
+      sort_ties_block_kernel<W_, P_><<<blocks, ST_THREADS, smem, st>>>(s, r, vec, d, out, tp, \
+                                                                       ls);                   \
     }                                                                                         \
-  }                                                                                           \
+  }
+#define LAUNCH(W_)                 \
+  if (pay) LAUNCH_PAY(W_, true)    \
+  else LAUNCH_PAY(W_, false)       \
+  break;
+  switch (W) {
+    case 3: LAUNCH(3)
+    case 4: LAUNCH(4)
+    case 5: LAUNCH(5)
+    case 6: LAUNCH(6)
+    case 7: LAUNCH(7)
+    case 8: LAUNCH(8)
+    case 9: LAUNCH(9)
+    case 10: LAUNCH(10)
+    case 11: LAUNCH(11)
+    case 12: LAUNCH(12)
+    case 13: LAUNCH(13)
+    case 14: LAUNCH(14)
+    case 15: LAUNCH(15)
+    case 16: LAUNCH(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
+#undef LAUNCH_PAY
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K21 plane_rows — the WordCounter's slab (K17's P = ceil(W/2) sign-flipped
+// int64 planes, W = 3..16) as (n, W) u32 rows, and each row's top 64 bits
+// as one sign-flipped int64 key (words W-1 and W-2, MSW first: signed order
+// is their u32 order): the input of the slab's top sort and K20.
+//
+// Replaces no TPU program by itself: with the top sort and K20 it replaces
+// the sort of the reference's slab, lax.sort over the W key columns in
+// leon_tpu/ops/count.py _fused_sort_count (194-207). It is there because
+// K20 gathers each row at random: a row is one or two 32-byte sectors, its
+// P planes would be P.
+//
+// Bound on the H100: device-memory bytes, the planes read (8P n), the rows
+// (4W n) and the keys (8 n) written. Design: a block takes ST_THREADS rows
+// at a time (a grid of the card's resident blocks): a thread a row reads
+// its P plane words (8-byte loads, coalesced across the warp) and writes
+// its key (coalesced) and its W words into shared memory (a row every
+// W + 1 words at even W, so that a warp's stores hit 32 banks); then the
+// block writes its rows, one contiguous stretch of 4W bytes a row, in
+// 16-byte stores. (A thread writing its own row in P 8-byte stores, 32
+// rows of 32-64 bytes apart in a warp's store, took 1.08 / 1.46 ms at
+// W = 8 / 16 against a byte bound of 0.53 / 0.52: PERF.md §6, rows 4c-8c.)
+// ---------------------------------------------------------------------------
+
+#define PR_STRIDE(W) ((W) % 2 == 0 ? (W) + 1 : (W))  // a row's words in shared memory
+
+template <int W>
+__global__ void __launch_bounds__(ST_THREADS)
+    plane_rows_kernel(const __grid_constant__ PlanePtrs in, long long n,
+                      uint32_t* __restrict__ rows, long long* __restrict__ top) {
+  constexpr int NH = (W + 1) / 2, S = PR_STRIDE(W);
+  __shared__ uint32_t s_rows[ST_THREADS * S];
+  for (long long base = (long long)blockIdx.x * ST_THREADS; base < n;
+       base += (long long)gridDim.x * ST_THREADS) {
+    const long long i = base + threadIdx.x;
+    const int m = (int)(n - base < ST_THREADS ? n - base : ST_THREADS);
+    if (i < n) {
+      unsigned long long u[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) u[h] = (unsigned long long)in.p[h][i] ^ (1ull << 63);
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        s_rows[threadIdx.x * S + w] = (uint32_t)(u[w / 2] >> (32 * (w % 2)));
+      const unsigned long long t =
+          W % 2 == 0 ? u[NH - 1] : (u[NH - 1] << 32) | (u[NH - 2] >> 32);
+      top[i] = (long long)(t ^ (1ull << 63));
+    }
+    __syncthreads();
+    uint32_t* out = rows + base * W;  // 16-byte aligned: base is a multiple of ST_THREADS
+    const int words = m * W, chunks = words / 4;
+    for (int c = threadIdx.x; c < chunks; c += ST_THREADS) {
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * c + e;
+        v[e] = s_rows[(j / W) * S + j % W];
+      }
+      reinterpret_cast<uint4*>(out)[c] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    for (int j = 4 * chunks + threadIdx.x; j < words; j += ST_THREADS)
+      out[j] = s_rows[(j / W) * S + j % W];
+    __syncthreads();
+  }
+}
+
+// K21 over n rows: planes the host array of its P = (W + 1) / 2 pointers,
+// rows (n, W) u32 (16-byte aligned), top (n,) int64.
+extern "C" int lt_plane_rows(const void* planes, int n_planes, long long n, int W, void* rows,
+                             void* top, void* stream) {
+  if (n < 0 || W < 3 || W > 16 || n_planes != (W + 1) / 2 ||
+      (reinterpret_cast<uintptr_t>(rows) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  PlanePtrs in;
+  if (!load_planes(planes, n_planes, &in)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  uint32_t* r = (uint32_t*)rows;
+  long long* t = (long long*)top;
+  const long long need = (n + ST_THREADS - 1) / ST_THREADS;
+#define LAUNCH(W_)                                                                     \
+  {                                                                                    \
+    int blocks = 0;                                                                    \
+    LT_TRY(resident_blocks(plane_rows_kernel<W_>, ST_THREADS, &blocks));               \
+    plane_rows_kernel<W_><<<(unsigned)(need < blocks ? need : blocks), ST_THREADS, 0,  \
+                            st>>>(in, n, r, t);                                        \
+  }                                                                                    \
   break;
   switch (W) {
     case 3: LAUNCH(3)

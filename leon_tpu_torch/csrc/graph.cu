@@ -22,12 +22,15 @@
 // i of the k-mer at bits 2(k-1-i); K10 and K12 are templated on W in 1..16
 // (k <= 255), K11 takes W at run time.
 //
-// Bound on the H100: K9 moves its inputs and outputs once (bytes over
-// 3.35 TB/s); K10-K12 are bound by their Bloom probes, random 4-byte loads
-// into a bitset of a few MB that stays in the 50 MB L2 (the probe floor:
-// scripts/graph_probe_floor.cu, timed by scripts/ab_kernels.py --only
-// graph). K11 and K12 are chains of dependent probes (each step needs the
-// last one's base), hidden by many lanes per SM.
+// Bound on the H100: K9 by its random 4-byte table loads, which hit the 50
+// MB L2 (2**24 of them take 0.118-0.128 ms alone, against 0.046-0.050 ms
+// for its index and output stream: scripts/gather_floor.cu, timed by
+// scripts/ab_kernels.py --only gather; K9 reaches 0.87-0.89 of that floor);
+// K10-K12 by their Bloom probes, random 4-byte loads into a bitset of a few
+// MB that stays in the L2 (the probe floor: scripts/graph_probe_floor.cu,
+// timed by scripts/ab_kernels.py --only graph). K11 and K12 are chains of
+// dependent probes (each step needs the last one's base), hidden by many
+// lanes per SM.
 //
 // Design. A node is hashed once, a word at a time from K16's nibble tables
 // in shared memory (hash_kmer_tab: 8 table loads a word, the top word masked
@@ -75,7 +78,13 @@ static __device__ __forceinline__ uint32_t pick4(const uint32_t v[4], uint32_t i
 // ---------------------------------------------------------------------------
 // K9 gather_words: out[i] = table[idx[i]] with JAX's index rule (a
 // negative index counts from the end, then clamps into [0, n)), which is
-// table[idx] for every in-range index and never reads out of bounds
+// table[idx] for every in-range index and never reads out of bounds. A
+// thread an index: its table loads are the floor's (above), and 65,536
+// blocks keep enough of them in flight. (Groups of four indices a thread
+// in 16-byte evict-first loads, eight table loads in flight and 16-byte
+// streaming stores over the resident blocks took 3% longer; the same
+// thread an index with only the evict-first and streaming hints, the
+// same time: PERF.md §6, rows 1-2.)
 // ---------------------------------------------------------------------------
 
 __global__ void gather_words_kernel(const uint32_t* __restrict__ table, long long n,

@@ -28,9 +28,10 @@ count there, and sends the solid rows to the card once for the Bloom build
 (k <= 255, counterpart of count.py:88-104): at W >= 3 ``top_sort`` (one
 torch.sort of the valid rows' top 64 bits with their row index), then
 ``sort_ties``, the wrapper of kernel K20 (csrc/count.cu), which gathers
-the rows in that order as sign-flipped int64 planes and orders each run of
-equal top bits by the lower words (at W <= 2 one torch.sort of the one
-plane, ``sort_words``); then ``runs_words``, the wrapper of kernel K14
+the rows in that order as sign-flipped int64 planes (with a payload a row,
+if given, to the row's place) and orders each run of equal top bits by
+the lower words (at W <= 2 one torch.sort of the one plane,
+``sort_words``); then ``runs_words``, the wrapper of kernel K14
 (csrc/count.cu), a reduce-by-key of run lengths over rows of up to 8
 planes (W <= 16). ``word_runs`` is K14 in K2's modes (a counts payload,
 cutoff, histogram) over the same rows. K14 is K2's two passes over
@@ -38,7 +39,12 @@ multi-plane rows.
 
 ``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
-planes into the slab, ``sort_planes`` + K14 reduce slabs and merge runs,
+planes into the slab; at W >= 3 ``sort_slab`` orders a slab as count_batch
+orders its rows: ``plane_rows``, the wrapper of kernel K21 (csrc/count.cu),
+turns the planes into (n, W) rows and top keys, one torch.sort of the keys
+with the row index, then K20; ``sort_rows`` orders the runs of a merge the
+same way, K20 carrying each row's count to its place (at W <= 2 both are
+one torch.sort of the one plane); K14 reduces slabs and merged runs,
 ``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
 over those solid rows.
 Both counters share ``_SlabCounter``'s slab, flush, merge, spill and
@@ -361,45 +367,63 @@ def _check_count_batch_args(canon, valid) -> int:
     return canon.shape[2]
 
 
+def _top_keys(rows: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
+    """The top 64 bits of (N, W >= 3) int32 rows (or of rows[idx]): words W-1
+    and W-2 as one sign-flipped int64, whose signed order is their u32
+    order, MSW first."""
+    W = rows.shape[1]
+    if W % 2 == 0:  # words W-2 and W-1 are the last int64 of a row
+        top = rows.view(torch.int64)[:, -1]
+        top = top if idx is None else top[idx]
+    else:
+        hi, lo = rows[:, W - 1], rows[:, W - 2]
+        if idx is not None:
+            hi, lo = hi[idx], lo[idx]
+        top = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & _M32)
+    return top ^ _SIGN
+
+
 def top_sort(canon: torch.Tensor, valid: torch.Tensor):
     """count_batch's library sort (W >= 3): the valid rows of (B, P, W) int32
-    canon by their top 64 bits (words W-1 and W-2, sign-flipped: signed
-    order is their u32 order, MSW first). Returns (keys (n,) int64 sorted,
+    canon by their top 64 bits (_top_keys). Returns (keys (n,) int64 sorted,
     src (n,) int64: sorted row i is row src[i] of rows, rows (B*P, W) int32,
     canon's rows)."""
     W = canon.shape[2]
     rows = canon.contiguous().reshape(-1, W)
     idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
-    if W % 2 == 0:  # words W-2 and W-1 are the last int64 of a row
-        top = rows.view(torch.int64)[:, -1][idx]
-    else:
-        top = ((rows[:, W - 1][idx].to(torch.int64) << 32)
-               | (rows[:, W - 2][idx].to(torch.int64) & _M32))
-    keys, perm = torch.sort(top ^ _SIGN)
+    keys, perm = torch.sort(_top_keys(rows, idx))
     return keys, idx[perm], rows
 
 
-def _check_sort_ties_args(keys, src, rows, W: int) -> None:
+def _check_sort_ties_args(keys, src, rows, W: int, pay=None) -> None:
     kernels.need(3 <= W <= 16 and rows.dtype == torch.int32 and rows.dim() == 2
                  and rows.shape[1] == W, "sort_ties: rows must be (N, W) int32, 3 <= W <= 16")
     kernels.need(keys.dtype == torch.int64 and keys.dim() == 1 and src.dtype == torch.int64
                  and src.shape == keys.shape, "sort_ties: keys and src must be (n,) int64")
     kernels.need(keys.device == src.device == rows.device, "sort_ties: tensors on two devices")
+    if pay is not None:
+        kernels.need(pay.dtype == torch.int32 and pay.shape == rows.shape[:1],
+                     "sort_ties: pay must be (N,) int32, a value a row")
+        kernels.need(pay.device == rows.device, "sort_ties: tensors on two devices")
 
 
-def sort_ties(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int) -> tuple:
+def sort_ties(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int,
+              pay: torch.Tensor | None = None):
     """Rows in the reference's order after the sort of their top 64 bits
     (kernel K20): keys (n,) int64 sorted (top_sort's), src (n,) int64 (sorted
     row i is rows[src[i]]), rows (N, W) int32, 3 <= W <= 16. Returns the
     P = ceil(W/2) sign-flipped int64 planes (state.words_to_planes) of the
-    n rows, each run of equal keys ordered by its rows, MSW first: the input
-    of runs_words. On the card: K20 over the runs of up to TIE_BLOCK_RUN
-    rows, then rounds over the next plane for longer ones (_tie_rounds)."""
-    _check_sort_ties_args(keys, src, rows, W)
+    n rows, each run of equal keys ordered by its rows, MSW first (equal rows
+    in src order): the input of runs_words. With pay ((N,) int32, a value a
+    row: the WordCounter's merge counts) returns (planes, pay (n,) int32 in
+    the rows' new order). On the card: K20 over the runs of up to
+    TIE_BLOCK_RUN rows, then rounds over the next plane for longer ones
+    (_tie_rounds)."""
+    _check_sort_ties_args(keys, src, rows, W, pay)
     if not kernels.on_cuda(rows, "sort_ties"):
-        return sort_ties_plain(keys, src, rows, W)
+        return sort_ties_plain(keys, src, rows, W, pay)
     out = _tie_rounds(keys.contiguous(), src.contiguous(), rows.contiguous(), W,
-                      _sort_ties_launch)
+                      _sort_ties_launch, None if pay is None else pay.contiguous())
     if keys.shape[0]:
         kernels.launches["sort_ties"] += 1
     return out
@@ -410,18 +434,20 @@ def _ties_lists(n: int) -> tuple:
     return n // (TIE_WARP_RUN + 1) + 1, n // (TIE_BLOCK_RUN + 1) + 1
 
 
-def _sort_ties_launch(keys, src, rows, W: int, out: tuple, dst, final: bool):
+def _sort_ties_launch(keys, src, rows, W: int, out: tuple, dst, final: bool, pay=None):
     """One round of K20 on the card into the planes `out` (dst: where sorted
-    row i goes, None for i). Returns the runs of more than TIE_BLOCK_RUN rows
-    it left (starts, lengths), or None (after the host read of their count)."""
+    row i goes, None for i; pay: None, or (pay, pay_out) int32, pay_out[place]
+    = pay[row]). Returns the runs of more than TIE_BLOCK_RUN rows it left
+    (starts, lengths), or None (after the host read of their count)."""
     n = keys.shape[0]
     cap_mid, cap_long = _ties_lists(n)
     lists = torch.empty(2 + cap_mid + 2 * cap_long, dtype=torch.int64, device=keys.device)
     ptrs = np.array([h.data_ptr() for h in out], dtype=np.uint64)
+    pin, pout = (None, None) if pay is None else (pay[0].data_ptr(), pay[1].data_ptr())
     rc = kernels.lib().lt_sort_ties(
         keys.data_ptr(), src.data_ptr(), rows.data_ptr(), n, W,
         dst.data_ptr() if dst is not None else None, int(final), len(out), ptrs.ctypes.data,
-        lists.data_ptr(), cap_mid, kernels.stream(keys))
+        pin, pout, lists.data_ptr(), cap_mid, kernels.stream(keys))
     kernels.check(rc, "sort_ties")
     n_long = 0 if final or n == 0 else int(lists[1])
     if not n_long:
@@ -430,17 +456,20 @@ def _sort_ties_launch(keys, src, rows, W: int, out: tuple, dst, final: bool):
     return ent[:, 0], ent[:, 1]
 
 
-def _tie_rounds(keys, src, rows, W: int, launch) -> tuple:
+def _tie_rounds(keys, src, rows, W: int, launch, pay=None):
     """K20's rounds: `launch` (the card's _sort_ties_launch, or a model of it)
     settles every run of up to TIE_BLOCK_RUN rows and returns the longer
     ones; those are ordered by their next plane (a stable torch.sort by the
     plane, then by run) and launched again with the runs of equal (run,
     plane) as keys, until the planes run out: in that last round every run
-    holds equal rows (final)."""
+    holds equal rows (final). Returns the planes, and with pay ((N,) int32)
+    the payload in their order (each launch writes a row's value where it
+    writes the row)."""
     n = keys.shape[0]
     out = tuple(torch.empty(n, dtype=torch.int64, device=rows.device)
                 for _ in range(n_planes(W)))
-    longs = launch(keys, src, rows, W, out, None, False)
+    pays = None if pay is None else (pay, torch.empty(n, dtype=torch.int32, device=rows.device))
+    longs = launch(keys, src, rows, W, out, None, False, pays)
     pos, q = None, n_planes(W) - 2  # the plane below the key
     while longs is not None:
         starts, lengths = longs
@@ -456,21 +485,24 @@ def _tie_rounds(keys, src, rows, W: int, launch) -> tuple:
         run, nxt, src = run[order], nxt[order], src[order]
         new = torch.ones_like(run, dtype=torch.bool)
         new[1:] = (run[1:] != run[:-1]) | (nxt[1:] != nxt[:-1])
-        longs = launch(torch.cumsum(new, 0), src, rows, W, out, pos, q == 0)
+        longs = launch(torch.cumsum(new, 0), src, rows, W, out, pos, q == 0, pays)
         q -= 1
-    return out
+    return out if pays is None else (out, pays[1])
 
 
-def sort_ties_plain(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int) -> tuple:
+def sort_ties_plain(keys: torch.Tensor, src: torch.Tensor, rows: torch.Tensor, W: int,
+                    pay: torch.Tensor | None = None):
     """Plain version of sort_ties: the rows' planes sorted by (run of equal
-    keys, the planes below the top one) with sort_planes' stable passes."""
-    _check_sort_ties_args(keys, src, rows, W)
+    keys, the planes below the top one) with sort_planes' stable passes, the
+    payload permuted along."""
+    _check_sort_ties_args(keys, src, rows, W, pay)
     planes = words_to_planes(rows[src])
     run = torch.zeros_like(keys)
     if keys.shape[0] > 1:
         run[1:] = torch.cumsum(keys[1:] != keys[:-1], 0)
     _, perm = sort_planes(planes[:-1] + (run,), with_perm=True)
-    return tuple(h[perm] for h in planes)
+    out = tuple(h[perm] for h in planes)
+    return out if pay is None else (out, pay[src[perm]])
 
 
 def count_batch(canon: torch.Tensor, valid: torch.Tensor):
@@ -495,6 +527,73 @@ def count_batch_plain(canon: torch.Tensor, valid: torch.Tensor):
     else:
         planes = sort_ties_plain(*top_sort(canon, valid), W)
     return runs_words_plain(planes, W)
+
+
+# ---------------------------------------------------------------------------
+# The WordCounter's sorts: kernel K21 (plane_rows), the top sort and K20
+# ---------------------------------------------------------------------------
+
+
+def _check_plane_rows_args(planes, W: int) -> None:
+    kernels.need(3 <= W <= 16, f"plane_rows: W={W} not in [3, 16]")
+    _check_runs_words_args(planes, W)
+
+
+def plane_rows(planes: tuple, W: int) -> tuple:
+    """The WordCounter's slab (K17's P = ceil(W/2) sign-flipped int64 planes,
+    3 <= W <= 16) as rows (n, W) int32 holding the u32 words, and each row's
+    top 64 bits as one sign-flipped int64 (_top_keys): the input of the slab's
+    top sort and K20 (kernel K21)."""
+    _check_plane_rows_args(planes, W)
+    if not kernels.on_cuda(planes[0], "plane_rows"):
+        return plane_rows_plain(planes, W)
+    planes = [h.contiguous() for h in planes]
+    n = planes[0].shape[0]
+    rows = torch.empty(n, W, dtype=torch.int32, device=planes[0].device)
+    top = torch.empty(n, dtype=torch.int64, device=planes[0].device)
+    ptrs = np.array([h.data_ptr() for h in planes], dtype=np.uint64)
+    rc = kernels.lib().lt_plane_rows(ptrs.ctypes.data, len(planes), n, W, rows.data_ptr(),
+                                     top.data_ptr(), kernels.stream(planes[0]))
+    kernels.check(rc, "plane_rows")
+    if n:
+        kernels.launches["plane_rows"] += 1
+    return rows, top
+
+
+def plane_rows_plain(planes: tuple, W: int) -> tuple:
+    """Plain version of plane_rows: state.planes_to_words, then _top_keys."""
+    _check_plane_rows_args(planes, W)
+    rows = planes_to_words(planes, W)
+    return rows, _top_keys(rows)
+
+
+def sort_slab(planes: tuple, W: int) -> tuple:
+    """The WordCounter's slab, its rows as P sign-flipped int64 planes,
+    sorted MSW first (the sort of leon_tpu/ops/count.py _fused_sort_count,
+    194-207). At W <= 2 one torch.sort of the one plane; else K21 (rows and
+    top keys), one torch.sort of the top keys with their row index, then K20.
+    Returns the sorted planes (runs_words' and word_runs' input)."""
+    if W <= 2:
+        return sort_planes(planes)
+    rows, top = plane_rows(planes, W)
+    keys, src = torch.sort(top)
+    return sort_ties(keys, src, rows, W)
+
+
+def sort_rows(words: torch.Tensor, counts: torch.Tensor) -> tuple:
+    """The WordCounter's merge sort: (M, W) int32 rows with their int32
+    counts, sorted MSW first with the counts carried along (lax.sort with the
+    counts as payload in leon_tpu/ops/count.py _merge_sorted_runs, 226-254).
+    At W <= 2 one torch.sort of the one plane and the counts permuted; else
+    one torch.sort of the rows' top keys with their row index, then K20 with
+    the counts as its payload. Returns (planes, counts)."""
+    W = words.shape[1]
+    if W <= 2:
+        planes, perm = sort_planes(words_to_planes(words), with_perm=True)
+        return planes, counts[perm]
+    words = words.contiguous()
+    keys, src = torch.sort(_top_keys(words))
+    return sort_ties(keys, src, words, W, counts)
 
 
 def merge_counts(partials: list) -> tuple[np.ndarray, np.ndarray]:
@@ -1003,10 +1102,11 @@ class WordCounter(_SlabCounter):
     DeviceCounter's slab, flush, merge, spill and finalize rules: K17 writes
     the valid positions' P = ceil(W/2) sign-flipped int64 planes into the
     slab's P buffers (invalid rows are dropped, so no key marks them),
-    sort_planes orders them, K14 reduces; runs are (M, W) int32 words with
-    int32 counts, merged by sort_planes with the counts permuted along and
-    K14 in count mode; the Bloom build is K14's solid mode, then K16 over
-    those rows (which finalize hands on for the unitig builder)."""
+    sort_slab orders them (W >= 3: K21, the top sort, K20), K14 reduces;
+    runs are (M, W) int32 words with int32 counts, merged by sort_rows (W >=
+    3: the top sort, then K20 with the counts as its payload) and K14 in
+    count mode; the Bloom build is K14's solid mode, then K16 over those rows
+    (which finalize hands on for the unitig builder)."""
 
     def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
                  spill_rows: int = 64 << 20):
@@ -1018,14 +1118,14 @@ class WordCounter(_SlabCounter):
         return kmer_scan_halves(packed, lengths, self.k, L, out=tuple(out) if out else None)
 
     def _slab_run(self, filled: list):
-        words, counts, _ = word_runs(sort_planes(filled), self.W)
+        words, counts, _ = word_runs(sort_slab(filled, self.W), self.W)
         return words, counts
 
     def _merge_sorted(self, words, counts, unsorted: bool, want_hist: bool):
-        planes = words_to_planes(words)
         if unsorted:
-            planes, perm = sort_planes(planes, with_perm=True)
-            counts = counts[perm]
+            planes, counts = sort_rows(words, counts)
+        else:
+            planes = words_to_planes(words)
         return word_runs(planes, self.W, counts, 1, want_hist)
 
     def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):

@@ -303,7 +303,7 @@ def kmer_scan_halves(packed: torch.Tensor, lengths: torch.Tensor, k: int, L: int
                      out: tuple | None = None) -> tuple:
     """Canonical k-mers of the valid positions of a packed read batch
     (17 <= k <= 255), read-major (read r's position p at offs[r] + p), as the
-    P = ceil(W/2) sign-flipped int64 planes count.sort_planes sorts (state.
+    P = ceil(W/2) sign-flipped int64 planes the WordCounter sorts (state.
     words_to_planes; plane 0 least significant), n rows each. Invalid
     positions are dropped, not marked.
 

@@ -9,7 +9,8 @@ tree's leon_tpu_torch on the card, beside the PyTorch call that computes the sam
 there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
-        [--only k2,k8,scan,k14,walk,dense,tensor,bloom,rank,k3,links,emit,graph]
+        [--only k2,k8,scan,k14,walk,dense,tensor,bloom,rank,k3,links,emit,graph,
+                gather,wordsort]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -183,6 +184,42 @@ Inputs (chip_smoke.py's shapes):
                64-bit table entries a row over shared memory's rate (as
                bloom's); "bound_ms" the largest, "share" bound / ms; the
                ptxas registers of the tree's graph kernels
+  gather:1mb/2mb/8mb  (section gather) K9 (`gather.gather_words`) on
+               chip_smoke.py phase 7's inputs (2**24 random indices into u32
+               tables of 1, 2 and 8 MB) beside `torch.take` ("library_ms")
+               and its floors from scripts/gather_floor.cu: "stream_ms" (a),
+               the indices read and the outputs written alone, and
+               "l2_ms" (b), 2**24 random 4-byte loads from the table with
+               4, 8 or 16 in flight a thread (the least of the three is
+               "l2_floor_ms"); "bound_ms" the larger of (a) and (b),
+               "bytes_ms" the byte bound (table, indices and outputs over
+               3.35 TB/s), "share" bound / ms; the ptxas registers of the
+               tree's K9
+  wordsort:w4/w8/w16  (section wordsort) the WordCounter's slab sort plus
+               K14 as the main path runs it (`WordCounter._slab_run`: the
+               parent's LSD sort_planes, or K21, the top sort and K20), on
+               the bench slabs: every valid k-mer of the 500,000 x 100 bp
+               bench corpus at k = 63 (W = 4) and of the 200,000 x 250 bp
+               corpus at k = 127 (W = 8), each one slab as compress counts
+               it, and one 65,536-read chunk of 300-600 bp reads at k = 255
+               (W = 16, phase 9's); held against sort_planes + K14's plain
+               version; "slab_ms" beside "library_ms"
+               (`torch.unique(dim=0, return_counts=True)` of the slab's
+               rows), "lsd_ms" (the LSD sort_planes alone), on a tree with
+               K21 its parts ("plane_rows_ms", "top_sort_ms", "sort_ties_ms",
+               "word_runs_ms") and "planes_to_words_ms" (the PyTorch
+               planes -> rows a kernel replaced); the byte bound (the
+               planes read, the distinct rows and counts written) and
+               floor (c) of scripts/gather_floor.cu ("rows_floor_ms": the
+               slab's rows gathered in its top-sort order); "peak_bytes"
+               the card's memory the slab run takes above what the caller
+               holds. ":merge" at W = 8 and 16: phase 9's merge of every
+               chunk's slab run with the counts (`_merge_sorted`: the sort
+               with the counts carried, K14 with the histogram; no one
+               PyTorch call sums a payload), its parts and floor (c).
+               "w16:flush" the card's peak memory while phase 9's two W = 16
+               chunks fill a slab and the second flushes it (the scan,
+               the slab sort and K14 of 25.6M rows)
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -196,7 +233,23 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("k2", "k8", "scan", "k14", "walk", "dense", "tensor", "bloom", "rank", "k3", "links",
-            "emit", "graph")
+            "emit", "graph", "gather", "wordsort")
+
+
+def slab_sort(count, planes, W: int):
+    """The tree's WordCounter slab sort: sort_slab (K21, the top sort, K20)
+    where the tree has it, else the parent's LSD sort_planes."""
+    return count.sort_slab(planes, W) if hasattr(count, "sort_slab") else count.sort_planes(planes)
+
+
+def merge_sort(count, state, words, counts):
+    """The tree's WordCounter merge sort: sort_rows (the top sort, K20 with
+    the counts as payload) where the tree has it, else sort_planes with the
+    counts permuted. Returns (planes, counts)."""
+    if hasattr(count, "sort_rows"):
+        return count.sort_rows(words, counts)
+    planes, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+    return planes, counts[perm]
 
 
 def slab_reads(nr: int, reverse: bool):
@@ -426,7 +479,7 @@ def main() -> int:
             k, chunks, L = wide(W)[:3]
             tag = f"word_runs:w{W}"
             scans = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
-            srt = count.sort_planes(scans[0])
+            srt = slab_sort(count, scans[0], W)
             same(count.word_runs(srt, W), count.word_runs_plain(srt, W))
             stacked = torch.stack(srt, dim=1)
             out[f"{tag}:slab"] = ms(lambda: count.word_runs(srt, W), 10)
@@ -434,13 +487,12 @@ def main() -> int:
                 lambda: torch.unique_consecutive(stacked, dim=0, return_counts=True), 3)
             out["rows"][f"{tag}:slab"] = srt[0].numel()
             del stacked, srt
-            slab_runs = [count.word_runs(count.sort_planes(h), W)[:2] for h in scans]
+            slab_runs = [count.word_runs(slab_sort(count, h, W), W)[:2] for h in scans]
             words = torch.cat([r[0] for r in slab_runs])
             counts = torch.cat([r[1] for r in slab_runs])
             del slab_runs
-            mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
-            mc = counts[perm]
-            del words, counts, perm
+            mpl, mc = merge_sort(count, state, words, counts)
+            del words, counts
             gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
             same((gw, gc, gh), count.word_runs_plain(mpl, W, mc, 1, True))
             out[f"{tag}:merge"] = ms(lambda: count.word_runs(mpl, W, mc, 1, True), 10)
@@ -452,8 +504,8 @@ def main() -> int:
             out[f"{tag}:solid"] = ms(lambda: count.word_runs(gpl, W, gc, cutoff), 10)
             out["rows"][f"{tag}:solid"] = [gc.numel(), int((gc >= cutoff).sum()), cutoff]
             del gw, gc, gh, gpl
-            apl = count.sort_planes(tuple(torch.cat([s[q] for s in scans])
-                                          for q in range(state.n_planes(W))))
+            apl = slab_sort(count, tuple(torch.cat([s[q] for s in scans])
+                                         for q in range(state.n_planes(W))), W)
             del scans
             same(count.runs_words(apl, W), count.runs_words_plain(apl, W))
             stacked = torch.stack(apl, dim=1)
@@ -481,6 +533,10 @@ def main() -> int:
         out["emit"] = emit_section(args.tree, wide, slab_reads, ms, same, dev)
     if "graph" in only:
         out["graph"] = graph_section(args.tree, wide, slab_reads, ms, same, dev)
+    if "gather" in only:
+        out["gather"] = gather_section(args.tree, ms, same, dev)
+    if "wordsort" in only:
+        out["wordsort"] = wordsort_section(wide, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -591,14 +647,14 @@ def main_solid(k: int, chunks, L: int, dev) -> dict:
     from leon_tpu_torch.ops import bloom, count, kmer
 
     W = kmer.words_for_k(k)
-    runs = [count.word_runs(count.sort_planes(kmer.kmer_scan_halves(p, ln, k, L)), W)[:2]
+    runs = [count.word_runs(slab_sort(count, kmer.kmer_scan_halves(p, ln, k, L), W), W)[:2]
             for p, ln in chunks]
     words = torch.cat([r[0] for r in runs])
     counts = torch.cat([r[1] for r in runs])
     del runs
-    mpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
-    gw, gc, gh = count.word_runs(mpl, W, counts[perm], 1, True)
-    del words, counts, perm, mpl
+    mpl, mc = merge_sort(count, state, words, counts)
+    gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
+    del words, counts, mc, mpl
     hist = gh.cpu().numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
     sw, _ = count.compact_solid_words(gw, gc, cutoff)
@@ -1158,11 +1214,11 @@ def tensor_section(tree: str, wide, ms, same, dev) -> dict:
         rows = canon.reshape(-1, W)[valid.reshape(-1)]
         uq, cn = count.count_batch(canon, valid)
         lu, lc = torch.unique(rows, dim=0, return_counts=True)
-        lp, perm = count.sort_planes(state.words_to_planes(lu), with_perm=True)
-        same((uq, cn), (state.planes_to_words(lp, W), lc[perm]))
+        lp, lcs = merge_sort(count, state, lu.contiguous(), lc.to(torch.int32))
+        same((uq, cn), (state.planes_to_words(lp, W), lcs))
         n, M = rows.shape[0], uq.shape[0]
         rec["rows"], rec["distinct"] = n, M
-        del lu, lc, lp, perm
+        del lu, lc, lp, lcs
         rec["count_batch_ms"] = ms(lambda: count.count_batch(canon, valid), 5)
         rec["unique_ms"] = ms(lambda: torch.unique(rows, dim=0, return_counts=True), 3)
         # the valid rows read once, uniq and counts written once, one pass of
@@ -1178,6 +1234,7 @@ def tensor_section(tree: str, wide, ms, same, dev) -> dict:
             rec["sort_ties_ms"] = ms(lambda: count.sort_ties(keys, src, frows, W), 10)
             rec["sort_ties_bytes"] = nbytes(keys, src, *tp) + 4 * W * n
             rec["sort_ties_bound_ms"] = rec["sort_ties_bytes"] / rate
+            rec["rows_floor_ms"] = rows_floor_ms(frows, src, ms, dev)
             rec["runs_words_ms"] = ms(lambda: count.runs_words(tp, W), 10)
             del keys, src, frows, tp
         res[f"w{W}"] = rec
@@ -1472,6 +1529,225 @@ def graph_section(tree: str, wide, slab_reads, ms, same, dev) -> dict:
         torch.cuda.empty_cache()
     res["registers"] = registers(tree, GRAPH_KERNELS)
     return res
+
+
+FLUSH_SLAB = 1 << 25  # the config's count_slab_kmers
+
+
+def gather_floor_lib():
+    """scripts/gather_floor.cu: the stream, L2-load and row-gather floors."""
+    import ctypes
+
+    P, I, I64, Un = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+    lib = floor_lib("gather_floor", "lt_stream_floor", [P, I64, P, P])
+    lib.lt_l2_floor.argtypes = [P, Un, I64, I, Un, P, P]
+    lib.lt_l2_floor.restype = ctypes.c_int
+    lib.lt_rows_floor.argtypes = [P, I, P, I64, P, P]
+    lib.lt_rows_floor.restype = ctypes.c_int
+    return lib
+
+
+def rows_floor_ms(rows, perm, ms, dev) -> float:
+    """Floor (c): the (N, W) int32 rows gathered in perm's order (int64) and
+    written contiguously (scripts/gather_floor.cu), W = 4, 8 or 16."""
+    import torch
+
+    from leon_tpu_torch import kernels
+
+    lib = gather_floor_lib()
+    rows = rows.contiguous()
+    perm = perm.contiguous()
+    out = torch.empty(perm.numel(), rows.shape[1], dtype=torch.int32, device=dev)
+    st = kernels.stream(rows)
+
+    def run():
+        kernels.check(lib.lt_rows_floor(rows.data_ptr(), rows.shape[1], perm.data_ptr(),
+                                        perm.numel(), out.data_ptr(), st), "rows_floor")
+
+    run()
+    if not torch.equal(out, rows[perm]):
+        raise AssertionError("rows_floor: the gather differs from rows[perm]")
+    return ms(run, 10)
+
+
+def gather_section(tree: str, ms, same, dev) -> dict:
+    """K9 at phase 7's shapes beside torch.take and its floors (a) and (b);
+    see the docstring."""
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import kernels
+    from leon_tpu_torch.ops import gather
+
+    lib = gather_floor_lib()
+    res = {}
+    for mb, (table, idx) in chip_smoke.gather_inputs(dev).items():
+        got = gather.gather_words(table, idx)
+        same([got], [gather.gather_words_plain(table, idx)])
+        idx64 = idx.to(torch.int64)
+        M, n = idx.numel(), table.numel()
+        out = torch.empty_like(idx)
+        st = kernels.stream(idx)
+        rec = {"indices": M, "table_words": n,
+               "ms": ms(lambda: gather.gather_words(table, idx), 20),
+               "library_ms": ms(lambda: torch.take(table, idx64), 20)}
+        rec["stream_ms"] = ms(lambda: kernels.check(
+            lib.lt_stream_floor(idx.data_ptr(), M, out.data_ptr(), st), "stream_floor"), 20)
+        for U in (4, 8, 16):
+            rec[f"l2_ms:u{U}"] = ms(lambda: kernels.check(
+                lib.lt_l2_floor(table.data_ptr(), n, M, U, 0x5EED, out.data_ptr(), st),
+                "l2_floor"), 20)
+        rec["l2_floor_ms"] = min(rec[f"l2_ms:u{U}"] for U in (4, 8, 16))
+        rec["bytes_ms"] = (4 * n + 8 * M) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        rec["bound_ms"] = max(rec["stream_ms"], rec["l2_floor_ms"])
+        rec["share"] = rec["bound_ms"] / rec["ms"]
+        res[f"{mb}mb"] = rec
+        print(json.dumps({f"gather:{mb}mb": rec}), flush=True)
+    res["registers"] = registers(tree, ("gather_words_kernel",))
+    return res
+
+
+def wordsort_section(wide, ms, same, dev) -> dict:
+    """The WordCounter's slab sort plus K14 at the bench slabs and phase 9's
+    W = 16 chunk, its merges with the counts at W = 8 and 16, floor (c) and
+    the card's peak memory; see the docstring."""
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import count, kmer
+
+    rate = chip_smoke.HBM_BYTES_PER_S / 1e3  # bytes a ms
+    res = {}
+
+    def bench_slab(k, chunks, L):
+        """A WordCounter fed every chunk (one slab, not flushed), and its slab."""
+        c = count.WordCounter(k, dev, slab_kmers=1 << 25)  # the config's count_slab_kmers
+        for p, ln in chunks:
+            c.add_packed(p, ln, L)
+        if c._pend_n >= c.slab or c._runs or c._pending is not None:
+            raise AssertionError("wordsort: the slab flushed")
+        return c, [b[: c._fill] for b in c._buf]
+
+    def parts(rec, planes, W, n):
+        """On a tree with K21: the slab sort's parts and floor (c)."""
+        rows, top = count.plane_rows(planes, W)
+        same((rows, top), count.plane_rows_plain(planes, W))
+        keys, src = torch.sort(top)
+        srt = count.sort_ties(keys, src, rows, W)
+        rec["plane_rows_ms"] = ms(lambda: count.plane_rows(planes, W), 10)
+        rec["planes_to_words_ms"] = ms(lambda: state.planes_to_words(planes, W), 5)
+        rec["top_sort_ms"] = ms(lambda: torch.sort(top), 5)
+        rec["sort_ties_ms"] = ms(lambda: count.sort_ties(keys, src, rows, W), 5)
+        rec["word_runs_ms"] = ms(lambda: count.word_runs(srt, W), 5)
+        rec["rows_floor_ms"] = rows_floor_ms(rows, src, ms, dev)
+        rec["plane_rows_bound_ms"] = (8 * len(planes) + 4 * W + 8) * n / rate
+        del rows, top, keys, src, srt
+
+    inputs = {}
+    for W in (4, 8, 16):
+        if W == 4:
+            path = os.path.join(chip_smoke.WORK, "ab_500k.fastq")
+            os.makedirs(chip_smoke.WORK, exist_ok=True)
+            chip_smoke.gen_fastq(path, 500_000, 2_000_000)
+            codes, lengths = chip_smoke.fastq_codes(path)
+            k, L = 63, codes.shape[1]
+            inputs[W] = (k, chunks_of_reads(codes, lengths, dev), L, "bench")
+        elif W == 8:
+            k, chunks, L = wide(8)[:3]
+            inputs[W] = (k, chunks, L, "bench")
+        else:
+            k, chunks, L = wide(16)[:3]
+            inputs[W] = (k, chunks[:1], L, "chunk")
+    for W in (4, 8, 16):
+        k, chunks, L, what = inputs[W]
+        c, planes = bench_slab(k, chunks, L)
+        n = planes[0].numel()
+        got = c._slab_run(planes)
+        same(got, count.word_runs_plain(count.sort_planes(planes), W)[:2])
+        M = got[0].shape[0]
+        rec = {"k": k, "what": what, "rows": n, "distinct": M}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c._slab_run(planes)
+        torch.cuda.synchronize()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        rec["slab_ms"] = ms(lambda: c._slab_run(planes), 5)
+        rec["lsd_ms"] = ms(lambda: count.sort_planes(planes), 3)
+        rows = state.planes_to_words(planes, W)
+        rec["library_ms"] = ms(lambda: torch.unique(rows, dim=0, return_counts=True), 3)
+        del rows
+        rec["bytes"] = 8 * len(planes) * n + (4 * W + 4) * M
+        rec["bound_ms"] = rec["bytes"] / rate
+        if hasattr(count, "plane_rows"):
+            parts(rec, planes, W, n)
+        res[f"w{W}"] = rec
+        print(json.dumps({f"wordsort:w{W}": rec}), flush=True)
+        del c, planes, got
+        torch.cuda.empty_cache()
+    # phase 9's merges of every chunk's slab run, with the counts
+    for W in (8, 16):
+        k, chunks, L = wide(W)[:3]
+        c = count.WordCounter(k, dev)
+        runs = [c._slab_run(kmer.kmer_scan_halves(p, ln, k, L)) for p, ln in chunks]
+        words = torch.cat([r[0] for r in runs])
+        counts = torch.cat([r[1] for r in runs])
+        del runs
+        got = c._merge_sorted(words, counts, True, True)
+        pl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
+        same(got, count.word_runs_plain(pl, W, counts[perm], 1, True))
+        del pl, perm
+        n, M = words.shape[0], got[0].shape[0]
+        rec = {"k": k, "chunks": len(chunks), "rows": n, "distinct": M,
+               "merge_ms": ms(lambda: c._merge_sorted(words, counts, True, True), 5),
+               "bytes": (4 * W + 4) * (n + M) + 1024}
+        rec["bound_ms"] = rec["bytes"] / rate
+        rec["sort_ms"] = ms(lambda: merge_sort(count, state, words, counts), 5)
+        if hasattr(count, "sort_rows"):
+            keys, src = torch.sort(count._top_keys(words))
+            rec["top_sort_ms"] = ms(lambda: torch.sort(count._top_keys(words)), 5)
+            rec["sort_ties_ms"] = ms(lambda: count.sort_ties(keys, src, words, W, counts), 5)
+            rec["rows_floor_ms"] = rows_floor_ms(words, src, ms, dev)
+            del keys, src
+        res[f"w{W}:merge"] = rec
+        print(json.dumps({f"wordsort:w{W}:merge": rec}), flush=True)
+        del c, words, counts, got
+        torch.cuda.empty_cache()
+    # the card's peak memory of phase 9's W = 16 slab flushed by the chunk
+    # that fills it (the second: its positions pass 2**25)
+    k, chunks, L = wide(16)[:3]
+    c = count.WordCounter(k, dev, slab_kmers=FLUSH_SLAB)
+    for p, ln in chunks:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c.add_packed(p, ln, L)
+        torch.cuda.synchronize()
+        if c._pending is not None:
+            break
+    else:
+        raise AssertionError("wordsort: no chunk flushed the slab")
+    res["w16:flush"] = {"slab_rows": int(c._pending[1].sum()), "before_bytes": base,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"wordsort:w16:flush": res["w16:flush"]}), flush=True)
+    del c
+    torch.cuda.empty_cache()
+    return res
+
+
+def chunks_of_reads(codes, lengths, dev) -> list:
+    """(n, L) read codes as 65,536-lane packed chunks on the card."""
+    import torch
+
+    import chip_smoke
+    from leon_tpu_torch import state
+    from leon_tpu_torch.ops import kmer
+
+    B = chip_smoke.B
+    packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    return [(packed[s : s + B], ln[s : s + B]) for s in range(0, codes.shape[0], B)]
 
 
 if __name__ == "__main__":

@@ -28,20 +28,24 @@ WARP, BLOCK = count.TIE_WARP_RUN, count.TIE_BLOCK_RUN
 
 class ModelLaunch:
     """One K20 round in numpy, as _sort_ties_launch runs it on the card;
-    counts the rows each path took."""
+    counts the rows each path took. With pay = (pay, pay_out), each row's
+    value goes where the row goes, as the kernel's st_put writes it."""
 
     def __init__(self):
         self.paths = dict(single=0, warp=0, block=0, long=0, final=0, equal_runs=0)
 
-    def __call__(self, keys, src, rows, W, out, dst, final):
+    def __call__(self, keys, src, rows, W, out, dst, final, pay=None):
         n = keys.shape[0]
         d = np.arange(n) if dst is None else dst.numpy()
-        rows_u = rows.numpy().view(np.uint32)[src.numpy()]
+        src_np = src.numpy()
+        rows_u = rows.numpy().view(np.uint32)[src_np]
         planes = [p.numpy() for p in state.words_to_planes(torch.from_numpy(rows_u.view(np.int32)))]
 
         def put(at, idx):
             for o, p in zip(out, planes):
                 o[torch.from_numpy(d[at])] = torch.from_numpy(p[idx])
+            if pay is not None:
+                pay[1][torch.from_numpy(d[at])] = pay[0][torch.from_numpy(src_np[idx])]
 
         if final:
             self.paths["final"] += n
