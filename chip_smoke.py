@@ -16,8 +16,17 @@ run right after phase 3, whose reads and solid set they reuse):
      kernels K5-K8 against the plain version on the card), and time both
      on the card (K1 on the 7-chunk slab in one launch and, record
      `kmer_scan:chunk`, on one 65,536-read chunk into a slab view as the
-     counter launches it; K2 in its three modes: records `runs`,
-     `runs:merge`, `runs:solid`); K1 on adversarial reads (scan_case at
+     counter launches it; K22 on the slab's keys and on the merge's keys
+     with their counts: records `radix_sort`, `radix_sort:merge`, beside
+     torch.sort; K2 in its three modes: records `runs`,
+     `runs:merge`, `runs:solid`); K22 on adversarial keys (sort_case: n =
+     0, 1, 2, one tile - 1, one tile, one tile + 1, all keys equal, keys
+     that differ only in the top or only in the bottom digit, a SENTINEL
+     tail, both sides of the int64 sign, three and two varying digits
+     sorted over 56 and 48 bits so that an odd and an even number of
+     passes run, many ties; over 64 bits and the case's bits, alone, with
+     an int32 payload and the index, as a strided view; the row source at
+     W = 1, 2, 3, 4, 8, 16 with and without idx); K1 on adversarial reads (scan_case at
      k = 1, 2, 15, 16, 17, 31, L mod 16 = 0, 1, 15, through `out=` into a
      view one key into its buffer); the device unitig payload must equal the native host
      builder's; K2 on adversarial inputs (k2_case: a key repeated 2^22
@@ -45,7 +54,7 @@ run right after phase 3, whose reads and solid set they reuse):
      unaligned view, M = 0, 1), each equal to its plain version; the K6
      record times the whole optimistic chain_rank (five launches);
   4. build a yeast-sized genome on the card (linear contigs plus two
-     circular plasmids), count it with K1 + sort + K2, and build its
+     circular plasmids), count it with K1 + K22 + K2, and build its
      unitigs with K5-K7 and with the plain version: equal buffers, the
      cycle variant taken with K5 launched once (its rebuild reuses the
      links) and K7 twice, the payload equal to the native host builder's;
@@ -64,8 +73,11 @@ run right after phase 3, whose reads and solid set they reuse):
      then k = 63 and k = 127 again with the device unitig build; each run
      must give the exact sequence round trip and its pinned archive (the
      reference's bytes, PIN, PIN63 and PIN127), and launch each kernel of
-     its path (K1-K4; K5-K8; K17, K21, K20, K14, K16, K18, walk_pack, K19;
-     those and K5-K8 over W-word rows) at least once;
+     its path (K1, K22, K2-K4; K5-K8; K17, K21, K22, K20, K14 and its row
+     policy, K16, K18, walk_pack, K19; those and K5-K8 over W-word rows) at
+     least once, with torch.sort, ops.count.words_to_planes and
+     ops.count._top_keys replaced by guards that raise on a CUDA tensor
+     (CudaGuards), restored after;
   7. K10 on adversarial words (k10_case: every bit random, so dirty bits
      reach the shr2_ins neighbours' first base, at k = 1, 2, 15, 16, 17,
      31, 32, 33, 63, 64, 127, 128, 254, 255, N = 1, 255, 257, every mode,
@@ -104,7 +116,7 @@ run right after phase 3, whose reads and solid set they reuse):
      its payload, as the WordCounter's merges run it, then K14's count
      mode), each equal to its plain version; then the tensor-level
      k-mer path on phase 3's 458,752 reads: at k = 31,
-     K13 scan + torch.sort + K14 count equal phase 3's distinct run and
+     K13 scan + K22 + K14 count equal phase 3's distinct run and
      solid keys, K16 over the solid rows equals K3's bitset, K15 on one
      chunk agrees with K4; at k = 63 (W = 4) scan, count (the top sort,
      K20, K14), K16, K15 and
@@ -118,10 +130,14 @@ run right after phase 3, whose reads and solid set they reuse):
      run and cutoff must equal phase 8's), k = 127 on phase 6's 250-bp
      corpus (the solid count must equal PIN127's) and k = 255 on 131,072
      reads of 300-600 bp: K17 scan, the WordCounter's sorts (each chunk's
-     slab by sort_slab: K21 plane_rows, the top sort, K20; their merge by
-     sort_rows: the top sort, K20 with the counts as its payload; each
-     equal to the LSD sort of the same rows), K14 slab runs, merge (counts,
-     histogram) and solid mode, K16 over the run's solid rows, K18 encode
+     slab by sort_slab: K21 plane_rows, K22 of the top keys with their
+     index, K20; their merge by sort_rows: K22 reading the top keys from
+     the rows, K20 with the counts as its payload; each equal to the LSD
+     sort of the same rows; K22 records `radix_sort:main`, `:rows` and
+     `:main8`, `:rows8`, `:main16`, `:rows16`), K14 slab runs, merge (counts,
+     histogram), its row policy on the final run (`word_runs_rows`, with
+     the histogram and in solid mode, equal to K14 over the run's planes)
+     and solid mode, K16 over the run's solid rows, K18 encode
      and K19 decode of one chunk, then the device unitig build over the
      solid rows (K5, K6, K7, K8 at W = 4, 8 and 16; the payload must equal
      the native host builder's), each held against its plain version on
@@ -277,6 +293,11 @@ KERNELS = {
     "walk_decode_words": ("leon_tpu_torch/csrc/walk.cu", "leon_tpu/ops/walk.py:820"),
     "plane_rows": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:194"),
     "sort_ties:main": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
+    "radix_sort": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
+    "radix_sort:merge": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
+    "radix_sort:main": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
+    "radix_sort:rows": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
+    "word_runs_rows": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
@@ -287,13 +308,19 @@ TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "wa
 # name up to ":" is its launch counter: K16 has one record on the tensor
 # path (phase 8, as mesh.py calls it) and one on the main path (phase 9,
 # over the solid rows), K20 one each on the tensor path (phases 8 and 10)
-# and the main path (phase 9: ":main", ":main8", ":main16"); the multiword
-# kernels have one record at k = 63 (W = 4) and one each at W = 8 and
-# W = 16 (":w8", ":w16").
+# and the main path (phase 9: ":main", ":main8", ":main16"); K22 two on the
+# main path at k <= 31 (phase 3: "radix_sort", the slab, keys alone;
+# ":merge", with the counts) and two a width past it (phase 9: ":main" the
+# slab's top sort with the row index, ":rows" the merge's top sort read from
+# the rows; ":main8", ":rows8", ...); K14's row policy (`word_runs_rows`,
+# finalize's reduce of the final run) one a width; the multiword kernels
+# have one record at k = 63 (W = 4) and one each at W = 8 and W = 16
+# (":w8", ":w16").
 WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
-        "walk_decode_words", "plane_rows", "sort_ties:main")
-WIDE8, WIDE16 = (tuple(f"{n}{w}" if n == "sort_ties:main" else f"{n.split(':')[0]}:w{w}"
-                       for n in WIDE) for w in (8, 16))
+        "walk_decode_words", "plane_rows", "sort_ties:main", "radix_sort:main",
+        "radix_sort:rows", "word_runs_rows")
+WIDE8, WIDE16 = (tuple(f"{n}{w}" if n.startswith(("sort_ties:", "radix_sort:"))
+                       else f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
 KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
 # the tensor path and the graph API past four words (phase 10): K13, K14's
 # run lengths, K15, K10-K12 and K20 at W = 8 (k = 127) and W = 16 (k = 255)
@@ -418,6 +445,25 @@ def record(err: int, ms: float, plain_ms: float, moved: int, library_ms=None,
                 library_ms=library_ms, bound_note=bound_note)
 
 
+def sort_record(err: int, fn, keys, payload, reps: int = 10) -> dict:
+    """K22's record for one sort of keys (n,) int64 (the keys themselves, or
+    the top keys a row source gives) with payload (None, an (n,) tensor, or
+    "index": each key's index): its time beside the plain version's
+    (torch.sort(stable=True) and the payload's gather, on the same keys)
+    and torch.sort's (library_ms: the call the port made before K22, which
+    computes the same order); the bound: the keys (and payload) read once
+    and written once (an index is only written)."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    index = isinstance(payload, str)
+    pay = torch.arange(keys.shape[0], device=keys.device) if index else payload
+    moved = 2 * nbytes(keys, None if index else payload) + (nbytes(pay) if index else 0)
+    return record(err, cuda_ms(fn, reps), cuda_ms(lambda: count.radix_sort_plain(keys, pay), reps),
+                  moved, cuda_ms(lambda: torch.sort(keys, stable=True), reps))
+
+
 # K18 and K19 wait on their Bloom probes, not on their bytes
 WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
                    "(scripts/ab_kernels.py --only walk, PERF.md rows 10-11c)")
@@ -512,16 +558,28 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     del view
     k1_adversarial()
 
-    # K2: raw slab, then a merge with a count payload, then the solid compaction
-    skeys = torch.sort(got).values
+    # K22 on the slab (keys only: DeviceCounter._slab_run); K2: the raw slab,
+    # then a merge with a count payload (K22 carrying the counts:
+    # _merge_sorted), then the solid compaction
+    skeys = count.radix_sort(got)
+    records["radix_sort"] = sort_record(max_abs_err(skeys, count.radix_sort_plain(got)),
+                                        lambda: count.radix_sort(got), got, None)
     sk_c = skeys.cpu()
     rk, rc, _ = count.runs(skeys)
     pk, pc, _ = count.runs_plain(sk_c)
     err = max(max_abs_err(rk, pk), max_abs_err(rc, pc))
-    mk = torch.cat([rk, rk[::3]])
-    mc = torch.cat([rc, rc[::3]])
-    ms, perm = torch.sort(mk)
-    mc = mc[perm]
+    mk = torch.cat([rk, rk[::3]]).flip(0)
+    mc0 = torch.cat([rc, rc[::3]]).flip(0)
+    ms, mc = count.radix_sort(mk, mc0, 2 * K)  # k-mer keys: 2k bits, as the merge sorts them
+    serr = max(max_abs_err(a, b) for a, b in zip((ms, mc), count.radix_sort_plain(mk, mc0)))
+    records["radix_sort:merge"] = sort_record(serr, lambda: count.radix_sort(mk, mc0, 2 * K),
+                                              mk, mc0)
+    log(f"radix_sort ok: the slab's {got.numel()} keys {records['radix_sort']['ms']:.4f} ms "
+        f"(torch.sort {records['radix_sort']['library_ms']:.4f}), the merge's {mk.numel()} keys "
+        f"with their counts {records['radix_sort:merge']['ms']:.4f} ms (torch.sort "
+        f"{records['radix_sort:merge']['library_ms']:.4f})")
+    del mk, mc0
+    sort_adversarial()
     gk, gc, gh = count.runs(ms, mc, 1, True)
     wk, wc, wh = count.runs_plain(ms.cpu(), mc.cpu(), 1, True)
     err_m = max(max_abs_err(gk, wk), max_abs_err(gc, wc), max_abs_err(gh, wh))
@@ -836,6 +894,133 @@ def lookup_adversarial() -> None:
             n_hits += int(hit.sum())
     log(f"solid_lookup ok on {len(K8_CASES)} adversarial runs at k = {K8_KS} "
         f"({n_hits} hits)")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K22 on adversarial inputs (tests/test_torch_radix_sort_model.py
+# runs the same cases through a numpy model of its passes)
+# ---------------------------------------------------------------------------
+
+SORT_CASES = ("n0", "n1", "n2", "tile_m1", "tile", "tile_p1", "equal", "top_digit",
+              "bottom_digit", "sentinel_tail", "sign", "odd_passes", "even_passes", "dups")
+SORT_ROWS_WS = (1, 2, 3, 4, 8, 16)
+# the digits each case's keys differ in (None: any number)
+SORT_DIGITS = {"equal": (), "top_digit": (7,), "bottom_digit": (0,), "odd_passes": (0, 3, 6),
+               "even_passes": (1, 5)}
+# the low bits a case's sort is told its keys differ in (radix_sort's bits;
+# 64 for the rest): one pass, or 7 and 6 passes over digits that are
+# constant among them
+SORT_BITS = {"equal": 0, "bottom_digit": 8, "odd_passes": 56, "even_passes": 48}
+
+
+def sort_case(name: str, tiles: int = 3):
+    """(n,) int64 keys of one adversarial K22 input: n = 0, 1, 2 (the two
+    descending), one tile - 1, one tile, one tile + 1; else `tiles` tiles
+    and 123 keys (the look-back across tiles, a last tile not full): all
+    keys equal, keys that differ only in the top digit (the int64 sign
+    among it) or only in the bottom one, 62-bit keys with SENTINEL at one
+    position in four and a SENTINEL tail (the k <= 31 slab), keys over the
+    whole int64 range with INT64_MIN, -1, 0 and INT64_MAX (both sides of the
+    sign), keys that differ in digits 0, 3 and 6 (sorted over 56 bits: seven
+    passes, the output in the first buffer) or in 1 and 5 (48 bits: six
+    passes, in the second), and keys drawn from 300 values (ties, so
+    stability shows in a payload)."""
+    import zlib
+
+    import numpy as np
+
+    from leon_tpu_torch.ops import count
+
+    tile = count.RADIX_TILE
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    sizes = {"n0": 0, "n1": 1, "n2": 2, "tile_m1": tile - 1, "tile": tile, "tile_p1": tile + 1}
+    n = sizes.get(name, tiles * tile + 123)
+    u = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    if name == "n2":
+        u = np.array([5, 1 << 63 | 3], np.uint64)  # 5, then a negative key
+    elif name in SORT_DIGITS:
+        base = rng.integers(0, 1 << 64, dtype=np.uint64)
+        u = np.full(n, base, np.uint64)
+        for d in SORT_DIGITS[name]:
+            byte = rng.integers(0, 256, n, dtype=np.uint64)
+            u = (u & ~np.uint64(0xFF << (8 * d))) | (byte << np.uint64(8 * d))
+    elif name == "sentinel_tail":
+        u = rng.integers(0, 1 << 62, n, dtype=np.uint64)
+        u[rng.random(n) < 0.25] = (1 << 63) - 1
+        u[-1000:] = (1 << 63) - 1
+    elif name == "sign":
+        u[:4] = np.array([1 << 63, (1 << 64) - 1, 0, (1 << 63) - 1], np.uint64)
+        u = u[rng.permutation(n)]
+    elif name == "dups":
+        u = rng.integers(0, 1 << 64, 300, dtype=np.uint64)[rng.integers(0, 300, n)]
+    return u.view(np.int64)
+
+
+def sort_payload(n: int, seed: int):
+    """An (n,) int32 payload for a K22 case, random bits."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
+
+
+def sort_rows_case(W: int, n: int, seed: int) -> tuple:
+    """(rows (N, W) int32, idx (n,) int64) for K22's row source: top words
+    from a few values (ties), the lower ones random; idx picks n of the N =
+    n + n // 3 rows in a random order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N = n + n // 3
+    rows = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+    tops = rng.integers(0, 1 << 32, (50, min(W, 2)), dtype=np.uint64)
+    tops[:4, -1] = (0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+    rows[:, W - min(W, 2):] = tops[rng.integers(0, 50, N)]
+    idx = rng.permutation(N)[:n].astype(np.int64)
+    return rows.astype(np.uint32).view(np.int32), idx
+
+
+def sort_adversarial() -> None:
+    """K22 against its plain version, exactly, keys and payload, on every
+    sort_case, over 64 bits and over the case's SORT_BITS: keys alone, with
+    sort_payload's int32 payload, with their index; the keys also as a
+    non-contiguous view; then the row source on sort_rows_case at each W of
+    SORT_ROWS_WS, with and without idx."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    n_keys = 0
+    for name in SORT_CASES:
+        keys = sort_case(name)
+        kc = torch.from_numpy(keys)
+        kd = kc.to(dev)
+        pc = torch.from_numpy(sort_payload(keys.shape[0], len(name)))
+        ic = torch.arange(keys.shape[0])
+        for bits in sorted({64, SORT_BITS.get(name, 64)}):
+            max_abs_err(count.radix_sort(kd, bits=bits), count.radix_sort_plain(kc))
+            for a, b in zip(count.radix_sort(kd, pc.to(dev), bits),
+                            count.radix_sort_plain(kc, pc)):
+                max_abs_err(a, b)
+            for a, b in zip(count.radix_sort_index(kd, bits), count.radix_sort_plain(kc, ic)):
+                max_abs_err(a, b)
+        wide = torch.stack([kd, -kd], dim=1)[:, 0]  # every other int64 of its storage
+        max_abs_err(count.radix_sort(wide), count.radix_sort_plain(kc))
+        n_keys += keys.shape[0]
+    for W in SORT_ROWS_WS:
+        rows, idx = sort_rows_case(W, 3 * count.RADIX_TILE + 7, W)
+        rc, ic = torch.from_numpy(rows), torch.from_numpy(idx)
+        rd, id_ = rc.to(dev), ic.to(dev)
+        for a, b in zip(count.radix_sort_rows(rd, id_), count.radix_sort_rows(rc, ic)):
+            max_abs_err(a, b)
+        for a, b in zip(count.radix_sort_rows(rd), count.radix_sort_rows(rc)):
+            max_abs_err(a, b)
+        max_abs_err(count.radix_sort_rows(rd, id_, index=False),
+                    count.radix_sort_rows(rc, ic, index=False))
+    log(f"radix_sort ok on {len(SORT_CASES)} adversarial inputs ({n_keys} keys over 64 bits and "
+        f"their SORT_BITS; alone, with an int32 payload and the index, as a strided view) and "
+        f"on rows at W = {SORT_ROWS_WS}")
 
 
 # ---------------------------------------------------------------------------
@@ -1824,7 +2009,7 @@ def yeast_solid() -> tuple:
     packed, ln = torch.cat([packed, packed]), torch.cat([ln, ln])
     del genome, seq, idx, codes, words
 
-    keys = torch.sort(kmer.kmer_scan(packed, ln, K, Lw)).values
+    keys = count.radix_sort(kmer.kmer_scan(packed, ln, K, Lw))
     uk, uc, _ = count.runs(keys)
     del keys, packed
     cutoff = 2
@@ -2524,7 +2709,7 @@ def k4_agrees(enc: dict, k4: dict, L: int) -> None:
 
 def tensor_phase(records: dict, bench_state: dict) -> dict:
     """The tensor-level k-mer path on phase 3's 458,752 bench reads (L =
-    104): at k = 31 the scan (K13) and count (torch.sort + K14) must give
+    104): at k = 31 the scan (K13) and count (K22 + K14) must give
     phase 3's distinct run and solid keys (at k = 63 the count takes the
     top sort, K20 and K14, and must equal count_batch_plain), K16 over the solid rows K3's
     bitset, and K15 on one chunk K4's walk; at k = 63 (W = 4) scan, count,
@@ -2740,7 +2925,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import bloom, count, kmer, walk
 
-    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties = names
+    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties, n_top, n_rtop, n_wrows = names
     dev = torch.device("cuda")
     L = codes.shape[1]
     W = kmer.words_for_k(k)
@@ -2780,7 +2965,15 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
         err, cuda_ms(lambda: count.plane_rows(h0, W), 10),
         cuda_ms(lambda: count.plane_rows_plain(h0, W), 2), nbytes(h0, rows0, top0))
     log(f"{n_prows} ok: {h0[0].numel()} slab rows ({tag})")
-    del rows0, top0, h0
+    # K22 on the slab's top keys with their index, as sort_slab runs it
+    bits = count.top_key_bits(k)
+    got = count.radix_sort_index(top0, bits)
+    err = max(max_abs_err(a, b) for a, b in
+              zip(got, count.radix_sort_plain(top0, torch.arange(top0.shape[0], device=dev))))
+    records[n_top] = sort_record(err, lambda: count.radix_sort_index(top0, bits), top0, "index")
+    log(f"{n_top} ok: the slab's {top0.numel()} top keys with their index ({tag}) "
+        f"{records[n_top]['ms']:.4f} ms (torch.sort {records[n_top]['library_ms']:.4f})")
+    del rows0, top0, h0, got
 
     # the WordCounter's sorts (sort_slab: K21, the top sort, K20; sort_rows:
     # the top sort, K20 with the counts), each equal to the LSD sort of the
@@ -2788,7 +2981,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     # their merge (counts + histogram), solid mode
     slab_runs = []
     for i, h in enumerate(planes):
-        srt = count.sort_slab(h, W)
+        srt = count.sort_slab(h, W, bits)
         got = count.word_runs(srt, W)
         if i == 0:
             lsd = count.sort_planes(h)
@@ -2801,12 +2994,21 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     words = torch.cat([r[0] for r in slab_runs])
     counts = torch.cat([r[1] for r in slab_runs])
     del slab_runs
-    mpl, mc = count.sort_rows(words, counts)
+    mpl, mc = count.sort_rows(words, counts, bits)
     lpl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
     lc = counts[perm]
     err = max(err, *(max_abs_err(a, b) for a, b in zip(mpl, lpl)))
-    # K20 with the counts as its payload, as sort_rows launches it
-    keys, src = torch.sort(count._top_keys(words))
+    # K22 reading the merge's top keys from its rows with their index, and
+    # K20 with the counts as its payload, as sort_rows launches them
+    keys, src = count.radix_sort_rows(words, bits=bits)
+    tk = count._top_keys(words)
+    err_t = max(max_abs_err(a, b) for a, b in
+                zip((keys, src), count.radix_sort_plain(tk, torch.arange(tk.shape[0], device=dev))))
+    records[n_rtop] = sort_record(err_t, lambda: count.radix_sort_rows(words, bits=bits), tk,
+                                  "index")
+    log(f"{n_rtop} ok: the merge's {tk.numel()} top keys read from its rows ({tag}) "
+        f"{records[n_rtop]['ms']:.4f} ms (torch.sort {records[n_rtop]['library_ms']:.4f})")
+    del tk
     tp, tc = count.sort_ties(keys, src, words, W, counts)
     pp, pc = count.sort_ties_plain(keys, src, words, W, counts)
     terr = max(max_abs_err(a, b) for a, b in zip(tp + (tc,), pp + (pc,)))
@@ -2815,7 +3017,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
         cuda_ms(lambda: count.sort_ties_plain(keys, src, words, W, counts), 2),
         nbytes(keys, src, words, counts, tp, tc), bound_note=TIES_BOUND_NOTE)
     log(f"{n_ties} ok: {words.shape[0]} merge rows with their counts ({tag}); the merge's "
-        f"sort {cuda_ms(lambda: count.sort_rows(words, counts), 5):.4f} ms, its LSD sort "
+        f"sort {cuda_ms(lambda: count.sort_rows(words, counts, bits), 5):.4f} ms, its LSD sort "
         f"{cuda_ms(lambda: count.sort_planes(state.words_to_planes(words), True), 2):.4f} ms")
     del words, counts, perm, keys, src, tp, tc, pp, pc
     gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
@@ -2824,7 +3026,22 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     del lpl, lc
     hist = gh.cpu().numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
+    # K14's row policy on the final run, as finalize reduces it and compacts
+    # its solid rows, against K14 over the run's planes
+    gpl = state.words_to_planes(gw)
+    rw = count.word_runs_rows(gw, gc, 1, True)
+    err_w = max(max_abs_err(a, b) for a, b in zip(rw, count.word_runs(gpl, W, gc, 1, True)))
     sw, sc = count.compact_solid_words(gw, gc, cutoff)
+    pw, pc, _ = count.word_runs(gpl, W, gc, cutoff)
+    err_w = max(err_w, max_abs_err(sw, pw), max_abs_err(sc, pc))
+    records[n_wrows] = record(
+        err_w, cuda_ms(lambda: count.word_runs_rows(gw, gc, 1, True), 5),
+        cuda_ms(lambda: count.word_runs_plain(state.words_to_planes(gw), W, gc, 1, True), 2),
+        nbytes(gw, gc, rw))
+    log(f"{n_wrows} ok: the final run's {gw.shape[0]} rows ({tag}) "
+        f"{records[n_wrows]['ms']:.4f} ms, K14 over its planes "
+        f"{cuda_ms(lambda: count.word_runs(gpl, W, gc, 1, True), 5):.4f} ms")
+    del gpl, rw
     pw, pc, _ = count.word_runs_plain(state.words_to_planes(gw), W, gc, cutoff)
     err = max(err, max_abs_err(sw, pw), max_abs_err(sc, pc))
     records[n_runs] = record(
@@ -3387,6 +3604,41 @@ def check_pin(label: str, arc: str, st: dict, pin: dict) -> tuple:
     return size, digest
 
 
+class CudaGuards:
+    """A context in which torch.sort, ops.count.words_to_planes and
+    ops.count._top_keys raise on a CUDA tensor (they still run on CPU
+    tensors), restored on exit: phase 6 shows that the count path sorts on
+    K22 and reduces the final run with K14's row policy, no library sort and
+    no elementwise plane or key building on the card."""
+
+    def __enter__(self):
+        import torch
+
+        from leon_tpu_torch.ops import count
+
+        self.saved = (torch.sort, count.words_to_planes, count._top_keys)
+
+        def guard(name, fn):
+            def call(x, *args, **kwargs):
+                if isinstance(x, torch.Tensor) and x.is_cuda:
+                    raise AssertionError(f"{name} called on a CUDA tensor on the main path")
+                return fn(x, *args, **kwargs)
+            return call
+
+        torch.sort = guard("torch.sort", self.saved[0])
+        count.words_to_planes = guard("ops.count.words_to_planes", self.saved[1])
+        count._top_keys = guard("ops.count._top_keys", self.saved[2])
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from leon_tpu_torch.ops import count
+
+        torch.sort, count.words_to_planes, count._top_keys = self.saved
+        return False
+
+
 def main_path(records: dict, card: str, paths: dict) -> None:
     import torch
 
@@ -3422,14 +3674,15 @@ def main_path(records: dict, card: str, paths: dict) -> None:
         cfg = LeonConfig(noheader=True, noqual=True, **extra)
         kernels.launches.clear()
         torch.cuda.synchronize()
-        t = time.time()
-        st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
-        torch.cuda.synchronize()
-        t_c = time.time() - t
-        t = time.time()
-        pipeline.decompress(arc, out, cfg=cfg, device="cuda")
-        torch.cuda.synchronize()
-        t_d = time.time() - t
+        with CudaGuards():
+            t = time.time()
+            st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
+            torch.cuda.synchronize()
+            t_c = time.time() - t
+            t = time.time()
+            pipeline.decompress(arc, out, cfg=cfg, device="cuda")
+            torch.cuda.synchronize()
+            t_d = time.time() - t
         launches = dict(kernels.launches)
 
         if seq_lines(src) != seq_lines(out):

@@ -6,8 +6,9 @@
 // Replaces the count programs of leon_tpu/ops/count.py that follow the
 // sort: _sort_count_device's boundaries and run lengths (45-85),
 // _compact_run (208-223), _merge_sorted_runs' segment sums (226-254),
-// _hist_of_sorted (257-264) and compact_solid (707-719). The sort itself
-// stays a library call (torch.sort), as the reference leaves it to lax.sort.
+// _hist_of_sorted (257-264) and compact_solid (707-719). The sort before
+// them is K22 radix_sort (csrc/sort.cu), as the reference sorts in the same
+// programs with lax.sort.
 //
 // Semantics: SENTINEL keys are ignored; a run's value is its length, or
 // the u32-wrapping sum of its int32 counts clamped to 2^31-1 (exactly the
@@ -418,8 +419,8 @@ struct KeyRows {
 // columns, run lengths by a reverse min-scan, the host compaction of the
 // boundary rows; and, at W = 2..16 on the main path, _compact_run (208-223),
 // _merge_sorted_runs' segment sums (226-254), _hist_of_sorted (257-264) and
-// compact_solid (707-719). The sort stays torch.sort passes over int64
-// plane keys.
+// compact_solid (707-719). The sort before it is K22 radix_sort of the
+// rows' top 64 bits and K20 below (W >= 3), or K22 of the one plane.
 //
 // Input: the sorted keys as NP = ceil(W/2) int64 planes (kmer_words.cuh),
 // the rows already the valid ones (no sentinel: at k = 16W a canonical
@@ -444,9 +445,18 @@ struct KeyRows {
 // consecutive words. ITEMS shrinks with NP so that the staging rows stay
 // within the 48 KB of static shared memory (8 rows a lane at NP = 1, 4 at
 // NP <= 4, 2 past it).
+//
+// The row policy (ROWSIN; the WordCounter's final run, already sorted:
+// finalize's reduce and its solid compaction): the same passes over (n, W)
+// u32 rows as they stand, a row's "planes" read as its word pairs (words 2q
+// and 2q + 1 in one 8-byte load where W is even and the rows 8-byte aligned),
+// unflipped; a run boundary is any word that differs from the row before, and
+// each emitted row is copied out as it stands. It takes the place of
+// state.words_to_planes before K14 (PyTorch's elementwise kernels over the
+// whole run). Counts payload only (the counter's runs always carry one).
 // ---------------------------------------------------------------------------
 
-template <int NP, bool COUNTS>
+template <int NP, bool COUNTS, bool ROWSIN = false>
 struct WordRows {
   static constexpr int ITEMS = NP == 1 ? 8 : NP <= 4 ? 4 : 2;  // ops/count.py _word_runs_step
   static constexpr int STEP = 32 * ITEMS;
@@ -470,7 +480,17 @@ struct WordRows {
   int32_t* out_v32;    // word_runs: clamped values
   long long* out_v64;  // runs_words: lengths (used when not null)
   int W;
+  const uint32_t* rw;  // ROWSIN: the (n, W) rows
+  bool vec8;           // ROWSIN: W even and rw 8-byte aligned
 
+  // plane q of row r: the plane, or (ROWSIN) words 2q + 1 and 2q of the row
+  __device__ __forceinline__ int64_t unit(long long r, int q) const {
+    if (!ROWSIN) return __ldg(pl.p[q] + r);
+    if (vec8) return (int64_t)__ldg(reinterpret_cast<const unsigned long long*>(rw + r * W) + q);
+    const uint32_t* p = rw + r * W + 2 * q;
+    const uint32_t hi = 2 * q + 1 < W ? __ldg(p + 1) : 0u;
+    return (int64_t)(((unsigned long long)hi << 32) | __ldg(p));
+  }
   __device__ __forceinline__ void load(long long n, long long base, Buf& b) const {
     const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -478,14 +498,14 @@ struct WordRows {
       const long long r = base + 32 * j + lane;
       const bool ok = r < n;
 #pragma unroll
-      for (int q = 0; q < NP; ++q) b.k[j][q] = ok ? __ldg(pl.p[q] + r) : 0;
+      for (int q = 0; q < NP; ++q) b.k[j][q] = ok ? unit(r, q) : 0;
       if (COUNTS) b.v[COUNTS ? j : 0] = ok ? (uint32_t)__ldg(counts + r) : 0u;
     }
   }
   __device__ __forceinline__ Prev before(long long, long long base) const {
     Prev p;
 #pragma unroll
-    for (int q = 0; q < NP; ++q) p.k[q] = base > 0 ? __ldg(pl.p[q] + base - 1) : 0;
+    for (int q = 0; q < NP; ++q) p.k[q] = base > 0 ? unit(base - 1, q) : 0;
     return p;
   }
   __device__ __forceinline__ Prev last(const Buf& b) const {
@@ -500,7 +520,7 @@ struct WordRows {
                                       uint32_t s, int* hp) const {
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
-      const unsigned long long x = (unsigned long long)key[q] ^ (1ull << 63);
+      const unsigned long long x = (unsigned long long)key[q] ^ (ROWSIN ? 0ull : 1ull << 63);
       const unsigned i = slot * W + 2 * q;
       stage.w[i + (i >> 5)] = (uint32_t)x;
       if (2 * q + 1 < W) stage.w[i + 1 + ((i + 1) >> 5)] = (uint32_t)(x >> 32);
@@ -745,6 +765,51 @@ static int words_pass(bool write, const void* planes, int n_planes, const void* 
 #undef LAUNCH
 }
 
+// K14's row policy: both passes over (n, W) u32 rows (W <= 16) with int32
+// counts, as words_pass over their planes.
+static int rows_pass(bool write, const void* rows, int W, const void* counts, long long n,
+                     int cutoff, void* hist, void* out_w, void* out_v32, void* scratch,
+                     long long scratch_bytes, void* total, void* stream) {
+  if (n < 0 || n > 0xFFFFFFFFll || W < 1 || W > 16 || (n > 0 && (!rows || !counts)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint32_t* rw = (const uint32_t*)rows;
+  const bool vec8 = W % 2 == 0 && (reinterpret_cast<uintptr_t>(rows) & 7) == 0;
+  const int32_t* c = (const int32_t*)counts;
+  int32_t* hs = (int32_t*)hist;
+  uint32_t* ow = (uint32_t*)out_w;
+  int32_t* o32 = (int32_t*)out_v32;
+#define CASE(NP_)                                                                         \
+  case NP_: {                                                                             \
+    const WordRows<NP_, true, true> r{PlanePtrs{}, c, hs, ow, o32, nullptr, W, rw, vec8}; \
+    return write ? pass_write(r, n, cutoff, scratch, scratch_bytes, st)                   \
+                 : pass_count(r, n, cutoff, scratch, scratch_bytes, total, st);           \
+  }
+  switch ((W + 1) / 2) {
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// K14's row policy, count pass: *total = the runs emitted.
+extern "C" int lt_word_runs_rows_count(const void* rows, int W, const void* counts, long long n,
+                                       int cutoff, void* scratch, long long scratch_bytes,
+                                       void* total, void* stream) {
+  return rows_pass(false, rows, W, counts, n, cutoff, nullptr, nullptr, nullptr, scratch,
+                   scratch_bytes, total, stream);
+}
+
+// K14's row policy, write pass: each emitted run's W words and its int32
+// clamped value (outputs may be null when R = 0); hist: 256 int32 or null.
+extern "C" int lt_word_runs_rows_write(const void* rows, int W, const void* counts, long long n,
+                                       int cutoff, void* hist, void* out_words, void* out_values,
+                                       void* scratch, long long scratch_bytes, void* stream) {
+  return rows_pass(true, rows, W, counts, n, cutoff, hist, out_words, out_values, scratch,
+                   scratch_bytes, nullptr, stream);
+}
+
 // K14's count pass (count_batch's runs_words: counts null, cutoff 1; the
 // WordCounter's word_runs: counts null for run lengths, or int32):
 // *total = R.
@@ -770,13 +835,13 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
 
 // ---------------------------------------------------------------------------
 // K20 sort_ties — count_batch's valid rows in the reference's order (u32
-// words, MSW first) after one library sort of their top 64 bits, written as
+// words, MSW first) after one K22 sort of their top 64 bits, written as
 // the P = ceil(W/2) sign-flipped int64 planes K14 reduces (W = 3..16).
 //
 // Replaces: the sort of leon_tpu/ops/count.py _sort_count_device (45-85,
-// lax.sort over W key columns, called from count_batch 88-104), with
-// torch.sort of one int64 key (words W-1 and W-2, sign-flipped) and its
-// row index before it. (The P-pass LSD sort it replaces gathered every
+// lax.sort over W key columns, called from count_batch 88-104), with K22
+// radix_sort (csrc/sort.cu) of one int64 key (words W-1 and W-2,
+// sign-flipped) and its row index before it. (The P-pass LSD sort it replaces gathered every
 // plane sorted so far again at each pass: P(P+1)/2 random plane gathers.)
 //
 // Input: keys (n,) int64 sorted ascending, src (n,) int64: sorted row i is
@@ -806,7 +871,7 @@ extern "C" int lt_word_runs_write(const void* planes, int n_planes, const void* 
 // device time against 0.87 / 1.78 / 3.16 at W = 4 / 8 / 16: PERF.md §6,
 // row 12b.) Longer
 // runs are listed for the caller, which orders them by the next plane
-// (torch.sort within each run) and runs these kernels again over them with
+// (two K22 sorts: by that plane, then by run) and runs these kernels again over them with
 // the finer runs as keys (ops/count.py _tie_rounds); in the last round the
 // keys cover every word, so every run is of equal rows and each thread
 // writes its own row (final).

@@ -8,7 +8,7 @@ entry(device)  -> (fn, example_args): the walk-encode step (kernel K15,
                   __graft_entry__.entry().
 dryrun(devices) -> __graft_entry__.dryrun_multichip on the port's mesh over
                   `devices`: steps 1-3, the tensor path (sharded k-mer scan
-                  (K13) and count (torch.sort + K14), the sharded Bloom
+                  (K13) and count (K22 + K14), the sharded Bloom
                   build (K16), the sharded encode (K15)); steps 4-5, the
                   product path (pipeline.compress and decompress with the
                   lanes sharded over the mesh: the archive equals the

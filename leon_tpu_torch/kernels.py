@@ -76,6 +76,10 @@ _SIGS = {
     "lt_word_runs_write": [_P, _I, _P, _I64, _I, _I, _P, _P, _P, _I, _P, _I64, _P],
     "lt_sort_ties": [_P, _P, _P, _I64, _I, _P, _I, _I, _P, _P, _P, _P, _I64, _P],
     "lt_plane_rows": [_P, _I, _I64, _I, _P, _P, _P],
+    "lt_word_runs_rows_count": [_P, _I, _P, _I64, _I, _P, _I64, _P, _P],
+    "lt_word_runs_rows_write": [_P, _I, _P, _I64, _I, _P, _P, _P, _P, _I64, _P],
+    "lt_radix_hist": [_P, _P, _I, _P, _I64, _P, _P, _P],
+    "lt_radix_pass": [_P, _P, _I, _P, _P, _I, _I64, _I, _P, _P, _P, _P, _I64, _P],
     "lt_bloom_build_words": [_P, _P, _I64, _I, _U, _U, _I, _I, _P, _P, _P],
     "lt_walk_dense": [_P, _P, _I, _I, _I, _I, _U, _P, _P, _I, _P, _P, _P],
     "lt_kmer_scan_halves": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _P, _P],

@@ -3,58 +3,62 @@ leon_tpu/ops/count.py).
 
 Device half (new): ``runs``, the wrapper of kernel K2 (csrc/count.cu): a
 reduce-by-key over a sorted int64 key array that emits each distinct key
-with its summed count, in order, and optionally the 256-bin count
-histogram: a count pass and a write pass, each warp reducing a stretch of
-rows, runs that cross stretches carried as associative Spans. It replaces
-the reference's boundary/run-length, compaction, merge-sum, histogram and
-solid-compaction programs (count.py:34-85, 208-264, 707-719). The sort before it is ``torch.sort``,
-as the reference leaves its sort to ``lax.sort``.
+with its summed count, in order, and optionally the 256-bin count histogram:
+a count pass and a write pass, each warp reducing a stretch of rows, runs
+that cross stretches carried as associative Spans. It replaces the
+reference's boundary/run-length, compaction, merge-sum, histogram and
+solid-compaction programs (count.py:34-85, 208-264, 707-719). The sort
+before it is ``radix_sort``, the wrapper of kernel K22 (csrc/sort.cu): a
+stable LSD radix sort of int64 keys (a pass for each 8-bit digit of the low
+bits in which the caller says they may differ, one histogram read first),
+alone or with an int32 payload or the keys' index, the keys read from an
+array or, in its first pass, from (N, W) rows' top 64 bits; it replaces the sorts inside the
+reference's count programs (``lax.sort``, count.py:60, 64, 233).
 
 ``DeviceCounter`` streams k-mer keys through one slab on the device: the
-scan kernel writes into the slab, a full slab is sorted and reduced to its
-distinct run, and runs merge (sort with the counts as payload, then K2)
+scan kernel writes into the slab, a full slab is sorted (K22) and reduced to
+its distinct run, and runs merge (K22 with the counts as payload, then K2)
 once they outgrow ``merge_factor`` slabs. Slab, merge and spill sizes are
 the config's (``count_slab_kmers``, ``count_merge_factor``,
-``count_spill_rows``). A merged run of ``spill_rows`` rows or more moves
-to host RAM (a non-blocking copy into pinned memory, resolved at the next
-spill or at finalize) and the device merge restarts empty, so the card
-holds at most a spill's rows plus ``merge_factor`` slabs of runs whatever
-the input's size. ``finalize`` after a spill merges every run on the host
-(the native k-way merge), takes the histogram, cutoff and the exact solid
-count there, and sends the solid rows to the card once for the Bloom build
+``count_spill_rows``). A merged run of ``spill_rows`` rows or more moves to
+host RAM (a non-blocking copy into pinned memory, resolved at the next spill
+or at finalize) and the device merge restarts empty, so the card holds at
+most a spill's rows plus ``merge_factor`` slabs of runs whatever the input's
+size. ``finalize`` after a spill merges every run on the host (the native
+k-way merge), takes the histogram, cutoff and the exact solid count there,
+and sends the solid rows to the card once for the Bloom build
 (count.py:285-306, 391-440, 504-524, 592-600, 643-706).
 
-``count_batch`` is the one-shot count of (B, P, W) canonical words
-(k <= 255, counterpart of count.py:88-104): at W >= 3 ``top_sort`` (one
-torch.sort of the valid rows' top 64 bits with their row index), then
-``sort_ties``, the wrapper of kernel K20 (csrc/count.cu), which gathers
+``count_batch`` is the one-shot count of (B, P, W) canonical words (k <=
+255, counterpart of count.py:88-104): at W >= 3 ``top_sort`` (one K22 sort
+of the valid rows' top 64 bits, read from the rows, with their row index),
+then ``sort_ties``, the wrapper of kernel K20 (csrc/count.cu), which gathers
 the rows in that order as sign-flipped int64 planes (with a payload a row,
-if given, to the row's place) and orders each run of equal top bits by
-the lower words (at W <= 2 one torch.sort of the one plane,
-``sort_words``); then ``runs_words``, the wrapper of kernel K14
-(csrc/count.cu), a reduce-by-key of run lengths over rows of up to 8
-planes (W <= 16). ``word_runs`` is K14 in K2's modes (a counts payload,
-cutoff, histogram) over the same rows. K14 is K2's two passes over
-multi-plane rows.
+if given, to the row's place) and orders each run of equal top bits by the
+lower words (at W <= 2 one K22 sort of the one plane); then ``runs_words``,
+the wrapper of kernel K14 (csrc/count.cu), a reduce-by-key of run lengths
+over rows of up to 8 planes (W <= 16). ``word_runs`` is K14 in K2's modes (a
+counts payload, cutoff, histogram) over the same rows. K14 is K2's two
+passes over multi-plane rows.
 
 ``WordCounter`` is DeviceCounter for 32 <= k <= 255 (the main path's
 multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
 planes into the slab; at W >= 3 ``sort_slab`` orders a slab as count_batch
 orders its rows: ``plane_rows``, the wrapper of kernel K21 (csrc/count.cu),
-turns the planes into (n, W) rows and top keys, one torch.sort of the keys
-with the row index, then K20; ``sort_rows`` orders the runs of a merge the
-same way, K20 carrying each row's count to its place (at W <= 2 both are
-one torch.sort of the one plane); K14 reduces slabs and merged runs,
-``compact_solid_words`` is K14's solid mode, and the Bloom build is K16
-over those solid rows.
-Both counters share ``_SlabCounter``'s slab, flush, merge, spill and
-finalize, on the reference's schedule (its bucketed run sizes decide every
-merge and spill), and take a chunk as lane shards (``add_shards``, the
-mesh) and a distinct run from elsewhere (``ingest_run``, the distributed
-count). ``merge_counts`` (host) is a copy of count.py:107-170,
-``histogram`` of count.py:173-174, ``_bucket_size`` of count.py:267-275,
-``range_boundaries`` and ``range_split`` of count.py:722-759,
-``auto_cutoff`` of count.py:761-784.
+turns the planes into (n, W) rows and top keys, one K22 sort of the keys
+with their index, then K20; ``sort_rows`` orders the runs of a merge the
+same way (K22 reading the top keys from the rows), K20 carrying each row's
+count to its place (at W <= 2 both are one K22 sort of the one plane); K14
+reduces slabs and merged runs, ``word_runs_rows`` (K14's row policy) the
+final run as (M, W) rows, ``compact_solid_words`` is that policy's solid
+mode, and the Bloom build is K16 over those solid rows. Both counters share
+``_SlabCounter``'s slab, flush, merge, spill and finalize, on the
+reference's schedule (its bucketed run sizes decide every merge and spill),
+and take a chunk as lane shards (``add_shards``, the mesh) and a distinct
+run from elsewhere (``ingest_run``, the distributed count). ``merge_counts``
+(host) is a copy of count.py:107-170, ``histogram`` of count.py:173-174,
+``_bucket_size`` of count.py:267-275, ``range_boundaries`` and
+``range_split`` of count.py:722-759, ``auto_cutoff`` of count.py:761-784.
 """
 
 from __future__ import annotations
@@ -75,6 +79,196 @@ from leon_tpu_torch.utils.trace import span
 _I32_MAX = 0x7FFFFFFF
 _M32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)  # int64 sign bit (state.words_to_planes' flip)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K22 (radix_sort) and its plain version
+# ---------------------------------------------------------------------------
+
+RADIX_TILE = 4096  # keys a tile of a K22 pass (csrc/sort.cu RS_TILE)
+RADIX_INDEX = "index"  # the payload of a sort that returns each key's index
+# csrc/sort.cu RS_PAY_*: none, int32, the index written as int64 or as
+# int32, int32 read and int64 written
+_PAY_NONE, _PAY_I32, _PAY_IDX, _PAY_IDX32, _PAY_I32W = range(5)
+
+
+def radix_passes(bits: int = 64) -> list:
+    """The digits a K22 sort runs a pass over, low digit first: the 8-bit
+    digits of the low `bits` bits, in which the caller says the keys may
+    differ (every key's higher bits are equal), and at least one, so that a
+    sort of equal keys still writes its output."""
+    return list(range(max(1, -(-bits // 8))))
+
+
+def radix_drive(bits: int, run_pass, alloc):
+    """K22's pass driver: a pass for each digit of radix_passes(bits); pass
+    i reads what pass i - 1 wrote (the first pass: the sort's source, given
+    as None) and writes buffer i mod 2 (two at most, each made by alloc()),
+    by run_pass(src, dst, digit, i). Returns the buffer of the last pass."""
+    bufs, src = [], None
+    for i, d in enumerate(radix_passes(bits)):
+        if len(bufs) <= i % 2:
+            bufs.append(alloc())
+        run_pass(src, bufs[i % 2], d, i)
+        src = bufs[i % 2]
+    return src
+
+
+def _radix_codes(kind, passes: int) -> list:
+    """The payload kind of each of a sort's passes (csrc/sort.cu RS_PAY_*)
+    for a payload `kind` (None, torch.int32, or RADIX_INDEX): an index
+    travels as int32 between a sort's first and last passes (4 bytes less a
+    key a pass), as int64 in a one-pass sort."""
+    if kind is None:
+        return [_PAY_NONE] * passes
+    if kind == torch.int32:
+        return [_PAY_I32] * passes
+    if passes == 1:
+        return [_PAY_IDX]
+    return [_PAY_IDX32] + [_PAY_I32] * (passes - 2) + [_PAY_I32W]
+
+
+def _radix_launch(n: int, dev, keys, rows, idx, payload, kind, bits: int):
+    """K22 on the card over n keys (keys (n,) int64, or the top 64 bits of
+    rows[idx] / rows, (N, W) int32): lt_radix_hist (every digit's bucket
+    offsets), then radix_drive's passes over the low `bits` bits. kind: the
+    payload's (None, torch.int32, or RADIX_INDEX: an index below 2**31).
+    Returns (keys, payload or None)."""
+    kernels.need(kind != RADIX_INDEX or (n if rows is None else rows.shape[0]) <= 1 << 31,
+                 "radix_sort: an index must fit an int32 between passes")
+    lib = kernels.lib()
+    st = kernels.stream(rows if keys is None else keys)
+    W = 0 if rows is None else rows.shape[1]
+    kp = None if keys is None else keys.data_ptr()
+    rp = None if rows is None else rows.data_ptr()
+    ip = None if idx is None else idx.data_ptr()
+    scratch = torch.empty(2 * 8 * 256, dtype=torch.int64, device=dev)
+    offsets = scratch[8 * 256 :]
+    rc = lib.lt_radix_hist(kp, rp, W, ip, n, scratch.data_ptr(), offsets.data_ptr(), st)
+    kernels.check(rc, "radix_sort")
+    status = torch.empty(256 * (-(-n // RADIX_TILE)) + 1, dtype=torch.int64, device=dev)
+    codes = _radix_codes(kind, len(radix_passes(bits)))
+    pay_dt = (None if kind is None else
+              torch.int32 if codes[0] in (_PAY_I32, _PAY_IDX32) else torch.int64)
+
+    def alloc():
+        return [torch.empty(n, dtype=torch.int64, device=dev),
+                None if pay_dt is None else torch.empty(n, dtype=pay_dt, device=dev)]
+
+    def run_pass(src, dst, d, i):
+        if codes[i] == _PAY_I32W:  # the last pass widens the index into int64
+            dst[1] = torch.empty(n, dtype=torch.int64, device=dev)
+        if src is None:  # the source: the keys or rows, the payload as given
+            args = (kp, rp, W, ip, None if payload is None else payload.data_ptr())
+        else:  # the pass before's buffer: keys and their payload
+            args = (src[0].data_ptr(), None, 0, None,
+                    None if src[1] is None else src[1].data_ptr())
+        rc = lib.lt_radix_pass(*args, codes[i], n, d, offsets.data_ptr(), dst[0].data_ptr(),
+                               None if dst[1] is None else dst[1].data_ptr(), status.data_ptr(),
+                               status.numel() * 8, st)
+        kernels.check(rc, "radix_sort")
+
+    out = radix_drive(bits, run_pass, alloc)
+    kernels.launches["radix_sort"] += 1
+    return out
+
+
+def _check_radix_args(keys, payload=None, bits: int = 64) -> None:
+    kernels.need(keys.dtype == torch.int64 and keys.dim() == 1,
+                 "radix_sort: keys must be (n,) int64")
+    kernels.need(0 <= bits <= 64, f"radix_sort: bits={bits} not in [0, 64]")
+    if payload is not None:
+        kernels.need(payload.dtype in (torch.int32, torch.int64) and payload.shape == keys.shape,
+                     "radix_sort: payload must be (n,) int32 or int64")
+        kernels.need(payload.device == keys.device, "radix_sort: tensors on two devices")
+
+
+def _check_bits(keys: torch.Tensor, bits: int) -> None:
+    """On the CPU, the callers' claim that the keys differ only in their low
+    `bits` bits (the card's passes cover no other digit)."""
+    if bits < 64 and keys.shape[0]:
+        kernels.need(bool((((keys ^ keys[0]) >> bits) == 0).all()),
+                     f"radix_sort: the keys differ above their low {bits} bits")
+
+
+def radix_sort(keys: torch.Tensor, payload: torch.Tensor | None = None, bits: int = 64):
+    """Keys (n,) int64 sorted ascending in signed order, stably, with the
+    int32 payload carried along (kernel K22; the order of
+    torch.sort(stable=True)): a pass for each 8-bit digit of the low `bits`
+    bits, in which the keys may differ (their higher bits are equal in
+    every key). Returns the sorted keys, or (keys, payload)."""
+    _check_radix_args(keys, payload, bits)
+    kernels.need(payload is None or payload.dtype == torch.int32,
+                 "radix_sort: the payload must be int32 (radix_sort_index: the index)")
+    if not kernels.on_cuda(keys, "radix_sort"):
+        _check_bits(keys, bits)
+        return radix_sort_plain(keys, payload)
+    n = keys.shape[0]
+    if n == 0:
+        return keys.clone() if payload is None else (keys.clone(), payload.clone())
+    k, p = _radix_launch(n, keys.device, keys.contiguous(), None, None,
+                         None if payload is None else payload.contiguous(),
+                         None if payload is None else torch.int32, bits)
+    return k if payload is None else (k, p)
+
+
+def radix_sort_index(keys: torch.Tensor, bits: int = 64) -> tuple:
+    """(keys sorted, each sorted key's index in keys), stably, as
+    torch.sort(keys, stable=True) gives them: K22 with the index as its
+    payload (written by its first pass), over the low `bits` bits as
+    radix_sort."""
+    _check_radix_args(keys, None, bits)
+    if not kernels.on_cuda(keys, "radix_sort"):
+        _check_bits(keys, bits)
+        return radix_sort_plain(keys, torch.arange(keys.shape[0], device=keys.device))
+    n = keys.shape[0]
+    if n == 0:
+        return keys.clone(), torch.zeros(0, dtype=torch.int64, device=keys.device)
+    return _radix_launch(n, keys.device, keys.contiguous(), None, None, None, RADIX_INDEX, bits)
+
+
+def radix_sort_rows(rows: torch.Tensor, idx: torch.Tensor | None = None, index: bool = True,
+                    bits: int = 64):
+    """The top 64 bits of (N, W) int32 rows (W <= 16), or of rows[idx], as
+    sign-flipped int64 keys (_top_keys) sorted stably, with the row each key
+    came from (idx[i], or i) when index: (keys, src), else keys. bits: as
+    radix_sort's. On the card K22 reads each key from its row in its first
+    pass."""
+    kernels.need(rows.dtype == torch.int32 and rows.dim() == 2 and 1 <= rows.shape[1] <= 16,
+                 "radix_sort_rows: rows must be (N, W <= 16) int32")
+    kernels.need(0 <= bits <= 64, f"radix_sort_rows: bits={bits} not in [0, 64]")
+    if idx is not None:
+        kernels.need(idx.dtype == torch.int64 and idx.dim() == 1 and idx.device == rows.device,
+                     "radix_sort_rows: idx must be (n,) int64 on the rows' device")
+    n = rows.shape[0] if idx is None else idx.shape[0]
+    if not kernels.on_cuda(rows, "radix_sort"):
+        src = idx if idx is not None else torch.arange(n, device=rows.device)
+        keys = _top_keys(rows, idx)
+        _check_bits(keys, bits)
+        return radix_sort_plain(keys, src if index else None)
+    if n == 0:
+        keys = torch.zeros(0, dtype=torch.int64, device=rows.device)
+        return (keys, keys.clone()) if index else keys
+    k, p = _radix_launch(n, rows.device, None, rows.contiguous(),
+                         None if idx is None else idx.contiguous(), None,
+                         RADIX_INDEX if index else None, bits)
+    return (k, p) if index else k
+
+
+def radix_sort_plain(keys: torch.Tensor, payload: torch.Tensor | None = None):
+    """Plain version of radix_sort (and of its index and row forms):
+    torch.sort(stable=True), then the payload (int32, or an int64 index)
+    gathered in that order."""
+    _check_radix_args(keys, payload)
+    vals, perm = torch.sort(keys, stable=True)
+    return vals if payload is None else (vals, payload[perm])
+
+
+def top_key_bits(k: int) -> int:
+    """The low bits in which the top keys (_top_keys) of canonical k-mers'
+    rows may differ: the 2k - 32 (W - 1) bits of word W - 1 and word W - 2's
+    32 (the bits above 2k are 0); at W <= 2 the k-mer's 2k bits."""
+    return 2 * k - 32 * max(words_for_k(k) - 2, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -317,16 +511,13 @@ def word_runs_plain(planes: tuple, W: int, counts: torch.Tensor | None = None,
 
 
 def sort_planes(planes, with_perm: bool = False):
-    """Sort rows by their planes, most significant (the last) first, signed:
-    one torch.sort for one plane, else an LSD sort (one stable torch.sort
-    per plane from plane 0 up, each carrying the sorted planes below it
-    along). Returns the sorted planes as a tuple, plus the permutation when
-    with_perm (to carry a payload along)."""
-    if len(planes) == 1:
-        if not with_perm:
-            return (torch.sort(planes[0]).values,)
-        lo, perm = torch.sort(planes[0], stable=True)
-        return (lo,), perm
+    """Sort rows by their planes, most significant (the last) first, signed,
+    with torch.sort(stable=True) (radix_sort_plain's sort): one sort for one
+    plane, else an LSD sort (one stable sort per plane from plane 0 up, each
+    carrying the sorted planes below it along). The plain versions' sort: no
+    card path runs it (the counters sort on K22). Returns the sorted planes
+    as a tuple, plus the permutation when with_perm (to carry a payload
+    along)."""
     low, perm = torch.sort(planes[0], stable=True)
     done = [low]
     for q in range(1, len(planes)):
@@ -345,10 +536,53 @@ def sort_words(words: torch.Tensor) -> tuple:
 
 def compact_solid_words(words: torch.Tensor, counts: torch.Tensor, cutoff: int):
     """Order-preserving compaction of a multiword distinct run to its rows
-    with count >= cutoff (leon_tpu count.compact_solid) — K14 in solid
-    mode. Returns (words (S, W) int32, counts (S,) int32)."""
-    out_w, out_c, _ = word_runs(words_to_planes(words), words.shape[1], counts, cutoff)
+    with count >= cutoff (leon_tpu count.compact_solid) — K14's row policy
+    in solid mode. Returns (words (S, W) int32, counts (S,) int32)."""
+    out_w, out_c, _ = word_runs_rows(words, counts, cutoff)
     return out_w, out_c
+
+
+def _check_word_runs_rows_args(words, counts) -> int:
+    kernels.need(words.dtype == torch.int32 and words.dim() == 2 and 1 <= words.shape[1] <= 16,
+                 "word_runs_rows: words must be (M, W <= 16) int32")
+    kernels.need(counts.dtype == torch.int32 and counts.shape == words.shape[:1],
+                 "word_runs_rows: counts must be (M,) int32")
+    kernels.need(counts.device == words.device, "word_runs_rows: tensors on two devices")
+    return words.shape[1]
+
+
+def word_runs_rows(words: torch.Tensor, counts: torch.Tensor, cutoff: int = 1,
+                   want_hist: bool = False):
+    """word_runs with its counts payload over (M, W) int32 rows sorted MSW
+    first, read as they stand: kernel K14's row policy (a run boundary is any
+    word that differs from the row before; the WordCounter's final run, so
+    that no words_to_planes runs on the card). Returns (words (R, W) int32,
+    values (R,) int32, hist or None) as word_runs."""
+    W = _check_word_runs_rows_args(words, counts)
+    if not kernels.on_cuda(words, "word_runs_rows"):
+        return word_runs_plain(words_to_planes(words), W, counts, cutoff, want_hist)
+    words, counts = words.contiguous(), counts.contiguous()
+    dev = words.device
+    n = words.shape[0]
+    kernels.need(n < 1 << 32, f"word_runs_rows: {n} rows: a run's length must fit a u32")
+    lib = kernels.lib()
+    nbytes = _runs_scratch_bytes(n, _word_runs_step(W))
+    scratch = torch.empty(-(-nbytes // 8) + 1, dtype=torch.int64, device=dev)  # + the total
+    hist = torch.empty(256, dtype=torch.int32, device=dev) if want_hist else None
+    st = kernels.stream(words)
+    rc = lib.lt_word_runs_rows_count(words.data_ptr(), W, counts.data_ptr(), n, int(cutoff),
+                                     scratch.data_ptr(), nbytes, scratch[-1:].data_ptr(), st)
+    kernels.check(rc, "word_runs_rows")
+    R = int(scratch[-1])
+    uniq = torch.empty(R, W, dtype=torch.int32, device=dev)
+    vals = torch.empty(R, dtype=torch.int32, device=dev)
+    rc = lib.lt_word_runs_rows_write(words.data_ptr(), W, counts.data_ptr(), n, int(cutoff),
+                                     hist.data_ptr() if hist is not None else None,
+                                     uniq.data_ptr(), vals.data_ptr(), scratch.data_ptr(), nbytes,
+                                     st)
+    kernels.check(rc, "word_runs_rows")
+    kernels.launches["word_runs_rows"] += 1
+    return uniq, vals, hist
 
 
 # ---------------------------------------------------------------------------
@@ -368,11 +602,14 @@ def _check_count_batch_args(canon, valid) -> int:
 
 
 def _top_keys(rows: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tensor:
-    """The top 64 bits of (N, W >= 3) int32 rows (or of rows[idx]): words W-1
-    and W-2 as one sign-flipped int64, whose signed order is their u32
-    order, MSW first."""
+    """The top 64 bits of (N, W) int32 rows (or of rows[idx]): words W-1 and
+    W-2 (word 0 alone at W = 1) as one sign-flipped int64, whose signed order
+    is their u32 order, MSW first (at W <= 2 the row's one plane)."""
     W = rows.shape[1]
-    if W % 2 == 0:  # words W-2 and W-1 are the last int64 of a row
+    if W == 1:
+        top = rows[:, 0].to(torch.int64) & _M32
+        top = top if idx is None else top[idx]
+    elif W % 2 == 0:  # words W-2 and W-1 are the last int64 of a row
         top = rows.view(torch.int64)[:, -1]
         top = top if idx is None else top[idx]
     else:
@@ -384,15 +621,15 @@ def _top_keys(rows: torch.Tensor, idx: torch.Tensor | None = None) -> torch.Tens
 
 
 def top_sort(canon: torch.Tensor, valid: torch.Tensor):
-    """count_batch's library sort (W >= 3): the valid rows of (B, P, W) int32
-    canon by their top 64 bits (_top_keys). Returns (keys (n,) int64 sorted,
-    src (n,) int64: sorted row i is row src[i] of rows, rows (B*P, W) int32,
-    canon's rows)."""
+    """count_batch's top sort (W >= 3): the valid rows of (B, P, W) int32
+    canon by their top 64 bits (_top_keys), K22 reading them from the rows.
+    Returns (keys (n,) int64 sorted, src (n,) int64: sorted row i is row
+    src[i] of rows, rows (B*P, W) int32, canon's rows)."""
     W = canon.shape[2]
     rows = canon.contiguous().reshape(-1, W)
     idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
-    keys, perm = torch.sort(_top_keys(rows, idx))
-    return keys, idx[perm], rows
+    keys, src = radix_sort_rows(rows, idx)
+    return keys, src, rows
 
 
 def _check_sort_ties_args(keys, src, rows, W: int, pay=None) -> None:
@@ -459,7 +696,7 @@ def _sort_ties_launch(keys, src, rows, W: int, out: tuple, dst, final: bool, pay
 def _tie_rounds(keys, src, rows, W: int, launch, pay=None):
     """K20's rounds: `launch` (the card's _sort_ties_launch, or a model of it)
     settles every run of up to TIE_BLOCK_RUN rows and returns the longer
-    ones; those are ordered by their next plane (a stable torch.sort by the
+    ones; those are ordered by their next plane (a stable K22 sort by the
     plane, then by run) and launched again with the runs of equal (run,
     plane) as keys, until the planes run out: in that last round every run
     holds equal rows (final). Returns the planes, and with pay ((N,) int32)
@@ -480,8 +717,9 @@ def _tie_rounds(keys, src, rows, W: int, launch, pay=None):
         src, pos = src[x], (x if pos is None else pos[x])
         u = rows[src].to(torch.int64) & _M32
         nxt = (u[:, 2 * q] | (u[:, 2 * q + 1] << 32 if 2 * q + 1 < W else 0)) ^ _SIGN
-        o1 = torch.sort(nxt, stable=True).indices
-        order = o1[torch.sort(run[o1], stable=True).indices]
+        o1 = radix_sort_index(nxt)[1]
+        # then by run: indices below the runs' count, a pass for each 8 of its bits
+        order = o1[radix_sort_index(run[o1], max(1, (lengths.shape[0] - 1).bit_length()))[1]]
         run, nxt, src = run[order], nxt[order], src[order]
         new = torch.ones_like(run, dtype=torch.bool)
         new[1:] = (run[1:] != run[:-1]) | (nxt[1:] != nxt[:-1])
@@ -510,22 +748,27 @@ def count_batch(canon: torch.Tensor, valid: torch.Tensor):
     count.count_batch, count.py:88-104): canon (B, P, W) int32 u32 words,
     valid (B, P) bool, W <= 16 (k <= 255). Returns (uniq (M, W) int32 words
     sorted MSW first, counts (M,) int64) on canon's device: at W <= 2 the
-    valid rows sorted by torch.sort (one plane), else top_sort and K20
-    sort_ties; then K14 runs_words."""
+    valid rows' one plane sorted by K22 (read from the rows), else top_sort
+    and K20 sort_ties; then K14 runs_words."""
     W = _check_count_batch_args(canon, valid)
     if W <= 2:
-        return runs_words(sort_words(canon.reshape(-1, W)[valid.reshape(-1)]), W)
+        rows = canon.contiguous().reshape(-1, W)
+        idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
+        return runs_words((radix_sort_rows(rows, idx, index=False),), W)
     return runs_words(sort_ties(*top_sort(canon, valid), W), W)
 
 
 def count_batch_plain(canon: torch.Tensor, valid: torch.Tensor):
-    """Plain version of count_batch: the same library sorts, sort_ties_plain
-    and runs_words_plain."""
+    """Plain version of count_batch: torch.sort (sort_words; at W >= 3 of
+    the valid rows' _top_keys with their row index), sort_ties_plain and
+    runs_words_plain."""
     W = _check_count_batch_args(canon, valid)
     if W <= 2:
         planes = sort_words(canon.reshape(-1, W)[valid.reshape(-1)])
     else:
-        planes = sort_ties_plain(*top_sort(canon, valid), W)
+        rows = canon.contiguous().reshape(-1, W)
+        idx = torch.nonzero(valid.reshape(-1)).reshape(-1)
+        planes = sort_ties_plain(*radix_sort_plain(_top_keys(rows, idx), idx), rows, W)
     return runs_words_plain(planes, W)
 
 
@@ -567,32 +810,33 @@ def plane_rows_plain(planes: tuple, W: int) -> tuple:
     return rows, _top_keys(rows)
 
 
-def sort_slab(planes: tuple, W: int) -> tuple:
+def sort_slab(planes: tuple, W: int, bits: int = 64) -> tuple:
     """The WordCounter's slab, its rows as P sign-flipped int64 planes,
     sorted MSW first (the sort of leon_tpu/ops/count.py _fused_sort_count,
-    194-207). At W <= 2 one torch.sort of the one plane; else K21 (rows and
-    top keys), one torch.sort of the top keys with their row index, then K20.
+    194-207). At W <= 2 one K22 sort of the one plane; else K21 (rows and
+    top keys), one K22 sort of the top keys with their index, then K20.
+    bits: the low bits in which the top keys may differ (top_key_bits(k)).
     Returns the sorted planes (runs_words' and word_runs' input)."""
     if W <= 2:
-        return sort_planes(planes)
+        return (radix_sort(planes[0], bits=bits),)
     rows, top = plane_rows(planes, W)
-    keys, src = torch.sort(top)
+    keys, src = radix_sort_index(top, bits)
     return sort_ties(keys, src, rows, W)
 
 
-def sort_rows(words: torch.Tensor, counts: torch.Tensor) -> tuple:
+def sort_rows(words: torch.Tensor, counts: torch.Tensor, bits: int = 64) -> tuple:
     """The WordCounter's merge sort: (M, W) int32 rows with their int32
     counts, sorted MSW first with the counts carried along (lax.sort with the
     counts as payload in leon_tpu/ops/count.py _merge_sorted_runs, 226-254).
-    At W <= 2 one torch.sort of the one plane and the counts permuted; else
-    one torch.sort of the rows' top keys with their row index, then K20 with
-    the counts as its payload. Returns (planes, counts)."""
+    One K22 sort of the rows' top keys, read from the rows, with their row
+    index; at W <= 2 that key is the row's one plane and the counts are
+    permuted along, else K20 orders the rows with the counts as its payload.
+    bits: as sort_slab's. Returns (planes, counts)."""
     W = words.shape[1]
-    if W <= 2:
-        planes, perm = sort_planes(words_to_planes(words), with_perm=True)
-        return planes, counts[perm]
     words = words.contiguous()
-    keys, src = torch.sort(_top_keys(words))
+    keys, src = radix_sort_rows(words, bits=bits)
+    if W <= 2:
+        return (keys,), counts[src]
     return sort_ties(keys, src, words, W, counts)
 
 
@@ -1066,7 +1310,7 @@ class _SlabCounter:
 
 class DeviceCounter(_SlabCounter):
     """Counts canonical k-mers of k <= 31 as one int64 key each (K1 into the
-    slab, torch.sort, K2; the Bloom build K3)."""
+    slab, K22 radix_sort, K2; the Bloom build K3)."""
 
     def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
                  spill_rows: int = 64 << 20):
@@ -1077,13 +1321,12 @@ class DeviceCounter(_SlabCounter):
         return (kmer_scan(packed, lengths, self.k, L, out=out[0] if out else None),)
 
     def _slab_run(self, filled: list):
-        uk, uc, _ = runs(torch.sort(filled[0]).values)
+        uk, uc, _ = runs(radix_sort(filled[0]))
         return uk, uc
 
     def _merge_sorted(self, keys, counts, unsorted: bool, want_hist: bool):
-        if unsorted:
-            keys, perm = torch.sort(keys)
-            counts = counts[perm]
+        if unsorted:  # k-mer keys: 2k bits
+            keys, counts = radix_sort(keys, counts, 2 * self.k)
         return runs(keys, counts, 1, want_hist)
 
     def _bloom(self, keys, counts, cutoff: int, n_words: int, H: int, seed: int):
@@ -1103,10 +1346,12 @@ class WordCounter(_SlabCounter):
     the valid positions' P = ceil(W/2) sign-flipped int64 planes into the
     slab's P buffers (invalid rows are dropped, so no key marks them),
     sort_slab orders them (W >= 3: K21, the top sort, K20), K14 reduces;
-    runs are (M, W) int32 words with int32 counts, merged by sort_rows (W >=
-    3: the top sort, then K20 with the counts as its payload) and K14 in
-    count mode; the Bloom build is K14's solid mode, then K16 over those rows
-    (which finalize hands on for the unitig builder)."""
+    runs are (M, W) int32 words with int32 counts, merged by sort_rows (the
+    top sort from the rows; W >= 3: K20 with the counts as its payload) and
+    K14 in count mode; an already sorted final run is reduced by K14's row
+    policy (word_runs_rows); the Bloom build is that policy's solid mode,
+    then K16 over those rows (which finalize hands on for the unitig
+    builder)."""
 
     def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
                  spill_rows: int = 64 << 20):
@@ -1118,14 +1363,13 @@ class WordCounter(_SlabCounter):
         return kmer_scan_halves(packed, lengths, self.k, L, out=tuple(out) if out else None)
 
     def _slab_run(self, filled: list):
-        words, counts, _ = word_runs(sort_slab(filled, self.W), self.W)
+        words, counts, _ = word_runs(sort_slab(filled, self.W, top_key_bits(self.k)), self.W)
         return words, counts
 
     def _merge_sorted(self, words, counts, unsorted: bool, want_hist: bool):
-        if unsorted:
-            planes, counts = sort_rows(words, counts)
-        else:
-            planes = words_to_planes(words)
+        if not unsorted:
+            return word_runs_rows(words, counts, 1, want_hist)
+        planes, counts = sort_rows(words, counts, top_key_bits(self.k))
         return word_runs(planes, self.W, counts, 1, want_hist)
 
     def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):

@@ -2,7 +2,7 @@
 leon_tpu/pipeline.py), on one device or lane-sharded over several.
 
   compress:   parse -> k-mer scan into count slabs (K1) -> sort + reduce
-              (torch.sort + K2) -> abundance cutoff -> Bloom build (K3) ->
+              (K22 radix_sort + K2) -> abundance cutoff -> Bloom build (K3) ->
               solid compaction (K2) -> unitig build -> anchor + walk
               encode (K4) -> host stream assembly -> container
   decompress: container -> Bloom + dict -> decode re-walk (K4) -> host
@@ -11,10 +11,10 @@ leon_tpu/pipeline.py), on one device or lane-sharded over several.
 That is the route for k <= 31, one int64 key per k-mer. For 32 <= k <= 255
 (W = 2..16 u32 words) the same stages run on the multiword route: K17 scans
 each chunk's valid k-mers into the slab as ceil(W/2) sign-flipped int64 planes,
-torch.sort passes + K14 count and merge (count.WordCounter), K16 builds the
-Bloom filter, K14 compacts the solid rows, K18 walk-encodes (walk_pack as
-before) and K19 re-walks at decode. The host halves (unitig builder, DICT,
-stream assembly) are W-generic copies.
+K21, K22 and K20 sort them, K14 counts and merges (count.WordCounter), K16
+builds the Bloom filter, K14's row policy compacts the solid rows, K18
+walk-encodes (walk_pack as before) and K19 re-walks at decode. The host
+halves (unitig builder, DICT, stream assembly) are W-generic copies.
 
 The unitig build takes one of the reference's two paths
 (leon_tpu/pipeline.py:636-722), at every k: when 0 < n_solid <=

@@ -10,7 +10,7 @@ there is one, on inputs made from fixed seeds.
 
     python3 scripts/ab_kernels.py --tree PATH [--label NAME]
         [--only k2,k8,scan,k14,walk,dense,tensor,bloom,rank,k3,links,emit,graph,
-                gather,wordsort]
+                gather,wordsort,sort]
 
 PATH is the root of a checkout (the package is imported from there), so
 two trees (a parent and a change) are compared by running the script once
@@ -220,12 +220,38 @@ Inputs (chip_smoke.py's shapes):
                "w16:flush" the card's peak memory while phase 9's two W = 16
                chunks fill a slab and the second flushes it (the scan,
                the slab sort and K14 of 25.6M rows)
+  sort:k31:slab/k31:merge/k21:merge/w8:slab/w16:rows  (section sort) K22
+               (`count.radix_sort` and its index and row forms) at the count
+               path's shapes: the k = 31 slab of 500,000 reads of phase 3's
+               generator (K1, 37.0M keys, SENTINEL where invalid; keys
+               alone), the merge of its distinct run and every third row
+               again (two sorted runs, with their int32 counts), those keys
+               cut to 42 bits (":k21:merge", sorted over 42 bits as a k = 21
+               merge is, beside "all_passes_ms" over 64; a tree whose
+               radix_sort takes bits), the k = 127
+               bench slab's top keys (K21 over every chunk's K17 planes; with
+               their index) and the W = 16 merge's top keys read from its rows
+               (phase 9's two chunks; with their index): "path_ms" the
+               tree's own sort there (on a tree without K22, torch.sort and
+               the gather it made), beside "torch_sort_ms" (torch.sort(stable
+               =True) of the keys: the library call), "plain_ms" (the plain
+               version: torch.sort and the payload's gather; at W = 16 with
+               _top_keys), "floor_ms" (scripts/sort_floor.cu: the keys and
+               the payload as K22 carries it between passes, int32, copied
+               once a pass for "passes", the digits in which the keys differ),
+               "bytes_ms" (keys read and written once, the payload written,
+               over 3.35 TB/s) and "share_of_floor"; ":final:w8/w16" finalize's
+               reduce of the final run at k = 127 and 255 (every chunk's slab
+               run merged): the tree's (K14's row policy, or
+               state.words_to_planes and K14) beside "planes_k14_ms" and
+               "words_to_planes_ms"; the ptxas registers of K22's kernels
 Every record is checked exact against the tree's plain version first.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -233,7 +259,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SECTIONS = ("k2", "k8", "scan", "k14", "walk", "dense", "tensor", "bloom", "rank", "k3", "links",
-            "emit", "graph", "gather", "wordsort")
+            "emit", "graph", "gather", "wordsort", "sort")
 
 
 def slab_sort(count, planes, W: int):
@@ -537,6 +563,8 @@ def main() -> int:
         out["gather"] = gather_section(args.tree, ms, same, dev)
     if "wordsort" in only:
         out["wordsort"] = wordsort_section(wide, ms, same, dev)
+    if "sort" in only:
+        out["sort"] = sort_section(args.tree, wide, ms, same, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"label": args.label, "card": card, "ms": out}), flush=True)
@@ -1733,6 +1761,164 @@ def wordsort_section(wide, ms, same, dev) -> dict:
     print(json.dumps({"wordsort:w16:flush": res["w16:flush"]}), flush=True)
     del c
     torch.cuda.empty_cache()
+    return res
+
+
+def sort_passes(keys) -> int:
+    """The passes an LSD sort of int64 keys needs: the 8-bit digits in which
+    they do not all fall in one bucket (at least one; K22 runs the digits of
+    the bits its caller names, 8 at every shape of this section)."""
+    import torch
+
+    u = keys ^ torch.iinfo(torch.int64).min  # signed order as unsigned order
+    n = keys.numel()
+    split = 0
+    for d in range(8):
+        c = torch.bincount(((u >> (8 * d)) & 255).to(torch.int64), minlength=256)
+        split += int(int(c.max()) < n)
+    return max(split, 1)
+
+
+def sort_floor_ms(keys, pay_bytes: int, passes: int, ms, dev) -> float:
+    """K22's floor: `passes` copies of the keys and of a payload of
+    pay_bytes a key, buffer to buffer in turns (scripts/sort_floor.cu)."""
+    import ctypes
+
+    import torch
+
+    from leon_tpu_torch import kernels
+
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    lib = floor_lib("sort_floor", "lt_sort_floor", [P, P, I64, P, P, I64, P])
+    n = keys.numel()
+    kb, pb = -(-8 * n // 16) * 16, -(-pay_bytes * n // 16) * 16
+    bufs = [torch.empty(kb + pb, dtype=torch.uint8, device=dev) for _ in range(2)]
+    bufs[0][: 8 * n].copy_(keys.view(torch.uint8))
+    st = kernels.stream(keys)
+
+    def run():
+        for i in range(passes):
+            a, b = bufs[i % 2], bufs[1 - i % 2]
+            kernels.check(lib.lt_sort_floor(a.data_ptr(), b.data_ptr(), kb,
+                                            a.data_ptr() + kb if pb else None,
+                                            b.data_ptr() + kb if pb else None, pb, st),
+                          "sort_floor")
+
+    run()
+    if not torch.equal(bufs[passes % 2][: 8 * n].view(torch.int64), keys):
+        raise AssertionError("sort_floor: the copies lost the keys")
+    return ms(run, 10)
+
+
+def sort_section(tree: str, wide, ms, same, dev) -> dict:
+    """K22 at the count path's shapes beside torch.sort, the plain version,
+    its floor and its byte bound, and K14's row policy on the final runs;
+    on a tree without K22 its own path's sort (see the docstring)."""
+    import torch
+
+    from leon_tpu_torch import kernels, state
+    from leon_tpu_torch.ops import count, kmer
+
+    has = hasattr(count, "radix_sort")
+    res = {}
+
+    def case(name, keys, path, plain, pay_bytes: int, moved: int):
+        passes = sort_passes(keys)
+        r = {"n": keys.numel(), "passes": passes,
+             "path_ms": ms(path, 10),
+             "torch_sort_ms": ms(lambda: torch.sort(keys, stable=True), 10),
+             "plain_ms": ms(plain, 10),
+             "floor_ms": sort_floor_ms(keys, pay_bytes, passes, ms, dev),
+             "bytes_ms": moved / 3.35e12 * 1e3}
+        r["share_of_floor"] = r["floor_ms"] / r["path_ms"]
+        res[name] = r
+
+    # k = 31: the slab of 500,000 reads of phase 3's generator (K1: 37.0M
+    # keys, SENTINEL where invalid), keys alone; its distinct run and every
+    # third row again, with the counts (two sorted runs, as a merge sorts)
+    codes, lengths = slab_reads(500_000, True)
+    packed = state.packed_to_torch(kmer.pack_codes_np(codes), dev)
+    slab = kmer.kmer_scan(packed, torch.from_numpy(lengths).to(dev), 31, codes.shape[1])
+    del packed, codes
+    if has:
+        same([count.radix_sort(slab)], [count.radix_sort_plain(slab)])
+    path = (lambda: count.radix_sort(slab)) if has else (lambda: torch.sort(slab).values)
+    case("k31:slab", slab, path, lambda: torch.sort(slab, stable=True).values, 0,
+         16 * slab.numel())
+    rk, rc, _ = count.runs(torch.sort(slab).values)
+    del slab
+    mk, mc = torch.cat([rk, rk[::3]]), torch.cat([rc, rc[::3]])
+    del rk, rc
+    if has:
+        same(count.radix_sort(mk, mc), count.radix_sort_plain(mk, mc))
+
+    def merge_path_parent():
+        s = torch.sort(mk)
+        return s.values, mc[s.indices]
+
+    def merge_plain():
+        s = torch.sort(mk, stable=True)
+        return s.values, mc[s.indices]
+
+    case("k31:merge", mk, (lambda: count.radix_sort(mk, mc)) if has else merge_path_parent,
+         merge_plain, 4, 24 * mk.numel())
+    if has and "bits" in inspect.signature(count.radix_sort).parameters:
+        # the passes the caller's bits save: the merge's keys cut to their
+        # first 21 bases (42 bits, the keys of a k = 21 merge), sorted over
+        # 42 bits (6 passes, as DeviceCounter sorts them) and over 64 (8)
+        mk21 = mk >> 20
+        same(count.radix_sort(mk21, mc, 42), count.radix_sort_plain(mk21, mc))
+        case("k21:merge", mk21, lambda: count.radix_sort(mk21, mc, 42),
+             lambda: count.radix_sort_plain(mk21, mc), 4, 24 * mk21.numel())
+        res["k21:merge"]["all_passes_ms"] = ms(lambda: count.radix_sort(mk21, mc), 10)
+        del mk21
+    del mk, mc
+    # k = 127: the bench slab's top keys (K21 over every chunk's K17 planes),
+    # with their index, as sort_slab sorts them
+    k, chunks, L = wide(8)[:3]
+    scans = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
+    slab8 = tuple(torch.cat([s[q] for s in scans]) for q in range(state.n_planes(8)))
+    del scans
+    rows8, top = count.plane_rows(slab8, 8)
+    if has:
+        same(count.radix_sort_index(top), torch.sort(top, stable=True))
+    case("w8:slab", top, (lambda: count.radix_sort_index(top)) if has else
+         (lambda: torch.sort(top)), lambda: torch.sort(top, stable=True), 4,
+         24 * top.numel())
+    # k = 127 and 255: the final run (every chunk's slab run merged), reduced
+    # as finalize reduces it: K14's row policy, or the planes and K14
+    for W in (8, 16):
+        k, chunks, L = wide(W)[:3]
+        runs = [count.word_runs(slab_sort(count, kmer.kmer_scan_halves(p, ln, k, L), W), W)[:2]
+                for p, ln in chunks]
+        words = torch.cat([r[0] for r in runs])
+        counts = torch.cat([r[1] for r in runs])
+        del runs
+        if W == 16:
+            # the W = 16 merge's top keys read from its rows, with their index
+            tk = count._top_keys(words)
+            if has:
+                same(count.radix_sort_rows(words), torch.sort(tk, stable=True))
+            case("w16:rows", tk, (lambda: count.radix_sort_rows(words)) if has else
+                 (lambda: torch.sort(count._top_keys(words))),
+                 lambda: torch.sort(count._top_keys(words), stable=True), 4, 24 * tk.numel())
+            del tk
+        pl, pc = merge_sort(count, state, words, counts)
+        gw, gc, gh = count.word_runs(pl, W, pc, 1, True)
+        del pl, pc, words, counts
+        gpl = state.words_to_planes(gw)
+        if has:
+            same(count.word_runs_rows(gw, gc, 1, True), count.word_runs(gpl, W, gc, 1, True))
+        rows_path = ((lambda: count.word_runs_rows(gw, gc, 1, True)) if has else
+                     (lambda: count.word_runs(state.words_to_planes(gw), W, gc, 1, True)))
+        res[f"final:w{W}"] = {
+            "rows": gw.shape[0], "path_ms": ms(rows_path, 10),
+            "planes_k14_ms": ms(lambda: count.word_runs(gpl, W, gc, 1, True), 10),
+            "words_to_planes_ms": ms(lambda: state.words_to_planes(gw), 10),
+            "bytes_ms": (gw.numel() * 4 * 2 + gc.numel() * 8) / 3.35e12 * 1e3}
+        del gw, gc, gh, gpl
+        torch.cuda.empty_cache()
+    res["registers"] = registers(tree, ("rs_pass_kernel", "rs_hist_kernel"))
     return res
 
 

@@ -1,0 +1,47 @@
+// Floor of K22 radix_sort (leon_tpu_torch/csrc/sort.cu): the least the card
+// takes for the memory traffic an LSD radix sort cannot avoid, with nothing
+// else in the way: its passes' copies alone. One launch copies a pass's keys
+// and payload (read once, written once; 16 bytes a thread at a time,
+// evict-first loads, streaming stores, a grid of resident blocks) from one
+// buffer to the other; scripts/ab_kernels.py (--only sort) launches it once
+// for each pass a case's bits need (the digits in which its keys differ),
+// with the payload at the width K22 carries it in that pass, and times it
+// beside the kernel. No histogram, no ranking, no look-back, no scatter.
+// ab_kernels.py builds it with nvcc into build/ab_kernels/; nothing on the
+// main path calls it.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define FLOOR_THREADS 256
+
+__global__ void __launch_bounds__(FLOOR_THREADS)
+    sort_floor_kernel(const int4* __restrict__ keys, int4* __restrict__ keys_out,
+                      long long key_groups, const int4* __restrict__ pay,
+                      int4* __restrict__ pay_out, long long pay_groups) {
+  const long long step = (long long)gridDim.x * FLOOR_THREADS;
+  for (long long g = (long long)blockIdx.x * FLOOR_THREADS + threadIdx.x; g < key_groups;
+       g += step)
+    __stcs(keys_out + g, __ldcs(keys + g));
+  for (long long g = (long long)blockIdx.x * FLOOR_THREADS + threadIdx.x; g < pay_groups;
+       g += step)
+    __stcs(pay_out + g, __ldcs(pay + g));
+}
+
+// One pass's copy: key_bytes of keys and pay_bytes of payload (each a
+// multiple of 16, 16-byte aligned; pay may be null with pay_bytes 0).
+extern "C" int lt_sort_floor(const void* keys, void* keys_out, long long key_bytes,
+                             const void* pay, void* pay_out, long long pay_bytes, void* stream) {
+  if (key_bytes < 0 || pay_bytes < 0 || key_bytes % 16 || pay_bytes % 16)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sort_floor_kernel, FLOOR_THREADS,
+                                                      0);
+  if (e != cudaSuccess) return (int)e;
+  sort_floor_kernel<<<sms * per_sm, FLOOR_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int4*)keys, (int4*)keys_out, key_bytes / 16, (const int4*)pay, (int4*)pay_out,
+      pay_bytes / 16);
+  return (int)cudaGetLastError();
+}
