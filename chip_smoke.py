@@ -17,9 +17,17 @@ run right after phase 3, whose reads and solid set they reuse):
      on the card (K1 on the 7-chunk slab in one launch and, record
      `kmer_scan:chunk`, on one 65,536-read chunk into a slab view as the
      counter launches it; K22 on the slab's keys and on the merge's keys
-     with their counts: records `radix_sort`, `radix_sort:merge`, beside
-     torch.sort; K2 in its three modes: records `runs`,
-     `runs:merge`, `runs:solid`); K22 on adversarial keys (sort_case: n =
+     with their counts, as the parent sorted a merge: records `radix_sort`,
+     `radix_sort:merge`, beside
+     torch.sort; K23 on the merge's two sorted runs, where they lie, with
+     their counts: record `merge_path`, beside torch.sort of the
+     concatenated keys and the parent's cat and K22; K2 in its three modes:
+     records `runs`, `runs:merge`, `runs:solid`); K23 on adversarial runs
+     (merge_case at k = 15 and 31: R = 2, 3, 5, 9, runs of 0, 1 and one
+     tile +- 1 keys, every key equal, one run before or after another,
+     interleaved runs, keys equal but in their low word, both sides of the
+     int64 sign, an int64-max tail; each run a view at an unaligned offset);
+     K22 on adversarial keys (sort_case: n =
      0, 1, 2, one tile - 1, one tile, one tile + 1, all keys equal, keys
      that differ only in the top or only in the bottom digit, a SENTINEL
      tail, both sides of the int64 sign, three and two varying digits
@@ -64,7 +72,8 @@ run right after phase 3, whose reads and solid set they reuse):
      device unitig build) on the card and on the CPU: the archives and
      outputs must be identical; the k = 255 runs launch the multiword
      kernels and the device unitig build at W = 16 and give their launch
-     counts;
+     counts (the first k = 255 run in chunks of 64 reads and slabs of 2**14
+     k-mers, so that its runs merge on K23);
   6. generate the bench corpus (gen_fastq, a copy of bench.py's: 500k
      reads of 100 bp from a 2 Mbp contig), compress and decompress it on
      the card with -noheader -noqual, then again with the device unitig
@@ -73,11 +82,13 @@ run right after phase 3, whose reads and solid set they reuse):
      then k = 63 and k = 127 again with the device unitig build; each run
      must give the exact sequence round trip and its pinned archive (the
      reference's bytes, PIN, PIN63 and PIN127), and launch each kernel of
-     its path (K1, K22, K2-K4; K5-K8; K17, K21, K22, K20, K14 and its row
-     policy, K16, K18, walk_pack, K19; those and K5-K8 over W-word rows) at
-     least once, with torch.sort, ops.count.words_to_planes and
-     ops.count._top_keys replaced by guards that raise on a CUDA tensor
-     (CudaGuards), restored after;
+     its path (K1, K22, K2-K4 and, at k = 31, whose two slabs merge, K23;
+     K5-K8; K17, K21, K22, K20, K14 and its row policy, K16, K18,
+     walk_pack, K19; those and K5-K8 over W-word rows) at least once, with
+     torch.sort, ops.count.words_to_planes and ops.count._top_keys replaced
+     by guards that raise on a CUDA tensor, and every merge of runs watched
+     (CudaGuards: inside a merge torch.cat raises on CUDA tensors, and a
+     merge must launch K23 and neither K22 nor K20), restored after;
   7. K10 on adversarial words (k10_case: every bit random, so dirty bits
      reach the shr2_ins neighbours' first base, at k = 1, 2, 15, 16, 17,
      31, 32, 33, 63, 64, 127, 128, 254, 255, N = 1, 255, 257, every mode,
@@ -131,12 +142,15 @@ run right after phase 3, whose reads and solid set they reuse):
      corpus (the solid count must equal PIN127's) and k = 255 on 131,072
      reads of 300-600 bp: K17 scan, the WordCounter's sorts (each chunk's
      slab by sort_slab: K21 plane_rows, K22 of the top keys with their
-     index, K20; their merge by sort_rows: K22 reading the top keys from
+     index, K20; the slab runs' merge by K23 where they lie, records
+     `merge_path:rows`, `:rows8`, `:rows16`, and, as the parent merged them,
+     by sort_rows over their concatenation: K22 reading the top keys from
      the rows, K20 with the counts as its payload; each equal to the LSD
      sort of the same rows; K22 records `radix_sort:main`, `:rows` and
      `:main8`, `:rows8`, `:main16`, `:rows16`), K14 slab runs, merge (counts,
      histogram), its row policy on the final run (`word_runs_rows`, with
-     the histogram and in solid mode, equal to K14 over the run's planes)
+     the histogram and in solid mode, equal to K14 over the run's planes
+     and to K14 over the sorted planes of the merge)
      and solid mode, K16 over the run's solid rows, K18 encode
      and K19 decode of one chunk, then the device unitig build over the
      solid rows (K5, K6, K7, K8 at W = 4, 8 and 16; the payload must equal
@@ -148,7 +162,10 @@ run right after phase 3, whose reads and solid set they reuse):
      or pass 2^31 - 1, runs of 1-3 rows at every offset of a step edge,
      all-ones top words and the all-ones row; neighbouring runs differ in
      one word) at W = 4, 8 and 16 in its three modes, cutoffs 1, 2, 255
-     and 256 with the histogram, K17 on adversarial reads (scan_case:
+     and 256 with the histogram, K23 on adversarial runs of rows
+     (merge_case at W = 2, 3, 4, 8, 16: phase 3's cases, rows equal in their
+     top 64 bits that differ only in word 0, both sides of word W-1's top
+     bit, all-ones tails), K17 on adversarial reads (scan_case:
      k = 17 to 255, L mod 16 = 0, 1, 15, reads of length 0, k - 1, k, L,
      palindromes and all-ones top words at k = 16W), and K18 and K19 on
      adversarial reads (walk_case: the same k and L mod 16, H = 1..8, so
@@ -181,7 +198,9 @@ run right after phase 3, whose reads and solid set they reuse):
      runs of 2**21 rows or more to host RAM; at least two spills) at k = 31,
      63 and 127, once with each unitig builder: each archive must be PIN,
      PIN63 or PIN127, and the path's kernels must launch, the spilled Bloom
-     build (K3, or K16 past k = 31) among them; (b) in a child process
+     build (K3, or K16 past k = 31) and K23 among them, every merge of runs
+     on K23 with neither K22 nor K20 launched inside it and no torch.cat of
+     CUDA runs (MergeGuard); (b) in a child process
      (`python3 chip_smoke.py --large-corpus`), a corpus over 1 GiB
      (LARGE: 5,000,000 reads of 100 bp from a 20 Mbp random contig, 1%
      substitutions, every other read reverse-complemented, by the
@@ -210,6 +229,11 @@ run right after phase 3, whose reads and solid set they reuse):
      on its default device cuda:(R mod the card count), here cuda:0) on the
      bench corpus at k = 31: rank 0's archive must be PIN. It prints the walls and launch counts beside
      the card's name and power limit.
+The adversarial checks of K5 and K7 (phase 3), K11 (phases 7 and 10), K15
+(phases 8 and 10) and K18 and K19 (phase 9), whose plain versions hold the
+host longest, run in a child process (`python3 chip_smoke.py
+--adversarial`) from before phase 4 to after phase 12, while the parent
+runs phases that time no kernel; the run fails if the child fails.
 It prints one JSON line of kernel records (each with its bound: the bytes
 it must move, every input read once and every output written once, over
 the card's 3.35 TB/s; for K8, which searches the run, the queries, its
@@ -298,6 +322,8 @@ KERNELS = {
     "radix_sort:main": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
     "radix_sort:rows": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
     "word_runs_rows": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
+    "merge_path": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
+    "merge_path:rows": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
 }
 DEVICE_BUILD = ("unitig_links", "unitig_double", "unitig_emit", "solid_lookup")
 GRAPH = ("gather_words", "dbg_probe", "dbg_walk", "dbg_traverse")
@@ -311,16 +337,22 @@ TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "wa
 # and the main path (phase 9: ":main", ":main8", ":main16"); K22 two on the
 # main path at k <= 31 (phase 3: "radix_sort", the slab, keys alone;
 # ":merge", with the counts) and two a width past it (phase 9: ":main" the
-# slab's top sort with the row index, ":rows" the merge's top sort read from
-# the rows; ":main8", ":rows8", ...); K14's row policy (`word_runs_rows`,
-# finalize's reduce of the final run) one a width; the multiword kernels
-# have one record at k = 63 (W = 4) and one each at W = 8 and W = 16
-# (":w8", ":w16").
+# slab's top sort with the row index, ":rows" the top sort of the slab runs'
+# rows, read from the rows; ":main8", ":rows8", ...); K14's row policy
+# (`word_runs_rows`, the reduce of a merged run) one a width; K23 one on the
+# main path at k <= 31 (phase 3: "merge_path", two runs of keys) and one a
+# width past it (phase 9: ":rows", ":rows8", ":rows16", the chunks' slab
+# runs); the multiword kernels have one record at k = 63 (W = 4) and one each
+# at W = 8 and W = 16 (":w8", ":w16").
 WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
         "walk_decode_words", "plane_rows", "sort_ties:main", "radix_sort:main",
-        "radix_sort:rows", "word_runs_rows")
-WIDE8, WIDE16 = (tuple(f"{n}{w}" if n.startswith(("sort_ties:", "radix_sort:"))
+        "radix_sort:rows", "word_runs_rows", "merge_path:rows")
+WIDE8, WIDE16 = (tuple(f"{n}{w}" if n.startswith(("sort_ties:", "radix_sort:", "merge_path:"))
                        else f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
+# K23's records past k = 31: a bench compress at k = 63 or 127 fills one
+# slab and merges nothing, so their launches come from runs that merge (phase
+# 11's spilled runs at W = 4 and 8, phase 5's V255 at W = 16)
+MERGES = ("merge_path:rows", "merge_path:rows8", "merge_path:rows16")
 KERNELS.update({n: KERNELS[w] for n, w in zip(WIDE8 + WIDE16, WIDE + WIDE)})
 # the tensor path and the graph API past four words (phase 10): K13, K14's
 # run lengths, K15, K10-K12 and K20 at W = 8 (k = 127) and W = 16 (k = 255)
@@ -348,8 +380,18 @@ def counter(name: str) -> str:
     return name.split(":")[0]
 
 
+def no_merges(names: tuple) -> tuple:
+    """names but K23's records past k = 31 (MERGES: a run that fills one slab
+    merges nothing)."""
+    return tuple(n for n in names if n not in MERGES)
+
+
+T_START = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """A line of the run's log, with the seconds since the script started."""
+    print(f"[chip_smoke {time.time() - T_START:.0f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -464,6 +506,25 @@ def sort_record(err: int, fn, keys, payload, reps: int = 10) -> dict:
                   moved, cuda_ms(lambda: torch.sort(keys, stable=True), reps))
 
 
+def merge_record(err: int, fn, runs: list, reps: int = 10) -> dict:
+    """K23's record for one merge of runs [(keys or rows, counts), ...]: its
+    time beside the plain version's (merge_path_plain: torch.cat and a stable
+    torch.sort) and torch.sort(stable=True) of the concatenated keys (of the
+    rows' top keys, _top_keys; library_ms: the library call that orders
+    them, not counting the cat); the bound: the runs' elements and counts
+    read once and the merged run written once (a merge of R runs in pairwise
+    rounds moves them once a round: PERF.md's floor)."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    data = torch.cat([d for d, _ in runs])
+    keys = data if data.dim() == 1 else count._top_keys(data)
+    del data
+    return record(err, cuda_ms(fn, reps), cuda_ms(lambda: count.merge_path_plain(runs), 2),
+                  2 * nbytes(runs), cuda_ms(lambda: torch.sort(keys, stable=True), reps))
+
+
 # K18 and K19 wait on their Bloom probes, not on their bytes
 WALK_BOUND_NOTE = ("bytes only; the walk's binding bound is its probe floor "
                    "(scripts/ab_kernels.py --only walk, PERF.md rows 10-11c)")
@@ -558,9 +619,10 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     del view
     k1_adversarial()
 
-    # K22 on the slab (keys only: DeviceCounter._slab_run); K2: the raw slab,
-    # then a merge with a count payload (K22 carrying the counts:
-    # _merge_sorted), then the solid compaction
+    # K22 on the slab (keys only: DeviceCounter._slab_run); K22 carrying
+    # counts over the merge's keys (the parent's merge sort; the merge itself
+    # is K23's, below); K2: the raw slab, the merge with its count payload,
+    # then the solid compaction
     skeys = count.radix_sort(got)
     records["radix_sort"] = sort_record(max_abs_err(skeys, count.radix_sort_plain(got)),
                                         lambda: count.radix_sort(got), got, None)
@@ -570,7 +632,7 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     err = max(max_abs_err(rk, pk), max_abs_err(rc, pc))
     mk = torch.cat([rk, rk[::3]]).flip(0)
     mc0 = torch.cat([rc, rc[::3]]).flip(0)
-    ms, mc = count.radix_sort(mk, mc0, 2 * K)  # k-mer keys: 2k bits, as the merge sorts them
+    ms, mc = count.radix_sort(mk, mc0, 2 * K)  # k-mer keys: 2k bits
     serr = max(max_abs_err(a, b) for a, b in zip((ms, mc), count.radix_sort_plain(mk, mc0)))
     records["radix_sort:merge"] = sort_record(serr, lambda: count.radix_sort(mk, mc0, 2 * K),
                                               mk, mc0)
@@ -580,6 +642,22 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
         f"{records['radix_sort:merge']['library_ms']:.4f})")
     del mk, mc0
     sort_adversarial()
+    # K23 on two runs as DeviceCounter merges them: the slab's distinct run
+    # and every third row of it again, each sorted, with their counts, read
+    # where they lie; beside the parent's route (torch.cat, then K22 with the
+    # counts over the keys' 2k bits)
+    mruns = [(rk, rc), (rk[::3].contiguous(), rc[::3].contiguous())]
+    merr = max(max_abs_err(a, b) for a, b in
+               zip(count.merge_path(mruns), count.merge_path_plain(mruns)))
+    records["merge_path"] = merge_record(merr, lambda: count.merge_path(mruns), mruns)
+    parent_ms = cuda_ms(lambda: count.radix_sort(torch.cat([r[0] for r in mruns]),
+                                                 torch.cat([r[1] for r in mruns]), 2 * K), 5)
+    log(f"merge_path ok: {ms.numel()} keys in two runs with their counts "
+        f"{records['merge_path']['ms']:.4f} ms (the parent's cat + K22 {parent_ms:.4f}, "
+        f"torch.sort {records['merge_path']['library_ms']:.4f}, bound "
+        f"{records['merge_path']['bound_ms']:.4f})")
+    del mruns
+    merge_adversarial(MERGE_KEYS)
     gk, gc, gh = count.runs(ms, mc, 1, True)
     wk, wc, wh = count.runs_plain(ms.cpu(), mc.cpu(), 1, True)
     err_m = max(max_abs_err(gk, wk), max_abs_err(gc, wc), max_abs_err(gh, wh))
@@ -692,10 +770,8 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     # K5-K8 on the solid run the pipeline hands the device build; K8 on
     # adversarial runs at every width
     unitig_checks(records, sk, sc, cutoff, rk.numel(), "bench")
-    k5_adversarial()
     rank_adversarial()
-    k7_adversarial()
-    lookup_adversarial()
+    lookup_adversarial()  # K5 and K7 on adversarial runs: the adversarial child
     return dict(solid_keys=sk, bits=bits_d, n_words=n_words, contig=contig, codes=codes,
                 lengths=lengths, n_distinct=rk.numel(), cutoff=cutoff, k4_enc=e_d)
 
@@ -1021,6 +1097,142 @@ def sort_adversarial() -> None:
     log(f"radix_sort ok on {len(SORT_CASES)} adversarial inputs ({n_keys} keys over 64 bits and "
         f"their SORT_BITS; alone, with an int32 payload and the index, as a strided view) and "
         f"on rows at W = {SORT_ROWS_WS}")
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 9: K23 on adversarial runs (tests/test_torch_merge_path.py runs
+# the same cases through a numpy model of its blocks and threads)
+# ---------------------------------------------------------------------------
+
+MERGE_CASES = ("r2", "r3", "r5", "r9", "sizes", "equal", "same_set", "before", "after",
+               "interleaved", "word0", "sign", "max_tail")
+# (form, width): int64 keys of k = 15 and 31 (phase 3), (n, W) rows (phase 9)
+MERGE_KEYS = (("keys", 15), ("keys", 31))
+MERGE_ROWS = tuple(("rows", W) for W in (2, 3, 4, 8, 16))
+
+
+def merge_case(name: str, form: str, width: int) -> list:
+    """One adversarial K23 input: sorted runs [(data, counts (n,) int32),
+    ...] as numpy arrays, data int64 keys in signed order (form "keys",
+    width = k: keys of 2k bits but in the sign and max_tail cases) or (n, W)
+    int32 rows sorted MSW first as u32 words (form "rows", W = width).
+    Cases: R = 2, 3, 5 and 9 runs of random sizes drawing from one pool of
+    values, so that runs share them ("r2" ... "r9"); runs of 0, 1, one K23
+    tile - 1, one tile and one tile + 1 elements ("sizes"); every element of
+    every run equal ("equal"); each run the same distinct values
+    ("same_set"); each run wholly before the next ("before") or after it
+    ("after"); two runs taking alternate values ("interleaved"); values equal
+    but in word 0, so rows with equal top 64 bits at W >= 3 ("word0"); both
+    sides of the int64 sign and of word W-1's top bit ("sign"); an int64-max
+    (all-ones) tail in every run ("max_tail"). The counts are random int32,
+    so that an order that is not stable shows."""
+    import zlib
+
+    import numpy as np
+
+    from leon_tpu_torch.ops import count
+
+    W = 2 if form == "keys" else width
+    tile = count.merge_tile(W)
+    rng = np.random.default_rng(zlib.crc32(f"{name}:{form}:{width}".encode()))
+    top = 1 << (2 * width) if form == "keys" else 1 << 64
+
+    def rand(n):  # n random elements as (n, W) u32 words, LSW first
+        if form == "keys":
+            u = rng.integers(0, top, n, dtype=np.uint64)
+            return np.stack([u & np.uint64(0xFFFFFFFF), u >> np.uint64(32)], axis=1).astype(
+                np.uint32)
+        return rng.integers(0, 1 << 32, (n, W), dtype=np.uint64).astype(np.uint32)
+
+    def order(x):  # x's rows sorted as the form orders them
+        hi = x[:, W - 1].astype(np.int64)
+        if form == "keys":
+            hi = hi.astype(np.uint32).view(np.int32).astype(np.int64)  # signed top word
+        return x[np.lexsort([x[:, q] for q in range(W - 1)] + [hi])]
+
+    def pick(pool, sizes):  # each run: sizes[i] elements of pool, sorted
+        return [order(pool[rng.integers(0, pool.shape[0], n)]) for n in sizes]
+
+    R = {"r2": 2, "r3": 3, "r5": 5, "r9": 9}
+    if name in R:
+        sizes = rng.integers(0, 3 * tile, R[name])
+        sizes[0] = 2 * tile + 77
+        runs = pick(rand(3000), sizes)
+    elif name == "sizes":
+        runs = pick(rand(5000), (0, 1, tile - 1, tile, tile + 1, 1, 0))
+    elif name == "equal":
+        one = rand(1)
+        runs = [np.repeat(one, n, axis=0) for n in (tile + 5, 2 * tile + 3, 7, tile)]
+    elif name == "same_set":
+        pool = np.unique(rand(2 * tile + 11), axis=0)
+        runs = [order(pool)] * 3
+    elif name in ("before", "after"):
+        pool = order(rand(4 * tile + 40))
+        cuts = (0, 2 * tile + 1, 3 * tile + 8, pool.shape[0])
+        runs = [pool[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+        runs = runs if name == "before" else runs[::-1]
+    elif name == "interleaved":
+        pool = order(rand(4 * tile + 3))
+        runs = [pool[0::2], pool[1::2]]
+    elif name == "word0":
+        pool = np.repeat(rand(1), 60, axis=0)
+        pool[:, 0] = rng.integers(0, 1 << 32, 60, dtype=np.uint64).astype(np.uint32)
+        runs = pick(pool, (tile + 9, 2 * tile, 3, tile - 1))
+    elif name == "sign":
+        pool = rng.integers(0, 1 << 32, (800, W), dtype=np.uint64).astype(np.uint32)
+        pool[:400, W - 1] = np.resize(np.array([0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF],
+                                               np.uint32), 400)
+        pool[:4] = 0  # INT64_MIN, -1, 0, INT64_MAX (as keys) among them
+        pool[0, W - 1], pool[1], pool[3] = 0x80000000, 0xFFFFFFFF, 0xFFFFFFFF
+        pool[3, W - 1] = 0x7FFFFFFF
+        runs = pick(pool, (2 * tile + 1, tile, 17))
+    else:  # max_tail
+        runs = []
+        for n, m in ((2 * tile, 3), (tile + 1, tile + 2), (5, 1)):
+            x = np.full((n + m, W), 0xFFFFFFFF, np.uint32)
+            x[:n] = rand(n)
+            if form == "keys":
+                x[:, 1] &= 0x7FFFFFFF  # INT64_MAX is the largest key
+            runs.append(order(x))
+    out = []
+    for x in runs:
+        c = rng.integers(-(1 << 31), 1 << 31, x.shape[0], dtype=np.int64).astype(np.int32)
+        data = x.view(np.int64)[:, 0] if form == "keys" else x.view(np.int32)
+        out.append((np.ascontiguousarray(data), c))
+    return out
+
+
+def merge_adversarial(forms: tuple) -> None:
+    """K23 against its plain version, exactly, on every merge_case at each
+    (form, width) of forms; each run a view at an offset of 0-2 elements into
+    its buffer and its counts at 0-3 (so that every phase of a 16-byte chunk
+    starts a run)."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    n_el = 0
+    for form, width in forms:
+        merge = count.merge_path if form == "keys" else count.merge_path_rows
+        for name in MERGE_CASES:
+            runs = merge_case(name, form, width)
+            on_card = []
+            for i, (x, c) in enumerate(runs):
+                xd = torch.from_numpy(x).to(dev)
+                cd = torch.from_numpy(c).to(dev)
+                xb = torch.empty((x.shape[0] + 2,) + x.shape[1:], dtype=xd.dtype, device=dev)
+                cb = torch.empty(c.shape[0] + 3, dtype=cd.dtype, device=dev)
+                xv, cv = xb[i % 3 : i % 3 + x.shape[0]], cb[i % 4 : i % 4 + c.shape[0]]
+                xv.copy_(xd)
+                cv.copy_(cd)
+                on_card.append((xv, cv))
+            want = count.merge_path_plain([(torch.from_numpy(x), torch.from_numpy(c))
+                                           for x, c in runs])
+            for a, b in zip(merge(on_card), want):
+                max_abs_err(a, b)
+            n_el += want[1].shape[0]
+    log(f"merge_path ok on {len(MERGE_CASES)} adversarial cases at {forms} ({n_el} elements)")
 
 
 # ---------------------------------------------------------------------------
@@ -2544,8 +2756,7 @@ def graph_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.ops.kmer import pack_codes_batch_np
 
     k10_adversarial()
-    k11_adversarial(tuple(k for k in K11_KS if k <= 64))
-    k12_adversarial()
+    k12_adversarial()  # K11 on adversarial walks: the adversarial child
     dev = torch.device("cuda")
     words = state.keys_from_torch(bench_state["solid_keys"], 2)
     rnd = state.keys_to_words(np.random.default_rng(31).integers(0, 1 << 62, 1 << 21), 2)
@@ -2728,8 +2939,7 @@ def tensor_phase(records: dict, bench_state: dict) -> dict:
     from leon_tpu_torch.ops import bloom, count, kmer, walk
     from leon_tpu_torch.parallel import mesh
 
-    k15_adversarial(tuple(k for k in K15_KS if k <= 64))
-    k13_adversarial(tuple(k for k in K13_KS if k <= 64))
+    k13_adversarial(tuple(k for k in K13_KS if k <= 64))  # K15's: the adversarial child
     tie_adversarial()
     dev = torch.device("cuda")
     codes = torch.from_numpy(bench_state["codes"]).to(dev)
@@ -2925,7 +3135,7 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import bloom, count, kmer, walk
 
-    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties, n_top, n_rtop, n_wrows = names
+    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties, n_top, n_rtop, n_wrows, n_merge = names
     dev = torch.device("cuda")
     L = codes.shape[1]
     W = kmer.words_for_k(k)
@@ -2991,6 +3201,14 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
             del lsd
         slab_runs.append(got[:2])
     del planes, srt
+    # K23 merging the slab runs where they lie, as the WordCounter merges them
+    mw, mcnt = count.merge_path_rows(slab_runs)
+    err_m = max(max_abs_err(a, b) for a, b in
+                zip((mw, mcnt), count.merge_path_plain(slab_runs)))
+    records[n_merge] = merge_record(err_m, lambda: count.merge_path_rows(slab_runs), slab_runs, 5)
+    log(f"{n_merge} ok: {len(slab_runs)} slab runs, {mw.shape[0]} rows with their counts ({tag}) "
+        f"{records[n_merge]['ms']:.4f} ms (torch.sort of the top keys "
+        f"{records[n_merge]['library_ms']:.4f}, bound {records[n_merge]['bound_ms']:.4f})")
     words = torch.cat([r[0] for r in slab_runs])
     counts = torch.cat([r[1] for r in slab_runs])
     del slab_runs
@@ -3016,14 +3234,17 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
         terr, cuda_ms(lambda: count.sort_ties(keys, src, words, W, counts), 5),
         cuda_ms(lambda: count.sort_ties_plain(keys, src, words, W, counts), 2),
         nbytes(keys, src, words, counts, tp, tc), bound_note=TIES_BOUND_NOTE)
-    log(f"{n_ties} ok: {words.shape[0]} merge rows with their counts ({tag}); the merge's "
-        f"sort {cuda_ms(lambda: count.sort_rows(words, counts, bits), 5):.4f} ms, its LSD sort "
-        f"{cuda_ms(lambda: count.sort_planes(state.words_to_planes(words), True), 2):.4f} ms")
+    log(f"{n_ties} ok: {words.shape[0]} slab runs' rows with their counts ({tag}); their "
+        f"sort (the parent's merge, after its cat) "
+        f"{cuda_ms(lambda: count.sort_rows(words, counts, bits), 5):.4f} ms")
     del words, counts, perm, keys, src, tp, tc, pp, pc
     gw, gc, gh = count.word_runs(mpl, W, mc, 1, True)
     err = max(err, *(max_abs_err(a, b) for a, b in
                      zip((gw, gc, gh), count.word_runs_plain(lpl, W, lc, 1, True))))
-    del lpl, lc
+    # the WordCounter's merge route (K23, K14's row policy) gives the same run
+    err = max(err, *(max_abs_err(a, b) for a, b in
+                     zip(count.word_runs_rows(mw, mcnt, 1, True), (gw, gc, gh))))
+    del lpl, lc, mw, mcnt
     hist = gh.cpu().numpy().astype(np.int64)
     cutoff = count.auto_cutoff(hist)
     # K14's row policy on the final run, as finalize reduces it and compacts
@@ -3143,8 +3364,8 @@ def widek_phase(records: dict, bench_state: dict, tensor_fig: dict, r250: str) -
     W >= 8, the reads, solid rows and Bloom bitset phase 10 takes over."""
     words_adversarial()
     scan_adversarial()
-    walk_adversarial()
-    bloom_adversarial()
+    bloom_adversarial()  # K18 and K19 on adversarial reads: the adversarial child
+    merge_adversarial(MERGE_ROWS)
     fig63 = multiword_checks(records, WIDE, bench_state["codes"], bench_state["lengths"], K63,
                              UNITIG4)
     want = (tensor_fig["distinct63"], tensor_fig["cutoff63"], tensor_fig["solid63"])
@@ -3374,9 +3595,7 @@ def longk_phase(records: dict, hand: dict) -> dict:
     longk_checks at k = 127 (W = 8) on the 200,000 reads of 250 bp and their
     1,777,017 solid k-mers (PIN127's), then at k = 255 (W = 16) on phase 9's
     131,072 reads of 300-600 bp and their solid set."""
-    k11_adversarial(tuple(k for k in K11_KS if k > 64))
-    k15_adversarial(tuple(k for k in K15_KS if k > 64))
-    k13_adversarial(tuple(k for k in K13_KS if k > 64))
+    k13_adversarial(tuple(k for k in K13_KS if k > 64))  # K11's and K15's: the adversarial child
     return {f"k{k}": longk_checks(records, names, hand.pop(k), k)
             for k, names in ((K127, LONGK8), (K255, LONGK16))}
 
@@ -3424,9 +3643,11 @@ def long_reads(n: int, lmin: int, lmax: int) -> tuple:
 # position bits), one-word keys (k <= 16), reads past 255 walk steps (the
 # 6-u16 per-read layout), the BLOOM section; then the multiword route at
 # k = 32, 48 and 64, and past four words at k = 65 (W = 5), 96 (an even k,
-# W = 6) and 255 (W = 16, on reads of 300-600 bp); then the k = 65 and
-# k = 255 corpus kinds with the device unitig build over W-word rows
+# W = 6) and 255 (W = 16, on reads of 300-600 bp, in chunks of 64 reads and
+# slabs of 2**14 k-mers merged at every slab: K23 at W = 16); then the k = 65
+# and k = 255 corpus kinds with the device unitig build over W-word rows
 V255 = "fasta k=255, reads of 300-600 bp"
+V255_MERGES = dict(batch_reads=64, count_slab_kmers=1 << 14, count_merge_factor=1)
 V65_DEVICE = "fastq lossy k=65, reads of 100-250 bp, device unitig build"
 V255_DEVICE = f"{V255}, device unitig build"
 VARIANTS = [
@@ -3439,7 +3660,7 @@ VARIANTS = [
     ("fasta k=64, BLOOM section", "fasta", dict(kmer_size=64, unitig_sections=False)),
     ("fastq lossy k=65, reads of 100-250 bp", "fastq250", dict(kmer_size=65)),
     ("fasta k=96, BLOOM section", "fasta", dict(kmer_size=96, unitig_sections=False)),
-    (V255, "fasta600", dict(kmer_size=255)),
+    (V255, "fasta600", dict(kmer_size=255, **V255_MERGES)),
     (V65_DEVICE, "fastq250", dict(kmer_size=65, unitig_device_max_kmers=1 << 30)),
     (V255_DEVICE, "fasta600", dict(kmer_size=255, unitig_device_max_kmers=1 << 30)),
 ]
@@ -3520,8 +3741,8 @@ def variants() -> list:
             raise AssertionError(f"variant {label}: round trip is not exact")
         log(f"variant ok: {label}, archive {len(data['card'][0])} B, card launches "
             f"{card_launches[label]}")
-    for label, names in ((V255, WIDE16), (V65_DEVICE, WIDE + DEVICE_BUILD),
-                         (V255_DEVICE, WIDE16 + DEVICE_BUILD)):
+    for label, names in ((V255, WIDE16), (V65_DEVICE, no_merges(WIDE) + DEVICE_BUILD),
+                         (V255_DEVICE, no_merges(WIDE16) + DEVICE_BUILD)):
         missing = [n for n in names if card_launches[label].get(counter(n), 0) < 1]
         if missing:
             raise AssertionError(f"variant {label}: kernels never launched: {missing}")
@@ -3604,19 +3825,70 @@ def check_pin(label: str, arc: str, st: dict, pin: dict) -> tuple:
     return size, digest
 
 
-class CudaGuards:
+class MergeGuard:
+    """A context in which every counter merge (ops.count._SlabCounter._merged)
+    is watched, restored on exit: inside a merge torch.cat raises on a CUDA
+    tensor, and a merge that launches K22 (radix_sort) or K20 (sort_ties), or
+    that merges two runs or more without launching K23 (merge_path), raises.
+    `merges` counts the merges of two runs or more."""
+
+    def __enter__(self):
+        import torch
+
+        from leon_tpu_torch import kernels
+        from leon_tpu_torch.ops import count
+
+        self.merges = 0
+        self.saved = count._SlabCounter._merged
+        merged, guard = self.saved, self
+
+        def no_cat(tensors, *args, **kwargs):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
+                raise AssertionError("torch.cat of CUDA tensors inside a merge")
+            return cat(tensors, *args, **kwargs)
+
+        def watched(counter, want_hist):
+            global_cat = torch.cat
+            n_runs = sum(1 for r in counter._runs if r[1].numel())
+            before = {n: kernels.launches[n] for n in ("radix_sort", "sort_ties", "merge_path")}
+            torch.cat = no_cat
+            try:
+                out = merged(counter, want_hist)
+            finally:
+                torch.cat = global_cat
+            did = {n: kernels.launches[n] - c for n, c in before.items()}
+            if counter.device.type == "cuda":
+                if did["radix_sort"] or did["sort_ties"] or (n_runs >= 2 and not did["merge_path"]):
+                    raise AssertionError(f"a merge of {n_runs} runs launched {did}")
+                guard.merges += n_runs >= 2
+            return out
+
+        cat = torch.cat
+        count._SlabCounter._merged = watched
+        return self
+
+    def __exit__(self, *exc):
+        from leon_tpu_torch.ops import count
+
+        count._SlabCounter._merged = self.saved
+        return False
+
+
+class CudaGuards(MergeGuard):
     """A context in which torch.sort, ops.count.words_to_planes and
     ops.count._top_keys raise on a CUDA tensor (they still run on CPU
-    tensors), restored on exit: phase 6 shows that the count path sorts on
-    K22 and reduces the final run with K14's row policy, no library sort and
-    no elementwise plane or key building on the card."""
+    tensors), and every merge is watched as MergeGuard watches it, restored
+    on exit: phase 6 shows that the count path sorts on K22, merges runs on
+    K23 where they lie and reduces a merged run with K14's row policy, no
+    library sort and no elementwise plane or key building on the card."""
 
     def __enter__(self):
         import torch
 
         from leon_tpu_torch.ops import count
 
-        self.saved = (torch.sort, count.words_to_planes, count._top_keys)
+        super().__enter__()
+        self.saved_fns = (torch.sort, count.words_to_planes, count._top_keys)
 
         def guard(name, fn):
             def call(x, *args, **kwargs):
@@ -3625,9 +3897,9 @@ class CudaGuards:
                 return fn(x, *args, **kwargs)
             return call
 
-        torch.sort = guard("torch.sort", self.saved[0])
-        count.words_to_planes = guard("ops.count.words_to_planes", self.saved[1])
-        count._top_keys = guard("ops.count._top_keys", self.saved[2])
+        torch.sort = guard("torch.sort", self.saved_fns[0])
+        count.words_to_planes = guard("ops.count.words_to_planes", self.saved_fns[1])
+        count._top_keys = guard("ops.count._top_keys", self.saved_fns[2])
         return self
 
     def __exit__(self, *exc):
@@ -3635,8 +3907,8 @@ class CudaGuards:
 
         from leon_tpu_torch.ops import count
 
-        torch.sort, count.words_to_planes, count._top_keys = self.saved
-        return False
+        torch.sort, count.words_to_planes, count._top_keys = self.saved_fns
+        return super().__exit__(*exc)
 
 
 def main_path(records: dict, card: str, paths: dict) -> None:
@@ -3657,16 +3929,16 @@ def main_path(records: dict, card: str, paths: dict) -> None:
             ("default", "ecoli_500k", {}, default_path, default_path, PIN),
             ("device unitig build", "ecoli_500k", {"unitig_device_max_kmers": 1 << 30},
              list(COMPRESS), list(DEVICE_BUILD), PIN),
-            (f"k={K63}", "ecoli_500k", {"kmer_size": K63}, list(WIDE) + ["walk_pack"],
-             list(WIDE), PIN63),
+            (f"k={K63}", "ecoli_500k", {"kmer_size": K63}, list(no_merges(WIDE)) + ["walk_pack"],
+             list(no_merges(WIDE)), PIN63),
             (f"k={K127}, 250 bp", "ecoli_200k_250bp", {"kmer_size": K127},
-             list(WIDE8) + ["walk_pack"], list(WIDE8), PIN127),
+             list(no_merges(WIDE8)) + ["walk_pack"], list(no_merges(WIDE8)), PIN127),
             (f"k={K63}, device unitig build", "ecoli_500k",
              {"kmer_size": K63, "unitig_device_max_kmers": 1 << 30},
-             list(WIDE + UNITIG4) + ["walk_pack"], list(UNITIG4), PIN63),
+             list(no_merges(WIDE) + UNITIG4) + ["walk_pack"], list(UNITIG4), PIN63),
             (f"k={K127}, 250 bp, device unitig build", "ecoli_200k_250bp",
              {"kmer_size": K127, "unitig_device_max_kmers": 1 << 30},
-             list(WIDE8 + UNITIG8) + ["walk_pack"], list(UNITIG8), PIN127)):
+             list(no_merges(WIDE8) + UNITIG8) + ["walk_pack"], list(UNITIG8), PIN127)):
         src = paths[corpus]
         arc = os.path.join(WORK, f"{corpus}.leon")
         out = os.path.join(WORK, f"{corpus}.out.fastq")
@@ -3674,7 +3946,7 @@ def main_path(records: dict, card: str, paths: dict) -> None:
         cfg = LeonConfig(noheader=True, noqual=True, **extra)
         kernels.launches.clear()
         torch.cuda.synchronize()
-        with CudaGuards():
+        with CudaGuards() as guards:
             t = time.time()
             st = pipeline.compress(src, arc, cfg=cfg, device="cuda")
             torch.cuda.synchronize()
@@ -3695,7 +3967,9 @@ def main_path(records: dict, card: str, paths: dict) -> None:
             records[k]["launches"] = launches[counter(k)]
         walls[label] = (t_c, t_d)
         log(f"main path ({label}) ok: archive {size} B = the reference's (sha256 "
-            f"{digest[:16]}), ratio {st['ratio']:.3f}, round trip exact, launches {launches}")
+            f"{digest[:16]}), ratio {st['ratio']:.3f}, round trip exact, launches {launches}; "
+            f"{guards.merges} merges of runs, each on K23 with no K22 or K20 launch and no "
+            f"torch.cat of CUDA runs")
         log(f"compress {n / t_c:.1f} reads/s ({t_c:.2f} s), decompress {n / t_d:.1f} reads/s "
             f"({t_d:.2f} s) on {card} (host clock, end to end)")
         log(f"compress spans: {json.dumps(st.get('span_s', {}))}")
@@ -3859,18 +4133,20 @@ def large_corpus_child() -> int:
 
 
 
-def stream_phase(paths: dict) -> dict:
+def stream_phase(records: dict, paths: dict) -> dict:
     """Phase 11 (see the module docstring): (a) stream mode with a forced
     multi-run spill on phase 6's corpora, (b) the corpus over 1 GiB in a
-    child process, (c) a checkpoint resume, (d) profile_dir."""
+    child process, (c) a checkpoint resume, (d) profile_dir. The spilled runs
+    at k = 63 and 127 (host builder) give the launches of K23's records
+    merge_path:rows and :rows8."""
     import torch
 
     from leon_tpu_torch import LeonConfig, kernels, pipeline
 
     fig = {}
-    host_path = ["kmer_scan", "runs", "bloom_build", "walk_encode", "walk_pack"]
-    wide_path = ["kmer_scan_halves", "plane_rows", "sort_ties", "word_runs", "bloom_build_words",
-                 "walk_encode_words", "walk_pack"]
+    host_path = ["kmer_scan", "runs", "merge_path", "bloom_build", "walk_encode", "walk_pack"]
+    wide_path = ["kmer_scan_halves", "plane_rows", "sort_ties", "word_runs", "merge_path",
+                 "word_runs_rows", "bloom_build_words", "walk_encode_words", "walk_pack"]
     device_build = ["unitig_links", "unitig_double", "unitig_emit", "solid_lookup"]
     for label, corpus, k, pin in (("k=31", "ecoli_500k", K, PIN),
                                   (f"k={K63}", "ecoli_500k", K63, PIN63),
@@ -3881,10 +4157,11 @@ def stream_phase(paths: dict) -> dict:
             cfg = LeonConfig(noheader=True, noqual=True, kmer_size=k,
                              unitig_device_max_kmers=dev_max, **FORCED_SPILL)
             kernels.launches.clear()
-            t = time.time()
-            st = pipeline.compress(paths[corpus], arc, cfg=cfg, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.time() - t
+            with MergeGuard() as guard:
+                t = time.time()
+                st = pipeline.compress(paths[corpus], arc, cfg=cfg, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.time() - t
             launches = dict(kernels.launches)
             check_pin(f"stream, spilled ({name})", arc, st, pin)
             if not st["stream_mode"] or st["count_spills"] < 2:
@@ -3894,11 +4171,18 @@ def stream_phase(paths: dict) -> dict:
             missing = [n for n in path if launches.get(n, 0) < 1]
             if missing:
                 raise AssertionError(f"{name}: kernels never launched: {missing}")
+            if guard.merges < 1:
+                raise AssertionError(f"{name}: no merge of runs")
+            if k != K and not dev_max:
+                records["merge_path:rows" + ("" if k == K63 else "8")]["launches"] = \
+                    launches["merge_path"]
             fig[name] = {"compress_s": wall, "spills": st["count_spills"],
                          "host_merge_s": st["span_s"].get("count.fin.host_merge"),
-                         "launches": launches}
+                         "merges": guard.merges, "launches": launches}
             log(f"stream, spilled ({name}) ok: archive = the reference's, stream mode, "
-                f"{st['count_spills']} spills, {wall:.2f} s, launches {launches}")
+                f"{st['count_spills']} spills, {guard.merges} merges of runs (each on K23, no "
+                f"K22 or K20 inside, no torch.cat of CUDA runs), {wall:.2f} s, "
+                f"launches {launches}")
 
     # the child needs the card's memory: the cache this process kept from the
     # earlier phases goes back first
@@ -4085,6 +4369,61 @@ def mesh_phase(paths: dict, card: str, devices=("cuda:0",) * MESH,
     return fig
 
 
+# The adversarial checks whose plain versions hold the host longest (K5 and
+# K7's runs, K11's walks, K15's and K18/K19's reads: each plain version a
+# Python loop of small launches) run in a child process, `python3
+# chip_smoke.py --adversarial`, started before phase 4 and joined after phase
+# 12, while the parent runs phases that time no kernel (their launches and
+# walls only; phase 4 logs the yeast build's times, and these share the card
+# with the child).
+ADVERSARIAL = "--adversarial"
+
+
+def adversarial_child() -> int:
+    """The checks the parent hands to a child (see ADVERSARIAL), each of
+    which raises on a kernel that differs from its plain version."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("[chip_smoke] no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from leon_tpu_torch import kernels
+
+    kernels.lib()
+    k5_adversarial()
+    k7_adversarial()
+    k11_adversarial(K11_KS)
+    k15_adversarial(K15_KS)
+    walk_adversarial()
+    log("adversarial checks ok: K5, K7, K11, K15, K18, K19")
+    return 0
+
+
+def start_adversarial_child():
+    """The adversarial child, its output to a file under WORK."""
+    os.makedirs(WORK, exist_ok=True)
+    out = open(os.path.join(WORK, "adversarial.log"), "w")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), ADVERSARIAL],
+                            stdout=out, stderr=subprocess.STDOUT), out
+
+
+def join_adversarial_child(child) -> None:
+    """Wait for the adversarial child, print its log, raise if it failed."""
+    proc, out = child
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    with open(out.name) as f:
+        sys.stdout.write(f.read()[-20000:])
+    if rc != 0:
+        raise AssertionError(f"the adversarial checks' child exited {rc}")
+
+
 def main() -> int:
     import torch
 
@@ -4119,20 +4458,25 @@ def main() -> int:
     longk_fig = longk_phase(records, hand)
     del hand
     done("phase 10")
-    fig = yeast_phase()
-    log(f"[yeast] {json.dumps(fig)}")
-    done("phase 4")
-    card_launches = variants()
-    for names, label in ((WIDE16, V255), (UNITIG16, V255_DEVICE)):
-        for n in names:
-            records[n]["launches"] = card_launches[label][counter(n)]
-    done("phase 5")
-    main_path(records, card, paths)
-    done("phase 6")
-    stream_fig = stream_phase(paths)
-    done("phase 11")
-    mesh_fig = mesh_phase(paths, card)
-    done("phase 12")
+    child = start_adversarial_child()
+    try:
+        fig = yeast_phase()
+        log(f"[yeast] {json.dumps(fig)}")
+        done("phase 4")
+        card_launches = variants()
+        for names, label in ((WIDE16, V255), (UNITIG16, V255_DEVICE)):
+            for n in names:
+                records[n]["launches"] = card_launches[label][counter(n)]
+        done("phase 5")
+        main_path(records, card, paths)
+        done("phase 6")
+        stream_fig = stream_phase(records, paths)
+        done("phase 11")
+        mesh_fig = mesh_phase(paths, card)
+        done("phase 12")
+    finally:
+        join_adversarial_child(child)
+    done("adversarial child joined")
     log(f"[graph] {json.dumps(graph_fig)}")
     log(f"[tensor] {json.dumps(tensor_fig)}")
     log(f"[multiword kernels] {json.dumps(wide_fig)}")
@@ -4157,6 +4501,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--large-corpus"]:
         sys.exit(large_corpus_child())
+    if sys.argv[1:] == [ADVERSARIAL]:
+        sys.exit(adversarial_child())
     if sys.argv[1:2] == ["--distributed-rank"]:
         sys.exit(distributed_rank_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7]))
     sys.exit(main())

@@ -8,9 +8,10 @@
 // Replaces the sorts in the bodies of the reference's count programs:
 // lax.sort in leon_tpu/ops/count.py _sort_count_device / _fused_sort_count
 // (60, 64, 194-207) and in _merge_sorted_runs (233, the counts as its
-// payload), which the port first ran as torch.sort: DeviceCounter's slab and
-// merge, the WordCounter's top sorts (sort_slab, sort_rows), count_batch's
-// top_sort and _tie_rounds (ops/count.py).
+// payload), which the port first ran as torch.sort: DeviceCounter's slab,
+// the WordCounter's top sorts (sort_slab; sort_rows, which no counter calls
+// since K23 below merges the runs), count_batch's top_sort and _tie_rounds
+// (ops/count.py).
 //
 // Bound on the H100: device-memory bytes. A pass reads each key (and
 // payload) once and writes it once; the sort runs one pass for each 8-bit
@@ -419,5 +420,336 @@ extern "C" int lt_radix_pass(const void* keys, const void* rows, int W, const vo
       return rs_launch<false, RS_PAY_IDX32>(src, pay_in, n, digit, off, ko, pay_out, s, tiles, st);
     default:
       return rs_launch<false, RS_PAY_I32W>(src, pay_in, n, digit, off, ko, pay_out, s, tiles, st);
+  }
+}
+
+// A redesign of the pass was measured on the H100 (NVIDIA H100 80GB HBM3,
+// 700 W) and not kept: a persistent grid of the resident blocks taking tile
+// after tile from the pass's counter, each streaming its next tile's keys
+// into shared memory with cp.async while it ranks and scatters the current
+// one (publishing the current tile's inclusive counts before it starts the
+// next, so no look-back waits on a block that waits on it), and status
+// words tagged with their pass (digit + 1 beside the flag, a word of another
+// pass read as unwritten) so that one memset a sort replaced one a pass.
+// At 4,096 keys a tile its shared memory (staging, payload, prefetch) left 2
+// blocks an SM (116-128 registers); at 3,072 keys 3 blocks, but a third more
+// tiles to look back over. Every shape was 3-15% slower than this pass
+// (scripts/ab_kernels.py --only sort, parent and variants in turns): the
+// k = 31 slab (37.0M keys) 3.206-3.210 and 3.271-3.287 ms against
+// 2.848-2.850, the k = 127 slab's top keys 3.313-3.326 / 3.508-3.512 against
+// 3.074-3.087, a W = 4 chunk's top keys 0.474-0.476 / 0.474-0.481 against
+// 0.457-0.466. Hiding the loads did not pay for the warps it cost the
+// look-back and the scatter, which it does not touch (PERF.md §6).
+
+// ---------------------------------------------------------------------------
+// K23 merge_path — a stable merge of sorted runs with their int32 counts: the
+// count's merges (ops/count.py merge_path, merge_path_rows). It takes the
+// place of the sort inside the reference's _merge_sorted_runs
+// (leon_tpu/ops/count.py:233, lax.sort of the concatenated runs with the
+// counts carried along) wherever the runs are already sorted: DeviceCounter's
+// and the WordCounter's merges, which the port first ran as torch.cat and a
+// K22 sort (and, at W >= 3, K20 carrying the counts). A stable merge of the
+// runs in order (on equal elements the earlier run's first) gives the order
+// of a stable sort of their concatenation.
+//
+// An element is W u32 words, least significant first: an int64 key is W = 2
+// with its top word signed (SIGNED), a (M, W) row of k-mer words compares as
+// unsigned words, most significant first. The top 64 bits (words W-1, W-2)
+// compare first, the lower words only on a tie (equal k-mers across runs are
+// exactly what a merge sums).
+//
+// Bound on the H100: device-memory bytes, one read and one write of the rows
+// and counts for each pairwise round (R runs merge in ceil(log2 R) rounds of
+// adjacent pairs, in order, so that the merge stays stable; an odd run waits
+// for the next round untouched; one launch merges every pair of a round, up to
+// MP_MAX_PAIRS, from a table passed by value). Design (merge path: Odeh,
+// Green, Mwassi, Shmueli and Birk 2012; Green, McColl and Bader 2012): a
+// block owns MP_THREADS * mp_items(W) outputs of one pair; two warps find
+// where its first and last outputs' cross-diagonals cut the two inputs (a
+// 32-ary search: each step a warp probes 32 places at once, so about five
+// dependent round trips to device memory); the block copies both input
+// stretches, which are contiguous, and their counts into shared memory with
+// cp.async (16 bytes at a time; each stretch placed at its source's phase in
+// a 16-byte chunk, the unaligned head and tail 4 bytes at a time); each
+// thread finds its own sub-diagonal by a binary search in shared memory and
+// merges its items serially (the two current tops kept in registers), writing
+// only where each output comes from (a 16-bit index); then the block writes
+// its rows and counts in 16-byte stores. About 54-58 KB of shared memory a
+// block at every W (mp_items), so 3-4 blocks an SM.
+
+#define MP_THREADS 256
+#define MP_MAX_PAIRS 8  // pairs a launch merges (a round with more launches again)
+
+// elements a thread merges at width W: about 56 KB of shared memory a block
+// (ops/count.py merge_tile)
+static __host__ __device__ constexpr int mp_items(int W) {
+  return 60 / (W + 2) < 16 ? 60 / (W + 2) : 16;
+}
+static __host__ __device__ constexpr int mp_tile(int W) { return MP_THREADS * mp_items(W); }
+// shared-memory words of a block: rows and counts of its tile, four phase
+// gaps, the 16-bit source index of each output
+static __host__ __device__ constexpr int mp_smem_words(int W) {
+  return mp_tile(W) * (W + 1) + mp_tile(W) / 2 + 32;
+}
+
+struct MpPair {
+  const uint32_t* a;  // run A: na elements of W words
+  const int32_t* ca;  // its counts
+  const uint32_t* b;  // run B, after A
+  const int32_t* cb;
+  uint32_t* out;      // na + nb elements, 16-byte aligned
+  int32_t* cout;      // 16-byte aligned
+  long long na, nb;
+  long long first;    // the pair's first block in its launch
+};
+
+struct MpTable {
+  MpPair p[MP_MAX_PAIRS];
+  int n;
+};
+
+// an element's top 64 bits as an unsigned whose order is the element's
+template <int W, bool SIGNED, bool GLOBAL>
+static __device__ __forceinline__ unsigned long long mp_top(const uint32_t* p) {
+  const unsigned long long t =
+      GLOBAL ? ((unsigned long long)__ldg(p + W - 1) << 32) | __ldg(p + W - 2)
+             : ((unsigned long long)p[W - 1] << 32) | p[W - 2];
+  return SIGNED ? t ^ RS_SIGN : t;
+}
+
+// a <= b for elements with equal tops: words W-3 .. 0 as unsigned
+template <int W, bool GLOBAL>
+static __device__ __forceinline__ bool mp_low_le(const uint32_t* a, const uint32_t* b) {
+#pragma unroll
+  for (int q = W - 3; q >= 0; --q) {
+    const uint32_t x = GLOBAL ? __ldg(a + q) : a[q], y = GLOBAL ? __ldg(b + q) : b[q];
+    if (x != y) return x < y;
+  }
+  return true;
+}
+
+// a <= b: in a stable merge, A's element a goes before B's element b
+template <int W, bool SIGNED, bool GLOBAL>
+static __device__ __forceinline__ bool mp_le(const uint32_t* a, const uint32_t* b) {
+  const unsigned long long ta = mp_top<W, SIGNED, GLOBAL>(a), tb = mp_top<W, SIGNED, GLOBAL>(b);
+  return ta < tb || (ta == tb && mp_low_le<W, GLOBAL>(a, b));
+}
+
+// A's elements among the first d outputs of the pair's merge: the least i
+// with A[i] > B[d - 1 - i] (d - nb <= i <= min(d, na)), found by one warp
+// probing 32 places a step (the predicate is true, then false, along i)
+template <int W, bool SIGNED>
+static __device__ long long mp_search(const MpPair& P, long long d) {
+  const int lane = threadIdx.x & 31;
+  long long lo = d - P.nb > 0 ? d - P.nb : 0, hi = d < P.na ? d : P.na;
+  while (lo < hi) {
+    const long long span = hi - lo;
+    const long long m = span <= 32 ? lo + lane : lo + span * lane / 32;
+    const bool pred = m < hi && mp_le<W, SIGNED, true>(P.a + m * W, P.b + (d - 1 - m) * W);
+    const int t = __popc(__ballot_sync(RS_FULL, pred));  // the lanes below t hold true
+    if (span <= 32) {
+      lo += t;
+      hi = lo;
+    } else {
+      const long long nlo = t ? lo + span * (t - 1) / 32 + 1 : lo;
+      hi = t < 32 ? lo + span * t / 32 : hi;
+      lo = nlo;
+    }
+  }
+  return lo;
+}
+
+// a pointer's 4-byte word within its 16-byte chunk
+static __device__ __forceinline__ int mp_phase(const void* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3u);
+}
+
+static __device__ __forceinline__ int mp_up4(int x) { return (x + 3) & ~3; }
+
+static __device__ __forceinline__ void mp_cp16(uint32_t* s, const uint32_t* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(g) : "memory");
+}
+
+static __device__ __forceinline__ void mp_cp4(uint32_t* s, const uint32_t* g) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa), "l"(g) : "memory");
+}
+
+// the block copies n words from g to s (the same phase in a 16-byte chunk):
+// the head and tail a word at a time, the chunks between 16 bytes at a time
+static __device__ __forceinline__ void mp_copy(uint32_t* s, const uint32_t* g, int n) {
+  const int head = min((4 - mp_phase(g)) & 3, n);
+  const int body = (n - head) >> 2, tail = head + 4 * body;
+  for (int t = threadIdx.x; t < head; t += MP_THREADS) mp_cp4(s + t, g + t);
+  for (int t = threadIdx.x; t < body; t += MP_THREADS) mp_cp16(s + head + 4 * t, g + head + 4 * t);
+  for (int t = tail + threadIdx.x; t < n; t += MP_THREADS) mp_cp4(s + t, g + t);
+}
+
+// One block: outputs [d0, d0 + tile) of its pair (see the K23 header).
+template <int W, bool SIGNED>
+__global__ void __launch_bounds__(MP_THREADS, 3) mp_merge_kernel(const MpTable T) {
+  constexpr int ITEMS = mp_items(W), NV = mp_tile(W);
+  extern __shared__ __align__(16) uint32_t mp_smem[];
+  __shared__ long long s_a[2];
+  int pi = 0;
+#pragma unroll
+  for (int q = 1; q < MP_MAX_PAIRS; ++q)
+    if (q < T.n && T.p[q].first <= (long long)blockIdx.x) pi = q;
+  MpPair P = T.p[0];
+#pragma unroll
+  for (int q = 1; q < MP_MAX_PAIRS; ++q)
+    if (q == pi) P = T.p[q];  // selects, not a local copy of the table
+  const long long d0 = ((long long)blockIdx.x - P.first) * NV;
+  const long long d1 = d0 + NV < P.na + P.nb ? d0 + NV : P.na + P.nb;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const long long a = mp_search<W, SIGNED>(P, warp ? d1 : d0);
+    if ((threadIdx.x & 31) == 0) s_a[warp] = a;
+  }
+  __syncthreads();
+  const long long a0 = s_a[0], b0 = d0 - a0;
+  const int na = (int)(s_a[1] - a0), nb = (int)(d1 - s_a[1] - b0), tn = na + nb;
+  // words: A's rows, B's rows, A's counts, B's counts, each at its source's
+  // phase in a 16-byte chunk; then the outputs' 16-bit sources
+  const int offA = mp_phase(P.a + a0 * W);
+  const int offB = mp_up4(offA + na * W) + mp_phase(P.b + b0 * W);
+  const int offCA = mp_up4(offB + nb * W) + mp_phase(P.ca + a0);
+  const int offCB = mp_up4(offCA + na) + mp_phase(P.cb + b0);
+  unsigned short* s_src = reinterpret_cast<unsigned short*>(mp_smem + mp_up4(offCB + nb));
+  mp_copy(mp_smem + offA, P.a + a0 * W, na * W);
+  mp_copy(mp_smem + offB, P.b + b0 * W, nb * W);
+  mp_copy(mp_smem + offCA, reinterpret_cast<const uint32_t*>(P.ca + a0), na);
+  mp_copy(mp_smem + offCB, reinterpret_cast<const uint32_t*>(P.cb + b0), nb);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const uint32_t* sA = mp_smem + offA;
+  const uint32_t* sB = mp_smem + offB;
+  {
+    // the thread's ITEMS outputs from its sub-diagonal
+    const int diag = min((int)threadIdx.x * ITEMS, tn), end = min(diag + ITEMS, tn);
+    int lo = max(0, diag - nb), hi = min(diag, na);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (mp_le<W, SIGNED, false>(sA + mid * W, sB + (diag - 1 - mid) * W))
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int i = lo, j = diag - lo;
+    unsigned long long ta = i < na ? mp_top<W, SIGNED, false>(sA + i * W) : 0ull;
+    unsigned long long tb = j < nb ? mp_top<W, SIGNED, false>(sB + j * W) : 0ull;
+    for (int p = diag; p < end; ++p) {
+      const bool take_a = j >= nb || (i < na && (ta < tb || (ta == tb && mp_low_le<W, false>(
+                                                                 sA + i * W, sB + j * W))));
+      if (take_a) {
+        s_src[p] = (unsigned short)i;
+        if (++i < na) ta = mp_top<W, SIGNED, false>(sA + i * W);
+      } else {
+        s_src[p] = (unsigned short)(na + j);
+        if (++j < nb) tb = mp_top<W, SIGNED, false>(sB + j * W);
+      }
+    }
+  }
+  __syncthreads();
+  // the tile's rows, then its counts, in 16-byte stores (the outputs start
+  // 16-byte aligned: d0 is a multiple of NV), a last part word by word
+  uint32_t* out = P.out + d0 * W;
+  const int nw = tn * W;
+  for (int c = threadIdx.x; c < nw >> 2; c += MP_THREADS) {
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = 4 * c + q, r = p / W, w = p - r * W, e = s_src[r];
+      v[q] = e < na ? sA[e * W + w] : sB[(e - na) * W + w];
+    }
+    reinterpret_cast<uint4*>(out)[c] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  for (int p = (nw & ~3) + threadIdx.x; p < nw; p += MP_THREADS) {
+    const int r = p / W, w = p - r * W, e = s_src[r];
+    out[p] = e < na ? sA[e * W + w] : sB[(e - na) * W + w];
+  }
+  const uint32_t* sCA = mp_smem + offCA;
+  const uint32_t* sCB = mp_smem + offCB;
+  uint32_t* cout = reinterpret_cast<uint32_t*>(P.cout + d0);
+  for (int c = threadIdx.x; c < tn >> 2; c += MP_THREADS) {
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = s_src[4 * c + q];
+      v[q] = e < na ? sCA[e] : sCB[e - na];
+    }
+    reinterpret_cast<uint4*>(cout)[c] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  for (int p = (tn & ~3) + threadIdx.x; p < tn; p += MP_THREADS) {
+    const int e = s_src[p];
+    cout[p] = e < na ? sCA[e] : sCB[e - na];
+  }
+}
+
+template <int W, bool SIGNED>
+static int mp_launch(const long long* table, int n_pairs, cudaStream_t st) {
+  constexpr int NV = mp_tile(W);
+  constexpr size_t smem = (size_t)mp_smem_words(W) * sizeof(uint32_t);
+  LT_TRY(cudaFuncSetAttribute(mp_merge_kernel<W, SIGNED>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  for (int p0 = 0; p0 < n_pairs; p0 += MP_MAX_PAIRS) {
+    MpTable T;
+    memset(&T, 0, sizeof(T));
+    T.n = n_pairs - p0 < MP_MAX_PAIRS ? n_pairs - p0 : MP_MAX_PAIRS;
+    long long blocks = 0;
+    for (int q = 0; q < T.n; ++q) {
+      const long long* e = table + 8 * (p0 + q);
+      MpPair& P = T.p[q];
+      P.a = (const uint32_t*)e[0];
+      P.ca = (const int32_t*)e[1];
+      P.b = (const uint32_t*)e[2];
+      P.cb = (const int32_t*)e[3];
+      P.out = (uint32_t*)e[4];
+      P.cout = (int32_t*)e[5];
+      P.na = e[6];
+      P.nb = e[7];
+      P.first = blocks;
+      blocks += (P.na + P.nb + NV - 1) / NV;
+    }
+    if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    mp_merge_kernel<W, SIGNED><<<(unsigned)blocks, MP_THREADS, smem, st>>>(T);
+    LT_TRY(cudaGetLastError());
+  }
+  return (int)cudaSuccess;
+}
+
+// One round of K23: n_pairs merges, each a row of 8 int64 in `table` (host
+// memory): run A's rows and counts, run B's rows and counts, the output's
+// rows and counts (16-byte aligned), na, nb (both >= 1). Elements are W u32
+// words (2 <= W <= 16; sign: int64 keys, W = 2, the top word signed).
+extern "C" int lt_merge_path(const long long* table, int n_pairs, int W, int sign, void* stream) {
+  if (!table || n_pairs < 0 || W < 2 || W > 16 || (sign && W != 2))
+    return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < n_pairs; ++q) {
+    const long long* e = table + 8 * q;
+    if (e[6] < 1 || e[7] < 1 || e[6] + e[7] >= (1ll << 40)) return (int)cudaErrorInvalidValue;
+    for (int f = 0; f < 4; ++f)
+      if (!e[f] || (e[f] & 3)) return (int)cudaErrorInvalidValue;
+    if (!e[4] || !e[5] || (e[4] & 15) || (e[5] & 15)) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sign) return mp_launch<2, true>(table, n_pairs, st);
+  switch (W) {
+    case 2: return mp_launch<2, false>(table, n_pairs, st);
+    case 3: return mp_launch<3, false>(table, n_pairs, st);
+    case 4: return mp_launch<4, false>(table, n_pairs, st);
+    case 5: return mp_launch<5, false>(table, n_pairs, st);
+    case 6: return mp_launch<6, false>(table, n_pairs, st);
+    case 7: return mp_launch<7, false>(table, n_pairs, st);
+    case 8: return mp_launch<8, false>(table, n_pairs, st);
+    case 9: return mp_launch<9, false>(table, n_pairs, st);
+    case 10: return mp_launch<10, false>(table, n_pairs, st);
+    case 11: return mp_launch<11, false>(table, n_pairs, st);
+    case 12: return mp_launch<12, false>(table, n_pairs, st);
+    case 13: return mp_launch<13, false>(table, n_pairs, st);
+    case 14: return mp_launch<14, false>(table, n_pairs, st);
+    case 15: return mp_launch<15, false>(table, n_pairs, st);
+    default: return mp_launch<16, false>(table, n_pairs, st);
   }
 }

@@ -13,11 +13,15 @@ stable LSD radix sort of int64 keys (a pass for each 8-bit digit of the low
 bits in which the caller says they may differ, one histogram read first),
 alone or with an int32 payload or the keys' index, the keys read from an
 array or, in its first pass, from (N, W) rows' top 64 bits; it replaces the sorts inside the
-reference's count programs (``lax.sort``, count.py:60, 64, 233).
+reference's count programs (``lax.sort``, count.py:60, 64, 233). Runs that are
+already sorted merge by ``merge_path`` / ``merge_path_rows``, the wrappers of
+kernel K23 (csrc/sort.cu): a stable merge-path merge of int64 keys or (M, W)
+rows with their int32 counts, in pairwise rounds, the runs read in place
+(the sort at count.py:233 where its input is runs).
 
 ``DeviceCounter`` streams k-mer keys through one slab on the device: the
 scan kernel writes into the slab, a full slab is sorted (K22) and reduced to
-its distinct run, and runs merge (K22 with the counts as payload, then K2)
+its distinct run, and runs merge (K23 with the counts, then K2)
 once they outgrow ``merge_factor`` slabs. Slab, merge and spill sizes are
 the config's (``count_slab_kmers``, ``count_merge_factor``,
 ``count_spill_rows``). A merged run of ``spill_rows`` rows or more moves to
@@ -46,12 +50,12 @@ multiword route): K17 (ops/kmer.py) writes each chunk's valid k-mers as
 planes into the slab; at W >= 3 ``sort_slab`` orders a slab as count_batch
 orders its rows: ``plane_rows``, the wrapper of kernel K21 (csrc/count.cu),
 turns the planes into (n, W) rows and top keys, one K22 sort of the keys
-with their index, then K20; ``sort_rows`` orders the runs of a merge the
-same way (K22 reading the top keys from the rows), K20 carrying each row's
-count to its place (at W <= 2 both are one K22 sort of the one plane); K14
-reduces slabs and merged runs, ``word_runs_rows`` (K14's row policy) the
-final run as (M, W) rows, ``compact_solid_words`` is that policy's solid
-mode, and the Bloom build is K16 over those solid rows. Both counters share
+with their index, then K20 (at W <= 2 one K22 sort of the one plane); K14
+reduces slabs; runs merge by K23 over their (M, W) rows and reduce by
+``word_runs_rows`` (K14's row policy over rows). ``sort_rows`` (K22 reading
+the top keys from the rows, then K20 carrying each row's count to its place)
+sorts rows that are not runs: no counter path calls it since K23.
+``compact_solid_words`` is the row policy's solid mode, and the Bloom build is K16 over those solid rows. Both counters share
 ``_SlabCounter``'s slab, flush, merge, spill and finalize, on the
 reference's schedule (its bucketed run sizes decide every merge and spill),
 and take a chunk as lane shards (``add_shards``, the mesh) and a distinct
@@ -269,6 +273,138 @@ def top_key_bits(k: int) -> int:
     rows may differ: the 2k - 32 (W - 1) bits of word W - 1 and word W - 2's
     32 (the bits above 2k are 0); at W <= 2 the k-mer's 2k bits."""
     return 2 * k - 32 * max(words_for_k(k) - 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K23 (merge_path) and its plain version
+# ---------------------------------------------------------------------------
+
+MERGE_THREADS = 256  # threads a block of K23 (csrc/sort.cu MP_THREADS)
+
+
+def merge_tile(W: int) -> int:
+    """The outputs a block of K23 merges at an element width of W u32 words
+    (csrc/sort.cu mp_tile: MERGE_THREADS threads of min(16, 60 // (W + 2))
+    items, about 56 KB of shared memory)."""
+    return MERGE_THREADS * min(16, 60 // (W + 2))
+
+
+def _check_merge_runs(runs: list, rows: bool) -> int:
+    """The element width of K23's runs: (keys (n,) int64, counts (n,) int32)
+    pairs (2: a key's two words), or (rows (n, W) int32, counts) pairs with
+    one W, 2 <= W <= 16; all on one device."""
+    name = "merge_path_rows" if rows else "merge_path"
+    kernels.need(len(runs) >= 1, f"{name}: no runs")
+    dev, W = runs[0][0].device, runs[0][0].shape[1] if rows else 2
+    for data, counts in runs:
+        if rows:
+            kernels.need(data.dtype == torch.int32 and data.dim() == 2 and data.shape[1] == W
+                         and 2 <= W <= 16, f"{name}: rows must be (n, W) int32, 2 <= W <= 16")
+        else:
+            kernels.need(data.dtype == torch.int64 and data.dim() == 1,
+                         f"{name}: keys must be (n,) int64")
+        kernels.need(counts.dtype == torch.int32 and counts.shape == data.shape[:1],
+                     f"{name}: counts must be (n,) int32")
+        kernels.need(data.device == dev and counts.device == dev, f"{name}: tensors on two devices")
+    return W
+
+
+def _check_sorted_runs(runs: list) -> None:
+    """On the CPU, the callers' claim that each run is sorted (keys in signed
+    order, rows MSW first as u32 words): K23 merges, it does not sort."""
+    for data, _ in runs:
+        if data.shape[0] < 2:
+            continue
+        planes = (data,) if data.dim() == 1 else words_to_planes(data)
+        below = torch.zeros(data.shape[0] - 1, dtype=torch.bool)
+        equal = torch.ones_like(below)
+        for h in reversed(planes):  # the most significant plane first
+            below |= equal & (h[1:] > h[:-1])
+            equal &= h[1:] == h[:-1]
+        kernels.need(bool((below | equal).all()), "merge_path: a run is not sorted")
+
+
+def _merge_rounds(parts: list, W: int, sign: bool, alloc) -> tuple:
+    """K23's pairwise rounds on the card over nonempty runs `parts` ((data,
+    counts), data's storage W u32 words an element): each round merges runs
+    2i and 2i + 1 into a buffer of alloc(n) (an odd last run waits for the
+    next round), a round's pairs in one launch (up to 8 a launch, csrc/sort.cu
+    MP_MAX_PAIRS), the first round reading the runs where they are. Returns
+    the merged (data, counts)."""
+    lib = kernels.lib()
+    st = kernels.stream(parts[0][1])
+    while len(parts) > 1:
+        table, merged = [], []
+        for (a, ca), (b, cb) in zip(parts[0::2], parts[1::2]):
+            out, cout = alloc(ca.shape[0] + cb.shape[0])
+            table.append((a.data_ptr(), ca.data_ptr(), b.data_ptr(), cb.data_ptr(),
+                          out.data_ptr(), cout.data_ptr(), ca.shape[0], cb.shape[0]))
+            merged.append((out, cout))
+        tab = np.array(table, dtype=np.int64)
+        kernels.check(lib.lt_merge_path(tab.ctypes.data, len(table), W, int(sign), st),
+                      "merge_path")
+        parts = merged + parts[len(table) * 2 :]
+    return parts[0]
+
+
+def merge_path(runs: list) -> tuple:
+    """Sorted runs of int64 keys, each with its int32 counts ([(keys (n,),
+    counts (n,)), ...], keys ascending in signed order), merged stably: on
+    equal keys the earlier run's first, the order of torch.sort(stable=True)
+    of their concatenation (kernel K23 in pairwise rounds, the runs read in
+    place; one run is returned as it is). Returns (keys (N,) int64, counts
+    (N,) int32)."""
+    _check_merge_runs(runs, False)
+    if not kernels.on_cuda(runs[0][0], "merge_path"):
+        _check_sorted_runs(runs)
+        return runs[0] if len(runs) == 1 else merge_path_plain(runs)
+    return _merge_launch(runs, 2, True, lambda n: torch.empty(n, dtype=torch.int64,
+                                                              device=runs[0][0].device))
+
+
+def merge_path_rows(runs: list) -> tuple:
+    """merge_path over (rows (n, W) int32, counts (n,) int32) runs, 2 <= W
+    <= 16, each sorted MSW first as u32 words (the WordCounter's runs): equal
+    rows keep their runs' order. At W = 2 a row is one unsigned 64-bit key,
+    K23's key form. Returns (rows (N, W) int32, counts (N,) int32)."""
+    W = _check_merge_runs(runs, True)
+    if not kernels.on_cuda(runs[0][0], "merge_path"):
+        _check_sorted_runs(runs)
+        return runs[0] if len(runs) == 1 else merge_path_plain(runs)
+    return _merge_launch(runs, W, False, lambda n: torch.empty(n, W, dtype=torch.int32,
+                                                               device=runs[0][0].device))
+
+
+def _merge_launch(runs: list, W: int, sign: bool, alloc) -> tuple:
+    """K23 on the card: the nonempty runs through _merge_rounds (no launch
+    for fewer than two)."""
+    if len(runs) == 1:
+        return runs[0]
+    parts = [(d.contiguous(), c.contiguous()) for d, c in runs if c.shape[0]]
+    if len(parts) < 2:
+        return parts[0] if parts else (alloc(0), torch.empty(0, dtype=torch.int32,
+                                                               device=runs[0][1].device))
+    kernels.need(sum(c.shape[0] for _, c in parts) < 1 << 40, "merge_path: too many elements")
+
+    def alloc2(n):
+        return alloc(n), torch.empty(n, dtype=torch.int32, device=parts[0][1].device)
+
+    out = _merge_rounds(parts, W, sign, alloc2)
+    kernels.launches["merge_path"] += 1
+    return out
+
+
+def merge_path_plain(runs: list) -> tuple:
+    """Plain version of merge_path and merge_path_rows: torch.cat of the
+    runs, then a stable torch.sort of the keys (sort_planes of the rows'
+    planes), the counts permuted along."""
+    data = torch.cat([d for d, _ in runs])
+    counts = torch.cat([c for _, c in runs])
+    if data.dim() == 1:
+        keys, perm = torch.sort(data, stable=True)
+        return keys, counts[perm]
+    _, perm = sort_planes(words_to_planes(data), with_perm=True)
+    return data[perm], counts[perm]
 
 
 # ---------------------------------------------------------------------------
@@ -1134,11 +1270,11 @@ class _SlabCounter:
             self._merge_runs()
 
     def _merged(self, want_hist: bool):
-        """Merge every run into one: sort with the counts as payload, reduce."""
-        rows = torch.cat([r[0] for r in self._runs])
-        counts = torch.cat([r[1] for r in self._runs])
+        """Merge every run into one, read where it lies: the subclass's merge
+        of sorted runs, then its reduce (with the histogram if want_hist)."""
+        parts = [(r[0], r[1]) for r in self._runs]
         self._runs, self._runs_n = [], 0
-        return self._merge_sorted(rows, counts, True, want_hist)
+        return self._merge_sorted(parts, want_hist)
 
     def _merge_runs(self) -> None:
         """count.py:389-405: a lone run spills when its bucket reaches
@@ -1253,12 +1389,7 @@ class _SlabCounter:
             self._runs.append((*self._slab_run([b[: self._fill] for b in self._buf]), 0))
             self._fill = self._pend_n = 0
         self._buf = None
-        if len(self._runs) == 1:
-            rows, counts, _ = self._runs[0]
-            self._runs, self._runs_n = [], 0
-            rows, counts, hist_t = self._merge_sorted(rows, counts, False, True)
-        else:
-            rows, counts, hist_t = self._merged(True)
+        rows, counts, hist_t = self._merged(True)  # one run: its reduce alone
         hist = hist_t.cpu().numpy().astype(np.int64)
         cutoff = abundance if abundance is not None else auto_cutoff(hist)
         n_solid = int(hist[min(cutoff, 255):].sum())
@@ -1310,7 +1441,8 @@ class _SlabCounter:
 
 class DeviceCounter(_SlabCounter):
     """Counts canonical k-mers of k <= 31 as one int64 key each (K1 into the
-    slab, K22 radix_sort, K2; the Bloom build K3)."""
+    slab, K22 radix_sort, K2; merges K23 merge_path, K2; the Bloom build
+    K3)."""
 
     def __init__(self, k: int, device, slab_kmers: int = 1 << 25, merge_factor: int = 4,
                  spill_rows: int = 64 << 20):
@@ -1324,9 +1456,9 @@ class DeviceCounter(_SlabCounter):
         uk, uc, _ = runs(radix_sort(filled[0]))
         return uk, uc
 
-    def _merge_sorted(self, keys, counts, unsorted: bool, want_hist: bool):
-        if unsorted:  # k-mer keys: 2k bits
-            keys, counts = radix_sort(keys, counts, 2 * self.k)
+    def _merge_sorted(self, parts: list, want_hist: bool):
+        """Sorted runs [(keys, counts), ...] merged (K23) and reduced (K2)."""
+        keys, counts = merge_path(parts)
         return runs(keys, counts, 1, want_hist)
 
     def _bloom(self, keys, counts, cutoff: int, n_words: int, H: int, seed: int):
@@ -1346,10 +1478,9 @@ class WordCounter(_SlabCounter):
     the valid positions' P = ceil(W/2) sign-flipped int64 planes into the
     slab's P buffers (invalid rows are dropped, so no key marks them),
     sort_slab orders them (W >= 3: K21, the top sort, K20), K14 reduces;
-    runs are (M, W) int32 words with int32 counts, merged by sort_rows (the
-    top sort from the rows; W >= 3: K20 with the counts as its payload) and
-    K14 in count mode; an already sorted final run is reduced by K14's row
-    policy (word_runs_rows); the Bloom build is that policy's solid mode,
+    runs are (M, W) int32 words with int32 counts, merged by K23
+    (merge_path_rows, the runs read in place) and reduced by K14's row
+    policy (word_runs_rows; the final run's too); the Bloom build is that policy's solid mode,
     then K16 over those rows (which finalize hands on for the unitig
     builder)."""
 
@@ -1366,11 +1497,11 @@ class WordCounter(_SlabCounter):
         words, counts, _ = word_runs(sort_slab(filled, self.W, top_key_bits(self.k)), self.W)
         return words, counts
 
-    def _merge_sorted(self, words, counts, unsorted: bool, want_hist: bool):
-        if not unsorted:
-            return word_runs_rows(words, counts, 1, want_hist)
-        planes, counts = sort_rows(words, counts, top_key_bits(self.k))
-        return word_runs(planes, self.W, counts, 1, want_hist)
+    def _merge_sorted(self, parts: list, want_hist: bool):
+        """Sorted runs [(words, counts), ...] merged (K23) and reduced (K14's
+        row policy)."""
+        words, counts = merge_path_rows(parts)
+        return word_runs_rows(words, counts, 1, want_hist)
 
     def _bloom(self, words, counts, cutoff: int, n_words: int, H: int, seed: int):
         solid = compact_solid_words(words, counts, cutoff)[0]

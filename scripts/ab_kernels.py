@@ -214,13 +214,15 @@ Inputs (chip_smoke.py's shapes):
                slab's rows gathered in its top-sort order); "peak_bytes"
                the card's memory the slab run takes above what the caller
                holds. ":merge" at W = 8 and 16: phase 9's merge of every
-               chunk's slab run with the counts (`_merge_sorted`: the sort
-               with the counts carried, K14 with the histogram; no one
-               PyTorch call sums a payload), its parts and floor (c).
+               chunk's slab run with the counts (`_merge_sorted`: K23 over
+               the runs, or on a tree without it the sort of their
+               concatenation with the counts carried; then K14 with the
+               histogram; no one PyTorch call sums a payload), its parts and
+               floor (c).
                "w16:flush" the card's peak memory while phase 9's two W = 16
                chunks fill a slab and the second flushes it (the scan,
                the slab sort and K14 of 25.6M rows)
-  sort:k31:slab/k31:merge/k21:merge/w8:slab/w16:rows  (section sort) K22
+  sort:k31:slab/k31:merge/k21:merge/w8:slab/chunk:*/w16:rows/merge:*  (section sort) K22
                (`count.radix_sort` and its index and row forms) at the count
                path's shapes: the k = 31 slab of 500,000 reads of phase 3's
                generator (K1, 37.0M keys, SENTINEL where invalid; keys
@@ -230,7 +232,9 @@ Inputs (chip_smoke.py's shapes):
                merge is, beside "all_passes_ms" over 64; a tree whose
                radix_sort takes bits), the k = 127
                bench slab's top keys (K21 over every chunk's K17 planes; with
-               their index) and the W = 16 merge's top keys read from its rows
+               their index), the first chunk's top keys at W = 4, 8, 16
+               (":chunk:w4" ...: phase 9's chunks, with their index, over
+               top_key_bits(k)) and the W = 16 merge's top keys read from its rows
                (phase 9's two chunks; with their index): "path_ms" the
                tree's own sort there (on a tree without K22, torch.sort and
                the gather it made), beside "torch_sort_ms" (torch.sort(stable
@@ -244,7 +248,23 @@ Inputs (chip_smoke.py's shapes):
                reduce of the final run at k = 127 and 255 (every chunk's slab
                run merged): the tree's (K14's row policy, or
                state.words_to_planes and K14) beside "planes_k14_ms" and
-               "words_to_planes_ms"; the ptxas registers of K22's kernels
+               "words_to_planes_ms"; "merge:k31/w4/w8/w16" K23 at the
+               count's four merge shapes: the k = 31 merge's two runs (the
+               distinct run and every third row, with their counts) and
+               phase 9's merges of every chunk's slab run at W = 4, 8, 16 (7,
+               4, 2 runs): "k23_ms" (`merge_path` / `merge_path_rows`, held
+               against merge_path_plain) beside "cat_sort_ms" (the parent's
+               route: torch.cat of the runs, then K22 with the counts over
+               2k bits, or `sort_rows`: K22 of the top keys read from the
+               rows and K20 with the counts), "torch_sort_ms"
+               (torch.sort(stable=True) of the concatenated keys, or of the
+               rows' top keys), "counter_merge_ms" (the tree's whole counter
+               merge with its reduce and histogram), the card's peak memory
+               of each ("*_peak_bytes"), "floor_ms" (scripts/sort_floor.cu
+               lt_merge_floor: the runs' elements and counts copied once a
+               pairwise round, "rounds" = ceil(log2 runs)), "bytes_ms" (read
+               once and written once) and the shares of both; the ptxas
+               registers of K22's and K23's kernels
 Every record is checked exact against the tree's plain version first.
 """
 
@@ -276,6 +296,31 @@ def merge_sort(count, state, words, counts):
         return count.sort_rows(words, counts)
     planes, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
     return planes, counts[perm]
+
+
+def counter_merge(count, c, runs: list, want_hist: bool):
+    """The tree's counter merge of sorted runs [(rows, counts), ...] with its
+    reduce: K23 over the runs where they lie where the tree has it
+    (`_merge_sorted(parts, want_hist)`), else the parent's torch.cat and sort
+    of the concatenation (`_merge_sorted(rows, counts, True, want_hist)`)."""
+    if "parts" in inspect.signature(c._merge_sorted).parameters:
+        return c._merge_sorted(runs, want_hist)
+    import torch
+
+    return c._merge_sorted(torch.cat([r[0] for r in runs]), torch.cat([r[1] for r in runs]),
+                           True, want_hist)
+
+
+def peak_bytes(fn) -> int:
+    """The card's memory fn() takes above what the caller holds."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
 
 
 def slab_reads(nr: int, reverse: bool):
@@ -1721,15 +1766,15 @@ def wordsort_section(wide, ms, same, dev) -> dict:
         runs = [c._slab_run(kmer.kmer_scan_halves(p, ln, k, L)) for p, ln in chunks]
         words = torch.cat([r[0] for r in runs])
         counts = torch.cat([r[1] for r in runs])
-        del runs
-        got = c._merge_sorted(words, counts, True, True)
+        got = counter_merge(count, c, runs, True)
         pl, perm = count.sort_planes(state.words_to_planes(words), with_perm=True)
         same(got, count.word_runs_plain(pl, W, counts[perm], 1, True))
         del pl, perm
         n, M = words.shape[0], got[0].shape[0]
         rec = {"k": k, "chunks": len(chunks), "rows": n, "distinct": M,
-               "merge_ms": ms(lambda: c._merge_sorted(words, counts, True, True), 5),
+               "merge_ms": ms(lambda: counter_merge(count, c, runs, True), 5),
                "bytes": (4 * W + 4) * (n + M) + 1024}
+        del runs
         rec["bound_ms"] = rec["bytes"] / rate
         rec["sort_ms"] = ms(lambda: merge_sort(count, state, words, counts), 5)
         if hasattr(count, "sort_rows"):
@@ -1848,7 +1893,6 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
     rk, rc, _ = count.runs(torch.sort(slab).values)
     del slab
     mk, mc = torch.cat([rk, rk[::3]]), torch.cat([rc, rc[::3]])
-    del rk, rc
     if has:
         same(count.radix_sort(mk, mc), count.radix_sort_plain(mk, mc))
 
@@ -1873,6 +1917,8 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
         res["k21:merge"]["all_passes_ms"] = ms(lambda: count.radix_sort(mk21, mc), 10)
         del mk21
     del mk, mc
+    rk, rc = rk.contiguous(), rc.contiguous()
+    merge_section(res, rk, rc, wide, ms, same, dev)
     # k = 127: the bench slab's top keys (K21 over every chunk's K17 planes),
     # with their index, as sort_slab sorts them
     k, chunks, L = wide(8)[:3]
@@ -1885,6 +1931,19 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
     case("w8:slab", top, (lambda: count.radix_sort_index(top)) if has else
          (lambda: torch.sort(top)), lambda: torch.sort(top, stable=True), 4,
          24 * top.numel())
+    del rows8, top, slab8
+    # the first chunk's top keys at W = 4, 8, 16 with their index, as
+    # sort_slab sorts a chunk's slab (over top_key_bits(k))
+    for W in (4, 8, 16):
+        k, chunks, L = wide(W)[:3]
+        top = count.plane_rows(kmer.kmer_scan_halves(*chunks[0], k, L), W)[1]
+        bits = count.top_key_bits(k)
+        if has:
+            same(count.radix_sort_index(top, bits), torch.sort(top, stable=True))
+        case(f"chunk:w{W}", top, (lambda: count.radix_sort_index(top, bits)) if has else
+             (lambda: torch.sort(top)), lambda: torch.sort(top, stable=True), 4,
+             24 * top.numel())
+        del top
     # k = 127 and 255: the final run (every chunk's slab run merged), reduced
     # as finalize reduces it: K14's row policy, or the planes and K14
     for W in (8, 16):
@@ -1918,8 +1977,87 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
             "bytes_ms": (gw.numel() * 4 * 2 + gc.numel() * 8) / 3.35e12 * 1e3}
         del gw, gc, gh, gpl
         torch.cuda.empty_cache()
-    res["registers"] = registers(tree, ("rs_pass_kernel", "rs_hist_kernel"))
+    res["registers"] = registers(tree, ("rs_pass_kernel", "rs_hist_kernel", "mp_merge_kernel"))
     return res
+
+
+def merge_floor_ms(runs: list, ms, dev) -> float:
+    """K23's floor: the runs' elements and counts copied once for each
+    pairwise round, ceil(log2 R), buffer to buffer in turns
+    (scripts/sort_floor.cu lt_merge_floor)."""
+    import ctypes
+
+    import torch
+
+    from leon_tpu_torch import kernels
+
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = floor_lib("sort_floor", "lt_merge_floor", [P, P, I64, P, P, I64, I, P])
+    n = sum(c.shape[0] for _, c in runs)
+    eb = runs[0][0].element_size() * (runs[0][0].numel() // max(1, runs[0][0].shape[0]))
+    rb, cb = -(-eb * n // 16) * 16, -(-4 * n // 16) * 16
+    bufs = [torch.empty(rb + cb, dtype=torch.uint8, device=dev) for _ in range(2)]
+    rounds = (len(runs) - 1).bit_length()
+    st = kernels.stream(bufs[0])
+
+    def run():
+        a, b = bufs
+        kernels.check(lib.lt_merge_floor(a.data_ptr(), b.data_ptr(), rb, a.data_ptr() + rb,
+                                         b.data_ptr() + rb, cb, rounds, st), "merge_floor")
+
+    return ms(run, 10)
+
+
+def merge_section(res: dict, rk, rc, wide, ms, same, dev) -> None:
+    """K23 at the count's four merge shapes (PERF.md row 19b): the k = 31
+    merge (the slab's distinct run and every third row, two runs of keys)
+    and phase 9's merges of every chunk's slab run at W = 4, 8 and 16 (7, 4
+    and 2 runs of rows), each with its counts; see the docstring."""
+    import torch
+
+    from leon_tpu_torch.ops import count, kmer
+
+    k23 = hasattr(count, "merge_path")
+    cases = [("merge:k31", 31, [(rk, rc), (rk[::3].contiguous(), rc[::3].contiguous())])]
+    for W in (4, 8, 16):
+        k, chunks, L = wide(W)[:3]
+        c = count.WordCounter(k, dev)
+        cases.append((f"merge:w{W}", k, [c._slab_run(kmer.kmer_scan_halves(p, ln, k, L))
+                                         for p, ln in chunks]))
+        del c
+    for name, k, runs in cases:
+        rows = runs[0][0].dim() == 2
+        bits = count.top_key_bits(k) if rows else 2 * k
+        c = (count.WordCounter if rows else count.DeviceCounter)(k, dev)
+
+        def parent_route():  # the parent's merge sort: torch.cat, then K22 (and K20)
+            data = torch.cat([d for d, _ in runs])
+            cnt = torch.cat([x for _, x in runs])
+            return count.sort_rows(data, cnt, bits) if rows else count.radix_sort(data, cnt, bits)
+
+        data = torch.cat([d for d, _ in runs])
+        keys = count._top_keys(data) if rows else data
+        n = keys.numel()
+        r = {"runs": len(runs), "n": n, "rounds": (len(runs) - 1).bit_length(),
+             "cat_sort_ms": ms(parent_route, 5),
+             "torch_sort_ms": ms(lambda: torch.sort(keys, stable=True), 5),
+             "counter_merge_ms": ms(lambda: counter_merge(count, c, runs, True), 5),
+             "counter_merge_peak_bytes": peak_bytes(lambda: counter_merge(count, c, runs, True)),
+             "floor_ms": merge_floor_ms(runs, ms, dev),
+             "bytes_ms": 2 * (data.element_size() * data.numel() + 4 * n) / 3.35e12 * 1e3}
+        del data, keys
+        if k23:
+            merge = count.merge_path_rows if rows else count.merge_path
+            same(merge(runs), count.merge_path_plain(runs))
+            r["k23_ms"] = ms(lambda: merge(runs), 10)
+            r["k23_peak_bytes"] = peak_bytes(lambda: merge(runs))
+            r["share_of_floor"] = r["floor_ms"] / r["k23_ms"]
+            r["share_of_bytes"] = r["bytes_ms"] / r["k23_ms"]
+        r["cat_sort_peak_bytes"] = peak_bytes(parent_route)
+        res[name] = r
+        print(json.dumps({f"sort:{name}": r}), flush=True)
+        del runs, c
+        torch.cuda.empty_cache()
 
 
 def chunks_of_reads(codes, lengths, dev) -> list:

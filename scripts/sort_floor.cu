@@ -9,6 +9,11 @@
 // beside the kernel. No histogram, no ranking, no look-back, no scatter.
 // ab_kernels.py builds it with nvcc into build/ab_kernels/; nothing on the
 // main path calls it.
+//
+// The same copy is the floor of K23 merge_path (leon_tpu_torch/csrc/sort.cu):
+// a merge of R sorted runs in pairwise rounds reads and writes every element
+// and count once a round, so lt_merge_floor copies the runs' rows and counts
+// ceil(log2 R) times, buffer to buffer in turns. No search, no merge.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -44,4 +49,18 @@ extern "C" int lt_sort_floor(const void* keys, void* keys_out, long long key_byt
       (const int4*)keys, (int4*)keys_out, key_bytes / 16, (const int4*)pay, (int4*)pay_out,
       pay_bytes / 16);
   return (int)cudaGetLastError();
+}
+
+// K23's floor: `rounds` copies of row_bytes of rows and count_bytes of
+// counts (each a multiple of 16, 16-byte aligned), a to b, then b to a, ...
+extern "C" int lt_merge_floor(void* a_rows, void* b_rows, long long row_bytes, void* a_counts,
+                              void* b_counts, long long count_bytes, int rounds, void* stream) {
+  for (int r = 0; r < rounds; ++r) {
+    const bool even = r % 2 == 0;
+    const int e = lt_sort_floor(even ? a_rows : b_rows, even ? b_rows : a_rows, row_bytes,
+                                even ? a_counts : b_counts, even ? b_counts : a_counts,
+                                count_bytes, stream);
+    if (e) return e;
+  }
+  return 0;
 }

@@ -16,8 +16,9 @@ the top or the bottom, a SENTINEL tail, both sides of the int64 sign, odd
 and even pass counts over constant digits, many ties) over 64 bits and over
 its SORT_BITS, and on the row source (sort_rows_case: keys read from rows'
 top words, with and without idx). Then the counters built on the plain version
-(DeviceCounter's slab and merge, sort_rows at W = 2) against leon_tpu's
-_fused_sort_count, _merge_sorted_runs and _hist_of_sorted."""
+(DeviceCounter's slab, its merge of sorted runs (K23's plain route), sort_rows
+at W = 2) against leon_tpu's _fused_sort_count, _merge_sorted_runs and
+_hist_of_sorted."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -233,9 +234,10 @@ def _key_words(keys: np.ndarray) -> tuple:
 def test_counters_match_reference():
     """DeviceCounter's slab (K22's keys alone, then K2) against leon_tpu's
     _fused_sort_count over the same k-mers (SENTINEL = invalid), its merge
-    (K22 with the counts, then K2 with the histogram) against
-    _merge_sorted_runs and _hist_of_sorted, and sort_rows at W = 2 (the
-    one-plane route: K22 reading the rows) the same."""
+    (K23 over sorted runs with their counts, then K2 with the histogram)
+    against _merge_sorted_runs and _hist_of_sorted of the runs'
+    concatenation, and sort_rows at W = 2 (the one-plane route: K22 reading
+    the rows) the same."""
     keys = chip_smoke.sort_case("sentinel_tail")
     keys = np.where(keys == SENTINEL, keys, keys % 5000)  # duplicates
     n = keys.size
@@ -255,7 +257,13 @@ def test_counters_match_reference():
     rng = np.random.default_rng(7)
     mc = chip_smoke.tie_counts(mk.size, 5)
     mk, mc = mk[rng.permutation(mk.size)], mc
-    gk, gc, gh = counter._merge_sorted(torch.from_numpy(mk), torch.from_numpy(mc), True, True)
+    # the merge takes sorted runs: three stretches of (mk, mc), each sorted
+    # stably with its counts
+    parts = []
+    for a, b in ((0, mk.size // 3), (mk.size // 3, mk.size // 2), (mk.size // 2, mk.size)):
+        o = np.argsort(mk[a:b], kind="stable")
+        parts.append((torch.from_numpy(mk[a:b][o]), torch.from_numpy(mc[a:b][o])))
+    gk, gc, gh = counter._merge_sorted(parts, True)
     sk, bd, summed = ref_count._merge_sorted_runs(_key_words(mk), jnp.asarray(mc))
     bd = np.asarray(bd)
     rk = ((np.asarray(sk[0]).astype(np.uint64) << np.uint64(32))

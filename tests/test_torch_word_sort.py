@@ -6,15 +6,18 @@ A slab (K17's P sign-flipped int64 planes) goes through kernel K21
 (`plane_rows`: rows and top keys), one torch.sort of the top keys with the
 row index, and K20 (`sort_ties`); a merge's (M, W) rows go through one
 torch.sort of their top keys and K20 with each row's count as its payload;
-K14 reduces both. Here numpy models of K21 (a thread a row) and of one K20
-round with the payload (tests/test_torch_sort_ties_model.py's ModelLaunch)
-run in the port's own `_tie_rounds`, and what they give is held against the
+K14 reduces both. (The WordCounter merges sorted runs on K23 since then, and
+`sort_rows` is left without a counter caller.) Here numpy models of K21 (a
+thread a row) and of one K20 round with the payload
+(tests/test_torch_sort_ties_model.py's ModelLaunch) run in the port's own
+`_tie_rounds`, and what they give is held against the
 plain versions (plane_rows_plain, sort_ties_plain with the payload), and,
 after K14's count mode, against leon_tpu's `_merge_sorted_runs` and
 `_hist_of_sorted`, on chip_smoke.py's tie_case with tie_counts as the
 payload (runs past 1,024 equal top words whose rows differ, equal rows,
 sums past 2**31 - 1 and past 2**32) at W = 3, 4, 5, 8 and 16. Then the
-WordCounter itself on the models, with spills forced (slabs of 512 k-mers,
+WordCounter itself on the models of K21, K20 and K23
+(tests/test_torch_merge_path.py's merge_model), with spills forced (slabs of 512 k-mers,
 merge factor 1 or 2) at k = 33, 63, 127 and 255: its merge and spill log
 and its finalize against leon_tpu's DeviceCounter, as
 tests/test_torch_stream.py holds the plain route.
@@ -38,6 +41,7 @@ import chip_smoke
 from leon_tpu.ops import count as ref_count
 from leon_tpu_torch import state
 from leon_tpu_torch.ops import count, gather
+from test_torch_merge_path import merge_model
 from test_torch_sort_ties_model import ModelLaunch
 from test_torch_stream import SEED, _feed, _fed_counters
 
@@ -72,14 +76,16 @@ def plane_rows_model(planes, W: int, threads: int = 256):
 
 
 class Models:
-    """count.plane_rows and count.sort_ties replaced by the models (the
-    WordCounter calls them through the module), counting their calls."""
+    """count.plane_rows, count.sort_ties and count.merge_path_rows replaced
+    by the models (the WordCounter calls them through the module), counting
+    their calls."""
 
     def __init__(self, monkeypatch):
         self.launch = ModelLaunch()
-        self.calls = dict(plane_rows=0, sort_ties=0, payload=0)
+        self.calls = dict(plane_rows=0, sort_ties=0, payload=0, merge=0)
         monkeypatch.setattr(count, "plane_rows", self.plane_rows)
         monkeypatch.setattr(count, "sort_ties", self.sort_ties)
+        monkeypatch.setattr(count, "merge_path_rows", self.merge_path_rows)
 
     def plane_rows(self, planes, W):
         self.calls["plane_rows"] += 1
@@ -92,6 +98,11 @@ class Models:
         self.calls["sort_ties"] += 1
         self.calls["payload"] += pay is not None
         return count._tie_rounds(keys, src, rows, W, self.launch, pay)
+
+    def merge_path_rows(self, runs):
+        self.calls["merge"] += len(runs) > 1
+        rows, counts = merge_model([(r.numpy(), c.numpy()) for r, c in runs], False)
+        return torch.from_numpy(rows.view(np.int32)), torch.from_numpy(counts)
 
 
 def _reference_merge(words: np.ndarray, counts: np.ndarray):
@@ -172,10 +183,11 @@ CASES = [(k, "spill_each") for k in (33, 63, 127, 255)] + [(k, "no_spill") for k
 
 @pytest.mark.parametrize("k,schedule", CASES)
 def test_word_counter_on_models_matches_reference(monkeypatch, k, schedule):
-    """The WordCounter with K21 and K20 as the card runs them (the models),
-    slabs of 512 k-mers: its merges and spills, and the sizes compared at
-    each, are the reference DeviceCounter's, and so are its finalize's
-    histogram, cutoff, solid count and Bloom filter; no sort_planes runs."""
+    """The WordCounter with K21, K20 and K23 as the card runs them (the
+    models), slabs of 512 k-mers: its merges and spills, and the sizes
+    compared at each, are the reference DeviceCounter's, and so are its
+    finalize's histogram, cutoff, solid count and Bloom filter; no
+    sort_planes runs, and the merges take K23, not K20 with the counts."""
     models = Models(monkeypatch)
     planes_sorted = []
     real = count.sort_planes
@@ -198,7 +210,8 @@ def test_word_counter_on_models_matches_reference(monkeypatch, k, schedule):
     np.testing.assert_array_equal(phist, rhist)
     assert (pcut, pns, pnw, pH) == (rcut, rns, rnw, rH)
     np.testing.assert_array_equal(state.bitset_from_torch(pb), np.asarray(rb)[:rnw])
-    assert models.calls["plane_rows"] and models.calls["sort_ties"] and models.calls["payload"]
+    assert models.calls["plane_rows"] and models.calls["sort_ties"] and models.calls["merge"]
+    assert not models.calls["payload"]
     assert not planes_sorted
 
 
