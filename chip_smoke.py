@@ -18,8 +18,9 @@ run right after phase 3, whose reads and solid set they reuse):
      `kmer_scan:chunk`, on one 65,536-read chunk into a slab view as the
      counter launches it; K22 on the slab's keys and on the merge's keys
      with their counts, as the parent sorted a merge: records `radix_sort`,
-     `radix_sort:merge`, beside
-     torch.sort; K23 on the merge's two sorted runs, where they lie, with
+     `radix_sort:merge`, beside torch.sort; the slab's sort again under
+     torch.cuda.set_sync_debug_mode("error"), which raises on a host read;
+     K23 on the merge's two sorted runs, where they lie, with
      their counts: record `merge_path`, beside torch.sort of the
      concatenated keys and the parent's cat and K22; K2 in its three modes:
      records `runs`, `runs:merge`, `runs:solid`); K23 on adversarial runs
@@ -34,7 +35,11 @@ run right after phase 3, whose reads and solid set they reuse):
      sorted over 56 and 48 bits so that an odd and an even number of
      passes run, many ties; over 64 bits and the case's bits, alone, with
      an int32 payload and the index, as a strided view; the row source at
-     W = 1, 2, 3, 4, 8, 16 with and without idx); K1 on adversarial reads (scan_case at
+     W = 1, 2, 3, 4, 8, 16 with and without idx); K22's bucket and block
+     routes (K24, K25) on sort_case at 10 tiles and on bucket_case (a
+     SENTINEL-heavy slab, one bucket, equal keys, buckets of 8,191, 8,192
+     and 8,193 keys, half the keys one key) at bits = 17, 31, 42, 62, 64, in
+     the same forms and on their first 8,192 and 17 keys; K1 on adversarial reads (scan_case at
      k = 1, 2, 15, 16, 17, 31, L mod 16 = 0, 1, 15, through `out=` into a
      view one key into its buffer); the device unitig payload must equal the native host
      builder's; K2 on adversarial inputs (k2_case: a key repeated 2^22
@@ -147,7 +152,11 @@ run right after phase 3, whose reads and solid set they reuse):
      by sort_rows over their concatenation: K22 reading the top keys from
      the rows, K20 with the counts as its payload; each equal to the LSD
      sort of the same rows; K22 records `radix_sort:main`, `:rows` and
-     `:main8`, `:rows8`, `:main16`, `:rows16`), K14 slab runs, merge (counts,
+     `:main8`, `:rows8`, `:main16`, `:rows16`; K24 and K25 in the slab's
+     top sort, by the profiler: `radix_bucket:main`, `radix_oversize:main`,
+     `:main8`, `:main16`; the first width's top sort again under the sync
+     debug mode's "error"), K14 slab
+     runs, merge (counts,
      histogram), its row policy on the final run (`word_runs_rows`, with
      the histogram and in solid mode, equal to K14 over the run's planes
      and to K14 over the sorted planes of the merge)
@@ -321,6 +330,8 @@ KERNELS = {
     "radix_sort:merge": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
     "radix_sort:main": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
     "radix_sort:rows": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
+    "radix_bucket:main": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
+    "radix_oversize:main": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:60"),
     "word_runs_rows": ("leon_tpu_torch/csrc/count.cu", "leon_tpu/ops/count.py:227"),
     "merge_path": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
     "merge_path:rows": ("leon_tpu_torch/csrc/sort.cu", "leon_tpu/ops/count.py:233"),
@@ -338,7 +349,10 @@ TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "wa
 # main path at k <= 31 (phase 3: "radix_sort", the slab, keys alone;
 # ":merge", with the counts) and two a width past it (phase 9: ":main" the
 # slab's top sort with the row index, ":rows" the top sort of the slab runs'
-# rows, read from the rows; ":main8", ":rows8", ...); K14's row policy
+# rows, read from the rows; ":main8", ":rows8", ...), K22's bucket route's
+# K24 and K25 ("radix_bucket:main", "radix_oversize:main", ":main8",
+# ":main16": the slab's top sort; the k <= 31 slab's 64-bit keys take the
+# passes) beside them; K14's row policy
 # (`word_runs_rows`, the reduce of a merged run) one a width; K23 one on the
 # main path at k <= 31 (phase 3: "merge_path", two runs of keys) and one a
 # width past it (phase 9: ":rows", ":rows8", ":rows16", the chunks' slab
@@ -346,8 +360,10 @@ TENSOR = ("kmer_scan_words", "runs_words", "sort_ties", "bloom_build_words", "wa
 # at W = 8 and W = 16 (":w8", ":w16").
 WIDE = ("kmer_scan_halves", "word_runs", "bloom_build_words:main", "walk_encode_words",
         "walk_decode_words", "plane_rows", "sort_ties:main", "radix_sort:main",
-        "radix_sort:rows", "word_runs_rows", "merge_path:rows")
-WIDE8, WIDE16 = (tuple(f"{n}{w}" if n.startswith(("sort_ties:", "radix_sort:", "merge_path:"))
+        "radix_sort:rows", "word_runs_rows", "merge_path:rows", "radix_bucket:main",
+        "radix_oversize:main")
+WIDE8, WIDE16 = (tuple(f"{n}{w}" if n.startswith(("sort_ties:", "radix_sort:", "merge_path:",
+                                                  "radix_bucket:", "radix_oversize:"))
                        else f"{n.split(':')[0]}:w{w}" for n in WIDE) for w in (8, 16))
 # K23's records past k = 31: a bench compress at k = 63 or 127 fills one
 # slab and merges nothing, so their launches come from runs that merge (phase
@@ -506,6 +522,65 @@ def sort_record(err: int, fn, keys, payload, reps: int = 10) -> dict:
                   moved, cuda_ms(lambda: torch.sort(keys, stable=True), reps))
 
 
+def route_kernels_ms(fn, reps: int = 3) -> dict:
+    """Device time a call of fn() (a K22 sort) spends in K22's kernels
+    ("radix_sort": its histogram, scan, passes and memsets), K24's
+    ("radix_bucket": bs_edge, bs_bucket) and K25's ("radix_oversize":
+    bs_seg_*), by the profiler, mean over reps calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"radix_sort": 0.0, "radix_bucket": 0.0, "radix_oversize": 0.0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        name = ("radix_oversize" if "bs_seg_" in e.key else
+                "radix_bucket" if "bs_edge" in e.key or "bs_bucket" in e.key else "radix_sort")
+        out[name] += e.device_time_total / 1e3 / reps
+    return out
+
+
+def bucket_records(sort_rec: dict, fn, keys, payload, bits: int) -> tuple:
+    """The records of K24 and K25 in one K22 sort fn() of keys (n,) int64
+    over `bits` bits on the bucket route, with payload (None, or "index":
+    4 bytes a key between the kernels, 8 out): each kernel's device time in
+    the sort (route_kernels_ms) beside the whole sort's error; the plain
+    and library times of what the two compute together, on the keys as the
+    passes leave them, grouped by bucket (radix_sort_plain of those keys
+    and their index; torch.sort(stable=True) of them); the bound: the keys
+    (and payload) of the buckets each kernel sorts read once and written
+    once (K24: buckets of up to count.BUCKET_CAP keys; K25: the larger
+    ones)."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    route, B = count.radix_route(keys.numel(), bits)
+    if route != "bucket":
+        raise AssertionError(f"bucket_records: {keys.numel()} keys over {bits} bits go by {route}")
+    bucket = keys >> (bits - B)  # the arithmetic shift keeps the buckets' order
+    order = torch.sort(bucket, stable=True).indices
+    grouped = keys[order]
+    sizes = torch.unique_consecutive(bucket[order], return_counts=True)[1]
+    n_over = int(sizes[sizes > count.BUCKET_CAP].sum())
+    del bucket
+    per_key = 16 + (0 if payload is None else 12)
+    dev_ms = route_kernels_ms(fn)
+    pay = None if payload is None else order
+    plain_ms = cuda_ms(lambda: count.radix_sort_plain(grouped, pay), 10)
+    library_ms = cuda_ms(lambda: torch.sort(grouped, stable=True), 10)
+    return tuple(record(sort_rec["max_abs_err"], dev_ms[name], plain_ms, per_key * moved,
+                        library_ms)
+                 for name, moved in (("radix_bucket", keys.numel() - n_over),
+                                     ("radix_oversize", n_over)))
+
+
 def merge_record(err: int, fn, runs: list, reps: int = 10) -> dict:
     """K23's record for one merge of runs [(keys or rows, counts), ...]: its
     time beside the plain version's (merge_path_plain: torch.cat and a stable
@@ -626,6 +701,16 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
     skeys = count.radix_sort(got)
     records["radix_sort"] = sort_record(max_abs_err(skeys, count.radix_sort_plain(got)),
                                         lambda: count.radix_sort(got), got, None)
+    # the sort makes no host read: a synchronizing call inside it raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = count.radix_sort(got)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if max_abs_err(again, skeys):
+        raise AssertionError("radix_sort: a second sort of the slab differs")
+    log("radix_sort: the slab's sort under torch.cuda.set_sync_debug_mode('error') ok")
+    del again
     sk_c = skeys.cpu()
     rk, rc, _ = count.runs(skeys)
     pk, pc, _ = count.runs_plain(sk_c)
@@ -642,6 +727,7 @@ def kernel_checks(records: dict, n_chunks: int = 7) -> dict:
         f"{records['radix_sort:merge']['library_ms']:.4f})")
     del mk, mc0
     sort_adversarial()
+    bucket_adversarial()
     # K23 on two runs as DeviceCounter merges them: the slab's distinct run
     # and every third row of it again, each sorted, with their counts, read
     # where they lie; beside the parent's route (torch.cat, then K22 with the
@@ -1056,12 +1142,93 @@ def sort_rows_case(W: int, n: int, seed: int) -> tuple:
     return rows.astype(np.uint32).view(np.int32), idx
 
 
+# K22's bucket route (K24 radix_bucket, K25 radix_oversize) on adversarial
+# inputs (tests/test_torch_radix_bucket_model.py runs the same cases through a
+# numpy model of the route at a small capacity): each case at each of
+# BUCKET_SORT_BITS, sized from the capacity `cap` (count.BUCKET_CAP on the
+# card) so that oversize buckets show
+BUCKET_SORT_CASES = ("sentinel_heavy", "one_bucket", "equal", "cap_edges", "half_one_key")
+BUCKET_SORT_BITS = (17, 31, 42, 62, 64)
+
+
+def bucket_case(name: str, bits: int, cap: int, bbits: int = 16):
+    """(n,) int64 keys that differ only in their low `bits` bits (a random
+    constant above them), for K22's bucket route with buckets (the top
+    `bbits` of those bits) of up to `cap` keys sorted in shared memory:
+    "sentinel_heavy" the k = 31 slab's shape
+    (keys in the lower quarter of the upper half of the used range, the
+    largest key, a SENTINEL, at one position in four: one bucket of 1.5 cap
+    keys, all equal); "one_bucket" 3 cap + 5 keys in one bucket, not all
+    equal (from a pool of values: ties); "equal" 2 cap + 1 equal keys;
+    "cap_edges" buckets of cap - 1, cap, cap + 1, 1, 2, cap + 1, cap,
+    cap - 1, 3 cap + 5 and 7 keys, shuffled (shares end inside buckets);
+    "half_one_key" 4 cap keys, half of them one key."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(f"{name}:{bits}".encode()))
+    L = bits - bbits
+    u64 = np.uint64
+    hi = u64(0) if bits == 64 else u64(int(rng.integers(0, 1 << (64 - bits))) << bits)
+    top = u64((1 << bits) - 1)
+
+    def low(n, pool):
+        vals = rng.integers(0, 1 << 62, pool, dtype=np.uint64) & u64((1 << L) - 1)
+        return vals[rng.integers(0, pool, n)]
+
+    if name == "sentinel_heavy":
+        n = 6 * cap + 11
+        v = u64(1 << (bits - 1)) + rng.integers(0, 1 << (bits - 2), n, dtype=np.uint64)
+        v[rng.random(n) < 0.25] = top
+    elif name == "one_bucket":
+        n = 3 * cap + 5
+        v = (u64(int(rng.integers(0, 1 << bbits))) << u64(L)) | low(n, n // 3)
+    elif name == "equal":
+        v = np.full(2 * cap + 1, rng.integers(0, 1 << 62, dtype=np.uint64) & top, np.uint64)
+    elif name == "cap_edges":
+        sizes = [cap - 1, cap, cap + 1, 1, 2, cap + 1, cap, cap - 1, 3 * cap + 5, 7]
+        b = np.sort(rng.choice(1 << bbits, len(sizes), replace=False)).astype(np.uint64)
+        v = np.repeat(b, sizes) << u64(L) | low(sum(sizes), sum(sizes) // 4)
+        v = v[rng.permutation(v.size)]
+    else:  # half_one_key
+        n = 4 * cap
+        v = rng.integers(0, 1 << 62, n, dtype=np.uint64) << u64(2) & top
+        v[: n // 2] = v[n // 2]
+        v = v[rng.permutation(n)]
+    return ((hi | v) ^ u64(1 << 63)).view(np.int64)
+
+
+def bucket_rows(keys, W: int, seed: int) -> tuple:
+    """(rows (N, W) int32, idx (n,) int64) whose top 64 bits (row i's words
+    W-1 and W-2; word 0 alone at W = 1: the key's low 32 bits) are keys'
+    sign-flipped values, the lower words random; idx picks the n keys' rows
+    (N = n + n // 3) in a random order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = keys.shape[0]
+    N = n + n // 3
+    u = keys.view(np.uint64) ^ np.uint64(1 << 63)
+    rows = rng.integers(0, 1 << 32, (N, W), dtype=np.uint64)
+    idx = rng.permutation(N)[:n].astype(np.int64)
+    if W == 1:
+        rows[idx, 0] = u & np.uint64(0xFFFFFFFF)
+    else:
+        rows[idx, W - 1] = u >> np.uint64(32)
+        rows[idx, W - 2] = u & np.uint64(0xFFFFFFFF)
+    return rows.astype(np.uint32).view(np.int32), idx
+
+
 def sort_adversarial() -> None:
     """K22 against its plain version, exactly, keys and payload, on every
-    sort_case, over 64 bits and over the case's SORT_BITS: keys alone, with
-    sort_payload's int32 payload, with their index; the keys also as a
-    non-contiguous view; then the row source on sort_rows_case at each W of
-    SORT_ROWS_WS, with and without idx."""
+    sort_case, over 64 bits and over the case's SORT_BITS, by the route
+    radix_route picks and again by the passes route named to the wrappers
+    (the odd and even numbers of passes at 56 and 48 bits, which the card
+    sorts by buckets): keys alone, with sort_payload's int32 payload, with
+    their index; the keys also as a non-contiguous view; then the row
+    source on sort_rows_case at each W of SORT_ROWS_WS, with and without
+    idx."""
     import torch
 
     from leon_tpu_torch.ops import count
@@ -1075,12 +1242,15 @@ def sort_adversarial() -> None:
         pc = torch.from_numpy(sort_payload(keys.shape[0], len(name)))
         ic = torch.arange(keys.shape[0])
         for bits in sorted({64, SORT_BITS.get(name, 64)}):
-            max_abs_err(count.radix_sort(kd, bits=bits), count.radix_sort_plain(kc))
-            for a, b in zip(count.radix_sort(kd, pc.to(dev), bits),
-                            count.radix_sort_plain(kc, pc)):
-                max_abs_err(a, b)
-            for a, b in zip(count.radix_sort_index(kd, bits), count.radix_sort_plain(kc, ic)):
-                max_abs_err(a, b)
+            for route in (None, ("passes", 0)):
+                max_abs_err(count.radix_sort(kd, bits=bits, route=route),
+                            count.radix_sort_plain(kc))
+                for a, b in zip(count.radix_sort(kd, pc.to(dev), bits, route=route),
+                                count.radix_sort_plain(kc, pc)):
+                    max_abs_err(a, b)
+                for a, b in zip(count.radix_sort_index(kd, bits, route=route),
+                                count.radix_sort_plain(kc, ic)):
+                    max_abs_err(a, b)
         wide = torch.stack([kd, -kd], dim=1)[:, 0]  # every other int64 of its storage
         max_abs_err(count.radix_sort(wide), count.radix_sort_plain(kc))
         n_keys += keys.shape[0]
@@ -1095,8 +1265,79 @@ def sort_adversarial() -> None:
         max_abs_err(count.radix_sort_rows(rd, id_, index=False),
                     count.radix_sort_rows(rc, ic, index=False))
     log(f"radix_sort ok on {len(SORT_CASES)} adversarial inputs ({n_keys} keys over 64 bits and "
-        f"their SORT_BITS; alone, with an int32 payload and the index, as a strided view) and "
-        f"on rows at W = {SORT_ROWS_WS}")
+        f"their SORT_BITS, by the card's route and by the passes; alone, with an int32 payload "
+        f"and the index, as a strided view) and on rows at W = {SORT_ROWS_WS}")
+
+
+def bucket_adversarial() -> None:
+    """K22's bucket and block routes (K24, K25) against the plain version,
+    exactly, keys and payload: every sort_case at 10 tiles and 123 keys (the
+    SENTINEL tail's bucket, equal keys and one varying digit past the
+    capacity: oversize) over 64 bits and its SORT_BITS, and every
+    bucket_case at each of BUCKET_SORT_BITS at the card's capacity: alone,
+    with an int32 payload and with the index; read from rows (bucket_rows)
+    at each W of SORT_ROWS_WS with and without idx; the case's first
+    BUCKET_CAP and 17 keys (the block route). Each by the bucket route
+    named to the wrappers (`route`), with buckets of 16 bits and again of 24
+    (bucket_case sized for that width), wherever the bucket leaves a bit
+    below it: the card takes that route at fewer widths (radix_route), and
+    K24 and K25 are held exact at all of them."""
+    import torch
+
+    from leon_tpu_torch.ops import count
+
+    dev = torch.device("cuda")
+    cap = count.BUCKET_CAP
+
+    def forms(keys, bits: int, seed: int, B: int) -> None:
+        route = ("bucket", B) if keys.shape[0] > cap else ("block", 0)
+        kc = torch.from_numpy(keys)
+        kd = kc.to(dev)
+        pc = torch.from_numpy(sort_payload(keys.shape[0], seed))
+        max_abs_err(count.radix_sort(kd, bits=bits, route=route), count.radix_sort_plain(kc))
+        for a, b in zip(count.radix_sort(kd, pc.to(dev), bits, route=route),
+                        count.radix_sort_plain(kc, pc)):
+            max_abs_err(a, b)
+        for a, b in zip(count.radix_sort_index(kd, bits, route=route),
+                        count.radix_sort_plain(kc, torch.arange(keys.shape[0]))):
+            max_abs_err(a, b)
+
+    n_keys = 0
+    for bb in (count.BUCKET_BITS, count.BUCKET_WIDE_BITS):
+        for name in SORT_CASES:
+            keys = sort_case(name, 10)
+            for bits in sorted({64, SORT_BITS.get(name, 64)}):
+                if bb < bits:
+                    forms(keys, bits, len(name), bb)
+            n_keys += keys.shape[0]
+        for name in BUCKET_SORT_CASES:
+            for bits in BUCKET_SORT_BITS:
+                if bb >= bits:
+                    continue
+                keys = bucket_case(name, bits, cap, bb)
+                forms(keys, bits, bits, bb)
+                forms(keys[:cap], bits, bits, bb)
+                forms(keys[:17], bits, bits, bb)
+                n_keys += keys.shape[0]
+                route = ("bucket", bb)
+                for W in SORT_ROWS_WS:
+                    rows, idx = bucket_rows(keys, W, W)
+                    rc, ic = torch.from_numpy(rows), torch.from_numpy(idx)
+                    rd, id_ = rc.to(dev), ic.to(dev)
+                    for a, b in zip(count.radix_sort_rows(rd, id_, bits=bits, route=route),
+                                    count.radix_sort_rows(rc, ic)):
+                        max_abs_err(a, b)
+                    for a, b in zip(count.radix_sort_rows(rd, route=route),
+                                    count.radix_sort_rows(rc)):
+                        max_abs_err(a, b)
+                    max_abs_err(
+                        count.radix_sort_rows(rd, id_[: cap - 1], index=False, bits=bits,
+                                              route=("block", 0)),
+                        count.radix_sort_rows(rc, ic[: cap - 1], index=False))
+    log(f"radix_sort's bucket and block routes ok on {len(SORT_CASES)} sort cases and "
+        f"{len(BUCKET_SORT_CASES)} bucket cases at bits = {BUCKET_SORT_BITS}, buckets of 16 and "
+        f"24 bits ({n_keys} keys; alone, with an int32 payload and the index; rows at W = "
+        f"{SORT_ROWS_WS})")
 
 
 # ---------------------------------------------------------------------------
@@ -3135,7 +3376,8 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     from leon_tpu_torch import state
     from leon_tpu_torch.ops import bloom, count, kmer, walk
 
-    n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties, n_top, n_rtop, n_wrows, n_merge = names
+    (n_scan, n_runs, n_bloom, n_enc, n_dec, n_prows, n_ties, n_top, n_rtop, n_wrows, n_merge,
+     n_btop, n_otop) = names
     dev = torch.device("cuda")
     L = codes.shape[1]
     W = kmer.words_for_k(k)
@@ -3181,9 +3423,21 @@ def multiword_checks(records: dict, names: tuple, codes, lengths, k: int, unitig
     err = max(max_abs_err(a, b) for a, b in
               zip(got, count.radix_sort_plain(top0, torch.arange(top0.shape[0], device=dev))))
     records[n_top] = sort_record(err, lambda: count.radix_sort_index(top0, bits), top0, "index")
+    records[n_btop], records[n_otop] = bucket_records(
+        records[n_top], lambda: count.radix_sort_index(top0, bits), top0, "index", bits)
+    # the bucket route makes no host read: a synchronizing call inside it raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = count.radix_sort_index(top0, bits)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if max(max_abs_err(a, b) for a, b in zip(again, got)):
+        raise AssertionError(f"{n_top}: a second sort of the top keys differs")
     log(f"{n_top} ok: the slab's {top0.numel()} top keys with their index ({tag}) "
-        f"{records[n_top]['ms']:.4f} ms (torch.sort {records[n_top]['library_ms']:.4f})")
-    del rows0, top0, h0, got
+        f"{records[n_top]['ms']:.4f} ms (torch.sort {records[n_top]['library_ms']:.4f}; "
+        f"K24 {records[n_btop]['ms']:.4f}, K25 {records[n_otop]['ms']:.4f}; again under "
+        f"torch.cuda.set_sync_debug_mode('error'))")
+    del rows0, top0, h0, got, again
 
     # the WordCounter's sorts (sort_slab: K21, the top sort, K20; sort_rows:
     # the top sort, K20 with the counts), each equal to the LSD sort of the
@@ -3741,7 +3995,11 @@ def variants() -> list:
             raise AssertionError(f"variant {label}: round trip is not exact")
         log(f"variant ok: {label}, archive {len(data['card'][0])} B, card launches "
             f"{card_launches[label]}")
-    for label, names in ((V255, WIDE16), (V65_DEVICE, no_merges(WIDE) + DEVICE_BUILD),
+    # k = 65's top keys differ in 34 bits, below count.BUCKET_MIN_BITS: K22
+    # sorts them on the passes route, so K24 and K25 have no launch to show
+    v65 = tuple(n for n in no_merges(WIDE) if counter(n) not in ("radix_bucket",
+                                                                 "radix_oversize"))
+    for label, names in ((V255, WIDE16), (V65_DEVICE, v65 + DEVICE_BUILD),
                          (V255_DEVICE, no_merges(WIDE16) + DEVICE_BUILD)):
         missing = [n for n in names if card_launches[label].get(counter(n), 0) < 1]
         if missing:

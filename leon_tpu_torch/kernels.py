@@ -78,8 +78,11 @@ _SIGS = {
     "lt_plane_rows": [_P, _I, _I64, _I, _P, _P, _P],
     "lt_word_runs_rows_count": [_P, _I, _P, _I64, _I, _P, _I64, _P, _P],
     "lt_word_runs_rows_write": [_P, _I, _P, _I64, _I, _P, _P, _P, _P, _I64, _P],
-    "lt_radix_hist": [_P, _P, _I, _P, _I64, _P, _P, _P],
-    "lt_radix_pass": [_P, _P, _I, _P, _P, _I, _I64, _I, _P, _P, _P, _P, _I64, _P],
+    "lt_radix_hist": [_P, _P, _I, _P, _I64, _I, _I, _P, _P, _P],
+    "lt_radix_pass": [_P, _P, _I, _P, _P, _I, _I64, _I, _I, _P, _P, _P, _P, _I64, _P],
+    "lt_radix_bucket_scratch": [_I64, _P],
+    "lt_radix_buckets": [_P, _P, _I64, _I, _I, _P, _P, _P, _I, _P, _I64, _P],
+    "lt_radix_block": [_P, _P, _I, _P, _P, _I, _I64, _P, _P, _I, _P],
     "lt_merge_path": [_P, _I, _I, _I, _P],
     "lt_bloom_build_words": [_P, _P, _I64, _I, _U, _U, _I, _I, _P, _P, _P],
     "lt_walk_dense": [_P, _P, _I, _I, _I, _I, _U, _P, _P, _I, _P, _P, _P],

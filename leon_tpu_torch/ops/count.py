@@ -9,11 +9,15 @@ that cross stretches carried as associative Spans. It replaces the
 reference's boundary/run-length, compaction, merge-sum, histogram and
 solid-compaction programs (count.py:34-85, 208-264, 707-719). The sort
 before it is ``radix_sort``, the wrapper of kernel K22 (csrc/sort.cu): a
-stable LSD radix sort of int64 keys (a pass for each 8-bit digit of the low
-bits in which the caller says they may differ, one histogram read first),
-alone or with an int32 payload or the keys' index, the keys read from an
-array or, in its first pass, from (N, W) rows' top 64 bits; it replaces the sorts inside the
-reference's count programs (``lax.sort``, count.py:60, 64, 233). Runs that are
+stable radix sort of int64 keys over the low bits in which the caller says
+they may differ, alone or with an int32 payload or the keys' index, the keys
+read from an array or, in its first pass, from (N, W) rows' top 64 bits; at
+41-63 bits past 8,192 keys two or three passes group the keys by their top 16
+or 24 bits and kernels K24 (each bucket sorted in shared memory) and K25
+(buckets too large for it, through device memory) finish the sort
+(``radix_route``); it
+replaces the sorts inside the reference's count programs (``lax.sort``,
+count.py:60, 64, 233). Runs that are
 already sorted merge by ``merge_path`` / ``merge_path_rows``, the wrappers of
 kernel K23 (csrc/sort.cu): a stable merge-path merge of int64 keys or (M, W)
 rows with their int32 counts, in pairwise rounds, the runs read in place
@@ -67,6 +71,7 @@ run from elsewhere (``ingest_run``, the distributed count). ``merge_counts``
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import NamedTuple
 
@@ -94,13 +99,67 @@ RADIX_INDEX = "index"  # the payload of a sort that returns each key's index
 # csrc/sort.cu RS_PAY_*: none, int32, the index written as int64 or as
 # int32, int32 read and int64 written
 _PAY_NONE, _PAY_I32, _PAY_IDX, _PAY_IDX32, _PAY_I32W = range(5)
+BUCKET_BITS = 16  # a key's bucket up to BUCKET_WIDE_N keys: the top 16 of the bits it uses
+BUCKET_WIDE_BITS = 24  # ... and past it the top 24, a pass more, a few keys a bucket
+BUCKET_WIDE_N = 1 << 19  # (16 bits the faster up to 2**19 keys, 24 at 2**21: PERF.md §6)
+BUCKET_CAP = 8192  # keys a K24 block sorts at once (csrc/sort.cu BS_CAP)
+BUCKET_SHARE = 4096  # a K24 block's share of the partitioned keys (BS_SHARE)
+BUCKET_RANK = 128  # K24 ranks a round whose buckets hold at most this many keys (BS_RANK)
+BUCKET_DENSE = 8  # ... and this many on average (BS_DENSE)
+# the bucket route from 41 used bits, where the passes route runs 6 passes
+# or more: on the H100 the passes won at 25, 32 and 34 bits (4 and 5
+# passes), the bucket route at 42 and 62 (PERF.md row 19, §6)
+BUCKET_MIN_BITS = 41
+ROUTES = ("passes", "block", "bucket")
+
+
+def radix_route(n: int, bits: int, cap: int = BUCKET_CAP) -> tuple:
+    """K22's route for n keys that differ in their low `bits` bits, chosen on
+    the host from n and bits alone (csrc/sort.cu's header), as (route, B):
+    ("passes", 0), an LSD pass for each 8-bit digit (bits <= 16, too many
+    keys for an int32 place, or past cap keys below BUCKET_MIN_BITS or at
+    64 bits: the bits no caller narrowed, such as DeviceCounter's slab, whose
+    buckets gained nothing on a repeat-heavy corpus and lost where half its
+    keys are one key); ("block", 0), K24 alone, one block sorting all n <=
+    cap keys; ("bucket", B), a pass over each byte of the top B used bits
+    (16, or past BUCKET_WIDE_N keys 24), then K24 sorting each bucket in
+    shared memory and K25 the buckets of more than cap keys through device
+    memory. cap: K24's capacity (the card's BUCKET_CAP; a model's own)."""
+    if bits <= BUCKET_BITS or n >= 1 << 31:
+        return ("passes", 0)
+    if n <= cap:
+        return ("block", 0)
+    if BUCKET_MIN_BITS <= bits < 64:
+        return ("bucket", BUCKET_WIDE_BITS if n > BUCKET_WIDE_N else BUCKET_BITS)
+    return ("passes", 0)
+
+
+def check_route(n: int, bits: int, route: tuple, cap: int = BUCKET_CAP) -> tuple:
+    """route, as radix_route gives it, checked against n keys over `bits`:
+    the block route holds at most cap keys, a bucket of B = 16 or 24 bits
+    leaves at least one of the used bits below it."""
+    name, B = route
+    kernels.need(name in ROUTES, f"radix_sort: route {name!r} not in {ROUTES}")
+    kernels.need(name != "block" or (n <= cap and B == 0),
+                 f"radix_sort: the block route sorts at most {cap} keys")
+    kernels.need(name != "bucket" or (B in (BUCKET_BITS, BUCKET_WIDE_BITS) and B < bits
+                                      and n < 1 << 31),
+                 f"radix_sort: no bucket of {B} bits below {bits} bits")
+    kernels.need(name != "passes" or B == 0, "radix_sort: the passes route has no bucket")
+    return route
+
+
+def bucket_digits(bits: int, B: int) -> int:
+    """The 8-bit digits of a bucket's remaining bits (bits - B): the passes
+    K25 may run over an oversize bucket."""
+    return -(-(bits - B) // 8)
 
 
 def radix_passes(bits: int = 64) -> list:
-    """The digits a K22 sort runs a pass over, low digit first: the 8-bit
-    digits of the low `bits` bits, in which the caller says the keys may
-    differ (every key's higher bits are equal), and at least one, so that a
-    sort of equal keys still writes its output."""
+    """The digits a K22 sort on the passes route runs a pass over, low digit
+    first: the 8-bit digits of the low `bits` bits, in which the caller says
+    the keys may differ (every key's higher bits are equal), and at least
+    one, so that a sort of equal keys still writes its output."""
     return list(range(max(1, -(-bits // 8))))
 
 
@@ -118,11 +177,28 @@ def radix_drive(bits: int, run_pass, alloc):
     return src
 
 
+def bucket_drive(run_pass, run_buckets, alloc, passes: int = 2):
+    """K22's bucket route driver: a pass over each digit 0 .. passes - 1 of
+    the keys >> (bits - B), the bucket's bytes, low byte first
+    (run_pass(src, dst, digit, i) as radix_drive's, pass i into buffer i mod
+    2), leaves the keys grouped by bucket; run_buckets(grouped, out) sorts
+    each bucket (K24, K25) into the other buffer, the sort's one output.
+    Returns it."""
+    bufs, src = [alloc(), alloc()], None
+    for i in range(passes):
+        run_pass(src, bufs[i % 2], i, i)
+        src = bufs[i % 2]
+    run_buckets(src, bufs[passes % 2])
+    return bufs[passes % 2]
+
+
 def _radix_codes(kind, passes: int) -> list:
     """The payload kind of each of a sort's passes (csrc/sort.cu RS_PAY_*)
     for a payload `kind` (None, torch.int32, or RADIX_INDEX): an index
     travels as int32 between a sort's first and last passes (4 bytes less a
-    key a pass), as int64 in a one-pass sort."""
+    key a pass), as int64 in a one-pass sort. The bucket route's passes
+    take the kinds of a sort one pass longer but its last: K24 and K25 write
+    the int64 index."""
     if kind is None:
         return [_PAY_NONE] * passes
     if kind == torch.int32:
@@ -132,12 +208,14 @@ def _radix_codes(kind, passes: int) -> list:
     return [_PAY_IDX32] + [_PAY_I32] * (passes - 2) + [_PAY_I32W]
 
 
-def _radix_launch(n: int, dev, keys, rows, idx, payload, kind, bits: int):
+def _radix_launch(n: int, dev, keys, rows, idx, payload, kind, bits: int, route: tuple):
     """K22 on the card over n keys (keys (n,) int64, or the top 64 bits of
-    rows[idx] / rows, (N, W) int32): lt_radix_hist (every digit's bucket
-    offsets), then radix_drive's passes over the low `bits` bits. kind: the
-    payload's (None, torch.int32, or RADIX_INDEX: an index below 2**31).
-    Returns (keys, payload or None)."""
+    rows[idx] / rows, (N, W) int32) by `route` (radix_route's): on the passes
+    and bucket routes lt_radix_hist (the digits' bucket offsets), then
+    radix_drive's passes, or bucket_drive's (two or three) and
+    lt_radix_buckets (K24, K25); on the block route lt_radix_block (K24).
+    kind: the payload's (None, torch.int32, or RADIX_INDEX: an index below
+    2**31). Returns (keys, payload or None)."""
     kernels.need(kind != RADIX_INDEX or (n if rows is None else rows.shape[0]) <= 1 << 31,
                  "radix_sort: an index must fit an int32 between passes")
     lib = kernels.lib()
@@ -146,12 +224,28 @@ def _radix_launch(n: int, dev, keys, rows, idx, payload, kind, bits: int):
     kp = None if keys is None else keys.data_ptr()
     rp = None if rows is None else rows.data_ptr()
     ip = None if idx is None else idx.data_ptr()
+    pp = None if payload is None else payload.data_ptr()
+    route, bb = route
+    out_dt = None if kind is None else torch.int32 if kind == torch.int32 else torch.int64
+    if route == "block":
+        out = [torch.empty(n, dtype=torch.int64, device=dev),
+               None if kind is None else torch.empty(n, dtype=out_dt, device=dev)]
+        mode = 0 if kind is None else 1 if kind == torch.int32 else 2
+        rc = lib.lt_radix_block(kp, rp, W, ip, pp, mode, n, out[0].data_ptr(),
+                                None if out[1] is None else out[1].data_ptr(),
+                                int(out_dt == torch.int64), st)
+        kernels.check(rc, "radix_bucket")
+        kernels.launches["radix_bucket"] += 1
+        return out
+    base = bits - bb if route == "bucket" else 0
+    passes = bb // 8 if route == "bucket" else len(radix_passes(bits))
     scratch = torch.empty(2 * 8 * 256, dtype=torch.int64, device=dev)
     offsets = scratch[8 * 256 :]
-    rc = lib.lt_radix_hist(kp, rp, W, ip, n, scratch.data_ptr(), offsets.data_ptr(), st)
+    rc = lib.lt_radix_hist(kp, rp, W, ip, n, base, passes, scratch.data_ptr(),
+                           offsets.data_ptr(), st)
     kernels.check(rc, "radix_sort")
     status = torch.empty(256 * (-(-n // RADIX_TILE)) + 1, dtype=torch.int64, device=dev)
-    codes = _radix_codes(kind, len(radix_passes(bits)))
+    codes = _radix_codes(kind, passes + 1 if route == "bucket" else passes)
     pay_dt = (None if kind is None else
               torch.int32 if codes[0] in (_PAY_I32, _PAY_IDX32) else torch.int64)
 
@@ -163,16 +257,34 @@ def _radix_launch(n: int, dev, keys, rows, idx, payload, kind, bits: int):
         if codes[i] == _PAY_I32W:  # the last pass widens the index into int64
             dst[1] = torch.empty(n, dtype=torch.int64, device=dev)
         if src is None:  # the source: the keys or rows, the payload as given
-            args = (kp, rp, W, ip, None if payload is None else payload.data_ptr())
+            args = (kp, rp, W, ip, pp)
         else:  # the pass before's buffer: keys and their payload
             args = (src[0].data_ptr(), None, 0, None,
                     None if src[1] is None else src[1].data_ptr())
-        rc = lib.lt_radix_pass(*args, codes[i], n, d, offsets.data_ptr(), dst[0].data_ptr(),
-                               None if dst[1] is None else dst[1].data_ptr(), status.data_ptr(),
-                               status.numel() * 8, st)
+        rc = lib.lt_radix_pass(*args, codes[i], n, d, base, offsets.data_ptr(),
+                               dst[0].data_ptr(), None if dst[1] is None else dst[1].data_ptr(),
+                               status.data_ptr(), status.numel() * 8, st)
         kernels.check(rc, "radix_sort")
 
-    out = radix_drive(bits, run_pass, alloc)
+    def run_buckets(src, dst):
+        need = ctypes.c_longlong(0)
+        kernels.check(lib.lt_radix_bucket_scratch(n, ctypes.addressof(need)), "radix_bucket")
+        work = torch.empty(need.value, dtype=torch.uint8, device=dev)
+        final = None if kind is None else torch.empty(n, dtype=out_dt, device=dev)
+        rc = lib.lt_radix_buckets(src[0].data_ptr(), None if src[1] is None else src[1].data_ptr(),
+                                  n, bits, bb, dst[0].data_ptr(),
+                                  None if dst[1] is None else dst[1].data_ptr(),
+                                  None if final is None else final.data_ptr(),
+                                  int(out_dt == torch.int64), work.data_ptr(), need.value, st)
+        kernels.check(rc, "radix_bucket")
+        dst[1] = final
+
+    if route == "bucket":
+        out = bucket_drive(run_pass, run_buckets, alloc, passes)
+        kernels.launches["radix_bucket"] += 1
+        kernels.launches["radix_oversize"] += 1
+    else:
+        out = radix_drive(bits, run_pass, alloc)
     kernels.launches["radix_sort"] += 1
     return out
 
@@ -195,13 +307,22 @@ def _check_bits(keys: torch.Tensor, bits: int) -> None:
                      f"radix_sort: the keys differ above their low {bits} bits")
 
 
-def radix_sort(keys: torch.Tensor, payload: torch.Tensor | None = None, bits: int = 64):
+def _route(n: int, bits: int, route: tuple | None) -> tuple:
+    """The route of a K22 sort of n keys over `bits`: the caller's, checked,
+    else radix_route's."""
+    return radix_route(n, bits) if route is None else check_route(n, bits, tuple(route))
+
+
+def radix_sort(keys: torch.Tensor, payload: torch.Tensor | None = None, bits: int = 64, *,
+               route: tuple | None = None):
     """Keys (n,) int64 sorted ascending in signed order, stably, with the
     int32 payload carried along (kernel K22; the order of
-    torch.sort(stable=True)): a pass for each 8-bit digit of the low `bits`
-    bits, in which the keys may differ (their higher bits are equal in
-    every key). Returns the sorted keys, or (keys, payload)."""
+    torch.sort(stable=True)), over the low `bits` bits, in which the keys may
+    differ (their higher bits are equal in every key), by `route`, or the
+    one radix_route(n, bits) picks (the card's; checks name another).
+    Returns the sorted keys, or (keys, payload)."""
     _check_radix_args(keys, payload, bits)
+    route = _route(keys.shape[0], bits, route)
     kernels.need(payload is None or payload.dtype == torch.int32,
                  "radix_sort: the payload must be int32 (radix_sort_index: the index)")
     if not kernels.on_cuda(keys, "radix_sort"):
@@ -212,32 +333,34 @@ def radix_sort(keys: torch.Tensor, payload: torch.Tensor | None = None, bits: in
         return keys.clone() if payload is None else (keys.clone(), payload.clone())
     k, p = _radix_launch(n, keys.device, keys.contiguous(), None, None,
                          None if payload is None else payload.contiguous(),
-                         None if payload is None else torch.int32, bits)
+                         None if payload is None else torch.int32, bits, route)
     return k if payload is None else (k, p)
 
 
-def radix_sort_index(keys: torch.Tensor, bits: int = 64) -> tuple:
+def radix_sort_index(keys: torch.Tensor, bits: int = 64, *, route: tuple | None = None) -> tuple:
     """(keys sorted, each sorted key's index in keys), stably, as
     torch.sort(keys, stable=True) gives them: K22 with the index as its
-    payload (written by its first pass), over the low `bits` bits as
-    radix_sort."""
+    payload (made by its first pass or load), over the low `bits` bits and
+    by the route as radix_sort."""
     _check_radix_args(keys, None, bits)
+    route = _route(keys.shape[0], bits, route)
     if not kernels.on_cuda(keys, "radix_sort"):
         _check_bits(keys, bits)
         return radix_sort_plain(keys, torch.arange(keys.shape[0], device=keys.device))
     n = keys.shape[0]
     if n == 0:
         return keys.clone(), torch.zeros(0, dtype=torch.int64, device=keys.device)
-    return _radix_launch(n, keys.device, keys.contiguous(), None, None, None, RADIX_INDEX, bits)
+    return _radix_launch(n, keys.device, keys.contiguous(), None, None, None, RADIX_INDEX, bits,
+                         route)
 
 
 def radix_sort_rows(rows: torch.Tensor, idx: torch.Tensor | None = None, index: bool = True,
-                    bits: int = 64):
+                    bits: int = 64, *, route: tuple | None = None):
     """The top 64 bits of (N, W) int32 rows (W <= 16), or of rows[idx], as
     sign-flipped int64 keys (_top_keys) sorted stably, with the row each key
-    came from (idx[i], or i) when index: (keys, src), else keys. bits: as
-    radix_sort's. On the card K22 reads each key from its row in its first
-    pass."""
+    came from (idx[i], or i) when index: (keys, src), else keys. bits and
+    route: as radix_sort's. On the card K22 reads each key from its row in its first
+    pass (K24 in its one block on the block route)."""
     kernels.need(rows.dtype == torch.int32 and rows.dim() == 2 and 1 <= rows.shape[1] <= 16,
                  "radix_sort_rows: rows must be (N, W <= 16) int32")
     kernels.need(0 <= bits <= 64, f"radix_sort_rows: bits={bits} not in [0, 64]")
@@ -245,6 +368,7 @@ def radix_sort_rows(rows: torch.Tensor, idx: torch.Tensor | None = None, index: 
         kernels.need(idx.dtype == torch.int64 and idx.dim() == 1 and idx.device == rows.device,
                      "radix_sort_rows: idx must be (n,) int64 on the rows' device")
     n = rows.shape[0] if idx is None else idx.shape[0]
+    route = _route(n, bits, route)
     if not kernels.on_cuda(rows, "radix_sort"):
         src = idx if idx is not None else torch.arange(n, device=rows.device)
         keys = _top_keys(rows, idx)
@@ -255,7 +379,7 @@ def radix_sort_rows(rows: torch.Tensor, idx: torch.Tensor | None = None, index: 
         return (keys, keys.clone()) if index else keys
     k, p = _radix_launch(n, rows.device, None, rows.contiguous(),
                          None if idx is None else idx.contiguous(), None,
-                         RADIX_INDEX if index else None, bits)
+                         RADIX_INDEX if index else None, bits, route)
     return (k, p) if index else k
 
 

@@ -222,17 +222,22 @@ Inputs (chip_smoke.py's shapes):
                "w16:flush" the card's peak memory while phase 9's two W = 16
                chunks fill a slab and the second flushes it (the scan,
                the slab sort and K14 of 25.6M rows)
-  sort:k31:slab/k31:merge/k21:merge/w8:slab/chunk:*/w16:rows/merge:*  (section sort) K22
+  sort:k31:slab/k31:sentinel_heavy/k31:half_one_key/k31:merge/k21:merge/w8:slab(:bits)/chunk:*/
+  w16:rows/merge:*  (section sort) K22
                (`count.radix_sort` and its index and row forms) at the count
                path's shapes: the k = 31 slab of 500,000 reads of phase 3's
                generator (K1, 37.0M keys, SENTINEL where invalid; keys
-               alone), the merge of its distinct run and every third row
+               alone), the slab with SENTINEL at a random one position in
+               four (":sentinel_heavy") and with half its keys one key,
+               shuffled (":half_one_key"), the merge of its distinct run and every third row
                again (two sorted runs, with their int32 counts), those keys
                cut to 42 bits (":k21:merge", sorted over 42 bits as a k = 21
                merge is, beside "all_passes_ms" over 64; a tree whose
-               radix_sort takes bits), the k = 127
+               radix_sort takes bits),
+               the k = 127
                bench slab's top keys (K21 over every chunk's K17 planes; with
-               their index), the first chunk's top keys at W = 4, 8, 16
+               their index; over 64 bits, and over top_key_bits(k) as the
+               main path sorts them, ":bits"), the first chunk's top keys at W = 4, 8, 16
                (":chunk:w4" ...: phase 9's chunks, with their index, over
                top_key_bits(k)) and the W = 16 merge's top keys read from its rows
                (phase 9's two chunks; with their index): "path_ms" the
@@ -243,8 +248,18 @@ Inputs (chip_smoke.py's shapes):
                _top_keys), "floor_ms" (scripts/sort_floor.cu: the keys and
                the payload as K22 carries it between passes, int32, copied
                once a pass for "passes", the digits in which the keys differ),
-               "bytes_ms" (keys read and written once, the payload written,
-               over 3.35 TB/s) and "share_of_floor"; ":final:w8/w16" finalize's
+               "bucket_floor_ms" (the bucket route's floor: the keys read once,
+               then a copy for each of its passes, two or three, and one for
+               K24), on a tree whose wrappers take `route`: "route" (the
+               one radix_route picks) and the sort by each route named to the
+               wrapper, "passes_ms", "bucket16_ms" and "bucket24_ms" (where
+               the bucket leaves a bit below it; not on the merge's keys
+               read from rows),
+               "bytes_ms" (keys read and written
+               once, the payload written, over 3.35 TB/s), "share_of_floor",
+               "share_of_bucket_floor", "share_of_bytes" and "kernels_ms"
+               (each of K22's, K24's and K25's kernels and the memsets in
+               one sort, device time by the profiler); ":final:w8/w16" finalize's
                reduce of the final run at k = 127 and 255 (every chunk's slab
                run merged): the tree's (K14's row policy, or
                state.words_to_planes and K14) beside "planes_k14_ms" and
@@ -1855,9 +1870,36 @@ def sort_floor_ms(keys, pay_bytes: int, passes: int, ms, dev) -> float:
     return ms(run, 10)
 
 
+def bucket_floor_ms(keys, pay_bytes: int, passes: int, ms, dev) -> float:
+    """The floor of K22's bucket route: one read of the keys (its histogram)
+    and passes + 1 copies of the keys and of a payload of pay_bytes a key
+    (its passes and the bucket sort's read and write; scripts/sort_floor.cu)."""
+    import ctypes
+
+    import torch
+
+    from leon_tpu_torch import kernels
+
+    P, I64 = ctypes.c_void_p, ctypes.c_longlong
+    lib = floor_lib("sort_floor", "lt_read_floor", [P, I64, P, P])
+    n = keys.numel()
+    sink = torch.zeros(4, dtype=torch.int64, device=dev)
+    st = kernels.stream(keys)
+    kb = 8 * n // 16 * 16
+
+    def run():
+        kernels.check(lib.lt_read_floor(keys.data_ptr(), kb, sink.data_ptr(), st), "read_floor")
+
+    return ms(run, 10) + sort_floor_ms(keys, pay_bytes, passes + 1, ms, dev)
+
+
+BUCKET_KERNELS = ("rs_hist", "rs_scan", "rs_pass", "bs_edge", "bs_bucket", "bs_seg_hist",
+                  "bs_seg_pass", "bs_seg_finish", "Memset")
+
+
 def sort_section(tree: str, wide, ms, same, dev) -> dict:
     """K22 at the count path's shapes beside torch.sort, the plain version,
-    its floor and its byte bound, and K14's row policy on the final runs;
+    its floors and its byte bound, and K14's row policy on the final runs;
     on a tree without K22 its own path's sort (see the docstring)."""
     import torch
 
@@ -1867,16 +1909,36 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
     has = hasattr(count, "radix_sort")
     res = {}
 
-    def case(name, keys, path, plain, pay_bytes: int, moved: int):
+    routed = has and "route" in inspect.signature(count.radix_sort).parameters
+
+    def case(name, keys, path, plain, pay_bytes: int, moved: int, bits: int = 64, by=None):
         passes = sort_passes(keys)
+        # the bucket route's passes: one a byte of its bucket (the tree's
+        # route's; 16 bits where it takes no bucket route)
+        route = count.radix_route(keys.numel(), bits) if routed else ("passes", 0)
+        bpasses = (route[1] if route[0] == "bucket" else 16) // 8
         r = {"n": keys.numel(), "passes": passes,
              "path_ms": ms(path, 10),
              "torch_sort_ms": ms(lambda: torch.sort(keys, stable=True), 10),
              "plain_ms": ms(plain, 10),
              "floor_ms": sort_floor_ms(keys, pay_bytes, passes, ms, dev),
+             "bucket_floor_ms": bucket_floor_ms(keys, pay_bytes, bpasses, ms, dev),
              "bytes_ms": moved / 3.35e12 * 1e3}
+        if routed and by is not None:  # the sort by each route, named to the wrapper
+            r["route"] = list(route)
+            r["passes_ms"] = ms(by(("passes", 0)), 10)
+            for B in (count.BUCKET_BITS, count.BUCKET_WIDE_BITS):
+                if B < bits:
+                    r[f"bucket{B}_ms"] = ms(by(("bucket", B)), 10)
         r["share_of_floor"] = r["floor_ms"] / r["path_ms"]
+        r["share_of_bucket_floor"] = r["bucket_floor_ms"] / r["path_ms"]
+        r["share_of_bytes"] = r["bytes_ms"] / r["path_ms"]
+        if has:  # each kernel's device time in one sort, by the profiler
+            prof = profile_kernels(path, 3)
+            r["kernels_ms"] = {k: sum(v for name, v in prof.items() if k in name)
+                               for k in BUCKET_KERNELS}
         res[name] = r
+        print(json.dumps({f"sort:{name}": r}), flush=True)
 
     # k = 31: the slab of 500,000 reads of phase 3's generator (K1: 37.0M
     # keys, SENTINEL where invalid), keys alone; its distinct run and every
@@ -1889,7 +1951,22 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
         same([count.radix_sort(slab)], [count.radix_sort_plain(slab)])
     path = (lambda: count.radix_sort(slab)) if has else (lambda: torch.sort(slab).values)
     case("k31:slab", slab, path, lambda: torch.sort(slab, stable=True).values, 0,
-         16 * slab.numel())
+         16 * slab.numel(), by=lambda r: lambda: count.radix_sort(slab, route=r))
+    # the slab's shape with SENTINEL at one position in four (a bucket of
+    # 9.2M equal keys), and with half its keys one key
+    g = torch.Generator(device="cpu").manual_seed(23)
+    heavy = slab.clone()
+    heavy[(torch.rand(slab.numel(), generator=g) < 0.25).to(dev)] = kmer.SENTINEL
+    half = slab.clone()
+    half[: half.numel() // 2] = half[7]
+    half = half[torch.randperm(half.numel(), generator=g).to(dev)]
+    for name, keys in (("k31:sentinel_heavy", heavy), ("k31:half_one_key", half)):
+        if has:
+            same([count.radix_sort(keys)], [torch.sort(keys, stable=True).values])
+        case(name, keys, (lambda: count.radix_sort(keys)) if has else
+             (lambda: torch.sort(keys).values), lambda: torch.sort(keys, stable=True).values, 0,
+             16 * keys.numel(), by=lambda r: lambda: count.radix_sort(keys, route=r))
+    del heavy, half
     rk, rc, _ = count.runs(torch.sort(slab).values)
     del slab
     mk, mc = torch.cat([rk, rk[::3]]), torch.cat([rc, rc[::3]])
@@ -1913,14 +1990,16 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
         mk21 = mk >> 20
         same(count.radix_sort(mk21, mc, 42), count.radix_sort_plain(mk21, mc))
         case("k21:merge", mk21, lambda: count.radix_sort(mk21, mc, 42),
-             lambda: count.radix_sort_plain(mk21, mc), 4, 24 * mk21.numel())
+             lambda: count.radix_sort_plain(mk21, mc), 4, 24 * mk21.numel(), 42,
+             lambda r: lambda: count.radix_sort(mk21, mc, 42, route=r))
         res["k21:merge"]["all_passes_ms"] = ms(lambda: count.radix_sort(mk21, mc), 10)
         del mk21
     del mk, mc
     rk, rc = rk.contiguous(), rc.contiguous()
     merge_section(res, rk, rc, wide, ms, same, dev)
     # k = 127: the bench slab's top keys (K21 over every chunk's K17 planes),
-    # with their index, as sort_slab sorts them
+    # with their index, over 64 bits and, as sort_slab sorts them, over
+    # top_key_bits(k)
     k, chunks, L = wide(8)[:3]
     scans = [kmer.kmer_scan_halves(p, ln, k, L) for p, ln in chunks]
     slab8 = tuple(torch.cat([s[q] for s in scans]) for q in range(state.n_planes(8)))
@@ -1931,6 +2010,12 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
     case("w8:slab", top, (lambda: count.radix_sort_index(top)) if has else
          (lambda: torch.sort(top)), lambda: torch.sort(top, stable=True), 4,
          24 * top.numel())
+    if has and hasattr(count, "top_key_bits"):
+        bits = count.top_key_bits(k)
+        same(count.radix_sort_index(top, bits), torch.sort(top, stable=True))
+        case("w8:slab:bits", top, lambda: count.radix_sort_index(top, bits),
+             lambda: torch.sort(top, stable=True), 4, 24 * top.numel(), bits,
+             lambda r: lambda: count.radix_sort_index(top, bits, route=r))
     del rows8, top, slab8
     # the first chunk's top keys at W = 4, 8, 16 with their index, as
     # sort_slab sorts a chunk's slab (over top_key_bits(k))
@@ -1942,7 +2027,7 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
             same(count.radix_sort_index(top, bits), torch.sort(top, stable=True))
         case(f"chunk:w{W}", top, (lambda: count.radix_sort_index(top, bits)) if has else
              (lambda: torch.sort(top)), lambda: torch.sort(top, stable=True), 4,
-             24 * top.numel())
+             24 * top.numel(), bits, lambda r: lambda: count.radix_sort_index(top, bits, route=r))
         del top
     # k = 127 and 255: the final run (every chunk's slab run merged), reduced
     # as finalize reduces it: K14's row policy, or the planes and K14
@@ -1977,7 +2062,8 @@ def sort_section(tree: str, wide, ms, same, dev) -> dict:
             "bytes_ms": (gw.numel() * 4 * 2 + gc.numel() * 8) / 3.35e12 * 1e3}
         del gw, gc, gh, gpl
         torch.cuda.empty_cache()
-    res["registers"] = registers(tree, ("rs_pass_kernel", "rs_hist_kernel", "mp_merge_kernel"))
+    res["registers"] = registers(tree, ("rs_pass_kernel", "rs_hist_kernel", "mp_merge_kernel",
+                                        "bs_bucket_kernel", "bs_seg_pass_kernel"))
     return res
 
 

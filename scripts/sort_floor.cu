@@ -10,6 +10,14 @@
 // ab_kernels.py builds it with nvcc into build/ab_kernels/; nothing on the
 // main path calls it.
 //
+// The floor of K22's bucket route (a sort over 41-63 bits of more than
+// 8,192 keys, ops/count.py radix_route): lt_read_floor reads the keys
+// once (the histogram of the bucket's bytes; 16 bytes a thread at a time,
+// the words folded into one value a thread, stored only when it equals a
+// constant, so that the loads stay), then a copy for each pass over the
+// bucket's bytes (two, or three for a 24-bit bucket past 2**19 keys) and
+// one for the bucket sort's one read and write.
+//
 // The same copy is the floor of K23 merge_path (leon_tpu_torch/csrc/sort.cu):
 // a merge of R sorted runs in pairwise rounds reads and writes every element
 // and count once a round, so lt_merge_floor copies the runs' rows and counts
@@ -48,6 +56,32 @@ extern "C" int lt_sort_floor(const void* keys, void* keys_out, long long key_byt
   sort_floor_kernel<<<sms * per_sm, FLOOR_THREADS, 0, (cudaStream_t)stream>>>(
       (const int4*)keys, (int4*)keys_out, key_bytes / 16, (const int4*)pay, (int4*)pay_out,
       pay_bytes / 16);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(FLOOR_THREADS)
+    read_floor_kernel(const int4* __restrict__ data, long long groups, long long* sink) {
+  const long long step = (long long)gridDim.x * FLOOR_THREADS;
+  int x = 0;
+  for (long long g = (long long)blockIdx.x * FLOOR_THREADS + threadIdx.x; g < groups; g += step) {
+    const int4 v = __ldcs(data + g);
+    x ^= v.x ^ v.y ^ v.z ^ v.w;
+  }
+  if (x == 0x5eed1234) *sink = x;  // (almost) never: keeps the loads
+}
+
+// One read of bytes (a multiple of 16, 16-byte aligned) of data.
+extern "C" int lt_read_floor(const void* data, long long bytes, void* sink, void* stream) {
+  if (bytes < 0 || bytes % 16) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, read_floor_kernel, FLOOR_THREADS,
+                                                      0);
+  if (e != cudaSuccess) return (int)e;
+  read_floor_kernel<<<sms * per_sm, FLOOR_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int4*)data, bytes / 16, (long long*)sink);
   return (int)cudaGetLastError();
 }
 
